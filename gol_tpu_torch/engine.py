@@ -1,0 +1,543 @@
+"""The single-device engine: holds (board, turn) on one device and steps
+it in chunks — the counterpart of `gol_tpu/engine.py`'s `Engine` for the
+life-like `packed` and `u8` representations.
+
+Control protocol (reference `Server/gol/distributor.go:54-83`):
+
+    server_distributor  — blocking run
+    alive_count         — (alive, turn) poll, no device work
+    get_world           — board snapshot + turn
+    cf_put              — control flag: 0 pause-toggle, 2 quit, 5 kill
+    kill_prog           — die
+
+Chunks are powers of two, sized so one chunk takes about
+CHUNK_TARGET_SECONDS, and up to PIPELINE_DEPTH chunks are in flight on
+the device's stream. Each chunk ends with its completion token, the alive
+count: per-row counts (int32, K3 on the card) summed in int64 on the
+device and copied without blocking into pinned host memory, with a CUDA
+event recorded after the copy. Popping the oldest chunk waits on its
+event alone and publishes its exact (alive, turn) pair, which
+`alive_count` then returns without touching the device.
+
+The device is explicit: `Engine(device=None)` means CUDA and raises where
+there is none; `Engine(device="cpu")` runs the plain versions of the
+kernels on the CPU, as the tests do.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from collections import deque
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gol_tpu_torch.models.lifelike import CONWAY, LifeLikeRule
+from gol_tpu_torch.ops.bitpack import (
+    WORD_BITS,
+    pack_np,
+    unpack,
+    unpack_np,
+    words_from_numpy,
+    words_to_numpy,
+)
+from gol_tpu_torch.ops.cuda_stencil import row_popcounts
+from gol_tpu_torch.ops.stencil import row_alive_counts
+from gol_tpu_torch.params import Params
+from gol_tpu_torch.parallel.halo import select_representation
+from gol_tpu_torch.utils.envcfg import env_float, env_int
+
+# Control-flag wire values (reference Cf.Flag).
+FLAG_PAUSE = 0
+FLAG_QUIT = 2
+FLAG_KILL = 5
+
+# The adapter holds a chunk's wall time in [target, 2*target], so the
+# worst-case control latency is about pipeline depth x 2*target (3 x 0.5 s
+# by default), inside the 2 s ticker cadence and the reference's 5 s
+# first-event bound. GOL_CHUNK_TARGET (seconds) and GOL_MAX_CHUNK (turns)
+# override them.
+CHUNK_TARGET_SECONDS = 0.25
+CHUNK_TARGET_ENV = "GOL_CHUNK_TARGET"
+MAX_CHUNK = 1 << 21
+MAX_CHUNK_ENV = "GOL_MAX_CHUNK"
+# Chunks in flight; depth + 1 boards must fit half the device's memory
+# (or PIPELINE_BOARD_BUDGET where it reports none). GOL_PIPELINE_DEPTH=1
+# synchronises every chunk.
+PIPELINE_DEPTH = 3
+PIPELINE_DEPTH_ENV = "GOL_PIPELINE_DEPTH"
+PIPELINE_BOARD_BUDGET = 8 << 30
+
+
+class EngineKilled(RuntimeError):
+    """Raised on any call after kill_prog."""
+
+
+class EngineBusy(RuntimeError):
+    """A run was submitted while the engine is already running a board."""
+
+
+def resolve_device(device=None) -> torch.device:
+    """The engine's device: CUDA unless the caller names another. A CUDA
+    request without a CUDA device raises; nothing falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            from gol_tpu_torch.ops.cuda_stencil import cuda_probe
+
+            raise RuntimeError(
+                f"gol_tpu_torch runs on a CUDA device and found none "
+                f"({cuda_probe()}); pass device='cpu' (Engine(device="
+                f"'cpu'), or --device cpu on the CLI) to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def view_factor(h: int, w: int, max_cells: int) -> int:
+    """Smallest integer downsample factor f with
+    ceil(h/f) * ceil(w/f) <= max_cells."""
+    f = max(1, int(np.ceil(np.sqrt(h * w / max_cells))))
+    while -(-h // f) * -(-w // f) > max_cells:
+        f += 1
+    return f
+
+
+def _block_max(px: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
+    """(H, W) -> (ceil(H/fy), ceil(W/fx)): the largest value of each
+    fy x fx block (the board is zero-padded up to whole blocks)."""
+    h, w = px.shape
+    hp, wp = -(-h // fy) * fy, -(-w // fx) * fx
+    px = torch.nn.functional.pad(px, (0, wp - w, 0, hp - h))
+    return px.reshape(hp // fy, fy, wp // fx, fx).amax(dim=(1, 3))
+
+
+def _next_chunk(chunk: int, remaining: int) -> int:
+    """Largest power of two <= min(chunk, remaining)."""
+    k = chunk
+    while k > remaining:
+        k //= 2
+    return max(k, 1)
+
+
+class ControlFlagProtocol:
+    """The reference control-flag protocol and liveness surface.
+    Subclasses provide `_flags` (queue.Queue), `_killed`, `_abort`
+    (threading.Event), `_state_lock`, `_running`, `_run_token`, `_turn`."""
+
+    def cf_put(self, flag: int) -> None:
+        """Post a control flag (ref `Server:54-60`)."""
+        self._check_alive()
+        if flag not in (FLAG_PAUSE, FLAG_QUIT, FLAG_KILL):
+            raise ValueError(f"unknown control flag {flag}")
+        self._flags.put(flag)
+
+    def drain_flags(self, pause_only: bool = False) -> None:
+        """Discard stale control flags left by a previous controller on a
+        parked engine; a no-op while a run is in flight. `pause_only`
+        drops only FLAG_PAUSE entries and keeps the rest in order."""
+        self._check_alive()
+        with self._state_lock:
+            if self._running:
+                return
+            kept = []
+            try:
+                while True:
+                    flag = self._flags.get_nowait()
+                    if pause_only and flag != FLAG_PAUSE:
+                        kept.append(flag)
+            except queue.Empty:
+                pass
+            for flag in kept:
+                self._flags.put(flag)
+
+    def kill_prog(self) -> None:
+        """Mark the engine dead (ref `Server:77-80`)."""
+        self._killed = True
+
+    def abort_run(self, token: Optional[str] = None) -> bool:
+        """Stop the current run iff `token` matches its owner's; a
+        tokenless run cannot be aborted. The state is kept at the stop
+        point, as on FLAG_QUIT."""
+        self._check_alive()
+        with self._state_lock:
+            if (token is not None and self._running
+                    and self._run_token == token):
+                self._abort.set()
+                return True
+            return False
+
+    def ping(self) -> int:
+        """Liveness probe: the completed turn, with no device work."""
+        self._check_alive()
+        with self._state_lock:
+            return self._turn
+
+    def _check_alive(self) -> None:
+        if self._killed:
+            raise EngineKilled("engine has been killed")
+
+    def _handle_flags(self) -> bool:
+        """Drain flags; block while paused. Returns True to quit the run
+        (reference handshake `Server/gol/distributor.go:136-164`)."""
+        paused = False
+        while True:
+            if self._killed or self._abort.is_set():
+                return True
+            try:
+                flag = self._flags.get_nowait() if not paused \
+                    else self._flags.get(timeout=0.05)
+            except queue.Empty:
+                if not paused:
+                    return False
+                continue
+            if flag == FLAG_PAUSE:
+                paused = not paused
+                if not paused:
+                    return False
+            elif flag in (FLAG_QUIT, FLAG_KILL):
+                # Both end the run and hand the board back; the engine
+                # dies only when the controller calls kill_prog.
+                return True
+
+
+class Engine(ControlFlagProtocol):
+    """Holds (board, turn) across runs — the detach/resume contract
+    (reference broker globals `world`/`turn`, and `CONT=yes`)."""
+
+    def __init__(self, device=None, rule: LifeLikeRule = CONWAY) -> None:
+        self._device = resolve_device(device)
+        self._rule = rule
+        self._state_lock = threading.Lock()
+        # "packed": int32 words (H, W/32); "u8": {0,1} uint8 (H, W).
+        self._cells: Optional[torch.Tensor] = None
+        self._repr = "u8"
+        self._turn = 0
+        # (alive, turn) published at submit and at every chunk pop.
+        self._alive_pub: Optional[Tuple[int, int]] = None
+        self._flags: "queue.Queue[int]" = queue.Queue()
+        self._killed = False
+        self._running = False
+        self._run_token: Optional[str] = None
+        self._abort = threading.Event()
+        # Chunk adapter state: the smallest elapsed ever seen for a full
+        # chunk (the fixed cost of a dispatch), and a sliding window of
+        # (pop time, turns) for the pipelined regime.
+        self._fixed_cost_est = float("inf")
+        self._pace_window: deque = deque(maxlen=8)
+        self._pace_skip = 0
+        self._max_chunk = MAX_CHUNK
+        self._chunk_target = CHUNK_TARGET_SECONDS
+        self._last_chunk = 0
+        self._turns_per_s = 0.0
+        # Converged chunk per (board shape, repr, target): later runs of
+        # the same configuration start there.
+        self._chunk_hints: dict = {}
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    # ------------------------------------------------------------------ RPC
+
+    def server_distributor(
+        self,
+        params: Params,
+        world: np.ndarray,
+        sub_workers: Sequence[str] = (),
+        start_turn: int = 0,
+        token: Optional[str] = None,
+    ) -> Tuple[np.ndarray, int]:
+        """Blocking run: evolve the (H, W) pixel board `world` (any nonzero
+        pixel is alive; `gol_tpu`'s `Engine.get_world()` result carries
+        over as is) for `params.turns` turns, honouring control flags
+        between chunks. Returns ({0,255} board, completed turn).
+        `sub_workers` is accepted for API parity; the port runs one
+        device."""
+        self._check_alive()
+        if self._running:
+            raise EngineBusy("engine already running a board")
+        height, width = world.shape
+        packed, run = select_representation(width)
+        repr_ = "packed" if packed else "u8"
+        alive0 = int(np.count_nonzero(world))
+        if packed:
+            cells = words_from_numpy(pack_np(world), self._device)
+        else:
+            cells = torch.from_numpy(
+                (np.asarray(world) != 0).astype(np.uint8)).to(self._device)
+        with self._state_lock:
+            if self._running:
+                raise EngineBusy("engine already running a board")
+            self._cells = cells
+            self._repr = repr_
+            self._turn = start_turn
+            self._alive_pub = (alive0, start_turn)
+            self._running = True
+            self._run_token = token
+            self._abort.clear()
+        if self._device.type == "cuda":
+            with torch.cuda.device(self._device):
+                return self._run_loop(params, cells, run, start_turn)
+        return self._run_loop(params, cells, run, start_turn)
+
+    def _chunk(self, run, cells: torch.Tensor, k: int):
+        """Issue one chunk and its alive token; returns (cells, host
+        count, event). On the CPU the count is ready and event is None."""
+        out = run(cells, k, self._rule)
+        rows = (row_popcounts(out) if self._repr == "packed"
+                else row_alive_counts(out))
+        total = rows.sum(dtype=torch.int64)
+        if self._device.type != "cuda":
+            return out, total, None
+        host = torch.empty((), dtype=torch.int64, pin_memory=True)
+        host.copy_(total, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return out, host, event
+
+    def _pipeline_depth(self, cells: torch.Tensor) -> int:
+        budget = PIPELINE_BOARD_BUDGET
+        if self._device.type == "cuda":
+            budget = torch.cuda.get_device_properties(
+                self._device).total_memory // 2
+        nbytes = cells.numel() * cells.element_size()
+        return max(1, min(env_int(PIPELINE_DEPTH_ENV, PIPELINE_DEPTH), 8,
+                          budget // max(nbytes, 1) - 1))
+
+    def _run_loop(self, params: Params, cells: torch.Tensor, run,
+                  start_turn: int) -> Tuple[np.ndarray, int]:
+        target = start_turn + params.turns
+        self._max_chunk = env_int(MAX_CHUNK_ENV, MAX_CHUNK)
+        # `or`: a zero target would pin the chunk at one turn.
+        self._chunk_target = (
+            env_float(CHUNK_TARGET_ENV, CHUNK_TARGET_SECONDS)
+            or CHUNK_TARGET_SECONDS)
+        hint_key = (tuple(cells.shape), self._repr, self._chunk_target)
+        chunk = 1
+        hinted = min(self._chunk_hints.get(hint_key, 1), self._max_chunk)
+        while chunk * 2 <= hinted:
+            chunk *= 2
+        depth = self._pipeline_depth(cells)
+        # The pipeline stays at depth 1 while the chunk size ramps, so
+        # the adapter sees each measurement at once; it opens to full
+        # depth when the adapter stops growing the chunk.
+        ramping = True
+        self._pace_window = deque(maxlen=depth + 5)
+        self._pace_skip = 0
+        inflight: deque = deque()
+        last_pop = time.monotonic()
+        quit_run = False
+
+        def _reset_pace(at: float) -> None:
+            """Keep a host stall (a pause) out of pace measurements; the
+            chunks that completed during it drain as a burst, so skip the
+            next `depth` pops."""
+            nonlocal last_pop
+            last_pop = at
+            self._pace_window.clear()
+            self._pace_skip = depth
+
+        def _pop_oldest() -> None:
+            """Wait for the oldest chunk's token, publish its exact
+            (alive, turn) pair and feed the chunk adapter."""
+            nonlocal chunk, last_pop, ramping
+            host, event, done_k, done_turn = inflight.popleft()
+            if event is not None:
+                event.synchronize()
+            done_alive = int(host)
+            now = time.monotonic()
+            elapsed = now - last_pop
+            last_pop = now
+            if ramping or depth == 1:
+                new_chunk = self._adapt_chunk(chunk, done_k, elapsed)
+                if ramping and done_k == chunk and new_chunk == chunk:
+                    ramping = False
+                chunk = new_chunk
+                rate = done_k / elapsed if elapsed > 0 else 0.0
+            else:
+                chunk = self._adapt_chunk_windowed(chunk, now, done_k)
+                rate = self._pace_rate() or 0.0
+            with self._state_lock:
+                self._last_chunk = done_k
+                if rate > 0:
+                    self._turns_per_s = rate
+                self._alive_pub = (done_alive, done_turn)
+
+        try:
+            while self._turn < target and not quit_run:
+                if self._killed or self._abort.is_set():
+                    break
+                k = _next_chunk(chunk, target - self._turn)
+                cells, host, event = self._chunk(run, cells, k)
+                inflight.append((host, event, k, self._turn + k))
+                while len(inflight) >= (1 if ramping else depth):
+                    _pop_oldest()
+                with self._state_lock:
+                    self._cells = cells
+                    self._turn += k
+                # Flags are honoured only while turns remain: a pause
+                # landing with the final chunk must not park a finished
+                # run. An empty queue with no kill/abort needs no call.
+                if self._turn < target and (
+                        self._flags.queue or self._killed
+                        or self._abort.is_set()):
+                    t_flags = time.monotonic()
+                    quit_run = self._handle_flags()
+                    if time.monotonic() - t_flags > 0.01:
+                        _reset_pace(time.monotonic())
+        finally:
+            # Drain, so the last publication is the final state's exact
+            # pair (the turn only advances once a chunk is issued).
+            while inflight:
+                _pop_oldest()
+            with self._state_lock:
+                final_cells, final_turn = self._cells, self._turn
+                self._chunk_hints[hint_key] = chunk
+                self._running = False
+                self._run_token = None
+                self._abort.clear()
+        return self._materialize(final_cells), final_turn
+
+    def alive_count(self) -> Tuple[int, int]:
+        """(alive, completed turn), a coherent pair: the pair published at
+        the last chunk boundary, read without device work. While a run is
+        in flight it may trail the newest issued chunk."""
+        self._check_alive()
+        with self._state_lock:
+            pub = self._alive_pub
+            turn = self._turn
+        if pub is None:
+            return 0, turn
+        return pub
+
+    def get_world(self) -> Tuple[np.ndarray, int]:
+        """({0,255} board snapshot, completed turn) (ref `Server:62-67`)."""
+        self._check_alive()
+        with self._state_lock:
+            cells, turn = self._cells, self._turn
+        return self._materialize(cells), turn
+
+    def get_view(
+        self, max_cells: int
+    ) -> Tuple[np.ndarray, int, Tuple[int, int]]:
+        """(pixel view, completed turn, (f, f) downsample factors): the
+        full board when it fits `max_cells` (or `max_cells` <= 0), else a
+        block-brightest reduction made on the device, so only the view
+        crosses to the host. View pixel (vy, vx) covers board rows
+        [vy*f, (vy+1)*f) x columns [vx*f, (vx+1)*f) and is lit iff any
+        cell there is. Packed words are OR-reduced over each f-row band
+        before unpacking, so no unpacked board is ever made."""
+        self._check_alive()
+        with self._state_lock:
+            cells, turn, repr_ = self._cells, self._turn, self._repr
+        if cells is None:
+            raise RuntimeError("no board loaded")
+        h, w = cells.shape
+        if repr_ == "packed":
+            w *= WORD_BITS
+        if max_cells <= 0 or h * w <= max_cells:
+            return self._materialize(cells), turn, (1, 1)
+        f = view_factor(h, w, max_cells)
+        if repr_ == "packed":
+            hp = -(-h // f) * f
+            rows = torch.nn.functional.pad(cells, (0, 0, 0, hp - h))
+            rows = rows.reshape(hp // f, f, cells.shape[1])
+            band = rows[:, 0]
+            for i in range(1, f):
+                band = band | rows[:, i]
+            view = _block_max(unpack(band), 1, f)
+        else:
+            view = _block_max(cells, f, f)
+        return view.cpu().numpy() * np.uint8(255), turn, (f, f)
+
+    def _materialize(self, cells: Optional[torch.Tensor]) -> np.ndarray:
+        """Device board -> host {0,255} pixels (waits for the board)."""
+        if cells is None:
+            raise RuntimeError("no board loaded")
+        if self._repr == "packed":
+            px = unpack_np(words_to_numpy(cells))
+        else:
+            px = cells.cpu().numpy().astype(np.uint8)
+        px *= 255
+        return px
+
+    def stats(self) -> dict:
+        """Engine telemetry (no device work)."""
+        self._check_alive()
+        with self._state_lock:
+            shape = None
+            if self._cells is not None:
+                h, w = self._cells.shape
+                shape = [h, w * WORD_BITS if self._repr == "packed" else w]
+            pub = self._alive_pub
+            return {
+                "turn": self._turn,
+                "running": self._running,
+                "board": shape,
+                "alive": pub[0] if pub is not None else None,
+                "alive_turn": pub[1] if pub is not None else None,
+                "packed": self._repr == "packed",
+                "chunk": self._last_chunk,
+                "turns_per_s": round(self._turns_per_s, 1),
+                "rule": self._rule.rulestring,
+                "device": str(self._device),
+            }
+
+    # ------------------------------------------------------- chunk adapter
+
+    def _adapt_chunk(self, chunk: int, k: int, elapsed: float) -> int:
+        """Ramp-regime adapter (one chunk in flight): grow the
+        power-of-two chunk while its compute above the dispatch floor
+        (`_fixed_cost_est`, the smallest elapsed seen) is under target —
+        x16 while far under it, then x4, x2 — and halve it above twice
+        the target."""
+        if k != chunk:
+            return chunk  # a remainder chunk's timing is unrepresentative
+        self._fixed_cost_est = min(self._fixed_cost_est, elapsed)
+        marginal = elapsed - self._fixed_cost_est
+        if marginal < self._chunk_target:
+            if (marginal * 16 <= self._chunk_target
+                    and chunk * 16 <= self._max_chunk):
+                return chunk * 16
+            if chunk * 4 <= self._max_chunk:
+                return chunk * 4
+            if chunk * 2 <= self._max_chunk:
+                return chunk * 2
+        if marginal > self._chunk_target * 2 and chunk > 1:
+            return chunk // 2
+        return chunk
+
+    def _adapt_chunk_windowed(self, chunk: int, now: float, k: int) -> int:
+        """Pipelined-regime adapter: the per-turn pace over a sliding
+        window of pops sizes the chunk into [target, 2 x target].
+        Single pop-to-pop times are unusable once chunks overlap (queued
+        completions drain microseconds apart)."""
+        if self._pace_skip > 0:
+            self._pace_skip -= 1
+            return chunk
+        self._pace_window.append((now, k))
+        rate = self._pace_rate()
+        if rate is None:
+            return chunk
+        est = chunk / rate
+        if est < self._chunk_target and chunk * 2 <= self._max_chunk:
+            return chunk * 2
+        if est > self._chunk_target * 2 and chunk > 1:
+            return chunk // 2
+        return chunk
+
+    def _pace_rate(self) -> Optional[float]:
+        """Turns/second across the pop window; None until it holds four
+        pops."""
+        win = self._pace_window
+        if len(win) < 4:
+            return None
+        span = win[-1][0] - win[0][0]
+        turns = sum(kk for _, kk in list(win)[1:])
+        if span <= 0 or turns <= 0:
+            return None
+        return turns / span

@@ -1,0 +1,287 @@
+"""Hopper kernels for multi-turn packed stepping — the counterpart of
+`gol_tpu/ops/pallas_stencil.py` — with their plain torch versions.
+
+Each wrapper launches its CUDA kernel (`csrc/stencil.cu`) for a tensor on
+a CUDA device, or raises; for a tensor on the CPU it runs the kernel's
+plain version, which follows the kernel's decomposition. Each counts its
+launches in a `launches` attribute. Words are the int32 carrier of
+`ops/bitpack.py`; the kernels read them as uint32.
+
+K1 `resident_run_turns` replaces `pallas_packed_run_turns`
+(pallas_stencil.py:508). The TPU keeps the whole board in VMEM and runs
+K turns in one call; here one thread block keeps the board in shared
+memory (two buffers, so at most `RESIDENT_BOARD_BYTES`) and runs K turns
+with a block barrier between turns. Bound: 30 shift/logic ops per word
+per turn (`OPS_PER_WORD_TURN`) against the 32-bit logic issue rate, but
+one block uses one of the card's 132 SMs, so it runs at most 1/132 of
+that rate. That is the price of a simple, exact first kernel for boards
+up to 112 KiB packed (512² is 32 KiB); it must also take Wp = 1, where a
+word's west and east neighbours are itself.
+
+K2 `tiled_sweep` replaces `_banded_pass` (pallas_stencil.py:388). A
+full-width band does not fit Hopper's 227 KB of shared memory (one
+65536-wide row is 8 KB), so each block takes a 2-D tile: R = 384 rows x
+C = 62 words of output, from a window of (R + 2T) x (C + 2) words loaded
+with indices modulo the board, stepped T <= 32 turns in shared memory.
+The window is (R + 2T)(C + 2) / (R C) = 1.20 times the tile at T = 32,
+but each turn computes only the rows still exact, so the work done is
+(R + T - 1)(C + 2) / (R C) = 1.12 times the useful work. Bound: a sweep
+reads and writes each word once (8 bytes) and spends 32 x 30 ops on it,
+so the ops, not the 3.35 TB/s of memory, bound it. `banded_run_turns`
+runs floor(K/32) sweeps at T = 32 and one at T = K mod 32; every depth
+1..32 is legal, so the TPU's 8-aligned remainder and jnp-scan fallbacks
+have no counterpart.
+
+K3 `row_popcounts` counts live cells per row with `__popc` (one warp per
+row) for the engine's alive token; the JAX package leaves that reduction
+to XLA (`engine.py:158-160`). Bound: one read of the board at 3.35 TB/s.
+
+No single PyTorch call computes a packed life-like step, so no library
+call stands beside K1 or K2.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from gol_tpu_torch.models.lifelike import CONWAY, LifeLikeRule
+from gol_tpu_torch.ops import _build
+from gol_tpu_torch.ops.bitpack import (
+    WORD_BITS,
+    _full_add,
+    _rule_from_count_bits,
+    _shr,
+    combine_count_columns,
+    row_popcounts_plain,
+)
+
+# Shared memory a block can use on Hopper (232,448 bytes); K1 holds two
+# copies of the board.
+SMEM_BYTES = 232_448
+RESIDENT_BOARD_BYTES = SMEM_BYTES // 2
+# K2 geometry, mirrored from csrc/stencil.cu (checked at load).
+TILE_MAX_T = 32
+TILE_ROWS = 384
+TILE_WORDS = 62
+# Shift/logic operations per word per turn of the kernels' network: 11
+# for the self-inclusive count, 19 for the rule (csrc/stencil.cu).
+OPS_PER_WORD_TURN = 30
+
+
+def _self_inclusive_count_bits(p: torch.Tensor, word_axis: int,
+                               row_axis: int):
+    """4 bit-planes of the self-inclusive 9-cell count n9 = n8 + self:
+    hs = west + self + east per cell (bit pair hs0/hs1), then the vertical
+    full adder over (row-1, row, row+1) of hs — the network of
+    `gol_tpu.ops.pallas_stencil._self_inclusive_count_bits` and of the
+    CUDA kernels."""
+    shift = WORD_BITS - 1
+    west = (p << 1) | _shr(torch.roll(p, 1, dims=word_axis), shift)
+    east = _shr(p, 1) | (torch.roll(p, -1, dims=word_axis) << shift)
+    hs0, hs1 = _full_add(west, p, east)
+    u0, u1 = _full_add(torch.roll(hs0, 1, dims=row_axis), hs0,
+                       torch.roll(hs0, -1, dims=row_axis))
+    v0, v1 = _full_add(torch.roll(hs1, 1, dims=row_axis), hs1,
+                       torch.roll(hs1, -1, dims=row_axis))
+    return combine_count_columns(u0, u1, v0, v1)
+
+
+def _step_shared_sums(p: torch.Tensor, rule: LifeLikeRule) -> torch.Tensor:
+    """One life-like torus turn on (..., rows, words) with the shared
+    horizontal-sum network."""
+    n0, n1, n2, n3 = _self_inclusive_count_bits(p, -1, -2)
+    return _rule_from_count_bits(p, n0, n1, n2, n3, rule, count_offset=1)
+
+
+def fits_resident(shape) -> bool:
+    h, wp = shape[-2], shape[-1]
+    return h * wp * 4 <= RESIDENT_BOARD_BYTES
+
+
+def cuda_probe() -> str:
+    """What this host offers the kernels: CUDA, the device and its
+    compute capability, the driver, and nvcc. For error messages."""
+    parts = [f"torch {torch.__version__} (CUDA {torch.version.cuda})"]
+    if torch.cuda.is_available():
+        cap = torch.cuda.get_device_capability(0)
+        parts.append(f"device {torch.cuda.get_device_name(0)} "
+                     f"sm_{cap[0]}{cap[1]}")
+    else:
+        parts.append("no CUDA device")
+    try:
+        version = ctypes.c_int()
+        ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(
+            ctypes.byref(version))
+        parts.append(f"driver API {version.value}")
+    except OSError:
+        parts.append("no CUDA driver")
+    try:
+        parts.append(f"nvcc {_build.find_nvcc()}")
+    except RuntimeError:
+        parts.append("no nvcc")
+    return ", ".join(parts)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    """The kernel library (built on first use), once its tile geometry
+    is checked against the Python mirror above."""
+    lib = _build.library()
+    vals = [ctypes.c_int() for _ in range(3)]
+    lib.gol_tile_geometry(*[ctypes.byref(v) for v in vals])
+    got = tuple(v.value for v in vals)
+    if got != (TILE_MAX_T, TILE_ROWS, TILE_WORDS):
+        raise RuntimeError(f"kernel tile geometry {got} != the Python "
+                           f"mirror {(TILE_MAX_T, TILE_ROWS, TILE_WORDS)}")
+    return lib
+
+
+def _kernel_args(words: torch.Tensor, what: str):
+    """Validate a CUDA words tensor; return (lib, h, wp, device, stream)."""
+    if words.dtype != torch.int32 or words.dim() != 2:
+        raise ValueError(f"{what}: want 2-D int32 words, got "
+                         f"{words.dtype} {tuple(words.shape)}")
+    if not words.is_contiguous():
+        raise ValueError(f"{what}: words must be contiguous")
+    h, wp = words.shape
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    return _library(), h, wp, words.device.index, stream
+
+
+# ------------------------------------------------------------------- K1
+
+def resident_run_turns_plain(words: torch.Tensor, num_turns: int,
+                             rule: LifeLikeRule = CONWAY) -> torch.Tensor:
+    """K1's plain version: `num_turns` whole-board turns of the shared
+    horizontal-sum network."""
+    for _ in range(num_turns):
+        words = _step_shared_sums(words, rule)
+    return words
+
+
+def resident_run_turns(words: torch.Tensor, num_turns: int,
+                       rule: LifeLikeRule = CONWAY) -> torch.Tensor:
+    """Advance an (H, Wp) packed board that fits `RESIDENT_BOARD_BYTES`
+    `num_turns` turns in one launch of K1."""
+    if num_turns == 0:
+        return words
+    if words.device.type == "cpu":
+        return resident_run_turns_plain(words, num_turns, rule)
+    lib, h, wp, dev, stream = _kernel_args(words, "resident_run_turns")
+    if not fits_resident(words.shape):
+        raise ValueError(f"resident_run_turns: board {h}x{wp} words "
+                         f"exceeds {RESIDENT_BOARD_BYTES} bytes")
+    out = torch.empty_like(words)
+    born, survive = rule.masks()
+    _build.check(lib.gol_resident_run_turns(
+        words.data_ptr(), out.data_ptr(), h, wp, num_turns, born, survive,
+        dev, stream), "resident_run_turns")
+    resident_run_turns.launches += 1
+    return out
+
+
+resident_run_turns.launches = 0
+
+
+# ------------------------------------------------------------------- K2
+
+def _window_indices(n: int, tiles: int, step: int, halo: int, span: int,
+                    device) -> torch.Tensor:
+    """(tiles, span) indices modulo n of each tile's window."""
+    starts = torch.arange(tiles, device=device) * step - halo
+    return (starts[:, None] + torch.arange(span, device=device)) % n
+
+
+def tiled_sweep_plain(words: torch.Tensor, t: int,
+                      rule: LifeLikeRule = CONWAY) -> torch.Tensor:
+    """K2's plain version: gather every tile's (R + 2t) x (C + 2) window
+    with modular indices (one batch, no loop over tiles), step the windows
+    t turns as tori of their own (their edges go wrong, as the kernel's
+    do), keep each exact R x C interior and reassemble the board."""
+    h, wp = words.shape
+    tr, tc = -(-h // TILE_ROWS), -(-wp // TILE_WORDS)
+    rows = _window_indices(h, tr, TILE_ROWS, t, TILE_ROWS + 2 * t,
+                           words.device)
+    cols = _window_indices(wp, tc, TILE_WORDS, 1, TILE_WORDS + 2,
+                           words.device)
+    win = words[rows[:, None, :, None], cols[None, :, None, :]]
+    for _ in range(t):
+        win = _step_shared_sums(win, rule)
+    core = win[:, :, t:t + TILE_ROWS, 1:1 + TILE_WORDS]
+    return core.permute(0, 2, 1, 3).reshape(
+        tr * TILE_ROWS, tc * TILE_WORDS)[:h, :wp].contiguous()
+
+
+def tiled_sweep(words_in: torch.Tensor, words_out: torch.Tensor, t: int,
+                rule: LifeLikeRule = CONWAY) -> None:
+    """Advance `words_in` t (1..32) turns into `words_out` in one K2
+    sweep."""
+    if not 1 <= t <= TILE_MAX_T:
+        raise ValueError(f"tiled_sweep depth {t} not in 1..{TILE_MAX_T}")
+    if words_out.shape != words_in.shape or words_out is words_in:
+        raise ValueError("tiled_sweep needs a distinct output board of "
+                         "the input's shape")
+    if words_in.device.type == "cpu":
+        words_out.copy_(tiled_sweep_plain(words_in, t, rule))
+        return
+    lib, h, wp, dev, stream = _kernel_args(words_in, "tiled_sweep")
+    if (words_out.dtype != torch.int32 or not words_out.is_contiguous()
+            or words_out.device != words_in.device):
+        raise ValueError("tiled_sweep: output must be contiguous int32 "
+                         "on the input's device")
+    if -(-h // TILE_ROWS) > 65535:
+        raise ValueError(f"tiled_sweep: {h} rows exceed the launch grid")
+    born, survive = rule.masks()
+    _build.check(lib.gol_tiled_sweep(
+        words_in.data_ptr(), words_out.data_ptr(), h, wp, t, born, survive,
+        dev, stream), "tiled_sweep")
+    tiled_sweep.launches += 1
+
+
+tiled_sweep.launches = 0
+
+
+def banded_run_turns(words: torch.Tensor, num_turns: int,
+                     rule: LifeLikeRule = CONWAY) -> torch.Tensor:
+    """Advance a packed board `num_turns` turns by K2 sweeps:
+    floor(K/32) at depth 32, then one at depth K mod 32. Sweeps alternate
+    between two fresh buffers; the input is never written."""
+    full, rem = divmod(num_turns, TILE_MAX_T)
+    depths = [TILE_MAX_T] * full + ([rem] if rem else [])
+    bufs = []
+    src = words
+    for i, depth in enumerate(depths):
+        if len(bufs) < 2:
+            bufs.append(torch.empty_like(words))
+        dst = bufs[i % 2]
+        tiled_sweep(src, dst, depth, rule)
+        src = dst
+    return src
+
+
+# ------------------------------------------------------------------- K3
+
+def row_popcounts(words: torch.Tensor) -> torch.Tensor:
+    """(H,) int32 live cells per row of an (H, Wp) packed board."""
+    if words.device.type == "cpu":
+        return row_popcounts_plain(words)
+    lib, h, wp, dev, stream = _kernel_args(words, "row_popcounts")
+    out = torch.empty(h, dtype=torch.int32, device=words.device)
+    _build.check(lib.gol_row_popcounts(
+        words.data_ptr(), out.data_ptr(), h, wp, dev, stream),
+        "row_popcounts")
+    row_popcounts.launches += 1
+    return out
+
+
+row_popcounts.launches = 0
+
+KERNELS = (resident_run_turns, tiled_sweep, row_popcounts)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
