@@ -10,15 +10,22 @@ Phases (each raises on failure; any failure exits non-zero):
 2. the nvcc build of gol_tpu_torch/csrc/stencil.cu;
 3. every kernel against its plain PyTorch version on the card, bit-exact
    (integer boards: tolerance 0), at the main path's shapes and at odd
-   ones (one-word boards, heights shorter than a tile window);
+   ones (one-word boards, heights shorter than a tile window); the
+   two-plane kernels K4/K5 for both Generations families (gen3, gen4)
+   up to 16384²;
 4. the main path through `gol_tpu_torch.run` on the default (CUDA)
    engine: 512² x 100 against the golden board and PGM, 512² x 10000 with
    every published (alive, turn) pair against check/alive/512x512.csv,
    5120² x 1000 from a seeded board against the plain version, and an
    unbounded 512² run that 'p' holds and resumes and 'q' ends within 5 s;
-   the launch counters of the kernels must have moved;
-5. timings at 512², 5120² and 65536²: each kernel's ms per launch beside
-   its plain version's and its bound, and engine turns/s.
+   4b. the Generations path: Brian's Brain through `run` at 512² x 100
+   (K4) and 4096² x 1000 (K5), Star Wars through `GenerationsTorus` at
+   512² x 64 (K4) and 4096² x 64 (K5), each against the uint8 gen8 plain
+   path on the card. Each path runs with the launch counters at 0, read
+   just after: every kernel (and family) it runs must have launched;
+5. timings at 512², 4096², 5120², 16384² and 65536²: each kernel's ms
+   per launch beside its plain version's and its bound, and engine
+   turns/s (life-like and Brian's Brain).
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -61,6 +68,16 @@ def seeded_words(torch, h: int, wp: int, seed: int, device):
     g.manual_seed(seed)
     return torch.randint(-2**31, 2**31 - 1, (h, wp), generator=g,
                          dtype=torch.int32, device=device)
+
+
+def seeded_planes(torch, h: int, wp: int, family: str, seed: int, device):
+    """Random stacked (2, h, wp) planes holding valid states: for gen3
+    no cell is both alive and dying; every pair is a gen4 state."""
+    p = torch.stack([seeded_words(torch, h, wp, seed, device),
+                     seeded_words(torch, h, wp, seed + 1, device)])
+    if family == "gen3":
+        p[1] &= ~p[0]
+    return p
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -157,6 +174,7 @@ def phase_kernels(torch, dev) -> None:
     got = cs.banded_run_turns(w, 32)
     check_equal(torch, "K2 65536x2048w 32 turns", got,
                 cs.tiled_sweep_plain(w, 32), "tiled_sweep")
+    phase_kernels_2p(torch, dev)
     # K3: row popcounts.
     for (h, wp) in [(64, 2), (512, 16), (33, 1), (5120, 160),
                     (16384, 512), (65536, 2048)]:
@@ -164,6 +182,49 @@ def phase_kernels(torch, dev) -> None:
         check_equal(torch, f"K3 {h}x{wp}w", cs.row_popcounts(w),
                     bitpack.row_popcounts_plain(w), "row_popcounts")
     del w, got
+
+
+def phase_kernels_2p(torch, dev) -> None:
+    """K4 and K5 for both families against their plain versions."""
+    from gol_tpu_torch.models.generations import GenerationsRule
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    rules = {"gen3": [GenerationsRule("/2/3"), GenerationsRule("125/36/3")],
+             "gen4": [GenerationsRule("345/2/4"), GenerationsRule("/234/4")]}
+    for fam, (rule, other) in rules.items():
+        k4 = f"resident_run_turns2p/{fam}"
+        for (h, wp) in [(64, 2), (512, 16), (96, 1), (33, 1)]:
+            p = seeded_planes(torch, h, wp, fam, h * 3 + wp, dev)
+            for turns in (1, 8, 19, 100):
+                check_equal(
+                    torch, f"K4 {fam} {h}x{wp}w {turns} turns",
+                    cs.resident_run_turns2p(p, turns, rule, fam),
+                    cs.resident_run_turns2p_plain(p, turns, rule, fam), k4)
+        p = seeded_planes(torch, 512, 16, fam, 9, dev)
+        check_equal(torch, f"K4 {fam} 512x16w 50 turns {other.rulestring}",
+                    cs.resident_run_turns2p(p, 50, other, fam),
+                    cs.resident_run_turns2p_plain(p, 50, other, fam), k4)
+        k5 = f"tiled_sweep2p/{fam}"
+        for (h, wp, turns) in [(1024, 32, 32), (1024, 32, 36),
+                               (4096, 128, 32), (4096, 128, 36),
+                               (16384, 512, 32), (16384, 512, 36)]:
+            p = seeded_planes(torch, h, wp, fam, h + turns, dev)
+            want = p
+            for depth in [cs.TILE_MAX_T] * (turns // 32) + (
+                    [turns % 32] if turns % 32 else []):
+                want = cs.tiled_sweep2p_plain(want, depth, rule, fam)
+            check_equal(torch, f"K5 {fam} {h}x{wp}w {turns} turns",
+                        cs.banded_run_turns2p(p, turns, rule, fam), want, k5)
+        for (h, wp, t) in [(1, 1, 1), (3, 7, 32), (100, 200, 7),
+                           (161, 63, 32)]:
+            p = seeded_planes(torch, h, wp, fam, 5 * h + wp, dev)
+            for r in (rule, other):
+                out = torch.empty_like(p)
+                cs.tiled_sweep2p(p, out, t, r, fam)
+                check_equal(torch, f"K5 {fam} {h}x{wp}w T={t} "
+                            f"{r.rulestring}", out,
+                            cs.resident_run_turns2p_plain(p, t, r, fam), k5)
+        del p, out, want
 
 
 def read_csv(path: str) -> dict:
@@ -254,6 +315,74 @@ def phase_main_path(torch, dev) -> None:
         check_controls(images, out)
 
 
+def gen8_plain(torch, dev, state: np.ndarray, turns: int, rule):
+    """The uint8 gen8 path in plain torch on the card: the independent
+    reference for the packed planes."""
+    from gol_tpu_torch.models import generations as gen
+
+    return gen.run_turns(torch.from_numpy(state).to(dev), turns,
+                         rule).cpu().numpy()
+
+
+def phase_generations(torch, dev) -> None:
+    """Brian's Brain through `run` on a CUDA engine (512²: K4, 4096²: K5)
+    and Star Wars through `GenerationsTorus` (512²: K4, 4096²: K5), each
+    against the gen8 plain path on the card."""
+    log("phase 4b: Generations path through gol_tpu_torch.run and "
+        "GenerationsTorus on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        check_generations(torch, dev, os.path.join(REPO, "images"), tmp)
+
+
+def check_generations(torch, dev, images: str, tmp: str) -> None:
+    from gol_tpu_torch import Params, events as ev
+    from gol_tpu_torch.engine import Engine
+    from gol_tpu_torch.io.pgm import read_pgm, write_pgm
+    from gol_tpu_torch.models.generations import (
+        BRIANS_BRAIN, STAR_WARS, GenerationsTorus, from_pixels_gen,
+        gray_levels, to_pixels_gen)
+
+    levels = tuple(gray_levels(BRIANS_BRAIN).tolist())
+    out = os.path.join(tmp, "gen_out")
+    seed_dir = os.path.join(tmp, "gen_images")
+    rng = np.random.default_rng(4096)
+    big = rng.choice(np.array([0, 1, 2], np.uint8), size=(4096, 4096),
+                     p=[0.7, 0.2, 0.1])
+    write_pgm(os.path.join(seed_dir, "4096x4096.pgm"),
+              to_pixels_gen(big, BRIANS_BRAIN), levels=levels)
+    for size, turns, src in ((512, 100, images), (4096, 1000, seed_dir)):
+        eng = Engine(rule=BRIANS_BRAIN)
+        evs, _ = drive(Params(image_width=size, image_height=size,
+                              turns=turns), src, out, engine=eng)
+        if eng._repr != "gen3":
+            raise AssertionError(f"{size}² /2/3 ran as {eng._repr}")
+        start = from_pixels_gen(read_pgm(
+            os.path.join(src, f"{size}x{size}.pgm"), levels=levels),
+            BRIANS_BRAIN)
+        want = gen8_plain(torch, dev, start, turns, BRIANS_BRAIN)
+        got = read_pgm(os.path.join(out, f"{size}x{size}x{turns}.pgm"),
+                       levels=levels)
+        if not np.array_equal(got, to_pixels_gen(want, BRIANS_BRAIN)):
+            raise AssertionError(f"/2/3 {size}² x {turns}: PGM != gen8")
+        final = [e for e in evs if isinstance(e, ev.FinalTurnComplete)][0]
+        if final.count() != int((want == 1).sum()):
+            raise AssertionError(f"/2/3 {size}² x {turns}: firing count")
+        log(f"  ok /2/3 {size}² x {turns} through run: gray PGM and "
+            f"firing count ({final.count()}) equal the gen8 plain path")
+    for size in (512, 4096):
+        board = np.random.default_rng(size).integers(
+            0, 4, size=(size, size)).astype(np.uint8)
+        gt = GenerationsTorus(board, STAR_WARS)
+        gt.run(64)
+        want = gen8_plain(torch, dev, board, 64, STAR_WARS)
+        if not np.array_equal(gt.board, want):
+            raise AssertionError(f"345/2/4 torus {size}² x 64 != gen8")
+        if gt.alive_count() != int((want == 1).sum()):
+            raise AssertionError(f"345/2/4 torus {size}²: firing count")
+        log(f"  ok 345/2/4 GenerationsTorus {size}² x 64 equals the gen8 "
+            "plain path")
+
+
 def check_controls(images: str, out: str) -> None:
     """512², unbounded: 'p' holds the turn still, 'p' again resumes it,
     'q' ends the run within 5 s — the chunk adapter must keep launches
@@ -297,14 +426,14 @@ def check_controls(images: str, out: str) -> None:
         f"{latency:.3f} s at turn {final.completed_turns}")
 
 
-def engine_rate(torch, world: np.ndarray, seconds: float):
+def engine_rate(torch, world: np.ndarray, seconds: float, rule=None):
     """(turns/s, median alive_count() µs, max gap s between publications,
-    last chunk in turns) of the default engine on `world`, from the pairs
-    it publishes."""
+    last chunk in turns) of a CUDA engine on `world` (under `rule`, Conway
+    by default), from the pairs it publishes."""
     from gol_tpu_torch import Params
     from gol_tpu_torch.engine import Engine, FLAG_QUIT
 
-    eng = Engine()
+    eng = Engine() if rule is None else Engine(rule=rule)
     h, w = world.shape
     failed = []
 
@@ -403,7 +532,9 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
             f"({rate * size * size:.4g} cell updates/s), alive_count() "
             f"{poll_us:.2f} µs median, publications at most {gap:.3f} s "
             f"apart, chunk {chunk} turns")
+    engine += engine_rates_generations(torch, dev, card)
     log("engine:" + json.dumps(engine))
+    rows.update(timing_2p(torch, dev, card))
 
     meta = {
         "resident_run_turns": ("gol_tpu/ops/pallas_stencil.py:508",
@@ -411,12 +542,17 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
         "tiled_sweep": ("gol_tpu/ops/pallas_stencil.py:388", "65536x65536"),
         "row_popcounts": ("gol_tpu/engine.py:158", "65536x65536"),
     }
+    for fam, line in (("gen3", 274), ("gen4", 296)):
+        tpu = f"gol_tpu/ops/pallas_stencil.py:{line}"
+        meta[f"resident_run_turns2p/{fam}"] = (tpu, "512x512")
+        meta[f"tiled_sweep2p/{fam}"] = (tpu, "4096x4096")
     kernels = []
     for name, rs in rows.items():
         head = [r for r in rs if r["shape"] == meta[name][1]][0]
         kernels.append(dict(
             name=name, route="cuda",
             source="gol_tpu_torch/csrc/stencil.cu",
+            family=name.split("/")[1] if "/" in name else None,
             replaces=meta[name][0], launches=launches[name],
             bit_exact=MAX_ABS_ERR[name] == 0,
             max_abs_err=MAX_ABS_ERR[name], card=card.smi,
@@ -425,6 +561,85 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=None, by_shape=rs))
     return kernels
+
+
+def engine_rates_generations(torch, dev, card: Card) -> list:
+    """Engine turns/s for Brian's Brain at 512² (K4) and 4096² (K5)."""
+    from gol_tpu_torch.models.generations import (
+        BRIANS_BRAIN, to_pixels_gen)
+
+    engine = []
+    for size in (512, 4096):
+        rng = np.random.default_rng(size + 3)
+        state = rng.choice(np.array([0, 1, 2], np.uint8), size=(size, size),
+                           p=[0.7, 0.2, 0.1])
+        world = to_pixels_gen(state, BRIANS_BRAIN)
+        rate, poll_us, gap, chunk = engine_rate(torch, world, 3.0,
+                                                BRIANS_BRAIN)
+        engine.append(dict(size=size, rule="/2/3", card=card.smi,
+                           turns_per_s=rate,
+                           cell_updates_per_s=rate * size * size,
+                           alive_count_us=poll_us, max_publish_gap_s=gap,
+                           chunk_turns=chunk))
+        log(f"  engine /2/3 {size}²: {rate:.1f} turns/s "
+            f"({rate * size * size:.4g} cell updates/s), alive_count() "
+            f"{poll_us:.2f} µs median, publications at most {gap:.3f} s "
+            f"apart, chunk {chunk} turns")
+    return engine
+
+
+def timing_2p(torch, dev, card: Card) -> dict:
+    """ms per launch of K4 (512², 1024 turns) and K5 (4096², 16384², one
+    32-turn sweep) per family, beside the plain version and the bound:
+    16 bytes per word (both planes read and written once) and
+    `OPS_PER_WORD_TURN_2P` ops per word and turn."""
+    from gol_tpu_torch.models.generations import BRIANS_BRAIN, STAR_WARS
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    rows = {}
+    for fam, rule in (("gen3", BRIANS_BRAIN), ("gen4", STAR_WARS)):
+        ops = cs.OPS_PER_WORD_TURN_2P[fam]
+        k4, k5 = [], []
+        for (h, wp) in [(512, 16)]:
+            p = seeded_planes(torch, h, wp, fam, 1, dev)
+            turns = 1024
+            ms = time_ms(torch, lambda: cs.resident_run_turns2p(
+                p, turns, rule, fam), 5)
+            plain = time_ms(torch, lambda: cs.resident_run_turns2p_plain(
+                p, turns, rule, fam), 1)
+            b, by = card.bound(16 * h * wp, ops * turns * h * wp)
+            k4.append(dict(shape=f"{h}x{wp * 32}", turns=turns, ms=ms,
+                           plain_ms=plain, bound_ms=b, bound_by=by))
+        for (h, wp) in [(16384, 512), (4096, 128)]:
+            p = seeded_planes(torch, h, wp, fam, 2, dev)
+            o = torch.empty_like(p)
+            ms = time_ms(torch, lambda: cs.tiled_sweep2p(p, o, 32, rule,
+                                                         fam), 5)
+            plain = time_ms(torch, lambda: cs.tiled_sweep2p_plain(
+                p, 32, rule, fam), 1)
+            b, by = card.bound(16 * h * wp, ops * 32 * h * wp)
+            k5.append(dict(shape=f"{h}x{wp * 32}", turns=32, ms=ms,
+                           plain_ms=plain, bound_ms=b, bound_by=by))
+            del p, o
+        rows[f"resident_run_turns2p/{fam}"] = k4
+        rows[f"tiled_sweep2p/{fam}"] = k5
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"  {name} {r['shape']} turns={r['turns']}: {r['ms']:.4f} "
+                f"ms/launch, plain {r['plain_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+def main_path_launches(cs) -> dict:
+    """Launches per kernel on the main path; the two-plane kernels per
+    family, as `name/family`."""
+    launches = {fn.__name__: fn.launches for fn in cs.KERNELS
+                if fn not in cs.KERNELS_2P}
+    for fn in cs.KERNELS_2P:
+        for fam, n in fn.by_family.items():
+            launches[f"{fn.__name__}/{fam}"] = n
+    return launches
 
 
 def main() -> int:
@@ -453,13 +668,27 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
     phase_kernels(torch, dev)
-    cs.reset_launch_counts()
-    phase_main_path(torch, dev)
-    launches = {fn.__name__: fn.launches for fn in cs.KERNELS}
-    log(f"  main path launches: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"main path never launched {name}")
+    # Each path runs with the counters at 0 and is read just after; each
+    # must have launched every kernel (and family) it runs.
+    launches = {}
+    for phase, kernels in (
+            (phase_main_path, ("resident_run_turns", "tiled_sweep",
+                               "row_popcounts")),
+            (phase_generations, ("row_popcounts",
+                                 "resident_run_turns2p/gen3",
+                                 "resident_run_turns2p/gen4",
+                                 "tiled_sweep2p/gen3",
+                                 "tiled_sweep2p/gen4"))):
+        cs.reset_launch_counts()
+        phase(torch, dev)
+        counts = main_path_launches(cs)
+        log(f"  {phase.__name__} launches: {counts}")
+        for name in kernels:
+            if counts[name] <= 0:
+                raise AssertionError(f"{phase.__name__} never launched "
+                                     f"{name}")
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
     kernels = phase_timing(torch, dev, card, launches)
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

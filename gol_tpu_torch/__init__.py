@@ -7,6 +7,10 @@ Same public surface as the JAX package (reference `Local/gol/gol.go`):
     run(Params(image_width=512, image_height=512, turns=100),
         events, key_presses)
 
+Rules are life-like ('B3/S23') or Generations ('/2/3', '345/2/4'; the
+`rule=` argument, `GOL_RULE` or the CLI's `--rule`); Generations boards
+travel as gray PGM levels (`models/generations.py`).
+
 The engine runs on the CUDA device unless the caller asks for the CPU
 (`run(..., device="cpu")` or `engine=Engine(device="cpu")`). The package
 imports torch and numpy, never jax nor `gol_tpu`.

@@ -1,4 +1,5 @@
-// Hopper (sm_90a) kernels for bit-packed life-like stepping.
+// Hopper (sm_90a) kernels for bit-packed life-like and two-plane
+// Generations stepping.
 //
 // Boards are (h, wp) arrays of 32-bit words, 32 cells per word, LSB-first
 // (column c = 32*w + j is bit j of word w of its row), on a torus. The
@@ -24,6 +25,14 @@
 //   tiled_sweep         <- _banded_pass (pallas_stencil.py:388)
 //   row_popcounts       <- the alive token's popcount reduction, which the
 //                          JAX package leaves to XLA (engine.py:158-160)
+//   resident2p_kernel   <- pallas_packed_run_turns3 (pallas_stencil.py:274)
+//                          and pallas_packed_run_turns4 (:296), Gen3/Gen4
+//   tiled2p_kernel      <- the same two, for boards beyond one block's
+//                          shared memory (the TPU ran them from VMEM)
+// The two-plane kernels spend per word and turn the 11-op count network,
+// two 9-mux trees (born and survive) and the transition (3 ops for Gen3;
+// 3 for Gen4 plus one b0 & ~b1 for each of the 3 words a row load reads)
+// — `OPS_PER_WORD_TURN_2P` in ops/cuda_stencil.py.
 //
 // C interface: every entry point sets the device, launches on the given
 // stream, does not synchronise and returns cudaGetLastError().
@@ -39,6 +48,9 @@ constexpr int kTileRows = 384;     // R: output rows per block
 constexpr int kWinWords = 64;      // C + 2: window words per row
 constexpr int kTileWords = kWinWords - 2;  // C: output words per block
 constexpr int kTileSegments = 8;   // threads down each window column
+// tiled2p (two planes, two buffers): 4 x (R + 2T) x 64 words must fit
+// 232,448 bytes, so R + 2T <= 227; R = 160 leaves T = 32.
+constexpr int kTile2pRows = 160;
 constexpr int kResidentThreads = 1024;
 constexpr int kPopcountThreads = 256;
 
@@ -65,14 +77,10 @@ __device__ __forceinline__ RuleLeaves make_leaves(uint32_t born,
   return r;
 }
 
-// Next state of the 32 cells of `mid` from its self-inclusive count bits.
-__device__ __forceinline__ uint32_t apply_rule(const RuleLeaves& r,
-                                               uint32_t mid, uint32_t n0,
-                                               uint32_t n1, uint32_t n2,
-                                               uint32_t n3) {
-  uint32_t v[10];
-#pragma unroll
-  for (int k = 0; k < 10; ++k) v[k] = mux(mid, r.s[k], r.b[k]);
+// Per bit: v[n9] for the count n9 (0..9) held in the bit-planes n0..n3.
+__device__ __forceinline__ uint32_t lut_tree(const uint32_t v[10],
+                                             uint32_t n0, uint32_t n1,
+                                             uint32_t n2, uint32_t n3) {
   const uint32_t m01 = mux(n0, v[1], v[0]);
   const uint32_t m23 = mux(n0, v[3], v[2]);
   const uint32_t m45 = mux(n0, v[5], v[4]);
@@ -83,6 +91,17 @@ __device__ __forceinline__ uint32_t apply_rule(const RuleLeaves& r,
   const uint32_t m07 = mux(n2, m47, m03);
   // n3 set means n9 is 8 or 9, where n1 = n2 = 0.
   return mux(n3, m89, m07);
+}
+
+// Next state of the 32 cells of `mid` from its self-inclusive count bits.
+__device__ __forceinline__ uint32_t apply_rule(const RuleLeaves& r,
+                                               uint32_t mid, uint32_t n0,
+                                               uint32_t n1, uint32_t n2,
+                                               uint32_t n3) {
+  uint32_t v[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) v[k] = mux(mid, r.s[k], r.b[k]);
+  return lut_tree(v, n0, n1, n2, n3);
 }
 
 // Horizontal sum west + self + east of one word, as bit-planes (s0, s1).
@@ -228,6 +247,227 @@ row_popcounts_kernel(const uint32_t* __restrict__ in,
   if (lane == 0) out[warp] = s;
 }
 
+// ------------------------------------------------- two-plane Generations
+//
+// Stacked (2, h, wp) planes. The count is the self-inclusive count of
+// the ALIVE cells (the same network as above); the rule's two masks
+// give two bit-planes per word, born = lut_tree(b) (a dead cell has
+// n9 = n8) and survive = lut_tree(s) (an alive cell has n9 = n8 + 1,
+// which the survive leaves already shift), and the family's transition
+// combines them with the cell's own planes.
+
+// C = 3: plane 0 alive, plane 1 dying (gen3_transition, ops/bitpack.py).
+struct Gen3 {
+  static constexpr bool kNeighbourPlane1 = false;
+  __device__ static uint32_t alive(uint32_t p0, uint32_t) { return p0; }
+  __device__ static void next(uint32_t a, uint32_t d, uint32_t born,
+                              uint32_t surv, uint32_t& o0, uint32_t& o1) {
+    o0 = (~a & ~d & born) | (a & surv);
+    o1 = a & ~surv;
+  }
+};
+
+// C = 4: the state in binary, b0 = bit 0, b1 = bit 1; alive = b0 & ~b1,
+// dying chain 2 -> 3 -> 0 (gen4_transition, ops/bitpack.py).
+struct Gen4 {
+  static constexpr bool kNeighbourPlane1 = true;
+  __device__ static uint32_t alive(uint32_t b0, uint32_t b1) {
+    return b0 & ~b1;
+  }
+  __device__ static void next(uint32_t b0, uint32_t b1, uint32_t born,
+                              uint32_t surv, uint32_t& o0, uint32_t& o1) {
+    const uint32_t a = b0 & ~b1;
+    const uint32_t dying1 = ~b0 & b1;
+    o0 = (~b0 & ~b1 & born) | (a & surv) | dying1;
+    o1 = (a & ~surv) | dying1;
+  }
+};
+
+// One turn of both planes for rows [a, b) of one word column, as
+// step_column: each row's words are loaded once, the alive word of the
+// row and its west/east neighbours feed the horizontal sum, and the
+// row's own two words are kept for the transition.
+template <typename Family, typename RowFn>
+__device__ __forceinline__ void step_column2p(
+    const uint32_t* __restrict__ src0, const uint32_t* __restrict__ src1,
+    uint32_t* __restrict__ dst0, uint32_t* __restrict__ dst1, int a, int b,
+    int col, int west, int east, RowFn row, const RuleLeaves& rule) {
+  auto alive_at = [&](const uint32_t* l0, const uint32_t* l1,
+                      int c) -> uint32_t {
+    if (c < 0) return 0u;
+    if constexpr (Family::kNeighbourPlane1) {
+      return Family::alive(l0[c], l1[c]);
+    } else {
+      return l0[c];
+    }
+  };
+  auto load = [&](int r, uint32_t& p0, uint32_t& p1, uint32_t& s0,
+                  uint32_t& s1) {
+    const int off = row(r);
+    const uint32_t* l0 = src0 + off;
+    const uint32_t* l1 = src1 + off;
+    p0 = l0[col];
+    p1 = l1[col];
+    hsum(alive_at(l0, l1, west), Family::alive(p0, p1),
+         alive_at(l0, l1, east), s0, s1);
+  };
+  uint32_t pu0, pu1, au0, au1, pm0, pm1, am0, am1;
+  load(a - 1, pu0, pu1, au0, au1);
+  load(a, pm0, pm1, am0, am1);
+  for (int r = a; r < b; ++r) {
+    uint32_t pd0, pd1, ad0, ad1;
+    load(r + 1, pd0, pd1, ad0, ad1);
+    const uint32_t u0 = au0 ^ am0 ^ ad0;
+    const uint32_t u1 = (au0 & am0) | (ad0 & (au0 ^ am0));
+    const uint32_t v0 = au1 ^ am1 ^ ad1;
+    const uint32_t v1 = (au1 & am1) | (ad1 & (au1 ^ am1));
+    const uint32_t n1 = u1 ^ v0;
+    const uint32_t c2 = u1 & v0;
+    const uint32_t n2 = v1 ^ c2, n3 = v1 & c2;
+    const uint32_t born = lut_tree(rule.b, u0, n1, n2, n3);
+    const uint32_t surv = lut_tree(rule.s, u0, n1, n2, n3);
+    uint32_t o0, o1;
+    Family::next(pm0, pm1, born, surv, o0, o1);
+    const int off = row(r) + col;
+    dst0[off] = o0;
+    dst1[off] = o1;
+    au0 = am0; au1 = am1;
+    pm0 = pd0; pm1 = pd1; am0 = ad0; am1 = ad1;
+  }
+}
+
+// K4: both planes in shared memory (ping-pong: four board-sized
+// buffers), `turns` turns, one block — K1 with two planes.
+template <typename Family>
+__global__ void __launch_bounds__(kResidentThreads)
+resident2p_kernel(const uint32_t* __restrict__ in,
+                  uint32_t* __restrict__ out, int h, int wp,
+                  long long turns, uint32_t born, uint32_t survive,
+                  int segs) {
+  extern __shared__ uint32_t smem[];
+  const int n = h * wp;
+  // smem holds [buffer][plane][h][wp]; buffer 0 is the stacked input.
+  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) smem[i] = in[i];
+  __syncthreads();
+  const RuleLeaves rule = make_leaves(born, survive);
+  const int seg_len = (h + segs - 1) / segs;
+  const int items = wp * segs;
+  auto row = [h, wp](int r) {
+    return (r < 0 ? r + h : (r >= h ? r - h : r)) * wp;
+  };
+  for (long long k = 0; k < turns; ++k) {
+    const uint32_t* src = smem + (k & 1) * 2 * n;
+    uint32_t* dst = smem + ((k + 1) & 1) * 2 * n;
+    for (int item = threadIdx.x; item < items; item += blockDim.x) {
+      const int col = item % wp;
+      const int a = (item / wp) * seg_len;
+      const int b = min(a + seg_len, h);
+      if (a < b) {
+        step_column2p<Family>(src, src + n, dst, dst + n, a, b, col,
+                              (col + wp - 1) % wp, (col + 1) % wp, row,
+                              rule);
+      }
+    }
+    __syncthreads();
+  }
+  const uint32_t* fin = smem + (turns & 1) * 2 * n;
+  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) out[i] = fin[i];
+}
+
+// K5: K2 with two planes. One block per R x C output tile loads the
+// (R + 2t) x (C + 2)-word window of both planes (indices modulo the
+// board), steps it t turns and writes both planes' exact interior. The
+// dying/encoding plane reads only its own cell, but its next value
+// depends on the alive count, so its wrong margin advances one row and
+// one cell per turn like the alive plane's; the same rows [turn,
+// R + 2t - turn) are computed each turn.
+template <typename Family>
+__global__ void __launch_bounds__(kWinWords * kTileSegments)
+tiled2p_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+               int h, int wp, int t, uint32_t born, uint32_t survive) {
+  extern __shared__ uint32_t smem[];
+  const int win_rows = kTile2pRows + 2 * t;
+  const int win = win_rows * kWinWords;
+  const long long plane = (long long)h * wp;
+  // smem holds [buffer][plane][win_rows][kWinWords].
+  const int r0 = blockIdx.y * kTile2pRows;
+  const int c0 = blockIdx.x * kTileWords;
+  const int col = threadIdx.x;
+  const int seg = threadIdx.y;
+  const long long gc = ((long long)c0 - 1 + col) % wp;
+  const int gcol = (int)(gc < 0 ? gc + wp : gc);
+  for (int i = seg; i < win_rows; i += kTileSegments) {
+    long long gr = ((long long)r0 - t + i) % h;
+    if (gr < 0) gr += h;
+    smem[i * kWinWords + col] = in[gr * wp + gcol];
+    smem[win + i * kWinWords + col] = in[plane + gr * wp + gcol];
+  }
+  __syncthreads();
+  const RuleLeaves rule = make_leaves(born, survive);
+  auto row = [](int r) { return r * kWinWords; };
+  const int west = col > 0 ? col - 1 : -1;
+  const int east = col < kWinWords - 1 ? col + 1 : -1;
+  for (int turn = 1; turn <= t; ++turn) {
+    const uint32_t* src = smem + ((turn - 1) & 1) * 2 * win;
+    uint32_t* dst = smem + (turn & 1) * 2 * win;
+    const int lo = turn;
+    const int per = (win_rows - 2 * turn + kTileSegments - 1) /
+                    kTileSegments;
+    const int a = lo + seg * per;
+    const int b = min(a + per, win_rows - turn);
+    if (a < b) {
+      step_column2p<Family>(src, src + win, dst, dst + win, a, b, col,
+                            west, east, row, rule);
+    }
+    __syncthreads();
+  }
+  const uint32_t* fin = smem + (t & 1) * 2 * win;
+  const int gw = c0 + col - 1;
+  if (col >= 1 && col <= kTileWords && gw < wp) {
+    for (int i = seg; i < kTile2pRows && r0 + i < h; i += kTileSegments) {
+      const long long o = (long long)(r0 + i) * wp + gw;
+      out[o] = fin[(t + i) * kWinWords + col];
+      out[plane + o] = fin[win + (t + i) * kWinWords + col];
+    }
+  }
+}
+
+template <typename Family>
+cudaError_t launch_resident2p(const void* in, void* out, int h, int wp,
+                              long long turns, unsigned born,
+                              unsigned survive, cudaStream_t stream) {
+  const size_t smem = 4 * sizeof(uint32_t) * (size_t)h * wp;
+  cudaError_t e = cudaFuncSetAttribute(
+      resident2p_kernel<Family>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  int segs = kResidentThreads / wp;
+  if (segs < 1) segs = 1;
+  if (segs > h) segs = h;
+  resident2p_kernel<Family><<<1, kResidentThreads, smem, stream>>>(
+      (const uint32_t*)in, (uint32_t*)out, h, wp, turns, born, survive,
+      segs);
+  return cudaGetLastError();
+}
+
+template <typename Family>
+cudaError_t launch_tiled2p(const void* in, void* out, int h, int wp, int t,
+                           unsigned born, unsigned survive,
+                           cudaStream_t stream) {
+  const size_t smem =
+      4 * sizeof(uint32_t) * (size_t)(kTile2pRows + 2 * t) * kWinWords;
+  cudaError_t e = cudaFuncSetAttribute(
+      tiled2p_kernel<Family>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((wp + kTileWords - 1) / kTileWords,
+                  (h + kTile2pRows - 1) / kTile2pRows);
+  const dim3 block(kWinWords, kTileSegments);
+  tiled2p_kernel<Family><<<grid, block, smem, stream>>>(
+      (const uint32_t*)in, (uint32_t*)out, h, wp, t, born, survive);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -280,6 +520,44 @@ int gol_tiled_sweep(const void* in, void* out, int h, int wp, int t,
   tiled_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)in, (uint32_t*)out, h, wp, t, born, survive);
   return cudaGetLastError();
+}
+
+int gol_tile2p_rows(int* rows) {
+  *rows = kTile2pRows;
+  return 0;
+}
+
+// family: 3 (alive, dying planes) or 4 (binary-encoded planes).
+int gol_resident_run_turns2p(const void* in, void* out, int h, int wp,
+                             long long turns, unsigned born,
+                             unsigned survive, int family, int device,
+                             void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (family == 3) {
+    return launch_resident2p<Gen3>(in, out, h, wp, turns, born, survive, s);
+  }
+  if (family == 4) {
+    return launch_resident2p<Gen4>(in, out, h, wp, turns, born, survive, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+int gol_tiled_sweep2p(const void* in, void* out, int h, int wp, int t,
+                      unsigned born, unsigned survive, int family,
+                      int device, void* stream) {
+  if (t < 1 || t > kTileMaxT) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (family == 3) {
+    return launch_tiled2p<Gen3>(in, out, h, wp, t, born, survive, s);
+  }
+  if (family == 4) {
+    return launch_tiled2p<Gen4>(in, out, h, wp, t, born, survive, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 int gol_row_popcounts(const void* in, void* out, int h, int wp, int device,

@@ -6,6 +6,8 @@ Contract (reference `Local/gol/distributor.go:55-226`): load
 `images/WxH.pgm`, drive the engine, emit the event stream, honour s/p/q/k
 keypresses, tick alive counts every 2 s, write `out/WxHxT.pgm`, and
 support detach (`q`) / reattach (`CONT=yes`).
+Generations boards travel as the rule's gray levels, and their alive
+counts and cells are the firing ones (state 1, pixel 255).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from gol_tpu_torch.engine import (
     resolve_device,
 )
 from gol_tpu_torch.io.pgm import input_path, output_path, read_pgm, write_pgm
+from gol_tpu_torch.models.generations import GenerationsRule, gray_levels
 from gol_tpu_torch.params import Params
 from gol_tpu_torch.utils.cell import alive_cells_from_board
 from gol_tpu_torch.utils.envcfg import env_int
@@ -108,6 +111,13 @@ def distributor(
     try:
         if engine is None:
             engine = _resolve_engine(rule, device)
+        # The rule family's io: PGM value levels (the Generations gray
+        # encoding, else the strict {0,255}); the firing cells are the
+        # 255 pixels for every family. The engine's own rule decides, so
+        # a detached board resumed under CONT=yes keeps its encoding.
+        pgm_levels = None
+        if isinstance(engine._rule, GenerationsRule):
+            pgm_levels = tuple(gray_levels(engine._rule).tolist())
     except BaseException:
         done.set()
         events_q.put(ev.CLOSE)
@@ -125,7 +135,7 @@ def distributor(
                 if key == "s":
                     world, turn = engine.get_world()
                     fname = output_path(width, height, turn, out_dir)
-                    write_pgm(fname, world)
+                    write_pgm(fname, world, levels=pgm_levels)
                     events_q.put(ev.ImageOutputComplete(
                         turn, os.path.basename(fname)))
                 elif key == "p":
@@ -204,7 +214,7 @@ def distributor(
             turns_left = max(p.turns - start_turn, 0)
         else:
             src = input_path(width, height, images_dir)
-            world = read_pgm(src)
+            world = read_pgm(src, levels=pgm_levels)
             if world.shape != (height, width):
                 raise ValueError(
                     f"{src}: image is {world.shape[1]}x{world.shape[0]} "
@@ -221,7 +231,7 @@ def distributor(
             final_world, final_turn = world, start_turn
 
         # -- finalize (`:187-226`) ----------------------------------------
-        # The final event carries the alive-cell set; beyond
+        # The final event carries the alive (firing) cell set; beyond
         # GOL_MAX_EVENT_CELLS cells only the count travels (a 65536²
         # board's ~10^9 coordinate tuples would exhaust memory).
         max_event_cells = env_int("GOL_MAX_EVENT_CELLS", 1 << 24, minimum=0)
@@ -234,7 +244,7 @@ def distributor(
             count = int((final_world == 255).sum())
         events_q.put(ev.FinalTurnComplete(final_turn, alive, count))
         fname = output_path(width, height, final_turn, out_dir)
-        write_pgm(fname, final_world)
+        write_pgm(fname, final_world, levels=pgm_levels)
         events_q.put(
             ev.ImageOutputComplete(final_turn, os.path.basename(fname)))
         if killed_by_key.is_set():

@@ -1,6 +1,7 @@
 """The single-device engine: holds (board, turn) on one device and steps
 it in chunks — the counterpart of `gol_tpu/engine.py`'s `Engine` for the
-life-like `packed` and `u8` representations.
+life-like `packed` and `u8` representations and the Generations `gen3`
+(stacked packed planes) and `gen8` (uint8 states) representations.
 
 Control protocol (reference `Server/gol/distributor.go:54-83`):
 
@@ -13,9 +14,10 @@ Control protocol (reference `Server/gol/distributor.go:54-83`):
 Chunks are powers of two, sized so one chunk takes about
 CHUNK_TARGET_SECONDS, and up to PIPELINE_DEPTH chunks are in flight on
 the device's stream. Each chunk ends with its completion token, the alive
-count: per-row counts (int32, K3 on the card) summed in int64 on the
-device and copied without blocking into pinned host memory, with a CUDA
-event recorded after the copy. Popping the oldest chunk waits on its
+count (for Generations, the firing count: cells in state 1): per-row
+counts (int32, K3 on the card) summed in int64 on the device and copied
+without blocking into pinned host memory, with a CUDA event recorded
+after the copy. Popping the oldest chunk waits on its
 event alone and publishes its exact (alive, turn) pair, which
 `alive_count` then returns without touching the device.
 
@@ -35,7 +37,14 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gol_tpu_torch.models.lifelike import CONWAY, LifeLikeRule
+from gol_tpu_torch.models.generations import (
+    GenerationsRule,
+    from_pixels_gen,
+    gray_levels,
+    pack_state3,
+    to_pixels_gen,
+)
+from gol_tpu_torch.models.lifelike import CONWAY
 from gol_tpu_torch.ops.bitpack import (
     WORD_BITS,
     pack_np,
@@ -47,7 +56,10 @@ from gol_tpu_torch.ops.bitpack import (
 from gol_tpu_torch.ops.cuda_stencil import row_popcounts
 from gol_tpu_torch.ops.stencil import row_alive_counts
 from gol_tpu_torch.params import Params
-from gol_tpu_torch.parallel.halo import select_representation
+from gol_tpu_torch.parallel.halo import (
+    select_generations_representation,
+    select_representation,
+)
 from gol_tpu_torch.utils.envcfg import env_float, env_int
 
 # Control-flag wire values (reference Cf.Flag).
@@ -113,6 +125,38 @@ def _block_max(px: torch.Tensor, fy: int, fx: int) -> torch.Tensor:
     hp, wp = -(-h // fy) * fy, -(-w // fx) * fx
     px = torch.nn.functional.pad(px, (0, wp - w, 0, hp - h))
     return px.reshape(hp // fy, fy, wp // fx, fx).amax(dim=(1, 3))
+
+
+def _or_rows(words: torch.Tensor, f: int) -> torch.Tensor:
+    """(H, Wp) words -> (ceil(H/f), Wp): bitwise OR over each f-row band
+    (a max would lose bits)."""
+    h, wp = words.shape
+    hp = -(-h // f) * f
+    rows = torch.nn.functional.pad(words, (0, 0, 0, hp - h))
+    rows = rows.reshape(hp // f, f, wp)
+    band = rows[:, 0]
+    for i in range(1, f):
+        band = band | rows[:, i]
+    return band
+
+
+def _firing_row_counts(cells: torch.Tensor, repr_: str) -> torch.Tensor:
+    """(H,) int32 per-row counts of the firing population, per repr:
+    K3 popcounts for `packed` and for `gen3`'s alive plane, state == 1
+    for `gen8`, sums for {0,1} `u8`."""
+    if repr_ == "packed":
+        return row_popcounts(cells)
+    if repr_ == "gen3":
+        return row_popcounts(cells[0])
+    if repr_ == "gen8":
+        return (cells == 1).sum(dim=-1, dtype=torch.int32)
+    return row_alive_counts(cells)
+
+
+def _board_width(cells: torch.Tensor, repr_: str) -> int:
+    """Width in cells (the packed reprs hold 32 cells per word)."""
+    w = cells.shape[-1]
+    return w * WORD_BITS if repr_ in ("packed", "gen3") else w
 
 
 def _next_chunk(chunk: int, remaining: int) -> int:
@@ -208,11 +252,13 @@ class Engine(ControlFlagProtocol):
     """Holds (board, turn) across runs — the detach/resume contract
     (reference broker globals `world`/`turn`, and `CONT=yes`)."""
 
-    def __init__(self, device=None, rule: LifeLikeRule = CONWAY) -> None:
+    def __init__(self, device=None, rule=CONWAY) -> None:
         self._device = resolve_device(device)
-        self._rule = rule
+        self._rule = rule  # a LifeLikeRule or a GenerationsRule
         self._state_lock = threading.Lock()
-        # "packed": int32 words (H, W/32); "u8": {0,1} uint8 (H, W).
+        # "packed": int32 words (H, W/32); "u8": {0,1} uint8 (H, W);
+        # "gen3": stacked int32 (alive, dying) planes (2, H, W/32);
+        # "gen8": uint8 states (H, W).
         self._cells: Optional[torch.Tensor] = None
         self._repr = "u8"
         self._turn = 0
@@ -251,24 +297,37 @@ class Engine(ControlFlagProtocol):
         start_turn: int = 0,
         token: Optional[str] = None,
     ) -> Tuple[np.ndarray, int]:
-        """Blocking run: evolve the (H, W) pixel board `world` (any nonzero
-        pixel is alive; `gol_tpu`'s `Engine.get_world()` result carries
-        over as is) for `params.turns` turns, honouring control flags
-        between chunks. Returns ({0,255} board, completed turn).
+        """Blocking run: evolve the (H, W) pixel board `world` for
+        `params.turns` turns, honouring control flags between chunks.
+        Life-like: any nonzero pixel is alive; returns ({0,255} board,
+        completed turn). Generations: pixels are the rule's gray levels
+        (`gray_levels`); returns the gray board. `gol_tpu`'s
+        `Engine.get_world()` result carries over as is for both.
         `sub_workers` is accepted for API parity; the port runs one
         device."""
         self._check_alive()
         if self._running:
             raise EngineBusy("engine already running a board")
         height, width = world.shape
-        packed, run = select_representation(width)
-        repr_ = "packed" if packed else "u8"
-        alive0 = int(np.count_nonzero(world))
-        if packed:
-            cells = words_from_numpy(pack_np(world), self._device)
+        if isinstance(self._rule, GenerationsRule):
+            state = from_pixels_gen(world, self._rule)
+            alive0 = int(np.count_nonzero(state == 1))
+            repr_, run = select_generations_representation(
+                width, self._rule)
+            if repr_ == "gen3":
+                cells = pack_state3(state, self._device)
+            else:
+                cells = torch.from_numpy(state).to(self._device)
         else:
-            cells = torch.from_numpy(
-                (np.asarray(world) != 0).astype(np.uint8)).to(self._device)
+            packed, run = select_representation(width)
+            repr_ = "packed" if packed else "u8"
+            alive0 = int(np.count_nonzero(world))
+            if packed:
+                cells = words_from_numpy(pack_np(world), self._device)
+            else:
+                cells = torch.from_numpy(
+                    (np.asarray(world) != 0).astype(np.uint8)).to(
+                        self._device)
         with self._state_lock:
             if self._running:
                 raise EngineBusy("engine already running a board")
@@ -288,9 +347,7 @@ class Engine(ControlFlagProtocol):
         """Issue one chunk and its alive token; returns (cells, host
         count, event). On the CPU the count is ready and event is None."""
         out = run(cells, k, self._rule)
-        rows = (row_popcounts(out) if self._repr == "packed"
-                else row_alive_counts(out))
-        total = rows.sum(dtype=torch.int64)
+        total = _firing_row_counts(out, self._repr).sum(dtype=torch.int64)
         if self._device.type != "cuda":
             return out, total, None
         host = torch.empty((), dtype=torch.int64, pin_memory=True)
@@ -396,11 +453,12 @@ class Engine(ControlFlagProtocol):
                 _pop_oldest()
             with self._state_lock:
                 final_cells, final_turn = self._cells, self._turn
+                final_repr = self._repr
                 self._chunk_hints[hint_key] = chunk
                 self._running = False
                 self._run_token = None
                 self._abort.clear()
-        return self._materialize(final_cells), final_turn
+        return self._materialize(final_cells, final_repr), final_turn
 
     def alive_count(self) -> Tuple[int, int]:
         """(alive, completed turn), a coherent pair: the pair published at
@@ -415,11 +473,12 @@ class Engine(ControlFlagProtocol):
         return pub
 
     def get_world(self) -> Tuple[np.ndarray, int]:
-        """({0,255} board snapshot, completed turn) (ref `Server:62-67`)."""
+        """(pixel board snapshot, completed turn) (ref `Server:62-67`):
+        {0,255} for life-like rules, gray levels for Generations."""
         self._check_alive()
         with self._state_lock:
-            cells, turn = self._cells, self._turn
-        return self._materialize(cells), turn
+            cells, turn, repr_ = self._cells, self._turn, self._repr
+        return self._materialize(cells, repr_), turn
 
     def get_view(
         self, max_cells: int
@@ -428,37 +487,48 @@ class Engine(ControlFlagProtocol):
         full board when it fits `max_cells` (or `max_cells` <= 0), else a
         block-brightest reduction made on the device, so only the view
         crosses to the host. View pixel (vy, vx) covers board rows
-        [vy*f, (vy+1)*f) x columns [vx*f, (vx+1)*f) and is lit iff any
-        cell there is. Packed words are OR-reduced over each f-row band
-        before unpacking, so no unpacked board is ever made."""
+        [vy*f, (vy+1)*f) x columns [vx*f, (vx+1)*f) and holds the
+        brightest pixel there: lit iff any cell is alive for life-like
+        boards, the firing state over the dying grays for Generations.
+        Packed words are OR-reduced over each f-row band before
+        unpacking, so no unpacked board is ever made."""
         self._check_alive()
         with self._state_lock:
             cells, turn, repr_ = self._cells, self._turn, self._repr
         if cells is None:
             raise RuntimeError("no board loaded")
-        h, w = cells.shape
-        if repr_ == "packed":
-            w *= WORD_BITS
+        h, w = cells.shape[-2], _board_width(cells, repr_)
         if max_cells <= 0 or h * w <= max_cells:
-            return self._materialize(cells), turn, (1, 1)
+            return self._materialize(cells, repr_), turn, (1, 1)
         f = view_factor(h, w, max_cells)
         if repr_ == "packed":
-            hp = -(-h // f) * f
-            rows = torch.nn.functional.pad(cells, (0, 0, 0, hp - h))
-            rows = rows.reshape(hp // f, f, cells.shape[1])
-            band = rows[:, 0]
-            for i in range(1, f):
-                band = band | rows[:, i]
-            view = _block_max(unpack(band), 1, f)
-        else:
-            view = _block_max(cells, f, f)
-        return view.cpu().numpy() * np.uint8(255), turn, (f, f)
+            view = _block_max(unpack(_or_rows(cells, f)), 1, f) * 255
+        elif repr_ == "u8":
+            view = _block_max(cells, f, f) * 255
+        elif repr_ == "gen8":
+            levels = torch.from_numpy(gray_levels(self._rule)).to(
+                cells.device)
+            view = _block_max(levels[cells.long()], f, f)
+        else:  # gen3: firing blocks at 255, else dying at its gray
+            a = _block_max(unpack(_or_rows(cells[0], f)), 1, f)
+            d = _block_max(unpack(_or_rows(cells[1], f)), 1, f)
+            dying = int(gray_levels(self._rule)[2])
+            view = torch.maximum(a * 255, d * dying)
+        return view.cpu().numpy(), turn, (f, f)
 
-    def _materialize(self, cells: Optional[torch.Tensor]) -> np.ndarray:
-        """Device board -> host {0,255} pixels (waits for the board)."""
+    def _materialize(self, cells: Optional[torch.Tensor],
+                     repr_: str) -> np.ndarray:
+        """Device board -> host pixels (waits for the board): {0,255}
+        for life-like reprs, the rule's gray levels for Generations."""
         if cells is None:
             raise RuntimeError("no board loaded")
-        if self._repr == "packed":
+        if repr_ == "gen3":
+            a, d = (unpack_np(words_to_numpy(p)) for p in cells)
+            a += 2 * d
+            return to_pixels_gen(a, self._rule)
+        if repr_ == "gen8":
+            return to_pixels_gen(cells.cpu().numpy(), self._rule)
+        if repr_ == "packed":
             px = unpack_np(words_to_numpy(cells))
         else:
             px = cells.cpu().numpy().astype(np.uint8)
@@ -471,8 +541,8 @@ class Engine(ControlFlagProtocol):
         with self._state_lock:
             shape = None
             if self._cells is not None:
-                h, w = self._cells.shape
-                shape = [h, w * WORD_BITS if self._repr == "packed" else w]
+                shape = [self._cells.shape[-2],
+                         _board_width(self._cells, self._repr)]
             pub = self._alive_pub
             return {
                 "turn": self._turn,

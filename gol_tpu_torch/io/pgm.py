@@ -6,7 +6,8 @@ ported). Contracts preserved:
 * input path  `images/{W}x{H}.pgm`
 * output path `out/{W}x{H}x{TURN}.pgm`
 * P5 binary, maxval MUST be 255
-* payload bytes strictly {0, 255}
+* payload bytes strictly {0, 255}, or the gray levels `levels=` names
+  (the Generations encoding, `models/generations.gray_levels`)
 """
 
 from __future__ import annotations
@@ -50,10 +51,25 @@ def _read_token(buf: bytes, pos: int) -> tuple[bytes, int]:
     return buf[start:pos], pos
 
 
-def read_pgm(path: str) -> np.ndarray:
-    """Read a P5 PGM into an (H, W) uint8 array of {0, 255}: the header is
-    tokenized, then exactly W*H payload bytes are taken after the single
-    whitespace byte that ends it."""
+def _allowed(levels) -> tuple:
+    return (0, MAXVAL) if levels is None else \
+        tuple(sorted({int(v) for v in levels}))
+
+
+def _count_outside(board: np.ndarray, allowed: tuple) -> int:
+    """Cells whose byte is not in `allowed`. Sequential count_nonzero
+    passes: one transient bool temporary at a time, which matters for
+    the 4 GB pixels of a 65536² board."""
+    return int(board.size
+               - sum(np.count_nonzero(board == v) for v in allowed))
+
+
+def read_pgm(path: str, levels=None) -> np.ndarray:
+    """Read a P5 PGM into an (H, W) uint8 array of {0, 255}, or of the
+    byte values in `levels` when given: the header is tokenized, then
+    exactly W*H payload bytes are taken after the single whitespace byte
+    that ends it."""
+    allowed = _allowed(levels)
     with open(path, "rb") as f:
         buf = f.read()
     magic, pos = _read_token(buf, 0)
@@ -75,27 +91,25 @@ def read_pgm(path: str) -> np.ndarray:
             f"got {len(payload)}"
         )
     board = np.frombuffer(payload, dtype=np.uint8).reshape(height, width)
-    bad = int(board.size - np.count_nonzero(board == 0)
-              - np.count_nonzero(board == MAXVAL))
+    bad = _count_outside(board, allowed)
     if bad:
-        raise ValueError(f"{path}: {bad} cells not in {{0, {MAXVAL}}}")
+        raise ValueError(f"{path}: {bad} cells not in {set(allowed)}")
     return board.copy()
 
 
-def write_pgm(path: str, board: np.ndarray) -> None:
-    """Write an (H, W) uint8 {0, 255} board as P5, atomically: a tmp file
-    per writer (pid + thread), fsync, then rename — readers see either the
-    complete old file or the complete new one."""
+def write_pgm(path: str, board: np.ndarray, levels=None) -> None:
+    """Write an (H, W) uint8 {0, 255} board (or one of the byte values in
+    `levels`) as P5, atomically: a tmp file per writer (pid + thread),
+    fsync, then rename — readers see either the complete old file or the
+    complete new one."""
     if board.dtype != np.uint8 or board.ndim != 2:
         raise ValueError(f"board must be 2-D uint8, got {board.dtype} "
                          f"shape {board.shape}")
-    # Sequential count_nonzero passes: one transient bool temporary at a
-    # time, which matters for the 4 GB pixels of a 65536² board.
-    bad = int(board.size - np.count_nonzero(board == 0)
-              - np.count_nonzero(board == MAXVAL))
+    allowed = _allowed(levels)
+    bad = _count_outside(board, allowed)
     if bad:
         raise ValueError(
-            f"{bad} cells not in {{0, {MAXVAL}}} "
+            f"{bad} cells not in {set(allowed)} "
             "(pass pixels, not {0,1} cells)")
     height, width = board.shape
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

@@ -3,6 +3,8 @@ window and its observability, checkpoint and RLE options.
 
     python -m gol_tpu_torch -w 512 -h 512 --turns 100 --headless
     python -m gol_tpu_torch -w 64 -h 64 --turns 100 --headless --device cpu
+    python -m gol_tpu_torch -w 64 -h 64 --turns 100 --headless --rule /2/3 \
+        --device cpu
 
 Events print as `Completed Turns <n>  <event>`; on a terminal the keys
 s/p/q/k go to the run.
@@ -34,8 +36,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="print events instead of drawing (the port's "
                          "only view)")
     ap.add_argument("--rule", metavar="RULE", default="",
-                    help="life-like rulestring, e.g. 'B36/S23'; default "
-                         "Conway")
+                    help="life-like rulestring, e.g. 'B36/S23', or "
+                         "Generations 'survival/birth/states', e.g. "
+                         "'/2/3' (Brian's Brain) or '345/2/4' (Star "
+                         "Wars); default Conway")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="device of the engine (default cuda)")
     return ap.parse_args(argv)

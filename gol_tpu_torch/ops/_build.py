@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (`csrc/stencil.cu`).
+"""Build and load the port's CUDA kernels (`csrc/stencil.cu`: K1-K5).
 
 `nvcc` compiles the source into a shared library with a plain C interface
 under `build/gol_tpu_torch/` at the repository root, named by a hash of
@@ -56,6 +56,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gol_tiled_sweep.restype = i
     lib.gol_row_popcounts.argtypes = [vp, vp, i, i, i, vp]
     lib.gol_row_popcounts.restype = i
+    lib.gol_tile2p_rows.argtypes = [ip]
+    lib.gol_tile2p_rows.restype = i
+    lib.gol_resident_run_turns2p.argtypes = [vp, vp, i, i, ll, u, u, i, i,
+                                             vp]
+    lib.gol_resident_run_turns2p.restype = i
+    lib.gol_tiled_sweep2p.argtypes = [vp, vp, i, i, i, u, u, i, i, vp]
+    lib.gol_tiled_sweep2p.restype = i
 
 
 def _compile(nvcc: str, target: Path) -> dict:

@@ -159,6 +159,21 @@ def rule_masks(n0, n1, n2, n3, born_set, survive_set,
     return born, survive
 
 
+def gen3_transition(a, d, born, surv):
+    """The 3-state (alive, dying) plane transition given born/survive
+    masks: a' = (~a & ~d & born) | (a & surv);  d' = a & ~surv."""
+    return (~a & ~d & born) | (a & surv), a & ~surv
+
+
+def gen4_transition(b0, b1, born, surv):
+    """The 4-state binary-encoded transition (states 0=00, 1=01 alive,
+    2=10, 3=11; the dying chain 2 -> 3 -> 0 is pure bit logic)."""
+    a = b0 & ~b1
+    dying1 = ~b0 & b1
+    return ((~b0 & ~b1 & born) | (a & surv) | dying1,
+            (a & ~surv) | dying1)
+
+
 def packed_step(packed: torch.Tensor,
                 rule: LifeLikeRule = CONWAY) -> torch.Tensor:
     """One whole-board torus turn on (..., H, Wp) packed words."""

@@ -36,8 +36,31 @@ K3 `row_popcounts` counts live cells per row with `__popc` (one warp per
 row) for the engine's alive token; the JAX package leaves that reduction
 to XLA (`engine.py:158-160`). Bound: one read of the board at 3.35 TB/s.
 
-No single PyTorch call computes a packed life-like step, so no library
-call stands beside K1 or K2.
+K4 `resident_run_turns2p` and K5 `tiled_sweep2p` (driven by
+`banded_run_turns2p`) replace `pallas_packed_run_turns3`
+(pallas_stencil.py:274) and `pallas_packed_run_turns4` (:296), the one
+TPU design `_make_kernel2p` run with two plane transitions. Each takes
+stacked (2, H, Wp) planes and a `family`: "gen3" (alive, dying planes)
+or "gen4" (binary-encoded states), a template argument of the CUDA
+kernel. K4 is K1 with two planes: four board-sized buffers must fit one
+block, so each plane may hold `RESIDENT2P_PLANE_BYTES` = 58,112 bytes
+(512² is 32 KiB), and Wp = 1 is taken (the TPU's wp >= 2 gate has no
+counterpart). K5 is K2 with two planes: two planes x two buffers of a
+(R + 2T) x 64-word window must fit 232,448 bytes, so R + 2T <= 227 and
+R = `TILE2P_ROWS` = 160 rows at T <= 32. The window is 224 x 64 / (160 x
+62) = 1.45 times the tile at T = 32 and the work done (R + T - 1)(C + 2)
+/ (R C) = 1.23 times the useful work. Per word and turn the two-plane
+network spends `OPS_PER_WORD_TURN_2P` ops: the 11-op count, 18 muxes of
+two trees (born from the unshifted leaves, survive from the leaves
+shifted by one for the self-inclusive count) and the transition, 3 ops
+for gen3 and 3 + 3 for gen4 (alive = b0 & ~b1 of each of the three
+words a row load reads). Bound: the ops, at 16.7e12 ops/s, beside 16
+bytes per word per sweep (both planes read and written) at 3.35 TB/s.
+Families run as separate instantiations, so the launch count is kept
+per family too (`by_family`).
+
+No single PyTorch call computes a packed life-like or Generations step,
+so no library call stands beside K1, K2, K4 or K5.
 """
 
 from __future__ import annotations
@@ -55,7 +78,10 @@ from gol_tpu_torch.ops.bitpack import (
     _rule_from_count_bits,
     _shr,
     combine_count_columns,
+    gen3_transition,
+    gen4_transition,
     row_popcounts_plain,
+    rule_masks,
 )
 
 # Shared memory a block can use on Hopper (232,448 bytes); K1 holds two
@@ -69,6 +95,14 @@ TILE_WORDS = 62
 # Shift/logic operations per word per turn of the kernels' network: 11
 # for the self-inclusive count, 19 for the rule (csrc/stencil.cu).
 OPS_PER_WORD_TURN = 30
+# K4: four board-sized planes (two planes, ping-pong) in one block.
+RESIDENT2P_PLANE_BYTES = SMEM_BYTES // 4
+# K5 output rows per tile, mirrored from csrc/stencil.cu (checked at load).
+TILE2P_ROWS = 160
+# The two-plane families and their codes in the C interface.
+FAMILIES = {"gen3": 3, "gen4": 4}
+# Ops per word per turn of the two-plane network (module note).
+OPS_PER_WORD_TURN_2P = {"gen3": 11 + 18 + 3, "gen4": 11 + 18 + 3 + 3}
 
 
 def _self_inclusive_count_bits(p: torch.Tensor, word_axis: int,
@@ -99,6 +133,12 @@ def _step_shared_sums(p: torch.Tensor, rule: LifeLikeRule) -> torch.Tensor:
 def fits_resident(shape) -> bool:
     h, wp = shape[-2], shape[-1]
     return h * wp * 4 <= RESIDENT_BOARD_BYTES
+
+
+def fits_resident2p(shape) -> bool:
+    """Whether each plane of a (2, H, Wp) pair fits K4."""
+    h, wp = shape[-2], shape[-1]
+    return h * wp * 4 <= RESIDENT2P_PLANE_BYTES
 
 
 def cuda_probe() -> str:
@@ -133,20 +173,27 @@ def _library():
     vals = [ctypes.c_int() for _ in range(3)]
     lib.gol_tile_geometry(*[ctypes.byref(v) for v in vals])
     got = tuple(v.value for v in vals)
-    if got != (TILE_MAX_T, TILE_ROWS, TILE_WORDS):
+    rows2p = ctypes.c_int()
+    lib.gol_tile2p_rows(ctypes.byref(rows2p))
+    got += (rows2p.value,)
+    want = (TILE_MAX_T, TILE_ROWS, TILE_WORDS, TILE2P_ROWS)
+    if got != want:
         raise RuntimeError(f"kernel tile geometry {got} != the Python "
-                           f"mirror {(TILE_MAX_T, TILE_ROWS, TILE_WORDS)}")
+                           f"mirror {want}")
     return lib
 
 
-def _kernel_args(words: torch.Tensor, what: str):
-    """Validate a CUDA words tensor; return (lib, h, wp, device, stream)."""
-    if words.dtype != torch.int32 or words.dim() != 2:
-        raise ValueError(f"{what}: want 2-D int32 words, got "
+def _kernel_args(words: torch.Tensor, what: str, planes: bool = False):
+    """Validate a CUDA words tensor, (H, Wp) or with `planes` a stacked
+    (2, H, Wp) pair; return (lib, h, wp, device, stream)."""
+    want = "(2, H, Wp)" if planes else "2-D"
+    if (words.dtype != torch.int32 or words.dim() != (3 if planes else 2)
+            or (planes and words.shape[0] != 2)):
+        raise ValueError(f"{what}: want {want} int32 words, got "
                          f"{words.dtype} {tuple(words.shape)}")
     if not words.is_contiguous():
         raise ValueError(f"{what}: words must be contiguous")
-    h, wp = words.shape
+    h, wp = words.shape[-2:]
     stream = torch.cuda.current_stream(words.device).cuda_stream
     return _library(), h, wp, words.device.index, stream
 
@@ -279,9 +326,143 @@ def row_popcounts(words: torch.Tensor) -> torch.Tensor:
 
 row_popcounts.launches = 0
 
-KERNELS = (resident_run_turns, tiled_sweep, row_popcounts)
+
+# ------------------------------------------------------------ K4 and K5
+
+def _family_code(family: str) -> int:
+    if family not in FAMILIES:
+        raise ValueError(f"two-plane family {family!r} not in "
+                         f"{sorted(FAMILIES)}")
+    return FAMILIES[family]
+
+
+def _step2p_shared_sums(planes: torch.Tensor, rule,
+                        family: str) -> torch.Tensor:
+    """One torus turn of stacked planes (2, ..., rows, words): the
+    self-inclusive count of the alive word, born from it unshifted and
+    survive shifted by one (`count_offset=1`), then the family's
+    transition."""
+    p0, p1 = planes[0], planes[1]
+    alive = p0 if family == "gen3" else p0 & ~p1
+    n0, n1, n2, n3 = _self_inclusive_count_bits(alive, -1, -2)
+    born, surv = rule_masks(n0, n1, n2, n3, rule.born, rule.survive,
+                            count_offset=1)
+    transition = gen3_transition if family == "gen3" else gen4_transition
+    return torch.stack(transition(p0, p1, born, surv))
+
+
+def resident_run_turns2p_plain(planes: torch.Tensor, num_turns: int, rule,
+                               family: str) -> torch.Tensor:
+    """K4's plain version: `num_turns` whole-board turns of both planes."""
+    _family_code(family)
+    for _ in range(num_turns):
+        planes = _step2p_shared_sums(planes, rule, family)
+    return planes
+
+
+def resident_run_turns2p(planes: torch.Tensor, num_turns: int, rule,
+                         family: str) -> torch.Tensor:
+    """Advance stacked (2, H, Wp) planes whose planes fit
+    `RESIDENT2P_PLANE_BYTES` `num_turns` turns in one launch of K4."""
+    code = _family_code(family)
+    if num_turns == 0:
+        return planes
+    if planes.device.type == "cpu":
+        return resident_run_turns2p_plain(planes, num_turns, rule, family)
+    lib, h, wp, dev, stream = _kernel_args(planes, "resident_run_turns2p",
+                                           planes=True)
+    if not fits_resident2p(planes.shape):
+        raise ValueError(f"resident_run_turns2p: planes {h}x{wp} words "
+                         f"exceed {RESIDENT2P_PLANE_BYTES} bytes each")
+    out = torch.empty_like(planes)
+    born, survive = rule.masks()
+    _build.check(lib.gol_resident_run_turns2p(
+        planes.data_ptr(), out.data_ptr(), h, wp, num_turns, born, survive,
+        code, dev, stream), "resident_run_turns2p")
+    resident_run_turns2p.launches += 1
+    resident_run_turns2p.by_family[family] += 1
+    return out
+
+
+def tiled_sweep2p_plain(planes: torch.Tensor, t: int, rule,
+                        family: str) -> torch.Tensor:
+    """K5's plain version: gather every tile's (R + 2t) x (C + 2) window
+    of both planes with modular indices (one batch), step the windows t
+    turns as tori of their own, keep each exact R x C interior and
+    reassemble the planes."""
+    _family_code(family)
+    h, wp = planes.shape[-2:]
+    tr, tc = -(-h // TILE2P_ROWS), -(-wp // TILE_WORDS)
+    rows = _window_indices(h, tr, TILE2P_ROWS, t, TILE2P_ROWS + 2 * t,
+                           planes.device)
+    cols = _window_indices(wp, tc, TILE_WORDS, 1, TILE_WORDS + 2,
+                           planes.device)
+    win = planes[:, rows[:, None, :, None], cols[None, :, None, :]]
+    for _ in range(t):
+        win = _step2p_shared_sums(win, rule, family)
+    core = win[..., t:t + TILE2P_ROWS, 1:1 + TILE_WORDS]
+    return core.permute(0, 1, 3, 2, 4).reshape(
+        2, tr * TILE2P_ROWS, tc * TILE_WORDS)[:, :h, :wp].contiguous()
+
+
+def tiled_sweep2p(planes_in: torch.Tensor, planes_out: torch.Tensor,
+                  t: int, rule, family: str) -> None:
+    """Advance stacked planes `planes_in` t (1..32) turns into
+    `planes_out` in one K5 sweep."""
+    code = _family_code(family)
+    if not 1 <= t <= TILE_MAX_T:
+        raise ValueError(f"tiled_sweep2p depth {t} not in 1..{TILE_MAX_T}")
+    if planes_out.shape != planes_in.shape or planes_out is planes_in:
+        raise ValueError("tiled_sweep2p needs distinct output planes of "
+                         "the input's shape")
+    if planes_in.device.type == "cpu":
+        planes_out.copy_(tiled_sweep2p_plain(planes_in, t, rule, family))
+        return
+    lib, h, wp, dev, stream = _kernel_args(planes_in, "tiled_sweep2p",
+                                           planes=True)
+    if (planes_out.dtype != torch.int32 or not planes_out.is_contiguous()
+            or planes_out.device != planes_in.device):
+        raise ValueError("tiled_sweep2p: output must be contiguous int32 "
+                         "on the input's device")
+    if -(-h // TILE2P_ROWS) > 65535:
+        raise ValueError(f"tiled_sweep2p: {h} rows exceed the launch grid")
+    born, survive = rule.masks()
+    _build.check(lib.gol_tiled_sweep2p(
+        planes_in.data_ptr(), planes_out.data_ptr(), h, wp, t, born,
+        survive, code, dev, stream), "tiled_sweep2p")
+    tiled_sweep2p.launches += 1
+    tiled_sweep2p.by_family[family] += 1
+
+
+def banded_run_turns2p(planes: torch.Tensor, num_turns: int, rule,
+                       family: str) -> torch.Tensor:
+    """Advance stacked planes `num_turns` turns by K5 sweeps:
+    floor(K/32) at depth 32, then one at depth K mod 32. Sweeps alternate
+    between two fresh buffers; the input is never written."""
+    full, rem = divmod(num_turns, TILE_MAX_T)
+    depths = [TILE_MAX_T] * full + ([rem] if rem else [])
+    bufs = []
+    src = planes
+    for i, depth in enumerate(depths):
+        if len(bufs) < 2:
+            bufs.append(torch.empty_like(planes))
+        dst = bufs[i % 2]
+        tiled_sweep2p(src, dst, depth, rule, family)
+        src = dst
+    return src
+
+
+KERNELS = (resident_run_turns, tiled_sweep, row_popcounts,
+           resident_run_turns2p, tiled_sweep2p)
+# The two-plane kernels count launches per family as well.
+KERNELS_2P = (resident_run_turns2p, tiled_sweep2p)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in KERNELS_2P:
+        fn.by_family = dict.fromkeys(FAMILIES, 0)
+
+
+reset_launch_counts()

@@ -1,6 +1,7 @@
-"""Single-device dispatch of the packed board — the counterpart of the
-one-shard path of `gol_tpu/parallel/halo.py`. Row sharding and halo
-exchange are not ported yet (ROADMAP A5).
+"""Single-device dispatch of the packed board and of the Generations
+planes — the counterpart of the one-shard paths of
+`gol_tpu/parallel/halo.py`. Row sharding and halo exchange are not
+ported yet (ROADMAP A5).
 
 The kind depends on the board's shape only; whether a kernel or its plain
 version runs is decided by the tensor's device inside the kernel
@@ -12,8 +13,11 @@ from __future__ import annotations
 from gol_tpu_torch.ops.bitpack import WORD_BITS
 from gol_tpu_torch.ops.cuda_stencil import (
     banded_run_turns,
+    banded_run_turns2p,
     fits_resident,
+    fits_resident2p,
     resident_run_turns,
+    resident_run_turns2p,
 )
 from gol_tpu_torch.ops.stencil import run_turns
 
@@ -43,3 +47,50 @@ def select_representation(width: int):
     if width % WORD_BITS == 0:
         return True, packed_run_turns
     return False, run_turns
+
+
+# ------------------------------------------------- Generations planes
+
+
+def planes_run_kind(shape) -> str:
+    """'resident' (K4, both planes in one block's shared memory) when
+    each plane of the (2, H, Wp) pair fits `RESIDENT2P_PLANE_BYTES`, else
+    'tiled' (K5 sweeps) — the counterpart of `_dispatch_two_planes`'s
+    VMEM gate, from the shape alone."""
+    return "resident" if fits_resident2p(shape) else "tiled"
+
+
+def planes_run_by_kind(kind: str):
+    """The `(planes, num_turns, rule, family) -> planes` stepper."""
+    return {"resident": resident_run_turns2p,
+            "tiled": banded_run_turns2p}[kind]
+
+
+def planes_run_turns(planes, num_turns: int, rule, family: str):
+    """Advance stacked (2, H, Wp) planes of `family` ('gen3' or 'gen4')
+    by the stepper their shape selects."""
+    return planes_run_by_kind(planes_run_kind(planes.shape))(
+        planes, num_turns, rule, family)
+
+
+def gen3_run_turns(stacked, num_turns: int, rule):
+    """The engine's gen3 run: stacked (alive, dying) planes — one shard
+    of `sharded_gen3_run_turns`."""
+    return planes_run_turns(stacked, num_turns, rule, "gen3")
+
+
+def generations_run_turns(state, num_turns: int, rule):
+    """The engine's gen8 run: a uint8 state board — one shard of
+    `sharded_generations_run_turns`, plain torch as in the JAX package."""
+    from gol_tpu_torch.models.generations import run_turns as gen8_run
+
+    return gen8_run(state, num_turns, rule)
+
+
+def select_generations_representation(width: int, rule):
+    """(repr, run_fn): 'gen3' planes for three-state rules on widths that
+    are a whole number of words, else 'gen8' uint8 states (four-state
+    rules included, as the JAX engine runs them)."""
+    if rule.states == 3 and width % WORD_BITS == 0:
+        return "gen3", gen3_run_turns
+    return "gen8", generations_run_turns

@@ -155,7 +155,7 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     cs.tiled_sweep(w, out, 3)
     assert torch.equal(out, cs.tiled_sweep_plain(w, 3))
     assert torch.equal(cs.row_popcounts(w), tbp.row_popcounts_plain(w))
-    assert [fn.launches for fn in cs.KERNELS] == [0, 0, 0]
+    assert [fn.launches for fn in cs.KERNELS] == [0] * len(cs.KERNELS)
 
 
 def test_probe_names_what_is_missing():
