@@ -10,7 +10,8 @@ Phases (each raises on failure; any failure exits non-zero):
 2. the nvcc build of gol_tpu_torch/csrc/stencil.cu;
 3. every kernel against its plain PyTorch version on the card, bit-exact
    (integer boards: tolerance 0), at the main path's shapes and at odd
-   ones (one-word boards, heights shorter than a tile window); the
+   ones (one-word boards, heights shorter than a tile window); K6 at
+   depths 33, 48 and 64 up to 16384², and B3's sweep sequence; the
    two-plane kernels K4/K5 for both Generations families (gen3, gen4)
    up to 16384²;
 4. the main path through `gol_tpu_torch.run` on the default (CUDA)
@@ -21,11 +22,16 @@ Phases (each raises on failure; any failure exits non-zero):
    4b. the Generations path: Brian's Brain through `run` at 512² x 100
    (K4) and 4096² x 1000 (K5), Star Wars through `GenerationsTorus` at
    512² x 64 (K4) and 4096² x 64 (K5), each against the uint8 gen8 plain
-   path on the card. Each path runs with the launch counters at 0, read
-   just after: every kernel (and family) it runs must have launched;
-5. timings at 512², 4096², 5120², 16384² and 65536²: each kernel's ms
-   per launch beside its plain version's and its bound, and engine
-   turns/s (life-like and Brian's Brain).
+   path on the card;
+   4c. the fused path: GOL_FUSE_K=64 at 8192² x 1024 and GOL_FUSE_K=16 at
+   5120² x 1000 through `run`, each against the unfused run's board.
+   Each path runs with the launch counters at 0, read just after: every
+   kernel (and family) it runs must have launched;
+5. timings at 512², 4096², 5120², 8192², 16384², 65536² and 131072²:
+   each kernel's ms per launch beside its plain version's and its bound,
+   B3 `fused_banded_run_turns` at pinned depths 16, 32 and 64, and engine
+   turns/s (life-like, unfused and at GOL_FUSE_K=64 at 65536², and
+   Brian's Brain).
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -154,8 +160,7 @@ def phase_kernels(torch, dev) -> None:
         w = seeded_words(torch, h, wp, h + turns, dev)
         got = cs.banded_run_turns(w, turns)
         want = w
-        for depth in [cs.TILE_MAX_T] * (turns // 32) + (
-                [turns % 32] if turns % 32 else []):
+        for depth in cs.sweep_depths(turns, cs.TILE_MAX_T):
             want = cs.tiled_sweep_plain(want, depth)
         check_equal(torch, f"K2 {h}x{wp}w {turns} turns", got, want,
                     "tiled_sweep")
@@ -174,6 +179,7 @@ def phase_kernels(torch, dev) -> None:
     got = cs.banded_run_turns(w, 32)
     check_equal(torch, "K2 65536x2048w 32 turns", got,
                 cs.tiled_sweep_plain(w, 32), "tiled_sweep")
+    phase_kernels_deep(torch, dev)
     phase_kernels_2p(torch, dev)
     # K3: row popcounts.
     for (h, wp) in [(64, 2), (512, 16), (33, 1), (5120, 160),
@@ -182,6 +188,43 @@ def phase_kernels(torch, dev) -> None:
         check_equal(torch, f"K3 {h}x{wp}w", cs.row_popcounts(w),
                     bitpack.row_popcounts_plain(w), "row_popcounts")
     del w, got
+
+
+def phase_kernels_deep(torch, dev) -> None:
+    """K6 at depths 33..64 against its plain version and the whole-board
+    scan, on short and odd boards, and B3's sweep sequence."""
+    from gol_tpu_torch.models.lifelike import CONWAY, HIGHLIFE, SEEDS
+    from gol_tpu_torch.ops import bitpack, cuda_stencil as cs
+
+    for (h, wp) in [(64, 128), (5120, 160), (16384, 512)]:
+        w = seeded_words(torch, h, wp, 3 * h + wp, dev)
+        for t in (33, 48, 64):
+            out = torch.empty_like(w)
+            cs.tiled_sweep_deep(w, out, t)
+            check_equal(torch, f"K6 {h}x{wp}w T={t}", out,
+                        cs.tiled_sweep_deep_plain(w, t), "tiled_sweep_deep")
+            check_equal(torch, f"K6 {h}x{wp}w T={t} vs whole board", out,
+                        bitpack.packed_run_turns(w, t), "tiled_sweep_deep")
+    for (h, wp) in [(1, 1), (3, 1), (7, 5), (321, 61), (1000, 200)]:
+        w = seeded_words(torch, h, wp, 13 * h + wp, dev)
+        for t, rule in ((1, CONWAY), (33, HIGHLIFE), (64, SEEDS)):
+            out = torch.empty_like(w)
+            cs.tiled_sweep_deep(w, out, t, rule)
+            check_equal(torch, f"K6 {h}x{wp}w T={t} {rule.rulestring}",
+                        out, bitpack.packed_run_turns(w, t, rule),
+                        "tiled_sweep_deep")
+    w = seeded_words(torch, 5120, 160, 7, dev)
+    for k in (16, 48, 64):
+        want = w
+        for depth in cs.sweep_depths(2 * k + 5, k):
+            plain = (cs.tiled_sweep_plain if depth <= cs.TILE_MAX_T
+                     else cs.tiled_sweep_deep_plain)
+            want = plain(want, depth)
+        check_equal(torch, f"B3 5120x160w k={k} {2 * k + 5} turns",
+                    cs.fused_banded_run_turns(w, 2 * k + 5, k), want,
+                    "tiled_sweep_deep" if k > cs.TILE_MAX_T
+                    else "tiled_sweep")
+    del w, out, want
 
 
 def phase_kernels_2p(torch, dev) -> None:
@@ -210,8 +253,7 @@ def phase_kernels_2p(torch, dev) -> None:
                                (16384, 512, 32), (16384, 512, 36)]:
             p = seeded_planes(torch, h, wp, fam, h + turns, dev)
             want = p
-            for depth in [cs.TILE_MAX_T] * (turns // 32) + (
-                    [turns % 32] if turns % 32 else []):
+            for depth in cs.sweep_depths(turns, cs.TILE_MAX_T):
                 want = cs.tiled_sweep2p_plain(want, depth, rule, fam)
             check_equal(torch, f"K5 {fam} {h}x{wp}w {turns} turns",
                         cs.banded_run_turns2p(p, turns, rule, fam), want, k5)
@@ -313,6 +355,53 @@ def phase_main_path(torch, dev) -> None:
             raise AssertionError("5120² x 1000: board != plain version")
         log("  ok 5120² x 1000: final board equals the plain version")
         check_controls(images, out)
+
+
+def phase_fused(torch, dev) -> None:
+    """Temporal fusion through `gol_tpu_torch.run`: GOL_FUSE_K=64 at
+    8192² x 1024 (K6 sweeps, K2 for shallower chunks) and GOL_FUSE_K=16 at
+    5120² x 1000 (K2 at depth 16), each against the unfused run's board."""
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.io.pgm import read_pgm, write_pgm
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    log("phase 4c: fused path (GOL_FUSE_K) through gol_tpu_torch.run")
+    with tempfile.TemporaryDirectory() as tmp:
+        seed_dir = os.path.join(tmp, "images")
+        for size, turns, k in ((8192, 1024, 64), (5120, 1000, 16)):
+            rng = np.random.default_rng(size + k)
+            board = np.where(rng.random((size, size)) < 0.3, 255,
+                             0).astype(np.uint8)
+            write_pgm(os.path.join(seed_dir, f"{size}x{size}.pgm"), board)
+            del board
+            boards, deltas = {}, {}
+            for fuse in (str(k), None):
+                if fuse is None:
+                    os.environ.pop("GOL_FUSE_K", None)
+                else:
+                    os.environ["GOL_FUSE_K"] = fuse
+                before = main_path_launches(cs)
+                out = os.path.join(tmp, f"out_{fuse}")
+                try:
+                    drive(Params(image_width=size, image_height=size,
+                                 turns=turns), seed_dir, out)
+                finally:
+                    os.environ.pop("GOL_FUSE_K", None)
+                after = main_path_launches(cs)
+                deltas[fuse] = {n: after[n] - before[n] for n in after
+                                if after[n] != before[n]}
+                boards[fuse] = read_pgm(os.path.join(
+                    out, f"{size}x{size}x{turns}.pgm"))
+            if not np.array_equal(boards[str(k)], boards[None]):
+                raise AssertionError(f"{size}² x {turns} GOL_FUSE_K={k}: "
+                                     "board != the unfused run's")
+            fused = deltas[str(k)]
+            deep = fused.get("tiled_sweep_deep", 0)
+            if (deep > 0) != (k > cs.TILE_MAX_T) or not fused.get(
+                    "tiled_sweep", 0):
+                raise AssertionError(f"GOL_FUSE_K={k} launched {fused}")
+            log(f"  ok {size}² x {turns} GOL_FUSE_K={k}: board equals the "
+                f"unfused run's; launches {fused}, unfused {deltas[None]}")
 
 
 def gen8_plain(torch, dev, state: np.ndarray, turns: int, rule):
@@ -426,16 +515,20 @@ def check_controls(images: str, out: str) -> None:
         f"{latency:.3f} s at turn {final.completed_turns}")
 
 
-def engine_rate(torch, world: np.ndarray, seconds: float, rule=None):
+def engine_rate(torch, world: np.ndarray, seconds: float, rule=None,
+                fuse=None):
     """(turns/s, median alive_count() µs, max gap s between publications,
     last chunk in turns) of a CUDA engine on `world` (under `rule`, Conway
-    by default), from the pairs it publishes."""
+    by default; at GOL_FUSE_K=`fuse` when given), from the pairs it
+    publishes."""
     from gol_tpu_torch import Params
     from gol_tpu_torch.engine import Engine, FLAG_QUIT
 
     eng = Engine() if rule is None else Engine(rule=rule)
     h, w = world.shape
     failed = []
+    if fuse is not None:
+        os.environ["GOL_FUSE_K"] = str(fuse)
 
     def target() -> None:
         try:
@@ -462,6 +555,7 @@ def engine_rate(torch, world: np.ndarray, seconds: float, rule=None):
             break
         time.sleep(0.0005)
     t.join()
+    os.environ.pop("GOL_FUSE_K", None)
     if failed:
         raise failed[0]
     chunk = eng.stats()["chunk"]
@@ -517,23 +611,31 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     engine = []
-    for size, seconds in ((512, 3.0), (5120, 3.0), (65536, 6.0)):
+    # 65536² runs unfused, then at GOL_FUSE_K=64 on the same board.
+    for size, seconds, fuses in ((512, 3.0, (None,)), (5120, 3.0, (None,)),
+                                 (65536, 6.0, (None, 64))):
         words = seeded_words(torch, size, size // 32, 3, dev)
         world = bitpack.unpack_np(bitpack.words_to_numpy(words))
         del words
         world *= 255
-        rate, poll_us, gap, chunk = engine_rate(torch, world, seconds)
+        for fuse in fuses:
+            rate, poll_us, gap, chunk = engine_rate(torch, world, seconds,
+                                                    fuse=fuse)
+            engine.append(dict(size=size, fuse_k=fuse, card=card.smi,
+                               turns_per_s=rate,
+                               cell_updates_per_s=rate * size * size,
+                               alive_count_us=poll_us,
+                               max_publish_gap_s=gap, chunk_turns=chunk))
+            log(f"  engine {size}²{f' GOL_FUSE_K={fuse}' if fuse else ''}: "
+                f"{rate:.1f} turns/s ({rate * size * size:.4g} cell "
+                f"updates/s), alive_count() {poll_us:.2f} µs median, "
+                f"publications at most {gap:.3f} s apart, chunk {chunk} "
+                "turns")
         del world
-        engine.append(dict(size=size, card=card.smi, turns_per_s=rate,
-                           cell_updates_per_s=rate * size * size,
-                           alive_count_us=poll_us, max_publish_gap_s=gap,
-                           chunk_turns=chunk))
-        log(f"  engine {size}²: {rate:.1f} turns/s "
-            f"({rate * size * size:.4g} cell updates/s), alive_count() "
-            f"{poll_us:.2f} µs median, publications at most {gap:.3f} s "
-            f"apart, chunk {chunk} turns")
     engine += engine_rates_generations(torch, dev, card)
     log("engine:" + json.dumps(engine))
+    deep, b3 = timing_deep(torch, dev, card, rows["tiled_sweep"])
+    rows["tiled_sweep_deep"] = deep
     rows.update(timing_2p(torch, dev, card))
 
     meta = {
@@ -541,6 +643,8 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
                                "512x512"),
         "tiled_sweep": ("gol_tpu/ops/pallas_stencil.py:388", "65536x65536"),
         "row_popcounts": ("gol_tpu/engine.py:158", "65536x65536"),
+        "tiled_sweep_deep": ("gol_tpu/ops/pallas_stencil.py:474",
+                             "65536x65536"),
     }
     for fam, line in (("gen3", 274), ("gen4", 296)):
         tpu = f"gol_tpu/ops/pallas_stencil.py:{line}"
@@ -560,7 +664,67 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
             turns=head["turns"], ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=None, by_shape=rs))
+        if name == "tiled_sweep_deep":
+            kernels[-1]["fused_banded_run_turns"] = b3
     return kernels
+
+
+def timing_deep(torch, dev, card: Card, k2_rows: list):
+    """K6 (one 64-turn sweep) at 8192², 65536² and 131072² (2 GiB packed)
+    beside K2's 32-turn sweep, and B3 `fused_banded_run_turns` over 128
+    turns at pinned depths 16, 32 and 64; each beside its bound. The
+    plain versions are timed where their windows fit the card: K6 up to
+    65536², B3 at 8192²."""
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    ops = cs.OPS_PER_WORD_TURN
+    deep, b3 = [], []
+    for (h, wp) in [(8192, 256), (65536, 2048), (131072, 4096)]:
+        reps = 2 if h > 65536 else 5
+        w = seeded_words(torch, h, wp, 4, dev)
+        o = torch.empty_like(w)
+        ms = time_ms(torch, lambda: cs.tiled_sweep_deep(w, o, 64), reps)
+        plain = (time_ms(torch, lambda: cs.tiled_sweep_deep_plain(w, 64), 1)
+                 if h <= 65536 else None)
+        b, by = card.bound(8 * h * wp, ops * 64 * h * wp)
+        deep.append(dict(shape=f"{h}x{wp * 32}", turns=64, ms=ms,
+                         plain_ms=plain, bound_ms=b, bound_by=by))
+        if h != 65536:  # K2's 65536² sweep is timed with K1-K3
+            k2 = time_ms(torch, lambda: cs.tiled_sweep(w, o, 32), reps)
+            b2, by2 = card.bound(8 * h * wp, ops * 32 * h * wp)
+            k2_rows.append(dict(shape=f"{h}x{wp * 32}", turns=32, ms=k2,
+                                plain_ms=None, bound_ms=b2, bound_by=by2))
+        del o
+        for k in (16, 32, 64):
+            ms = time_ms(torch, lambda: cs.fused_banded_run_turns(
+                w, 128, k), reps)
+            plain = None
+            if h == 8192:
+                def composed():
+                    x = w
+                    for depth in cs.sweep_depths(128, k):
+                        x = (cs.tiled_sweep_plain if depth <= cs.TILE_MAX_T
+                             else cs.tiled_sweep_deep_plain)(x, depth)
+                    return x
+                plain = time_ms(torch, composed, 1)
+            b, by = card.bound(8 * h * wp, ops * 128 * h * wp)
+            b3.append(dict(shape=f"{h}x{wp * 32}", turns=128, fuse_k=k,
+                           ms=ms, plain_ms=plain, bound_ms=b, bound_by=by))
+        del w
+        torch.cuda.empty_cache()
+    for name, rs in (("tiled_sweep_deep", deep),
+                     ("fused_banded_run_turns", b3)):
+        for r in rs:
+            plain = ("not measured" if r["plain_ms"] is None
+                     else f"{r['plain_ms']:.4f} ms")
+            log(f"  {name} {r['shape']} turns={r['turns']}"
+                f"{' k=%d' % r['fuse_k'] if 'fuse_k' in r else ''}: "
+                f"{r['ms']:.4f} ms/call, plain {plain}, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for r in k2_rows[-2:]:
+        log(f"  tiled_sweep {r['shape']} turns=32: {r['ms']:.4f} ms/launch, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return deep, b3
 
 
 def engine_rates_generations(torch, dev, card: Card) -> list:
@@ -678,7 +842,9 @@ def main() -> int:
                                  "resident_run_turns2p/gen3",
                                  "resident_run_turns2p/gen4",
                                  "tiled_sweep2p/gen3",
-                                 "tiled_sweep2p/gen4"))):
+                                 "tiled_sweep2p/gen4")),
+            (phase_fused, ("tiled_sweep_deep", "tiled_sweep",
+                           "row_popcounts"))):
         cs.reset_launch_counts()
         phase(torch, dev)
         counts = main_path_launches(cs)

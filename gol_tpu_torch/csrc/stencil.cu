@@ -23,6 +23,9 @@
 // Kernels and the TPU kernels they replace:
 //   resident_run_turns  <- pallas_packed_run_turns (pallas_stencil.py:508)
 //   tiled_sweep         <- _banded_pass (pallas_stencil.py:388)
+//   tiled_sweep_deep    <- fused_banded_run_turns (pallas_stencil.py:474),
+//                          whose k-deep _banded_pass sweeps reach k = 64:
+//                          the tiled sweep with a two-word halo
 //   row_popcounts       <- the alive token's popcount reduction, which the
 //                          JAX package leaves to XLA (engine.py:158-160)
 //   resident2p_kernel   <- pallas_packed_run_turns3 (pallas_stencil.py:274)
@@ -42,12 +45,19 @@
 
 namespace {
 
-// tiled_sweep geometry; ops/cuda_stencil.py mirrors these constants.
-constexpr int kTileMaxT = 32;      // deepest sweep: one halo word a side
-constexpr int kTileRows = 384;     // R: output rows per block
-constexpr int kWinWords = 64;      // C + 2: window words per row
-constexpr int kTileWords = kWinWords - 2;  // C: output words per block
+// Tiled sweep geometry; ops/cuda_stencil.py mirrors these constants.
+// A sweep of depth t needs t cells of horizontal halo, so the halo width
+// in words sets the deepest sweep: 32 for one word (K2), 64 for two (K6).
+constexpr int kWinWords = 64;      // window words per row, halo included
 constexpr int kTileSegments = 8;   // threads down each window column
+constexpr int kTileMaxT = 32;      // K2: one halo word a side
+constexpr int kTileRows = 384;     // K2 R: output rows per block
+constexpr int kTileWords = kWinWords - 2;  // K2 C: output words per block
+// K6: two buffers of (R + 2 x 64) x 64 words must fit 232,448 bytes, so
+// R <= 326; R = 320 uses 229,376.
+constexpr int kDeepMaxT = 64;
+constexpr int kDeepRows = 320;
+constexpr int kDeepWords = kWinWords - 4;
 // tiled2p (two planes, two buffers): 4 x (R + 2T) x 64 words must fit
 // 232,448 bytes, so R + 2T <= 227; R = 160 leaves T = 32.
 constexpr int kTile2pRows = 160;
@@ -181,23 +191,27 @@ resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = fin[i];
 }
 
-// K2: one block per R x C output tile. The block loads a window of
-// (R + 2t) rows x (C + 2) words around its tile, indices taken modulo the
-// board, steps it t turns and writes the exact R x C interior. Wrong
-// values enter at the window's edges and advance one row and one cell per
-// turn, so each turn computes only rows [turn, R + 2t - turn) and t <= 32
-// cells of horizontal halo (one word) are enough.
+// K2 (kHalo = 1, R = kTileRows) and K6 (kHalo = 2, R = kDeepRows): one
+// block per R x C output tile, C = 64 - 2 kHalo words. The block loads a
+// window of (R + 2t) rows x 64 words around its tile, indices taken
+// modulo the board, steps it t turns and writes the exact R x C
+// interior, window columns kHalo .. kHalo + C - 1. Wrong values enter at
+// the window's edges and advance one row and one cell per turn, so each
+// turn computes only rows [turn, R + 2t - turn) and t <= 32 x kHalo
+// cells of horizontal halo are enough.
+template <int kHalo, int kRows>
 __global__ void __launch_bounds__(kWinWords * kTileSegments)
 tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
              int h, int wp, int t, uint32_t born, uint32_t survive) {
+  constexpr int kWords = kWinWords - 2 * kHalo;
   extern __shared__ uint32_t smem[];
-  const int win_rows = kTileRows + 2 * t;
+  const int win_rows = kRows + 2 * t;
   uint32_t* buf[2] = {smem, smem + win_rows * kWinWords};
-  const int r0 = blockIdx.y * kTileRows;
-  const int c0 = blockIdx.x * kTileWords;
+  const int r0 = blockIdx.y * kRows;
+  const int c0 = blockIdx.x * kWords;
   const int col = threadIdx.x;
   const int seg = threadIdx.y;
-  const long long gc = ((long long)c0 - 1 + col) % wp;
+  const long long gc = ((long long)c0 - kHalo + col) % wp;
   const int gcol = (int)(gc < 0 ? gc + wp : gc);
   for (int i = seg; i < win_rows; i += kTileSegments) {
     long long gr = ((long long)r0 - t + i) % h;
@@ -221,12 +235,30 @@ tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     __syncthreads();
   }
   const uint32_t* fin = buf[t & 1];
-  const int gw = c0 + col - 1;
-  if (col >= 1 && col <= kTileWords && gw < wp) {
-    for (int i = seg; i < kTileRows && r0 + i < h; i += kTileSegments) {
+  const int gw = c0 + col - kHalo;
+  if (col >= kHalo && col < kHalo + kWords && gw < wp) {
+    for (int i = seg; i < kRows && r0 + i < h; i += kTileSegments) {
       out[(long long)(r0 + i) * wp + gw] = fin[(t + i) * kWinWords + col];
     }
   }
+}
+
+template <int kHalo, int kRows>
+cudaError_t launch_tiled(const void* in, void* out, int h, int wp, int t,
+                         unsigned born, unsigned survive,
+                         cudaStream_t stream) {
+  constexpr int kWords = kWinWords - 2 * kHalo;
+  const size_t smem =
+      2 * sizeof(uint32_t) * (size_t)(kRows + 2 * t) * kWinWords;
+  cudaError_t e = cudaFuncSetAttribute(
+      tiled_kernel<kHalo, kRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((wp + kWords - 1) / kWords, (h + kRows - 1) / kRows);
+  const dim3 block(kWinWords, kTileSegments);
+  tiled_kernel<kHalo, kRows><<<grid, block, smem, stream>>>(
+      (const uint32_t*)in, (uint32_t*)out, h, wp, t, born, survive);
+  return cudaGetLastError();
 }
 
 // K3: live cells per row, one warp per row.
@@ -508,18 +540,25 @@ int gol_tiled_sweep(const void* in, void* out, int h, int wp, int t,
   if (t < 1 || t > kTileMaxT) return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  const size_t smem =
-      2 * sizeof(uint32_t) * (size_t)(kTileRows + 2 * t) * kWinWords;
-  e = cudaFuncSetAttribute(tiled_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  return launch_tiled<1, kTileRows>(in, out, h, wp, t, born, survive,
+                                    (cudaStream_t)stream);
+}
+
+int gol_deep_geometry(int* max_t, int* rows, int* words) {
+  *max_t = kDeepMaxT;
+  *rows = kDeepRows;
+  *words = kDeepWords;
+  return 0;
+}
+
+int gol_tiled_sweep_deep(const void* in, void* out, int h, int wp, int t,
+                         unsigned born, unsigned survive, int device,
+                         void* stream) {
+  if (t < 1 || t > kDeepMaxT) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  const dim3 grid((wp + kTileWords - 1) / kTileWords,
-                  (h + kTileRows - 1) / kTileRows);
-  const dim3 block(kWinWords, kTileSegments);
-  tiled_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)in, (uint32_t*)out, h, wp, t, born, survive);
-  return cudaGetLastError();
+  return launch_tiled<2, kDeepRows>(in, out, h, wp, t, born, survive,
+                                    (cudaStream_t)stream);
 }
 
 int gol_tile2p_rows(int* rows) {

@@ -21,6 +21,10 @@ after the copy. Popping the oldest chunk waits on its
 event alone and publishes its exact (alive, turn) pair, which
 `alive_count` then returns without touching the device.
 
+`GOL_FUSE_K`, read at each submit, pins the temporal-fusion depth of
+packed and gen3 boards (`ops/fused.py`); chunk sizes stay powers of two,
+and a chunk the depth does not divide ends with one shallower sweep.
+
 The device is explicit: `Engine(device=None)` means CUDA and raises where
 there is none; `Engine(device="cpu")` runs the plain versions of the
 kernels on the CPU, as the tests do.
@@ -54,9 +58,12 @@ from gol_tpu_torch.ops.bitpack import (
     words_to_numpy,
 )
 from gol_tpu_torch.ops.cuda_stencil import row_popcounts
+from gol_tpu_torch.ops.fused import configured_fuse_k
 from gol_tpu_torch.ops.stencil import row_alive_counts
 from gol_tpu_torch.params import Params
 from gol_tpu_torch.parallel.halo import (
+    fused_gen3_run_fn,
+    fused_run_fn,
     select_generations_representation,
     select_representation,
 )
@@ -309,6 +316,12 @@ class Engine(ControlFlagProtocol):
         if self._running:
             raise EngineBusy("engine already running a board")
         height, width = world.shape
+        # Temporal fusion (GOL_FUSE_K): the pinned depth is resolved once
+        # per submit, and packed and gen3 boards take the run function of
+        # that depth. fuse_eff is the depth the run applies: 1 for u8 and
+        # gen8 boards, which have no fused tier.
+        fuse = configured_fuse_k()
+        fuse_eff = 1
         if isinstance(self._rule, GenerationsRule):
             state = from_pixels_gen(world, self._rule)
             alive0 = int(np.count_nonzero(state == 1))
@@ -316,6 +329,8 @@ class Engine(ControlFlagProtocol):
                 width, self._rule)
             if repr_ == "gen3":
                 cells = pack_state3(state, self._device)
+                if fuse > 1:
+                    run, fuse_eff = fused_gen3_run_fn(fuse), fuse
             else:
                 cells = torch.from_numpy(state).to(self._device)
         else:
@@ -324,6 +339,8 @@ class Engine(ControlFlagProtocol):
             alive0 = int(np.count_nonzero(world))
             if packed:
                 cells = words_from_numpy(pack_np(world), self._device)
+                if fuse > 1:
+                    run, fuse_eff = fused_run_fn(fuse), fuse
             else:
                 cells = torch.from_numpy(
                     (np.asarray(world) != 0).astype(np.uint8)).to(
@@ -340,8 +357,9 @@ class Engine(ControlFlagProtocol):
             self._abort.clear()
         if self._device.type == "cuda":
             with torch.cuda.device(self._device):
-                return self._run_loop(params, cells, run, start_turn)
-        return self._run_loop(params, cells, run, start_turn)
+                return self._run_loop(params, cells, run, start_turn,
+                                      fuse_eff)
+        return self._run_loop(params, cells, run, start_turn, fuse_eff)
 
     def _chunk(self, run, cells: torch.Tensor, k: int):
         """Issue one chunk and its alive token; returns (cells, host
@@ -366,14 +384,16 @@ class Engine(ControlFlagProtocol):
                           budget // max(nbytes, 1) - 1))
 
     def _run_loop(self, params: Params, cells: torch.Tensor, run,
-                  start_turn: int) -> Tuple[np.ndarray, int]:
+                  start_turn: int,
+                  fuse_eff: int) -> Tuple[np.ndarray, int]:
         target = start_turn + params.turns
         self._max_chunk = env_int(MAX_CHUNK_ENV, MAX_CHUNK)
         # `or`: a zero target would pin the chunk at one turn.
         self._chunk_target = (
             env_float(CHUNK_TARGET_ENV, CHUNK_TARGET_SECONDS)
             or CHUNK_TARGET_SECONDS)
-        hint_key = (tuple(cells.shape), self._repr, self._chunk_target)
+        hint_key = (tuple(cells.shape), self._repr, self._chunk_target,
+                    fuse_eff)
         chunk = 1
         hinted = min(self._chunk_hints.get(hint_key, 1), self._max_chunk)
         while chunk * 2 <= hinted:

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (`csrc/stencil.cu`: K1-K5).
+"""Build and load the port's CUDA kernels (`csrc/stencil.cu`: K1-K6).
 
 `nvcc` compiles the source into a shared library with a plain C interface
 under `build/gol_tpu_torch/` at the repository root, named by a hash of
@@ -54,6 +54,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gol_resident_run_turns.restype = i
     lib.gol_tiled_sweep.argtypes = [vp, vp, i, i, i, u, u, i, vp]
     lib.gol_tiled_sweep.restype = i
+    lib.gol_deep_geometry.argtypes = [ip, ip, ip]
+    lib.gol_deep_geometry.restype = i
+    lib.gol_tiled_sweep_deep.argtypes = [vp, vp, i, i, i, u, u, i, vp]
+    lib.gol_tiled_sweep_deep.restype = i
     lib.gol_row_popcounts.argtypes = [vp, vp, i, i, i, vp]
     lib.gol_row_popcounts.restype = i
     lib.gol_tile2p_rows.argtypes = [ip]

@@ -32,6 +32,22 @@ runs floor(K/32) sweeps at T = 32 and one at T = K mod 32; every depth
 1..32 is legal, so the TPU's 8-aligned remainder and jnp-scan fallbacks
 have no counterpart.
 
+K6 `tiled_sweep_deep`, driven by `fused_banded_run_turns`, replaces
+`fused_banded_run_turns` (pallas_stencil.py:474): `_banded_pass` at the
+pinned fuse depth k (`ops/fused.py`, k <= 64) instead of 32. A sweep of
+depth T needs T cells of horizontal halo, so K2's one halo word stops at
+T = 32; K6 is the same CUDA template with two halo words: R = 320 x C =
+60-word output tiles from (R + 2T) x 64-word windows, T <= 64 (two
+buffers at T = 64 use 229,376 of 232,448 bytes). Its work is
+(R + T - 1)(C + 4) / (R C) = 1.28 times the useful work at T = 64, against
+K2's 1.12 at T = 32, so one 64-deep sweep spends more ops than two K2
+sweeps; what it saves is a read and a write of the board (8 bytes per
+word). Bound: the ops, as for K2. `fused_banded_run_turns` runs
+floor(n/k) sweeps at depth k and one at n mod k, each on K2 when its
+depth is at most 32 and on K6 beyond; every depth 1..64 is legal, so the
+TPU's remainder fallbacks (the VMEM kernel, the jnp trim scan) have no
+counterpart.
+
 K3 `row_popcounts` counts live cells per row with `__popc` (one warp per
 row) for the engine's alive token; the JAX package leaves that reduction
 to XLA (`engine.py:158-160`). Bound: one read of the board at 3.35 TB/s.
@@ -60,7 +76,7 @@ Families run as separate instantiations, so the launch count is kept
 per family too (`by_family`).
 
 No single PyTorch call computes a packed life-like or Generations step,
-so no library call stands beside K1, K2, K4 or K5.
+so no library call stands beside K1, K2, K4, K5 or K6.
 """
 
 from __future__ import annotations
@@ -92,6 +108,10 @@ RESIDENT_BOARD_BYTES = SMEM_BYTES // 2
 TILE_MAX_T = 32
 TILE_ROWS = 384
 TILE_WORDS = 62
+# K6 geometry: two halo words a side (checked at load).
+DEEP_MAX_T = 64
+DEEP_ROWS = 320
+DEEP_WORDS = 60
 # Shift/logic operations per word per turn of the kernels' network: 11
 # for the self-inclusive count, 19 for the rule (csrc/stencil.cu).
 OPS_PER_WORD_TURN = 30
@@ -170,13 +190,16 @@ def _library():
     """The kernel library (built on first use), once its tile geometry
     is checked against the Python mirror above."""
     lib = _build.library()
-    vals = [ctypes.c_int() for _ in range(3)]
-    lib.gol_tile_geometry(*[ctypes.byref(v) for v in vals])
-    got = tuple(v.value for v in vals)
+    got = ()
+    for query in (lib.gol_tile_geometry, lib.gol_deep_geometry):
+        vals = [ctypes.c_int() for _ in range(3)]
+        query(*[ctypes.byref(v) for v in vals])
+        got += tuple(v.value for v in vals)
     rows2p = ctypes.c_int()
     lib.gol_tile2p_rows(ctypes.byref(rows2p))
     got += (rows2p.value,)
-    want = (TILE_MAX_T, TILE_ROWS, TILE_WORDS, TILE2P_ROWS)
+    want = (TILE_MAX_T, TILE_ROWS, TILE_WORDS, DEEP_MAX_T, DEEP_ROWS,
+            DEEP_WORDS, TILE2P_ROWS)
     if got != want:
         raise RuntimeError(f"kernel tile geometry {got} != the Python "
                            f"mirror {want}")
@@ -233,7 +256,7 @@ def resident_run_turns(words: torch.Tensor, num_turns: int,
 resident_run_turns.launches = 0
 
 
-# ------------------------------------------------------------------- K2
+# ------------------------------------------------------------ K2 and K6
 
 def _window_indices(n: int, tiles: int, step: int, halo: int, span: int,
                     device) -> torch.Tensor:
@@ -242,45 +265,70 @@ def _window_indices(n: int, tiles: int, step: int, halo: int, span: int,
     return (starts[:, None] + torch.arange(span, device=device)) % n
 
 
-def tiled_sweep_plain(words: torch.Tensor, t: int,
-                      rule: LifeLikeRule = CONWAY) -> torch.Tensor:
-    """K2's plain version: gather every tile's (R + 2t) x (C + 2) window
-    with modular indices (one batch, no loop over tiles), step the windows
-    t turns as tori of their own (their edges go wrong, as the kernel's
-    do), keep each exact R x C interior and reassemble the board."""
+def _tiled_plain(words: torch.Tensor, t: int, rule: LifeLikeRule,
+                 rows: int, out_words: int, halo: int) -> torch.Tensor:
+    """The tiled kernels' plain version: gather every tile's (R + 2t) x
+    (C + 2 halo) window with modular indices (one batch, no loop over
+    tiles), step the windows t turns as tori of their own (their edges go
+    wrong, as the kernel's do), keep each exact R x C interior and
+    reassemble the board."""
     h, wp = words.shape
-    tr, tc = -(-h // TILE_ROWS), -(-wp // TILE_WORDS)
-    rows = _window_indices(h, tr, TILE_ROWS, t, TILE_ROWS + 2 * t,
-                           words.device)
-    cols = _window_indices(wp, tc, TILE_WORDS, 1, TILE_WORDS + 2,
-                           words.device)
-    win = words[rows[:, None, :, None], cols[None, :, None, :]]
+    tr, tc = -(-h // rows), -(-wp // out_words)
+    r = _window_indices(h, tr, rows, t, rows + 2 * t, words.device)
+    c = _window_indices(wp, tc, out_words, halo, out_words + 2 * halo,
+                        words.device)
+    win = words[r[:, None, :, None], c[None, :, None, :]]
     for _ in range(t):
         win = _step_shared_sums(win, rule)
-    core = win[:, :, t:t + TILE_ROWS, 1:1 + TILE_WORDS]
+    core = win[:, :, t:t + rows, halo:halo + out_words]
     return core.permute(0, 2, 1, 3).reshape(
-        tr * TILE_ROWS, tc * TILE_WORDS)[:h, :wp].contiguous()
+        tr * rows, tc * out_words)[:h, :wp].contiguous()
+
+
+def tiled_sweep_plain(words: torch.Tensor, t: int,
+                      rule: LifeLikeRule = CONWAY) -> torch.Tensor:
+    """K2's plain version: 384 x 62-word tiles, one halo word a side."""
+    return _tiled_plain(words, t, rule, TILE_ROWS, TILE_WORDS, 1)
+
+
+def tiled_sweep_deep_plain(words: torch.Tensor, t: int,
+                           rule: LifeLikeRule = CONWAY) -> torch.Tensor:
+    """K6's plain version: 320 x 60-word tiles, two halo words a side."""
+    return _tiled_plain(words, t, rule, DEEP_ROWS, DEEP_WORDS, 2)
+
+
+def _check_sweep(what: str, words_in: torch.Tensor,
+                 words_out: torch.Tensor, t: int, max_t: int) -> None:
+    if not 1 <= t <= max_t:
+        raise ValueError(f"{what} depth {t} not in 1..{max_t}")
+    if words_out.shape != words_in.shape or words_out is words_in:
+        raise ValueError(f"{what} needs a distinct output board of the "
+                         "input's shape")
+
+
+def _sweep_launch_args(what: str, words_in: torch.Tensor,
+                       words_out: torch.Tensor, rows: int):
+    """`_kernel_args` for a sweep, with its output and grid checked."""
+    lib, h, wp, dev, stream = _kernel_args(words_in, what)
+    if (words_out.dtype != torch.int32 or not words_out.is_contiguous()
+            or words_out.device != words_in.device):
+        raise ValueError(f"{what}: output must be contiguous int32 on the "
+                         "input's device")
+    if -(-h // rows) > 65535:
+        raise ValueError(f"{what}: {h} rows exceed the launch grid")
+    return lib, h, wp, dev, stream
 
 
 def tiled_sweep(words_in: torch.Tensor, words_out: torch.Tensor, t: int,
                 rule: LifeLikeRule = CONWAY) -> None:
     """Advance `words_in` t (1..32) turns into `words_out` in one K2
     sweep."""
-    if not 1 <= t <= TILE_MAX_T:
-        raise ValueError(f"tiled_sweep depth {t} not in 1..{TILE_MAX_T}")
-    if words_out.shape != words_in.shape or words_out is words_in:
-        raise ValueError("tiled_sweep needs a distinct output board of "
-                         "the input's shape")
+    _check_sweep("tiled_sweep", words_in, words_out, t, TILE_MAX_T)
     if words_in.device.type == "cpu":
         words_out.copy_(tiled_sweep_plain(words_in, t, rule))
         return
-    lib, h, wp, dev, stream = _kernel_args(words_in, "tiled_sweep")
-    if (words_out.dtype != torch.int32 or not words_out.is_contiguous()
-            or words_out.device != words_in.device):
-        raise ValueError("tiled_sweep: output must be contiguous int32 "
-                         "on the input's device")
-    if -(-h // TILE_ROWS) > 65535:
-        raise ValueError(f"tiled_sweep: {h} rows exceed the launch grid")
+    lib, h, wp, dev, stream = _sweep_launch_args(
+        "tiled_sweep", words_in, words_out, TILE_ROWS)
     born, survive = rule.masks()
     _build.check(lib.gol_tiled_sweep(
         words_in.data_ptr(), words_out.data_ptr(), h, wp, t, born, survive,
@@ -291,22 +339,71 @@ def tiled_sweep(words_in: torch.Tensor, words_out: torch.Tensor, t: int,
 tiled_sweep.launches = 0
 
 
-def banded_run_turns(words: torch.Tensor, num_turns: int,
-                     rule: LifeLikeRule = CONWAY) -> torch.Tensor:
-    """Advance a packed board `num_turns` turns by K2 sweeps:
-    floor(K/32) at depth 32, then one at depth K mod 32. Sweeps alternate
+def tiled_sweep_deep(words_in: torch.Tensor, words_out: torch.Tensor,
+                     t: int, rule: LifeLikeRule = CONWAY) -> None:
+    """Advance `words_in` t (1..64) turns into `words_out` in one K6
+    sweep."""
+    _check_sweep("tiled_sweep_deep", words_in, words_out, t, DEEP_MAX_T)
+    if words_in.device.type == "cpu":
+        words_out.copy_(tiled_sweep_deep_plain(words_in, t, rule))
+        return
+    lib, h, wp, dev, stream = _sweep_launch_args(
+        "tiled_sweep_deep", words_in, words_out, DEEP_ROWS)
+    born, survive = rule.masks()
+    _build.check(lib.gol_tiled_sweep_deep(
+        words_in.data_ptr(), words_out.data_ptr(), h, wp, t, born, survive,
+        dev, stream), "tiled_sweep_deep")
+    tiled_sweep_deep.launches += 1
+
+
+tiled_sweep_deep.launches = 0
+
+
+def sweep_depths(num_turns: int, depth: int) -> list:
+    """floor(n/depth) sweeps at `depth`, then one at n mod depth."""
+    full, rem = divmod(num_turns, depth)
+    return [depth] * full + ([rem] if rem else [])
+
+
+def _run_sweeps(words: torch.Tensor, depths, rule) -> torch.Tensor:
+    """One sweep per depth, on K2 up to 32 and on K6 beyond, alternating
     between two fresh buffers; the input is never written."""
-    full, rem = divmod(num_turns, TILE_MAX_T)
-    depths = [TILE_MAX_T] * full + ([rem] if rem else [])
     bufs = []
     src = words
     for i, depth in enumerate(depths):
         if len(bufs) < 2:
             bufs.append(torch.empty_like(words))
         dst = bufs[i % 2]
-        tiled_sweep(src, dst, depth, rule)
+        sweep = tiled_sweep if depth <= TILE_MAX_T else tiled_sweep_deep
+        sweep(src, dst, depth, rule)
         src = dst
     return src
+
+
+def banded_run_turns(words: torch.Tensor, num_turns: int,
+                     rule: LifeLikeRule = CONWAY) -> torch.Tensor:
+    """Advance a packed board `num_turns` turns by K2 sweeps:
+    floor(K/32) at depth 32, then one at depth K mod 32."""
+    return _run_sweeps(words, sweep_depths(num_turns, TILE_MAX_T), rule)
+
+
+def fused_banded_supported(shape, fuse: int) -> bool:
+    """Whether `fused_banded_run_turns` sweeps `fuse` turns per pass on a
+    board of `shape`: any depth 1..64 (`MAX_FUSE_K` of ops/fused.py) on
+    any shape. K2 and K6 take every height and width, so the TPU's 8-row
+    alignment of the depth and 128-lane alignment of the words have no
+    counterpart."""
+    return 1 <= fuse <= DEEP_MAX_T
+
+
+def fused_banded_run_turns(words: torch.Tensor, num_turns: int, fuse: int,
+                           rule: LifeLikeRule = CONWAY) -> torch.Tensor:
+    """Advance a packed board `num_turns` turns by `fuse`-deep sweeps:
+    floor(n/k) at depth k, then one at depth n mod k; depths up to 32 run
+    on K2, deeper ones on K6."""
+    if not fused_banded_supported(words.shape, fuse):
+        raise ValueError(f"fuse depth {fuse} not in 1..{DEEP_MAX_T}")
+    return _run_sweeps(words, sweep_depths(num_turns, fuse), rule)
 
 
 # ------------------------------------------------------------------- K3
@@ -439,11 +536,9 @@ def banded_run_turns2p(planes: torch.Tensor, num_turns: int, rule,
     """Advance stacked planes `num_turns` turns by K5 sweeps:
     floor(K/32) at depth 32, then one at depth K mod 32. Sweeps alternate
     between two fresh buffers; the input is never written."""
-    full, rem = divmod(num_turns, TILE_MAX_T)
-    depths = [TILE_MAX_T] * full + ([rem] if rem else [])
     bufs = []
     src = planes
-    for i, depth in enumerate(depths):
+    for i, depth in enumerate(sweep_depths(num_turns, TILE_MAX_T)):
         if len(bufs) < 2:
             bufs.append(torch.empty_like(planes))
         dst = bufs[i % 2]
@@ -453,7 +548,7 @@ def banded_run_turns2p(planes: torch.Tensor, num_turns: int, rule,
 
 
 KERNELS = (resident_run_turns, tiled_sweep, row_popcounts,
-           resident_run_turns2p, tiled_sweep2p)
+           resident_run_turns2p, tiled_sweep2p, tiled_sweep_deep)
 # The two-plane kernels count launches per family as well.
 KERNELS_2P = (resident_run_turns2p, tiled_sweep2p)
 

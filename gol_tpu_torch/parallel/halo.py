@@ -1,7 +1,9 @@
 """Single-device dispatch of the packed board and of the Generations
 planes — the counterpart of the one-shard paths of
-`gol_tpu/parallel/halo.py`. Row sharding and halo exchange are not
-ported yet (ROADMAP A5).
+`gol_tpu/parallel/halo.py`, and the one-shard fused runs pinned at a
+fuse depth (`fused_run_fn`, `fused_gen3_run_fn`). Row sharding, halo
+exchange and the multi-shard deep halo at T = k are not ported yet
+(ROADMAP A5).
 
 The kind depends on the board's shape only; whether a kernel or its plain
 version runs is decided by the tensor's device inside the kernel
@@ -10,6 +12,9 @@ wrappers, so the CPU tests walk the decomposition the card runs.
 
 from __future__ import annotations
 
+import functools
+
+from gol_tpu_torch.models.lifelike import CONWAY
 from gol_tpu_torch.ops.bitpack import WORD_BITS
 from gol_tpu_torch.ops.cuda_stencil import (
     banded_run_turns,
@@ -39,6 +44,19 @@ def packed_run_turns(words, num_turns: int, rule):
     """Advance a packed board by the stepper its shape selects."""
     return packed_run_by_kind(packed_run_kind(words.shape))(
         words, num_turns, rule)
+
+
+@functools.lru_cache(maxsize=32)
+def fused_run_fn(fuse: int):
+    """The engine's packed run pinned at fuse depth `fuse`
+    (`ops/fused.py`), one function object per depth, so a run's chunk
+    hints key on the depth it applies."""
+    from gol_tpu_torch.ops.fused import fused_packed_run_turns
+
+    def run(cells, num_turns: int, rule=CONWAY):
+        return fused_packed_run_turns(cells, num_turns, rule, fuse)
+
+    return run
 
 
 def select_representation(width: int):
@@ -77,6 +95,17 @@ def gen3_run_turns(stacked, num_turns: int, rule):
     """The engine's gen3 run: stacked (alive, dying) planes — one shard
     of `sharded_gen3_run_turns`."""
     return planes_run_turns(stacked, num_turns, rule, "gen3")
+
+
+@functools.lru_cache(maxsize=32)
+def fused_gen3_run_fn(fuse: int):
+    """The gen3 sibling of `fused_run_fn`."""
+    from gol_tpu_torch.ops.fused import fused_gen3_run_turns
+
+    def run(cells, num_turns: int, rule):
+        return fused_gen3_run_turns(cells, num_turns, rule, fuse)
+
+    return run
 
 
 def generations_run_turns(state, num_turns: int, rule):

@@ -63,6 +63,27 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert out.stdout.strip() == "[]"
 
 
+def test_fused_module_stands_alone():
+    """The temporal-fusion module is among the checked sources, and
+    importing it first (it reads GOL_FUSE_K through the port's own env
+    helper, not the JAX package's) pulls in no jax."""
+    assert REPO / "gol_tpu_torch" / "ops" / "fused.py" in _port_sources()
+    code = (
+        "import sys\n"
+        "from gol_tpu_torch.ops import fused\n"
+        "from gol_tpu_torch.parallel.halo import fused_run_fn\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'gol_tpu')]\n"
+        "print(bad, fused.configured_fuse_k(), fused_run_fn(8) is\n"
+        "      fused_run_fn(8))\n")
+    env = _subprocess_env()
+    env["GOL_FUSE_K"] = "8"
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] 8 True"
+
+
 def test_engine_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
