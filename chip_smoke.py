@@ -10,10 +10,11 @@ Phases (each raises on failure; any failure exits non-zero):
 2. the nvcc build of gol_tpu_torch/csrc/stencil.cu;
 3. every kernel against its plain PyTorch version on the card, bit-exact
    (integer boards: tolerance 0), at the main path's shapes and at odd
-   ones (one-word boards, heights shorter than a tile window); K6 at
-   depths 33, 48 and 64 up to 16384², and B3's sweep sequence; the
-   two-plane kernels K4/K5 for both Generations families (gen3, gen4)
-   up to 16384²;
+   ones (one-word boards, heights shorter than a tile window); K2 and K6
+   at every shape the fused path runs them (K6 at depths 33, 48 and 64
+   up to 16384², and at 64 on 65536², its timed head row), and B3's
+   sweep sequence; the two-plane kernels K4/K5 for both Generations
+   families (gen3, gen4) up to 16384²;
 4. the main path through `gol_tpu_torch.run` on the default (CUDA)
    engine: 512² x 100 against the golden board and PGM, 512² x 10000 with
    every published (alive, turn) pair against check/alive/512x512.csv,
@@ -24,7 +25,8 @@ Phases (each raises on failure; any failure exits non-zero):
    512² x 64 (K4) and 4096² x 64 (K5), each against the uint8 gen8 plain
    path on the card;
    4c. the fused path: GOL_FUSE_K=64 at 8192² x 1024 and GOL_FUSE_K=16 at
-   5120² x 1000 through `run`, each against the unfused run's board.
+   5120² x 1000 through `run`, each against the unfused run's board (the
+   unfused references run first, before the counters restart at 0).
    Each path runs with the launch counters at 0, read just after: every
    kernel (and family) it runs must have launched;
 5. timings at 512², 4096², 5120², 8192², 16384², 65536² and 131072²:
@@ -156,6 +158,7 @@ def phase_kernels(torch, dev) -> None:
                     "resident_run_turns")
     # K2: tiled sweeps, at the main path's shapes and odd ones.
     for (h, wp, turns) in [(5120, 160, 32), (5120, 160, 36),
+                           (8192, 256, 32), (8192, 256, 36),
                            (16384, 512, 32), (16384, 512, 36)]:
         w = seeded_words(torch, h, wp, h + turns, dev)
         got = cs.banded_run_turns(w, turns)
@@ -192,11 +195,12 @@ def phase_kernels(torch, dev) -> None:
 
 def phase_kernels_deep(torch, dev) -> None:
     """K6 at depths 33..64 against its plain version and the whole-board
-    scan, on short and odd boards, and B3's sweep sequence."""
+    scan at the fused path's shapes and on short and odd boards, and B3's
+    sweep sequence."""
     from gol_tpu_torch.models.lifelike import CONWAY, HIGHLIFE, SEEDS
     from gol_tpu_torch.ops import bitpack, cuda_stencil as cs
 
-    for (h, wp) in [(64, 128), (5120, 160), (16384, 512)]:
+    for (h, wp) in [(64, 128), (5120, 160), (8192, 256), (16384, 512)]:
         w = seeded_words(torch, h, wp, 3 * h + wp, dev)
         for t in (33, 48, 64):
             out = torch.empty_like(w)
@@ -213,6 +217,15 @@ def phase_kernels_deep(torch, dev) -> None:
             check_equal(torch, f"K6 {h}x{wp}w T={t} {rule.rulestring}",
                         out, bitpack.packed_run_turns(w, t, rule),
                         "tiled_sweep_deep")
+    # 65536² at depth 64: the engine's GOL_FUSE_K=64 run in phase 5 and
+    # the head row of the `kernels` line.
+    w = seeded_words(torch, 65536, 2048, 64, dev)
+    out = torch.empty_like(w)
+    cs.tiled_sweep_deep(w, out, 64)
+    check_equal(torch, "K6 65536x2048w T=64", out,
+                cs.tiled_sweep_deep_plain(w, 64), "tiled_sweep_deep")
+    del out
+    torch.cuda.empty_cache()
     w = seeded_words(torch, 5120, 160, 7, dev)
     for k in (16, 48, 64):
         want = w
@@ -224,7 +237,7 @@ def phase_kernels_deep(torch, dev) -> None:
                     cs.fused_banded_run_turns(w, 2 * k + 5, k), want,
                     "tiled_sweep_deep" if k > cs.TILE_MAX_T
                     else "tiled_sweep")
-    del w, out, want
+    del w, want
 
 
 def phase_kernels_2p(torch, dev) -> None:
@@ -360,48 +373,55 @@ def phase_main_path(torch, dev) -> None:
 def phase_fused(torch, dev) -> None:
     """Temporal fusion through `gol_tpu_torch.run`: GOL_FUSE_K=64 at
     8192² x 1024 (K6 sweeps, K2 for shallower chunks) and GOL_FUSE_K=16 at
-    5120² x 1000 (K2 at depth 16), each against the unfused run's board."""
+    5120² x 1000 (K2 at depth 16), each against the unfused run's board.
+    The unfused references run first; the launch counters restart at 0
+    just before the fused runs, so the phase's counts are theirs alone."""
     from gol_tpu_torch import Params
     from gol_tpu_torch.io.pgm import read_pgm, write_pgm
     from gol_tpu_torch.ops import cuda_stencil as cs
 
     log("phase 4c: fused path (GOL_FUSE_K) through gol_tpu_torch.run")
+    cases = ((8192, 1024, 64), (5120, 1000, 16))
     with tempfile.TemporaryDirectory() as tmp:
         seed_dir = os.path.join(tmp, "images")
-        for size, turns, k in ((8192, 1024, 64), (5120, 1000, 16)):
+
+        def run_at(size: int, turns: int, fuse):
+            """The final board of one run, and the launches it made."""
+            if fuse is not None:
+                os.environ["GOL_FUSE_K"] = str(fuse)
+            before = main_path_launches(cs)
+            out = os.path.join(tmp, f"out_{size}_{fuse}")
+            try:
+                drive(Params(image_width=size, image_height=size,
+                             turns=turns), seed_dir, out)
+            finally:
+                os.environ.pop("GOL_FUSE_K", None)
+            after = main_path_launches(cs)
+            return (read_pgm(os.path.join(out, f"{size}x{size}x{turns}.pgm")),
+                    {n: after[n] - before[n] for n in after
+                     if after[n] != before[n]})
+
+        for size, _, k in cases:
             rng = np.random.default_rng(size + k)
             board = np.where(rng.random((size, size)) < 0.3, 255,
                              0).astype(np.uint8)
             write_pgm(os.path.join(seed_dir, f"{size}x{size}.pgm"), board)
             del board
-            boards, deltas = {}, {}
-            for fuse in (str(k), None):
-                if fuse is None:
-                    os.environ.pop("GOL_FUSE_K", None)
-                else:
-                    os.environ["GOL_FUSE_K"] = fuse
-                before = main_path_launches(cs)
-                out = os.path.join(tmp, f"out_{fuse}")
-                try:
-                    drive(Params(image_width=size, image_height=size,
-                                 turns=turns), seed_dir, out)
-                finally:
-                    os.environ.pop("GOL_FUSE_K", None)
-                after = main_path_launches(cs)
-                deltas[fuse] = {n: after[n] - before[n] for n in after
-                                if after[n] != before[n]}
-                boards[fuse] = read_pgm(os.path.join(
-                    out, f"{size}x{size}x{turns}.pgm"))
-            if not np.array_equal(boards[str(k)], boards[None]):
+        os.environ.pop("GOL_FUSE_K", None)
+        refs = {size: run_at(size, turns, None) for size, turns, _ in cases}
+        cs.reset_launch_counts()
+        for size, turns, k in cases:
+            board, fused = run_at(size, turns, k)
+            ref, unfused = refs[size]
+            if not np.array_equal(board, ref):
                 raise AssertionError(f"{size}² x {turns} GOL_FUSE_K={k}: "
                                      "board != the unfused run's")
-            fused = deltas[str(k)]
             deep = fused.get("tiled_sweep_deep", 0)
             if (deep > 0) != (k > cs.TILE_MAX_T) or not fused.get(
                     "tiled_sweep", 0):
                 raise AssertionError(f"GOL_FUSE_K={k} launched {fused}")
             log(f"  ok {size}² x {turns} GOL_FUSE_K={k}: board equals the "
-                f"unfused run's; launches {fused}, unfused {deltas[None]}")
+                f"unfused run's; launches {fused}, unfused {unfused}")
 
 
 def gen8_plain(torch, dev, state: np.ndarray, turns: int, rule):

@@ -62,7 +62,6 @@ from gol_tpu_torch.ops.fused import configured_fuse_k
 from gol_tpu_torch.ops.stencil import row_alive_counts
 from gol_tpu_torch.params import Params
 from gol_tpu_torch.parallel.halo import (
-    fused_gen3_run_fn,
     fused_run_fn,
     select_generations_representation,
     select_representation,
@@ -317,8 +316,9 @@ class Engine(ControlFlagProtocol):
             raise EngineBusy("engine already running a board")
         height, width = world.shape
         # Temporal fusion (GOL_FUSE_K): the pinned depth is resolved once
-        # per submit, and packed and gen3 boards take the run function of
-        # that depth. fuse_eff is the depth the run applies: 1 for u8 and
+        # per submit: packed boards take the run function of that depth,
+        # gen3 planes keep their native dispatcher (their fused run, as on
+        # the TPU). fuse_eff is the depth the run applies: 1 for u8 and
         # gen8 boards, which have no fused tier.
         fuse = configured_fuse_k()
         fuse_eff = 1
@@ -329,8 +329,7 @@ class Engine(ControlFlagProtocol):
                 width, self._rule)
             if repr_ == "gen3":
                 cells = pack_state3(state, self._device)
-                if fuse > 1:
-                    run, fuse_eff = fused_gen3_run_fn(fuse), fuse
+                fuse_eff = max(fuse, 1)
             else:
                 cells = torch.from_numpy(state).to(self._device)
         else:

@@ -387,21 +387,14 @@ def banded_run_turns(words: torch.Tensor, num_turns: int,
     return _run_sweeps(words, sweep_depths(num_turns, TILE_MAX_T), rule)
 
 
-def fused_banded_supported(shape, fuse: int) -> bool:
-    """Whether `fused_banded_run_turns` sweeps `fuse` turns per pass on a
-    board of `shape`: any depth 1..64 (`MAX_FUSE_K` of ops/fused.py) on
-    any shape. K2 and K6 take every height and width, so the TPU's 8-row
-    alignment of the depth and 128-lane alignment of the words have no
-    counterpart."""
-    return 1 <= fuse <= DEEP_MAX_T
-
-
 def fused_banded_run_turns(words: torch.Tensor, num_turns: int, fuse: int,
                            rule: LifeLikeRule = CONWAY) -> torch.Tensor:
     """Advance a packed board `num_turns` turns by `fuse`-deep sweeps:
     floor(n/k) at depth k, then one at depth n mod k; depths up to 32 run
-    on K2, deeper ones on K6."""
-    if not fused_banded_supported(words.shape, fuse):
+    on K2, deeper ones on K6. Every depth 1..64 (`MAX_FUSE_K` of
+    ops/fused.py) is legal on every shape: the TPU's 8-row alignment of
+    the depth and 128-lane alignment of the words have no counterpart."""
+    if not 1 <= fuse <= DEEP_MAX_T:
         raise ValueError(f"fuse depth {fuse} not in 1..{DEEP_MAX_T}")
     return _run_sweeps(words, sweep_depths(num_turns, fuse), rule)
 

@@ -1,18 +1,16 @@
 """Temporal fusion: k turns per pass over the board in device memory —
-the counterpart of `gol_tpu/ops/fused.py`.
+the depth policy of `gol_tpu/ops/fused.py`.
 
 `GOL_FUSE_K` pins the depth k (0, unset or garbage = auto: every tier
-keeps its native depth; clamped to `MAX_FUSE_K` = 64). A packed board
-that K1 holds (`fits_resident`) stays on K1: one launch already keeps
-every turn on chip, the counterpart of the JAX tier's "the whole board
-fits one window -> plain scan" edge. Any other packed board runs
-`fused_banded_run_turns`: floor(n/k) sweeps at depth k and one at
-n mod k, on K2 up to depth 32 and on K6 (`tiled_sweep_deep`, two halo
-words) beyond — the TPU's `fused_banded_run_turns`, which needs no 8-row
-or 128-lane gate here. The routing reads the shape only, so the CPU tests
-walk the decomposition the card runs. The stacked Generations planes
-keep their native dispatcher (K4/K5), as the TPU branch of the JAX
-module does.
+keeps its native depth; clamped to `MAX_FUSE_K` = 64). The routing sits
+beside the native dispatch in `parallel/halo.py`: `fused_packed_run_turns`
+keeps a board that K1 holds on K1 (one launch already keeps every turn on
+chip, the counterpart of the JAX tier's "the whole board fits one window
+-> plain scan" edge) and sweeps any other packed board at depth k with
+`ops/cuda_stencil.fused_banded_run_turns` (K2 up to depth 32, K6
+`tiled_sweep_deep` beyond). The stacked Generations planes keep their
+native dispatcher (K4/K5) at every depth, as the TPU branch of the JAX
+module does, so `planes_run_turns` is the port's fused gen3 and gen4 run.
 
 The JAX module's windowed jnp tier (`_fused_packed_scan`,
 `_fused_planes_scan`, `fuse_block_rows`, `GOL_FUSE_BLOCK_BYTES`) is its
@@ -22,13 +20,6 @@ kernel at every depth on every shape, so that tier has no counterpart.
 
 from __future__ import annotations
 
-from gol_tpu_torch.models.lifelike import CONWAY, LifeLikeRule
-from gol_tpu_torch.ops.cuda_stencil import (
-    fits_resident,
-    fused_banded_run_turns,
-    resident_run_turns,
-)
-from gol_tpu_torch.parallel.halo import packed_run_turns, planes_run_turns
 from gol_tpu_torch.utils.envcfg import env_int
 
 FUSE_K_ENV = "GOL_FUSE_K"
@@ -42,37 +33,3 @@ def configured_fuse_k() -> int:
     0 (or unset/garbage) means auto: dispatch tiers keep their native
     adaptive depths and no explicit macro-stepping is forced."""
     return min(env_int(FUSE_K_ENV, 0, minimum=0), MAX_FUSE_K)
-
-
-def fused_packed_run_turns(words, num_turns: int,
-                           rule: LifeLikeRule = CONWAY, fuse: int = 0):
-    """Advance an (H, Wp) packed board `num_turns` turns at fuse depth
-    `fuse`, bit-identical to `packed_run_turns` for every life-like rule.
-    `fuse <= 1` is the native stepper."""
-    if num_turns <= 0:
-        return words
-    if fuse <= 1:
-        return packed_run_turns(words, num_turns, rule)
-    fuse = min(fuse, MAX_FUSE_K)
-    if fits_resident(words.shape):
-        return resident_run_turns(words, num_turns, rule)
-    return fused_banded_run_turns(words, num_turns, fuse, rule)
-
-
-def _fused_planes_run(stacked, num_turns: int, rule, family: str):
-    """The planes' native dispatcher (K4/K5), the TPU branch of the JAX
-    module's routing, for every fuse depth."""
-    if num_turns <= 0:
-        return stacked
-    return planes_run_turns(stacked, num_turns, rule, family)
-
-
-def fused_gen3_run_turns(stacked, num_turns: int, rule, fuse: int = 0):
-    """Advance stacked (alive, dying) 3-state planes `num_turns` turns at
-    fuse depth `fuse`; returns the stacked planes."""
-    return _fused_planes_run(stacked, num_turns, rule, "gen3")
-
-
-def fused_gen4_run_turns(stacked, num_turns: int, rule, fuse: int = 0):
-    """The C=4 sibling: stacked binary-encoded (b0, b1) planes."""
-    return _fused_planes_run(stacked, num_turns, rule, "gen4")

@@ -1,9 +1,9 @@
 """Single-device dispatch of the packed board and of the Generations
 planes — the counterpart of the one-shard paths of
-`gol_tpu/parallel/halo.py`, and the one-shard fused runs pinned at a
-fuse depth (`fused_run_fn`, `fused_gen3_run_fn`). Row sharding, halo
-exchange and the multi-shard deep halo at T = k are not ported yet
-(ROADMAP A5).
+`gol_tpu/parallel/halo.py`, and the one-shard packed run pinned at a
+fuse depth (`fused_packed_run_turns`, `fused_run_fn`; `ops/fused.py`).
+Row sharding, halo exchange and the multi-shard deep halo at T = k are
+not ported yet (ROADMAP A5).
 
 The kind depends on the board's shape only; whether a kernel or its plain
 version runs is decided by the tensor's device inside the kernel
@@ -21,9 +21,11 @@ from gol_tpu_torch.ops.cuda_stencil import (
     banded_run_turns2p,
     fits_resident,
     fits_resident2p,
+    fused_banded_run_turns,
     resident_run_turns,
     resident_run_turns2p,
 )
+from gol_tpu_torch.ops.fused import MAX_FUSE_K
 from gol_tpu_torch.ops.stencil import run_turns
 
 
@@ -46,17 +48,22 @@ def packed_run_turns(words, num_turns: int, rule):
         words, num_turns, rule)
 
 
-@functools.lru_cache(maxsize=32)
+def fused_packed_run_turns(words, num_turns: int, rule=CONWAY,
+                           fuse: int = 0):
+    """Advance a packed board `num_turns` turns at fuse depth `fuse` (the
+    counterpart of `gol_tpu/ops/fused.py`'s), bit-identical to
+    `packed_run_turns`. `fuse <= 1` and a board K1 holds take the native
+    stepper; any other board sweeps at depth min(fuse, MAX_FUSE_K)."""
+    if fuse <= 1 or packed_run_kind(words.shape) == "resident":
+        return packed_run_turns(words, num_turns, rule)
+    return fused_banded_run_turns(words, num_turns, min(fuse, MAX_FUSE_K),
+                                  rule)
+
+
 def fused_run_fn(fuse: int):
-    """The engine's packed run pinned at fuse depth `fuse`
-    (`ops/fused.py`), one function object per depth, so a run's chunk
-    hints key on the depth it applies."""
-    from gol_tpu_torch.ops.fused import fused_packed_run_turns
-
-    def run(cells, num_turns: int, rule=CONWAY):
-        return fused_packed_run_turns(cells, num_turns, rule, fuse)
-
-    return run
+    """The engine's `(cells, num_turns, rule)` packed run pinned at fuse
+    depth `fuse`."""
+    return functools.partial(fused_packed_run_turns, fuse=fuse)
 
 
 def select_representation(width: int):
@@ -95,17 +102,6 @@ def gen3_run_turns(stacked, num_turns: int, rule):
     """The engine's gen3 run: stacked (alive, dying) planes — one shard
     of `sharded_gen3_run_turns`."""
     return planes_run_turns(stacked, num_turns, rule, "gen3")
-
-
-@functools.lru_cache(maxsize=32)
-def fused_gen3_run_fn(fuse: int):
-    """The gen3 sibling of `fused_run_fn`."""
-    from gol_tpu_torch.ops.fused import fused_gen3_run_turns
-
-    def run(cells, num_turns: int, rule):
-        return fused_gen3_run_turns(cells, num_turns, rule, fuse)
-
-    return run
 
 
 def generations_run_turns(state, num_turns: int, rule):

@@ -1,6 +1,7 @@
 """Temporal fusion in the torch port (`gol_tpu_torch.ops.fused`, K6
-`tiled_sweep_deep` and `fused_banded_run_turns` in `ops/cuda_stencil`, the
-engine's `GOL_FUSE_K`) against the JAX package: the depth policy, the
+`tiled_sweep_deep` and `fused_banded_run_turns` in `ops/cuda_stencil`,
+`fused_packed_run_turns` in `parallel/halo`, the engine's `GOL_FUSE_K`)
+against the JAX package: the depth policy, the
 banded fused run against the Pallas kernel in interpret mode, the fused
 runs against the JAX functions and the numpy oracle, and the engine end to
 end. Integer boards: bit-exact (tolerance 0). The kernels run only on a
@@ -78,9 +79,18 @@ def test_fuse_constants_match_jax_and_kernel():
 @pytest.mark.parametrize("fuse,ok", [(0, False), (1, True), (7, True),
                                      (32, True), (33, True), (64, True),
                                      (65, False)])
-def test_fused_banded_supported_every_depth_any_shape(fuse, ok):
-    for shape in [(1, 1), (5, 3), (1000, 33), (65536, 2048)]:
-        assert cs.fused_banded_supported(shape, fuse) is ok
+def test_fused_banded_takes_every_depth_any_shape(fuse, ok):
+    """Depths 1..64 on any board (no 8-row or 128-lane gate); others
+    raise."""
+    for shape in [(1, 32), (5, 3 * 32), (7, 33 * 32)]:
+        b = board(*shape, seed=fuse + shape[0])
+        if not ok:
+            with pytest.raises(ValueError):
+                cs.fused_banded_run_turns(words(b), fuse + 1, fuse)
+            continue
+        got = cs.fused_banded_run_turns(words(b), fuse + 1, fuse)
+        assert np.array_equal(tbp.words_to_numpy(got), np.asarray(
+            jbp.packed_run_turns(jbp.pack(b), fuse + 1)))
 
 
 def test_fused_banded_rejects_unsupported_depth():
@@ -200,7 +210,7 @@ def test_fused_packed_matches_jax_and_oracle(shape, fuse):
     b = board(*shape, seed=fuse + shape[0])
     turns = 2 * fuse + 5
     assert cs.fits_resident(tbp.pack_np(b).shape) == (shape[0] < 1000)
-    got = tbp.words_to_numpy(fused.fused_packed_run_turns(
+    got = tbp.words_to_numpy(halo.fused_packed_run_turns(
         words(b), turns, tl.CONWAY, fuse))
     want = np.asarray(jfused.fused_packed_run_turns(
         jbp.pack(b), turns, jl.CONWAY, fuse, platform="cpu"))
@@ -212,24 +222,25 @@ def test_fused_packed_routes_by_shape(monkeypatch):
     """A K1 board stays on K1; any other runs the fused sweeps; fuse <= 1
     is the native stepper; zero turns return the input."""
     calls = []
-    monkeypatch.setattr(fused, "resident_run_turns",
+    monkeypatch.setattr(halo, "resident_run_turns",
                         lambda w, n, r: calls.append("K1") or w)
-    monkeypatch.setattr(fused, "fused_banded_run_turns",
+    monkeypatch.setattr(halo, "fused_banded_run_turns",
                         lambda w, n, k, r: calls.append(("B3", k)) or w)
     small, big = words(board(96, 256, 1)), words(board(1024, 1024, 2))
-    fused.fused_packed_run_turns(small, 10, tl.CONWAY, 48)
-    fused.fused_packed_run_turns(big, 10, tl.CONWAY, 48)
-    fused.fused_packed_run_turns(big, 10, tl.CONWAY, 999)
+    halo.fused_packed_run_turns(small, 10, tl.CONWAY, 48)
+    halo.fused_packed_run_turns(big, 10, tl.CONWAY, 48)
+    halo.fused_packed_run_turns(big, 10, tl.CONWAY, 999)
     assert calls == ["K1", ("B3", 48), ("B3", 64)]
-    assert fused.fused_packed_run_turns(big, 0, tl.CONWAY, 48) is big
+    monkeypatch.undo()
+    assert halo.fused_packed_run_turns(big, 0, tl.CONWAY, 48) is big
     seen = _record_sweeps(monkeypatch)
-    fused.fused_packed_run_turns(big, 40, tl.CONWAY, 1)
+    halo.fused_packed_run_turns(big, 40, tl.CONWAY, 1)
     assert seen == [("K2", 32), ("K2", 8)]
 
 
 def test_fused_packed_other_rule_matches_jax():
     b = board(1000, 1024, seed=12)
-    got = fused.fused_packed_run_turns(words(b), 41, tl.SEEDS, 40)
+    got = halo.fused_packed_run_turns(words(b), 41, tl.SEEDS, 40)
     want = jfused.fused_packed_run_turns(jbp.pack(b), 41, jl.SEEDS, 40,
                                          platform="cpu")
     assert np.array_equal(tbp.words_to_numpy(got), np.asarray(want))
@@ -253,30 +264,37 @@ def _planes(state, family):
                                          ("gen4", "345/2/4")])
 def test_fused_planes_match_jax(family, rule, shape, fuse):
     """Brian's Brain and Star Wars on planes K4 holds (64 x 256) and on
-    planes above its 58,112 bytes (512 x 1024, K5)."""
+    planes above its 58,112 bytes (512 x 1024, K5): the planes' native
+    dispatcher is the port's fused run at every depth, as the TPU branch
+    of the JAX functions is."""
     rng = np.random.default_rng(fuse + shape[0])
     states = 3 if family == "gen3" else 4
     state = rng.integers(0, states, size=shape).astype(np.uint8)
     port, jax_in = _planes(state, family)
     turns = 2 * fuse + 5
-    port_fn = (fused.fused_gen3_run_turns if family == "gen3"
-               else fused.fused_gen4_run_turns)
     jax_fn = (jfused.fused_gen3_run_turns if family == "gen3"
               else jfused.fused_gen4_run_turns)
-    got = port_fn(port, turns, tg.GenerationsRule(rule), fuse)
+    got = halo.planes_run_turns(port, turns, tg.GenerationsRule(rule),
+                                family)
     want = jax_fn(jnp.asarray(jax_in), turns, jg.GenerationsRule(rule),
                   fuse, platform="cpu")
     assert np.array_equal(tbp.words_to_numpy(got), np.asarray(want))
-    assert port_fn(port, 0, tg.GenerationsRule(rule), fuse) is port
+    assert halo.planes_run_turns(port, 0, tg.GenerationsRule(rule),
+                                 family) is port
 
 
 # ---------------------------------------------------------------- engine
 
-def test_fused_run_fns_are_one_object_per_depth():
-    assert halo.fused_run_fn(8) is halo.fused_run_fn(8)
-    assert halo.fused_run_fn(8) is not halo.fused_run_fn(16)
-    assert halo.fused_gen3_run_fn(8) is halo.fused_gen3_run_fn(8)
-    assert halo.fused_gen3_run_fn(8) is not halo.fused_run_fn(8)
+@pytest.mark.parametrize("fuse,want", [(48, [("K6", 48), ("K2", 2)]),
+                                       (8, [("K2", 8)] * 6 + [("K2", 2)])])
+def test_fused_run_fn_pins_its_depth(fuse, want, monkeypatch):
+    """The engine's `(cells, num_turns, rule)` run sweeps at its depth."""
+    seen = _record_sweeps(monkeypatch)
+    b = board(1000, 1024, seed=fuse)
+    got = halo.fused_run_fn(fuse)(words(b), 50, tl.CONWAY)
+    assert seen == want
+    assert np.array_equal(tbp.words_to_numpy(got),
+                          tbp.pack_np(run_turns_np(b, 50)))
 
 
 def _stage(tmp_path, b):
@@ -357,7 +375,7 @@ def test_engine_fuse_eff_keys_the_chunk_hint(width, fuse_eff, monkeypatch):
 
 @pytest.mark.parametrize("rule", ["/2/3", "23/36/8"])
 def test_engine_generations_fuse_matches_jax_engine(rule, monkeypatch):
-    """gen3 planes take the fused gen3 run (fuse_eff = k); gen8 boards
+    """gen3 planes keep their native run at fuse_eff = k; gen8 boards
     keep fuse_eff = 1; both equal the JAX engine under the same env."""
     monkeypatch.setenv("GOL_FUSE_K", "8")
     trule, jrule = tg.GenerationsRule(rule), jg.GenerationsRule(rule)

@@ -74,14 +74,14 @@ def test_fused_module_stands_alone():
         "from gol_tpu_torch.parallel.halo import fused_run_fn\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'gol_tpu')]\n"
-        "print(bad, fused.configured_fuse_k(), fused_run_fn(8) is\n"
-        "      fused_run_fn(8))\n")
+        "print(bad, fused.configured_fuse_k(),\n"
+        "      fused_run_fn(8).keywords['fuse'])\n")
     env = _subprocess_env()
     env["GOL_FUSE_K"] = "8"
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=env, cwd=str(REPO))
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[] 8 True"
+    assert out.stdout.strip() == "[] 8 8"
 
 
 def test_engine_without_cuda_raises():
