@@ -7,18 +7,22 @@ is right and runs its main path on one CUDA GPU.
 Phases (each raises on failure; any failure exits non-zero):
 
 1. the card (nvidia-smi name and power limit, max SM clock), torch, CUDA;
-2. the nvcc build of gol_tpu_torch/csrc/stencil.cu;
+2. the nvcc build of gol_tpu_torch/csrc/stencil.cu: ptxas registers and
+   stack frames, and the stepping loop of each life-like kernel's SASS
+   (`cuobjdump -sass`: its instructions, in all and by opcode);
 3. every kernel against its plain PyTorch version on the card, bit-exact
    (integer boards: tolerance 0), at the main path's shapes and at odd
-   ones (one-word boards, heights shorter than a tile window); K2 and K6
-   at every shape the fused path runs them (K6 at depths 33, 48 and 64
-   up to 16384², and at 64 on 65536², its timed head row), and B3's
-   sweep sequence; the two-plane kernels K4/K5 for both Generations
-   families (gen3, gen4) up to 16384²;
+   ones (one-word boards, heights shorter than a tile window): K1 at
+   every cluster size N = 1..16 on 512² and 64² (and at the policy's N
+   and N = min(16, h) on one-word and short boards), K2 at every tile
+   height R on 5120² and odd boards and at the policy's R up to 65536²;
+   K6 at depths 33, 48 and 64 up to 16384², and at 64 on 65536², its
+   timed head row, and B3's sweep sequence; the two-plane kernels K4/K5
+   for both Generations families (gen3, gen4) up to 16384²;
 4. the main path through `gol_tpu_torch.run` on the default (CUDA)
    engine: 512² x 100 against the golden board and PGM, 512² x 10000 with
    every published (alive, turn) pair against check/alive/512x512.csv,
-   5120² x 1000 from a seeded board against the plain version, and an
+   5120² x 1000 from a seeded board against the plain version; then an
    unbounded 512² run that 'p' holds and resumes and 'q' ends within 5 s;
    4b. the Generations path: Brian's Brain through `run` at 512² x 100
    (K4) and 4096² x 1000 (K5), Star Wars through `GenerationsTorus` at
@@ -28,12 +32,16 @@ Phases (each raises on failure; any failure exits non-zero):
    5120² x 1000 through `run`, each against the unfused run's board (the
    unfused references run first, before the counters restart at 0).
    Each path runs with the launch counters at 0, read just after: every
-   kernel (and family) it runs must have launched;
+   kernel (and family) it runs must have launched. The paths run under
+   `torch.profiler`, which sums their device time by kernel, all but the
+   unbounded run: it steps as long as the wall clock says, so its device
+   time would rank nothing;
 5. timings at 512², 4096², 5120², 8192², 16384², 65536² and 131072²:
-   each kernel's ms per launch beside its plain version's and its bound,
-   B3 `fused_banded_run_turns` at pinned depths 16, 32 and 64, and engine
-   turns/s (life-like, unfused and at GOL_FUSE_K=64 at 65536², and
-   Brian's Brain).
+   each kernel's ms per launch beside its plain version's and its bound
+   (K1 at N = 1, 2, 4, 8, 16 on 512², 256² and 64², K2 at every R on
+   5120², 8192², 16384² and 65536²), B3 `fused_banded_run_turns` at
+   pinned depths 16, 32 and 64, and engine turns/s (life-like, unfused
+   and at GOL_FUSE_K=64 at 65536², and Brian's Brain).
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -42,9 +50,11 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
+import re
 import statistics
 import subprocess
 import sys
@@ -118,6 +128,9 @@ class Card:
                                                              "operations")
 
 
+# K1's rows per thread timed (and checked) beside the policy's at 512².
+RESIDENT_PER_TIMED = (1, 3, 5, 9)
+
 # Largest |kernel - plain| seen per kernel in phase 3, over the words
 # read as uint32 (0 whenever they are bit-exact).
 MAX_ABS_ERR: dict = {}
@@ -136,52 +149,158 @@ def check_equal(torch, what: str, got, want, kernel: str) -> None:
     log(f"  ok {what}")
 
 
+def stack_frames(ptxas_log: str) -> dict:
+    """{kernel: stack frame bytes} from `nvcc -Xptxas -v` output."""
+    frames, name = {}, None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            frames[demangle([name])[0]] = int(m.group(1))
+            name = None
+    return frames
+
+
+def demangle(names: list) -> list:
+    """Names through the toolkit's cu++filt where it has one."""
+    from gol_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cu++filt")
+    if not os.access(tool, os.X_OK):
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60)
+    got = out.stdout.splitlines()
+    return got if len(got) == len(names) else names
+
+
+SASS_COUNTED = ("LOP3", "SHF", "LDS", "LD", "STS", "ST", "IADD3", "IMAD",
+                "LEA", "ISETP", "SEL", "BRA")
+
+
+def step_loops(lib: str) -> dict:
+    """{kernel: loop} for the life-like kernels (K1, K2, K6) of a built
+    library, from `cuobjdump -sass`. A loop is the span of a backward
+    branch; of the innermost ones (no other inside), the stepping loop
+    is the one with the most LOP3. Its instructions are counted in all
+    and per opcode (LDS and STS are shared-memory loads and stores, LD
+    and ST generic ones)."""
+    from gol_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and name:
+            ins = re.sub(r"^@!?U?P\w+\s+", "", m.group(2))
+            funcs[name].append((int(m.group(1), 16), ins))
+    out = {}
+    for name, demangled in zip(funcs, demangle(list(funcs))):
+        if "tiled_kernel" not in name and "resident_kernel" not in name:
+            continue
+        ins = funcs[name]
+        spans = set()
+        for addr, op in ins:
+            t = re.match(r"BRA\S*\s+.*?0x([0-9a-f]+)", op)
+            if t and int(t.group(1), 16) <= addr:
+                spans.add((int(t.group(1), 16), addr))
+        loops = []
+        for lo, hi in spans:
+            if any(o != (lo, hi) and lo <= o[0] and o[1] <= hi
+                   for o in spans):
+                continue
+            body = [op.split()[0].split(".")[0] for addr, op in ins
+                    if lo <= addr <= hi]
+            loops.append(dict(instructions=len(body),
+                              **{op: body.count(op) for op in SASS_COUNTED}))
+        short = demangled.split("(")[0] if ">(" not in demangled else (
+            demangled[:demangled.index(">(") + 1])
+        out[short] = max(loops, key=lambda loop: loop["LOP3"])
+    return out
+
+
 def phase_kernels(torch, dev) -> None:
     from gol_tpu_torch.models.lifelike import (
         CONWAY, DAY_AND_NIGHT, HIGHLIFE, SEEDS)
     from gol_tpu_torch.ops import bitpack, cuda_stencil as cs
 
     log("phase 3: kernels against their plain versions (bit-exact)")
-    # K1: the resident whole-board kernel.
-    for (h, wp) in [(64, 2), (512, 16), (96, 1), (33, 1)]:
+    # K1: the cluster kernel at every cluster size N on 512² and 64²,
+    # and on one-word, short and odd boards at the policy's N and at
+    # N = min(16, h) (slabs of 1-3 rows).
+    rules = (HIGHLIFE, DAY_AND_NIGHT, SEEDS)
+    for (h, wp) in [(512, 16), (64, 2)]:
         w = seeded_words(torch, h, wp, h * 7 + wp, dev)
-        for turns in (1, 8, 100):
-            got = cs.resident_run_turns(w, turns)
-            want = cs.resident_run_turns_plain(w, turns)
-            check_equal(torch, f"K1 {h}x{wp}w {turns} turns", got, want,
-                        "resident_run_turns")
+        for n in range(1, cs.RESIDENT_MAX_CTAS + 1):
+            for turns in (1, 8, 100):
+                check_equal(torch, f"K1 {h}x{wp}w N={n} {turns} turns",
+                            cs.resident_run_turns(w, turns, ctas=n),
+                            cs.resident_run_turns_plain(w, turns, ctas=n),
+                            "resident_run_turns")
+            for rule in rules:
+                check_equal(torch, f"K1 {h}x{wp}w N={n} 50 turns "
+                            f"{rule.rulestring}",
+                            cs.resident_run_turns(w, 50, rule, ctas=n),
+                            bitpack.packed_run_turns(w, 50, rule),
+                            "resident_run_turns")
     w = seeded_words(torch, 512, 16, 5, dev)
-    for rule in (HIGHLIFE, DAY_AND_NIGHT, SEEDS):
-        check_equal(torch, f"K1 512x16w 50 turns {rule.rulestring}",
-                    cs.resident_run_turns(w, 50, rule),
-                    bitpack.packed_run_turns(w, 50, rule),
-                    "resident_run_turns")
-    # K2: tiled sweeps, at the main path's shapes and odd ones.
-    for (h, wp, turns) in [(5120, 160, 32), (5120, 160, 36),
-                           (8192, 256, 32), (8192, 256, 36),
-                           (16384, 512, 32), (16384, 512, 36)]:
-        w = seeded_words(torch, h, wp, h + turns, dev)
-        got = cs.banded_run_turns(w, turns)
-        want = w
-        for depth in cs.sweep_depths(turns, cs.TILE_MAX_T):
-            want = cs.tiled_sweep_plain(want, depth)
-        check_equal(torch, f"K2 {h}x{wp}w {turns} turns", got, want,
-                    "tiled_sweep")
-        check_equal(torch, f"K2 {h}x{wp}w {turns} turns vs whole board",
-                    got, bitpack.packed_run_turns(w, turns), "tiled_sweep")
+    for per in RESIDENT_PER_TIMED:
+        check_equal(torch, f"K1 512x16w N=16 per={per} 100 turns",
+                    cs.resident_run_turns(w, 100, ctas=16, per=per),
+                    bitpack.packed_run_turns(w, 100), "resident_run_turns")
+    for (h, wp) in [(96, 1), (33, 1), (37, 3), (16, 4)]:
+        w = seeded_words(torch, h, wp, h * 7 + wp, dev)
+        for n in sorted({cs.resident_cluster_ctas(h, wp), min(16, h)}):
+            for turns in (1, 8, 100):
+                check_equal(torch, f"K1 {h}x{wp}w N={n} {turns} turns",
+                            cs.resident_run_turns(w, turns, ctas=n),
+                            cs.resident_run_turns_plain(w, turns, ctas=n),
+                            "resident_run_turns")
+    # K2: tiled sweeps at every tile height R on 5120², at the policy's R
+    # on the main path's other shapes, and at every R on odd boards.
+    for (h, wp) in [(5120, 160), (8192, 256), (16384, 512)]:
+        rows = (cs.TILE_ROW_CHOICES if h == 5120
+                else (cs.tile_rows(h, wp),))
+        for turns in (32, 36):
+            w = seeded_words(torch, h, wp, h + turns, dev)
+            whole = bitpack.packed_run_turns(w, turns)
+            for r in rows:
+                got, want = w, w
+                for depth in cs.sweep_depths(turns, cs.TILE_MAX_T):
+                    out = torch.empty_like(w)
+                    cs.tiled_sweep(got, out, depth, rows=r)
+                    got = out
+                    want = cs.tiled_sweep_plain(want, depth, rows=r)
+                check_equal(torch, f"K2 {h}x{wp}w R={r} {turns} turns",
+                            got, want, "tiled_sweep")
+                check_equal(torch, f"K2 {h}x{wp}w R={r} {turns} turns vs "
+                            "whole board", got, whole, "tiled_sweep")
+        got = cs.banded_run_turns(w, 36)
+        check_equal(torch, f"K2 {h}x{wp}w banded_run_turns 36 turns", got,
+                    whole, "tiled_sweep")
     for (h, wp) in [(1, 1), (3, 1), (7, 5), (385, 63), (1000, 200)]:
         w = seeded_words(torch, h, wp, 11 * h + wp, dev)
         for t, rule in ((1, CONWAY), (7, HIGHLIFE), (32, DAY_AND_NIGHT),
                         (32, SEEDS)):
-            out = torch.empty_like(w)
-            cs.tiled_sweep(w, out, t, rule)
-            check_equal(torch, f"K2 {h}x{wp}w T={t} {rule.rulestring}",
-                        out, bitpack.packed_run_turns(w, t, rule),
-                        "tiled_sweep")
+            want = bitpack.packed_run_turns(w, t, rule)
+            for r in cs.TILE_ROW_CHOICES:
+                out = torch.empty_like(w)
+                cs.tiled_sweep(w, out, t, rule, rows=r)
+                check_equal(torch, f"K2 {h}x{wp}w R={r} T={t} "
+                            f"{rule.rulestring}", out, want, "tiled_sweep")
     w = seeded_words(torch, 65536, 2048, 65536, dev)
     got = cs.banded_run_turns(w, 32)
-    check_equal(torch, "K2 65536x2048w 32 turns", got,
-                cs.tiled_sweep_plain(w, 32), "tiled_sweep")
+    check_equal(torch, f"K2 65536x2048w R={cs.tile_rows(65536, 2048)} 32 "
+                "turns", got, cs.tiled_sweep_plain(w, 32), "tiled_sweep")
     phase_kernels_deep(torch, dev)
     phase_kernels_2p(torch, dev)
     # K3: row popcounts.
@@ -367,7 +486,13 @@ def phase_main_path(torch, dev) -> None:
         if not np.array_equal(got, want):
             raise AssertionError("5120² x 1000: board != plain version")
         log("  ok 5120² x 1000: final board equals the plain version")
-        check_controls(images, out)
+
+
+def phase_controls(torch, dev) -> None:
+    """The main path's keys on the card (`check_controls`)."""
+    log("phase 4: pause, resume and quit on an unbounded 512² run")
+    with tempfile.TemporaryDirectory() as tmp:
+        check_controls(os.path.join(REPO, "images"), os.path.join(tmp, "out"))
 
 
 def phase_fused(torch, dev) -> None:
@@ -588,6 +713,16 @@ def engine_rate(torch, world: np.ndarray, seconds: float, rule=None,
             chunk)
 
 
+def log_row(name: str, r: dict) -> None:
+    geom = "".join(f" {k}={r[k]}" for k in ("ctas", "per", "rows", "fuse_k")
+                   if k in r)
+    plain = ("not measured" if r["plain_ms"] is None
+             else f"{r['plain_ms']:.4f} ms")
+    log(f"  {name} {r['shape']} turns={r['turns']}{geom}"
+        f"{' (policy)' if r.get('policy') else ''}: {r['ms']:.4f} ms/launch, "
+        f"plain {plain}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
 def phase_timing(torch, dev, card: Card, launches: dict) -> list:
     from gol_tpu_torch.ops import bitpack, cuda_stencil as cs
 
@@ -596,25 +731,43 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
     k1_turns = 1024
     rows = {"resident_run_turns": [], "tiled_sweep": [],
             "row_popcounts": []}
-    for (h, wp) in [(512, 16), (64, 2)]:
+    # K1 at every power-of-two cluster size, and at 512² (N = 16) at
+    # other rows per thread; the plain version at the policy's geometry.
+    for (h, wp) in [(512, 16), (256, 8), (64, 2)]:
         w = seeded_words(torch, h, wp, 1, dev)
-        ms = time_ms(torch, lambda: cs.resident_run_turns(w, k1_turns), 5)
-        plain = time_ms(torch, lambda: cs.resident_run_turns_plain(
-            w, k1_turns), 1)
+        policy = (cs.resident_cluster_ctas(h, wp),
+                  cs.resident_rows_per_thread(
+                      h, wp, cs.resident_cluster_ctas(h, wp)))
+        geoms = [(n, cs.resident_rows_per_thread(h, wp, n))
+                 for n in (1, 2, 4, 8, 16)]
+        if h == 512:
+            geoms += [(16, per) for per in RESIDENT_PER_TIMED]
         b, by = card.bound(8 * h * wp, ops * k1_turns * h * wp)
-        rows["resident_run_turns"].append(dict(
-            shape=f"{h}x{wp * 32}", turns=k1_turns, ms=ms, plain_ms=plain,
-            bound_ms=b, bound_by=by))
-    for (h, wp) in [(65536, 2048), (16384, 512), (5120, 160), (512, 16)]:
+        for n, per in sorted(set(geoms) | {policy}):
+            ms = time_ms(torch, lambda: cs.resident_run_turns(
+                w, k1_turns, ctas=n, per=per), 5)
+            plain = (time_ms(torch, lambda: cs.resident_run_turns_plain(
+                w, k1_turns), 1) if (n, per) == policy else None)
+            rows["resident_run_turns"].append(dict(
+                shape=f"{h}x{wp * 32}", turns=k1_turns, ctas=n, per=per,
+                policy=(n, per) == policy, ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by))
+    # K2 at every tile height; the plain version at the policy's.
+    for (h, wp) in [(65536, 2048), (16384, 512), (8192, 256), (5120, 160)]:
         w = seeded_words(torch, h, wp, 2, dev)
         o = torch.empty_like(w)
-        if h > 512:  # 512² is K1's board on the main path
-            ms = time_ms(torch, lambda: cs.tiled_sweep(w, o, 32), 5)
-            plain = time_ms(torch, lambda: cs.tiled_sweep_plain(w, 32), 1)
-            b, by = card.bound(8 * h * wp, ops * 32 * h * wp)
+        b, by = card.bound(8 * h * wp, ops * 32 * h * wp)
+        for r in cs.TILE_ROW_CHOICES:
+            ms = time_ms(torch, lambda: cs.tiled_sweep(w, o, 32, rows=r), 5)
+            policy = r == cs.tile_rows(h, wp)
+            plain = (time_ms(torch, lambda: cs.tiled_sweep_plain(w, 32), 1)
+                     if policy else None)
             rows["tiled_sweep"].append(dict(
-                shape=f"{h}x{wp * 32}", turns=32, ms=ms, plain_ms=plain,
-                bound_ms=b, bound_by=by))
+                shape=f"{h}x{wp * 32}", turns=32, rows=r, policy=policy,
+                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by))
+        del w, o
+    for (h, wp) in [(65536, 2048), (16384, 512), (5120, 160), (512, 16)]:
+        w = seeded_words(torch, h, wp, 2, dev)
         ms = time_ms(torch, lambda: cs.row_popcounts(w), 20)
         plain = time_ms(torch, lambda: bitpack.row_popcounts_plain(w), 3)
         # One __popc per word; it issues at 16 per clock per SM, a
@@ -623,12 +776,10 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
         rows["row_popcounts"].append(dict(
             shape=f"{h}x{wp * 32}", turns=0, ms=ms, plain_ms=plain,
             bound_ms=b, bound_by=by))
-        del w, o
+        del w
     for name, rs in rows.items():
         for r in rs:
-            log(f"  {name} {r['shape']} turns={r['turns']}: {r['ms']:.4f} "
-                f"ms/launch, plain {r['plain_ms']:.4f} ms, bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            log_row(name, r)
 
     engine = []
     # 65536² runs unfused, then at GOL_FUSE_K=64 on the same board.
@@ -672,7 +823,8 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
         meta[f"tiled_sweep2p/{fam}"] = (tpu, "4096x4096")
     kernels = []
     for name, rs in rows.items():
-        head = [r for r in rs if r["shape"] == meta[name][1]][0]
+        head = [r for r in rs if r["shape"] == meta[name][1]
+                and r.get("policy", True)][0]
         kernels.append(dict(
             name=name, route="cuda",
             source="gol_tpu_torch/csrc/stencil.cu",
@@ -690,8 +842,8 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
 
 
 def timing_deep(torch, dev, card: Card, k2_rows: list):
-    """K6 (one 64-turn sweep) at 8192², 65536² and 131072² (2 GiB packed)
-    beside K2's 32-turn sweep, and B3 `fused_banded_run_turns` over 128
+    """K6 (one 64-turn sweep) at 8192², 65536² and 131072² (2 GiB packed),
+    K2's 32-turn sweep at 131072², and B3 `fused_banded_run_turns` over 128
     turns at pinned depths 16, 32 and 64; each beside its bound. The
     plain versions are timed where their windows fit the card: K6 up to
     65536², B3 at 8192²."""
@@ -709,11 +861,13 @@ def timing_deep(torch, dev, card: Card, k2_rows: list):
         b, by = card.bound(8 * h * wp, ops * 64 * h * wp)
         deep.append(dict(shape=f"{h}x{wp * 32}", turns=64, ms=ms,
                          plain_ms=plain, bound_ms=b, bound_by=by))
-        if h != 65536:  # K2's 65536² sweep is timed with K1-K3
+        if h > 65536:  # K2 up to 65536² is timed with K1-K3
             k2 = time_ms(torch, lambda: cs.tiled_sweep(w, o, 32), reps)
             b2, by2 = card.bound(8 * h * wp, ops * 32 * h * wp)
-            k2_rows.append(dict(shape=f"{h}x{wp * 32}", turns=32, ms=k2,
-                                plain_ms=None, bound_ms=b2, bound_by=by2))
+            k2_rows.append(dict(shape=f"{h}x{wp * 32}", turns=32,
+                                rows=cs.tile_rows(h, wp), policy=True,
+                                ms=k2, plain_ms=None, bound_ms=b2,
+                                bound_by=by2))
         del o
         for k in (16, 32, 64):
             ms = time_ms(torch, lambda: cs.fused_banded_run_turns(
@@ -733,17 +887,10 @@ def timing_deep(torch, dev, card: Card, k2_rows: list):
         del w
         torch.cuda.empty_cache()
     for name, rs in (("tiled_sweep_deep", deep),
-                     ("fused_banded_run_turns", b3)):
+                     ("fused_banded_run_turns", b3),
+                     ("tiled_sweep", k2_rows[-1:])):
         for r in rs:
-            plain = ("not measured" if r["plain_ms"] is None
-                     else f"{r['plain_ms']:.4f} ms")
-            log(f"  {name} {r['shape']} turns={r['turns']}"
-                f"{' k=%d' % r['fuse_k'] if 'fuse_k' in r else ''}: "
-                f"{r['ms']:.4f} ms/call, plain {plain}, bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-    for r in k2_rows[-2:]:
-        log(f"  tiled_sweep {r['shape']} turns=32: {r['ms']:.4f} ms/launch, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            log_row(name, r)
     return deep, b3
 
 
@@ -826,6 +973,37 @@ def main_path_launches(cs) -> dict:
     return launches
 
 
+# Device kernel names (as the profiler reports them) of each wrapper.
+KERNEL_SYMBOLS = (
+    ("resident_kernel<", "resident_run_turns"),
+    ("tiled_kernel<1,", "tiled_sweep"),
+    ("tiled_kernel<2,", "tiled_sweep_deep"),
+    ("row_popcounts_kernel", "row_popcounts"),
+    ("resident2p_kernel<(anonymous namespace)::Gen3>",
+     "resident_run_turns2p/gen3"),
+    ("resident2p_kernel<(anonymous namespace)::Gen4>",
+     "resident_run_turns2p/gen4"),
+    ("tiled2p_kernel<(anonymous namespace)::Gen3>", "tiled_sweep2p/gen3"),
+    ("tiled2p_kernel<(anonymous namespace)::Gen4>", "tiled_sweep2p/gen4"),
+)
+
+
+def device_ms_by_kernel(prof) -> dict:
+    """Device ms per wrapper (and "other": the plain versions and copies
+    the phases run on the card) summed from a profile's key_averages();
+    empty when the profiler saw no device time."""
+    sums: dict = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0))
+        if not us:
+            continue
+        name = next((n for sym, n in KERNEL_SYMBOLS if sym in evt.key),
+                    "other")
+        sums[name] = sums.get(name, 0.0) + us / 1e3
+    return sums
+
+
 def main() -> int:
     import torch
 
@@ -834,6 +1012,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    from torch.profiler import ProfilerActivity, profile
+
     from gol_tpu_torch.ops import _build, cuda_stencil as cs
 
     t_start = time.monotonic()
@@ -851,22 +1031,31 @@ def main() -> int:
     for line in rec["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
+    log("  stack frames (bytes): " + json.dumps(stack_frames(rec["log"])))
+    for name, loop in step_loops(rec["path"]).items():
+        log(f"  sass stepping loop of {name}: {json.dumps(loop)}")
     phase_kernels(torch, dev)
     # Each path runs with the counters at 0 and is read just after; each
-    # must have launched every kernel (and family) it runs.
-    launches = {}
-    for phase, kernels in (
+    # must have launched every kernel (and family) it runs. The profiler
+    # sums the device time of the profiled paths by kernel.
+    launches, device_ms = {}, {}
+    for phase, kernels, profiled in (
             (phase_main_path, ("resident_run_turns", "tiled_sweep",
-                               "row_popcounts")),
+                               "row_popcounts"), True),
+            (phase_controls, ("resident_run_turns", "row_popcounts"), False),
             (phase_generations, ("row_popcounts",
                                  "resident_run_turns2p/gen3",
                                  "resident_run_turns2p/gen4",
                                  "tiled_sweep2p/gen3",
-                                 "tiled_sweep2p/gen4")),
+                                 "tiled_sweep2p/gen4"), True),
             (phase_fused, ("tiled_sweep_deep", "tiled_sweep",
-                           "row_popcounts"))):
+                           "row_popcounts"), True)):
         cs.reset_launch_counts()
-        phase(torch, dev)
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof:
+            phase(torch, dev)
+            torch.cuda.synchronize()
         counts = main_path_launches(cs)
         log(f"  {phase.__name__} launches: {counts}")
         for name in kernels:
@@ -875,7 +1064,16 @@ def main() -> int:
                                      f"{name}")
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
+        if profiled:
+            for name, ms in device_ms_by_kernel(prof).items():
+                device_ms[name] = device_ms.get(name, 0.0) + ms
+        del prof
+    log("  main-path device ms by kernel (torch.profiler): "
+        + (json.dumps(device_ms) if device_ms else "not measured"))
     kernels = phase_timing(torch, dev, card, launches)
+    for k in kernels:
+        k["main_path_device_ms"] = device_ms.get(
+            k["name"], 0.0 if device_ms else "not measured")
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

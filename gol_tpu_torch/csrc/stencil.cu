@@ -18,7 +18,12 @@
 // in all — the figure `OPS_PER_WORD_TURN` in ops/cuda_stencil.py holds.
 // Each thread slides down a column of rows and keeps the hs planes of
 // the two rows above in registers, so a word costs three shared-memory
-// loads and one store per turn.
+// loads and one store per turn. The life-like kernels (K1, K2, K6) share
+// `step_rows`, whose inner loop is kept near those counted ops: row
+// addresses advance as pointers, a thread's column and neighbours are
+// fixed before the turn loop, no load is guarded, buffers swap as
+// pointers (no array indexed by turn parity, so no stack frame), and two
+// rows go per iteration.
 //
 // Kernels and the TPU kernels they replace:
 //   resident_run_turns  <- pallas_packed_run_turns (pallas_stencil.py:508)
@@ -40,10 +45,19 @@
 // C interface: every entry point sets the device, launches on the given
 // stream, does not synchronise and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
+
+// Shared memory one block can use, and one SM holds (with 1 KiB that the
+// runtime keeps per resident block).
+constexpr int kBlockSmemBytes = 232448;
+constexpr int kSmSmemBytes = 233472;
+constexpr int kBlockReservedSmem = 1024;
 
 // Tiled sweep geometry; ops/cuda_stencil.py mirrors these constants.
 // A sweep of depth t needs t cells of horizontal halo, so the halo width
@@ -51,7 +65,11 @@ namespace {
 constexpr int kWinWords = 64;      // window words per row, halo included
 constexpr int kTileSegments = 8;   // threads down each window column
 constexpr int kTileMaxT = 32;      // K2: one halo word a side
-constexpr int kTileRows = 384;     // K2 R: output rows per block
+// K2 R, output rows per block: one instantiation each; tile_rows() in
+// ops/cuda_stencil.py picks one per board so that the grid fills the
+// card. At T = 32 the buffers of a 128-row tile leave room for two
+// blocks on an SM.
+constexpr int kTileRowChoices[] = {384, 128};
 constexpr int kTileWords = kWinWords - 2;  // K2 C: output words per block
 // K6: two buffers of (R + 2 x 64) x 64 words must fit 232,448 bytes, so
 // R <= 326; R = 320 uses 229,376.
@@ -62,6 +80,9 @@ constexpr int kDeepWords = kWinWords - 4;
 // 232,448 bytes, so R + 2T <= 227; R = 160 leaves T = 32.
 constexpr int kTile2pRows = 160;
 constexpr int kResidentThreads = 1024;
+// K1: the largest cluster H100 places (a non-portable size above 8).
+constexpr int kResidentMaxCtas = 16;
+constexpr int kPortableClusterCtas = 8;
 constexpr int kPopcountThreads = 256;
 
 __device__ __forceinline__ uint32_t mux(uint32_t s, uint32_t a,
@@ -123,90 +144,256 @@ __device__ __forceinline__ void hsum(uint32_t w, uint32_t p, uint32_t e,
   s1 = (west & p) | (east & (west ^ p));
 }
 
-// One turn for rows [a, b) of one word column. `row(i)` maps a row index
-// to its offset in `src` (torus wrap or window), `west`/`east` are the
-// column offsets of the neighbouring words, or -1 for "no word" (zero).
-template <typename RowFn>
-__device__ __forceinline__ void step_column(
-    const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int a,
-    int b, int col, int west, int east, RowFn row, const RuleLeaves& rule) {
-  auto load = [&](int r, uint32_t& p, uint32_t& s0, uint32_t& s1) {
-    const uint32_t* line = src + row(r);
-    p = line[col];
-    const uint32_t w = west >= 0 ? line[west] : 0u;
-    const uint32_t e = east >= 0 ? line[east] : 0u;
-    hsum(w, p, e, s0, s1);
-  };
-  uint32_t pu, au0, au1, pm, am0, am1;
-  load(a - 1, pu, au0, au1);
-  load(a, pm, am0, am1);
-  for (int r = a; r < b; ++r) {
-    uint32_t pd, ad0, ad1;
-    load(r + 1, pd, ad0, ad1);
-    const uint32_t u0 = au0 ^ am0 ^ ad0;
-    const uint32_t u1 = (au0 & am0) | (ad0 & (au0 ^ am0));
-    const uint32_t v0 = au1 ^ am1 ^ ad1;
-    const uint32_t v1 = (au1 & am1) | (ad1 & (au1 ^ am1));
-    const uint32_t n1 = u1 ^ v0;
-    const uint32_t c2 = u1 & v0;
-    dst[row(r) + col] = apply_rule(rule, pm, u0, n1, v1 ^ c2, v1 & c2);
-    au0 = am0; au1 = am1;
-    pm = pd; am0 = ad0; am1 = ad1;
-  }
+// One row's own word and the horizontal-sum planes of its three words.
+struct HRow {
+  uint32_t p, s0, s1;
+};
+
+__device__ __forceinline__ HRow hrow(const uint32_t* line, int col, int west,
+                                     int east) {
+  HRow r;
+  r.p = line[col];
+  hsum(line[west], r.p, line[east], r.s0, r.s1);
+  return r;
 }
 
-// K1: the whole board in shared memory (ping-pong), `turns` turns, one
-// block. Threads take (word column, row segment) items.
+// Next state of the middle row's word from the three rows' sums.
+__device__ __forceinline__ uint32_t next_word(const RuleLeaves& rule,
+                                              const HRow& u, const HRow& m,
+                                              const HRow& d) {
+  const uint32_t u0 = u.s0 ^ m.s0 ^ d.s0;
+  const uint32_t u1 = (u.s0 & m.s0) | (d.s0 & (u.s0 ^ m.s0));
+  const uint32_t v0 = u.s1 ^ m.s1 ^ d.s1;
+  const uint32_t v1 = (u.s1 & m.s1) | (d.s1 & (u.s1 ^ m.s1));
+  const uint32_t n1 = u1 ^ v0;
+  const uint32_t c2 = u1 & v0;
+  return apply_rule(rule, m.p, u0, n1, v1 ^ c2, v1 & c2);
+}
+
+// One turn for n >= 1 consecutive rows of one word column: the rows at
+// first, first + stride, ... (written to dst, dst + stride, ...), with
+// the row above the first at `above` and the row below the last at
+// `below` (another CTA's shared memory in K1's cluster). `col`, `west`
+// and `east` are the offsets in a row of the word and its neighbours.
+// Each row is loaded once; two rows go per iteration.
+__device__ __forceinline__ void step_rows(
+    const uint32_t* above, const uint32_t* first, const uint32_t* below,
+    uint32_t* dst, int n, int stride, int col, int west, int east,
+    const RuleLeaves& rule) {
+  HRow u = hrow(above, col, west, east);
+  HRow m = hrow(first, col, west, east);
+  const uint32_t* next = first + stride;
+  int i = 0;
+  for (; i + 2 < n; i += 2) {  // rows i, i + 1 read rows up to i + 2 < n
+    const HRow d = hrow(next, col, west, east);
+    const HRow d2 = hrow(next + stride, col, west, east);
+    dst[col] = next_word(rule, u, m, d);
+    dst[stride + col] = next_word(rule, m, d, d2);
+    u = d;
+    m = d2;
+    next += 2 * stride;
+    dst += 2 * stride;
+  }
+  if (i + 1 < n) {
+    const HRow d = hrow(next, col, west, east);
+    dst[col] = next_word(rule, u, m, d);
+    u = m;
+    m = d;
+    dst += stride;
+  }
+  dst[col] = next_word(rule, u, m, hrow(below, col, west, east));
+}
+
+// Cluster barrier halves (PTX defaults: the arrive releases, the wait
+// acquires, at cluster scope).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// First board row of CTA `rank`'s slab: slabs of floor(h/N) or
+// ceil(h/N) rows (ops/cuda_stencil.py:_slab_starts mirrors it).
+__host__ __device__ __forceinline__ int slab_start(int rank, int h,
+                                                   int ctas) {
+  return (int)((long long)rank * h / ctas);
+}
+
+// K1: the board in the shared memory of one cluster of N CTAs
+// (kCluster), or of one CTA, for `turns` turns.
+//
+// Replaces pallas_packed_run_turns (pallas_stencil.py:508), which keeps
+// the board in VMEM for K turns. Bound: the 30 logic ops per word and
+// turn; one CTA would reach at most 1/132 of the card's rate, so the
+// board is spread over a cluster of up to 16 SMs (1/8 of the card).
+//
+// CTA i owns rows [a_i, a_{i+1}) in two buffers (ping-pong) of
+// ceil(h/N) rows. The rows above and below its slab are the last row of
+// CTA i - 1's slab and the first row of CTA i + 1's (ranks modulo N:
+// the torus), read in place from their shared memory through DSMEM.
+// A turn is:
+//   1. the slab's first and last rows, the only rows that read a
+//      neighbour (threads of slots 0 and 1);
+//   2. barrier.cluster.arrive (release);
+//   3. the rows between (the other slots), then __syncthreads: they are
+//      written after the arrive, so only the block barrier orders them
+//      for this CTA's threads, the only ones that read them;
+//   4. barrier.cluster.wait (acquire).
+// Why that is safe: turn k + 1 writes the buffer that the neighbours
+// read in turn k, and they made those reads (in step 1) before they
+// arrived, so before anyone's wait of turn k returned. The neighbours
+// read only edge rows, and those were written before the release. The
+// wait that closes the last turn is the full cluster barrier that lets a
+// CTA copy out its slab and exit: every read of its shared memory came
+// before some arrive of that turn. With one CTA (kCluster false) the
+// rows above and below are its own last and first, and the block barrier
+// alone ends a turn.
+//
+// Threads: `lanes` columns x (2 + slots) slots, fixed before the turn
+// loop; a slot walks `per` rows (the interior split into slots), a lane
+// columns lane, lane + lanes, ... (once when wp <= lanes).
+template <bool kCluster>
 __global__ void __launch_bounds__(kResidentThreads)
 resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                 int h, int wp, long long turns, uint32_t born,
-                uint32_t survive, int segs) {
+                uint32_t survive, int lanes, int per) {
   extern __shared__ uint32_t smem[];
-  const int n = h * wp;
-  uint32_t* buf[2] = {smem, smem + n};
-  for (int i = threadIdx.x; i < n; i += blockDim.x) buf[0][i] = in[i];
-  __syncthreads();
-  const RuleLeaves rule = make_leaves(born, survive);
-  const int seg_len = (h + segs - 1) / segs;
-  const int items = wp * segs;
-  // step_column only asks for rows -1 .. h.
-  auto row = [h, wp](int r) {
-    return (r < 0 ? r + h : (r >= h ? r - h : r)) * wp;
-  };
-  for (long long k = 0; k < turns; ++k) {
-    const uint32_t* src = buf[k & 1];
-    uint32_t* dst = buf[(k + 1) & 1];
-    for (int item = threadIdx.x; item < items; item += blockDim.x) {
-      const int col = item % wp;
-      const int a = (item / wp) * seg_len;
-      const int b = min(a + seg_len, h);
-      if (a < b) {
-        step_column(src, dst, a, b, col, (col + wp - 1) % wp,
-                    (col + 1) % wp, row, rule);
-      }
-    }
+  const int ctas = gridDim.x;
+  const int rank = blockIdx.x;
+  const int a = slab_start(rank, h, ctas);
+  const int len = slab_start(rank + 1, h, ctas) - a;
+  const int buf = ((h + ctas - 1) / ctas) * wp;  // words per buffer
+  const uint32_t* src_in = in + (long long)a * wp;
+  for (int i = threadIdx.x; i < len * wp; i += blockDim.x) smem[i] = src_in[i];
+  const uint32_t* up = smem;
+  const uint32_t* down = smem;
+  int up_last = len - 1;  // row of `up` above the slab
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int ru = rank == 0 ? ctas - 1 : rank - 1;
+    up = cluster.map_shared_rank(smem, ru);
+    down = cluster.map_shared_rank(smem, rank == ctas - 1 ? 0 : rank + 1);
+    up_last = slab_start(ru + 1, h, ctas) - slab_start(ru, h, ctas) - 1;
+    cluster.sync();  // every slab loaded, every CTA running
+  } else {
     __syncthreads();
   }
-  const uint32_t* fin = buf[turns & 1];
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = fin[i];
+  // This thread's rows [first, first + n) and column.
+  const int slot = threadIdx.x / lanes;
+  const int lane = threadIdx.x - slot * lanes;
+  const bool edge = slot < 2;
+  int first, n;
+  if (slot == 0) {
+    first = 0;
+    n = 1;
+  } else if (slot == 1) {
+    first = len - 1;
+    n = len >= 2 ? 1 : 0;
+  } else {
+    first = 1 + (slot - 2) * per;
+    n = max(0, min(per, len - 1 - first));
+  }
+  const int last = first + n - 1;
+  const uint32_t* above = first == 0 ? up : smem;
+  const int above_off = (first == 0 ? up_last : first - 1) * wp;
+  const uint32_t* below = last == len - 1 ? down : smem;
+  const int below_off = last == len - 1 ? 0 : (last + 1) * wp;
+  const int first_off = first * wp;
+  const int west0 = lane == 0 ? wp - 1 : lane - 1;
+  const int east0 = lane + 1 == wp ? 0 : lane + 1;
+  const RuleLeaves rule = make_leaves(born, survive);
+  auto step = [&](int src, int dst) {
+    if (n <= 0) return;
+    int col = lane, west = west0, east = east0;
+    while (true) {
+      step_rows(above + src + above_off, smem + src + first_off,
+                below + src + below_off, smem + dst + first_off, n, wp, col,
+                west, east, rule);
+      col += lanes;
+      if (col >= wp) break;
+      west = col - 1;
+      east = col + 1 == wp ? 0 : col + 1;
+    }
+  };
+  int src = 0;  // word offset of the current buffer
+  for (long long k = 0; k < turns; ++k) {
+    const int dst = buf - src;
+    if (edge) step(src, dst);
+    if constexpr (kCluster) cluster_arrive();
+    if (!edge) step(src, dst);
+    __syncthreads();
+    if constexpr (kCluster) cluster_wait();
+    src = dst;
+  }
+  uint32_t* dst_out = out + (long long)a * wp;
+  for (int i = threadIdx.x; i < len * wp; i += blockDim.x) {
+    dst_out[i] = smem[src + i];
+  }
 }
 
-// K2 (kHalo = 1, R = kTileRows) and K6 (kHalo = 2, R = kDeepRows): one
-// block per R x C output tile, C = 64 - 2 kHalo words. The block loads a
-// window of (R + 2t) rows x 64 words around its tile, indices taken
-// modulo the board, steps it t turns and writes the exact R x C
-// interior, window columns kHalo .. kHalo + C - 1. Wrong values enter at
-// the window's edges and advance one row and one cell per turn, so each
-// turn computes only rows [turn, R + 2t - turn) and t <= 32 x kHalo
-// cells of horizontal halo are enough.
+template <bool kCluster>
+cudaError_t launch_resident(const void* in, void* out, int h, int wp,
+                            long long turns, unsigned born, unsigned survive,
+                            int ctas, int lanes, int threads, int per,
+                            size_t smem, cudaStream_t stream) {
+  auto kernel = resident_kernel<kCluster>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  if (ctas > kPortableClusterCtas) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = ctas;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
+  if (e != cudaSuccess) return e;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;  // no fallback
+  e = cudaLaunchKernelEx(&cfg, kernel, (const uint32_t*)in, (uint32_t*)out,
+                         h, wp, turns, (uint32_t)born, (uint32_t)survive,
+                         lanes, per);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// Blocks of a tiled sweep that share one SM at its deepest sweep.
+constexpr int tiled_blocks_per_sm(int halo, int rows) {
+  return 2 * (2 * 4 * (rows + 2 * 32 * halo) * kWinWords +
+              kBlockReservedSmem) <= kSmSmemBytes ? 2 : 1;
+}
+
+// K2 (kHalo = 1, R = kRows, one of kTileRowChoices) and K6 (kHalo = 2,
+// R = kDeepRows): one block per R x C output tile, C = 64 - 2 kHalo
+// words. The block loads a window of (R + 2t) rows x 64 words around its
+// tile, indices taken modulo the board, steps it t turns and writes the
+// exact R x C interior, window columns kHalo .. kHalo + C - 1. Wrong
+// values enter at the window's edges and advance one row and one cell
+// per turn, so each turn computes only rows [turn, R + 2t - turn) and
+// t <= 32 x kHalo cells of horizontal halo are enough. The edge columns
+// read their missing neighbour by wrapping within the window, as the
+// plain version's windows do: their cells are wrong either way.
 template <int kHalo, int kRows>
-__global__ void __launch_bounds__(kWinWords * kTileSegments)
+__global__ void __launch_bounds__(kWinWords * kTileSegments,
+                                  tiled_blocks_per_sm(kHalo, kRows))
 tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
              int h, int wp, int t, uint32_t born, uint32_t survive) {
   constexpr int kWords = kWinWords - 2 * kHalo;
   extern __shared__ uint32_t smem[];
   const int win_rows = kRows + 2 * t;
-  uint32_t* buf[2] = {smem, smem + win_rows * kWinWords};
   const int r0 = blockIdx.y * kRows;
   const int c0 = blockIdx.x * kWords;
   const int col = threadIdx.x;
@@ -216,29 +403,33 @@ tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   for (int i = seg; i < win_rows; i += kTileSegments) {
     long long gr = ((long long)r0 - t + i) % h;
     if (gr < 0) gr += h;
-    buf[0][i * kWinWords + col] = in[gr * wp + gcol];
+    smem[i * kWinWords + col] = in[gr * wp + gcol];
   }
   __syncthreads();
   const RuleLeaves rule = make_leaves(born, survive);
-  auto row = [](int r) { return r * kWinWords; };
-  const int west = col > 0 ? col - 1 : -1;
-  const int east = col < kWinWords - 1 ? col + 1 : -1;
+  const int west = (col - 1) & (kWinWords - 1);
+  const int east = (col + 1) & (kWinWords - 1);
+  uint32_t* src = smem;
+  uint32_t* dst = smem + win_rows * kWinWords;
   for (int turn = 1; turn <= t; ++turn) {
-    const uint32_t* src = buf[(turn - 1) & 1];
-    uint32_t* dst = buf[turn & 1];
-    const int lo = turn;
     const int per = (win_rows - 2 * turn + kTileSegments - 1) /
                     kTileSegments;
-    const int a = lo + seg * per;
+    const int a = turn + seg * per;
     const int b = min(a + per, win_rows - turn);
-    if (a < b) step_column(src, dst, a, b, col, west, east, row, rule);
+    if (a < b) {
+      step_rows(src + (a - 1) * kWinWords, src + a * kWinWords,
+                src + b * kWinWords, dst + a * kWinWords, b - a, kWinWords,
+                col, west, east, rule);
+    }
     __syncthreads();
+    uint32_t* const done = dst;
+    dst = src;
+    src = done;
   }
-  const uint32_t* fin = buf[t & 1];
   const int gw = c0 + col - kHalo;
   if (col >= kHalo && col < kHalo + kWords && gw < wp) {
     for (int i = seg; i < kRows && r0 + i < h; i += kTileSegments) {
-      out[(long long)(r0 + i) * wp + gw] = fin[(t + i) * kWinWords + col];
+      out[(long long)(r0 + i) * wp + gw] = src[(t + i) * kWinWords + col];
     }
   }
 }
@@ -315,10 +506,10 @@ struct Gen4 {
   }
 };
 
-// One turn of both planes for rows [a, b) of one word column, as
-// step_column: each row's words are loaded once, the alive word of the
-// row and its west/east neighbours feed the horizontal sum, and the
-// row's own two words are kept for the transition.
+// One turn of both planes for rows [a, b) of one word column: each
+// row's words are loaded once, the alive word of the row and its
+// west/east neighbours feed the horizontal sum, and the row's own two
+// words are kept for the transition.
 template <typename Family, typename RowFn>
 __device__ __forceinline__ void step_column2p(
     const uint32_t* __restrict__ src0, const uint32_t* __restrict__ src1,
@@ -508,40 +699,64 @@ const char* gol_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int gol_tile_geometry(int* max_t, int* rows, int* words) {
+// K2's halo depth and tile width, and its row choices (at most `cap`
+// written to `rows`); returns how many choices there are.
+int gol_tile_geometry(int* max_t, int* words, int* rows, int cap) {
+  constexpr int n = sizeof(kTileRowChoices) / sizeof(kTileRowChoices[0]);
   *max_t = kTileMaxT;
-  *rows = kTileRows;
   *words = kTileWords;
-  return 0;
+  for (int i = 0; i < n && i < cap; ++i) rows[i] = kTileRowChoices[i];
+  return n;
 }
 
+// K1 on one cluster of `ctas` CTAs (1..16, at most h), each thread slot
+// walking `per` rows of its slab's interior. Returns
+// cudaErrorInvalidValue for a geometry it does not take and
+// cudaErrorLaunchOutOfResources when the cluster cannot be placed.
 int gol_resident_run_turns(const void* in, void* out, int h, int wp,
                            long long turns, unsigned born, unsigned survive,
-                           int device, void* stream) {
+                           int ctas, int per, int device, void* stream) {
+  if (h < 1 || wp < 1 || ctas < 1 || ctas > kResidentMaxCtas || ctas > h ||
+      per < 1) {
+    return cudaErrorInvalidValue;
+  }
+  const int len_max = (h + ctas - 1) / ctas;
+  const size_t smem = 2 * sizeof(uint32_t) * (size_t)len_max * wp;
+  const int inner = len_max - 2;
+  const int slots = 2 + (inner > 0 ? (inner + per - 1) / per : 0);
+  if (smem > (size_t)kBlockSmemBytes || slots > kResidentThreads) {
+    return cudaErrorInvalidValue;
+  }
+  const int lanes = wp < kResidentThreads / slots ? wp : kResidentThreads / slots;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  const size_t smem = 2 * sizeof(uint32_t) * (size_t)h * wp;
-  e = cudaFuncSetAttribute(resident_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  int segs = kResidentThreads / wp;
-  if (segs < 1) segs = 1;
-  if (segs > h) segs = h;
-  resident_kernel<<<1, kResidentThreads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)in, (uint32_t*)out, h, wp, turns, born, survive,
-      segs);
-  return cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (ctas == 1) {
+    return launch_resident<false>(in, out, h, wp, turns, born, survive, 1,
+                                  lanes, lanes * slots, per, smem, s);
+  }
+  return launch_resident<true>(in, out, h, wp, turns, born, survive, ctas,
+                               lanes, lanes * slots, per, smem, s);
 }
 
+// K2 at `rows` output rows per tile, one of kTileRowChoices.
 int gol_tiled_sweep(const void* in, void* out, int h, int wp, int t,
-                    unsigned born, unsigned survive, int device,
+                    int rows, unsigned born, unsigned survive, int device,
                     void* stream) {
   if (t < 1 || t > kTileMaxT) return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  return launch_tiled<1, kTileRows>(in, out, h, wp, t, born, survive,
-                                    (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (rows) {
+    case kTileRowChoices[0]:
+      return launch_tiled<1, kTileRowChoices[0]>(in, out, h, wp, t, born,
+                                                 survive, s);
+    case kTileRowChoices[1]:
+      return launch_tiled<1, kTileRowChoices[1]>(in, out, h, wp, t, born,
+                                                 survive, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 int gol_deep_geometry(int* max_t, int* rows, int* words) {

@@ -48,11 +48,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     ip = ctypes.POINTER(ctypes.c_int)
     lib.gol_error_string.argtypes = [i]
     lib.gol_error_string.restype = ctypes.c_char_p
-    lib.gol_tile_geometry.argtypes = [ip, ip, ip]
+    lib.gol_tile_geometry.argtypes = [ip, ip, ip, i]
     lib.gol_tile_geometry.restype = i
-    lib.gol_resident_run_turns.argtypes = [vp, vp, i, i, ll, u, u, i, vp]
+    lib.gol_resident_run_turns.argtypes = [vp, vp, i, i, ll, u, u, i, i, i,
+                                           vp]
     lib.gol_resident_run_turns.restype = i
-    lib.gol_tiled_sweep.argtypes = [vp, vp, i, i, i, u, u, i, vp]
+    lib.gol_tiled_sweep.argtypes = [vp, vp, i, i, i, i, u, u, i, vp]
     lib.gol_tiled_sweep.restype = i
     lib.gol_deep_geometry.argtypes = [ip, ip, ip]
     lib.gol_deep_geometry.restype = i

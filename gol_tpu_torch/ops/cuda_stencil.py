@@ -9,28 +9,34 @@ launches in a `launches` attribute. Words are the int32 carrier of
 
 K1 `resident_run_turns` replaces `pallas_packed_run_turns`
 (pallas_stencil.py:508). The TPU keeps the whole board in VMEM and runs
-K turns in one call; here one thread block keeps the board in shared
-memory (two buffers, so at most `RESIDENT_BOARD_BYTES`) and runs K turns
-with a block barrier between turns. Bound: 30 shift/logic ops per word
-per turn (`OPS_PER_WORD_TURN`) against the 32-bit logic issue rate, but
-one block uses one of the card's 132 SMs, so it runs at most 1/132 of
-that rate. That is the price of a simple, exact first kernel for boards
-up to 112 KiB packed (512² is 32 KiB); it must also take Wp = 1, where a
-word's west and east neighbours are itself.
+K turns in one call; here one thread-block cluster of N CTAs (up to 16,
+H100's largest) keeps it in shared memory, each CTA a slab of
+floor(h/N) or ceil(h/N) rows in two buffers, and runs K turns. The rows
+above and below a slab are read from the neighbouring CTAs' shared
+memory (DSMEM), ranks modulo N, with one split cluster barrier a turn
+(`csrc/stencil.cu` says why that is safe). Bound: 30 shift/logic ops
+per word per turn (`OPS_PER_WORD_TURN`) against the 32-bit logic issue
+rate; a cluster uses at most 16 of the card's 132 SMs. It takes every
+board up to `RESIDENT_BOARD_BYTES` packed (512² is 32 KiB), Wp = 1
+(a word's west and east neighbours are itself) and heights N does not
+divide. `resident_cluster_ctas` and `resident_rows_per_thread` choose N
+and the rows each thread walks from the shape; a cluster the card
+cannot place raises (no retry at N = 1).
 
 K2 `tiled_sweep` replaces `_banded_pass` (pallas_stencil.py:388). A
 full-width band does not fit Hopper's 227 KB of shared memory (one
-65536-wide row is 8 KB), so each block takes a 2-D tile: R = 384 rows x
+65536-wide row is 8 KB), so each block takes a 2-D tile: R rows x
 C = 62 words of output, from a window of (R + 2T) x (C + 2) words loaded
 with indices modulo the board, stepped T <= 32 turns in shared memory.
-The window is (R + 2T)(C + 2) / (R C) = 1.20 times the tile at T = 32,
-but each turn computes only the rows still exact, so the work done is
-(R + T - 1)(C + 2) / (R C) = 1.12 times the useful work. Bound: a sweep
-reads and writes each word once (8 bytes) and spends 32 x 30 ops on it,
-so the ops, not the 3.35 TB/s of memory, bound it. `banded_run_turns`
-runs floor(K/32) sweeps at T = 32 and one at T = K mod 32; every depth
-1..32 is legal, so the TPU's 8-aligned remainder and jnp-scan fallbacks
-have no counterpart.
+R is one of `TILE_ROW_CHOICES`, picked by `tile_rows` from the shape so
+that small boards still fill the card's 132 SMs. Each turn computes only
+the rows still exact, so the work done is (R + T - 1)(C + 2) / (R C)
+times the useful work: 1.12 at R = 384, T = 32, 1.28 at R = 128. Bound: a
+sweep reads and writes each word once (8 bytes) and spends 32 x 30 ops
+on it, so the ops, not the 3.35 TB/s of memory, bound it.
+`banded_run_turns` runs floor(K/32) sweeps at T = 32 and one at
+T = K mod 32; every depth 1..32 is legal, so the TPU's 8-aligned
+remainder and jnp-scan fallbacks have no counterpart.
 
 K6 `tiled_sweep_deep`, driven by `fused_banded_run_turns`, replaces
 `fused_banded_run_turns` (pallas_stencil.py:474): `_banded_pass` at the
@@ -101,12 +107,27 @@ from gol_tpu_torch.ops.bitpack import (
 )
 
 # Shared memory a block can use on Hopper (232,448 bytes); K1 holds two
-# copies of the board.
+# copies of the board (spread over its cluster).
 SMEM_BYTES = 232_448
 RESIDENT_BOARD_BYTES = SMEM_BYTES // 2
+# SMs of the H100 the geometry policies below fill.
+CARD_SMS = 132
+# K1: CTAs in its cluster (H100 places at most 16), threads per CTA
+# (csrc/stencil.cu checks both).
+RESIDENT_MAX_CTAS = 16
+RESIDENT_THREADS = 1024
+# K1 policy (measured on the card, PERF.md): a cluster pays once a CTA's
+# turn outweighs the cluster barrier (~1 µs a turn), from 2048 words
+# (256²) up; a thread walks the most rows, up to RESIDENT_MAX_PER, that
+# still leave a CTA RESIDENT_MIN_THREADS threads (a warp for each of the
+# SM's four schedulers); odd walks keep the slots that share a warp on
+# distinct shared-memory banks.
+RESIDENT_CLUSTER_MIN_WORDS = 2048
+RESIDENT_MIN_THREADS = 128
+RESIDENT_MAX_PER = 9
 # K2 geometry, mirrored from csrc/stencil.cu (checked at load).
 TILE_MAX_T = 32
-TILE_ROWS = 384
+TILE_ROW_CHOICES = (384, 128)
 TILE_WORDS = 62
 # K6 geometry: two halo words a side (checked at load).
 DEEP_MAX_T = 64
@@ -190,15 +211,18 @@ def _library():
     """The kernel library (built on first use), once its tile geometry
     is checked against the Python mirror above."""
     lib = _build.library()
-    got = ()
-    for query in (lib.gol_tile_geometry, lib.gol_deep_geometry):
-        vals = [ctypes.c_int() for _ in range(3)]
-        query(*[ctypes.byref(v) for v in vals])
-        got += tuple(v.value for v in vals)
+    max_t, words = ctypes.c_int(), ctypes.c_int()
+    rows = (ctypes.c_int * 8)()
+    n = lib.gol_tile_geometry(ctypes.byref(max_t), ctypes.byref(words), rows,
+                              len(rows))
+    got = (max_t.value, words.value, tuple(rows[:n]))
+    deep = [ctypes.c_int() for _ in range(3)]
+    lib.gol_deep_geometry(*[ctypes.byref(v) for v in deep])
+    got += tuple(v.value for v in deep)
     rows2p = ctypes.c_int()
     lib.gol_tile2p_rows(ctypes.byref(rows2p))
     got += (rows2p.value,)
-    want = (TILE_MAX_T, TILE_ROWS, TILE_WORDS, DEEP_MAX_T, DEEP_ROWS,
+    want = (TILE_MAX_T, TILE_WORDS, TILE_ROW_CHOICES, DEEP_MAX_T, DEEP_ROWS,
             DEEP_WORDS, TILE2P_ROWS)
     if got != want:
         raise RuntimeError(f"kernel tile geometry {got} != the Python "
@@ -223,32 +247,115 @@ def _kernel_args(words: torch.Tensor, what: str, planes: bool = False):
 
 # ------------------------------------------------------------------- K1
 
+def resident_cluster_ctas(h: int, wp: int) -> int:
+    """K1's cluster size N for an (h, wp) board: one CTA below
+    `RESIDENT_CLUSTER_MIN_WORDS` words, else the largest cluster the
+    board's rows allow, min(16, h)."""
+    if h * wp < RESIDENT_CLUSTER_MIN_WORDS:
+        return 1
+    return min(RESIDENT_MAX_CTAS, h)
+
+
+def _resident_slots(h: int, ctas: int, per: int) -> int:
+    """Thread slots of a K1 CTA: the slab's first and last rows, then its
+    interior rows `per` to a slot (as `gol_resident_run_turns`)."""
+    inner = -(-h // ctas) - 2
+    return 2 + (-(-inner // per) if inner > 0 else 0)
+
+
+def _resident_threads(h: int, wp: int, ctas: int, per: int) -> int:
+    """Threads of a K1 CTA: a lane per column, up to 1024 in all."""
+    slots = _resident_slots(h, ctas, per)
+    return min(wp, RESIDENT_THREADS // slots) * slots
+
+
+def resident_rows_per_thread(h: int, wp: int, ctas: int) -> int:
+    """Interior rows each K1 thread walks (odd): the most, up to
+    `RESIDENT_MAX_PER`, that leave a CTA `RESIDENT_MIN_THREADS` threads,
+    or more where 1024 threads could not hold the slab otherwise."""
+    per = 1
+    while (per + 2 <= RESIDENT_MAX_PER and _resident_threads(
+            h, wp, ctas, per + 2) >= RESIDENT_MIN_THREADS):
+        per += 2
+    while _resident_slots(h, ctas, per) > RESIDENT_THREADS:
+        per += 2
+    return per
+
+
+def _check_resident_geometry(h: int, ctas: int, per: int | None) -> None:
+    """Raise on a cluster size, or (unless None) rows per thread, that K1
+    does not take."""
+    if not 1 <= ctas <= min(RESIDENT_MAX_CTAS, h):
+        raise ValueError(f"resident_run_turns: {ctas} CTAs not in "
+                         f"1..{min(RESIDENT_MAX_CTAS, h)} for {h} rows")
+    if per is not None and (per < 1 or _resident_slots(h, ctas, per)
+                            > RESIDENT_THREADS):
+        raise ValueError(f"resident_run_turns: {per} rows per thread needs "
+                         f"more than {RESIDENT_THREADS} threads a CTA")
+
+
+def _slab_starts(h: int, ctas: int) -> list:
+    """First row of each CTA's slab, and h (csrc/stencil.cu:slab_start)."""
+    return [i * h // ctas for i in range(ctas + 1)]
+
+
 def resident_run_turns_plain(words: torch.Tensor, num_turns: int,
-                             rule: LifeLikeRule = CONWAY) -> torch.Tensor:
-    """K1's plain version: `num_turns` whole-board turns of the shared
-    horizontal-sum network."""
+                             rule: LifeLikeRule = CONWAY,
+                             ctas: int | None = None) -> torch.Tensor:
+    """K1's plain version on the kernel's slabs: each turn steps every
+    CTA's window, rows a_i - 1 .. a_{i+1} modulo h, as a torus of its own
+    (one batch) and keeps each slab. N is `resident_cluster_ctas`'s
+    unless `ctas` is given."""
+    h, wp = words.shape[-2:]
+    if ctas is None:
+        ctas = resident_cluster_ctas(h, wp)
+    _check_resident_geometry(h, ctas, None)
+    starts = _slab_starts(h, ctas)
+    dev = words.device
+    span = -(-h // ctas) + 2
+    first = torch.tensor(starts[:-1], device=dev)
+    window = (first[:, None] - 1 + torch.arange(span, device=dev)) % h
+    lengths = torch.tensor([b - a for a, b in zip(starts, starts[1:])],
+                           device=dev)
+    slab = torch.repeat_interleave(torch.arange(ctas, device=dev), lengths)
+    row = 1 + torch.arange(h, device=dev) - first[slab]
     for _ in range(num_turns):
-        words = _step_shared_sums(words, rule)
+        stepped = _step_shared_sums(words[..., window, :], rule)
+        words = stepped[..., slab, row, :]
     return words
 
 
 def resident_run_turns(words: torch.Tensor, num_turns: int,
-                       rule: LifeLikeRule = CONWAY) -> torch.Tensor:
+                       rule: LifeLikeRule = CONWAY, *,
+                       ctas: int | None = None,
+                       per: int | None = None) -> torch.Tensor:
     """Advance an (H, Wp) packed board that fits `RESIDENT_BOARD_BYTES`
-    `num_turns` turns in one launch of K1."""
+    `num_turns` turns in one launch of K1, on a cluster of `ctas` CTAs
+    whose threads walk `per` rows (by default the shape's policy)."""
     if num_turns == 0:
         return words
+    h, wp = words.shape[-2:]
+    if ctas is None:
+        ctas = resident_cluster_ctas(h, wp)
+    if per is None:
+        per = resident_rows_per_thread(h, wp, ctas)
+    _check_resident_geometry(h, ctas, per)
     if words.device.type == "cpu":
-        return resident_run_turns_plain(words, num_turns, rule)
+        return resident_run_turns_plain(words, num_turns, rule, ctas)
     lib, h, wp, dev, stream = _kernel_args(words, "resident_run_turns")
     if not fits_resident(words.shape):
         raise ValueError(f"resident_run_turns: board {h}x{wp} words "
                          f"exceeds {RESIDENT_BOARD_BYTES} bytes")
     out = torch.empty_like(words)
     born, survive = rule.masks()
-    _build.check(lib.gol_resident_run_turns(
+    rc = lib.gol_resident_run_turns(
         words.data_ptr(), out.data_ptr(), h, wp, num_turns, born, survive,
-        dev, stream), "resident_run_turns")
+        ctas, per, dev, stream)
+    if rc:
+        raise RuntimeError(
+            f"resident_run_turns: a cluster of {ctas} CTAs for {h}x{wp} "
+            f"words failed: CUDA error {rc} "
+            f"({lib.gol_error_string(rc).decode()}); {cuda_probe()}")
     resident_run_turns.launches += 1
     return out
 
@@ -257,6 +364,16 @@ resident_run_turns.launches = 0
 
 
 # ------------------------------------------------------------ K2 and K6
+
+def tile_rows(h: int, wp: int) -> int:
+    """K2's output rows per tile for an (h, wp) board: the choice whose
+    busiest SM computes the fewest window rows at T = 32, that is
+    ceil(blocks / 132) blocks of R + 31 rows each (two blocks sharing an
+    SM take as long as two in turn; the larger R on a tie)."""
+    cols = -(-wp // TILE_WORDS)
+    return min(TILE_ROW_CHOICES, key=lambda rows: -(
+        -cols * -(-h // rows) // CARD_SMS) * (rows + TILE_MAX_T - 1))
+
 
 def _window_indices(n: int, tiles: int, step: int, halo: int, span: int,
                     device) -> torch.Tensor:
@@ -286,9 +403,13 @@ def _tiled_plain(words: torch.Tensor, t: int, rule: LifeLikeRule,
 
 
 def tiled_sweep_plain(words: torch.Tensor, t: int,
-                      rule: LifeLikeRule = CONWAY) -> torch.Tensor:
-    """K2's plain version: 384 x 62-word tiles, one halo word a side."""
-    return _tiled_plain(words, t, rule, TILE_ROWS, TILE_WORDS, 1)
+                      rule: LifeLikeRule = CONWAY,
+                      rows: int | None = None) -> torch.Tensor:
+    """K2's plain version: R x 62-word tiles (R = `tile_rows`'s unless
+    given), one halo word a side."""
+    if rows is None:
+        rows = tile_rows(*words.shape)
+    return _tiled_plain(words, t, rule, rows, TILE_WORDS, 1)
 
 
 def tiled_sweep_deep_plain(words: torch.Tensor, t: int,
@@ -320,19 +441,25 @@ def _sweep_launch_args(what: str, words_in: torch.Tensor,
 
 
 def tiled_sweep(words_in: torch.Tensor, words_out: torch.Tensor, t: int,
-                rule: LifeLikeRule = CONWAY) -> None:
+                rule: LifeLikeRule = CONWAY, *,
+                rows: int | None = None) -> None:
     """Advance `words_in` t (1..32) turns into `words_out` in one K2
-    sweep."""
+    sweep of R-row tiles (R = `tile_rows`'s unless `rows` is given)."""
     _check_sweep("tiled_sweep", words_in, words_out, t, TILE_MAX_T)
+    if rows is not None and rows not in TILE_ROW_CHOICES:
+        raise ValueError(f"tiled_sweep: {rows} rows per tile not in "
+                         f"{TILE_ROW_CHOICES}")
     if words_in.device.type == "cpu":
-        words_out.copy_(tiled_sweep_plain(words_in, t, rule))
+        words_out.copy_(tiled_sweep_plain(words_in, t, rule, rows))
         return
+    if rows is None:
+        rows = tile_rows(*words_in.shape)
     lib, h, wp, dev, stream = _sweep_launch_args(
-        "tiled_sweep", words_in, words_out, TILE_ROWS)
+        "tiled_sweep", words_in, words_out, rows)
     born, survive = rule.masks()
     _build.check(lib.gol_tiled_sweep(
-        words_in.data_ptr(), words_out.data_ptr(), h, wp, t, born, survive,
-        dev, stream), "tiled_sweep")
+        words_in.data_ptr(), words_out.data_ptr(), h, wp, t, rows, born,
+        survive, dev, stream), "tiled_sweep")
     tiled_sweep.launches += 1
 
 

@@ -170,9 +170,9 @@ def _record_sweeps(monkeypatch):
                       ("tiled_sweep_deep_plain", "K6")):
         plain = getattr(cs, name)
 
-        def record(w, t, rule=tl.CONWAY, plain=plain, tag=tag):
+        def record(w, t, rule=tl.CONWAY, *geometry, plain=plain, tag=tag):
             seen.append((tag, t))
-            return plain(w, t, rule)
+            return plain(w, t, rule, *geometry)
 
         monkeypatch.setattr(cs, name, record)
     return seen
