@@ -8,8 +8,9 @@ Phases (each raises on failure; any failure exits non-zero):
 
 1. the card (nvidia-smi name and power limit, max SM clock), torch, CUDA;
 2. the nvcc build of gol_tpu_torch/csrc/stencil.cu: ptxas registers and
-   stack frames, and the stepping loop of each life-like kernel's SASS
-   (`cuobjdump -sass`: its instructions, in all and by opcode);
+   stack frames (every kernel's must be 0 bytes), and the stepping loop
+   of each stepping kernel's SASS (K1, K2, K4, K5, K6; `cuobjdump
+   -sass`: its instructions, in all, by opcode and per word);
 3. every kernel against its plain PyTorch version on the card, bit-exact
    (integer boards: tolerance 0), at the main path's shapes and at odd
    ones (one-word boards, heights shorter than a tile window): K1 at
@@ -17,17 +18,20 @@ Phases (each raises on failure; any failure exits non-zero):
    and N = min(16, h) on one-word and short boards), K2 at every tile
    height R on 5120² and odd boards and at the policy's R up to 65536²;
    K6 at depths 33, 48 and 64 up to 16384², and at 64 on 65536², its
-   timed head row, and B3's sweep sequence; the two-plane kernels K4/K5
-   for both Generations families (gen3, gen4) up to 16384²;
+   timed head row, and B3's sweep sequence; the two-plane kernels for
+   both Generations families (gen3, gen4) and two rules each: K4 at every
+   N = 1..16 on 512², 64², 96 x 1 and 33 x 1, K5 at every tile height R
+   on 1024², 4096², 16384² and odd boards;
 4. the main path through `gol_tpu_torch.run` on the default (CUDA)
    engine: 512² x 100 against the golden board and PGM, 512² x 10000 with
    every published (alive, turn) pair against check/alive/512x512.csv,
    5120² x 1000 from a seeded board against the plain version; then an
    unbounded 512² run that 'p' holds and resumes and 'q' ends within 5 s;
    4b. the Generations path: Brian's Brain through `run` at 512² x 100
-   (K4) and 4096² x 1000 (K5), Star Wars through `GenerationsTorus` at
-   512² x 64 (K4) and 4096² x 64 (K5), each against the uint8 gen8 plain
-   path on the card;
+   (K4) and 4096² x 1000 (K5), with their rate and largest gap between
+   published turns, Star Wars through `GenerationsTorus` at 512² x 64
+   (K4) and 4096² x 64 (K5), each against the uint8 gen8 plain path on
+   the card;
    4c. the fused path: GOL_FUSE_K=64 at 8192² x 1024 and GOL_FUSE_K=16 at
    5120² x 1000 through `run`, each against the unfused run's board (the
    unfused references run first, before the counters restart at 0).
@@ -36,12 +40,14 @@ Phases (each raises on failure; any failure exits non-zero):
    `torch.profiler`, which sums their device time by kernel, all but the
    unbounded run: it steps as long as the wall clock says, so its device
    time would rank nothing;
-5. timings at 512², 4096², 5120², 8192², 16384², 65536² and 131072²:
-   each kernel's ms per launch beside its plain version's and its bound
-   (K1 at N = 1, 2, 4, 8, 16 on 512², 256² and 64², K2 at every R on
-   5120², 8192², 16384² and 65536²), B3 `fused_banded_run_turns` at
-   pinned depths 16, 32 and 64, and engine turns/s (life-like, unfused
-   and at GOL_FUSE_K=64 at 65536², and Brian's Brain).
+5. timings at 64², 128², 256², 512², 4096², 5120², 8192², 16384², 65536²
+   and 131072²: each kernel's ms per launch beside its plain version's
+   and its bound (K1 at N = 1, 2, 4, 8, 16 on 512², 256² and 64², K2 at
+   every R on 5120², 8192², 16384² and 65536², K4 at every N on 64² to
+   512², K5 at every R on 4096² and 16384²), B3 `fused_banded_run_turns`
+   at pinned depths 16, 32 and 64, and engine turns/s and the largest
+   publication gap (life-like, unfused and at GOL_FUSE_K=64 at 65536²,
+   and Brian's Brain at 512² and 4096²).
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -181,12 +187,13 @@ SASS_COUNTED = ("LOP3", "SHF", "LDS", "LD", "STS", "ST", "IADD3", "IMAD",
 
 
 def step_loops(lib: str) -> dict:
-    """{kernel: loop} for the life-like kernels (K1, K2, K6) of a built
-    library, from `cuobjdump -sass`. A loop is the span of a backward
-    branch; of the innermost ones (no other inside), the stepping loop
-    is the one with the most LOP3. Its instructions are counted in all
-    and per opcode (LDS and STS are shared-memory loads and stores, LD
-    and ST generic ones)."""
+    """{kernel: loop} for the stepping kernels (K1, K2, K4, K5, K6) of a
+    built library, from `cuobjdump -sass`. A loop is the span of a
+    backward branch; of the innermost ones (no other inside), the stepping
+    loop is the one with the most LOP3. Its instructions are counted in
+    all and per opcode (LDS and STS are shared-memory loads and stores, LD
+    and ST generic ones), and per word: a word is one store in each plane
+    (two for the two-plane kernels, whose names carry Gen3, Gen4 or 2p)."""
     from gol_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -205,7 +212,7 @@ def step_loops(lib: str) -> dict:
             funcs[name].append((int(m.group(1), 16), ins))
     out = {}
     for name, demangled in zip(funcs, demangle(list(funcs))):
-        if "tiled_kernel" not in name and "resident_kernel" not in name:
+        if not re.search(r"(resident|tiled)\w*_kernel", name):
             continue
         ins = funcs[name]
         spans = set()
@@ -224,7 +231,13 @@ def step_loops(lib: str) -> dict:
                               **{op: body.count(op) for op in SASS_COUNTED}))
         short = demangled.split("(")[0] if ">(" not in demangled else (
             demangled[:demangled.index(">(") + 1])
-        out[short] = max(loops, key=lambda loop: loop["LOP3"])
+        for noise in ("void ", "(anonymous namespace)::", "<unnamed>::"):
+            short = short.replace(noise, "")
+        loop = max(loops, key=lambda loop: loop["LOP3"])
+        planes = 2 if re.search(r"Gen[34]|2p", short) else 1
+        words = (loop["STS"] + loop["ST"]) / planes
+        loop["per_word"] = loop["instructions"] / words if words else None
+        out[short] = loop
     return out
 
 
@@ -360,7 +373,12 @@ def phase_kernels_deep(torch, dev) -> None:
 
 
 def phase_kernels_2p(torch, dev) -> None:
-    """K4 and K5 for both families against their plain versions."""
+    """K4 and K5 for both families and two rules each against their plain
+    versions: K4 at every cluster size N = 1..16 on 512², 64² and one-word
+    boards (slabs of 1-3 rows at N = 16 on 33 x 1), and at other rows per
+    thread on 512²; K5 at every tile height R on 1024², 4096² and 16384²
+    (a sweep at 32 and one at 4), on odd boards, and against the
+    whole-board plain version."""
     from gol_tpu_torch.models.generations import GenerationsRule
     from gol_tpu_torch.ops import cuda_stencil as cs
 
@@ -368,37 +386,61 @@ def phase_kernels_2p(torch, dev) -> None:
              "gen4": [GenerationsRule("345/2/4"), GenerationsRule("/234/4")]}
     for fam, (rule, other) in rules.items():
         k4 = f"resident_run_turns2p/{fam}"
-        for (h, wp) in [(64, 2), (512, 16), (96, 1), (33, 1)]:
+        for (h, wp) in [(512, 16), (64, 2), (96, 1), (33, 1)]:
             p = seeded_planes(torch, h, wp, fam, h * 3 + wp, dev)
-            for turns in (1, 8, 19, 100):
+            for n in range(1, cs.RESIDENT_MAX_CTAS + 1):
+                for turns in (1, 8, 19, 100):
+                    check_equal(
+                        torch, f"K4 {fam} {h}x{wp}w N={n} {turns} turns",
+                        cs.resident_run_turns2p(p, turns, rule, fam, ctas=n),
+                        cs.resident_run_turns2p_plain(p, turns, rule, fam,
+                                                      ctas=n), k4)
                 check_equal(
-                    torch, f"K4 {fam} {h}x{wp}w {turns} turns",
-                    cs.resident_run_turns2p(p, turns, rule, fam),
-                    cs.resident_run_turns2p_plain(p, turns, rule, fam), k4)
+                    torch, f"K4 {fam} {h}x{wp}w N={n} 50 turns "
+                    f"{other.rulestring}",
+                    cs.resident_run_turns2p(p, 50, other, fam, ctas=n),
+                    cs.resident_run_turns2p_plain(p, 50, other, fam,
+                                                  ctas=1), k4)
         p = seeded_planes(torch, 512, 16, fam, 9, dev)
-        check_equal(torch, f"K4 {fam} 512x16w 50 turns {other.rulestring}",
-                    cs.resident_run_turns2p(p, 50, other, fam),
-                    cs.resident_run_turns2p_plain(p, 50, other, fam), k4)
+        for per in RESIDENT_PER_TIMED:
+            check_equal(torch, f"K4 {fam} 512x16w N=16 per={per} 100 turns",
+                        cs.resident_run_turns2p(p, 100, rule, fam, ctas=16,
+                                                per=per),
+                        cs.resident_run_turns2p_plain(p, 100, rule, fam,
+                                                      ctas=1), k4)
         k5 = f"tiled_sweep2p/{fam}"
-        for (h, wp, turns) in [(1024, 32, 32), (1024, 32, 36),
-                               (4096, 128, 32), (4096, 128, 36),
-                               (16384, 512, 32), (16384, 512, 36)]:
+        for (h, wp, turns) in [(1024, 32, 36), (4096, 128, 32),
+                               (4096, 128, 36), (16384, 512, 32),
+                               (16384, 512, 36)]:
             p = seeded_planes(torch, h, wp, fam, h + turns, dev)
-            want = p
-            for depth in cs.sweep_depths(turns, cs.TILE_MAX_T):
-                want = cs.tiled_sweep2p_plain(want, depth, rule, fam)
-            check_equal(torch, f"K5 {fam} {h}x{wp}w {turns} turns",
-                        cs.banded_run_turns2p(p, turns, rule, fam), want, k5)
+            whole = cs.resident_run_turns2p_plain(p, turns, rule, fam,
+                                                  ctas=1)
+            for r in cs.TILE2P_ROW_CHOICES:
+                got, want = p, p
+                for depth in cs.sweep_depths(turns, cs.TILE_MAX_T):
+                    out = torch.empty_like(p)
+                    cs.tiled_sweep2p(got, out, depth, rule, fam, rows=r)
+                    got = out
+                    want = cs.tiled_sweep2p_plain(want, depth, rule, fam,
+                                                  rows=r)
+                check_equal(torch, f"K5 {fam} {h}x{wp}w R={r} {turns} turns",
+                            got, want, k5)
+                check_equal(torch, f"K5 {fam} {h}x{wp}w R={r} {turns} turns "
+                            "vs whole board", got, whole, k5)
+            check_equal(torch, f"K5 {fam} {h}x{wp}w banded_run_turns2p "
+                        f"{turns} turns (R={cs.tile2p_rows(h, wp)})",
+                        cs.banded_run_turns2p(p, turns, rule, fam), whole, k5)
         for (h, wp, t) in [(1, 1, 1), (3, 7, 32), (100, 200, 7),
-                           (161, 63, 32)]:
+                           (162, 63, 32), (97, 65, 32)]:
             p = seeded_planes(torch, h, wp, fam, 5 * h + wp, dev)
             for r in (rule, other):
-                out = torch.empty_like(p)
-                cs.tiled_sweep2p(p, out, t, r, fam)
-                check_equal(torch, f"K5 {fam} {h}x{wp}w T={t} "
-                            f"{r.rulestring}", out,
-                            cs.resident_run_turns2p_plain(p, t, r, fam), k5)
-        del p, out, want
+                want = cs.resident_run_turns2p_plain(p, t, r, fam, ctas=1)
+                for rows in cs.TILE2P_ROW_CHOICES:
+                    out = torch.empty_like(p)
+                    cs.tiled_sweep2p(p, out, t, r, fam, rows=rows)
+                    check_equal(torch, f"K5 {fam} {h}x{wp}w R={rows} T={t} "
+                                f"{r.rulestring}", out, want, k5)
+        del p, out, want, whole, got
 
 
 def read_csv(path: str) -> dict:
@@ -586,8 +628,15 @@ def check_generations(torch, dev, images: str, tmp: str) -> None:
               to_pixels_gen(big, BRIANS_BRAIN), levels=levels)
     for size, turns, src in ((512, 100, images), (4096, 1000, seed_dir)):
         eng = Engine(rule=BRIANS_BRAIN)
+        seen = []
+
+        def poll():
+            pair = eng.alive_count()
+            seen.append((time.monotonic(), pair[1]))
+            return pair
+
         evs, _ = drive(Params(image_width=size, image_height=size,
-                              turns=turns), src, out, engine=eng)
+                              turns=turns), src, out, engine=eng, poll=poll)
         if eng._repr != "gen3":
             raise AssertionError(f"{size}² /2/3 ran as {eng._repr}")
         start = from_pixels_gen(read_pgm(
@@ -601,8 +650,12 @@ def check_generations(torch, dev, images: str, tmp: str) -> None:
         final = [e for e in evs if isinstance(e, ev.FinalTurnComplete)][0]
         if final.count() != int((want == 1).sum()):
             raise AssertionError(f"/2/3 {size}² x {turns}: firing count")
+        firsts = first_sightings(seen)
+        rate, gap = publication_rate(firsts), publication_gap(firsts)
         log(f"  ok /2/3 {size}² x {turns} through run: gray PGM and "
-            f"firing count ({final.count()}) equal the gen8 plain path")
+            f"firing count ({final.count()}) equal the gen8 plain path; "
+            f"{len(firsts)} published turns, {rate:.1f} turns/s between the "
+            f"first and the last, at most {gap:.3f} s apart")
     for size in (512, 4096):
         board = np.random.default_rng(size).integers(
             0, 4, size=(size, size)).astype(np.uint8)
@@ -691,11 +744,10 @@ def engine_rate(torch, world: np.ndarray, seconds: float, rule=None,
         alive, turn = eng.alive_count()
         calls.append(time.perf_counter() - c0)
         now = time.monotonic()
-        if not seen or seen[-1][1] != turn:
-            seen.append((now, turn))
-            if t_end is None and turn > 0:
-                t_end = now + seconds
-        if t_end is not None and now >= t_end and seen[-1][1] > 0:
+        seen.append((now, turn))
+        if t_end is None and turn > 0:
+            t_end = now + seconds
+        if t_end is not None and now >= t_end:
             eng.cf_put(FLAG_QUIT)
             break
         time.sleep(0.0005)
@@ -704,13 +756,33 @@ def engine_rate(torch, world: np.ndarray, seconds: float, rule=None,
     if failed:
         raise failed[0]
     chunk = eng.stats()["chunk"]
-    steady = [s for s in seen if s[1] > 0]
+    steady = first_sightings(seen)
     steady = steady[len(steady) // 4:] if len(steady) >= 8 else steady
-    rate = ((steady[-1][1] - steady[0][1]) / (steady[-1][0] - steady[0][0])
-            if len(steady) >= 2 and steady[-1][0] > steady[0][0] else 0.0)
-    gaps = [b[0] - a[0] for a, b in zip(steady, steady[1:])]
-    return (rate, statistics.median(calls) * 1e6, max(gaps, default=0.0),
-            chunk)
+    return (publication_rate(steady), statistics.median(calls) * 1e6,
+            publication_gap(steady), chunk)
+
+
+def first_sightings(seen: list) -> list:
+    """(time, turn) of the first poll that saw each published turn > 0,
+    from (time, turn) polls."""
+    firsts = []
+    for t, turn in seen:
+        if turn > 0 and (not firsts or firsts[-1][1] != turn):
+            firsts.append((t, turn))
+    return firsts
+
+
+def publication_rate(firsts: list) -> float:
+    """Turns per second between the first and the last sighting."""
+    if len(firsts) < 2 or firsts[-1][0] <= firsts[0][0]:
+        return 0.0
+    return (firsts[-1][1] - firsts[0][1]) / (firsts[-1][0] - firsts[0][0])
+
+
+def publication_gap(firsts: list) -> float:
+    """Largest time between two consecutive sightings."""
+    return max((b[0] - a[0] for a, b in zip(firsts, firsts[1:])),
+               default=0.0)
 
 
 def log_row(name: str, r: dict) -> None:
@@ -920,45 +992,61 @@ def engine_rates_generations(torch, dev, card: Card) -> list:
 
 
 def timing_2p(torch, dev, card: Card) -> dict:
-    """ms per launch of K4 (512², 1024 turns) and K5 (4096², 16384², one
-    32-turn sweep) per family, beside the plain version and the bound:
-    16 bytes per word (both planes read and written once) and
-    `OPS_PER_WORD_TURN_2P` ops per word and turn."""
+    """ms per launch of K4 (1024 turns) at every cluster size N = 1..16 on
+    512², 256², 128² and 64² (and at other rows per thread at N = 16 on
+    512²), and of K5 (one 32-turn sweep) at every tile height R on 16384²
+    and 4096², per family, beside the plain version at the policy's
+    geometry and the bound: 16 bytes per word (both planes read and
+    written once) and `OPS_PER_WORD_TURN_2P` ops per word and turn. The
+    rows of the `kernels` line keep K1's timed geometries (N = 1, 2, 4,
+    8, 16); every N is logged."""
     from gol_tpu_torch.models.generations import BRIANS_BRAIN, STAR_WARS
     from gol_tpu_torch.ops import cuda_stencil as cs
 
     rows = {}
+    turns = 1024
     for fam, rule in (("gen3", BRIANS_BRAIN), ("gen4", STAR_WARS)):
         ops = cs.OPS_PER_WORD_TURN_2P[fam]
+        name = f"resident_run_turns2p/{fam}"
         k4, k5 = [], []
-        for (h, wp) in [(512, 16)]:
+        for (h, wp) in [(512, 16), (256, 8), (128, 4), (64, 2)]:
             p = seeded_planes(torch, h, wp, fam, 1, dev)
-            turns = 1024
-            ms = time_ms(torch, lambda: cs.resident_run_turns2p(
-                p, turns, rule, fam), 5)
-            plain = time_ms(torch, lambda: cs.resident_run_turns2p_plain(
-                p, turns, rule, fam), 1)
+            n0 = cs.resident2p_cluster_ctas(h, wp)
+            policy = (n0, cs.resident2p_rows_per_thread(h, wp, n0))
+            geoms = {(n, cs.resident2p_rows_per_thread(h, wp, n))
+                     for n in range(1, cs.RESIDENT_MAX_CTAS + 1)} | {policy}
+            if h == 512:
+                geoms |= {(16, per) for per in RESIDENT_PER_TIMED}
             b, by = card.bound(16 * h * wp, ops * turns * h * wp)
-            k4.append(dict(shape=f"{h}x{wp * 32}", turns=turns, ms=ms,
-                           plain_ms=plain, bound_ms=b, bound_by=by))
+            for n, per in sorted(geoms):
+                ms = time_ms(torch, lambda: cs.resident_run_turns2p(
+                    p, turns, rule, fam, ctas=n, per=per), 5)
+                plain = (time_ms(torch, lambda: cs.resident_run_turns2p_plain(
+                    p, turns, rule, fam), 1) if (n, per) == policy else None)
+                r = dict(shape=f"{h}x{wp * 32}", turns=turns, ctas=n,
+                         per=per, policy=(n, per) == policy, ms=ms,
+                         plain_ms=plain, bound_ms=b, bound_by=by)
+                log_row(name, r)
+                if r["policy"] or n in (1, 2, 4, 8) or (
+                        n == 16 and (h == 512 or per == policy[1])):
+                    k4.append(r)
         for (h, wp) in [(16384, 512), (4096, 128)]:
             p = seeded_planes(torch, h, wp, fam, 2, dev)
             o = torch.empty_like(p)
-            ms = time_ms(torch, lambda: cs.tiled_sweep2p(p, o, 32, rule,
-                                                         fam), 5)
-            plain = time_ms(torch, lambda: cs.tiled_sweep2p_plain(
-                p, 32, rule, fam), 1)
             b, by = card.bound(16 * h * wp, ops * 32 * h * wp)
-            k5.append(dict(shape=f"{h}x{wp * 32}", turns=32, ms=ms,
-                           plain_ms=plain, bound_ms=b, bound_by=by))
+            for rows_ in cs.TILE2P_ROW_CHOICES:
+                ms = time_ms(torch, lambda: cs.tiled_sweep2p(
+                    p, o, 32, rule, fam, rows=rows_), 5)
+                policy = rows_ == cs.tile2p_rows(h, wp)
+                plain = (time_ms(torch, lambda: cs.tiled_sweep2p_plain(
+                    p, 32, rule, fam), 1) if policy else None)
+                k5.append(dict(shape=f"{h}x{wp * 32}", turns=32, rows=rows_,
+                               policy=policy, ms=ms, plain_ms=plain,
+                               bound_ms=b, bound_by=by))
+                log_row(f"tiled_sweep2p/{fam}", k5[-1])
             del p, o
-        rows[f"resident_run_turns2p/{fam}"] = k4
+        rows[name] = k4
         rows[f"tiled_sweep2p/{fam}"] = k5
-    for name, rs in rows.items():
-        for r in rs:
-            log(f"  {name} {r['shape']} turns={r['turns']}: {r['ms']:.4f} "
-                f"ms/launch, plain {r['plain_ms']:.4f} ms, bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
 
 
@@ -973,18 +1061,17 @@ def main_path_launches(cs) -> dict:
     return launches
 
 
-# Device kernel names (as the profiler reports them) of each wrapper.
+# Device kernel names (as the profiler reports them, without
+# "(anonymous namespace)::") of each wrapper.
 KERNEL_SYMBOLS = (
-    ("resident_kernel<", "resident_run_turns"),
-    ("tiled_kernel<1,", "tiled_sweep"),
-    ("tiled_kernel<2,", "tiled_sweep_deep"),
+    ("resident_kernel<Life,", "resident_run_turns"),
+    ("tiled_kernel<Life, 1,", "tiled_sweep"),
+    ("tiled_kernel<Life, 2,", "tiled_sweep_deep"),
     ("row_popcounts_kernel", "row_popcounts"),
-    ("resident2p_kernel<(anonymous namespace)::Gen3>",
-     "resident_run_turns2p/gen3"),
-    ("resident2p_kernel<(anonymous namespace)::Gen4>",
-     "resident_run_turns2p/gen4"),
-    ("tiled2p_kernel<(anonymous namespace)::Gen3>", "tiled_sweep2p/gen3"),
-    ("tiled2p_kernel<(anonymous namespace)::Gen4>", "tiled_sweep2p/gen4"),
+    ("resident_kernel<Gen3,", "resident_run_turns2p/gen3"),
+    ("resident_kernel<Gen4,", "resident_run_turns2p/gen4"),
+    ("tiled_kernel<Gen3,", "tiled_sweep2p/gen3"),
+    ("tiled_kernel<Gen4,", "tiled_sweep2p/gen4"),
 )
 
 
@@ -998,8 +1085,8 @@ def device_ms_by_kernel(prof) -> dict:
                      getattr(evt, "self_cuda_time_total", 0))
         if not us:
             continue
-        name = next((n for sym, n in KERNEL_SYMBOLS if sym in evt.key),
-                    "other")
+        key = evt.key.replace("(anonymous namespace)::", "")
+        name = next((n for sym, n in KERNEL_SYMBOLS if sym in key), "other")
         sums[name] = sums.get(name, 0.0) + us / 1e3
     return sums
 
@@ -1031,7 +1118,10 @@ def main() -> int:
     for line in rec["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
-    log("  stack frames (bytes): " + json.dumps(stack_frames(rec["log"])))
+    frames = stack_frames(rec["log"])
+    log("  stack frames (bytes): " + json.dumps(frames))
+    if any(frames.values()):
+        raise AssertionError(f"kernels with a stack frame: {frames}")
     for name, loop in step_loops(rec["path"]).items():
         log(f"  sass stepping loop of {name}: {json.dumps(loop)}")
     phase_kernels(torch, dev)

@@ -18,25 +18,32 @@
 // in all — the figure `OPS_PER_WORD_TURN` in ops/cuda_stencil.py holds.
 // Each thread slides down a column of rows and keeps the hs planes of
 // the two rows above in registers, so a word costs three shared-memory
-// loads and one store per turn. The life-like kernels (K1, K2, K6) share
-// `step_rows`, whose inner loop is kept near those counted ops: row
-// addresses advance as pointers, a thread's column and neighbours are
-// fixed before the turn loop, no load is guarded, buffers swap as
-// pointers (no array indexed by turn parity, so no stack frame), and two
-// rows go per iteration.
+// loads and one store per turn and plane. Every stepping kernel (K1, K2,
+// K4, K5, K6) shares `step_rows<Family>`, whose inner loop is kept near
+// those counted ops: row addresses advance as pointers, a thread's column
+// and neighbours are fixed before the turn loop, no load is guarded,
+// buffers swap as pointers (no array indexed by turn parity, so no stack
+// frame), and two rows go per iteration. The family says how a row is
+// loaded and its next words stored: `Life` (one plane) for K1, K2 and K6,
+// `Gen3` and `Gen4` (two planes) for K4 and K5.
 //
 // Kernels and the TPU kernels they replace:
-//   resident_run_turns  <- pallas_packed_run_turns (pallas_stencil.py:508)
-//   tiled_sweep         <- _banded_pass (pallas_stencil.py:388)
-//   tiled_sweep_deep    <- fused_banded_run_turns (pallas_stencil.py:474),
-//                          whose k-deep _banded_pass sweeps reach k = 64:
-//                          the tiled sweep with a two-word halo
-//   row_popcounts       <- the alive token's popcount reduction, which the
-//                          JAX package leaves to XLA (engine.py:158-160)
-//   resident2p_kernel   <- pallas_packed_run_turns3 (pallas_stencil.py:274)
-//                          and pallas_packed_run_turns4 (:296), Gen3/Gen4
-//   tiled2p_kernel      <- the same two, for boards beyond one block's
-//                          shared memory (the TPU ran them from VMEM)
+//   resident_kernel<Life>    K1 <- pallas_packed_run_turns
+//                                  (pallas_stencil.py:508)
+//   tiled_kernel<Life, 1>    K2 <- _banded_pass (pallas_stencil.py:388)
+//   tiled_kernel<Life, 2>    K6 <- fused_banded_run_turns
+//                                  (pallas_stencil.py:474), whose k-deep
+//                                  _banded_pass sweeps reach k = 64: the
+//                                  tiled sweep with a two-word halo
+//   row_popcounts_kernel     K3 <- the alive token's popcount reduction,
+//                                  which the JAX package leaves to XLA
+//                                  (engine.py:158-160)
+//   resident_kernel<Gen3|4>  K4 <- pallas_packed_run_turns3
+//                                  (pallas_stencil.py:274) and
+//                                  pallas_packed_run_turns4 (:296)
+//   tiled_kernel<Gen3|4, 1>  K5 <- the same two, for boards beyond K4's
+//                                  shared memory (the TPU ran them from
+//                                  VMEM)
 // The two-plane kernels spend per word and turn the 11-op count network,
 // two 9-mux trees (born and survive) and the transition (3 ops for Gen3;
 // 3 for Gen4 plus one b0 & ~b1 for each of the 3 words a row load reads)
@@ -61,26 +68,40 @@ constexpr int kBlockReservedSmem = 1024;
 
 // Tiled sweep geometry; ops/cuda_stencil.py mirrors these constants.
 // A sweep of depth t needs t cells of horizontal halo, so the halo width
-// in words sets the deepest sweep: 32 for one word (K2), 64 for two (K6).
-constexpr int kWinWords = 64;      // window words per row, halo included
+// in words sets the deepest sweep: 32 for one word (K2, K5), 64 for two
+// (K6).
+constexpr int kWinWords = 64;      // window words per row and plane
 constexpr int kTileSegments = 8;   // threads down each window column
-constexpr int kTileMaxT = 32;      // K2: one halo word a side
+constexpr int kTileMaxT = 32;      // K2, K5: one halo word a side
 // K2 R, output rows per block: one instantiation each; tile_rows() in
 // ops/cuda_stencil.py picks one per board so that the grid fills the
 // card. At T = 32 the buffers of a 128-row tile leave room for two
 // blocks on an SM.
 constexpr int kTileRowChoices[] = {384, 128};
-constexpr int kTileWords = kWinWords - 2;  // K2 C: output words per block
+constexpr int kTileWords = kWinWords - 2;  // K2, K5 C: output words a block
 // K6: two buffers of (R + 2 x 64) x 64 words must fit 232,448 bytes, so
 // R <= 326; R = 320 uses 229,376.
 constexpr int kDeepMaxT = 64;
 constexpr int kDeepRows = 320;
 constexpr int kDeepWords = kWinWords - 4;
-// tiled2p (two planes, two buffers): 4 x (R + 2T) x 64 words must fit
-// 232,448 bytes, so R + 2T <= 227; R = 160 leaves T = 32.
-constexpr int kTile2pRows = 160;
+// K5 R (two planes, two buffers: 4 x (R + 2T) x 64 words must fit 232,448
+// bytes, so R + 2T <= 227): one instantiation each; tile2p_rows() in
+// ops/cuda_stencil.py picks one per board. 161 cuts 16384 rows into 102
+// tiles, 918 blocks in 7 waves of 132 (160 would need 927, 8 waves); 96
+// cuts 4096 rows into 43, 129 blocks in one wave (160: 78 blocks).
+constexpr int kTile2pRowChoices[] = {161, 96};
+static_assert(4 * 4 * (kTile2pRowChoices[0] + 2 * kTileMaxT) * kWinWords <=
+                  kBlockSmemBytes,
+              "K5's tallest tile must fit one block's shared memory");
+// K1: threads a CTA. K4's two planes need more than the 64 registers a
+// thread that 1024 threads leave (ptxas spilled 8-16 bytes on one CTA),
+// so its CTAs take at most 512 threads (128 registers). The kernel's
+// launch bounds also name one block an SM: with the thread count alone,
+// ptxas still fitted K4's one-CTA gen3 variant into 64 registers and
+// spilled 16 bytes.
 constexpr int kResidentThreads = 1024;
-// K1: the largest cluster H100 places (a non-portable size above 8).
+constexpr int kResident2pThreads = 512;
+// K1, K4: the largest cluster H100 places (a non-portable size above 8).
 constexpr int kResidentMaxCtas = 16;
 constexpr int kPortableClusterCtas = 8;
 constexpr int kPopcountThreads = 256;
@@ -144,64 +165,170 @@ __device__ __forceinline__ void hsum(uint32_t w, uint32_t p, uint32_t e,
   s1 = (west & p) | (east & (west ^ p));
 }
 
-// One row's own word and the horizontal-sum planes of its three words.
-struct HRow {
-  uint32_t p, s0, s1;
-};
-
-__device__ __forceinline__ HRow hrow(const uint32_t* line, int col, int west,
-                                     int east) {
-  HRow r;
-  r.p = line[col];
-  hsum(line[west], r.p, line[east], r.s0, r.s1);
-  return r;
-}
-
-// Next state of the middle row's word from the three rows' sums.
-__device__ __forceinline__ uint32_t next_word(const RuleLeaves& rule,
-                                              const HRow& u, const HRow& m,
-                                              const HRow& d) {
-  const uint32_t u0 = u.s0 ^ m.s0 ^ d.s0;
+// The self-inclusive count bits n0..n3 of the middle row from the
+// horizontal-sum planes (s0, s1) of the rows above, at and below.
+template <typename Row>
+__device__ __forceinline__ void count_bits(const Row& u, const Row& m,
+                                           const Row& d, uint32_t& n0,
+                                           uint32_t& n1, uint32_t& n2,
+                                           uint32_t& n3) {
+  n0 = u.s0 ^ m.s0 ^ d.s0;
   const uint32_t u1 = (u.s0 & m.s0) | (d.s0 & (u.s0 ^ m.s0));
   const uint32_t v0 = u.s1 ^ m.s1 ^ d.s1;
   const uint32_t v1 = (u.s1 & m.s1) | (d.s1 & (u.s1 ^ m.s1));
-  const uint32_t n1 = u1 ^ v0;
+  n1 = u1 ^ v0;
   const uint32_t c2 = u1 & v0;
-  return apply_rule(rule, m.p, u0, n1, v1 ^ c2, v1 & c2);
+  n2 = v1 ^ c2;
+  n3 = v1 & c2;
 }
+
+// ------------------------------------------------------------ families
+//
+// A family loads a row (`load`: the row's words at `line`, its plane-1
+// words `plane` words further on, its word at `col` and the neighbours at
+// `west` and `east`) and stores the middle row's next words from three
+// loaded rows (`store`). `kPlanes` is its number of planes and
+// `kResidentThreads` the most threads its resident CTAs take.
+
+// Life-like: one plane. A row is its own word and the horizontal-sum
+// planes of its three words.
+struct Life {
+  static constexpr int kPlanes = 1;
+  static constexpr int kResidentThreads = ::kResidentThreads;
+  struct Row {
+    uint32_t p, s0, s1;
+  };
+  __device__ static __forceinline__ Row load(const uint32_t* line, int,
+                                             int col, int west, int east) {
+    Row r;
+    r.p = line[col];
+    hsum(line[west], r.p, line[east], r.s0, r.s1);
+    return r;
+  }
+  __device__ static __forceinline__ void store(uint32_t* line, int, int col,
+                                               const RuleLeaves& rule,
+                                               const Row& u, const Row& m,
+                                               const Row& d) {
+    uint32_t n0, n1, n2, n3;
+    count_bits(u, m, d, n0, n1, n2, n3);
+    line[col] = apply_rule(rule, m.p, n0, n1, n2, n3);
+  }
+};
+
+// Generations on two planes. The count is the self-inclusive count of
+// the ALIVE cells: a row is its two own words and the horizontal-sum
+// planes of its three alive words (`Family::neighbour` and
+// `Family::alive`, once per loaded word). The rule's two masks give two
+// bit-planes per word, born = lut_tree(b) (a dead cell has n9 = n8) and
+// survive = lut_tree(s) (an alive cell has n9 = n8 + 1, which the survive
+// leaves already shift), and the family's transition combines them with
+// the cell's own planes.
+template <typename Family>
+struct TwoPlanes {
+  static constexpr int kPlanes = 2;
+  static constexpr int kResidentThreads = kResident2pThreads;
+  struct Row {
+    uint32_t p0, p1, s0, s1;
+  };
+  __device__ static __forceinline__ Row load(const uint32_t* line, int plane,
+                                             int col, int west, int east) {
+    Row r;
+    r.p0 = line[col];
+    r.p1 = line[plane + col];
+    hsum(Family::neighbour(line, plane, west), Family::alive(r.p0, r.p1),
+         Family::neighbour(line, plane, east), r.s0, r.s1);
+    return r;
+  }
+  __device__ static __forceinline__ void store(uint32_t* line, int plane,
+                                               int col,
+                                               const RuleLeaves& rule,
+                                               const Row& u, const Row& m,
+                                               const Row& d) {
+    uint32_t n0, n1, n2, n3;
+    count_bits(u, m, d, n0, n1, n2, n3);
+    uint32_t o0, o1;
+    Family::next(m.p0, m.p1, lut_tree(rule.b, n0, n1, n2, n3),
+                 lut_tree(rule.s, n0, n1, n2, n3), o0, o1);
+    line[col] = o0;
+    line[plane + col] = o1;
+  }
+};
+
+// C = 3: plane 0 alive, plane 1 dying (gen3_transition, ops/bitpack.py);
+// a neighbour's alive word is its plane-0 word.
+struct Gen3 : TwoPlanes<Gen3> {
+  __device__ static __forceinline__ uint32_t alive(uint32_t p0, uint32_t) {
+    return p0;
+  }
+  __device__ static __forceinline__ uint32_t neighbour(const uint32_t* line,
+                                                       int, int c) {
+    return line[c];
+  }
+  __device__ static __forceinline__ void next(uint32_t a, uint32_t d,
+                                              uint32_t born, uint32_t surv,
+                                              uint32_t& o0, uint32_t& o1) {
+    o0 = (~a & ~d & born) | (a & surv);
+    o1 = a & ~surv;
+  }
+};
+
+// C = 4: the state in binary, b0 = bit 0, b1 = bit 1; alive = b0 & ~b1,
+// dying chain 2 -> 3 -> 0 (gen4_transition, ops/bitpack.py).
+struct Gen4 : TwoPlanes<Gen4> {
+  __device__ static __forceinline__ uint32_t alive(uint32_t b0,
+                                                   uint32_t b1) {
+    return b0 & ~b1;
+  }
+  __device__ static __forceinline__ uint32_t neighbour(const uint32_t* line,
+                                                       int plane, int c) {
+    return alive(line[c], line[plane + c]);
+  }
+  __device__ static __forceinline__ void next(uint32_t b0, uint32_t b1,
+                                              uint32_t born, uint32_t surv,
+                                              uint32_t& o0, uint32_t& o1) {
+    const uint32_t a = b0 & ~b1;
+    const uint32_t dying1 = ~b0 & b1;
+    o0 = (~b0 & ~b1 & born) | (a & surv) | dying1;
+    o1 = (a & ~surv) | dying1;
+  }
+};
 
 // One turn for n >= 1 consecutive rows of one word column: the rows at
 // first, first + stride, ... (written to dst, dst + stride, ...), with
 // the row above the first at `above` and the row below the last at
-// `below` (another CTA's shared memory in K1's cluster). `col`, `west`
-// and `east` are the offsets in a row of the word and its neighbours.
-// Each row is loaded once; two rows go per iteration.
+// `below` (another CTA's shared memory in a cluster). `col`, `west` and
+// `east` are the offsets in a row of the word and its neighbours, and
+// `plane` the offset of a row's plane-1 words (two-plane families). Each
+// row is loaded once; two rows go per iteration.
+template <typename F>
 __device__ __forceinline__ void step_rows(
     const uint32_t* above, const uint32_t* first, const uint32_t* below,
-    uint32_t* dst, int n, int stride, int col, int west, int east,
-    const RuleLeaves& rule) {
-  HRow u = hrow(above, col, west, east);
-  HRow m = hrow(first, col, west, east);
+    uint32_t* dst, int n, int stride, int plane, int col, int west,
+    int east, const RuleLeaves& rule) {
+  using Row = typename F::Row;
+  Row u = F::load(above, plane, col, west, east);
+  Row m = F::load(first, plane, col, west, east);
   const uint32_t* next = first + stride;
   int i = 0;
   for (; i + 2 < n; i += 2) {  // rows i, i + 1 read rows up to i + 2 < n
-    const HRow d = hrow(next, col, west, east);
-    const HRow d2 = hrow(next + stride, col, west, east);
-    dst[col] = next_word(rule, u, m, d);
-    dst[stride + col] = next_word(rule, m, d, d2);
+    const Row d = F::load(next, plane, col, west, east);
+    const Row d2 = F::load(next + stride, plane, col, west, east);
+    F::store(dst, plane, col, rule, u, m, d);
+    F::store(dst + stride, plane, col, rule, m, d, d2);
     u = d;
     m = d2;
     next += 2 * stride;
     dst += 2 * stride;
   }
   if (i + 1 < n) {
-    const HRow d = hrow(next, col, west, east);
-    dst[col] = next_word(rule, u, m, d);
+    const Row d = F::load(next, plane, col, west, east);
+    F::store(dst, plane, col, rule, u, m, d);
     u = m;
     m = d;
     dst += stride;
   }
-  dst[col] = next_word(rule, u, m, hrow(below, col, west, east));
+  F::store(dst, plane, col, rule, u, m,
+           F::load(below, plane, col, west, east));
 }
 
 // Cluster barrier halves (PTX defaults: the arrive releases, the wait
@@ -221,21 +348,26 @@ __host__ __device__ __forceinline__ int slab_start(int rank, int h,
   return (int)((long long)rank * h / ctas);
 }
 
-// K1: the board in the shared memory of one cluster of N CTAs
-// (kCluster), or of one CTA, for `turns` turns.
+// K1 (F = Life) and K4 (F = Gen3, Gen4): the board's planes in the shared
+// memory of one cluster of N CTAs (kCluster), or of one CTA, for `turns`
+// turns.
 //
-// Replaces pallas_packed_run_turns (pallas_stencil.py:508), which keeps
-// the board in VMEM for K turns. Bound: the 30 logic ops per word and
-// turn; one CTA would reach at most 1/132 of the card's rate, so the
-// board is spread over a cluster of up to 16 SMs (1/8 of the card).
+// K1 replaces pallas_packed_run_turns (pallas_stencil.py:508), K4
+// pallas_packed_run_turns3 (:274) and pallas_packed_run_turns4 (:296),
+// which keep the board in VMEM for K turns. Bound: the logic ops per word
+// and turn (30 for K1, 32 or 35 for K4); one CTA would reach at most 1/132
+// of the card's rate, so the board is spread over a cluster of up to 16
+// SMs (1/8 of the card). A cluster turn has a floor of about 1 µs (the
+// split barrier and the DSMEM reads), so small boards run on one CTA.
 //
-// CTA i owns rows [a_i, a_{i+1}) in two buffers (ping-pong) of
-// ceil(h/N) rows. The rows above and below its slab are the last row of
-// CTA i - 1's slab and the first row of CTA i + 1's (ranks modulo N:
-// the torus), read in place from their shared memory through DSMEM.
-// A turn is:
+// CTA i owns rows [a_i, a_{i+1}) in two buffers (ping-pong) of ceil(h/N)
+// rows per plane; a buffer holds plane 0's slab, then plane 1's, so the
+// rows a warp walks keep K1's bank pattern. The rows above and below its
+// slab are the last row of CTA i - 1's slab and the first row of CTA
+// i + 1's (ranks modulo N: the torus), read in place, in every plane,
+// from their shared memory through DSMEM. A turn is:
 //   1. the slab's first and last rows, the only rows that read a
-//      neighbour (threads of slots 0 and 1);
+//      neighbour (threads of slots 0 and 1), both planes;
 //   2. barrier.cluster.arrive (release);
 //   3. the rows between (the other slots), then __syncthreads: they are
 //      written after the arrive, so only the block barrier orders them
@@ -244,18 +376,20 @@ __host__ __device__ __forceinline__ int slab_start(int rank, int h,
 // Why that is safe: turn k + 1 writes the buffer that the neighbours
 // read in turn k, and they made those reads (in step 1) before they
 // arrived, so before anyone's wait of turn k returned. The neighbours
-// read only edge rows, and those were written before the release. The
-// wait that closes the last turn is the full cluster barrier that lets a
-// CTA copy out its slab and exit: every read of its shared memory came
-// before some arrive of that turn. With one CTA (kCluster false) the
-// rows above and below are its own last and first, and the block barrier
-// alone ends a turn.
+// read only edge rows, and those (both planes: a row's two words are
+// written together) were written before the release. The wait that
+// closes the last turn is the full cluster barrier that lets a CTA copy
+// out its slab and exit: every read of its shared memory came before
+// some arrive of that turn. With one CTA (kCluster false) the rows above
+// and below are its own last and first, and the block barrier alone ends
+// a turn.
 //
-// Threads: `lanes` columns x (2 + slots) slots, fixed before the turn
-// loop; a slot walks `per` rows (the interior split into slots), a lane
-// columns lane, lane + lanes, ... (once when wp <= lanes).
-template <bool kCluster>
-__global__ void __launch_bounds__(kResidentThreads)
+// Threads: `lanes` columns x (2 + slots) slots, at most
+// F::kResidentThreads, fixed before the turn loop; a slot walks `per`
+// rows (the interior split into slots), a lane columns lane, lane +
+// lanes, ... (once when wp <= lanes).
+template <typename F, bool kCluster>
+__global__ void __launch_bounds__(F::kResidentThreads, 1)
 resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                 int h, int wp, long long turns, uint32_t born,
                 uint32_t survive, int lanes, int per) {
@@ -264,9 +398,16 @@ resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   const int rank = blockIdx.x;
   const int a = slab_start(rank, h, ctas);
   const int len = slab_start(rank + 1, h, ctas) - a;
-  const int buf = ((h + ctas - 1) / ctas) * wp;  // words per buffer
-  const uint32_t* src_in = in + (long long)a * wp;
-  for (int i = threadIdx.x; i < len * wp; i += blockDim.x) smem[i] = src_in[i];
+  const int plane = ((h + ctas - 1) / ctas) * wp;  // words per slab plane
+  const int buf = F::kPlanes * plane;              // words per buffer
+  const long long board = (long long)h * wp;       // words per board plane
+#pragma unroll
+  for (int p = 0; p < F::kPlanes; ++p) {
+    const uint32_t* src_in = in + p * board + (long long)a * wp;
+    for (int i = threadIdx.x; i < len * wp; i += blockDim.x) {
+      smem[p * plane + i] = src_in[i];
+    }
+  }
   const uint32_t* up = smem;
   const uint32_t* down = smem;
   int up_last = len - 1;  // row of `up` above the slab
@@ -308,9 +449,9 @@ resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     if (n <= 0) return;
     int col = lane, west = west0, east = east0;
     while (true) {
-      step_rows(above + src + above_off, smem + src + first_off,
-                below + src + below_off, smem + dst + first_off, n, wp, col,
-                west, east, rule);
+      step_rows<F>(above + src + above_off, smem + src + first_off,
+                   below + src + below_off, smem + dst + first_off, n, wp,
+                   plane, col, west, east, rule);
       col += lanes;
       if (col >= wp) break;
       west = col - 1;
@@ -327,18 +468,21 @@ resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     if constexpr (kCluster) cluster_wait();
     src = dst;
   }
-  uint32_t* dst_out = out + (long long)a * wp;
-  for (int i = threadIdx.x; i < len * wp; i += blockDim.x) {
-    dst_out[i] = smem[src + i];
+#pragma unroll
+  for (int p = 0; p < F::kPlanes; ++p) {
+    uint32_t* dst_out = out + p * board + (long long)a * wp;
+    for (int i = threadIdx.x; i < len * wp; i += blockDim.x) {
+      dst_out[i] = smem[src + p * plane + i];
+    }
   }
 }
 
-template <bool kCluster>
+template <typename F, bool kCluster>
 cudaError_t launch_resident(const void* in, void* out, int h, int wp,
                             long long turns, unsigned born, unsigned survive,
                             int ctas, int lanes, int threads, int per,
                             size_t smem, cudaStream_t stream) {
-  auto kernel = resident_kernel<kCluster>;
+  auto kernel = resident_kernel<F, kCluster>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -370,30 +514,77 @@ cudaError_t launch_resident(const void* in, void* out, int h, int wp,
   return cudaGetLastError();
 }
 
+// K1 or K4 on one cluster of `ctas` CTAs (1..16, at most h), each thread
+// slot walking `per` rows of its slab's interior. Returns
+// cudaErrorInvalidValue for a geometry it does not take and
+// cudaErrorLaunchOutOfResources when the cluster cannot be placed.
+template <typename F>
+int run_resident(const void* in, void* out, int h, int wp, long long turns,
+                 unsigned born, unsigned survive, int ctas, int per,
+                 int device, void* stream) {
+  if (h < 1 || wp < 1 || ctas < 1 || ctas > kResidentMaxCtas || ctas > h ||
+      per < 1) {
+    return cudaErrorInvalidValue;
+  }
+  const int len_max = (h + ctas - 1) / ctas;
+  const size_t smem =
+      2 * F::kPlanes * sizeof(uint32_t) * (size_t)len_max * wp;
+  const int inner = len_max - 2;
+  const int slots = 2 + (inner > 0 ? (inner + per - 1) / per : 0);
+  constexpr int kThreads = F::kResidentThreads;
+  if (smem > (size_t)kBlockSmemBytes || slots > kThreads) {
+    return cudaErrorInvalidValue;
+  }
+  const int lanes = wp < kThreads / slots ? wp : kThreads / slots;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (ctas == 1) {
+    return launch_resident<F, false>(in, out, h, wp, turns, born, survive,
+                                     1, lanes, lanes * slots, per, smem, s);
+  }
+  return launch_resident<F, true>(in, out, h, wp, turns, born, survive,
+                                  ctas, lanes, lanes * slots, per, smem, s);
+}
+
 // Blocks of a tiled sweep that share one SM at its deepest sweep.
-constexpr int tiled_blocks_per_sm(int halo, int rows) {
-  return 2 * (2 * 4 * (rows + 2 * 32 * halo) * kWinWords +
+constexpr int tiled_blocks_per_sm(int planes, int halo, int rows) {
+  return 2 * (2 * planes * 4 * (rows + 2 * 32 * halo) * kWinWords +
               kBlockReservedSmem) <= kSmSmemBytes ? 2 : 1;
 }
 
-// K2 (kHalo = 1, R = kRows, one of kTileRowChoices) and K6 (kHalo = 2,
-// R = kDeepRows): one block per R x C output tile, C = 64 - 2 kHalo
-// words. The block loads a window of (R + 2t) rows x 64 words around its
-// tile, indices taken modulo the board, steps it t turns and writes the
-// exact R x C interior, window columns kHalo .. kHalo + C - 1. Wrong
-// values enter at the window's edges and advance one row and one cell
-// per turn, so each turn computes only rows [turn, R + 2t - turn) and
-// t <= 32 x kHalo cells of horizontal halo are enough. The edge columns
-// read their missing neighbour by wrapping within the window, as the
-// plain version's windows do: their cells are wrong either way.
-template <int kHalo, int kRows>
+// K2 (F = Life, kHalo = 1, R = kRows, one of kTileRowChoices), K6 (Life,
+// kHalo = 2, R = kDeepRows) and K5 (F = Gen3, Gen4, kHalo = 1, R one of
+// kTile2pRowChoices): one block per R x C output tile, C = 64 - 2 kHalo
+// words. The block loads a window of (R + 2t) rows x 64 words of every
+// plane around its tile, indices taken modulo the board, steps it t turns
+// and writes the exact R x C interior, window columns kHalo .. kHalo +
+// C - 1. Wrong values enter at the window's edges and advance one row and
+// one cell per turn, so each turn computes only rows [turn, R + 2t -
+// turn) and t <= 32 x kHalo cells of horizontal halo are enough. K5's
+// dying/encoding plane reads only its own cell, but its next value
+// depends on the alive count, so its wrong margin advances like the
+// alive plane's. The edge columns read their missing neighbour by
+// wrapping within the window, as the plain version's windows do: their
+// cells are wrong either way. A window row holds each plane's 64 words in
+// turn, so a row's plane-1 words sit at a fixed offset from its plane-0
+// words and every address in the loop is a pointer plus a constant.
+//
+// Bound: the ops (32 x 30 per word and sweep for K2, 32 x 32 or 35 for
+// K5) against 8 (16 for K5) bytes per word read and written; the tile
+// height R sets how many blocks fill the 132 SMs and how much of each
+// window is margin ((R + t - 1) / R of the useful rows).
+template <typename F, int kHalo, int kRows>
 __global__ void __launch_bounds__(kWinWords * kTileSegments,
-                                  tiled_blocks_per_sm(kHalo, kRows))
+                                  tiled_blocks_per_sm(F::kPlanes, kHalo,
+                                                      kRows))
 tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
              int h, int wp, int t, uint32_t born, uint32_t survive) {
   constexpr int kWords = kWinWords - 2 * kHalo;
+  constexpr int kRowWords = F::kPlanes * kWinWords;
   extern __shared__ uint32_t smem[];
   const int win_rows = kRows + 2 * t;
+  const long long board = (long long)h * wp;  // words per board plane
   const int r0 = blockIdx.y * kRows;
   const int c0 = blockIdx.x * kWords;
   const int col = threadIdx.x;
@@ -403,23 +594,27 @@ tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   for (int i = seg; i < win_rows; i += kTileSegments) {
     long long gr = ((long long)r0 - t + i) % h;
     if (gr < 0) gr += h;
-    smem[i * kWinWords + col] = in[gr * wp + gcol];
+#pragma unroll
+    for (int p = 0; p < F::kPlanes; ++p) {
+      smem[i * kRowWords + p * kWinWords + col] =
+          in[p * board + gr * wp + gcol];
+    }
   }
   __syncthreads();
   const RuleLeaves rule = make_leaves(born, survive);
   const int west = (col - 1) & (kWinWords - 1);
   const int east = (col + 1) & (kWinWords - 1);
   uint32_t* src = smem;
-  uint32_t* dst = smem + win_rows * kWinWords;
+  uint32_t* dst = smem + win_rows * kRowWords;
   for (int turn = 1; turn <= t; ++turn) {
     const int per = (win_rows - 2 * turn + kTileSegments - 1) /
                     kTileSegments;
     const int a = turn + seg * per;
     const int b = min(a + per, win_rows - turn);
     if (a < b) {
-      step_rows(src + (a - 1) * kWinWords, src + a * kWinWords,
-                src + b * kWinWords, dst + a * kWinWords, b - a, kWinWords,
-                col, west, east, rule);
+      step_rows<F>(src + (a - 1) * kRowWords, src + a * kRowWords,
+                   src + b * kRowWords, dst + a * kRowWords, b - a,
+                   kRowWords, kWinWords, col, west, east, rule);
     }
     __syncthreads();
     uint32_t* const done = dst;
@@ -429,27 +624,48 @@ tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   const int gw = c0 + col - kHalo;
   if (col >= kHalo && col < kHalo + kWords && gw < wp) {
     for (int i = seg; i < kRows && r0 + i < h; i += kTileSegments) {
-      out[(long long)(r0 + i) * wp + gw] = src[(t + i) * kWinWords + col];
+      const long long o = (long long)(r0 + i) * wp + gw;
+#pragma unroll
+      for (int p = 0; p < F::kPlanes; ++p) {
+        out[p * board + o] = src[(t + i) * kRowWords + p * kWinWords + col];
+      }
     }
   }
 }
 
-template <int kHalo, int kRows>
+template <typename F, int kHalo, int kRows>
 cudaError_t launch_tiled(const void* in, void* out, int h, int wp, int t,
                          unsigned born, unsigned survive,
                          cudaStream_t stream) {
   constexpr int kWords = kWinWords - 2 * kHalo;
-  const size_t smem =
-      2 * sizeof(uint32_t) * (size_t)(kRows + 2 * t) * kWinWords;
+  const size_t smem = 2 * F::kPlanes * sizeof(uint32_t) *
+                      (size_t)(kRows + 2 * t) * kWinWords;
   cudaError_t e = cudaFuncSetAttribute(
-      tiled_kernel<kHalo, kRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      tiled_kernel<F, kHalo, kRows>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((wp + kWords - 1) / kWords, (h + kRows - 1) / kRows);
   const dim3 block(kWinWords, kTileSegments);
-  tiled_kernel<kHalo, kRows><<<grid, block, smem, stream>>>(
+  tiled_kernel<F, kHalo, kRows><<<grid, block, smem, stream>>>(
       (const uint32_t*)in, (uint32_t*)out, h, wp, t, born, survive);
   return cudaGetLastError();
+}
+
+// K5 at `rows` output rows per tile, one of kTile2pRowChoices.
+template <typename F>
+cudaError_t launch_tiled2p(const void* in, void* out, int h, int wp, int t,
+                           int rows, unsigned born, unsigned survive,
+                           cudaStream_t stream) {
+  switch (rows) {
+    case kTile2pRowChoices[0]:
+      return launch_tiled<F, 1, kTile2pRowChoices[0]>(in, out, h, wp, t,
+                                                      born, survive, stream);
+    case kTile2pRowChoices[1]:
+      return launch_tiled<F, 1, kTile2pRowChoices[1]>(in, out, h, wp, t,
+                                                      born, survive, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // K3: live cells per row, one warp per row.
@@ -468,227 +684,6 @@ row_popcounts_kernel(const uint32_t* __restrict__ in,
     s += __shfl_down_sync(0xFFFFFFFFu, s, off);
   }
   if (lane == 0) out[warp] = s;
-}
-
-// ------------------------------------------------- two-plane Generations
-//
-// Stacked (2, h, wp) planes. The count is the self-inclusive count of
-// the ALIVE cells (the same network as above); the rule's two masks
-// give two bit-planes per word, born = lut_tree(b) (a dead cell has
-// n9 = n8) and survive = lut_tree(s) (an alive cell has n9 = n8 + 1,
-// which the survive leaves already shift), and the family's transition
-// combines them with the cell's own planes.
-
-// C = 3: plane 0 alive, plane 1 dying (gen3_transition, ops/bitpack.py).
-struct Gen3 {
-  static constexpr bool kNeighbourPlane1 = false;
-  __device__ static uint32_t alive(uint32_t p0, uint32_t) { return p0; }
-  __device__ static void next(uint32_t a, uint32_t d, uint32_t born,
-                              uint32_t surv, uint32_t& o0, uint32_t& o1) {
-    o0 = (~a & ~d & born) | (a & surv);
-    o1 = a & ~surv;
-  }
-};
-
-// C = 4: the state in binary, b0 = bit 0, b1 = bit 1; alive = b0 & ~b1,
-// dying chain 2 -> 3 -> 0 (gen4_transition, ops/bitpack.py).
-struct Gen4 {
-  static constexpr bool kNeighbourPlane1 = true;
-  __device__ static uint32_t alive(uint32_t b0, uint32_t b1) {
-    return b0 & ~b1;
-  }
-  __device__ static void next(uint32_t b0, uint32_t b1, uint32_t born,
-                              uint32_t surv, uint32_t& o0, uint32_t& o1) {
-    const uint32_t a = b0 & ~b1;
-    const uint32_t dying1 = ~b0 & b1;
-    o0 = (~b0 & ~b1 & born) | (a & surv) | dying1;
-    o1 = (a & ~surv) | dying1;
-  }
-};
-
-// One turn of both planes for rows [a, b) of one word column: each
-// row's words are loaded once, the alive word of the row and its
-// west/east neighbours feed the horizontal sum, and the row's own two
-// words are kept for the transition.
-template <typename Family, typename RowFn>
-__device__ __forceinline__ void step_column2p(
-    const uint32_t* __restrict__ src0, const uint32_t* __restrict__ src1,
-    uint32_t* __restrict__ dst0, uint32_t* __restrict__ dst1, int a, int b,
-    int col, int west, int east, RowFn row, const RuleLeaves& rule) {
-  auto alive_at = [&](const uint32_t* l0, const uint32_t* l1,
-                      int c) -> uint32_t {
-    if (c < 0) return 0u;
-    if constexpr (Family::kNeighbourPlane1) {
-      return Family::alive(l0[c], l1[c]);
-    } else {
-      return l0[c];
-    }
-  };
-  auto load = [&](int r, uint32_t& p0, uint32_t& p1, uint32_t& s0,
-                  uint32_t& s1) {
-    const int off = row(r);
-    const uint32_t* l0 = src0 + off;
-    const uint32_t* l1 = src1 + off;
-    p0 = l0[col];
-    p1 = l1[col];
-    hsum(alive_at(l0, l1, west), Family::alive(p0, p1),
-         alive_at(l0, l1, east), s0, s1);
-  };
-  uint32_t pu0, pu1, au0, au1, pm0, pm1, am0, am1;
-  load(a - 1, pu0, pu1, au0, au1);
-  load(a, pm0, pm1, am0, am1);
-  for (int r = a; r < b; ++r) {
-    uint32_t pd0, pd1, ad0, ad1;
-    load(r + 1, pd0, pd1, ad0, ad1);
-    const uint32_t u0 = au0 ^ am0 ^ ad0;
-    const uint32_t u1 = (au0 & am0) | (ad0 & (au0 ^ am0));
-    const uint32_t v0 = au1 ^ am1 ^ ad1;
-    const uint32_t v1 = (au1 & am1) | (ad1 & (au1 ^ am1));
-    const uint32_t n1 = u1 ^ v0;
-    const uint32_t c2 = u1 & v0;
-    const uint32_t n2 = v1 ^ c2, n3 = v1 & c2;
-    const uint32_t born = lut_tree(rule.b, u0, n1, n2, n3);
-    const uint32_t surv = lut_tree(rule.s, u0, n1, n2, n3);
-    uint32_t o0, o1;
-    Family::next(pm0, pm1, born, surv, o0, o1);
-    const int off = row(r) + col;
-    dst0[off] = o0;
-    dst1[off] = o1;
-    au0 = am0; au1 = am1;
-    pm0 = pd0; pm1 = pd1; am0 = ad0; am1 = ad1;
-  }
-}
-
-// K4: both planes in shared memory (ping-pong: four board-sized
-// buffers), `turns` turns, one block — K1 with two planes.
-template <typename Family>
-__global__ void __launch_bounds__(kResidentThreads)
-resident2p_kernel(const uint32_t* __restrict__ in,
-                  uint32_t* __restrict__ out, int h, int wp,
-                  long long turns, uint32_t born, uint32_t survive,
-                  int segs) {
-  extern __shared__ uint32_t smem[];
-  const int n = h * wp;
-  // smem holds [buffer][plane][h][wp]; buffer 0 is the stacked input.
-  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) smem[i] = in[i];
-  __syncthreads();
-  const RuleLeaves rule = make_leaves(born, survive);
-  const int seg_len = (h + segs - 1) / segs;
-  const int items = wp * segs;
-  auto row = [h, wp](int r) {
-    return (r < 0 ? r + h : (r >= h ? r - h : r)) * wp;
-  };
-  for (long long k = 0; k < turns; ++k) {
-    const uint32_t* src = smem + (k & 1) * 2 * n;
-    uint32_t* dst = smem + ((k + 1) & 1) * 2 * n;
-    for (int item = threadIdx.x; item < items; item += blockDim.x) {
-      const int col = item % wp;
-      const int a = (item / wp) * seg_len;
-      const int b = min(a + seg_len, h);
-      if (a < b) {
-        step_column2p<Family>(src, src + n, dst, dst + n, a, b, col,
-                              (col + wp - 1) % wp, (col + 1) % wp, row,
-                              rule);
-      }
-    }
-    __syncthreads();
-  }
-  const uint32_t* fin = smem + (turns & 1) * 2 * n;
-  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) out[i] = fin[i];
-}
-
-// K5: K2 with two planes. One block per R x C output tile loads the
-// (R + 2t) x (C + 2)-word window of both planes (indices modulo the
-// board), steps it t turns and writes both planes' exact interior. The
-// dying/encoding plane reads only its own cell, but its next value
-// depends on the alive count, so its wrong margin advances one row and
-// one cell per turn like the alive plane's; the same rows [turn,
-// R + 2t - turn) are computed each turn.
-template <typename Family>
-__global__ void __launch_bounds__(kWinWords * kTileSegments)
-tiled2p_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-               int h, int wp, int t, uint32_t born, uint32_t survive) {
-  extern __shared__ uint32_t smem[];
-  const int win_rows = kTile2pRows + 2 * t;
-  const int win = win_rows * kWinWords;
-  const long long plane = (long long)h * wp;
-  // smem holds [buffer][plane][win_rows][kWinWords].
-  const int r0 = blockIdx.y * kTile2pRows;
-  const int c0 = blockIdx.x * kTileWords;
-  const int col = threadIdx.x;
-  const int seg = threadIdx.y;
-  const long long gc = ((long long)c0 - 1 + col) % wp;
-  const int gcol = (int)(gc < 0 ? gc + wp : gc);
-  for (int i = seg; i < win_rows; i += kTileSegments) {
-    long long gr = ((long long)r0 - t + i) % h;
-    if (gr < 0) gr += h;
-    smem[i * kWinWords + col] = in[gr * wp + gcol];
-    smem[win + i * kWinWords + col] = in[plane + gr * wp + gcol];
-  }
-  __syncthreads();
-  const RuleLeaves rule = make_leaves(born, survive);
-  auto row = [](int r) { return r * kWinWords; };
-  const int west = col > 0 ? col - 1 : -1;
-  const int east = col < kWinWords - 1 ? col + 1 : -1;
-  for (int turn = 1; turn <= t; ++turn) {
-    const uint32_t* src = smem + ((turn - 1) & 1) * 2 * win;
-    uint32_t* dst = smem + (turn & 1) * 2 * win;
-    const int lo = turn;
-    const int per = (win_rows - 2 * turn + kTileSegments - 1) /
-                    kTileSegments;
-    const int a = lo + seg * per;
-    const int b = min(a + per, win_rows - turn);
-    if (a < b) {
-      step_column2p<Family>(src, src + win, dst, dst + win, a, b, col,
-                            west, east, row, rule);
-    }
-    __syncthreads();
-  }
-  const uint32_t* fin = smem + (t & 1) * 2 * win;
-  const int gw = c0 + col - 1;
-  if (col >= 1 && col <= kTileWords && gw < wp) {
-    for (int i = seg; i < kTile2pRows && r0 + i < h; i += kTileSegments) {
-      const long long o = (long long)(r0 + i) * wp + gw;
-      out[o] = fin[(t + i) * kWinWords + col];
-      out[plane + o] = fin[win + (t + i) * kWinWords + col];
-    }
-  }
-}
-
-template <typename Family>
-cudaError_t launch_resident2p(const void* in, void* out, int h, int wp,
-                              long long turns, unsigned born,
-                              unsigned survive, cudaStream_t stream) {
-  const size_t smem = 4 * sizeof(uint32_t) * (size_t)h * wp;
-  cudaError_t e = cudaFuncSetAttribute(
-      resident2p_kernel<Family>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  int segs = kResidentThreads / wp;
-  if (segs < 1) segs = 1;
-  if (segs > h) segs = h;
-  resident2p_kernel<Family><<<1, kResidentThreads, smem, stream>>>(
-      (const uint32_t*)in, (uint32_t*)out, h, wp, turns, born, survive,
-      segs);
-  return cudaGetLastError();
-}
-
-template <typename Family>
-cudaError_t launch_tiled2p(const void* in, void* out, int h, int wp, int t,
-                           unsigned born, unsigned survive,
-                           cudaStream_t stream) {
-  const size_t smem =
-      4 * sizeof(uint32_t) * (size_t)(kTile2pRows + 2 * t) * kWinWords;
-  cudaError_t e = cudaFuncSetAttribute(
-      tiled2p_kernel<Family>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((wp + kTileWords - 1) / kTileWords,
-                  (h + kTile2pRows - 1) / kTile2pRows);
-  const dim3 block(kWinWords, kTileSegments);
-  tiled2p_kernel<Family><<<grid, block, smem, stream>>>(
-      (const uint32_t*)in, (uint32_t*)out, h, wp, t, born, survive);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -710,33 +705,12 @@ int gol_tile_geometry(int* max_t, int* words, int* rows, int cap) {
 }
 
 // K1 on one cluster of `ctas` CTAs (1..16, at most h), each thread slot
-// walking `per` rows of its slab's interior. Returns
-// cudaErrorInvalidValue for a geometry it does not take and
-// cudaErrorLaunchOutOfResources when the cluster cannot be placed.
+// walking `per` rows of its slab's interior.
 int gol_resident_run_turns(const void* in, void* out, int h, int wp,
                            long long turns, unsigned born, unsigned survive,
                            int ctas, int per, int device, void* stream) {
-  if (h < 1 || wp < 1 || ctas < 1 || ctas > kResidentMaxCtas || ctas > h ||
-      per < 1) {
-    return cudaErrorInvalidValue;
-  }
-  const int len_max = (h + ctas - 1) / ctas;
-  const size_t smem = 2 * sizeof(uint32_t) * (size_t)len_max * wp;
-  const int inner = len_max - 2;
-  const int slots = 2 + (inner > 0 ? (inner + per - 1) / per : 0);
-  if (smem > (size_t)kBlockSmemBytes || slots > kResidentThreads) {
-    return cudaErrorInvalidValue;
-  }
-  const int lanes = wp < kResidentThreads / slots ? wp : kResidentThreads / slots;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (ctas == 1) {
-    return launch_resident<false>(in, out, h, wp, turns, born, survive, 1,
-                                  lanes, lanes * slots, per, smem, s);
-  }
-  return launch_resident<true>(in, out, h, wp, turns, born, survive, ctas,
-                               lanes, lanes * slots, per, smem, s);
+  return run_resident<Life>(in, out, h, wp, turns, born, survive, ctas, per,
+                            device, stream);
 }
 
 // K2 at `rows` output rows per tile, one of kTileRowChoices.
@@ -749,11 +723,11 @@ int gol_tiled_sweep(const void* in, void* out, int h, int wp, int t,
   const cudaStream_t s = (cudaStream_t)stream;
   switch (rows) {
     case kTileRowChoices[0]:
-      return launch_tiled<1, kTileRowChoices[0]>(in, out, h, wp, t, born,
-                                                 survive, s);
+      return launch_tiled<Life, 1, kTileRowChoices[0]>(in, out, h, wp, t,
+                                                       born, survive, s);
     case kTileRowChoices[1]:
-      return launch_tiled<1, kTileRowChoices[1]>(in, out, h, wp, t, born,
-                                                 survive, s);
+      return launch_tiled<Life, 1, kTileRowChoices[1]>(in, out, h, wp, t,
+                                                       born, survive, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -772,44 +746,48 @@ int gol_tiled_sweep_deep(const void* in, void* out, int h, int wp, int t,
   if (t < 1 || t > kDeepMaxT) return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  return launch_tiled<2, kDeepRows>(in, out, h, wp, t, born, survive,
-                                    (cudaStream_t)stream);
+  return launch_tiled<Life, 2, kDeepRows>(in, out, h, wp, t, born, survive,
+                                          (cudaStream_t)stream);
 }
 
-int gol_tile2p_rows(int* rows) {
-  *rows = kTile2pRows;
-  return 0;
+// K5's row choices (at most `cap` written to `rows`); returns how many
+// there are.
+int gol_tile2p_rows(int* rows, int cap) {
+  constexpr int n = sizeof(kTile2pRowChoices) / sizeof(kTile2pRowChoices[0]);
+  for (int i = 0; i < n && i < cap; ++i) rows[i] = kTile2pRowChoices[i];
+  return n;
 }
 
-// family: 3 (alive, dying planes) or 4 (binary-encoded planes).
+// K4, family 3 (alive, dying planes) or 4 (binary-encoded planes), on one
+// cluster of `ctas` CTAs whose thread slots walk `per` rows, as K1.
 int gol_resident_run_turns2p(const void* in, void* out, int h, int wp,
                              long long turns, unsigned born,
-                             unsigned survive, int family, int device,
-                             void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  const cudaStream_t s = (cudaStream_t)stream;
+                             unsigned survive, int family, int ctas, int per,
+                             int device, void* stream) {
   if (family == 3) {
-    return launch_resident2p<Gen3>(in, out, h, wp, turns, born, survive, s);
+    return run_resident<Gen3>(in, out, h, wp, turns, born, survive, ctas,
+                              per, device, stream);
   }
   if (family == 4) {
-    return launch_resident2p<Gen4>(in, out, h, wp, turns, born, survive, s);
+    return run_resident<Gen4>(in, out, h, wp, turns, born, survive, ctas,
+                              per, device, stream);
   }
   return cudaErrorInvalidValue;
 }
 
+// K5 at `rows` output rows per tile, one of kTile2pRowChoices.
 int gol_tiled_sweep2p(const void* in, void* out, int h, int wp, int t,
-                      unsigned born, unsigned survive, int family,
+                      int rows, unsigned born, unsigned survive, int family,
                       int device, void* stream) {
   if (t < 1 || t > kTileMaxT) return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   const cudaStream_t s = (cudaStream_t)stream;
   if (family == 3) {
-    return launch_tiled2p<Gen3>(in, out, h, wp, t, born, survive, s);
+    return launch_tiled2p<Gen3>(in, out, h, wp, t, rows, born, survive, s);
   }
   if (family == 4) {
-    return launch_tiled2p<Gen4>(in, out, h, wp, t, born, survive, s);
+    return launch_tiled2p<Gen4>(in, out, h, wp, t, rows, born, survive, s);
   }
   return cudaErrorInvalidValue;
 }

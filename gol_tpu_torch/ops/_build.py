@@ -61,12 +61,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gol_tiled_sweep_deep.restype = i
     lib.gol_row_popcounts.argtypes = [vp, vp, i, i, i, vp]
     lib.gol_row_popcounts.restype = i
-    lib.gol_tile2p_rows.argtypes = [ip]
+    lib.gol_tile2p_rows.argtypes = [ip, i]
     lib.gol_tile2p_rows.restype = i
     lib.gol_resident_run_turns2p.argtypes = [vp, vp, i, i, ll, u, u, i, i,
-                                             vp]
+                                             i, i, vp]
     lib.gol_resident_run_turns2p.restype = i
-    lib.gol_tiled_sweep2p.argtypes = [vp, vp, i, i, i, u, u, i, i, vp]
+    lib.gol_tiled_sweep2p.argtypes = [vp, vp, i, i, i, i, u, u, i, i, vp]
     lib.gol_tiled_sweep2p.restype = i
 
 

@@ -64,22 +64,31 @@ K4 `resident_run_turns2p` and K5 `tiled_sweep2p` (driven by
 TPU design `_make_kernel2p` run with two plane transitions. Each takes
 stacked (2, H, Wp) planes and a `family`: "gen3" (alive, dying planes)
 or "gen4" (binary-encoded states), a template argument of the CUDA
-kernel. K4 is K1 with two planes: four board-sized buffers must fit one
-block, so each plane may hold `RESIDENT2P_PLANE_BYTES` = 58,112 bytes
-(512² is 32 KiB), and Wp = 1 is taken (the TPU's wp >= 2 gate has no
-counterpart). K5 is K2 with two planes: two planes x two buffers of a
-(R + 2T) x 64-word window must fit 232,448 bytes, so R + 2T <= 227 and
-R = `TILE2P_ROWS` = 160 rows at T <= 32. The window is 224 x 64 / (160 x
-62) = 1.45 times the tile at T = 32 and the work done (R + T - 1)(C + 2)
-/ (R C) = 1.23 times the useful work. Per word and turn the two-plane
-network spends `OPS_PER_WORD_TURN_2P` ops: the 11-op count, 18 muxes of
-two trees (born from the unshifted leaves, survive from the leaves
-shifted by one for the self-inclusive count) and the transition, 3 ops
-for gen3 and 3 + 3 for gen4 (alive = b0 & ~b1 of each of the three
-words a row load reads). Bound: the ops, at 16.7e12 ops/s, beside 16
-bytes per word per sweep (both planes read and written) at 3.35 TB/s.
-Families run as separate instantiations, so the launch count is kept
-per family too (`by_family`).
+kernel. Per word and turn the two-plane network spends
+`OPS_PER_WORD_TURN_2P` ops: the 11-op count, 18 muxes of two trees (born
+from the unshifted leaves, survive from the leaves shifted by one for
+the self-inclusive count) and the transition, 3 ops for gen3 and 3 + 3
+for gen4 (alive = b0 & ~b1 of each of the three words a row load reads).
+Bound: the ops, at 16.7e12 ops/s, beside 16 bytes per word per sweep
+(both planes read and written) at 3.35 TB/s. Both run K1's and K2's
+CUDA templates with a two-plane family, so they share the lean loop
+(`step_rows`). K4 is K1 with two planes: one cluster of N CTAs, each a
+slab of both planes in two buffers, the neighbours' edge rows of both
+planes read through DSMEM, one split cluster barrier a turn. Its planes
+are routed to it up to `RESIDENT2P_PLANE_BYTES` = 58,112 bytes each
+(four board-sized buffers in one CTA; 512² is 32 KiB), and Wp = 1 is
+taken (the TPU's wp >= 2 gate has no counterpart). A one-CTA turn costs
+K1's 30 ops plus a second tree and plane, but a cluster turn has a floor
+near 1 µs, so `resident2p_cluster_ctas` keeps N = 1 below
+`RESIDENT2P_CLUSTER_MIN_WORDS` words. K5 is K2 with two planes: two
+planes x two buffers of an (R + 2T) x 64-word window must fit 232,448
+bytes, so R + 2T <= 227, R in `TILE2P_ROW_CHOICES` at T <= 32, picked by
+`tile2p_rows` as `tile_rows` picks K2's: at 4096² 96-row tiles give 129
+blocks in one wave (160-row tiles gave 78 on 132 SMs), at 16384² 161-row
+tiles 918 blocks in 7 waves (160: 927 in 8). The work done is
+(R + T - 1)(C + 2) / (R C) times the useful work: 1.23 at R = 161, 1.36
+at R = 96, T = 32. Families run as separate instantiations, so the
+launch count is kept per family too (`by_family`).
 
 No single PyTorch call computes a packed life-like or Generations step,
 so no library call stands beside K1, K2, K4, K5 or K6.
@@ -136,10 +145,18 @@ DEEP_WORDS = 60
 # Shift/logic operations per word per turn of the kernels' network: 11
 # for the self-inclusive count, 19 for the rule (csrc/stencil.cu).
 OPS_PER_WORD_TURN = 30
-# K4: four board-sized planes (two planes, ping-pong) in one block.
+# K4: the planes it is routed (four board-sized planes, two planes
+# ping-pong, fit one CTA), and threads per CTA (csrc/stencil.cu checks
+# it: two planes need more registers than 1024 threads leave).
 RESIDENT2P_PLANE_BYTES = SMEM_BYTES // 4
+RESIDENT2P_THREADS = 512
+# K4 policy (measured on the card, PERF.md): a cluster pays from 2048
+# words a plane (256²: 16 CTAs beat one), not at 512 (128²: one CTA
+# beats every cluster); rows per thread by K1's rule, which K4's timings
+# at 512² bear out.
+RESIDENT2P_CLUSTER_MIN_WORDS = 2048
 # K5 output rows per tile, mirrored from csrc/stencil.cu (checked at load).
-TILE2P_ROWS = 160
+TILE2P_ROW_CHOICES = (161, 96)
 # The two-plane families and their codes in the C interface.
 FAMILIES = {"gen3": 3, "gen4": 4}
 # Ops per word per turn of the two-plane network (module note).
@@ -219,11 +236,10 @@ def _library():
     deep = [ctypes.c_int() for _ in range(3)]
     lib.gol_deep_geometry(*[ctypes.byref(v) for v in deep])
     got += tuple(v.value for v in deep)
-    rows2p = ctypes.c_int()
-    lib.gol_tile2p_rows(ctypes.byref(rows2p))
-    got += (rows2p.value,)
+    n = lib.gol_tile2p_rows(rows, len(rows))
+    got += (tuple(rows[:n]),)
     want = (TILE_MAX_T, TILE_WORDS, TILE_ROW_CHOICES, DEEP_MAX_T, DEEP_ROWS,
-            DEEP_WORDS, TILE2P_ROWS)
+            DEEP_WORDS, TILE2P_ROW_CHOICES)
     if got != want:
         raise RuntimeError(f"kernel tile geometry {got} != the Python "
                            f"mirror {want}")
@@ -247,51 +263,70 @@ def _kernel_args(words: torch.Tensor, what: str, planes: bool = False):
 
 # ------------------------------------------------------------------- K1
 
-def resident_cluster_ctas(h: int, wp: int) -> int:
-    """K1's cluster size N for an (h, wp) board: one CTA below
-    `RESIDENT_CLUSTER_MIN_WORDS` words, else the largest cluster the
+def _cluster_ctas(h: int, wp: int, min_words: int) -> int:
+    """One CTA below `min_words` words, else the largest cluster the
     board's rows allow, min(16, h)."""
-    if h * wp < RESIDENT_CLUSTER_MIN_WORDS:
+    if h * wp < min_words:
         return 1
     return min(RESIDENT_MAX_CTAS, h)
 
 
+def resident_cluster_ctas(h: int, wp: int) -> int:
+    """K1's cluster size N for an (h, wp) board: one CTA below
+    `RESIDENT_CLUSTER_MIN_WORDS` words, else min(16, h)."""
+    return _cluster_ctas(h, wp, RESIDENT_CLUSTER_MIN_WORDS)
+
+
 def _resident_slots(h: int, ctas: int, per: int) -> int:
-    """Thread slots of a K1 CTA: the slab's first and last rows, then its
-    interior rows `per` to a slot (as `gol_resident_run_turns`)."""
+    """Thread slots of a K1 or K4 CTA: the slab's first and last rows,
+    then its interior rows `per` to a slot (as `run_resident` in
+    csrc/stencil.cu)."""
     inner = -(-h // ctas) - 2
     return 2 + (-(-inner // per) if inner > 0 else 0)
 
 
-def _resident_threads(h: int, wp: int, ctas: int, per: int) -> int:
-    """Threads of a K1 CTA: a lane per column, up to 1024 in all."""
+def _resident_threads(h: int, wp: int, ctas: int, per: int,
+                      max_threads: int = RESIDENT_THREADS) -> int:
+    """Threads of a K1 or K4 CTA: a lane per column, up to `max_threads`
+    in all."""
     slots = _resident_slots(h, ctas, per)
-    return min(wp, RESIDENT_THREADS // slots) * slots
+    return min(wp, max_threads // slots) * slots
+
+
+def _rows_per_thread(h: int, wp: int, ctas: int, min_threads: int,
+                     max_per: int, max_threads: int) -> int:
+    """The most interior rows a thread walks (odd), up to `max_per`, that
+    leave a CTA `min_threads` threads, or more where `max_threads` threads
+    could not hold the slab otherwise."""
+    per = 1
+    while (per + 2 <= max_per and _resident_threads(
+            h, wp, ctas, per + 2, max_threads) >= min_threads):
+        per += 2
+    while _resident_slots(h, ctas, per) > max_threads:
+        per += 2
+    return per
 
 
 def resident_rows_per_thread(h: int, wp: int, ctas: int) -> int:
     """Interior rows each K1 thread walks (odd): the most, up to
     `RESIDENT_MAX_PER`, that leave a CTA `RESIDENT_MIN_THREADS` threads,
     or more where 1024 threads could not hold the slab otherwise."""
-    per = 1
-    while (per + 2 <= RESIDENT_MAX_PER and _resident_threads(
-            h, wp, ctas, per + 2) >= RESIDENT_MIN_THREADS):
-        per += 2
-    while _resident_slots(h, ctas, per) > RESIDENT_THREADS:
-        per += 2
-    return per
+    return _rows_per_thread(h, wp, ctas, RESIDENT_MIN_THREADS,
+                            RESIDENT_MAX_PER, RESIDENT_THREADS)
 
 
-def _check_resident_geometry(h: int, ctas: int, per: int | None) -> None:
+def _check_resident_geometry(h: int, ctas: int, per: int | None,
+                             what: str = "resident_run_turns",
+                             max_threads: int = RESIDENT_THREADS) -> None:
     """Raise on a cluster size, or (unless None) rows per thread, that K1
-    does not take."""
+    (or K4, with its `max_threads`) does not take."""
     if not 1 <= ctas <= min(RESIDENT_MAX_CTAS, h):
-        raise ValueError(f"resident_run_turns: {ctas} CTAs not in "
+        raise ValueError(f"{what}: {ctas} CTAs not in "
                          f"1..{min(RESIDENT_MAX_CTAS, h)} for {h} rows")
     if per is not None and (per < 1 or _resident_slots(h, ctas, per)
-                            > RESIDENT_THREADS):
-        raise ValueError(f"resident_run_turns: {per} rows per thread needs "
-                         f"more than {RESIDENT_THREADS} threads a CTA")
+                            > max_threads):
+        raise ValueError(f"{what}: {per} rows per thread needs more than "
+                         f"{max_threads} threads a CTA")
 
 
 def _slab_starts(h: int, ctas: int) -> list:
@@ -299,17 +334,12 @@ def _slab_starts(h: int, ctas: int) -> list:
     return [i * h // ctas for i in range(ctas + 1)]
 
 
-def resident_run_turns_plain(words: torch.Tensor, num_turns: int,
-                             rule: LifeLikeRule = CONWAY,
-                             ctas: int | None = None) -> torch.Tensor:
-    """K1's plain version on the kernel's slabs: each turn steps every
-    CTA's window, rows a_i - 1 .. a_{i+1} modulo h, as a torus of its own
-    (one batch) and keeps each slab. N is `resident_cluster_ctas`'s
-    unless `ctas` is given."""
-    h, wp = words.shape[-2:]
-    if ctas is None:
-        ctas = resident_cluster_ctas(h, wp)
-    _check_resident_geometry(h, ctas, None)
+def _slab_plain(words: torch.Tensor, num_turns: int, step,
+                ctas: int) -> torch.Tensor:
+    """K1's and K4's plain version on the kernel's slabs: each turn
+    `step`s every CTA's window, rows a_i - 1 .. a_{i+1} modulo h of every
+    plane, as a torus of its own (one batch) and keeps each slab."""
+    h = words.shape[-2]
     starts = _slab_starts(h, ctas)
     dev = words.device
     span = -(-h // ctas) + 2
@@ -320,9 +350,29 @@ def resident_run_turns_plain(words: torch.Tensor, num_turns: int,
     slab = torch.repeat_interleave(torch.arange(ctas, device=dev), lengths)
     row = 1 + torch.arange(h, device=dev) - first[slab]
     for _ in range(num_turns):
-        stepped = _step_shared_sums(words[..., window, :], rule)
+        stepped = step(words[..., window, :])
         words = stepped[..., slab, row, :]
     return words
+
+
+def resident_run_turns_plain(words: torch.Tensor, num_turns: int,
+                             rule: LifeLikeRule = CONWAY,
+                             ctas: int | None = None) -> torch.Tensor:
+    """K1's plain version on the kernel's slabs (`_slab_plain`). N is
+    `resident_cluster_ctas`'s unless `ctas` is given."""
+    h, wp = words.shape[-2:]
+    if ctas is None:
+        ctas = resident_cluster_ctas(h, wp)
+    _check_resident_geometry(h, ctas, None)
+    return _slab_plain(words, num_turns,
+                       lambda w: _step_shared_sums(w, rule), ctas)
+
+
+def _cluster_failed(what: str, lib, rc: int, ctas: int, h: int,
+                    wp: int) -> RuntimeError:
+    return RuntimeError(
+        f"{what}: a cluster of {ctas} CTAs for {h}x{wp} words failed: CUDA "
+        f"error {rc} ({lib.gol_error_string(rc).decode()}); {cuda_probe()}")
 
 
 def resident_run_turns(words: torch.Tensor, num_turns: int,
@@ -352,10 +402,7 @@ def resident_run_turns(words: torch.Tensor, num_turns: int,
         words.data_ptr(), out.data_ptr(), h, wp, num_turns, born, survive,
         ctas, per, dev, stream)
     if rc:
-        raise RuntimeError(
-            f"resident_run_turns: a cluster of {ctas} CTAs for {h}x{wp} "
-            f"words failed: CUDA error {rc} "
-            f"({lib.gol_error_string(rc).decode()}); {cuda_probe()}")
+        raise _cluster_failed("resident_run_turns", lib, rc, ctas, h, wp)
     resident_run_turns.launches += 1
     return out
 
@@ -365,14 +412,20 @@ resident_run_turns.launches = 0
 
 # ------------------------------------------------------------ K2 and K6
 
-def tile_rows(h: int, wp: int) -> int:
-    """K2's output rows per tile for an (h, wp) board: the choice whose
-    busiest SM computes the fewest window rows at T = 32, that is
-    ceil(blocks / 132) blocks of R + 31 rows each (two blocks sharing an
-    SM take as long as two in turn; the larger R on a tie)."""
+def _fewest_window_rows(h: int, wp: int, choices) -> int:
+    """The tile height whose busiest SM computes the fewest window rows
+    at T = 32: ceil(blocks / 132) blocks of R + 31 rows each (the rows
+    [turn, R + 2T - turn) over T turns; two blocks sharing an SM take as
+    long as two in turn; the larger R on a tie)."""
     cols = -(-wp // TILE_WORDS)
-    return min(TILE_ROW_CHOICES, key=lambda rows: -(
+    return min(choices, key=lambda rows: -(
         -cols * -(-h // rows) // CARD_SMS) * (rows + TILE_MAX_T - 1))
+
+
+def tile_rows(h: int, wp: int) -> int:
+    """K2's output rows per tile for an (h, wp) board, one of
+    `TILE_ROW_CHOICES` (`_fewest_window_rows`)."""
+    return _fewest_window_rows(h, wp, TILE_ROW_CHOICES)
 
 
 def _window_indices(n: int, tiles: int, step: int, halo: int, span: int,
@@ -382,24 +435,25 @@ def _window_indices(n: int, tiles: int, step: int, halo: int, span: int,
     return (starts[:, None] + torch.arange(span, device=device)) % n
 
 
-def _tiled_plain(words: torch.Tensor, t: int, rule: LifeLikeRule,
-                 rows: int, out_words: int, halo: int) -> torch.Tensor:
-    """The tiled kernels' plain version: gather every tile's (R + 2t) x
-    (C + 2 halo) window with modular indices (one batch, no loop over
-    tiles), step the windows t turns as tori of their own (their edges go
-    wrong, as the kernel's do), keep each exact R x C interior and
-    reassemble the board."""
-    h, wp = words.shape
+def _tiled_plain(words: torch.Tensor, t: int, step, rows: int,
+                 out_words: int, halo: int) -> torch.Tensor:
+    """The tiled kernels' plain version on (..., H, Wp) words (K5: the
+    stacked planes): gather every tile's (R + 2t) x (C + 2 halo) window
+    with modular indices (one batch, no loop over tiles), `step` the
+    windows t turns as tori of their own (their edges go wrong, as the
+    kernel's do), keep each exact R x C interior and reassemble the
+    board."""
+    h, wp = words.shape[-2:]
     tr, tc = -(-h // rows), -(-wp // out_words)
     r = _window_indices(h, tr, rows, t, rows + 2 * t, words.device)
     c = _window_indices(wp, tc, out_words, halo, out_words + 2 * halo,
                         words.device)
-    win = words[r[:, None, :, None], c[None, :, None, :]]
+    win = words[..., r[:, None, :, None], c[None, :, None, :]]
     for _ in range(t):
-        win = _step_shared_sums(win, rule)
-    core = win[:, :, t:t + rows, halo:halo + out_words]
-    return core.permute(0, 2, 1, 3).reshape(
-        tr * rows, tc * out_words)[:h, :wp].contiguous()
+        win = step(win)
+    core = win[..., t:t + rows, halo:halo + out_words].transpose(-3, -2)
+    return core.reshape(*words.shape[:-2], tr * rows, tc * out_words)[
+        ..., :h, :wp].contiguous()
 
 
 def tiled_sweep_plain(words: torch.Tensor, t: int,
@@ -409,13 +463,15 @@ def tiled_sweep_plain(words: torch.Tensor, t: int,
     given), one halo word a side."""
     if rows is None:
         rows = tile_rows(*words.shape)
-    return _tiled_plain(words, t, rule, rows, TILE_WORDS, 1)
+    return _tiled_plain(words, t, lambda w: _step_shared_sums(w, rule),
+                        rows, TILE_WORDS, 1)
 
 
 def tiled_sweep_deep_plain(words: torch.Tensor, t: int,
                            rule: LifeLikeRule = CONWAY) -> torch.Tensor:
     """K6's plain version: 320 x 60-word tiles, two halo words a side."""
-    return _tiled_plain(words, t, rule, DEEP_ROWS, DEEP_WORDS, 2)
+    return _tiled_plain(words, t, lambda w: _step_shared_sums(w, rule),
+                        DEEP_ROWS, DEEP_WORDS, 2)
 
 
 def _check_sweep(what: str, words_in: torch.Tensor,
@@ -428,9 +484,10 @@ def _check_sweep(what: str, words_in: torch.Tensor,
 
 
 def _sweep_launch_args(what: str, words_in: torch.Tensor,
-                       words_out: torch.Tensor, rows: int):
+                       words_out: torch.Tensor, rows: int,
+                       planes: bool = False):
     """`_kernel_args` for a sweep, with its output and grid checked."""
-    lib, h, wp, dev, stream = _kernel_args(words_in, what)
+    lib, h, wp, dev, stream = _kernel_args(words_in, what, planes)
     if (words_out.dtype != torch.int32 or not words_out.is_contiguous()
             or words_out.device != words_in.device):
         raise ValueError(f"{what}: output must be contiguous int32 on the "
@@ -568,24 +625,54 @@ def _step2p_shared_sums(planes: torch.Tensor, rule,
     return torch.stack(transition(p0, p1, born, surv))
 
 
+def resident2p_cluster_ctas(h: int, wp: int) -> int:
+    """K4's cluster size N for (2, h, wp) planes: one CTA below
+    `RESIDENT2P_CLUSTER_MIN_WORDS` words a plane, else min(16, h)."""
+    return _cluster_ctas(h, wp, RESIDENT2P_CLUSTER_MIN_WORDS)
+
+
+def resident2p_rows_per_thread(h: int, wp: int, ctas: int) -> int:
+    """Interior rows each K4 thread walks: K1's rule
+    (`resident_rows_per_thread`) within `RESIDENT2P_THREADS` threads."""
+    return _rows_per_thread(h, wp, ctas, RESIDENT_MIN_THREADS,
+                            RESIDENT_MAX_PER, RESIDENT2P_THREADS)
+
+
 def resident_run_turns2p_plain(planes: torch.Tensor, num_turns: int, rule,
-                               family: str) -> torch.Tensor:
-    """K4's plain version: `num_turns` whole-board turns of both planes."""
+                               family: str,
+                               ctas: int | None = None) -> torch.Tensor:
+    """K4's plain version on the kernel's slabs of both planes
+    (`_slab_plain`). N is `resident2p_cluster_ctas`'s unless `ctas` is
+    given."""
     _family_code(family)
-    for _ in range(num_turns):
-        planes = _step2p_shared_sums(planes, rule, family)
-    return planes
+    h, wp = planes.shape[-2:]
+    if ctas is None:
+        ctas = resident2p_cluster_ctas(h, wp)
+    _check_resident_geometry(h, ctas, None, "resident_run_turns2p")
+    return _slab_plain(planes, num_turns,
+                       lambda p: _step2p_shared_sums(p, rule, family), ctas)
 
 
 def resident_run_turns2p(planes: torch.Tensor, num_turns: int, rule,
-                         family: str) -> torch.Tensor:
+                         family: str, *, ctas: int | None = None,
+                         per: int | None = None) -> torch.Tensor:
     """Advance stacked (2, H, Wp) planes whose planes fit
-    `RESIDENT2P_PLANE_BYTES` `num_turns` turns in one launch of K4."""
+    `RESIDENT2P_PLANE_BYTES` `num_turns` turns in one launch of K4, on a
+    cluster of `ctas` CTAs whose threads walk `per` rows (by default the
+    shape's policy)."""
     code = _family_code(family)
     if num_turns == 0:
         return planes
+    h, wp = planes.shape[-2:]
+    if ctas is None:
+        ctas = resident2p_cluster_ctas(h, wp)
+    if per is None:
+        per = resident2p_rows_per_thread(h, wp, ctas)
+    _check_resident_geometry(h, ctas, per, "resident_run_turns2p",
+                             RESIDENT2P_THREADS)
     if planes.device.type == "cpu":
-        return resident_run_turns2p_plain(planes, num_turns, rule, family)
+        return resident_run_turns2p_plain(planes, num_turns, rule, family,
+                                          ctas)
     lib, h, wp, dev, stream = _kernel_args(planes, "resident_run_turns2p",
                                            planes=True)
     if not fits_resident2p(planes.shape):
@@ -593,59 +680,56 @@ def resident_run_turns2p(planes: torch.Tensor, num_turns: int, rule,
                          f"exceed {RESIDENT2P_PLANE_BYTES} bytes each")
     out = torch.empty_like(planes)
     born, survive = rule.masks()
-    _build.check(lib.gol_resident_run_turns2p(
+    rc = lib.gol_resident_run_turns2p(
         planes.data_ptr(), out.data_ptr(), h, wp, num_turns, born, survive,
-        code, dev, stream), "resident_run_turns2p")
+        code, ctas, per, dev, stream)
+    if rc:
+        raise _cluster_failed("resident_run_turns2p", lib, rc, ctas, h, wp)
     resident_run_turns2p.launches += 1
     resident_run_turns2p.by_family[family] += 1
     return out
 
 
-def tiled_sweep2p_plain(planes: torch.Tensor, t: int, rule,
-                        family: str) -> torch.Tensor:
-    """K5's plain version: gather every tile's (R + 2t) x (C + 2) window
-    of both planes with modular indices (one batch), step the windows t
-    turns as tori of their own, keep each exact R x C interior and
-    reassemble the planes."""
+def tile2p_rows(h: int, wp: int) -> int:
+    """K5's output rows per tile for (2, h, wp) planes, one of
+    `TILE2P_ROW_CHOICES` (`_fewest_window_rows`)."""
+    return _fewest_window_rows(h, wp, TILE2P_ROW_CHOICES)
+
+
+def tiled_sweep2p_plain(planes: torch.Tensor, t: int, rule, family: str,
+                        rows: int | None = None) -> torch.Tensor:
+    """K5's plain version: R x 62-word tiles of both planes (R =
+    `tile2p_rows`'s unless given), one halo word a side."""
     _family_code(family)
-    h, wp = planes.shape[-2:]
-    tr, tc = -(-h // TILE2P_ROWS), -(-wp // TILE_WORDS)
-    rows = _window_indices(h, tr, TILE2P_ROWS, t, TILE2P_ROWS + 2 * t,
-                           planes.device)
-    cols = _window_indices(wp, tc, TILE_WORDS, 1, TILE_WORDS + 2,
-                           planes.device)
-    win = planes[:, rows[:, None, :, None], cols[None, :, None, :]]
-    for _ in range(t):
-        win = _step2p_shared_sums(win, rule, family)
-    core = win[..., t:t + TILE2P_ROWS, 1:1 + TILE_WORDS]
-    return core.permute(0, 1, 3, 2, 4).reshape(
-        2, tr * TILE2P_ROWS, tc * TILE_WORDS)[:, :h, :wp].contiguous()
+    if rows is None:
+        rows = tile2p_rows(*planes.shape[-2:])
+    return _tiled_plain(planes, t,
+                        lambda p: _step2p_shared_sums(p, rule, family),
+                        rows, TILE_WORDS, 1)
 
 
 def tiled_sweep2p(planes_in: torch.Tensor, planes_out: torch.Tensor,
-                  t: int, rule, family: str) -> None:
+                  t: int, rule, family: str, *,
+                  rows: int | None = None) -> None:
     """Advance stacked planes `planes_in` t (1..32) turns into
-    `planes_out` in one K5 sweep."""
+    `planes_out` in one K5 sweep of R-row tiles (R = `tile2p_rows`'s
+    unless `rows` is given)."""
     code = _family_code(family)
-    if not 1 <= t <= TILE_MAX_T:
-        raise ValueError(f"tiled_sweep2p depth {t} not in 1..{TILE_MAX_T}")
-    if planes_out.shape != planes_in.shape or planes_out is planes_in:
-        raise ValueError("tiled_sweep2p needs distinct output planes of "
-                         "the input's shape")
+    _check_sweep("tiled_sweep2p", planes_in, planes_out, t, TILE_MAX_T)
+    if rows is not None and rows not in TILE2P_ROW_CHOICES:
+        raise ValueError(f"tiled_sweep2p: {rows} rows per tile not in "
+                         f"{TILE2P_ROW_CHOICES}")
     if planes_in.device.type == "cpu":
-        planes_out.copy_(tiled_sweep2p_plain(planes_in, t, rule, family))
+        planes_out.copy_(tiled_sweep2p_plain(planes_in, t, rule, family,
+                                             rows))
         return
-    lib, h, wp, dev, stream = _kernel_args(planes_in, "tiled_sweep2p",
-                                           planes=True)
-    if (planes_out.dtype != torch.int32 or not planes_out.is_contiguous()
-            or planes_out.device != planes_in.device):
-        raise ValueError("tiled_sweep2p: output must be contiguous int32 "
-                         "on the input's device")
-    if -(-h // TILE2P_ROWS) > 65535:
-        raise ValueError(f"tiled_sweep2p: {h} rows exceed the launch grid")
+    if rows is None:
+        rows = tile2p_rows(*planes_in.shape[-2:])
+    lib, h, wp, dev, stream = _sweep_launch_args(
+        "tiled_sweep2p", planes_in, planes_out, rows, planes=True)
     born, survive = rule.masks()
     _build.check(lib.gol_tiled_sweep2p(
-        planes_in.data_ptr(), planes_out.data_ptr(), h, wp, t, born,
+        planes_in.data_ptr(), planes_out.data_ptr(), h, wp, t, rows, born,
         survive, code, dev, stream), "tiled_sweep2p")
     tiled_sweep2p.launches += 1
     tiled_sweep2p.by_family[family] += 1

@@ -331,8 +331,9 @@ def _scan_planes(b, tr, jr, turns):
 @pytest.mark.parametrize("shape", [(400, 70 * 32), (5, 3 * 32), (1, 32),
                                    (161, 63 * 32)])
 def test_tiled_sweep2p_plain_matches_scan(shape, t, s):
-    """Boards not aligned to the 160 x 62-word tile, boards shorter or
-    narrower than one window (modular window indices), and Wp = 1."""
+    """Boards not aligned to the policy's R x 62-word tiles, boards
+    shorter or narrower than one window (modular window indices), and
+    Wp = 1."""
     tr, jr = rules(s)
     b = state(*shape, tr.states, seed=shape[0] + t)
     got = cs.tiled_sweep2p_plain(tplanes(b, tr.states), t, tr,
