@@ -23,23 +23,38 @@ Phases (each raises on failure; any failure exits non-zero):
    N = 1..16 on 512², 64², 96 x 1 and 33 x 1, K5 at every tile height R
    on 1024², 4096², 16384² and odd boards;
 4. the main path through `gol_tpu_torch.run` on the default (CUDA)
-   engine: 512² x 100 against the golden board and PGM, 512² x 10000 with
-   every published (alive, turn) pair against check/alive/512x512.csv,
-   5120² x 1000 from a seeded board against the plain version; then an
-   unbounded 512² run that 'p' holds and resumes and 'q' ends within 5 s;
+   engine: the 16², 64² and 512² goldens x {0, 1, 100} against
+   check/images (16² is the uint8 roll-sum path, its width not a
+   multiple of 32), 512² x 10000 with every published (alive, turn) pair
+   against check/alive/512x512.csv, 5120² x 1000 from a seeded board
+   against the plain version; then an unbounded 512² run that 'p' holds
+   and resumes and 'q' ends within 5 s;
    4b. the Generations path: Brian's Brain through `run` at 512² x 100
-   (K4) and 4096² x 1000 (K5), with their rate and largest gap between
-   published turns, Star Wars through `GenerationsTorus` at 512² x 64
+   (K4) and 4096² x 1000 (K5), Star Wars through `run` at 512² x 100
+   (gen8: plain torch ops), with their rate and largest gap between
+   published turns, and Star Wars through `GenerationsTorus` at 512² x 64
    (K4) and 4096² x 64 (K5), each against the uint8 gen8 plain path on
    the card;
    4c. the fused path: GOL_FUSE_K=64 at 8192² x 1024 and GOL_FUSE_K=16 at
    5120² x 1000 through `run`, each against the unfused run's board (the
-   unfused references run first, before the counters restart at 0).
+   unfused references run first, before the counters restart at 0);
+   4d. the control plane: `run` with SER set drives an in-process
+   `EngineServer` on a CUDA engine through the goldens, the 512² ticker
+   against the CSV and 5120² x 1000 against the in-process run's PGM,
+   and a second server (rule /2/3) through Brian's Brain 512² x 100
+   against the gen8 plain path.
    Each path runs with the launch counters at 0, read just after: every
-   kernel (and family) it runs must have launched. The paths run under
-   `torch.profiler`, which sums their device time by kernel, all but the
-   unbounded run: it steps as long as the wall clock says, so its device
-   time would rank nothing;
+   kernel (and family) it runs must have launched. The paths of 4-4c run
+   under `torch.profiler`, which sums their device time by kernel, all
+   but the unbounded run: it steps as long as the wall clock says, so
+   its device time would rank nothing. Then the control plane's numbers
+   (Alivecount round trips; GetWorld at 5120² and 65536² under the
+   packed and u8 codecs, byte for byte against the served board; GetView
+   at 65536²; engine turns/s at 5120² through SER beside the in-process
+   rate) and its recovery through a real process split: a
+   `python -m gol_tpu_torch.server` subprocess is SIGKILLed mid-run and
+   restarted on its port, and the controller reattaches and ends on the
+   in-process run's PGM;
 5. timings at 64², 128², 256², 512², 4096², 5120², 8192², 16384², 65536²
    and 131072²: each kernel's ms per launch beside its plain version's
    and its bound (K1 at N = 1, 2, 4, 8, 16 on 512², 256² and 64², K2 at
@@ -47,7 +62,7 @@ Phases (each raises on failure; any failure exits non-zero):
    512², K5 at every R on 4096² and 16384²), B3 `fused_banded_run_turns`
    at pinned depths 16, 32 and 64, and engine turns/s and the largest
    publication gap (life-like, unfused and at GOL_FUSE_K=64 at 65536²,
-   and Brian's Brain at 512² and 4096²).
+   Brian's Brain at 512² and 4096², Star Wars at 512²).
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -472,8 +487,63 @@ def drive(p, images_dir: str, out_dir: str, engine=None, poll=None):
     return evs, pairs
 
 
-def phase_main_path(torch, dev) -> None:
+GOLDENS = ((16, 0), (16, 1), (16, 100), (64, 0), (64, 1), (64, 100),
+           (512, 0), (512, 1), (512, 100))
+
+
+def check_golden(images: str, out: str, size: int, turns: int,
+                 where: str) -> None:
+    """One `check/images` golden through `gol_tpu_torch.run`: the final
+    alive set and the PGM's bytes."""
     from gol_tpu_torch import Params, events as ev
+    from gol_tpu_torch.io.pgm import read_pgm
+
+    evs, _ = drive(Params(image_width=size, image_height=size, turns=turns),
+                   images, out)
+    final = [e for e in evs if isinstance(e, ev.FinalTurnComplete)][0]
+    name = f"{size}x{size}x{turns}.pgm"
+    gold = os.path.join(REPO, "check", "images", name)
+    ys, xs = np.nonzero(read_pgm(gold))
+    if (final.completed_turns != turns
+            or set(final.alive) != set(zip(xs.tolist(), ys.tolist()))):
+        raise AssertionError(f"{where} {size}² x {turns}: alive set != "
+                             "golden")
+    with open(os.path.join(out, name), "rb") as f, open(gold, "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError(f"{where} {size}² x {turns}: PGM bytes != "
+                                 "golden")
+
+
+def check_ticker(images: str, out: str, poll, engine=None) -> None:
+    """512² x 10000: the final count and every (alive, turn) pair `poll`
+    saw published, against check/alive/512x512.csv."""
+    from gol_tpu_torch import Params, events as ev
+
+    csv_counts = read_csv(os.path.join(REPO, "check", "alive",
+                                       "512x512.csv"))
+    evs, pairs = drive(Params(image_width=512, image_height=512,
+                              turns=10000), images, out, engine=engine,
+                       poll=poll)
+    final = [e for e in evs if isinstance(e, ev.FinalTurnComplete)][0]
+    if final.count() != csv_counts[10000]:
+        raise AssertionError(f"512² x 10000: {final.count()} alive, "
+                             f"CSV says {csv_counts[10000]}")
+    for alive, turn in sorted(pairs, key=lambda x: x[1]):
+        if csv_counts[turn] != alive:
+            raise AssertionError(f"published pair ({alive}, {turn}) "
+                                 f"!= CSV {csv_counts[turn]}")
+    log(f"  ok 512² x 10000: final count and {len(pairs)} published "
+        f"pairs (turns {sorted(t for _, t in pairs)}) match the CSV")
+
+
+def seeded_board(size: int, seed: int) -> np.ndarray:
+    """A {0,255} board with 30% alive, from a seeded numpy generator."""
+    rng = np.random.default_rng(seed)
+    return np.where(rng.random((size, size)) < 0.3, 255, 0).astype(np.uint8)
+
+
+def phase_main_path(torch, dev) -> None:
+    from gol_tpu_torch import Params
     from gol_tpu_torch.engine import Engine
     from gol_tpu_torch.io.pgm import read_pgm, write_pgm
     from gol_tpu_torch.ops import bitpack
@@ -482,41 +552,18 @@ def phase_main_path(torch, dev) -> None:
     images = os.path.join(REPO, "images")
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out")
-        evs, _ = drive(Params(image_width=512, image_height=512, turns=100),
-                       images, out)
-        final = [e for e in evs if isinstance(e, ev.FinalTurnComplete)][0]
-        gold = os.path.join(REPO, "check", "images", "512x512x100.pgm")
-        want = read_pgm(gold)
-        ys, xs = np.nonzero(want)
-        if set(final.alive) != set(zip(xs.tolist(), ys.tolist())):
-            raise AssertionError("512² x 100: alive set != golden")
-        with open(os.path.join(out, "512x512x100.pgm"), "rb") as f, \
-                open(gold, "rb") as g:
-            if f.read() != g.read():
-                raise AssertionError("512² x 100: PGM bytes != golden")
-        log("  ok 512² x 100: alive set and PGM bytes equal the golden")
+        # 16² runs the uint8 roll-sum path (its width is not a multiple
+        # of 32), 64² K1 at N = 1, 512² K1 on a cluster.
+        for size, turns in GOLDENS:
+            check_golden(images, out, size, turns, "run")
+        log(f"  ok goldens {', '.join(f'{s}² x {t}' for s, t in GOLDENS)}: "
+            "alive sets and PGM bytes equal check/images")
 
-        csv_counts = read_csv(os.path.join(REPO, "check", "alive",
-                                           "512x512.csv"))
         eng = Engine()
-        evs, pairs = drive(
-            Params(image_width=512, image_height=512, turns=10000),
-            images, out, engine=eng, poll=eng.alive_count)
-        final = [e for e in evs if isinstance(e, ev.FinalTurnComplete)][0]
-        if final.count() != csv_counts[10000]:
-            raise AssertionError(f"512² x 10000: {final.count()} alive, "
-                                 f"CSV says {csv_counts[10000]}")
-        for alive, turn in sorted(pairs, key=lambda x: x[1]):
-            if csv_counts[turn] != alive:
-                raise AssertionError(f"published pair ({alive}, {turn}) "
-                                     f"!= CSV {csv_counts[turn]}")
-        log(f"  ok 512² x 10000: final count and {len(pairs)} published "
-            f"pairs (turns {sorted(t for _, t in pairs)}) match the CSV")
+        check_ticker(images, out, eng.alive_count, engine=eng)
 
         size = 5120
-        rng = np.random.default_rng(5120)
-        board = np.where(rng.random((size, size)) < 0.3, 255, 0).astype(
-            np.uint8)
+        board = seeded_board(size, 5120)
         seed_dir = os.path.join(tmp, "images")
         write_pgm(os.path.join(seed_dir, f"{size}x{size}.pgm"), board)
         drive(Params(image_width=size, image_height=size, turns=1000),
@@ -591,6 +638,415 @@ def phase_fused(torch, dev) -> None:
                 f"unfused run's; launches {fused}, unfused {unfused}")
 
 
+@contextlib.contextmanager
+def served(engine):
+    """An in-process `EngineServer` on `engine` (so the launch counters
+    see its kernels), with SER naming it for the controller."""
+    from gol_tpu_torch.server import EngineServer
+
+    srv = EngineServer(port=0, host="127.0.0.1", engine=engine)
+    srv.start_background()
+    os.environ["SER"] = f"127.0.0.1:{srv.port}"
+    try:
+        yield srv
+    finally:
+        os.environ.pop("SER", None)
+        srv.shutdown()
+
+
+def phase_control_plane(torch, dev) -> None:
+    """The main path through the control plane: `gol_tpu_torch.run` with
+    SER set drives an in-process `EngineServer` on a CUDA engine. The
+    goldens, the 512² ticker against the CSV and 5120² x 1000 against
+    the in-process run's PGM (run first, before the counters restart at
+    0); then Brian's Brain 512² x 100 on a second server (rule /2/3)
+    against the gen8 plain path."""
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.client import RemoteEngine
+    from gol_tpu_torch.engine import Engine
+    from gol_tpu_torch.io.pgm import read_pgm, write_pgm
+    from gol_tpu_torch.models.generations import (
+        BRIANS_BRAIN, from_pixels_gen, gray_levels, to_pixels_gen)
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    log("phase 4d: control plane: gol_tpu_torch.run through SER to an "
+        "EngineServer on the card")
+    images = os.path.join(REPO, "images")
+    with tempfile.TemporaryDirectory() as tmp:
+        out, ref_out = os.path.join(tmp, "out"), os.path.join(tmp, "ref")
+        seed_dir = os.path.join(tmp, "images")
+        write_pgm(os.path.join(seed_dir, "5120x5120.pgm"),
+                  seeded_board(5120, 5120))
+        p5120 = Params(image_width=5120, image_height=5120, turns=1000)
+        drive(p5120, seed_dir, ref_out, engine=Engine())
+        cs.reset_launch_counts()
+        with served(Engine()) as srv:
+            for size, turns in GOLDENS:
+                check_golden(images, out, size, turns, "SER")
+            log(f"  ok goldens through SER "
+                f"({', '.join(f'{s}² x {t}' for s, t in GOLDENS)}): "
+                "alive sets and PGM bytes equal check/images")
+            check_ticker(images, out,
+                         RemoteEngine(f"127.0.0.1:{srv.port}").alive_count)
+            drive(p5120, seed_dir, out)
+            name = "5120x5120x1000.pgm"
+            with open(os.path.join(out, name), "rb") as f, \
+                    open(os.path.join(ref_out, name), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError("5120² x 1000 through SER: PGM "
+                                         "!= the in-process run's")
+            log("  ok 5120² x 1000 through SER: PGM bytes equal the "
+                "in-process run's")
+        levels = tuple(gray_levels(BRIANS_BRAIN).tolist())
+        with served(Engine(rule=BRIANS_BRAIN)):
+            drive(Params(image_width=512, image_height=512, turns=100),
+                  images, out)
+        start = from_pixels_gen(read_pgm(os.path.join(images, "512x512.pgm"),
+                                         levels=levels), BRIANS_BRAIN)
+        want = gen8_plain(torch, dev, start, 100, BRIANS_BRAIN)
+        got = read_pgm(os.path.join(out, "512x512x100.pgm"), levels=levels)
+        if not np.array_equal(got, to_pixels_gen(want, BRIANS_BRAIN)):
+            raise AssertionError("/2/3 512² x 100 through SER: PGM != gen8")
+        log("  ok /2/3 512² x 100 through SER on a /2/3 server: gray PGM "
+            "equals the gen8 plain path")
+
+
+def fetch_world(port: int, caps: list):
+    """(reply header, payload bytes, seconds) of one raw GetWorld that
+    advertises `caps`: the server's encode and the transfer, no decode."""
+    import socket
+
+    from gol_tpu_torch import wire
+
+    t0 = time.perf_counter()
+    s = socket.create_connection(("127.0.0.1", port), timeout=600)
+    try:
+        wire.send_msg(s, {"method": "GetWorld", "caps": caps})
+        header, _ = wire.recv_head_raw(s)
+        buf = bytearray(wire.payload_nbytes(header))
+        view, got = memoryview(buf), 0
+        while got < len(buf):
+            n = s.recv_into(view[got:])
+            if not n:
+                raise ConnectionError("server closed mid-payload")
+            got += n
+    finally:
+        s.close()
+    return header, buf, time.perf_counter() - t0
+
+
+def check_world_bytes(srv, size: int, reps: int) -> list:
+    """GetWorld of the served engine's board under caps {packed} and {}:
+    the payload is exactly the byte packing (LSB-first, width padded to
+    words) of get_world()'s pixels, and exactly the u8 pixels. Returns
+    one row of timings per codec (median of `reps` fetches)."""
+    want_px, turn = srv.engine.get_world()
+    rows = []
+    for caps, codec in ((["packed"], "packed"), ([], "u8")):
+        want = (np.packbits(want_px != 0, axis=1, bitorder="little")
+                if codec == "packed" else want_px).reshape(-1)
+        times = []
+        for _ in range(reps):
+            header, buf, sec = fetch_world(srv.port, caps)
+            if (header["world"]["codec"] != codec or header["turn"] != turn
+                    or not np.array_equal(np.frombuffer(buf, np.uint8),
+                                          want)):
+                raise AssertionError(f"GetWorld {size}² {caps}: "
+                                     f"{header['world']} != {codec} bytes")
+            times.append(sec)
+            del buf
+        sec = statistics.median(times)
+        rows.append(dict(size=size, codec=codec, bytes=want.nbytes,
+                         ms=sec * 1e3, mb_per_s=want.nbytes / sec / 1e6))
+        log(f"  ok GetWorld {size}² under {caps or '{}'}: {codec} payload "
+            f"equals the expected {want.nbytes} bytes; {sec * 1e3:.2f} ms, "
+            f"{want.nbytes / sec / 1e6:.1f} MB/s (median of {reps})")
+    return rows
+
+
+def spawn_server(port: int):
+    """(process, port) of `python -m gol_tpu_torch.server` on the card,
+    once its banner names the port it serves on."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("SER", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "gol_tpu_torch.server", "--port",
+         str(port), "--host", "127.0.0.1"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env, cwd=REPO)
+    found: queue.Queue = queue.Queue()
+
+    def scan():
+        for line in proc.stdout:
+            m = re.search(r"serving on :(\d+)", line)
+            if m:
+                found.put(int(m.group(1)))
+        found.put(None)
+
+    threading.Thread(target=scan, daemon=True).start()
+    try:
+        got = found.get(timeout=120)
+    except queue.Empty:
+        got = None
+    if got is None:
+        stop_server(proc)
+        raise AssertionError(f"server subprocess gave no banner "
+                             f"(exit {proc.poll()})")
+    return proc, got
+
+
+def stop_server(proc) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+
+
+def round_trips_us(call, n: int) -> dict:
+    """Median and p99 µs of `n` calls of `call`."""
+    times = []
+    for _ in range(n):
+        c0 = time.perf_counter()
+        call()
+        times.append(time.perf_counter() - c0)
+    times.sort()
+    return dict(median=statistics.median(times) * 1e6,
+                p99=times[int(n * 0.99)] * 1e6, n=n)
+
+
+def rpc_floor_us(n: int) -> dict:
+    """The transport floor of one request a connection: round trips of a
+    bare server that answers each framed request on a thread of its own
+    (what `EngineServer` does before any dispatch work)."""
+    import socket
+
+    from gol_tpu_torch import wire
+
+    lsock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    lsock.bind(("127.0.0.1", 0))
+    lsock.listen(16)
+
+    def answer(conn) -> None:
+        with conn:
+            wire.recv_msg(conn)
+            wire.send_msg(conn, {"ok": True, "alive": 0, "turn": 0})
+
+    def accept() -> None:
+        while True:
+            try:
+                conn, _ = lsock.accept()
+            except OSError:
+                return
+            threading.Thread(target=answer, args=(conn,), daemon=True).start()
+
+    threading.Thread(target=accept, daemon=True).start()
+
+    def call() -> None:
+        with socket.create_connection(lsock.getsockname(), timeout=10) as s:
+            wire.send_msg(s, {"method": "Alivecount"})
+            wire.recv_msg(s)
+
+    try:
+        return round_trips_us(call, n)
+    finally:
+        lsock.close()
+
+
+def check_recovery(images: str, tmp: str) -> dict:
+    """A controller on SER against `python -m gol_tpu_torch.server` in a
+    subprocess on the card: about one second into a 512² run of a few
+    seconds the server is SIGKILLed and a new one starts on the same
+    port. The controller must emit EngineLost then EngineReattached (at
+    turn 0: the new server holds no board, so the controller resubmits
+    its last-known one) and end on the in-process run's PGM."""
+    import signal
+
+    from gol_tpu_torch import Params, events as ev
+    from gol_tpu_torch.client import RemoteEngine
+    from gol_tpu_torch.distributor import distributor
+    from gol_tpu_torch.engine import Engine
+
+    turns = 4_000_000
+    p = Params(image_width=512, image_height=512, turns=turns)
+
+    procs = []
+    t0 = time.monotonic()
+    try:
+        proc, port = spawn_server(0)
+        procs.append(proc)
+        os.environ["SER"] = f"127.0.0.1:{port}"
+        os.environ["GOL_RECONNECT"] = "180"
+        os.environ["GOL_HB_INTERVAL"] = "0.5"
+        q: queue.Queue = queue.Queue()
+        failed, seen = [], []
+
+        def control():
+            try:
+                distributor(p, q, None, images_dir=images,
+                            out_dir=os.path.join(tmp, "rec"))
+            except BaseException as e:
+                failed.append(e)
+
+        def collect():
+            while True:
+                e = q.get()
+                if e is ev.CLOSE:
+                    return
+                seen.append((time.monotonic(), e))
+
+        threading.Thread(target=collect, daemon=True).start()
+
+        ctrl = threading.Thread(target=control)
+        ctrl.start()
+        probe = RemoteEngine(f"127.0.0.1:{port}")
+        deadline = time.monotonic() + 120
+        while probe.ping() == 0:
+            if time.monotonic() > deadline:
+                raise AssertionError("the served run never started")
+            time.sleep(0.01)
+        time.sleep(1.0)
+        killed_at = probe.ping()
+        t_kill = time.monotonic()
+        os.kill(proc.pid, signal.SIGKILL)
+        proc.wait(30)
+        proc2, port2 = spawn_server(port)
+        procs.append(proc2)
+        if port2 != port:
+            raise AssertionError(f"restarted on :{port2}, not :{port}")
+        ctrl.join(600)
+        if ctrl.is_alive() or failed:
+            raise AssertionError(f"controller did not finish: {failed}")
+    finally:
+        os.environ.pop("SER", None)
+        os.environ.pop("GOL_RECONNECT", None)
+        os.environ.pop("GOL_HB_INTERVAL", None)
+        for proc in procs:
+            stop_server(proc)
+    wall = time.monotonic() - t0
+    deadline = time.monotonic() + 10
+    while not any(isinstance(e, ev.StateChange)
+                  and e.new_state == ev.State.QUITTING for _, e in seen):
+        if time.monotonic() > deadline:
+            raise AssertionError("the recovered run sent no QUITTING")
+        time.sleep(0.01)
+    evs = [e for _, e in seen]
+    after = {type(e).__name__: t - t_kill for t, e in seen
+             if isinstance(e, (ev.EngineLost, ev.EngineReattached))}
+    kinds = [type(e).__name__ for e in evs]
+    if (kinds.count("EngineLost") != 1
+            or kinds.count("EngineReattached") != 1
+            or kinds.index("EngineLost") > kinds.index("EngineReattached")):
+        raise AssertionError(f"recovery events: {kinds}")
+    reatt = [e for e in evs if isinstance(e, ev.EngineReattached)][0]
+    final = [e for e in evs if isinstance(e, ev.FinalTurnComplete)][0]
+    if reatt.completed_turns != 0 or final.completed_turns != turns:
+        raise AssertionError(f"reattached at {reatt.completed_turns}, "
+                             f"ended at {final.completed_turns}")
+    drive(p, images, os.path.join(tmp, "ref"), engine=Engine())
+    name = f"512x512x{turns}.pgm"
+    with open(os.path.join(tmp, "rec", name), "rb") as f, \
+            open(os.path.join(tmp, "ref", name), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("recovered run's PGM != in-process run's")
+    log(f"  ok recovery: server SIGKILLed at turn {killed_at} of {turns} "
+        f"(512²), restarted on :{port}; EngineLost "
+        f"{after['EngineLost']:.3f} s and EngineReattached (at turn 0) "
+        f"{after['EngineReattached']:.3f} s after the kill, final PGM "
+        f"equals the in-process run's; {wall:.1f} s from the first spawn "
+        "to the end of the run")
+    return dict(killed_at_turn=killed_at, turns=turns, wall_s=wall,
+                lost_after_s=after["EngineLost"],
+                reattached_after_s=after["EngineReattached"])
+
+
+def phase_control_plane_measure(torch, dev, card: Card) -> dict:
+    """The control plane's numbers on the card, and its recovery through
+    a real process split. Against a `python -m gol_tpu_torch.server`
+    subprocess: engine turns/s at 5120² through SER beside the
+    in-process rate (in-process, SER, SER, in-process, twice), and
+    Alivecount round trips while it idles and while it runs. Against an
+    in-process server (whose engine the check reads): GetWorld bytes and
+    times at 5120² and 65536² under packed and u8, GetView at 65536², and
+    Alivecount round trips sharing one interpreter. The RPC floor of a
+    bare thread-a-connection server. Then `check_recovery`."""
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.client import RemoteEngine
+    from gol_tpu_torch.distributor import LIVE_MAX_CELLS_DEFAULT
+    from gol_tpu_torch.engine import Engine
+    from gol_tpu_torch.ops import bitpack
+
+    log(f"phase 4d: control-plane measurements on {card.smi}")
+    res = {"card": card.smi, "alivecount_us": {}}
+    board = seeded_board(5120, 5120)
+    proc, port = spawn_server(0)
+    try:
+        res["alivecount_us"]["subprocess_idle"] = round_trips_us(
+            RemoteEngine(f"127.0.0.1:{port}").alive_count, 2000)
+        # One in-process engine, like the one the server holds: the first
+        # run of each ramps its chunk from 1 turn, later ones start at
+        # the converged chunk.
+        held = Engine()
+        rates = {"in_process": [], "ser": []}
+        busy = []
+        for where in ("in_process", "ser", "ser", "in_process") * 2:
+            eng = (held if where == "in_process"
+                   else RemoteEngine(f"127.0.0.1:{port}"))
+            rate, poll_us, _, chunk = engine_rate(torch, board, 3.0, eng=eng)
+            rates[where].append(rate)
+            if where == "ser":
+                busy.append(poll_us)
+            log(f"  engine 5120² {where}: {rate:.1f} turns/s, chunk "
+                f"{chunk} turns, alive_count() {poll_us:.1f} µs median")
+        del held
+        res["turns_per_s_5120"] = rates
+        res["alivecount_us"]["subprocess_running_5120"] = busy
+    finally:
+        stop_server(proc)
+    with served(Engine()) as srv:
+        remote = RemoteEngine(f"127.0.0.1:{srv.port}")
+        res["alivecount_us"]["in_process_idle"] = round_trips_us(
+            remote.alive_count, 2000)
+        res["alivecount_us"]["rpc_floor"] = rpc_floor_us(2000)
+        for name, r in res["alivecount_us"].items():
+            if name != "subprocess_running_5120":
+                log(f"  Alivecount round trip, {name}: median "
+                    f"{r['median']:.1f} µs, p99 {r['p99']:.1f} µs over "
+                    f"{r['n']} calls")
+        srv.engine.server_distributor(
+            Params(image_width=5120, image_height=5120, turns=100), board)
+        res["get_world"] = check_world_bytes(srv, 5120, 3)
+        words = seeded_words(torch, 65536, 2048, 65536, dev)
+        world = bitpack.unpack_np(bitpack.words_to_numpy(words))
+        del words
+        world *= 255
+        srv.engine.server_distributor(
+            Params(image_width=65536, image_height=65536, turns=1), world)
+        del world
+        res["get_world"] += check_world_bytes(srv, 65536, 1)
+        views = []
+        for _ in range(3):
+            c0 = time.perf_counter()
+            view, _, f = remote.get_view(LIVE_MAX_CELLS_DEFAULT)
+            views.append((time.perf_counter() - c0) * 1e3)
+        want, _, wf = srv.engine.get_view(LIVE_MAX_CELLS_DEFAULT)
+        if f != wf or not np.array_equal(view, want):
+            raise AssertionError("GetView 65536² != the engine's view")
+        res["get_view_65536_ms"] = views
+        log(f"  ok GetView 65536² (GOL_LIVE_MAX_CELLS default "
+            f"{LIVE_MAX_CELLS_DEFAULT}): {view.shape[0]}x{view.shape[1]} "
+            f"view at factor {f[0]} equals the engine's; "
+            f"{views[0]:.2f} ms for the first poll (full frame), then "
+            f"{', '.join(f'{v:.2f}' for v in views[1:])} ms (xrle)")
+    del srv, remote, view, want  # the 65536² board goes with its engine
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        res["recovery"] = check_recovery(os.path.join(REPO, "images"), tmp)
+    log("control_plane:" + json.dumps(res))
+    return res
+
+
 def gen8_plain(torch, dev, state: np.ndarray, turns: int, rule):
     """The uint8 gen8 path in plain torch on the card: the independent
     reference for the packed planes."""
@@ -601,9 +1057,10 @@ def gen8_plain(torch, dev, state: np.ndarray, turns: int, rule):
 
 
 def phase_generations(torch, dev) -> None:
-    """Brian's Brain through `run` on a CUDA engine (512²: K4, 4096²: K5)
-    and Star Wars through `GenerationsTorus` (512²: K4, 4096²: K5), each
-    against the gen8 plain path on the card."""
+    """Brian's Brain through `run` on a CUDA engine (512²: K4, 4096²: K5),
+    Star Wars through `run` (512²: gen8) and through `GenerationsTorus`
+    (512²: K4, 4096²: K5), each against the gen8 plain path on the
+    card."""
     log("phase 4b: Generations path through gol_tpu_torch.run and "
         "GenerationsTorus on the card")
     with tempfile.TemporaryDirectory() as tmp:
@@ -656,6 +1113,36 @@ def check_generations(torch, dev, images: str, tmp: str) -> None:
             f"firing count ({final.count()}) equal the gen8 plain path; "
             f"{len(firsts)} published turns, {rate:.1f} turns/s between the "
             f"first and the last, at most {gap:.3f} s apart")
+    # Star Wars through `run`: C = 4 boards take the uint8 gen8
+    # representation, stepped in plain torch ops (no kernel).
+    sw_levels = tuple(gray_levels(STAR_WARS).tolist())
+    eng = Engine(rule=STAR_WARS)
+    seen = []
+
+    def poll_sw():
+        pair = eng.alive_count()
+        seen.append((time.monotonic(), pair[1]))
+        return pair
+
+    evs, _ = drive(Params(image_width=512, image_height=512, turns=100),
+                   images, out, engine=eng, poll=poll_sw)
+    if eng._repr != "gen8":
+        raise AssertionError(f"512² 345/2/4 ran as {eng._repr}")
+    start = from_pixels_gen(read_pgm(os.path.join(images, "512x512.pgm"),
+                                     levels=sw_levels), STAR_WARS)
+    want = gen8_plain(torch, dev, start, 100, STAR_WARS)
+    got = read_pgm(os.path.join(out, "512x512x100.pgm"), levels=sw_levels)
+    if not np.array_equal(got, to_pixels_gen(want, STAR_WARS)):
+        raise AssertionError("345/2/4 512² x 100 through run: PGM != gen8")
+    final = [e for e in evs if isinstance(e, ev.FinalTurnComplete)][0]
+    if final.count() != int((want == 1).sum()):
+        raise AssertionError("345/2/4 512² x 100 through run: firing count")
+    firsts = first_sightings(seen)
+    log(f"  ok 345/2/4 512² x 100 through run (gen8): gray PGM and firing "
+        f"count ({final.count()}) equal the gen8 plain path; "
+        f"{len(firsts)} published turns, "
+        f"{publication_rate(firsts):.1f} turns/s between the first and "
+        f"the last, at most {publication_gap(firsts):.3f} s apart")
     for size in (512, 4096):
         board = np.random.default_rng(size).integers(
             0, 4, size=(size, size)).astype(np.uint8)
@@ -714,24 +1201,30 @@ def check_controls(images: str, out: str) -> None:
 
 
 def engine_rate(torch, world: np.ndarray, seconds: float, rule=None,
-                fuse=None):
+                fuse=None, eng=None):
     """(turns/s, median alive_count() µs, max gap s between publications,
     last chunk in turns) of a CUDA engine on `world` (under `rule`, Conway
     by default; at GOL_FUSE_K=`fuse` when given), from the pairs it
-    publishes."""
+    publishes. A new engine unless `eng` is given: an engine that ran the
+    same shape before starts at its converged chunk, and a RemoteEngine
+    measures the engine of its server through SER."""
     from gol_tpu_torch import Params
     from gol_tpu_torch.engine import Engine, FLAG_QUIT
 
-    eng = Engine() if rule is None else Engine(rule=rule)
+    if eng is None:
+        eng = Engine() if rule is None else Engine(rule=rule)
     h, w = world.shape
     failed = []
     if fuse is not None:
         os.environ["GOL_FUSE_K"] = str(fuse)
 
+    base = eng.ping()  # a reused engine continues its turn count
+
     def target() -> None:
         try:
             eng.server_distributor(
-                Params(image_width=w, image_height=h, turns=10**12), world)
+                Params(image_width=w, image_height=h, turns=10**12), world,
+                start_turn=base)
         except BaseException as e:  # re-raised on the main thread
             failed.append(e)
 
@@ -744,9 +1237,10 @@ def engine_rate(torch, world: np.ndarray, seconds: float, rule=None,
         alive, turn = eng.alive_count()
         calls.append(time.perf_counter() - c0)
         now = time.monotonic()
-        seen.append((now, turn))
-        if t_end is None and turn > 0:
-            t_end = now + seconds
+        if turn > base:
+            seen.append((now, turn))
+            if t_end is None:
+                t_end = now + seconds
         if t_end is not None and now >= t_end:
             eng.cf_put(FLAG_QUIT)
             break
@@ -967,24 +1461,25 @@ def timing_deep(torch, dev, card: Card, k2_rows: list):
 
 
 def engine_rates_generations(torch, dev, card: Card) -> list:
-    """Engine turns/s for Brian's Brain at 512² (K4) and 4096² (K5)."""
+    """Engine turns/s for Brian's Brain at 512² (K4) and 4096² (K5), and
+    for Star Wars at 512² (gen8: plain torch ops, no kernel)."""
     from gol_tpu_torch.models.generations import (
-        BRIANS_BRAIN, to_pixels_gen)
+        BRIANS_BRAIN, STAR_WARS, to_pixels_gen)
 
     engine = []
-    for size in (512, 4096):
+    for size, rule in ((512, BRIANS_BRAIN), (4096, BRIANS_BRAIN),
+                       (512, STAR_WARS)):
         rng = np.random.default_rng(size + 3)
         state = rng.choice(np.array([0, 1, 2], np.uint8), size=(size, size),
                            p=[0.7, 0.2, 0.1])
-        world = to_pixels_gen(state, BRIANS_BRAIN)
-        rate, poll_us, gap, chunk = engine_rate(torch, world, 3.0,
-                                                BRIANS_BRAIN)
-        engine.append(dict(size=size, rule="/2/3", card=card.smi,
+        world = to_pixels_gen(state, rule)
+        rate, poll_us, gap, chunk = engine_rate(torch, world, 3.0, rule)
+        engine.append(dict(size=size, rule=rule.rulestring, card=card.smi,
                            turns_per_s=rate,
                            cell_updates_per_s=rate * size * size,
                            alive_count_us=poll_us, max_publish_gap_s=gap,
                            chunk_turns=chunk))
-        log(f"  engine /2/3 {size}²: {rate:.1f} turns/s "
+        log(f"  engine {rule.rulestring} {size}²: {rate:.1f} turns/s "
             f"({rate * size * size:.4g} cell updates/s), alive_count() "
             f"{poll_us:.2f} µs median, publications at most {gap:.3f} s "
             f"apart, chunk {chunk} turns")
@@ -1139,7 +1634,10 @@ def main() -> int:
                                  "tiled_sweep2p/gen3",
                                  "tiled_sweep2p/gen4"), True),
             (phase_fused, ("tiled_sweep_deep", "tiled_sweep",
-                           "row_popcounts"), True)):
+                           "row_popcounts"), True),
+            (phase_control_plane, ("resident_run_turns", "tiled_sweep",
+                                   "row_popcounts",
+                                   "resident_run_turns2p/gen3"), False)):
         cs.reset_launch_counts()
         with (profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) if profiled
@@ -1160,6 +1658,7 @@ def main() -> int:
         del prof
     log("  main-path device ms by kernel (torch.profiler): "
         + (json.dumps(device_ms) if device_ms else "not measured"))
+    phase_control_plane_measure(torch, dev, card)
     kernels = phase_timing(torch, dev, card, launches)
     for k in kernels:
         k["main_path_device_ms"] = device_ms.get(

@@ -11,6 +11,10 @@ Control protocol (reference `Server/gol/distributor.go:54-83`):
     cf_put              — control flag: 0 pause-toggle, 2 quit, 5 kill
     kill_prog           — die
 
+`get_world_frame(caps)` is the snapshot the engine server sends
+(`server.py`): packed words go to the wire as they lie on the device, in
+row bands whose device-to-host copies overlap the socket sends.
+
 Chunks are powers of two, sized so one chunk takes about
 CHUNK_TARGET_SECONDS, and up to PIPELINE_DEPTH chunks are in flight on
 the device's stream. Each chunk ends with its completion token, the alive
@@ -32,6 +36,7 @@ kernels on the CPU, as the tests do.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -41,6 +46,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gol_tpu_torch import wire
 from gol_tpu_torch.models.generations import (
     GenerationsRule,
     from_pixels_gen,
@@ -49,6 +55,7 @@ from gol_tpu_torch.models.generations import (
     to_pixels_gen,
 )
 from gol_tpu_torch.models.lifelike import CONWAY
+from gol_tpu_torch.obs import catalog as obs
 from gol_tpu_torch.ops.bitpack import (
     WORD_BITS,
     pack_np,
@@ -354,11 +361,8 @@ class Engine(ControlFlagProtocol):
             self._running = True
             self._run_token = token
             self._abort.clear()
-        if self._device.type == "cuda":
-            with torch.cuda.device(self._device):
-                return self._run_loop(params, cells, run, start_turn,
-                                      fuse_eff)
-        return self._run_loop(params, cells, run, start_turn, fuse_eff)
+        with self._on_device():
+            return self._run_loop(params, cells, run, start_turn, fuse_eff)
 
     def _chunk(self, run, cells: torch.Tensor, k: int):
         """Issue one chunk and its alive token; returns (cells, host
@@ -520,20 +524,21 @@ class Engine(ControlFlagProtocol):
         if max_cells <= 0 or h * w <= max_cells:
             return self._materialize(cells, repr_), turn, (1, 1)
         f = view_factor(h, w, max_cells)
-        if repr_ == "packed":
-            view = _block_max(unpack(_or_rows(cells, f)), 1, f) * 255
-        elif repr_ == "u8":
-            view = _block_max(cells, f, f) * 255
-        elif repr_ == "gen8":
-            levels = torch.from_numpy(gray_levels(self._rule)).to(
-                cells.device)
-            view = _block_max(levels[cells.long()], f, f)
-        else:  # gen3: firing blocks at 255, else dying at its gray
-            a = _block_max(unpack(_or_rows(cells[0], f)), 1, f)
-            d = _block_max(unpack(_or_rows(cells[1], f)), 1, f)
-            dying = int(gray_levels(self._rule)[2])
-            view = torch.maximum(a * 255, d * dying)
-        return view.cpu().numpy(), turn, (f, f)
+        with self._on_device():
+            if repr_ == "packed":
+                view = _block_max(unpack(_or_rows(cells, f)), 1, f) * 255
+            elif repr_ == "u8":
+                view = _block_max(cells, f, f) * 255
+            elif repr_ == "gen8":
+                levels = torch.from_numpy(gray_levels(self._rule)).to(
+                    cells.device)
+                view = _block_max(levels[cells.long()], f, f)
+            else:  # gen3: firing blocks at 255, else dying at its gray
+                a = _block_max(unpack(_or_rows(cells[0], f)), 1, f)
+                d = _block_max(unpack(_or_rows(cells[1], f)), 1, f)
+                dying = int(gray_levels(self._rule)[2])
+                view = torch.maximum(a * 255, d * dying)
+            return view.cpu().numpy(), turn, (f, f)
 
     def _materialize(self, cells: Optional[torch.Tensor],
                      repr_: str) -> np.ndarray:
@@ -541,18 +546,98 @@ class Engine(ControlFlagProtocol):
         for life-like reprs, the rule's gray levels for Generations."""
         if cells is None:
             raise RuntimeError("no board loaded")
-        if repr_ == "gen3":
-            a, d = (unpack_np(words_to_numpy(p)) for p in cells)
-            a += 2 * d
-            return to_pixels_gen(a, self._rule)
-        if repr_ == "gen8":
-            return to_pixels_gen(cells.cpu().numpy(), self._rule)
-        if repr_ == "packed":
-            px = unpack_np(words_to_numpy(cells))
-        else:
-            px = cells.cpu().numpy().astype(np.uint8)
+        with self._on_device():
+            if repr_ == "gen3":
+                a, d = (unpack_np(words_to_numpy(p)) for p in cells)
+                a += 2 * d
+                return to_pixels_gen(a, self._rule)
+            if repr_ == "gen8":
+                return to_pixels_gen(cells.cpu().numpy(), self._rule)
+            if repr_ == "packed":
+                px = unpack_np(words_to_numpy(cells))
+            else:
+                px = cells.cpu().numpy().astype(np.uint8)
         px *= 255
         return px
+
+    # Frames are board-anchored: two frames of one shape from one run are
+    # comparable, so the wire may delta-encode (xrle) them. No
+    # representation of the port holds float state, whose quantized
+    # frames would not be.
+    frames_diffable = True
+
+    @property
+    def binary_pixels(self) -> bool:
+        """True iff snapshots materialize as strict {0,255} pixels — the
+        precondition for the wire's bit-packed codec. Generations boards
+        carry gray levels and are never packed."""
+        return not isinstance(self._rule, GenerationsRule)
+
+    def get_world_frame(self, caps) -> Tuple["object", int]:
+        """(wire.Frame, completed turn) under the peer's negotiated
+        `caps`. A `packed` board ships its device words as they are, no
+        unpack on the device; a `u8` board ships its {0,1} cells, packed
+        or scaled to pixels per band on the host. Both stream as row
+        bands (`_host_bands`). Generations boards are materialized as
+        gray pixels and never packed. Caps-less peers get raw u8."""
+        self._check_alive()
+        with self._state_lock:
+            cells, turn, repr_ = self._cells, self._turn, self._repr
+        if cells is None:
+            raise RuntimeError("no board loaded")
+        caps = frozenset(caps)
+        h, w = cells.shape[-2], _board_width(cells, repr_)
+        if repr_ == "packed":
+            bands = self._host_bands(cells, cells.shape[-1] * 4)
+            return wire.packed_words_frame(h, w, bands, caps), turn
+        if repr_ == "u8":
+            return wire.u8_band_frame(h, w, self._host_bands(cells, w),
+                                      caps, binary=True,
+                                      values01=True), turn
+        return wire.encode_board(self._materialize(cells, repr_), caps,
+                                 binary=False), turn
+
+    def _on_device(self):
+        """The engine's device as the current one: handler threads of the
+        server are not the thread that made the engine."""
+        if self._device.type == "cuda":
+            return torch.cuda.device(self._device)
+        return contextlib.nullcontext()
+
+    def _host_bands(self, cells: torch.Tensor, row_nbytes: int):
+        """Yield the rows of a 2-D device board as host numpy bands of
+        about GOL_WIRE_BAND_BYTES each. On CUDA each band is copied into
+        pinned memory without blocking, on the engine's device and its
+        current stream, so after the chunk that produced the board; band
+        i+1's copy is issued before band i is yielded, so it overlaps the
+        caller's socket send of band i, and each band waits on its own
+        event before it is yielded. No full-board host copy is made."""
+        h = cells.shape[0]
+        rows = max(1, wire.band_bytes() // max(1, row_nbytes))
+        slices = [cells[r0:r0 + rows] for r0 in range(0, h, rows)]
+        if self._device.type != "cuda":
+            for band in slices:
+                obs.ENGINE_BAND_COPIES.inc()
+                yield band.numpy()
+            return
+
+        def stage(band: torch.Tensor):
+            obs.ENGINE_BAND_COPIES.inc()
+            with self._on_device():
+                host = torch.empty(band.shape, dtype=band.dtype,
+                                   pin_memory=True)
+                host.copy_(band, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record()
+            return host, copied
+
+        staged = stage(slices[0])
+        for i in range(len(slices)):
+            host, copied = staged
+            if i + 1 < len(slices):
+                staged = stage(slices[i + 1])
+            copied.synchronize()
+            yield host.numpy()
 
     def stats(self) -> dict:
         """Engine telemetry (no device work)."""

@@ -136,6 +136,21 @@ def test_cli_on_cpu(images_dir, tmp_path):
         (tmp_path / "64x64x100.pgm").read_bytes()
 
 
+def test_server_without_cuda_exits_nonzero(tmp_path):
+    """`python -m gol_tpu_torch.server` defaults to CUDA: without a card
+    and without `--device cpu` it exits non-zero with the engine's own
+    error and never prints its serving banner."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run(
+        [sys.executable, "-m", "gol_tpu_torch.server", "--port", "0",
+         "--host", "127.0.0.1"], capture_output=True, text=True,
+        timeout=120, env=_subprocess_env(), cwd=str(tmp_path))
+    assert out.returncode != 0
+    assert "serving on" not in out.stdout
+    assert "device='cpu'" in out.stderr
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
