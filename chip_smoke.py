@@ -55,6 +55,17 @@ Phases (each raises on failure; any failure exits non-zero):
    `python -m gol_tpu_torch.server` subprocess is SIGKILLed mid-run and
    restarted on its port, and the controller reattaches and ends on the
    in-process run's PGM;
+   4e. checkpoints: through `run` with GOL_CKPT_EVERY_TURNS and
+   GOL_JOURNAL, 512² x 10000, 5120² x 1000 at GOL_FUSE_K=16, Brian's
+   Brain 4096² x 1000 and Star Wars 512² x 100, each quit mid-way and
+   resumed with `--resume`, ending on the PGM of its uninterrupted run,
+   every manifest holding the plain path's board at its turn and every
+   journal verifying (the resumed 512² run's pairs against the CSV); a
+   `python -m gol_tpu_torch.server --checkpoint` subprocess SIGTERMed
+   mid-run and restarted with `--resume`, the controller ending on the
+   in-process PGM; then `checkpoint_now` and restore seconds at 512²,
+   5120² and 65536², and engine turns/s at 5120² with a 65,536-turn
+   checkpoint cadence beside the rate without, on one warm engine;
 5. timings at 64², 128², 256², 512², 4096², 5120², 8192², 16384², 65536²
    and 131072²: each kernel's ms per launch beside its plain version's
    and its bound (K1 at N = 1, 2, 4, 8, 16 on 512², 256² and 64², K2 at
@@ -76,6 +87,7 @@ import json
 import os
 import queue
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -764,14 +776,15 @@ def check_world_bytes(srv, size: int, reps: int) -> list:
     return rows
 
 
-def spawn_server(port: int):
-    """(process, port) of `python -m gol_tpu_torch.server` on the card,
-    once its banner names the port it serves on."""
-    env = dict(os.environ, PYTHONPATH=REPO)
+def spawn_server(port: int, *args: str, env=None):
+    """(process, port) of `python -m gol_tpu_torch.server` on the card
+    (with more `args`, and `env` over this process's), once its banner
+    names the port it serves on."""
+    env = dict(os.environ, PYTHONPATH=REPO, **(env or {}))
     env.pop("SER", None)
     proc = subprocess.Popen(
         [sys.executable, "-u", "-m", "gol_tpu_torch.server", "--port",
-         str(port), "--host", "127.0.0.1"], stdout=subprocess.PIPE,
+         str(port), "--host", "127.0.0.1", *args], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, env=env, cwd=REPO)
     found: queue.Queue = queue.Queue()
 
@@ -1044,6 +1057,380 @@ def phase_control_plane_measure(torch, dev, card: Card) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         res["recovery"] = check_recovery(os.path.join(REPO, "images"), tmp)
     log("control_plane:" + json.dumps(res))
+    return res
+
+
+# ----------------------------------------------------- phase 4e: checkpoints
+
+# Boards whose checkpoint and restore phase 4e times.
+CKPT_SIZES = (512, 5120, 65536)
+
+
+def plain_step(torch, board, turns: int, repr_: str, rule):
+    """`turns` turns of the plain path on the card: packed int32 words
+    for life-like boards, uint8 states (gen8) for Generations."""
+    from gol_tpu_torch.ops import bitpack
+
+    if repr_ == "packed":
+        return bitpack.packed_run_turns(board, turns, rule)
+    from gol_tpu_torch.models import generations as gen
+
+    return gen.run_turns(board, turns, rule)
+
+
+def plain_sha(board, repr_: str) -> str:
+    """The manifest's board_sha256 of a plain-path board, in the payload
+    of `repr_` (gen3 planes are packed from the uint8 states)."""
+    from gol_tpu_torch.ckpt import manifest as mf
+    from gol_tpu_torch.ckpt.writer import payload_arrays
+    from gol_tpu_torch.ops.bitpack import pack_np
+
+    host = board.cpu().numpy()
+    if repr_ == "gen3":
+        host = np.stack([pack_np(host == 1), pack_np(host == 2)])
+    return mf.board_sha256(payload_arrays(host, repr_))
+
+
+def check_manifests(torch, ck_dir: str, start, repr_: str, rule) -> list:
+    """Every manifest in `ck_dir` verifies (payload SHA-256) and holds
+    the board the plain path reaches at its turn from `start` (the turn-0
+    board on the card). Returns the manifests' turns."""
+    from gol_tpu_torch.ckpt import manifest as mf
+
+    cur, at, turns = start, 0, []
+    for turn, path, m in mf.list_checkpoints(ck_dir):
+        mf.verify_manifest(path)
+        if m["repr"] != repr_:
+            raise AssertionError(f"{path}: repr {m['repr']} != {repr_}")
+        cur, at = plain_step(torch, cur, turn - at, repr_, rule), turn
+        if m["board_sha256"] != plain_sha(cur, repr_):
+            raise AssertionError(f"{path}: board_sha256 != plain path")
+        turns.append(turn)
+    return turns
+
+
+def resume_cli(ck_dir: str, out: str, turns: int, poll: bool) -> set:
+    """`gol_tpu_torch.main.main(["--resume", ck_dir, ...])` as the CLI
+    runs it, in this process (so the launch counters see its kernels),
+    with a fresh default engine as a new process would have. Returns the
+    (alive, turn) pairs its engine published, when `poll`."""
+    from gol_tpu_torch import distributor as dist, main as cli
+
+    dist._default_engine = None
+    os.environ["GOL_OUT"] = out
+    done, pairs = [], set()
+    t = threading.Thread(target=lambda: done.append(cli.main(
+        ["--turns", str(turns), "--headless", "--resume", ck_dir])))
+    t.start()
+    try:
+        while t.is_alive():
+            eng = dist._default_engine
+            if poll and eng is not None:
+                pair = eng.alive_count()
+                if pair[1] > 0:
+                    pairs.add(pair)
+            time.sleep(0.0002)
+        t.join()
+    finally:
+        for name in ("GOL_OUT", "CONT"):
+            os.environ.pop(name, None)
+        dist._default_engine = None
+    if done != [0]:
+        raise AssertionError(f"--resume {ck_dir} exited {done}")
+    return pairs
+
+
+def check_resume(torch, dev, tmp: str, size: int, turns: int, rule,
+                 fuse, quit_at: int, every: int, world: np.ndarray,
+                 images: str = "") -> dict:
+    """One board through `run` on a CUDA engine with GOL_CKPT_EVERY_TURNS
+    and GOL_JOURNAL, twice: once to the end, once quit ('q') at about
+    `quit_at` and resumed with `--resume`. Both end on the same PGM, and
+    every manifest of both holds the plain path's board at its turn."""
+    from gol_tpu_torch import Params, events as ev
+    from gol_tpu_torch import journal as journal_mod
+    from gol_tpu_torch.engine import Engine
+    from gol_tpu_torch.io.pgm import write_pgm
+    from gol_tpu_torch.models import CONWAY
+    from gol_tpu_torch.models.generations import (
+        GenerationsRule, from_pixels_gen, gray_levels)
+    from gol_tpu_torch.ops import bitpack
+
+    rule = rule or CONWAY
+    gen = isinstance(rule, GenerationsRule)
+    levels = tuple(gray_levels(rule).tolist()) if gen else None
+    tag = f"{rule.rulestring.replace('/', '_')}_{size}_{fuse}"
+    if not images:
+        images = os.path.join(tmp, f"images_{tag}")
+        write_pgm(os.path.join(images, f"{size}x{size}.pgm"), world,
+                  levels=levels)
+    name = f"{size}x{size}x{turns}.pgm"
+    os.environ.update(GOL_CKPT_EVERY_TURNS=str(every), GOL_CKPT_KEEP="1000",
+                      GOL_JOURNAL=os.path.join(tmp, f"journal_{tag}"))
+    if fuse:
+        os.environ["GOL_FUSE_K"] = str(fuse)
+    p = Params(image_width=size, image_height=size, turns=turns)
+    try:
+        whole, cut = (os.path.join(tmp, f"{k}_{tag}") for k in ("whole",
+                                                              "cut"))
+        os.environ["GOL_CKPT"] = whole
+        eng = Engine(rule=rule)
+        drive(p, images, os.path.join(whole, "out"), engine=eng)
+        repr_ = eng._repr
+        os.environ["GOL_CKPT"] = cut
+        # One turn a chunk, so the quit lands mid-run on the card.
+        os.environ["GOL_MAX_CHUNK"] = "1"
+        eng = Engine(rule=rule)
+        keys: queue.Queue = queue.Queue()
+        events_q: queue.Queue = queue.Queue()
+        import gol_tpu_torch
+
+        t = gol_tpu_torch.run(p, events_q, keys, engine=eng,
+                              images_dir=images,
+                              out_dir=os.path.join(cut, "out"))
+        while eng.ping() < quit_at and t.is_alive():
+            time.sleep(0.0005)
+        keys.put("q")
+        t.join(120)
+        os.environ.pop("GOL_MAX_CHUNK")
+        final = [e for e in ev.drain(events_q)
+                 if isinstance(e, ev.FinalTurnComplete)][0]
+        t_quit = final.completed_turns
+        if not 0 < t_quit < turns:
+            raise AssertionError(f"{tag}: quit landed at {t_quit}")
+        del eng
+        pairs = resume_cli(cut, os.path.join(cut, "out"), turns,
+                           poll=size == 512 and not gen)
+        journal_dir = os.environ["GOL_JOURNAL"]
+    finally:
+        for k in ("GOL_CKPT", "GOL_CKPT_EVERY_TURNS", "GOL_CKPT_KEEP",
+                  "GOL_JOURNAL", "GOL_FUSE_K", "GOL_MAX_CHUNK"):
+            os.environ.pop(k, None)
+        journal_mod.reset()
+    for jname in os.listdir(journal_dir):
+        res = journal_mod.verify_file(os.path.join(journal_dir, jname))
+        if not res["ok"]:
+            raise AssertionError(f"{tag}: journal {jname}: {res}")
+    with open(os.path.join(whole, "out", name), "rb") as f, \
+            open(os.path.join(cut, "out", name), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError(f"{tag}: resumed PGM != uninterrupted")
+    if gen:
+        start = torch.from_numpy(from_pixels_gen(world, rule)).to(dev)
+    else:
+        start = bitpack.words_from_numpy(bitpack.pack_np(world), dev)
+    turns_whole = check_manifests(torch, whole, start, repr_, rule)
+    turns_cut = check_manifests(torch, cut, start, repr_, rule)
+    if t_quit not in turns_cut or turns not in turns_cut:
+        raise AssertionError(f"{tag}: manifests at {turns_cut}")
+    log(f"  ok {rule.rulestring} {size}² x {turns}"
+        f"{f' GOL_FUSE_K={fuse}' if fuse else ''} ({repr_}): quit at "
+        f"{t_quit}, resumed with --resume, PGM equals the uninterrupted "
+        f"run's; manifests at {turns_whole} and {turns_cut} verify and "
+        f"equal the plain path's boards; journal chain verifies "
+        f"({res['count']} records)")
+    return dict(t_quit=t_quit, pairs=pairs)
+
+
+def check_sigterm_resume(images: str, tmp: str) -> dict:
+    """`python -m gol_tpu_torch.server --checkpoint DIR` on the card takes
+    SIGTERM about a second into a 512² run through SER: it writes a
+    `sigterm` manifest and the legacy 512x512.npz and exits 0. A new
+    server `--resume DIR` on its port restores that turn; the controller
+    reattaches there and ends on the in-process run's PGM."""
+    import signal
+
+    from gol_tpu_torch import Params, events as ev
+    from gol_tpu_torch.ckpt import manifest as mf
+    from gol_tpu_torch.client import RemoteEngine
+    from gol_tpu_torch.distributor import distributor
+    from gol_tpu_torch.engine import Engine
+
+    turns = 4_000_000
+    p = Params(image_width=512, image_height=512, turns=turns)
+    ck = os.path.join(tmp, "sigterm_ck")
+    env = {"GOL_DRAIN_DEADLINE": "0.2"}
+    procs = []
+    try:
+        proc, port = spawn_server(0, "--checkpoint", ck, env=env)
+        procs.append(proc)
+        os.environ.update(SER=f"127.0.0.1:{port}", GOL_RECONNECT="180",
+                          GOL_HB_INTERVAL="0.5")
+        q: queue.Queue = queue.Queue()
+        failed, seen = [], []
+
+        def control():
+            try:
+                distributor(p, q, None, images_dir=images,
+                            out_dir=os.path.join(tmp, "sigterm_out"))
+            except BaseException as e:
+                failed.append(e)
+
+        ctrl = threading.Thread(target=control)
+        ctrl.start()
+        probe = RemoteEngine(f"127.0.0.1:{port}")
+        deadline = time.monotonic() + 120
+        while probe.ping() == 0:
+            if time.monotonic() > deadline:
+                raise AssertionError("the served run never started")
+            time.sleep(0.01)
+        time.sleep(1.0)
+        t_term = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        if proc.wait(60) != 0:
+            raise AssertionError(f"SIGTERMed server exited {proc.returncode}")
+        term_s = time.monotonic() - t_term
+        t_sig, _, m = mf.latest_checkpoint(ck)
+        if m["trigger"] != "sigterm" or not 0 < t_sig < turns:
+            raise AssertionError(f"sigterm manifest: {m}")
+        with np.load(os.path.join(ck, "512x512.npz")) as z:
+            if int(z["turn"]) < t_sig:
+                raise AssertionError("legacy autosave behind the manifest")
+        proc2, port2 = spawn_server(port, "--checkpoint", ck, "--resume",
+                                    ck, env=env)
+        procs.append(proc2)
+        if port2 != port:
+            raise AssertionError(f"restarted on :{port2}, not :{port}")
+        ctrl.join(600)
+        if ctrl.is_alive() or failed:
+            raise AssertionError(f"controller did not finish: {failed}")
+        while True:
+            e = q.get(timeout=10)
+            if e is ev.CLOSE:
+                break
+            seen.append(e)
+    finally:
+        for k in ("SER", "GOL_RECONNECT", "GOL_HB_INTERVAL"):
+            os.environ.pop(k, None)
+        for proc in procs:
+            stop_server(proc)
+    reatt = [e for e in seen if isinstance(e, ev.EngineReattached)]
+    final = [e for e in seen if isinstance(e, ev.FinalTurnComplete)][0]
+    if (len(reatt) != 1 or reatt[0].completed_turns != t_sig
+            or final.completed_turns != turns):
+        raise AssertionError(f"reattached {reatt}, ended at "
+                             f"{final.completed_turns}")
+    drive(p, images, os.path.join(tmp, "sigterm_ref"), engine=Engine())
+    name = f"512x512x{turns}.pgm"
+    with open(os.path.join(tmp, "sigterm_out", name), "rb") as f, \
+            open(os.path.join(tmp, "sigterm_ref", name), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("resumed server's PGM != in-process run's")
+    log(f"  ok SIGTERM: server exited 0 {term_s:.3f} s after the signal "
+        f"with a sigterm manifest at turn {t_sig} and 512x512.npz; the "
+        f"server restarted with --resume restored it, the controller "
+        f"reattached at turn {t_sig}, final PGM equals the in-process "
+        "run's")
+    return dict(sigterm_turn=t_sig, sigterm_exit_s=term_s)
+
+
+def phase_checkpoints(torch, dev) -> None:
+    """Phase 4e: checkpoints on the card, through `run` with
+    GOL_CKPT_EVERY_TURNS and GOL_JOURNAL: Conway 512² x 10000 quit at
+    about 5000 and resumed with `--resume` (its published pairs against
+    the CSV), 5120² x 1000 at GOL_FUSE_K=16, Brian's Brain 4096² x 1000
+    (K5 gen3), Star Wars 512² x 100 (gen8); then a server subprocess
+    SIGTERMed and resumed."""
+    from gol_tpu_torch.io.pgm import read_pgm
+    from gol_tpu_torch.models.generations import (
+        BRIANS_BRAIN, STAR_WARS, gray_levels, to_pixels_gen)
+
+    log("phase 4e: checkpoints and the journal on the card")
+    images = os.path.join(REPO, "images")
+    csv_counts = read_csv(os.path.join(REPO, "check", "alive",
+                                       "512x512.csv"))
+    with tempfile.TemporaryDirectory() as tmp:
+        res = check_resume(torch, dev, tmp, 512, 10000, None, None, 5000,
+                           1024, read_pgm(os.path.join(images,
+                                                       "512x512.pgm")),
+                           images=images)
+        bad = [(a, t) for a, t in res["pairs"] if csv_counts[t] != a]
+        if not res["pairs"] or bad:
+            raise AssertionError(f"resumed pairs off the CSV: {bad}")
+        log(f"  ok 512² resumed run: {len(res['pairs'])} published pairs "
+            "equal check/alive/512x512.csv")
+        check_resume(torch, dev, tmp, 5120, 1000, None, 16, 500, 128,
+                     seeded_board(5120, 5120))
+        rng = np.random.default_rng(4096)
+        for size, turns, rule, every in ((4096, 1000, BRIANS_BRAIN, 128),
+                                         (512, 100, STAR_WARS, 16)):
+            state = rng.choice(np.arange(rule.states, dtype=np.uint8),
+                               size=(size, size))
+            check_resume(torch, dev, tmp, size, turns, rule, None,
+                         turns // 2, every, to_pixels_gen(state, rule))
+        check_sigterm_resume(images, tmp)
+
+
+def phase_checkpoint_measure(torch, dev, card: Card) -> dict:
+    """Phase 4e's numbers: `checkpoint_now` seconds (and its device-to-
+    host copy alone) and MB/s of board bytes at 512², 5120² and 65536²,
+    the restore of that manifest into a new engine, and engine turns/s
+    at 5120² with GOL_CKPT_EVERY_TURNS=65536 beside the rate without it,
+    one warm engine alternating off, on, on, off."""
+    from gol_tpu_torch.ckpt.writer import device_to_host
+    from gol_tpu_torch.engine import Engine
+    from gol_tpu_torch.ops import bitpack
+
+    log(f"phase 4e: checkpoint measurements on {card.smi}")
+    res = {"card": card.smi, "sizes": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for size in CKPT_SIZES:
+            words = seeded_words(torch, size, size // 32, size, dev)
+            nbytes = words.numel() * 4
+            legacy = os.path.join(tmp, f"seed{size}.npz")
+            np.savez(legacy, words=bitpack.words_to_numpy(words),
+                     width=size, turn=7, rulestring="B3/S23")
+            eng = Engine()
+            eng.load_checkpoint(legacy)
+            os.unlink(legacy)
+            c0 = time.perf_counter()
+            host = device_to_host(eng._cells)
+            copy_s = time.perf_counter() - c0
+            del host
+            ck = os.path.join(tmp, f"ck{size}")
+            c0 = time.perf_counter()
+            path, turn = eng.checkpoint_now(ck)
+            save_s = time.perf_counter() - c0
+            fresh = Engine()
+            c0 = time.perf_counter()
+            fresh.restore_run(path)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - c0
+            if not torch.equal(fresh._cells, words) or turn != 7:
+                raise AssertionError(f"{size}²: restored board != saved")
+            payload = os.path.getsize(path.replace(".json", ".npz"))
+            row = dict(size=size, board_bytes=nbytes, payload_bytes=payload,
+                       copy_s=copy_s, checkpoint_s=save_s,
+                       checkpoint_mb_per_s=nbytes / save_s / 1e6,
+                       restore_s=restore_s,
+                       restore_mb_per_s=nbytes / restore_s / 1e6)
+            res["sizes"].append(row)
+            log(f"  {size}²: checkpoint_now {save_s:.4f} s "
+                f"({row['checkpoint_mb_per_s']:.1f} MB/s of {nbytes} board "
+                f"bytes; payload {payload} bytes; device-to-host copy "
+                f"{copy_s:.4f} s), restore {restore_s:.4f} s "
+                f"({row['restore_mb_per_s']:.1f} MB/s)")
+            del eng, fresh, words
+            torch.cuda.empty_cache()
+            shutil.rmtree(ck)
+        board = seeded_board(5120, 5120)
+        held = Engine()
+        engine_rate(torch, board, 3.0, eng=held)  # warm: converged chunk
+        rates = {"off": [], "on": []}
+        for mode in ("off", "on", "on", "off"):
+            if mode == "on":
+                os.environ.update(GOL_CKPT=os.path.join(tmp, "cadence"),
+                                  GOL_CKPT_EVERY_TURNS="65536")
+            try:
+                rate, _, _, chunk = engine_rate(torch, board, 3.0, eng=held)
+            finally:
+                os.environ.pop("GOL_CKPT", None)
+                os.environ.pop("GOL_CKPT_EVERY_TURNS", None)
+            rates[mode].append(rate)
+            log(f"  engine 5120² checkpoints {mode}: {rate:.1f} turns/s, "
+                f"chunk {chunk} turns")
+        res["turns_per_s_5120"] = rates
+    log("checkpoints:" + json.dumps(res))
     return res
 
 
@@ -1637,7 +2024,10 @@ def main() -> int:
                            "row_popcounts"), True),
             (phase_control_plane, ("resident_run_turns", "tiled_sweep",
                                    "row_popcounts",
-                                   "resident_run_turns2p/gen3"), False)):
+                                   "resident_run_turns2p/gen3"), False),
+            (phase_checkpoints, ("resident_run_turns", "tiled_sweep",
+                                 "row_popcounts",
+                                 "tiled_sweep2p/gen3"), False)):
         cs.reset_launch_counts()
         with (profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) if profiled
@@ -1659,6 +2049,7 @@ def main() -> int:
     log("  main-path device ms by kernel (torch.profiler): "
         + (json.dumps(device_ms) if device_ms else "not measured"))
     phase_control_plane_measure(torch, dev, card)
+    phase_checkpoint_measure(torch, dev, card)
     kernels = phase_timing(torch, dev, card, launches)
     for k in kernels:
         k["main_path_device_ms"] = device_ms.get(

@@ -1,7 +1,7 @@
 """Remote engine client — the controller side of the control plane, the
 counterpart of `gol_tpu/client.py` (without its live-view subscription
-and the methods of slices not yet ported: checkpoints, fleet runs,
-migration, sparse windows, telemetry).
+and the methods of slices not yet ported: fleet runs, migration, sparse
+windows, telemetry).
 
 Duck-typed to `Engine` (same method surface), so the controller does not
 care whether its engine is in-process or remote, nor whether the server
@@ -72,6 +72,15 @@ MUTATING_METHODS = frozenset({
 })
 
 
+class GeometryRefused(RuntimeError):
+    """The server refused a restore whose checkpoint geometry does not
+    match its engine (mesh device count, sparse window). Tagged so
+    callers can branch without string-matching; resend with
+    reshard=True to route through the host-side canonical repack."""
+
+    rpc_error_kind = "geometry"
+
+
 class FramesNotDiffable(RuntimeError):
     """The server refused a delta-view request (basis_turn) because the
     board is not delta-codable (a float board of the JAX package).
@@ -128,6 +137,8 @@ def _check_resp(resp: dict):
             # transport condition, not an engine state — surface it like
             # a network failure so the recovery paths apply.
             raise ConnectionError(err)
+        if err.startswith("geometry:"):
+            raise GeometryRefused(err)
         if err.startswith("nodiff:"):
             raise FramesNotDiffable(err)
         raise RuntimeError(f"engine error: {err}")
@@ -448,3 +459,46 @@ class RemoteEngine:
 
     def kill_prog(self) -> None:
         self._call({"method": "KillProg"}, timeout=self._timeout)
+
+    def checkpoint_now(self, directory: str = "",
+                       trigger: str = "manual") -> Tuple[str, int]:
+        """Trigger a durable manifest checkpoint on the SERVER, into its
+        configured GOL_CKPT directory (`directory` must be empty: the
+        client never chooses remote write paths); returns (manifest
+        basename, turn). Duck-types `Engine.checkpoint_now`, so the
+        controller's `c` key is engine-agnostic."""
+        if directory:
+            raise ValueError(
+                "remote checkpoints always land in the server's "
+                "configured directory")
+        # Generous timeout: the server's write is synchronous (hash and
+        # fsync of a board that can be hundreds of MB).
+        resp, _ = self._call({"method": "Checkpoint"},
+                             timeout=max(self._timeout, 120.0))
+        return str(resp.get("manifest", "")), int(resp["turn"])
+
+    def restore_run(self, path: str = "", reshard: bool = False) -> int:
+        """Adopt a checkpoint on the SERVER: empty `path` = the newest
+        durable checkpoint in its configured directory, else a
+        checkpoint name within it. Returns the restored turn. A
+        checkpoint whose recorded geometry disagrees with the serving
+        engine is refused with `GeometryRefused` unless `reshard=True`."""
+        resp, _ = self._call({"method": "RestoreRun", "path": path,
+                              "reshard": bool(reshard)},
+                             timeout=max(self._timeout, 120.0))
+        return int(resp["turn"])
+
+    def get_journal(self, since_seq: int = -1, limit: int = 100,
+                    run_id: str = "") -> dict:
+        """A run's hash-chained gol-journal/1 tail: {"head", "seq",
+        "path", "records"} with records of seq > since_seq, oldest
+        first. `run_id` names the run (a JAX server needs it; the port's
+        server reads its own run when it is empty)."""
+        header = {"method": "GetJournal", "since_seq": int(since_seq),
+                  "limit": int(limit)}
+        if run_id:
+            header["run_id"] = run_id
+        resp, _ = self._call(header, timeout=self._timeout)
+        return {"head": resp.get("head"), "seq": resp.get("seq"),
+                "path": resp.get("path"),
+                "records": list(resp.get("records", []))}

@@ -1,15 +1,16 @@
 """The controller: orchestrates one run — the counterpart of
-`gol_tpu/distributor.py` without its sparse mode and its 'c' checkpoint
-key (ROADMAP A10, A7).
+`gol_tpu/distributor.py` without its sparse mode (ROADMAP A10).
 
 Contract (reference `Local/gol/distributor.go:55-226`): load
 `images/WxH.pgm`, drive the engine, emit the event stream, honour s/p/q/k
-keypresses, tick alive counts every 2 s, write `out/WxHxT.pgm`, and
-support detach (`q`) / reattach (`CONT=yes`). The engine is the
-process's in-process `Engine` by default, or, when `SER=host:port` is
-set, an engine server reached over the TCP control plane
-(`client.RemoteEngine`; the server may be this package's or the JAX
-package's), mirroring the reference env config
+keypresses (and 'c': a durable manifest checkpoint, into GOL_CKPT for
+an in-process engine, through the Checkpoint method into the server's
+configured directory for a remote one), tick alive counts every 2 s,
+write `out/WxHxT.pgm`, and support detach (`q`) / reattach
+(`CONT=yes`). The engine is the process's in-process `Engine` by
+default, or, when `SER=host:port` is set, an engine server reached over
+the TCP control plane (`client.RemoteEngine`; the server may be this
+package's or the JAX package's), mirroring the reference env config
 (`Local/gol/distributor.go:90-105`). With `SER` set, `device=` and
 `rule=` do not apply: the server's engine decides both, and the
 controller reads and writes PGM levels for the rule it reports. A lost
@@ -232,6 +233,10 @@ def distributor(
                         print("Continuing")
                         events_q.put(
                             ev.StateChange(turn, ev.State.EXECUTING))
+                elif key == "c":
+                    name, turn = engine.checkpoint_now(trigger="manual")
+                    print(f"checkpointed turn {turn} "
+                          f"({os.path.basename(name)})")
                 elif key == "q":
                     engine.cf_put(FLAG_QUIT)
                 elif key == "k":
@@ -245,9 +250,9 @@ def distributor(
                 # must still work.
                 continue
             except (RuntimeError, ValueError):
-                # A snapshot asked for before the board is loaded, or a
-                # PGM write that refuses the pixels: drop this keypress,
-                # keep serving.
+                # A snapshot or checkpoint asked for before the board is
+                # loaded or with no GOL_CKPT, or a PGM write that refuses
+                # the pixels: drop this keypress, keep serving.
                 continue
 
     # -- 2 s alive ticker (`Local/gol/distributor.go:154-167`) ------------

@@ -29,6 +29,19 @@ event alone and publishes its exact (alive, turn) pair, which
 packed and gen3 boards (`ops/fused.py`); chunk sizes stay powers of two,
 and a chunk the depth does not divide ends with one shallower sweep.
 
+Checkpoints and the run journal (`ckpt/`, `journal.py`; the JAX
+engine's contract, interchangeable with it): with `GOL_CKPT` set a run
+autosaves `WxH.npz` every `GOL_CKPT_EVERY` seconds, and with
+`GOL_CKPT_EVERY_TURNS` also publishes `gol-ckpt/1` manifests at exact
+turn multiples from a background writer, plus a `final` one at every
+exit from the loop (an `emergency` one on an exception). With
+`GOL_JOURNAL` set it journals `create`, board digests every
+`GOL_JOURNAL_DIGEST_EVERY` turns (taken at pop time, on the completed
+chunk) and `end`. Chunk boundaries land exactly on checkpoint and digest
+turns, so those turns depend on the cadence alone. `checkpoint_now`,
+`restore_run`, `save_checkpoint` and `load_checkpoint` are the
+synchronous surface.
+
 The device is explicit: `Engine(device=None)` means CUDA and raises where
 there is none; `Engine(device="cpu")` runs the plain versions of the
 kernels on the CPU, as the tests do.
@@ -37,6 +50,7 @@ kernels on the CPU, as the tests do.
 from __future__ import annotations
 
 import contextlib
+import os
 import queue
 import threading
 import time
@@ -46,7 +60,10 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gol_tpu_torch import ckpt as ckpt_mod
+from gol_tpu_torch import journal as journal_mod
 from gol_tpu_torch import wire
+from gol_tpu_torch.ckpt.writer import device_to_host, payload_arrays
 from gol_tpu_torch.models.generations import (
     GenerationsRule,
     from_pixels_gen,
@@ -56,6 +73,7 @@ from gol_tpu_torch.models.generations import (
 )
 from gol_tpu_torch.models.lifelike import CONWAY
 from gol_tpu_torch.obs import catalog as obs
+from gol_tpu_torch.obs import flight as obs_flight
 from gol_tpu_torch.ops.bitpack import (
     WORD_BITS,
     pack_np,
@@ -95,6 +113,11 @@ MAX_CHUNK_ENV = "GOL_MAX_CHUNK"
 PIPELINE_DEPTH = 3
 PIPELINE_DEPTH_ENV = "GOL_PIPELINE_DEPTH"
 PIPELINE_BOARD_BUDGET = 8 << 30
+
+# Legacy single-file autosave under GOL_CKPT, every GOL_CKPT_EVERY
+# seconds (the manifest cadence is GOL_CKPT_EVERY_TURNS, `ckpt/`).
+CKPT_EVERY_ENV = "GOL_CKPT_EVERY"
+CKPT_EVERY_DEFAULT = 30.0
 
 
 class EngineKilled(RuntimeError):
@@ -295,6 +318,9 @@ class Engine(ControlFlagProtocol):
         # Converged chunk per (board shape, repr, target): later runs of
         # the same configuration start there.
         self._chunk_hints: dict = {}
+        # Temporal-fusion depth of the last submitted run: checkpoint
+        # manifests stamp it (`fuse`) when above 1.
+        self._fuse_eff = 1
 
     @property
     def device(self) -> torch.device:
@@ -361,6 +387,7 @@ class Engine(ControlFlagProtocol):
             self._running = True
             self._run_token = token
             self._abort.clear()
+            self._fuse_eff = fuse_eff
         with self._on_device():
             return self._run_loop(params, cells, run, start_turn, fuse_eff)
 
@@ -411,11 +438,69 @@ class Engine(ControlFlagProtocol):
         inflight: deque = deque()
         last_pop = time.monotonic()
         quit_run = False
+        stepped = False
+        repr_ = self._repr
+        height, width = cells.shape[-2], _board_width(cells, repr_)
+
+        # GOL_CKPT: the legacy WxH.npz autosave every GOL_CKPT_EVERY
+        # seconds, and with GOL_CKPT_EVERY_TURNS manifest checkpoints at
+        # exact turn multiples, written by a background writer.
+        ckpt_dir = os.environ.get(ckpt_mod.CKPT_DIR_ENV, "")
+        ckpt_every = env_float(CKPT_EVERY_ENV, CKPT_EVERY_DEFAULT)
+        ckpt_path = ""
+        ckpt_writer = None
+        next_ckpt_turn = None
+        ckpt_every_turns = 0
+        if ckpt_dir:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            ckpt_path = os.path.join(ckpt_dir, f"{width}x{height}.npz")
+            ckpt_every_turns = env_int(ckpt_mod.CKPT_EVERY_TURNS_ENV, 0,
+                                       minimum=0)
+            if ckpt_every_turns > 0:
+                ckpt_writer = self._ckpt_writer(ckpt_dir)
+                next_ckpt_turn = (
+                    start_turn // ckpt_every_turns + 1) * ckpt_every_turns
+        last_ckpt = time.monotonic()
+        # GOL_JOURNAL: the run's hash-chained black box — create now,
+        # digests at exact cadence turns (at pop time), end after the
+        # checkpoint writer drains.
+        journal_writer = None
+        next_digest_turn = None
+        digest_every_turns = 0
+        if journal_mod.enabled():
+            journal_writer = journal_mod.for_run(obs_flight.RUN_ID)
+        if journal_writer is not None:
+            digest_every_turns = journal_mod.digest_every()
+            if digest_every_turns > 0:
+                next_digest_turn = (
+                    start_turn // digest_every_turns + 1
+                ) * digest_every_turns
+            try:
+                self._journal_create(journal_writer, cells, start_turn,
+                                     fuse_eff)
+            except Exception:  # journaling must never sink a run
+                journal_writer = None
+                next_digest_turn = None
+        # Digests copy a completed chunk's board on a stream of their
+        # own, so the copy does not queue behind the chunks in flight.
+        digest_stream = (torch.cuda.Stream(self._device)
+                         if journal_writer is not None
+                         and self._device.type == "cuda" else None)
+
+        def _ckpt_submit(snap_cells: torch.Tensor, trigger: str) -> None:
+            """Queue a checkpoint of `snap_cells` at self._turn on the
+            background writer: a pointer hand-off; the writer copies the
+            board on this stream, behind the chunk that produced it."""
+            ckpt_writer.submit(ckpt_mod.Snapshot(
+                snap_cells, repr_, self._turn, (height, width),
+                self._rule.rulestring, trigger=trigger,
+                mesh={"devices": 1}, fuse=fuse_eff,
+                stream=self._current_stream()))
 
         def _reset_pace(at: float) -> None:
-            """Keep a host stall (a pause) out of pace measurements; the
-            chunks that completed during it drain as a burst, so skip the
-            next `depth` pops."""
+            """Keep a host stall (a pause, a legacy autosave) out of pace
+            measurements; the chunks that completed during it drain as a
+            burst, so skip the next `depth` pops."""
             nonlocal last_pop
             last_pop = at
             self._pace_window.clear()
@@ -423,9 +508,10 @@ class Engine(ControlFlagProtocol):
 
         def _pop_oldest() -> None:
             """Wait for the oldest chunk's token, publish its exact
-            (alive, turn) pair and feed the chunk adapter."""
+            (alive, turn) pair and feed the chunk adapter; journal its
+            board's digest when its turn is a digest turn."""
             nonlocal chunk, last_pop, ramping
-            host, event, done_k, done_turn = inflight.popleft()
+            done_cells, host, event, done_k, done_turn = inflight.popleft()
             if event is not None:
                 event.synchronize()
             done_alive = int(host)
@@ -446,19 +532,62 @@ class Engine(ControlFlagProtocol):
                 if rate > 0:
                     self._turns_per_s = rate
                 self._alive_pub = (done_alive, done_turn)
+            if (journal_writer is not None and digest_every_turns > 0
+                    and done_turn > start_turn
+                    and done_turn % digest_every_turns == 0):
+                # Every digest turn is a chunk boundary (k_cap below).
+                # The chunk is complete, so its copy drains nothing.
+                try:
+                    journal_writer.digest(
+                        done_turn, journal_mod.board_digest(
+                            device_to_host(done_cells, digest_stream),
+                            repr_), repr_=repr_)
+                except Exception:
+                    # A failed digest must never sink the run; the
+                    # journal sink latches itself dead on OSError.
+                    pass
 
         try:
             while self._turn < target and not quit_run:
                 if self._killed or self._abort.is_set():
                     break
-                k = _next_chunk(chunk, target - self._turn)
+                k_cap = target - self._turn
+                # Land chunk boundaries exactly on checkpoint and digest
+                # turns: those turns are a function of (start_turn,
+                # cadence) alone, never of the adapter's chunk sizes, so
+                # an interrupted and resumed run checkpoints the turns
+                # of one that never stopped.
+                if next_ckpt_turn is not None:
+                    k_cap = min(k_cap, next_ckpt_turn - self._turn)
+                if next_digest_turn is not None:
+                    k_cap = min(k_cap, next_digest_turn - self._turn)
+                k = _next_chunk(chunk, k_cap)
                 cells, host, event = self._chunk(run, cells, k)
-                inflight.append((host, event, k, self._turn + k))
+                inflight.append((cells, host, event, k, self._turn + k))
                 while len(inflight) >= (1 if ramping else depth):
                     _pop_oldest()
+                stepped = True
                 with self._state_lock:
                     self._cells = cells
                     self._turn += k
+                if (next_ckpt_turn is not None
+                        and self._turn >= next_ckpt_turn):
+                    _ckpt_submit(cells, "periodic")
+                    next_ckpt_turn = (
+                        self._turn // ckpt_every_turns + 1
+                    ) * ckpt_every_turns
+                if (next_digest_turn is not None
+                        and self._turn >= next_digest_turn):
+                    # Only the pointer advances here; the digest itself
+                    # is taken when the chunk pops (_pop_oldest).
+                    next_digest_turn = (
+                        self._turn // digest_every_turns + 1
+                    ) * digest_every_turns
+                if ckpt_path and \
+                        time.monotonic() - last_ckpt >= ckpt_every:
+                    self.save_checkpoint(ckpt_path)
+                    last_ckpt = time.monotonic()
+                    _reset_pace(last_ckpt)
                 # Flags are honoured only while turns remain: a pause
                 # landing with the final chunk must not park a finished
                 # run. An empty queue with no kill/abort needs no call.
@@ -469,6 +598,21 @@ class Engine(ControlFlagProtocol):
                     quit_run = self._handle_flags()
                     if time.monotonic() - t_flags > 0.01:
                         _reset_pace(time.monotonic())
+            if ckpt_writer is not None and stepped:
+                # Every loop exit — completion, quit, kill, abort —
+                # leaves durable state at the final turn.
+                _ckpt_submit(cells, "final")
+        except Exception:
+            if ckpt_writer is not None:
+                # Emergency best-effort checkpoint: synchronous (there is
+                # no later boundary to wait for) and never allowed to
+                # mask the original error.
+                try:
+                    ckpt_writer.write_sync(
+                        self._ckpt_snapshot("emergency"))
+                except Exception:
+                    pass
+            raise
         finally:
             # Drain, so the last publication is the final state's exact
             # pair (the turn only advances once a chunk is issued).
@@ -481,7 +625,42 @@ class Engine(ControlFlagProtocol):
                 self._running = False
                 self._run_token = None
                 self._abort.clear()
+            if ckpt_writer is not None:
+                # Bounded drain: a wedged disk must not park the engine
+                # forever (the daemon thread finishes or dies with the
+                # process).
+                ckpt_writer.close(timeout=60.0)
+            if journal_writer is not None:
+                # After the writer drains, so the final checkpoint's
+                # digest precedes the end bookend in the chain.
+                try:
+                    journal_writer.append("end", turn=final_turn)
+                except Exception:
+                    pass
         return self._materialize(final_cells, final_repr), final_turn
+
+    def _journal_create(self, journal_writer, cells: torch.Tensor,
+                        start_turn: int, fuse_eff: int) -> None:
+        """The journal's create event: the seed's digest, and the seed
+        itself inline (packbits + zlib) for packed and u8 boards of up to
+        2^22 cells — the JAX engine's record, field for field."""
+        repr_ = self._repr
+        host = device_to_host(cells)
+        h, w = cells.shape[-2], _board_width(cells, repr_)
+        fields = dict(turn=start_turn, h=h, w=w,
+                      rule=self._rule.rulestring, repr=repr_,
+                      fuse_k=fuse_eff,
+                      board_sha256=journal_mod.board_digest(host, repr_))
+        seed = None
+        if h * w <= (1 << 22):
+            if repr_ == "u8":
+                seed = journal_mod.encode_board(host)
+            elif repr_ == "packed":
+                seed = journal_mod.encode_board(
+                    wire.unpack_bits(wire.words_bytes(host), h, w))
+        if seed is not None:
+            fields["seed"] = seed
+        journal_writer.append("create", **fields)
 
     def alive_count(self) -> Tuple[int, int]:
         """(alive, completed turn), a coherent pair: the pair published at
@@ -660,6 +839,206 @@ class Engine(ControlFlagProtocol):
                 "rule": self._rule.rulestring,
                 "device": str(self._device),
             }
+
+    # -------------------------------------------------------- checkpointing
+
+    # Checkpoints at or below this payload size are zlib-compressed;
+    # larger ones are written raw — compressing a 512 MiB packed board
+    # would dominate the checkpoint interval for little gain.
+    CKPT_COMPRESS_LIMIT = 64 * 1024 * 1024
+
+    def geometry(self) -> dict:
+        """Placement geometry for the reshard-at-restore contract
+        (`ckpt/reshard.py`): one device; a manifest recording another
+        mesh (or a sparse window) is refused at restore unless a reshard
+        is requested."""
+        with self._state_lock:
+            cells, repr_ = self._cells, self._repr
+        geo = {"kind": "dense", "devices": 1}
+        if cells is not None:
+            geo["h"] = int(cells.shape[-2])
+            geo["w"] = int(_board_width(cells, repr_))
+            geo["repr"] = repr_
+            # The logical CELL dtype, not the storage dtype (packed
+            # boards hold int32 words of uint8 cells).
+            geo["dtype"] = "uint8"
+        return geo
+
+    def _current_stream(self):
+        """The engine device's current stream on the calling thread, the
+        one a snapshot's board is copied on (None on the CPU)."""
+        if self._device.type != "cuda":
+            return None
+        return torch.cuda.current_stream(self._device)
+
+    def _ckpt_writer(self, directory: str):
+        return ckpt_mod.CheckpointWriter(
+            directory, run_id=obs_flight.RUN_ID,
+            keep_last=env_int(ckpt_mod.CKPT_KEEP_ENV,
+                              ckpt_mod.CKPT_KEEP_DEFAULT),
+            keep_every=env_int(ckpt_mod.CKPT_KEEP_EVERY_ENV, 0, minimum=0))
+
+    def _ckpt_snapshot(self, trigger: str = "manual"):
+        """Capture the current state as a ckpt.Snapshot (a lock-held
+        pointer copy — the expensive work happens in the writer)."""
+        with self._state_lock:
+            cells, repr_, turn = self._cells, self._repr, self._turn
+        if cells is None:
+            raise RuntimeError("no board loaded")
+        return ckpt_mod.Snapshot(
+            cells, repr_, turn, (cells.shape[-2], _board_width(cells, repr_)),
+            self._rule.rulestring, trigger=trigger, mesh={"devices": 1},
+            fuse=self._fuse_eff, stream=self._current_stream())
+
+    def checkpoint_now(self, directory: Optional[str] = None,
+                       trigger: str = "manual") -> Tuple[str, int]:
+        """Write one durable manifest checkpoint SYNCHRONOUSLY to
+        `directory` (default: the configured GOL_CKPT dir); returns
+        (manifest_path, turn). The Checkpoint wire method, the `c` key
+        and the SIGTERM handler land here."""
+        d = directory or os.environ.get(ckpt_mod.CKPT_DIR_ENV, "")
+        if not d:
+            raise RuntimeError(
+                "checkpointing not configured: set GOL_CKPT or pass "
+                "--checkpoint DIR")
+        self._check_alive()
+        snap = self._ckpt_snapshot(trigger)
+        return self._ckpt_writer(d).write_sync(snap), snap.turn
+
+    def restore_run(self, path: str, reshard: bool = False) -> int:
+        """Verified manifest/legacy restore (`ckpt.restore_engine` over
+        this engine); returns the restored turn. `reshard=True` accepts a
+        checkpoint whose recorded geometry disagrees with this engine by
+        routing it through the host-side canonical repack."""
+        return ckpt_mod.restore_engine(self, path, reshard=reshard)
+
+    def save_checkpoint(self, path: str) -> None:
+        """Atomically write the board state + turn + rulestring as .npz
+        (the legacy single-file format): packed boards as `words` +
+        `width` (uint32, the JAX package's), gen3 as `gen_planes`, gen8
+        as `gen_state`, u8 as {0,255} `world` pixels. The temp name is
+        per writer: the SIGTERM handler can race the run thread's
+        autosave on the same target."""
+        with self._state_lock:
+            cells, turn, repr_ = self._cells, self._turn, self._repr
+        if cells is None:
+            raise RuntimeError("no board loaded")
+        arrays = payload_arrays(device_to_host(cells), repr_)
+        payload = next(v for k, v in arrays.items() if k != "width")
+        save = (np.savez_compressed
+                if payload.nbytes <= self.CKPT_COMPRESS_LIMIT
+                else np.savez)
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        try:
+            with open(tmp, "wb") as f:
+                save(f, turn=turn, rulestring=self._rule.rulestring,
+                     **arrays)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+    def load_checkpoint(self, path: str) -> int:
+        """Restore (board, turn) from a checkpoint payload of either
+        package; returns the turn. The restored state serves `get_world`
+        and `alive_count` at once, so a controller can reattach with
+        CONT=yes. Refused: another rule than this engine's, two-plane
+        words on anything but a 3-state Generations engine, a bad
+        Generations state, packed words that are not uint32, a float
+        state, and any restore while a run is in flight."""
+        self._check_alive()
+        rule = self._rule
+        gen = isinstance(rule, GenerationsRule)
+        with np.load(path) as z:
+            turn = int(z["turn"])
+            if "rulestring" in z.files:
+                ckpt_rule = str(z["rulestring"])
+                if ckpt_rule != rule.rulestring:
+                    raise ValueError(
+                        f"checkpoint rule {ckpt_rule!r} != engine rule "
+                        f"{rule.rulestring!r}")
+            if "gen_planes" in z.files:
+                planes = z["gen_planes"]
+                width = int(z["width"])
+                if not gen or rule.states != 3:
+                    raise ValueError(
+                        f"{path}: two-plane checkpoint needs a 3-state "
+                        f"Generations engine, not {rule.rulestring}")
+                if (planes.dtype != np.uint32 or planes.ndim != 3
+                        or planes.shape[0] != 2
+                        or planes.shape[-1] * 32 != width):
+                    raise ValueError(
+                        f"{path}: inconsistent planes checkpoint "
+                        f"({planes.dtype} {planes.shape} for width "
+                        f"{width})")
+                cells = words_from_numpy(planes, self._device)
+                repr_ = "gen3"
+            elif "gen_state" in z.files:
+                state = z["gen_state"]
+                if not gen:
+                    raise ValueError(
+                        f"{path}: Generations checkpoint needs a "
+                        f"Generations engine, not {rule.rulestring}")
+                if (state.dtype != np.uint8 or state.ndim != 2
+                        or int(state.max(initial=0)) >= rule.states):
+                    raise ValueError(
+                        f"{path}: bad Generations state checkpoint "
+                        f"({state.dtype} {state.shape})")
+                cells = torch.from_numpy(state).to(self._device)
+                repr_ = "gen8"
+            elif "float_state" in z.files:
+                raise ValueError(
+                    f"{path}: float-state checkpoint needs a "
+                    f"continuous-family engine, not {rule.rulestring}")
+            elif "words" in z.files:
+                words = z["words"]
+                width = int(z["width"])
+                packed, _ = select_representation(width)
+                if not packed or words.shape[-1] * 32 != width:
+                    raise ValueError(
+                        f"{path}: inconsistent packed checkpoint "
+                        f"({words.shape} words for width {width})")
+                if words.dtype != np.uint32:
+                    # An int32 payload would load bit-reinterpreted here
+                    # but hash and load differently in the JAX package.
+                    raise ValueError(
+                        f"{path}: packed words must be uint32, "
+                        f"got {words.dtype}")
+                cells = words_from_numpy(words, self._device)
+                repr_ = "packed"
+            else:
+                world = z["world"]  # legacy / unpacked pixel format
+                if gen:
+                    cells = torch.from_numpy(
+                        from_pixels_gen(world, rule)).to(self._device)
+                    repr_ = "gen8"
+                else:
+                    packed, _ = select_representation(world.shape[1])
+                    if packed:
+                        cells = words_from_numpy(pack_np(world),
+                                                 self._device)
+                    else:
+                        cells = torch.from_numpy(
+                            (world != 0).astype(np.uint8)).to(self._device)
+                    repr_ = "packed" if packed else "u8"
+        with self._state_lock:
+            if self._running:
+                # Fail BEFORE the count dispatch below: it would queue
+                # behind the in-flight chunks only to be discarded.
+                raise RuntimeError("cannot restore while running")
+        # One count dispatch at restore, so the poll path serves the
+        # restored state's exact pair from the first tick.
+        with self._on_device():
+            alive = int(_firing_row_counts(cells, repr_).sum(
+                dtype=torch.int64))
+        with self._state_lock:
+            if self._running:
+                raise RuntimeError("cannot restore while running")
+            self._cells = cells
+            self._repr = repr_
+            self._turn = turn
+            self._alive_pub = (alive, turn)
+        return turn
 
     # ------------------------------------------------------- chunk adapter
 

@@ -1,18 +1,22 @@
 """Headless CLI — the counterpart of `gol_tpu/main.py` without its live
-window and its observability, checkpoint and RLE options.
+window and its observability and RLE options.
 
     python -m gol_tpu_torch -w 512 -h 512 --turns 100 --headless
     python -m gol_tpu_torch -w 64 -h 64 --turns 100 --headless --device cpu
     python -m gol_tpu_torch -w 64 -h 64 --turns 100 --headless --rule /2/3 \
         --device cpu
+    python -m gol_tpu_torch -w 512 -h 512 --turns 100000 --headless \
+        --checkpoint ckpt --ckpt-every 4096
+    python -m gol_tpu_torch --turns 100000 --headless --resume ckpt
 
 Events print as `Completed Turns <n>  <event>`; on a terminal the keys
-s/p/q/k go to the run.
+s/p/q/k/c go to the run ('c' writes a manifest checkpoint).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import queue
 import sys
 import threading
@@ -42,12 +46,42 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "Wars); default Conway")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="device of the engine (default cuda)")
+    ap.add_argument("--checkpoint", metavar="DIR", default="",
+                    help="checkpoint directory (sets GOL_CKPT): the "
+                         "engine writes gol-ckpt/1 manifest checkpoints "
+                         "here when --ckpt-every is set, plus the legacy "
+                         "time-based autosave; 'c' writes one on demand")
+    ap.add_argument("--ckpt-every", metavar="TURNS", type=int, default=0,
+                    help="manifest checkpoint cadence in TURNS (sets "
+                         "GOL_CKPT_EVERY_TURNS; 0 = off; requires "
+                         "--checkpoint)")
+    ap.add_argument("--ckpt-keep", metavar="N", type=int, default=0,
+                    help="retention: keep the newest N checkpoints "
+                         "(sets GOL_CKPT_KEEP; default 3)")
+    ap.add_argument("--journal", metavar="DIR", default="",
+                    help="journal the run into a hash-chained "
+                         "gol-journal/1 log under DIR (sets GOL_JOURNAL)")
+    ap.add_argument("--journal-digest-every", metavar="TURNS", type=int,
+                    default=0,
+                    help="journal a board digest every TURNS (sets "
+                         "GOL_JOURNAL_DIGEST_EVERY; default 512)")
+    ap.add_argument("--resume", metavar="DIR|MANIFEST|NPZ", nargs="?",
+                    const="", default=None,
+                    help="resume from a checkpoint of either package "
+                         "before running: a directory (newest durable "
+                         "manifest wins), a ckpt-*.json manifest (payload "
+                         "SHA-256 verified; its rule and board size are "
+                         "adopted), or a legacy .npz; bare --resume uses "
+                         "--checkpoint / GOL_CKPT. With SER set the "
+                         "SERVER adopts the checkpoint from its own "
+                         "configured directory (RestoreRun)")
     return ap.parse_args(argv)
 
 
 def _stdin_key_reader(key_presses: "queue.Queue",
                       stop: threading.Event) -> None:
-    """Forward s/p/q/k keystrokes; select() lets the thread see `stop`."""
+    """Forward s/p/q/k/c keystrokes; select() lets the thread see
+    `stop`."""
     import select
 
     while not stop.is_set():
@@ -60,7 +94,7 @@ def _stdin_key_reader(key_presses: "queue.Queue",
         ch = sys.stdin.read(1)
         if not ch:
             return
-        if ch in ("s", "p", "q", "k"):
+        if ch in ("s", "p", "q", "k", "c"):
             key_presses.put(ch)
         if ch in ("q", "k"):
             return
@@ -95,6 +129,34 @@ def _print_events(events_q: "queue.Queue",
             termios.tcsetattr(sys.stdin.fileno(), termios.TCSADRAIN, old)
 
 
+def _resume(args, rule):
+    """Restore the checkpoint `args.resume` names into the engine the
+    run will use; returns (rule, restored turn). A manifest's rule and
+    board size are adopted unless given. With SER set the server adopts
+    it from its own configured directory."""
+    from gol_tpu_torch import ckpt as ckpt_mod
+    from gol_tpu_torch.distributor import _resolve_engine
+    from gol_tpu_torch.models import parse_rule
+
+    if os.environ.get("SER"):
+        return rule, _resolve_engine(rule).restore_run(args.resume)
+    ref = args.resume or os.environ.get(ckpt_mod.CKPT_DIR_ENV, "")
+    if not ref:
+        raise ValueError("--resume needs DIR|MANIFEST|NPZ (or "
+                         "--checkpoint / GOL_CKPT to name the directory)")
+    kind, target = ckpt_mod.resolve(ref)
+    if kind == "manifest":
+        m = ckpt_mod.read_manifest(target)
+        if rule is None:
+            rule = parse_rule(m["rule"])
+        if m.get("board"):
+            # The out/WxHxT.pgm name describes the RESTORED board.
+            args.width = int(m["board"]["w"])
+            args.height = int(m["board"]["h"])
+    eng = _resolve_engine(rule, args.device)
+    return rule, eng.restore_run(target)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     rule = None
@@ -102,6 +164,19 @@ def main(argv=None) -> int:
         from gol_tpu_torch.models import parse_rule
 
         rule = parse_rule(args.rule)  # fail fast on a malformed string
+    from gol_tpu_torch import ckpt as ckpt_mod
+
+    ckpt_mod.export_flags(args)
+    if args.resume is not None:
+        try:
+            rule, turn = _resume(args, rule)
+        except (OSError, ValueError, RuntimeError) as e:
+            print(f"gol_tpu_torch: {e}", file=sys.stderr)
+            return 2
+        # Reattach to the restored engine-held state — the CONT=yes
+        # contract — instead of seeding a fresh board from images/.
+        os.environ["CONT"] = "yes"
+        print(f"resuming at turn {turn}", flush=True)
     p = Params(threads=args.threads, image_width=args.width,
                image_height=args.height, turns=args.turns)
     events_q: "queue.Queue" = queue.Queue(maxsize=10000)

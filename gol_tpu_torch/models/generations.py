@@ -25,8 +25,9 @@ shape is `parallel/halo.planes_run_kind`. Planes are the int32 carrier of
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -136,21 +137,34 @@ def from_pixels_gen(pixels: np.ndarray,
 # ------------------------------------------------------------ gen8 path
 
 
+@functools.lru_cache(maxsize=64)
+def rule_luts(rule: GenerationsRule,
+              device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(born_lut, surv_lut): (9,) uint8 tables on `device`, 1 where a
+    neighbour count births (survives). Built once per rule and device:
+    a table built per turn is a copy from pageable host memory, which
+    blocks the host behind the kernels already queued."""
+    born = [1 if i in rule.born else 0 for i in range(9)]
+    surv = [1 if i in rule.survive else 0 for i in range(9)]
+    return (torch.tensor(born, dtype=torch.uint8, device=device),
+            torch.tensor(surv, dtype=torch.uint8, device=device))
+
+
 def apply_generations_rule(state: torch.Tensor, n: torch.Tensor,
-                           rule: GenerationsRule) -> torch.Tensor:
+                           rule: GenerationsRule,
+                           luts: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None
+                           ) -> torch.Tensor:
     """The transition given the 8-neighbour ALIVE counts `n`: dead -> 1
     if born; alive -> 1 if surviving else the first dying state (death
-    for C == 2); dying -> next state, death after C-1.
+    for C == 2); dying -> next state, death after C-1. `luts` are
+    `rule_luts(rule, state.device)`, looked up when not given.
 
     Equality form in uint8: `state + 1 < c` would break at c == 256
     (uint8 255 + 1 wraps to 0); valid states are < c, so `state + 1` in
     the branch taken never wraps."""
-    dev = state.device
-    born_lut = torch.tensor([1 if i in rule.born else 0 for i in range(9)],
-                            dtype=torch.uint8, device=dev)
-    surv_lut = torch.tensor(
-        [1 if i in rule.survive else 0 for i in range(9)],
-        dtype=torch.uint8, device=dev)
+    born_lut, surv_lut = (luts if luts is not None
+                          else rule_luts(rule, state.device))
     c = rule.states
     idx = n.long()  # a uint8 index would be read as a mask
     zero = torch.zeros_like(state)
@@ -167,21 +181,23 @@ def state_alive_count(state: torch.Tensor) -> int:
     return int(rows.sum(dtype=torch.int64))
 
 
-def _step(state: torch.Tensor, rule: GenerationsRule) -> torch.Tensor:
+def _step(state: torch.Tensor, rule: GenerationsRule,
+          luts: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
     """One torus turn of an (H, W) uint8 state board."""
     alive = (state == 1).to(torch.uint8)
     vert = (torch.roll(alive, 1, dims=0) + alive
             + torch.roll(alive, -1, dims=0))
     n = (vert + torch.roll(vert, 1, dims=1) + torch.roll(vert, -1, dims=1)
          - alive)
-    return apply_generations_rule(state, n, rule)
+    return apply_generations_rule(state, n, rule, luts)
 
 
 def run_turns(state: torch.Tensor, num_turns: int,
               rule: GenerationsRule) -> torch.Tensor:
     """Advance a uint8 state board `num_turns` turns."""
+    luts = rule_luts(rule, state.device)
     for _ in range(num_turns):
-        state = _step(state, rule)
+        state = _step(state, rule, luts)
     return state
 
 

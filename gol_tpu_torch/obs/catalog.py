@@ -1,11 +1,12 @@
 """The metric families of the port's control plane, declared in one place
 against the shared default registry — the part of
 `gol_tpu/obs/catalog.py` that the wire codecs, the engine server, the
-remote engine client, the chaos hooks, the tracer, the flight recorder
-and the SLO estimators emit. Names, kinds, labels and pre-seeded
-children are the JAX catalogue's, so a `GetMetrics` reply reads the same
-from either package. The engine, fleet, checkpoint and fusion families
-wait for the modules that emit them (ROADMAP A7, A11, A13).
+remote engine client, the chaos hooks, the tracer, the flight recorder,
+the SLO estimators, the checkpoint writer and restore, and the run
+journal emit. Names, kinds, labels and pre-seeded children are the JAX
+catalogue's, so a `GetMetrics` reply reads the same from either package.
+The engine, fleet, checkpoint-pool and fusion families wait for the
+modules that emit them (ROADMAP A11, A13).
 """
 
 from __future__ import annotations
@@ -237,3 +238,65 @@ for _r in FLIGHT_REASONS:
 def flight_reason_label(reason: str) -> str:
     """Clamp arbitrary dump reasons to the declared set."""
     return reason if reason in FLIGHT_REASONS else "unknown"
+
+
+# ------------------------------------------------------------- checkpoints
+
+CKPT_WRITES = REGISTRY.counter(
+    "gol_ckpt_writes_total",
+    "Checkpoint write attempts by the ckpt writer, by outcome: ok "
+    "(durable manifest published), error (write pipeline raised), "
+    "dropped (snapshot superseded before the disk caught up).",
+    label_names=("status",))
+CKPT_WRITE_SECONDS = REGISTRY.histogram(
+    "gol_ckpt_write_seconds",
+    "Wall seconds per checkpoint write (device→host copy, serialize, "
+    "hash, atomic publish, retention) — on the background writer "
+    "thread, overlapping engine compute.")
+CKPT_BYTES = REGISTRY.counter(
+    "gol_ckpt_bytes_total",
+    "Payload bytes durably published by the ckpt writer.")
+CKPT_LAST_TURN = REGISTRY.gauge(
+    "gol_ckpt_last_turn",
+    "Turn of the most recent durable checkpoint (manifest published).")
+CKPT_RESTORES = REGISTRY.counter(
+    "gol_ckpt_restores_total",
+    "Checkpoint restore attempts, by outcome: ok, rejected (integrity "
+    "verification refused the checkpoint), error.",
+    label_names=("status",))
+
+for _s in ("ok", "error", "dropped"):
+    CKPT_WRITES.labels(status=_s)
+for _s in ("ok", "rejected", "error"):
+    CKPT_RESTORES.labels(status=_s)
+
+# ------------------------------------------------------------- run journal
+
+# Event-sourced run journal (gol_tpu_torch/journal.py): the gol-journal/1
+# hash-chained black box. Kinds mirror journal.KINDS — a closed set so
+# an arbitrary append can't mint unbounded label values.
+JOURNAL_KINDS = ("create", "rule", "reseed", "pause", "resume", "fuse",
+                 "link", "restore", "digest", "migrate_out", "usage",
+                 "end", "other")
+JOURNAL_EVENTS = REGISTRY.counter(
+    "gol_journal_events_total",
+    "gol-journal/1 records appended to per-run hash-chained journals "
+    "(GOL_JOURNAL), by event kind.",
+    label_names=("kind",))
+for _k in JOURNAL_KINDS:
+    JOURNAL_EVENTS.labels(kind=_k)
+JOURNAL_BYTES = REGISTRY.counter(
+    "gol_journal_bytes_total",
+    "Bytes appended to journal files, newline included — the black "
+    "box's disk footprint rate.")
+JOURNAL_WALL_US = REGISTRY.counter(
+    "gol_journal_wall_us_total",
+    "Host wall microseconds spent inside the journal hot path — "
+    "canonical board digests, inline seed encodes, and hash-chained "
+    "appends.")
+JOURNAL_DIGESTS = REGISTRY.counter(
+    "gol_journal_digests_total",
+    "Board-digest events journaled (engine chunk-boundary cadence via "
+    "GOL_JOURNAL_DIGEST_EVERY plus every checkpoint written while "
+    "journaling is on) — each one is a mid-history bit-identity "
+    "assertion a replay can check.")

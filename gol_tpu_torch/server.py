@@ -6,14 +6,18 @@ controller drives a JAX server).
 Wraps an `Engine` behind the control protocol
 (`Server/gol/distributor.go:54-83` — ServerDistributor / Alivecount /
 GetWorld / CFput / KillProg, plus Ping, Stats, GetMetrics, GetView,
-DrainFlags and AbortRun) on a TCP socket (default :8080, the reference
-broker port, `Server:235`). Long-running: survives controller detach and
-serves `GetWorld` for `CONT=yes` reattach, as the Go broker holds
-`world`/`turn` in globals. The methods of later slices (checkpoints,
-subscriptions, fleet runs, migration, sparse windows) answer with an
-error naming their ROADMAP item; the connection is served as usual.
+DrainFlags, AbortRun, Checkpoint, RestoreRun and GetJournal) on a TCP
+socket (default :8080, the reference broker port, `Server:235`).
+Long-running: survives controller detach and serves `GetWorld` for
+`CONT=yes` reattach, as the Go broker holds `world`/`turn` in globals.
+With `--checkpoint DIR` a SIGTERM drains, writes a manifest checkpoint
+and the legacy `WxH.npz`, and exits 0; `--resume` restores before
+serving. The methods of later slices (subscriptions, fleet runs,
+migration, sparse windows) answer with an error naming their ROADMAP
+item; the connection is served as usual.
 
 Run:  python -m gol_tpu_torch.server [--port 8080] [--device cpu]
+          [--checkpoint DIR [--ckpt-every TURNS]] [--resume DIR|MANIFEST|NPZ]
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import threading
 import time
 from typing import Optional
 
+from gol_tpu_torch import ckpt as ckpt_mod
+from gol_tpu_torch import journal as journal_mod
 from gol_tpu_torch import wire
 from gol_tpu_torch.engine import Engine, EngineBusy, EngineKilled
 from gol_tpu_torch.obs import catalog as obs
@@ -61,7 +67,6 @@ DRAIN_DEADLINE_DEFAULT = 5.0
 # Methods of the protocol that later slices of the port bring, and the
 # ROADMAP item each waits for.
 NOT_YET_PORTED = {
-    "Checkpoint": "A7", "RestoreRun": "A7", "GetJournal": "A7",
     "Subscribe": "A13", "GetTelemetry": "A13", "GetAudit": "A13",
     "GetUsage": "A13", "Profile": "A13",
     "CreateRun": "A11", "ListRuns": "A11", "AttachRun": "A11",
@@ -409,6 +414,32 @@ class EngineServer:
                 eng.drain_flags(
                     pause_only=bool(header.get("pause_only", False)))
                 self._reply(conn, {"ok": True})
+            elif method == "Checkpoint":
+                # A durable snapshot into the server's CONFIGURED
+                # directory (GOL_CKPT): the client never chooses write
+                # paths on this host.
+                path, turn = eng.checkpoint_now(trigger="remote")
+                self._reply(conn, {"ok": True, "turn": turn,
+                                   "manifest": os.path.basename(path)})
+            elif method == "RestoreRun":
+                turn = self._restore_run(
+                    str(header.get("path", "")),
+                    reshard=bool(header.get("reshard", False)))
+                self._reply(conn, {"ok": True, "turn": turn})
+            elif method == "GetJournal":
+                # The hash-chained run journal's tail, by run_id; a
+                # request that names none reads this process's run.
+                rid = str(header.get("run_id") or obs_flight.RUN_ID)
+                jw = journal_mod.get(rid)
+                if jw is None:
+                    raise KeyError(f"no journal for run {rid!r}")
+                since = header.get("since_seq")
+                self._reply(conn, {
+                    "ok": True, "head": jw.head, "seq": jw.last_seq,
+                    "path": journal_mod.journal_path(rid),
+                    "records": jw.tail(
+                        int(since if since is not None else -1),
+                        int(header.get("limit", 100) or 100))})
             elif method == "KillProg":
                 eng.kill_prog()
                 self._reply(conn, {"ok": True})
@@ -436,8 +467,35 @@ class EngineServer:
             self._reply(conn, {"ok": False, "error": f"busy: {e}"})
         except Exception as e:  # surface engine errors to the client
             obs.SERVER_ERRORS.labels(method=label).inc()
-            self._reply(conn, {"ok": False,
-                               "error": f"{type(e).__name__}: {e}"})
+            if getattr(e, "rpc_error_kind", None) == "geometry":
+                # A restore whose checkpoint geometry does not match
+                # (ckpt/reshard.py): the client raises GeometryRefused;
+                # resend with reshard=True to repack.
+                self._reply(conn, {"ok": False,
+                                   "error": f"geometry: {e}"})
+            else:
+                self._reply(conn, {"ok": False,
+                                   "error": f"{type(e).__name__}: {e}"})
+
+    def _restore_run(self, req: str, reshard: bool = False) -> int:
+        """RestoreRun target resolution: the request names a checkpoint
+        WITHIN the server's configured directory (a relative name, or an
+        absolute path that resolves inside it) — or nothing, meaning the
+        newest durable checkpoint there. A remote peer must not be able
+        to point the engine at arbitrary host files."""
+        base = os.environ.get(ckpt_mod.CKPT_DIR_ENV, "")
+        if not base:
+            raise RuntimeError(
+                "checkpointing not configured: set GOL_CKPT or pass "
+                "--checkpoint DIR")
+        target = os.path.join(base, req) if req else base
+        real_base = os.path.realpath(base)
+        real_target = os.path.realpath(target)
+        if (real_target != real_base
+                and not real_target.startswith(real_base + os.sep)):
+            raise PermissionError(
+                f"restore path {req!r} escapes the checkpoint directory")
+        return self.engine.restore_run(target, reshard=reshard)
 
 
 def _final_flush(reason: str) -> None:
@@ -451,6 +509,25 @@ def _final_flush(reason: str) -> None:
 def _exit_after_flush() -> None:
     _final_flush("manual")
     os._exit(0)
+
+
+def _sigterm_checkpoint(engine, ckpt_dir: str) -> None:
+    """SIGTERM's checkpoints: a durable manifest first (verified,
+    retained, resumable by --resume DIR), then the legacy single-file
+    autosave. A failure is logged; the server still exits 0."""
+    try:
+        path, turn = engine.checkpoint_now(trigger="sigterm")
+        obs_log("server.sigterm_checkpoint", turn=turn, path=path)
+    except Exception as e:
+        obs_exception("server.sigterm_checkpoint_failed", e)
+    try:
+        board = engine.stats()["board"]
+        if board is not None:
+            h, w = board
+            os.makedirs(ckpt_dir, exist_ok=True)
+            engine.save_checkpoint(os.path.join(ckpt_dir, f"{w}x{h}.npz"))
+    except Exception as e:
+        obs_exception("server.sigterm_checkpoint_failed", e)
 
 
 def main(argv=None) -> int:
@@ -473,9 +550,46 @@ def main(argv=None) -> int:
                     help="device of the engine (default cuda; without a "
                          "CUDA device the server exits unless --device "
                          "cpu is given)")
+    ap.add_argument("--resume", metavar="DIR|MANIFEST|NPZ", default="",
+                    help="restore (board, turn) before serving: a "
+                         "checkpoint directory (newest durable manifest "
+                         "wins), a ckpt-*.json manifest (payload SHA-256 "
+                         "verified), or a legacy .npz autosave — of "
+                         "either package")
+    ap.add_argument("--reshard", action="store_true",
+                    help="allow --resume to adopt a checkpoint whose "
+                         "recorded geometry (mesh device count, sparse "
+                         "window) differs from this engine: the payload "
+                         "is repacked host-side, bit-identically; "
+                         "without this flag a mismatched resume is "
+                         "refused")
+    ap.add_argument("--checkpoint", metavar="DIR", default="",
+                    help="checkpoint directory (sets GOL_CKPT): runs "
+                         "write gol-ckpt/1 manifest checkpoints here "
+                         "when --ckpt-every is set, plus the legacy "
+                         "time-based autosave; SIGTERM checkpoints here "
+                         "before the server exits")
+    ap.add_argument("--ckpt-every", metavar="TURNS", type=int, default=0,
+                    help="manifest checkpoint cadence in TURNS (sets "
+                         "GOL_CKPT_EVERY_TURNS; 0 = off; requires "
+                         "--checkpoint)")
+    ap.add_argument("--ckpt-keep", metavar="N", type=int, default=0,
+                    help="retention: keep the newest N checkpoints "
+                         "(sets GOL_CKPT_KEEP; default 3; "
+                         "GOL_CKPT_KEEP_EVERY additionally pins every "
+                         "K-th turn)")
+    ap.add_argument("--journal", metavar="DIR", default="",
+                    help="run journal root (sets GOL_JOURNAL): each run "
+                         "appends a hash-chained gol-journal/1 JSONL log "
+                         "replayable by tools/replay_audit.py")
+    ap.add_argument("--journal-digest-every", metavar="TURNS", type=int,
+                    default=0,
+                    help="board-digest journal events every TURNS (sets "
+                         "GOL_JOURNAL_DIGEST_EVERY; default 512)")
     args = ap.parse_args(argv)
     if args.trace_spans:
         os.environ[trace.TRACE_SPANS_ENV] = args.trace_spans
+    ckpt_mod.export_flags(args)
     trace.set_process_name("gol-server")
     from gol_tpu_torch.models import parse_rule
 
@@ -484,12 +598,23 @@ def main(argv=None) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"gol_tpu_torch.server: {e}", file=sys.stderr, flush=True)
         return 1
+    if args.resume:
+        try:
+            turn = eng.restore_run(args.resume, reshard=args.reshard)
+        except (OSError, ValueError) as e:
+            print(f"gol_tpu_torch.server: --resume {args.resume}: {e}",
+                  file=sys.stderr, flush=True)
+            return 1
+        print(f"restored checkpoint {args.resume} at turn {turn}"
+              + (" (resharded)" if args.reshard else ""), flush=True)
     srv = EngineServer(port=args.port, host=args.host, engine=eng)
 
     def _on_term(signo, frame):
         # Graceful drain: stop accepting first, give in-flight handlers a
         # bounded window to finish (their replies are the point of
-        # draining), then exit 0.
+        # draining), then — with GOL_CKPT set — checkpoint, and exit 0:
+        # an orderly stop loses no turn, and a replacement server
+        # `--resume DIR` picks up where this one ended.
         t_drain = time.monotonic()
         n0 = srv.inflight()
         deadline = env_float(DRAIN_DEADLINE_ENV, DRAIN_DEADLINE_DEFAULT)
@@ -498,6 +623,9 @@ def main(argv=None) -> int:
                 deadline_s=deadline)
         srv.shutdown()
         left = srv.wait_drained(deadline)
+        ckpt_dir = os.environ.get(ckpt_mod.CKPT_DIR_ENV, "")
+        if ckpt_dir:
+            _sigterm_checkpoint(srv.engine, ckpt_dir)
         dur = time.monotonic() - t_drain
         obs.SERVER_DRAIN_SECONDS.set(dur)
         obs_log("server.drain", level="warning", inflight_start=n0,
