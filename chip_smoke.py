@@ -21,7 +21,11 @@ Phases (each raises on failure; any failure exits non-zero):
    timed head row, and B3's sweep sequence; the two-plane kernels for
    both Generations families (gen3, gen4) and two rules each: K4 at every
    N = 1..16 on 512², 64², 96 x 1 and 33 x 1, K5 at every tile height R
-   on 1024², 4096², 16384² and odd boards;
+   on 1024², 4096², 16384² and odd boards; K7 (the Moore-box
+   Larger-than-Life turn) on 64², 512², 4096², 1000 x 777 and 16² at
+   r = 1, 2, 5, 8, 16, 32, 128 (and 16² at r = 10: the box wraps the
+   torus more than once), every tile on 1000 x 777, and r = 128 on a
+   nearly full 300² board (counts past 65,535);
 4. the main path through `gol_tpu_torch.run` on the default (CUDA)
    engine: the 16², 64² and 512² goldens x {0, 1, 100} against
    check/images (16² is the uint8 roll-sum path, its width not a
@@ -43,6 +47,12 @@ Phases (each raises on failure; any failure exits non-zero):
    against the CSV and 5120² x 1000 against the in-process run's PGM,
    and a second server (rule /2/3) through Brian's Brain 512² x 100
    against the gen8 plain path.
+   4f. the conv families: Bosco (`R5,C0,M1,S33..57,B34..45,NM`) through
+   `run` at 512² x 100 (K7) against the plain path; then, off the main
+   path, the FFT tier's counts at 4096² for r = 8, 16, 32 against
+   `box_counts_np`, and the JAX bench's two Lenia legs (Orbium 1024² on
+   the FFT tier, r = 4 512² on the conv tier; 8 turns from seed 42)
+   within 1e-4 of the float64 oracle, whose digests are the pinned ones.
    Each path runs with the launch counters at 0, read just after: every
    kernel (and family) it runs must have launched. The paths of 4-4c run
    under `torch.profiler`, which sums their device time by kernel, all
@@ -73,7 +83,15 @@ Phases (each raises on failure; any failure exits non-zero):
    512², K5 at every R on 4096² and 16384²), B3 `fused_banded_run_turns`
    at pinned depths 16, 32 and 64, and engine turns/s and the largest
    publication gap (life-like, unfused and at GOL_FUSE_K=64 at 65536²,
-   Brian's Brain at 512² and 4096², Star Wars at 512²).
+   Brian's Brain at 512² and 4096², Star Wars at 512²); K7 at 4096² for
+   r = 1, 2, 4, 5, 8, 16, 32 at every tile, beside its plain version, its
+   byte bound, the library call (F.conv2d of the wrap-padded float32
+   board with a ones kernel, TF32 off) and the FFT tier's turn; K7 at
+   every tile against the FFT tier at 512², 1024² and 4096² up to
+   r = 128 (the box crossover and the tile policy); the direct tier of a
+   circular neighbourhood (F.conv2d, TF32 off) against the FFT tier at
+   the same sizes (the other kinds' crossover); and engine turns/s for
+   Bosco at 512² and 4096² and Orbium at 1024².
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -1667,13 +1685,16 @@ def publication_gap(firsts: list) -> float:
 
 
 def log_row(name: str, r: dict) -> None:
-    geom = "".join(f" {k}={r[k]}" for k in ("ctas", "per", "rows", "fuse_k")
-                   if k in r)
+    geom = "".join(f" {k}={r[k]}" for k in ("ctas", "per", "rows", "fuse_k",
+                                            "radius", "tile") if k in r)
     plain = ("not measured" if r["plain_ms"] is None
              else f"{r['plain_ms']:.4f} ms")
+    library = (f", library {r['library_ms']:.4f} ms"
+               if r.get("library_ms") is not None else "")
     log(f"  {name} {r['shape']} turns={r['turns']}{geom}"
         f"{' (policy)' if r.get('policy') else ''}: {r['ms']:.4f} ms/launch, "
-        f"plain {plain}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        f"plain {plain}{library}, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})")
 
 
 def phase_timing(torch, dev, card: Card, launches: dict) -> list:
@@ -1932,6 +1953,343 @@ def timing_2p(torch, dev, card: Card) -> dict:
     return rows
 
 
+# --------------------------------------------- phase 4f: the conv families
+
+# K7's checked shapes and radii, and the board its timings use (the JAX
+# bench's CONV_N and CONV_RADII, with Bosco's r = 5, bench.py:841-842).
+LTL_SHAPES = ((64, 64), (512, 512), (4096, 4096), (1000, 777), (16, 16))
+LTL_RADII = (1, 2, 5, 8, 16, 32, 128)
+CONV_N = 4096
+CONV_RADII = (1, 2, 4, 5, 8, 16, 32)
+# Radii of the crossover sweep at 512², 1024² and 4096², K7 at every tile
+# against the FFT tier (the sizes the JAX CPU table's anchors used, and
+# beyond the bench's radii).
+CROSSOVER_RADII = (8, 16, 32, 64, 128)
+# Radii of the other kinds' sweep (a circular neighbourhood: F.conv2d
+# against the FFT tier); at 4096² up to GENERAL_MAX_4096 (conv2d takes 61
+# ms a turn there at r = 16).
+GENERAL_RADII = (2, 3, 4, 5, 6, 8, 12, 16, 32)
+GENERAL_MAX_4096 = 16
+# Turns one timed K7 call issues (`k7_launch_ms`).
+LTL_TIMED_TURNS = 10
+# The JAX bench's Lenia legs (bench.py:851-861): (board, rule, tier, the
+# float64 oracle's pinned digest after 8 turns from seed 42).
+LENIA_TURNS = 8
+LENIA_SEED = 42
+LENIA_TOL = 1e-4
+LENIA_LEGS = (
+    (1024, "lenia:r=13,mu=0.15,sigma=0.015,dt=0.1", "fft",
+     "21229d660f4917e215c5520a7d6f5730bbbd1a34690d669ac53e13067724d0ad"),
+    (512, "lenia:r=4,mu=0.15,sigma=0.015,dt=0.1", "conv",
+     "fdccc85216d957fd11e7046c014ef0c44b56fa8a429e47869c2b18ea8bec650c"),
+)
+
+
+def conv_rule(r: int):
+    """The JAX bench's swept LtL rule at radius r (`bench._conv_rule`):
+    Conway at r = 1, Bosco's fractions scaled to the box above it (Bosco
+    itself at r = 5)."""
+    from gol_tpu_torch.models.largerthanlife import (
+        CONWAY_LTL, LargerThanLifeRule)
+
+    if r == 1:
+        return CONWAY_LTL
+    area = (2 * r + 1) ** 2
+    return LargerThanLifeRule(
+        f"R{r},C0,M1,S{round(0.273 * area)}..{round(0.471 * area)},"
+        f"B{round(0.281 * area)}..{round(0.372 * area)},NM")
+
+
+def circle_rule(r: int):
+    """A circular-neighbourhood (NC) rule at radius r with `conv_rule`'s
+    fractions of its neighbourhood: a kind that the direct tier runs
+    through F.conv2d, not K7."""
+    from gol_tpu_torch.models.largerthanlife import LargerThanLifeRule
+    from gol_tpu_torch.ops.conv import neighborhood_kernel
+
+    area = int(neighborhood_kernel(r, "C", True).sum())
+    return LargerThanLifeRule(
+        f"R{r},C0,M1,S{round(0.273 * area)}..{round(0.471 * area)},"
+        f"B{round(0.281 * area)}..{round(0.372 * area)},NC")
+
+
+def soup(torch, h: int, w: int, seed: int, dev, p: float = 0.4):
+    """A {0,1} uint8 board with `p` alive on the card, from numpy."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.random((h, w)) < p).astype(np.uint8)).to(
+        dev)
+
+
+def phase_kernels_ltl(torch, dev) -> None:
+    """K7 against its plain version (the JAX tier's shift-add and interval
+    tests in torch ops) on the card, bit-exact, 3 turns a case: every
+    shape and radius of LTL_SHAPES x LTL_RADII with M0 and M1 rules
+    (16² at r = 10 and beyond wraps the box around the torus more than
+    once; r = 128 counts past 16 bits), every tile on an odd board, and
+    Bosco."""
+    from gol_tpu_torch.models.largerthanlife import (
+        BOSCO, LargerThanLifeRule)
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    log("phase 3: K7 (ltl_box_run_turns) against its plain version "
+        "(bit-exact)")
+    cases = [(h, w, r) for h, w in LTL_SHAPES for r in LTL_RADII]
+    cases.append((16, 16, 10))
+    for h, w, r in cases:
+        rule = conv_rule(r)
+        if r % 2:  # the same ranges with the cell left out (M0)
+            rule = LargerThanLifeRule(rule.rulestring.replace(",M1,", ",M0,"))
+        b = soup(torch, h, w, h * 31 + w + r, dev)
+        check_equal(torch, f"K7 {h}x{w} r={r} {rule.rulestring} 3 turns",
+                    cs.ltl_box_run_turns(b, 3, rule),
+                    cs.ltl_box_run_turns_plain(b, 3, rule),
+                    "ltl_box_run_turns")
+    b = soup(torch, 1000, 777, 5, dev)
+    for tile in cs.LTL_TILE_CHOICES:
+        check_equal(torch, f"K7 1000x777 Bosco tile={tile} 7 turns",
+                    cs.ltl_box_run_turns(b, 7, BOSCO, tile=tile),
+                    cs.ltl_box_run_turns_plain(b, 7, BOSCO),
+                    "ltl_box_run_turns")
+    dense = torch.ones((300, 300), dtype=torch.uint8, device=dev)
+    dense[torch.randint(0, 300, (40,)), torch.randint(0, 300, (40,))] = 0
+    rule = LargerThanLifeRule("R128,C0,M1,S66022..66049,B65900..66048,NM")
+    check_equal(torch, "K7 300x300 r=128 counts past 65,535, 2 turns",
+                cs.ltl_box_run_turns(dense, 2, rule),
+                cs.ltl_box_run_turns_plain(dense, 2, rule),
+                "ltl_box_run_turns")
+
+
+def phase_conv(torch, dev) -> None:
+    """The A12 main path: Bosco through `gol_tpu_torch.run` on a CUDA
+    engine (512² x 100, K7), against the plain path on the card."""
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.engine import Engine
+    from gol_tpu_torch.io.pgm import read_pgm, write_pgm
+    from gol_tpu_torch.models.largerthanlife import BOSCO
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    log("phase 4f: Larger-than-Life (Bosco) through gol_tpu_torch.run")
+    with tempfile.TemporaryDirectory() as tmp:
+        images, out = os.path.join(tmp, "images"), os.path.join(tmp, "out")
+        rng = np.random.default_rng(512)
+        board = ((rng.random((512, 512)) < 0.4) * 255).astype(np.uint8)
+        write_pgm(os.path.join(images, "512x512.pgm"), board)
+        eng = Engine(rule=BOSCO)
+        drive(Params(image_width=512, image_height=512, turns=100), images,
+              out, engine=eng)
+        if eng._repr != "u8":
+            raise AssertionError(f"Bosco ran as {eng._repr}")
+        got = read_pgm(os.path.join(out, "512x512x100.pgm"))
+        plain = cs.ltl_box_run_turns_plain(
+            torch.from_numpy((board != 0).astype(np.uint8)).to(dev), 100,
+            BOSCO).cpu().numpy()
+        if not np.array_equal(got, plain * 255):
+            raise AssertionError("Bosco 512² x 100 through run != plain")
+        log(f"  ok Bosco 512² x 100 through run: PGM equals the plain "
+            f"path ({int(plain.sum())} alive)")
+
+
+def phase_conv_checks(torch, dev) -> None:
+    """The FFT tier's counts at 4096² (cuFFT round-off under the mean
+    split) and the JAX bench's two Lenia legs on the card."""
+    from gol_tpu_torch.models import lenia as L
+    from gol_tpu_torch.ops import conv as C
+
+    log("phase 4f: FFT-tier counts and the Lenia legs on the card")
+    b = soup(torch, CONV_N, CONV_N, 11, dev, 0.35)
+    host = b.cpu().numpy()
+    for r in (8, 16, 32):
+        got = torch.round(C.fft_neighbor_sum(b, ("ltl", r, "M", True)))
+        want = C.box_counts_np(host, r, True)
+        bad = int((got.cpu().numpy().astype(np.int64) != want).sum())
+        if bad:
+            raise AssertionError(f"FFT tier {CONV_N}² r={r}: {bad} counts "
+                                 "differ from box_counts_np")
+        log(f"  ok FFT tier {CONV_N}² r={r}: every count equals "
+            "box_counts_np")
+    for n, rs, tier, pinned in LENIA_LEGS:
+        rule = L.LeniaRule(rs)
+        s0 = L.seed_board(n, n, LENIA_SEED, rule)
+        ref = s0
+        for _ in range(LENIA_TURNS):
+            ref = L.step_np(ref, rule)
+        digest = L.board_digest(ref)
+        if digest != pinned:
+            raise AssertionError(f"Lenia {n}²: oracle digest {digest} != "
+                                 f"pinned {pinned}")
+        got = C.run_turns(torch.from_numpy(s0).to(dev), LENIA_TURNS, rule,
+                          tier=tier).cpu().numpy()
+        err = float(np.max(np.abs(got.astype(np.float64) - ref)))
+        if not err < LENIA_TOL:
+            raise AssertionError(f"Lenia {n}² {tier}: max|card - oracle| "
+                                 f"= {err:.3g} >= {LENIA_TOL}")
+        log(f"  ok Lenia {n}² r={rule.radius} {tier} x {LENIA_TURNS}: max "
+            f"|card - float64 oracle| {err:.3g} < {LENIA_TOL}; oracle "
+            "digest equals the pinned one")
+
+
+def k7_launch_ms(torch, cells, rule, tile=None) -> float:
+    """K7's device ms a launch: LTL_TIMED_TURNS turns issued by one C
+    call (as the engine issues a chunk), so the wrapper's host work
+    between Python calls stays out of the figure."""
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    return time_ms(torch, lambda: cs.ltl_box_run_turns(
+        cells, LTL_TIMED_TURNS, rule, tile=tile), 5) / LTL_TIMED_TURNS
+
+
+def timing_ltl(torch, dev, card: Card) -> tuple:
+    """K7 per launch (one turn, `k7_launch_ms`) at 4096² for CONV_RADII at
+    every tile that fits, beside its plain version, its bound, the library
+    call (F.conv2d of the wrap-padded float32 board with a (2r+1)² ones
+    kernel, TF32 off) and the FFT tier's turn (`_ltl_step(..., "fft")`);
+    then K7 at every tile against the FFT tier at 512², 1024² and 4096²
+    up to r = 128, a circular neighbourhood's direct tier against the FFT
+    tier, and engine turns/s for Bosco at 512² and 4096² and Orbium at
+    1024². Returns (K7 rows, FFT rows, general rows, engine rows)."""
+    from gol_tpu_torch.models.largerthanlife import BOSCO
+    from gol_tpu_torch.models.lenia import ORBIUM, seed_board
+    from gol_tpu_torch.ops import conv as C, cuda_stencil as cs
+
+    n = CONV_N
+    b = soup(torch, n, n, 13, dev, 0.35)
+    k7, fft = [], []
+    for r in CONV_RADII:
+        rule = conv_rule(r)
+        bound, by = card.bound(2 * n * n, cs.LTL_OPS_PER_CELL * n * n)
+        ones = torch.ones((1, 1, 2 * r + 1, 2 * r + 1), device=dev)
+        idx = (torch.arange(-r, n + r, device=dev) % n)
+        padded = b.float().index_select(0, idx).index_select(1, idx)[None,
+                                                                     None]
+
+        def library():
+            with torch.backends.cudnn.flags(
+                    enabled=True, benchmark=False, deterministic=False,
+                    allow_tf32=False):
+                return torch.nn.functional.conv2d(padded, ones)
+
+        lib_ms = time_ms(torch, library, 5)
+        plain = time_ms(torch, lambda: cs.ltl_box_run_turns_plain(
+            b, 1, rule), 1)
+        policy = cs.ltl_tile(n, n, r)
+        for tile in cs.LTL_TILE_CHOICES:
+            if cs.ltl_smem_bytes(tile, r, cs.ltl_lut_words(r)) > cs.SMEM_BYTES:
+                continue
+            ms = k7_launch_ms(torch, b, rule, tile)
+            row = dict(shape=f"{n}x{n}", turns=1, radius=r, tile=tile,
+                       policy=tile == policy, ms=ms,
+                       plain_ms=plain if tile == policy else None,
+                       library_ms=lib_ms if tile == policy else None,
+                       bound_ms=bound, bound_by=by)
+            k7.append(row)
+            log_row("ltl_box_run_turns", row)
+        f_ms = time_ms(torch, lambda: C._ltl_step(b, rule, "fft"), 5)
+        fft.append(dict(shape=f"{n}x{n}", radius=r, fft_ms=f_ms,
+                        conv_ms=[x["ms"] for x in k7
+                                 if x["radius"] == r and x["policy"]][0],
+                        library_ms=lib_ms))
+        log(f"  conv tier {n}² r={r}: K7 {fft[-1]['conv_ms']:.4f} ms, FFT "
+            f"tier {f_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms a turn")
+        del padded, ones
+    del b
+    torch.cuda.empty_cache()
+    # The box crossover beyond the bench's radii and on smaller boards, and
+    # the tile policy: K7 at every tile that fits against the FFT tier's
+    # turn.
+    for size in (512, 1024, CONV_N):
+        b = soup(torch, size, size, size, dev, 0.35)
+        radii = (CROSSOVER_RADII if size == CONV_N
+                 else sorted(set(CONV_RADII) | set(CROSSOVER_RADII)))
+        for r in radii:
+            if 2 * r + 1 > size or (size == CONV_N and r in CONV_RADII):
+                continue
+            rule = conv_rule(r)
+            policy = cs.ltl_tile(size, size, r)
+            tiles = {t: k7_launch_ms(torch, b, rule, t)
+                     for t in cs.LTL_TILE_CHOICES
+                     if cs.ltl_smem_bytes(t, r, cs.ltl_lut_words(r))
+                     <= cs.SMEM_BYTES}
+            f_ms = time_ms(torch, lambda: C._ltl_step(b, rule, "fft"), 5)
+            fft.append(dict(shape=f"{size}x{size}", radius=r, fft_ms=f_ms,
+                            conv_ms=tiles[policy], tile=policy,
+                            tile_ms=tiles, library_ms=None))
+            log(f"  conv tier {size}² r={r}: K7 {tiles[policy]:.4f} ms "
+                f"(policy tile {policy}; "
+                + ", ".join(f"tile {t} {ms:.4f}" for t, ms in tiles.items())
+                + f"), FFT tier {f_ms:.4f} ms a turn")
+        del b
+    torch.cuda.empty_cache()
+    # The other kinds' crossover: the direct tier of a circular
+    # neighbourhood (F.conv2d of the wrap-padded board, TF32 off, then the
+    # rule) against the FFT tier's turn.
+    general = []
+    for size in (512, 1024, CONV_N):
+        b = soup(torch, size, size, size + 1, dev, 0.35)
+        for r in GENERAL_RADII:
+            if 2 * r + 1 > size or (size == CONV_N and r > GENERAL_MAX_4096):
+                continue
+            rule = circle_rule(r)
+            c_ms = time_ms(torch, lambda: C._ltl_step(b, rule, "conv"), 3)
+            f_ms = time_ms(torch, lambda: C._ltl_step(b, rule, "fft"), 5)
+            general.append(dict(shape=f"{size}x{size}", radius=r, kind="C",
+                                conv2d_ms=c_ms, fft_ms=f_ms))
+            log(f"  general tier {size}² r={r} NC: F.conv2d {c_ms:.4f} ms, "
+                f"FFT tier {f_ms:.4f} ms a turn")
+        del b
+    torch.cuda.empty_cache()
+    # A chunk's turns as the engine issues them (one C call, k launches)
+    # beside one launch at a time, on Bosco at 512².
+    b = soup(torch, 512, 512, 7, dev)
+    one = time_ms(torch, lambda: cs.ltl_box_run_turns(b, 1, BOSCO), 200)
+    chunk = time_ms(torch, lambda: cs.ltl_box_run_turns(b, 1000, BOSCO),
+                    3) / 1000
+    log(f"  K7 Bosco 512²: {one:.4f} ms a launch alone, {chunk:.4f} ms a "
+        "turn in a 1000-turn chunk")
+    fft.append(dict(shape="512x512", radius=5, single_launch_ms=one,
+                    chunk_turn_ms=chunk))
+    del b
+    torch.cuda.empty_cache()
+    engine = []
+    for size, rule in ((512, BOSCO), (4096, BOSCO), (1024, ORBIUM)):
+        if rule is ORBIUM:
+            world = seed_board(size, size, 3, ORBIUM)
+        else:
+            world = ((np.random.default_rng(size).random((size, size))
+                      < 0.4) * 255).astype(np.uint8)
+        rate, poll_us, gap, chunk = engine_rate(torch, world, 3.0, rule)
+        engine.append(dict(size=size, rule=rule.rulestring, card=card.smi,
+                           turns_per_s=rate,
+                           cell_updates_per_s=rate * size * size,
+                           alive_count_us=poll_us, max_publish_gap_s=gap,
+                           chunk_turns=chunk))
+        log(f"  engine {rule.rulestring} {size}²: {rate:.1f} turns/s "
+            f"({rate * size * size:.4g} cell updates/s), alive_count() "
+            f"{poll_us:.2f} µs median, publications at most {gap:.3f} s "
+            f"apart, chunk {chunk} turns")
+    log("conv:" + json.dumps({"fft_vs_conv": fft, "general": general,
+                              "engine": engine}))
+    return k7, fft, general, engine
+
+
+def k7_record(card: Card, launches: dict, timing: tuple) -> dict:
+    """K7's entry of the kernels line (head row: Bosco's r = 5 at
+    4096²)."""
+    k7, fft, general, conv_engine = timing
+    head = [r for r in k7 if r["radius"] == 5 and r["policy"]][0]
+    return dict(
+        name="ltl_box_run_turns", route="cuda",
+        source="gol_tpu_torch/csrc/stencil.cu", family=None,
+        replaces="gol_tpu/ops/conv.py:218",
+        launches=launches["ltl_box_run_turns"],
+        bit_exact=MAX_ABS_ERR["ltl_box_run_turns"] == 0,
+        max_abs_err=MAX_ABS_ERR["ltl_box_run_turns"], card=card.smi,
+        shape=head["shape"], turns=1, ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        by_shape=k7, fft_tier=fft, general_tier=general,
+        engine=conv_engine)
+
+
 def main_path_launches(cs) -> dict:
     """Launches per kernel on the main path; the two-plane kernels per
     family, as `name/family`."""
@@ -1954,6 +2312,7 @@ KERNEL_SYMBOLS = (
     ("resident_kernel<Gen4,", "resident_run_turns2p/gen4"),
     ("tiled_kernel<Gen3,", "tiled_sweep2p/gen3"),
     ("tiled_kernel<Gen4,", "tiled_sweep2p/gen4"),
+    ("ltl_box_kernel", "ltl_box_run_turns"),
 )
 
 
@@ -2007,6 +2366,7 @@ def main() -> int:
     for name, loop in step_loops(rec["path"]).items():
         log(f"  sass stepping loop of {name}: {json.dumps(loop)}")
     phase_kernels(torch, dev)
+    phase_kernels_ltl(torch, dev)
     # Each path runs with the counters at 0 and is read just after; each
     # must have launched every kernel (and family) it runs. The profiler
     # sums the device time of the profiled paths by kernel.
@@ -2027,7 +2387,8 @@ def main() -> int:
                                    "resident_run_turns2p/gen3"), False),
             (phase_checkpoints, ("resident_run_turns", "tiled_sweep",
                                  "row_popcounts",
-                                 "tiled_sweep2p/gen3"), False)):
+                                 "tiled_sweep2p/gen3"), False),
+            (phase_conv, ("ltl_box_run_turns",), True)):
         cs.reset_launch_counts()
         with (profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) if profiled
@@ -2048,9 +2409,12 @@ def main() -> int:
         del prof
     log("  main-path device ms by kernel (torch.profiler): "
         + (json.dumps(device_ms) if device_ms else "not measured"))
+    phase_conv_checks(torch, dev)
     phase_control_plane_measure(torch, dev, card)
     phase_checkpoint_measure(torch, dev, card)
     kernels = phase_timing(torch, dev, card, launches)
+    kernels.append(k7_record(card, launches,
+                             timing_ltl(torch, dev, card)))
     for k in kernels:
         k["main_path_device_ms"] = device_ms.get(
             k["name"], 0.0 if device_ms else "not measured")

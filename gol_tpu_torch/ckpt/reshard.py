@@ -18,9 +18,8 @@ dense engine.
 
 Canonical decode covers every payload either package's writer emits:
 packed `words`, raw `world` pixels, Generations `gen_planes`/`gen_state`,
-and the JAX sparse engine's window words (embedded into its full torus
-with wraparound). The JAX package's continuous `float_state` has no port
-engine yet (ROADMAP A12) and is refused.
+Lenia's continuous `float_state`, and the JAX sparse engine's window
+words (embedded into its full torus with wraparound).
 """
 
 from __future__ import annotations
@@ -46,9 +45,10 @@ class GeometryMismatch(ValueError):
 class Canonical:
     """One checkpoint decoded to its exact host-side state.
 
-    kind is "life" ({0,1} board01), "gen" (Generations state bytes) or
-    "pixels" (raw u8 pixels whose interpretation the target engine's
-    rule decides — the legacy `world` member round-trips verbatim)."""
+    kind is "life" ({0,1} board01), "gen" (Generations state bytes),
+    "float" (continuous float32 state — Lenia) or "pixels" (raw u8
+    pixels whose interpretation the target engine's rule decides — the
+    legacy `world` member round-trips verbatim)."""
 
     __slots__ = ("kind", "board", "turn", "rule")
 
@@ -98,9 +98,11 @@ def load_canonical(payload_path: str) -> Canonical:
                 raise ValueError("gen_state must be 2-D")
             return Canonical("gen", state, turn, rule)
         if "float_state" in z:
-            raise GeometryMismatch(
-                f"{payload_path}: continuous float state has no engine in "
-                f"gol_tpu_torch yet (ROADMAP A12)")
+            state = np.ascontiguousarray(z["float_state"],
+                                         dtype=np.float32)
+            if state.ndim != 2:
+                raise ValueError("float_state must be 2-D")
+            return Canonical("float", state, turn, rule)
         if "words" in z:
             words = np.ascontiguousarray(z["words"], dtype=np.uint32)
             width = int(z["width"])
@@ -117,7 +119,8 @@ def load_canonical(payload_path: str) -> Canonical:
             return Canonical("pixels", world, turn, rule)
     raise ValueError(
         f"{payload_path}: no decodable payload member (expected one of "
-        f"sparse_words / gen_planes / gen_state / words / world)")
+        f"sparse_words / gen_planes / gen_state / float_state / words / "
+        f"world)")
 
 
 def board01_of(can: Canonical) -> np.ndarray:
@@ -126,6 +129,10 @@ def board01_of(can: Canonical) -> np.ndarray:
         return can.board
     if can.kind == "pixels":
         return (can.board != 0).astype(np.uint8)
+    if can.kind == "float":
+        raise GeometryMismatch(
+            "continuous float state has no binary-board form; restore "
+            "it onto an engine running its own (Lenia) rule")
     raise GeometryMismatch(
         "Generations state has no binary-board form; reshard it onto a "
         "Generations engine with the same rule family")
@@ -167,6 +174,10 @@ def write_repacked(can: Canonical, out_path: str) -> None:
         meta["rulestring"] = np.str_(can.rule)
     if can.kind == "gen":
         np.savez(out_path, gen_state=can.board, **meta)
+    elif can.kind == "float":
+        # The float board is placement-invariant state; the engine's own
+        # load_checkpoint enforces that its rule family can hold it.
+        np.savez(out_path, float_state=can.board, **meta)
     elif can.kind == "pixels":
         np.savez(out_path, world=can.board, **meta)
     else:

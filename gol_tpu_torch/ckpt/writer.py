@@ -47,6 +47,7 @@ import torch
 from gol_tpu_torch import wire
 from gol_tpu_torch.ckpt import manifest as mf
 from gol_tpu_torch.ckpt.retention import RetentionPolicy, dir_lock
+from gol_tpu_torch.models.lenia import ALIVE_THRESHOLD
 from gol_tpu_torch.obs import catalog as obs
 from gol_tpu_torch.obs import trace as obs_trace
 from gol_tpu_torch.obs.log import log as obs_log
@@ -152,6 +153,10 @@ def payload_arrays(host: np.ndarray, repr_: str) -> dict:
         return {"gen_planes": planes, "width": planes.shape[-1] * 32}
     if repr_ == "gen8":
         return {"gen_state": host}
+    if repr_ == "f32":
+        # Continuous boards (Lenia) checkpoint their exact float32 state;
+        # a pixel quantization would corrupt the dynamics.
+        return {"float_state": host.astype(np.float32, copy=False)}
     if repr_ == "u8":
         # {0,1} cells -> the legacy {0,255} pixel format.
         return {"world": (host * np.uint8(255)).astype(np.uint8)}
@@ -168,6 +173,8 @@ def _alive_count(host: np.ndarray, repr_: str) -> int:
                    .sum(dtype=np.int64))
     if repr_ == "gen8":
         return int((host == 1).sum(dtype=np.int64))
+    if repr_ == "f32":
+        return int((host > ALIVE_THRESHOLD).sum(dtype=np.int64))
     return int(host.sum(dtype=np.int64))
 
 

@@ -44,6 +44,11 @@
 //   tiled_kernel<Gen3|4, 1>  K5 <- the same two, for boards beyond K4's
 //                                  shared memory (the TPU ran them from
 //                                  VMEM)
+//   ltl_box_kernel           K7 <- one Larger-than-Life turn of a Moore-box
+//                                  rule on a uint8 torus: the box path of
+//                                  `_conv_sum` and `_ltl_step`, which the
+//                                  JAX package leaves to XLA
+//                                  (gol_tpu/ops/conv.py:218, :363)
 // The two-plane kernels spend per word and turn the 11-op count network,
 // two 9-mux trees (born and survive) and the transition (3 ops for Gen3;
 // 3 for Gen4 plus one b0 & ~b1 for each of the 3 words a row load reads)
@@ -686,6 +691,135 @@ row_popcounts_kernel(const uint32_t* __restrict__ in,
   if (lane == 0) out[warp] = s;
 }
 
+
+// K7: one Larger-than-Life turn of a Moore-box rule (R<r>,...,NM) on an
+// (h, w) uint8 {0,1} torus — what `_ltl_step(cells, rule, "conv")` of
+// gol_tpu/ops/conv.py computes for a box kernel: the (2r+1)^2 box count
+// (minus the cell itself unless M1), then the rule's survive or born test
+// on the count. The JAX package runs it as 4r+2 rolled float32 adds and
+// interval compares under XLA; the card's bound is one read and one write
+// of the board (2 bytes a cell at 3.35 TB/s), so the kernel keeps every
+// intermediate in shared memory:
+//   A. a tile of `tile` x `tile` outputs loads its window of (tile + 2r)^2
+//      cells, rows and columns taken modulo the board by true modulo, so a
+//      board narrower than 2r + 1 is counted with the rolls' multiplicity
+//      (each of the (2r+1)^2 offsets once, however often it wraps);
+//   B. horizontal sums of 2r+1 cells for every window row and output
+//      column, as running sums along segments of kLtlSeg columns (uint16:
+//      at most 257);
+//   C. vertical running sums of 2r+1 horizontal sums down segments of rows
+//      (int32: (2*128+1)^2 = 66,049 does not fit 16 bits), then the rule:
+//      one bit of a survive or born table of neighbourhood size + 1 bits
+//      (the rule's `luts()`), held in shared memory.
+// Thread mappings keep shared memory conflict-free: in B lanes take
+// consecutive window rows, whose pitch is an odd number of words; in C
+// lanes take consecutive columns, and their stores to the board are
+// coalesced. Each running sum starts by adding 2r+1 terms: a B segment
+// serves kLtlSeg outputs and a C segment tile*tile/kLtlThreads rows (64 at
+// tile 128, 4 at tile 32), so a cell costs about 2 + (2r+1)/32 adds in B,
+// on (1 + 2r/tile) window rows an output row, and 2 + (2r+1)*256/tile^2 in
+// C (1 more at tile 128 and r = 32, 64 more at tile 32 and r = 128). The
+// window's halo costs (1 + 2r/tile)^2 loads a cell.
+constexpr int kLtlThreads = 256;
+constexpr int kLtlSeg = 32;        // phase B outputs per running sum
+constexpr int kLtlMaxRadius = 128;  // LargerThanLifeRule's radius limit
+
+// Window pitch in bytes: >= tile + 2r and 4 (mod 8), an odd number of
+// words.
+__host__ __device__ constexpr int ltl_win_pitch(int tile, int r) {
+  return ((tile + 2 * r + 7) / 8) * 8 + 4;
+}
+
+// Horizontal-sum pitch in uint16 elements: tile + 2, an odd number of
+// words for the tiles taken (multiples of 4).
+__host__ __device__ constexpr int ltl_sum_pitch(int tile) { return tile + 2; }
+
+// Dynamic shared memory of one K7 block: both rule tables, the horizontal
+// sums and the window.
+__host__ __device__ constexpr int ltl_smem_bytes(int tile, int r,
+                                                 int lut_words) {
+  return 8 * lut_words + 2 * (tile + 2 * r) * ltl_sum_pitch(tile) +
+         (tile + 2 * r) * ltl_win_pitch(tile, r);
+}
+
+__device__ __forceinline__ int mod_floor(int a, int n) {
+  const int m = a % n;
+  return m < 0 ? m + n : m;
+}
+
+__global__ void __launch_bounds__(kLtlThreads)
+ltl_box_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+               int h, int w, int r, int middle, int tile,
+               const uint32_t* __restrict__ luts, int lut_words) {
+  extern __shared__ __align__(16) unsigned char ltl_smem[];
+  uint32_t* survive = reinterpret_cast<uint32_t*>(ltl_smem);
+  const uint32_t* born = survive + lut_words;
+  const int wp = ltl_win_pitch(tile, r);
+  const int hp = ltl_sum_pitch(tile);
+  uint16_t* sums = reinterpret_cast<uint16_t*>(survive + 2 * lut_words);
+  uint8_t* win = reinterpret_cast<uint8_t*>(sums + (tile + 2 * r) * hp);
+  const int y0 = blockIdx.y * tile, x0 = blockIdx.x * tile;
+  const int th = min(tile, h - y0), tw = min(tile, w - x0);
+  const int wh = th + 2 * r, ww = tw + 2 * r;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 2 * lut_words; i += kLtlThreads) survive[i] = luts[i];
+
+  // A: the window, one warp a row; a lane's column advances 32 modulo w.
+  const int lane = tid & 31;
+  const int step = 32 % w;
+  const int gx0 = mod_floor(x0 - r + lane, w);
+  for (int j = tid >> 5; j < wh; j += kLtlThreads / 32) {
+    const uint8_t* row = in + (size_t)mod_floor(y0 - r + j, h) * w;
+    uint8_t* dst = win + j * wp;
+    int gx = gx0;
+    for (int c = lane; c < ww; c += 32) {
+      dst[c] = row[gx];
+      gx += step;
+      if (gx >= w) gx -= w;
+    }
+  }
+  __syncthreads();
+
+  // B: sums[j][i] = win[j][i .. i + 2r].
+  const int segs = (tw + kLtlSeg - 1) / kLtlSeg;
+  for (int item = tid; item < wh * segs; item += kLtlThreads) {
+    const int j = item % wh;
+    const int i0 = (item / wh) * kLtlSeg;
+    const int i1 = min(i0 + kLtlSeg, tw);
+    const uint8_t* src = win + j * wp;
+    uint16_t* dst = sums + j * hp;
+    int s = 0;
+    for (int c = i0; c <= i0 + 2 * r; ++c) s += src[c];
+    dst[i0] = (uint16_t)s;
+    for (int i = i0 + 1; i < i1; ++i) {
+      s += src[i + 2 * r] - src[i - 1];
+      dst[i] = (uint16_t)s;
+    }
+  }
+  __syncthreads();
+
+  // C: count[y][i] = sums[y .. y + 2r][i], minus the cell unless M1, then
+  // the rule's bit; each thread walks `rows` rows of one column.
+  const int rows = tile * tile / kLtlThreads;
+  const int vsegs = (th + rows - 1) / rows;
+  for (int item = tid; item < tw * vsegs; item += kLtlThreads) {
+    const int i = item % tw;
+    const int ya = (item / tw) * rows;
+    const int yb = min(ya + rows, th);
+    int s = 0;
+    for (int j = ya; j <= ya + 2 * r; ++j) s += sums[j * hp + i];
+    for (int y = ya;;) {
+      const int me = win[(y + r) * wp + i + r];
+      const int n = s - (middle ? 0 : me);
+      const uint32_t* lut = me == 1 ? survive : born;
+      out[(size_t)(y0 + y) * w + x0 + i] =
+          (uint8_t)((lut[n >> 5] >> (n & 31)) & 1u);
+      if (++y >= yb) break;
+      s += sums[(y + 2 * r) * hp + i] - sums[(y - 1) * hp + i];
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -802,6 +936,46 @@ int gol_row_popcounts(const void* in, void* out, int h, int wp, int device,
                          (cudaStream_t)stream>>>(
       (const uint32_t*)in, (int32_t*)out, h, wp);
   return cudaGetLastError();
+}
+
+// K7's dynamic shared memory for a tile, radius and table size; callers
+// pick a tile whose block fits kBlockSmemBytes.
+int gol_ltl_smem_bytes(int tile, int r, int lut_words) {
+  return ltl_smem_bytes(tile, r, lut_words);
+}
+
+// K7 over a chunk: `turns` launches on the stream, turn t from the previous
+// turn's board (the input for t = 0) into buf_a for even t and buf_b for
+// odd t, so the result is in buf_a when `turns` is odd and buf_b when it
+// is even; the input is never written. `luts` holds the survive table
+// then the born table, `lut_words` 32-bit words each.
+int gol_ltl_box_run_turns(const void* in, void* buf_a, void* buf_b, int h,
+                          int w, long long turns, int r, int middle,
+                          int tile, const void* luts, int lut_words,
+                          int device, void* stream) {
+  if (turns < 1 || h < 1 || w < 1 || r < 1 || r > kLtlMaxRadius ||
+      (tile != 32 && tile != 64 && tile != 128) || lut_words < 1) {
+    return cudaErrorInvalidValue;
+  }
+  const int smem = ltl_smem_bytes(tile, r, lut_words);
+  const dim3 grid((w + tile - 1) / tile, (h + tile - 1) / tile);
+  if (smem > kBlockSmemBytes || grid.y > 65535) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(ltl_box_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const uint8_t* src = (const uint8_t*)in;
+  for (long long t = 0; t < turns; ++t) {
+    uint8_t* dst = (uint8_t*)(t % 2 == 0 ? buf_a : buf_b);
+    ltl_box_kernel<<<grid, kLtlThreads, smem, s>>>(
+        src, dst, h, w, r, middle, tile, (const uint32_t*)luts, lut_words);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    src = dst;
+  }
+  return cudaSuccess;
 }
 
 }  // extern "C"

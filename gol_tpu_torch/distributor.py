@@ -17,6 +17,11 @@ controller reads and writes PGM levels for the rule it reports. A lost
 remote engine is reattached within `GOL_RECONNECT` seconds.
 Generations boards travel as the rule's gray levels, and their alive
 counts and cells are the firing ones (state 1, pixel 255).
+Larger-than-Life boards use the strict {0,255} levels. So do Lenia runs,
+as in the JAX controller: a Lenia board's pixels are its quantized
+float state, so the run reaches FinalTurnComplete and then fails at the
+final PGM's {0,255} check (Lenia's working surfaces are the engine and
+the server).
 """
 
 from __future__ import annotations

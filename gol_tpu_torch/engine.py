@@ -1,7 +1,10 @@
 """The single-device engine: holds (board, turn) on one device and steps
 it in chunks — the counterpart of `gol_tpu/engine.py`'s `Engine` for the
-life-like `packed` and `u8` representations and the Generations `gen3`
-(stacked packed planes) and `gen8` (uint8 states) representations.
+life-like `packed` and `u8` representations, the Generations `gen3`
+(stacked packed planes) and `gen8` (uint8 states) representations, and
+the conv/FFT families: Larger-than-Life on `u8` cells and Lenia on `f32`
+float32 state in [0, 1] (`ops/conv.py`; one device, as the JAX engine
+runs them single-shard).
 
 Control protocol (reference `Server/gol/distributor.go:54-83`):
 
@@ -18,8 +21,9 @@ row bands whose device-to-host copies overlap the socket sends.
 Chunks are powers of two, sized so one chunk takes about
 CHUNK_TARGET_SECONDS, and up to PIPELINE_DEPTH chunks are in flight on
 the device's stream. Each chunk ends with its completion token, the alive
-count (for Generations, the firing count: cells in state 1): per-row
-counts (int32, K3 on the card) summed in int64 on the device and copied
+count (for Generations, the firing count: cells in state 1; for Lenia,
+cells above `ALIVE_THRESHOLD`): per-row counts (int32, K3 on the card for
+packed words) summed in int64 on the device and copied
 without blocking into pinned host memory, with a CUDA event recorded
 after the copy. Popping the oldest chunk waits on its
 event alone and publishes its exact (alive, turn) pair, which
@@ -71,9 +75,12 @@ from gol_tpu_torch.models.generations import (
     pack_state3,
     to_pixels_gen,
 )
+from gol_tpu_torch.models.largerthanlife import LargerThanLifeRule
+from gol_tpu_torch.models.lenia import ALIVE_THRESHOLD, LeniaRule
 from gol_tpu_torch.models.lifelike import CONWAY
 from gol_tpu_torch.obs import catalog as obs
 from gol_tpu_torch.obs import flight as obs_flight
+from gol_tpu_torch.ops import conv as conv_ops
 from gol_tpu_torch.ops.bitpack import (
     WORD_BITS,
     pack_np,
@@ -179,13 +186,16 @@ def _or_rows(words: torch.Tensor, f: int) -> torch.Tensor:
 def _firing_row_counts(cells: torch.Tensor, repr_: str) -> torch.Tensor:
     """(H,) int32 per-row counts of the firing population, per repr:
     K3 popcounts for `packed` and for `gen3`'s alive plane, state == 1
-    for `gen8`, sums for {0,1} `u8`."""
+    for `gen8`, cells above `ALIVE_THRESHOLD` for `f32`, sums for {0,1}
+    `u8`."""
     if repr_ == "packed":
         return row_popcounts(cells)
     if repr_ == "gen3":
         return row_popcounts(cells[0])
     if repr_ == "gen8":
         return (cells == 1).sum(dim=-1, dtype=torch.int32)
+    if repr_ == "f32":
+        return (cells > ALIVE_THRESHOLD).sum(dim=-1, dtype=torch.int32)
     return row_alive_counts(cells)
 
 
@@ -290,11 +300,12 @@ class Engine(ControlFlagProtocol):
 
     def __init__(self, device=None, rule=CONWAY) -> None:
         self._device = resolve_device(device)
-        self._rule = rule  # a LifeLikeRule or a GenerationsRule
+        # A LifeLikeRule, GenerationsRule, LargerThanLifeRule or LeniaRule.
+        self._rule = rule
         self._state_lock = threading.Lock()
         # "packed": int32 words (H, W/32); "u8": {0,1} uint8 (H, W);
         # "gen3": stacked int32 (alive, dying) planes (2, H, W/32);
-        # "gen8": uint8 states (H, W).
+        # "gen8": uint8 states (H, W); "f32": float32 Lenia state (H, W).
         self._cells: Optional[torch.Tensor] = None
         self._repr = "u8"
         self._turn = 0
@@ -338,10 +349,12 @@ class Engine(ControlFlagProtocol):
     ) -> Tuple[np.ndarray, int]:
         """Blocking run: evolve the (H, W) pixel board `world` for
         `params.turns` turns, honouring control flags between chunks.
-        Life-like: any nonzero pixel is alive; returns ({0,255} board,
-        completed turn). Generations: pixels are the rule's gray levels
-        (`gray_levels`); returns the gray board. `gol_tpu`'s
-        `Engine.get_world()` result carries over as is for both.
+        Life-like and Larger-than-Life: any nonzero pixel is alive;
+        returns ({0,255} board, completed turn). Generations: pixels are
+        the rule's gray levels (`gray_levels`); returns the gray board.
+        Lenia: a float32 world is the state (clipped to [0, 1]), a uint8
+        one is pixels / 255; returns the quantized pixels. `gol_tpu`'s
+        `Engine.get_world()` result carries over as is for all.
         `sub_workers` is accepted for API parity; the port runs one
         device."""
         self._check_alive()
@@ -355,7 +368,41 @@ class Engine(ControlFlagProtocol):
         # gen8 boards, which have no fused tier.
         fuse = configured_fuse_k()
         fuse_eff = 1
-        if isinstance(self._rule, GenerationsRule):
+        if isinstance(self._rule, (LargerThanLifeRule, LeniaRule)):
+            # Conv/FFT families: one device, no halo; the tier policy
+            # picks direct-space conv (K7 for a Moore box) or the FFT.
+            # LtL stays u8 at every width: this branch comes before the
+            # packing choice.
+            if len(sub_workers) > 1:
+                import warnings
+
+                warnings.warn(
+                    f"{len(sub_workers)} shards requested for rule "
+                    f"{self._rule.rulestring}; the conv/FFT kernel tier "
+                    f"has no halo machinery — running single-shard")
+            lenia = isinstance(self._rule, LeniaRule)
+            if lenia:
+                repr_ = "f32"
+                if world.dtype == np.float32:
+                    state = np.clip(np.ascontiguousarray(world), 0.0, 1.0)
+                else:
+                    # u8 pixel ingest (the wire's universal codec).
+                    state = (np.asarray(world, dtype=np.float32)
+                             / np.float32(255.0))
+                alive0 = int((state > ALIVE_THRESHOLD).sum())
+            else:
+                repr_ = "u8"
+                alive0 = int(np.count_nonzero(np.asarray(world)))
+                state = (np.asarray(world) != 0).astype(np.uint8)
+            cells = torch.from_numpy(state).to(self._device)
+            tier = conv_ops.select_tier(
+                height, width, self._rule.radius,
+                "float32" if lenia else "uint8", allowed=("conv", "fft"),
+                kind=getattr(self._rule, "kind", "shell"))
+            run = (conv_ops.lenia_run_fn if lenia
+                   else conv_ops.ltl_run_fn)(tier)
+            conv_ops.note_dispatch(tier)
+        elif isinstance(self._rule, GenerationsRule):
             state = from_pixels_gen(world, self._rule)
             alive0 = int(np.count_nonzero(state == 1))
             repr_, run = select_generations_representation(
@@ -708,6 +755,12 @@ class Engine(ControlFlagProtocol):
                 view = _block_max(unpack(_or_rows(cells, f)), 1, f) * 255
             elif repr_ == "u8":
                 view = _block_max(cells, f, f) * 255
+            elif repr_ == "f32":
+                # The brightest mass of each block, quantized: the view is
+                # presentation (snapshots stay float).
+                view = torch.clamp(torch.round(
+                    _block_max(cells, f, f) * 255.0), 0.0, 255.0).to(
+                        torch.uint8)
             elif repr_ == "gen8":
                 levels = torch.from_numpy(gray_levels(self._rule)).to(
                     cells.device)
@@ -722,10 +775,16 @@ class Engine(ControlFlagProtocol):
     def _materialize(self, cells: Optional[torch.Tensor],
                      repr_: str) -> np.ndarray:
         """Device board -> host pixels (waits for the board): {0,255}
-        for life-like reprs, the rule's gray levels for Generations."""
+        for life-like reprs, the rule's gray levels for Generations,
+        rint(state * 255) for Lenia's float state (lossy: the float frame
+        and checkpoint paths read the state itself)."""
         if cells is None:
             raise RuntimeError("no board loaded")
         with self._on_device():
+            if repr_ == "f32":
+                state = device_to_host(cells)
+                return np.clip(np.rint(state * 255.0), 0, 255).astype(
+                    np.uint8)
             if repr_ == "gen3":
                 a, d = (unpack_np(words_to_numpy(p)) for p in cells)
                 a += 2 * d
@@ -740,25 +799,30 @@ class Engine(ControlFlagProtocol):
         return px
 
     # Frames are board-anchored: two frames of one shape from one run are
-    # comparable, so the wire may delta-encode (xrle) them. No
-    # representation of the port holds float state, whose quantized
-    # frames would not be.
-    frames_diffable = True
+    # comparable, so the wire may delta-encode (xrle) them. Float boards
+    # (Lenia) are the exception: their u8 frames are lossy quantizations
+    # of the float32 state, and deltas against them would compound the
+    # quantization error.
+    @property
+    def frames_diffable(self) -> bool:
+        return self._repr != "f32"
 
     @property
     def binary_pixels(self) -> bool:
         """True iff snapshots materialize as strict {0,255} pixels — the
-        precondition for the wire's bit-packed codec. Generations boards
-        carry gray levels and are never packed."""
-        return not isinstance(self._rule, GenerationsRule)
+        precondition for the wire's bit-packed codec. Generations and
+        Lenia boards carry gray levels and are never packed."""
+        return not isinstance(self._rule, (GenerationsRule, LeniaRule))
 
     def get_world_frame(self, caps) -> Tuple["object", int]:
         """(wire.Frame, completed turn) under the peer's negotiated
         `caps`. A `packed` board ships its device words as they are, no
         unpack on the device; a `u8` board ships its {0,1} cells, packed
         or scaled to pixels per band on the host. Both stream as row
-        bands (`_host_bands`). Generations boards are materialized as
-        gray pixels and never packed. Caps-less peers get raw u8."""
+        bands (`_host_bands`). Lenia's float32 state goes as a lossless
+        f32 frame to a peer that negotiated `CAP_F32`, else as quantized
+        u8 pixels. Generations boards are materialized as gray pixels and
+        never packed. Caps-less peers get raw u8."""
         self._check_alive()
         with self._state_lock:
             cells, turn, repr_ = self._cells, self._turn, self._repr
@@ -773,6 +837,10 @@ class Engine(ControlFlagProtocol):
             return wire.u8_band_frame(h, w, self._host_bands(cells, w),
                                       caps, binary=True,
                                       values01=True), turn
+        if repr_ == "f32" and wire.CAP_F32 in caps:
+            with self._on_device():
+                state = device_to_host(cells)
+            return wire.encode_board_f32(state, caps), turn
         return wire.encode_board(self._materialize(cells, repr_), caps,
                                  binary=False), turn
 
@@ -861,7 +929,7 @@ class Engine(ControlFlagProtocol):
             geo["repr"] = repr_
             # The logical CELL dtype, not the storage dtype (packed
             # boards hold int32 words of uint8 cells).
-            geo["dtype"] = "uint8"
+            geo["dtype"] = "float32" if repr_ == "f32" else "uint8"
         return geo
 
     def _current_stream(self):
@@ -916,9 +984,9 @@ class Engine(ControlFlagProtocol):
         """Atomically write the board state + turn + rulestring as .npz
         (the legacy single-file format): packed boards as `words` +
         `width` (uint32, the JAX package's), gen3 as `gen_planes`, gen8
-        as `gen_state`, u8 as {0,255} `world` pixels. The temp name is
-        per writer: the SIGTERM handler can race the run thread's
-        autosave on the same target."""
+        as `gen_state`, f32 as `float_state`, u8 as {0,255} `world`
+        pixels. The temp name is per writer: the SIGTERM handler can race
+        the run thread's autosave on the same target."""
         with self._state_lock:
             cells, turn, repr_ = self._cells, self._turn, self._repr
         if cells is None:
@@ -945,7 +1013,9 @@ class Engine(ControlFlagProtocol):
         CONT=yes. Refused: another rule than this engine's, two-plane
         words on anything but a 3-state Generations engine, a bad
         Generations state, packed words that are not uint32, a float
-        state, and any restore while a run is in flight."""
+        state on anything but a Lenia engine (or one that is not 2-D
+        float32, or not finite), pixels on a Lenia engine, and any
+        restore while a run is in flight."""
         self._check_alive()
         rule = self._rule
         gen = isinstance(rule, GenerationsRule)
@@ -987,9 +1057,23 @@ class Engine(ControlFlagProtocol):
                 cells = torch.from_numpy(state).to(self._device)
                 repr_ = "gen8"
             elif "float_state" in z.files:
-                raise ValueError(
-                    f"{path}: float-state checkpoint needs a "
-                    f"continuous-family engine, not {rule.rulestring}")
+                state = z["float_state"]
+                if not isinstance(rule, LeniaRule):
+                    raise ValueError(
+                        f"{path}: float-state checkpoint needs a "
+                        f"continuous-family engine, not {rule.rulestring}")
+                if state.dtype != np.float32 or state.ndim != 2:
+                    raise ValueError(
+                        f"{path}: bad float-state checkpoint "
+                        f"({state.dtype} {state.shape}); continuous "
+                        f"boards are stored as 2-D float32")
+                if not np.all(np.isfinite(state)):
+                    raise ValueError(
+                        f"{path}: float-state checkpoint carries "
+                        f"non-finite values")
+                cells = torch.from_numpy(np.clip(state, 0.0, 1.0)).to(
+                    self._device)
+                repr_ = "f32"
             elif "words" in z.files:
                 words = z["words"]
                 width = int(z["width"])
@@ -1012,6 +1096,18 @@ class Engine(ControlFlagProtocol):
                     cells = torch.from_numpy(
                         from_pixels_gen(world, rule)).to(self._device)
                     repr_ = "gen8"
+                elif isinstance(rule, LeniaRule):
+                    # The /255 pixel decode is lossy; a float board's
+                    # checkpoint always carries float_state.
+                    raise ValueError(
+                        f"{path}: pixel checkpoint cannot restore a "
+                        f"continuous float board losslessly (want a "
+                        f"float_state checkpoint)")
+                elif isinstance(rule, LargerThanLifeRule):
+                    # The conv families have no packed form.
+                    cells = torch.from_numpy(
+                        (world != 0).astype(np.uint8)).to(self._device)
+                    repr_ = "u8"
                 else:
                     packed, _ = select_representation(world.shape[1])
                     if packed:

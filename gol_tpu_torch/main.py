@@ -1,10 +1,13 @@
 """Headless CLI — the counterpart of `gol_tpu/main.py` without its live
-window and its observability and RLE options.
+window, its observability options and `--sparse` (ROADMAP A10).
 
     python -m gol_tpu_torch -w 512 -h 512 --turns 100 --headless
     python -m gol_tpu_torch -w 64 -h 64 --turns 100 --headless --device cpu
     python -m gol_tpu_torch -w 64 -h 64 --turns 100 --headless --rule /2/3 \
         --device cpu
+    python -m gol_tpu_torch -w 512 -h 512 --turns 100 --headless \
+        --rule R5,C0,M1,S33..57,B34..45,NM
+    python -m gol_tpu_torch -w 32 -h 32 --turns 8 --headless --rle glider
     python -m gol_tpu_torch -w 512 -h 512 --turns 100000 --headless \
         --checkpoint ckpt --ckpt-every 4096
     python -m gol_tpu_torch --turns 100000 --headless --resume ckpt
@@ -40,10 +43,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="print events instead of drawing (the port's "
                          "only view)")
     ap.add_argument("--rule", metavar="RULE", default="",
-                    help="life-like rulestring, e.g. 'B36/S23', or "
+                    help="life-like rulestring, e.g. 'B36/S23'; "
                          "Generations 'survival/birth/states', e.g. "
                          "'/2/3' (Brian's Brain) or '345/2/4' (Star "
-                         "Wars); default Conway")
+                         "Wars); Larger-than-Life "
+                         "'R5,C0,M1,S33..57,B34..45,NM' (Bosco); or "
+                         "Lenia 'lenia:r=13,mu=0.15,sigma=0.015,dt=0.1' "
+                         "(Orbium); default Conway. With SER set, the "
+                         "remote engine's own rule governs the run")
+    ap.add_argument("--rle", metavar="NAME|FILE", default="",
+                    help="seed the board from an RLE pattern instead of "
+                         "images/WxH.pgm: a library name (glider, lwss, "
+                         "rpentomino, gosper-gun, blinker) or a .rle file, "
+                         "stamped centred on an empty WxH torus")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="device of the engine (default cuda)")
     ap.add_argument("--checkpoint", metavar="DIR", default="",
@@ -76,6 +88,44 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "SERVER adopts the checkpoint from its own "
                          "configured directory (RestoreRun)")
     return ap.parse_args(argv)
+
+
+def _parse_rle_arg(name_or_path: str):
+    """(cells, pw, ph, rle_declared_rule_or_None) from a library pattern
+    name or a .rle file path."""
+    from gol_tpu_torch.io.rle import parse_rle, read_rle
+    from gol_tpu_torch.models.patterns import PATTERNS
+
+    if name_or_path in PATTERNS:
+        return parse_rle(PATTERNS[name_or_path])
+    return read_rle(name_or_path)
+
+
+def _stage_rle_board(name_or_path: str, width: int, height: int):
+    """Stamp an RLE pattern (library name or file path) centred on an
+    empty width x height board and write it as `WxH.pgm` in a fresh temp
+    images dir, removed at exit. Returns (images_dir,
+    rle_declared_rule_or_None)."""
+    import atexit
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from gol_tpu_torch.io.pgm import write_pgm
+
+    cells, pw, ph, rle_rule = _parse_rle_arg(name_or_path)
+    if pw > width or ph > height:
+        raise ValueError(
+            f"pattern extent {pw}x{ph} exceeds board {width}x{height}")
+    board = np.zeros((height, width), dtype=np.uint8)
+    ox, oy = (width - pw) // 2, (height - ph) // 2
+    for x, y in cells:
+        board[oy + y, ox + x] = 255
+    d = tempfile.mkdtemp(prefix="gol_rle_")
+    atexit.register(shutil.rmtree, d, ignore_errors=True)
+    write_pgm(os.path.join(d, f"{width}x{height}.pgm"), board)
+    return d, rle_rule
 
 
 def _stdin_key_reader(key_presses: "queue.Queue",
@@ -164,6 +214,13 @@ def main(argv=None) -> int:
         from gol_tpu_torch.models import parse_rule
 
         rule = parse_rule(args.rule)  # fail fast on a malformed string
+        if os.environ.get("SER"):
+            import warnings
+
+            warnings.warn(
+                f"--rule {rule.rulestring} has no effect with SER set: "
+                "the REMOTE engine's own rule governs the run — start "
+                "the server with --rule to match")
     from gol_tpu_torch import ckpt as ckpt_mod
 
     ckpt_mod.export_flags(args)
@@ -179,9 +236,31 @@ def main(argv=None) -> int:
         print(f"resuming at turn {turn}", flush=True)
     p = Params(threads=args.threads, image_width=args.width,
                image_height=args.height, turns=args.turns)
+    images_dir = None
+    if args.rle:
+        # Materialise the pattern as the WxH.pgm the distributor expects
+        # (in a temp images dir): the PGM board source stays the single
+        # entry path. An RLE-declared rule applies unless --rule
+        # overrode it.
+        try:
+            images_dir, rle_rule = _stage_rle_board(
+                args.rle, args.width, args.height)
+        except (OSError, ValueError) as e:
+            print(f"gol_tpu_torch: --rle {args.rle}: {e}", file=sys.stderr)
+            return 2
+        if rule is None:
+            rule = rle_rule
+            if rle_rule is not None and os.environ.get("SER"):
+                import warnings
+
+                warnings.warn(
+                    f"--rle declares rule {rle_rule.rulestring}, but with "
+                    "SER set the REMOTE engine's own rule governs the "
+                    "run — start the server with --rule to match")
     events_q: "queue.Queue" = queue.Queue(maxsize=10000)
     key_presses: "queue.Queue" = queue.Queue(maxsize=10)
-    t = run(p, events_q, key_presses, rule=rule, device=args.device)
+    t = run(p, events_q, key_presses, rule=rule, device=args.device,
+            images_dir=images_dir)
     _print_events(events_q, key_presses)
     t.join(30)
     return 1 if t.exception is not None else 0

@@ -11,42 +11,58 @@ from gol_tpu_torch.models.generations import (
     GenerationsRule,
     GenerationsTorus,
 )
+from gol_tpu_torch.models.largerthanlife import (
+    BOSCO,
+    CONWAY_LTL,
+    MAJORITY_R4,
+    LargerThanLifeRule,
+)
+from gol_tpu_torch.models.lenia import ORBIUM, LeniaRule
+from gol_tpu_torch.models.patterns import PATTERNS, pattern_cells, stamp
 
 
 def parse_rule(rulestring: str):
-    """Parse a rulestring: 'B3/S23'-style → LifeLikeRule,
-    'survival/birth/states' ('/2/3' = Brian's Brain) → GenerationsRule;
-    empty means Conway. Larger-than-Life and Lenia rulestrings raise
-    NotImplementedError naming the ROADMAP item that ports them; anything
-    else raises ValueError."""
+    """Parse a rulestring into its family's rule object: 'B3/S23'-style
+    → LifeLikeRule; 'survival/birth/states' ('/2/3' = Brian's Brain) →
+    GenerationsRule; 'R5,C0,M1,S33..57,B34..45,NM' (Golly LtL form) →
+    LargerThanLifeRule; 'lenia:r=13,mu=0.15,sigma=0.015,dt=0.1' →
+    LeniaRule. Empty → Conway. The single dispatch point for every
+    rule-accepting surface (CLI --rule, server --rule, GOL_RULE)."""
     if not rulestring:
         return CONWAY
     errors = []
-    for family in (LifeLikeRule, GenerationsRule):
+    for family in (LifeLikeRule, GenerationsRule, LargerThanLifeRule,
+                   LeniaRule):
         try:
             return family(rulestring)
         except ValueError as e:
             errors.append(str(e))
-    if rulestring.startswith("lenia:") or rulestring.startswith("R"):
-        raise NotImplementedError(
-            f"rulestring {rulestring!r} is neither life-like nor "
-            "Generations; gol_tpu_torch runs those two families. "
-            "Larger-than-Life and Lenia wait for ROADMAP A12.")
     raise ValueError(
         f"unrecognised rulestring {rulestring!r}: not life-like "
-        "('B3/S23') nor Generations ('survival/birth/states', e.g. "
-        f"'/2/3'). Family errors: {'; '.join(errors)}")
+        "('B3/S23'), Generations ('survival/birth/states', e.g. "
+        "'/2/3'), Larger-than-Life ('R5,C0,M1,S33..57,B34..45,NM'), "
+        "nor Lenia ('lenia:r=13,mu=0.15,sigma=0.015,dt=0.1'). "
+        f"Family errors: {'; '.join(errors)}")
 
 
 __all__ = [
+    "BOSCO",
     "BRIANS_BRAIN",
     "CONWAY",
+    "CONWAY_LTL",
     "DAY_AND_NIGHT",
     "HIGHLIFE",
+    "MAJORITY_R4",
+    "ORBIUM",
+    "PATTERNS",
     "SEEDS",
     "STAR_WARS",
     "GenerationsRule",
     "GenerationsTorus",
+    "LargerThanLifeRule",
+    "LeniaRule",
     "LifeLikeRule",
     "parse_rule",
+    "pattern_cells",
+    "stamp",
 ]

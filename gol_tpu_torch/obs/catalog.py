@@ -2,8 +2,8 @@
 against the shared default registry — the part of
 `gol_tpu/obs/catalog.py` that the wire codecs, the engine server, the
 remote engine client, the chaos hooks, the tracer, the flight recorder,
-the SLO estimators, the checkpoint writer and restore, and the run
-journal emit. Names, kinds, labels and pre-seeded children are the JAX
+the SLO estimators, the checkpoint writer and restore, the run journal
+and the conv-family kernel tiers emit. Names, kinds, labels and pre-seeded children are the JAX
 catalogue's, so a `GetMetrics` reply reads the same from either package.
 The engine, fleet, checkpoint-pool and fusion families wait for the
 modules that emit them (ROADMAP A11, A13).
@@ -300,3 +300,25 @@ JOURNAL_DIGESTS = REGISTRY.counter(
     "GOL_JOURNAL_DIGEST_EVERY plus every checkpoint written while "
     "journaling is on) — each one is a mid-history bit-identity "
     "assertion a replay can check.")
+
+# ---------------------------------------------------------- kernel tiers
+
+# Every tier the conv-family dispatch can select (ops/conv.TIERS
+# mirrors this; pre-seeded so /metrics always shows the full matrix).
+KERNEL_TIERS = ("bitplane", "fused", "conv", "fft")
+
+KERNEL_TIER = REGISTRY.gauge(
+    "gol_kernel_tier",
+    "One-hot active kernel tier of the most recent conv-family "
+    "dispatch: the selected tier reads 1, every other 0 "
+    "(ops/conv.select_tier policy; GOL_KERNEL_TIER forces).",
+    label_names=("tier",))
+CONV_DISPATCHES = REGISTRY.counter(
+    "gol_conv_dispatches_total",
+    "Conv-family kernel dispatches (LtL / Lenia run submissions and "
+    "standalone run_turns calls), by selected tier.",
+    label_names=("tier",))
+
+for _t in KERNEL_TIERS:
+    KERNEL_TIER.labels(tier=_t)
+    CONV_DISPATCHES.labels(tier=_t)

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (`csrc/stencil.cu`: K1-K6).
+"""Build and load the port's CUDA kernels (`csrc/stencil.cu`: K1-K7).
 
 `nvcc` compiles the source into a shared library with a plain C interface
 under `build/gol_tpu_torch/` at the repository root, named by a hash of
@@ -68,6 +68,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gol_resident_run_turns2p.restype = i
     lib.gol_tiled_sweep2p.argtypes = [vp, vp, i, i, i, i, u, u, i, i, vp]
     lib.gol_tiled_sweep2p.restype = i
+    lib.gol_ltl_smem_bytes.argtypes = [i, i, i]
+    lib.gol_ltl_smem_bytes.restype = i
+    lib.gol_ltl_box_run_turns.argtypes = [vp, vp, vp, i, i, ll, i, i, i,
+                                          vp, i, i, vp]
+    lib.gol_ltl_box_run_turns.restype = i
 
 
 def _compile(nvcc: str, target: Path) -> dict:

@@ -92,6 +92,28 @@ launch count is kept per family too (`by_family`).
 
 No single PyTorch call computes a packed life-like or Generations step,
 so no library call stands beside K1, K2, K4, K5 or K6.
+
+K7 `ltl_box_run_turns` runs Larger-than-Life turns of a Moore-box rule
+(`R<r>,...,NM`) on a uint8 {0,1} torus: what `_ltl_step(cells, rule,
+"conv")` of `gol_tpu/ops/conv.py` computes, the box path of `_conv_sum`
+(:218) and the interval tests, which the JAX package leaves to XLA as
+4r + 2 rolled float32 passes (no Pallas kernel). A block takes a tile of
+`tile` x `tile` outputs (`ltl_tile`: 128, 64 or 32 from the shape and
+radius), loads its (tile + 2r)² window with rows and columns modulo the
+board (true modulo: a board narrower than 2r + 1 counts each offset as
+often as the rolls do), then runs horizontal and vertical running sums in
+shared memory (int32 counts: (2·128 + 1)² = 66,049 overflows 16 bits) and
+reads the rule's survive or born bit from the rule's `luts()` packed to
+bits in shared memory (`ltl_luts`). Bound: one read and one write of the
+board, 2 bytes a cell at 3.35 TB/s; the window's halo costs
+(1 + 2r/tile)² loads a cell. One C call launches the chunk's k turns on
+the stream in one call, ping-ponging two buffers the wrapper allocates,
+so the input is never written; each turn is one launch and counts one.
+The library call that computes the same counts is `F.conv2d` of the
+wrap-padded float32 board with a ones kernel (timed in `chip_smoke.py`,
+never called by the port). The gate is the rule's kind alone
+(`ops/conv.ltl_run_fn`); the plain version is `_ltl_step` of
+`ops/conv.py` on the conv tier, the JAX tier's own torch form.
 """
 
 from __future__ import annotations
@@ -238,8 +260,12 @@ def _library():
     got += tuple(v.value for v in deep)
     n = lib.gol_tile2p_rows(rows, len(rows))
     got += (tuple(rows[:n]),)
+    got += tuple(lib.gol_ltl_smem_bytes(t, r, ltl_lut_words(r))
+                 for t in LTL_TILE_CHOICES for r in (1, 5, 128))
     want = (TILE_MAX_T, TILE_WORDS, TILE_ROW_CHOICES, DEEP_MAX_T, DEEP_ROWS,
-            DEEP_WORDS, TILE2P_ROW_CHOICES)
+            DEEP_WORDS, TILE2P_ROW_CHOICES) + tuple(
+                ltl_smem_bytes(t, r, ltl_lut_words(r))
+                for t in LTL_TILE_CHOICES for r in (1, 5, 128))
     if got != want:
         raise RuntimeError(f"kernel tile geometry {got} != the Python "
                            f"mirror {want}")
@@ -751,8 +777,131 @@ def banded_run_turns2p(planes: torch.Tensor, num_turns: int, rule,
     return src
 
 
+# ------------------------------------------------------------------- K7
+
+# K7 tile sides (outputs a block computes per side), as
+# csrc/stencil.cu's entry point takes them; each block's shared memory
+# (`ltl_smem_bytes`) is checked against the kernel's own at load.
+LTL_TILE_CHOICES = (128, 64, 32)
+# Least arithmetic for a separable box count: an add and a subtract for
+# each of the two running sums a cell (the bound's operation count).
+LTL_OPS_PER_CELL = 4
+
+
+def ltl_smem_bytes(tile: int, r: int, lut_words: int) -> int:
+    """K7's dynamic shared memory (csrc/stencil.cu:ltl_smem_bytes): both
+    rule tables, the uint16 horizontal sums (pitch tile + 2) and the
+    window (pitch tile + 2r rounded up to 8, plus 4)."""
+    span = tile + 2 * r
+    return (8 * lut_words + 2 * span * (tile + 2)
+            + span * (((span + 7) // 8) * 8 + 4))
+
+
+def ltl_lut_words(r: int) -> int:
+    """32-bit words of one rule table at radius r, with room for the M1
+    count ((2r+1)² + 1 entries)."""
+    return -(-((2 * r + 1) ** 2 + 1) // 32)
+
+
+def ltl_tile(h: int, w: int, r: int) -> int:
+    """K7's tile side for an (h, w) board at radius r: the largest of
+    `LTL_TILE_CHOICES` whose block fits shared memory and whose grid
+    gives every SM a block, else the smallest that fits; but where that
+    block leaves no room for a second one on its SM (1 KB reserved a
+    block, 228 KB an SM), the largest tile that fits, whose block does
+    less halo and running-sum work a cell in the same single slot.
+
+    Measured (chip_smoke.py phase 5, every tile at 512², 1024² and 4096²
+    for r = 1-128; NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): the rule
+    picks the fastest tile in every case but ties of under 5% and one
+    miss, 4096² at r = 32, where tile 64 beats 128 (0.1217 against
+    0.1342 ms); its second clause moves 512² at r = 128 from tile 32 to
+    64 (0.0793 to 0.0544 ms)."""
+    fits = [t for t in LTL_TILE_CHOICES
+            if ltl_smem_bytes(t, r, ltl_lut_words(r)) <= SMEM_BYTES]
+    tile = next((t for t in fits if -(-h // t) * -(-w // t) >= CARD_SMS),
+                fits[-1])
+    if 2 * (ltl_smem_bytes(tile, r, ltl_lut_words(r)) + 1024) > \
+            SMEM_BYTES + 1024:
+        return fits[0]
+    return tile
+
+
+@functools.lru_cache(maxsize=64)
+def ltl_luts(rule, device: torch.device) -> torch.Tensor:
+    """The rule's survive then born table (`rule.luts()`, neighbourhood
+    size + 1 entries each) packed little-endian to bits, as int32 words
+    on `device`, once per rule and device."""
+    import numpy as np
+
+    survive, born = rule.luts()
+    words = ltl_lut_words(rule.radius)
+    planes = []
+    for lut in (survive, born):
+        bits = np.zeros(words * 32, dtype=np.uint8)
+        bits[:len(lut)] = lut
+        planes.append(np.packbits(bits, bitorder="little").view("<i4"))
+    return torch.from_numpy(np.concatenate(planes)).to(device)
+
+
+def ltl_box_run_turns_plain(cells: torch.Tensor, num_turns: int,
+                            rule) -> torch.Tensor:
+    """K7's plain version: `num_turns` turns of `_ltl_step(cells, rule,
+    "conv")` (ops/conv.py), the separable shift-add sum and interval
+    tests of the JAX tier, in torch ops."""
+    from gol_tpu_torch.ops import conv
+
+    for _ in range(num_turns):
+        cells = conv._ltl_step(cells, rule, "conv")
+    return cells
+
+
+def ltl_box_run_turns(cells: torch.Tensor, num_turns: int, rule, *,
+                      tile: int | None = None) -> torch.Tensor:
+    """Advance an (H, W) uint8 {0,1} board `num_turns` turns of a
+    Moore-box Larger-than-Life rule: one K7 launch a turn, all issued by
+    one C call, on `tile`-sided tiles (`ltl_tile`'s unless given). The
+    input is never written."""
+    if rule.kind != "M":
+        raise ValueError(f"ltl_box_run_turns: {rule.rulestring} is not a "
+                         "Moore-box rule")
+    if num_turns == 0:
+        return cells
+    if cells.device.type == "cpu":
+        return ltl_box_run_turns_plain(cells, num_turns, rule)
+    if cells.dtype != torch.uint8 or cells.dim() != 2:
+        raise ValueError(f"ltl_box_run_turns: want 2-D uint8 cells, got "
+                         f"{cells.dtype} {tuple(cells.shape)}")
+    if not cells.is_contiguous():
+        raise ValueError("ltl_box_run_turns: cells must be contiguous")
+    h, w = cells.shape
+    r = rule.radius
+    if tile is None:
+        tile = ltl_tile(h, w, r)
+    luts = ltl_luts(rule, cells.device)
+    words = luts.numel() // 2
+    if tile not in LTL_TILE_CHOICES or ltl_smem_bytes(
+            tile, r, words) > SMEM_BYTES:
+        raise ValueError(f"ltl_box_run_turns: tile {tile} does not fit "
+                         f"radius {r}")
+    lib = _library()
+    stream = torch.cuda.current_stream(cells.device).cuda_stream
+    a = torch.empty_like(cells)
+    b = torch.empty_like(cells) if num_turns > 1 else a
+    _build.check(lib.gol_ltl_box_run_turns(
+        cells.data_ptr(), a.data_ptr(), b.data_ptr(), h, w, num_turns, r,
+        int(rule.middle), tile, luts.data_ptr(), words, cells.device.index,
+        stream), "ltl_box_run_turns")
+    ltl_box_run_turns.launches += num_turns
+    return a if num_turns % 2 else b
+
+
+ltl_box_run_turns.launches = 0
+
+
 KERNELS = (resident_run_turns, tiled_sweep, row_popcounts,
-           resident_run_turns2p, tiled_sweep2p, tiled_sweep_deep)
+           resident_run_turns2p, tiled_sweep2p, tiled_sweep_deep,
+           ltl_box_run_turns)
 # The two-plane kernels count launches per family as well.
 KERNELS_2P = (resident_run_turns2p, tiled_sweep2p)
 

@@ -539,9 +539,11 @@ def main(argv=None) -> int:
     ap.add_argument("--rule", metavar="RULE",
                     default=os.environ.get("GOL_RULE") or "B3/S23",
                     help="rulestring this engine evolves: life-like "
-                         "'B3/S23' or Generations 'survival/birth/states'"
-                         " (e.g. '/2/3' = Brian's Brain; default Conway; "
-                         "falls back to GOL_RULE)")
+                         "'B3/S23', Generations 'survival/birth/states'"
+                         " (e.g. '/2/3' = Brian's Brain), Larger-than-"
+                         "Life 'R5,C0,M1,S33..57,B34..45,NM' or Lenia "
+                         "'lenia:r=13,mu=0.15,sigma=0.015,dt=0.1' "
+                         "(default Conway; falls back to GOL_RULE)")
     ap.add_argument("--trace-spans", metavar="PATH", default="",
                     help="export handler spans as Chrome trace-event JSON "
                          "to PATH on shutdown (sets GOL_TRACE_SPANS; a "

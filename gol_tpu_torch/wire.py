@@ -35,8 +35,8 @@ advertised the matching capability flag: requests carry `"caps": [...]`,
 replies echo the server's caps, and `negotiate()` intersects them with
 `local_caps()` (the GOL_WIRE_CAPS env allowlist; unset = all of packed,
 zlib, xrle, f32). Decoding is unconditional: everyone understands every
-codec on receive, including the f32 frames a JAX server sends for Lenia
-boards (the port has no float family yet, ROADMAP A12).
+codec on receive, including the f32 frames either package's server
+sends for Lenia boards.
 
 Senders of multi-GB snapshots use band-chunked Frames (the engine
 overlaps the device->host copy of band i+1 with the socket send of band

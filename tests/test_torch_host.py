@@ -149,19 +149,25 @@ def test_parse_rule_lifelike(s):
                                "R5,C0,M1,S33..57,B34..45,NM",
                                "lenia:r=13,mu=0.15,sigma=0.015,dt=0.1"])
 def test_parse_rule_other_families_not_ported(s):
-    """Generations rulestrings parse to the JAX package's canonical rule;
-    Larger-than-Life and Lenia are not ported yet and raise, naming
-    ROADMAP A12."""
-    want = jparse_rule(s)  # the JAX package takes it
+    """Generations, Larger-than-Life and Lenia rulestrings parse to the
+    JAX package's canonical rule of the same family (all four families
+    are ported; the name predates the conv/FFT families)."""
+    want = jparse_rule(s)
+    got = tparse_rule(s)
+    assert type(got).__name__ == type(want).__name__
+    assert got.rulestring == want.rulestring
     if type(want).__name__ == "GenerationsRule":
-        got = tparse_rule(s)
-        assert type(got).__name__ == "GenerationsRule"
-        assert got.rulestring == want.rulestring
         assert (got.born, got.survive, got.states) == \
             (want.born, want.survive, want.states)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        tparse_rule(s)
+    elif type(want).__name__ == "LargerThanLifeRule":
+        assert (got.radius, got.kind, got.middle, got.survive_ranges,
+                got.born_ranges) == (want.radius, want.kind, want.middle,
+                                     want.survive_ranges, want.born_ranges)
+        assert [list(x) for x in got.luts()] == \
+            [list(x) for x in want.luts()]
+    else:
+        assert (got.radius, got.mu, got.sigma, got.dt) == \
+            (want.radius, want.mu, want.sigma, want.dt)
 
 
 def test_parse_rule_garbage():
