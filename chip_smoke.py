@@ -25,7 +25,10 @@ Phases (each raises on failure; any failure exits non-zero):
    Larger-than-Life turn) on 64², 512², 4096², 1000 x 777 and 16² at
    r = 1, 2, 5, 8, 16, 32, 128 (and 16² at r = 10: the box wraps the
    torus more than once), every tile on 1000 x 777, and r = 128 on a
-   nearly full 300² board (counts past 65,535);
+   nearly full 300² board (counts past 65,535); K8 (the sparse window's
+   occupancy) on random words with bit 31 set and on two-word windows,
+   at the window ladder's 256 x 64, 768 x 64, 10,240 x 384 and 38,656 x
+   1,280 words and an odd 1000 x 77;
 4. the main path through `gol_tpu_torch.run` on the default (CUDA)
    engine: the 16², 64² and 512² goldens x {0, 1, 100} against
    check/images (16² is the uint8 roll-sum path, its width not a
@@ -53,11 +56,23 @@ Phases (each raises on failure; any failure exits non-zero):
    `box_counts_np`, and the JAX bench's two Lenia legs (Orbium 1024² on
    the FFT tier, r = 4 512² on the conv tier; 8 turns from seed 42)
    within 1e-4 of the float64 oracle, whose digests are the pinned ones.
+   4g. the sparse torus: the R-pentomino on the 2^20 torus for 8192
+   turns (the JAX bench's leg) through `SparseTorus` (K1, K2, K8)
+   against a dense 32768² run of the packed path (K2, run before the
+   phase's counters and profile), then through `run(..., sparse=True)`,
+   the CLI (`--sparse --rle rpentomino`, its final checkpoint read) and
+   SER to a `python -m gol_tpu_torch.server --sparse` subprocess (its
+   GetWindow pixels and origin against the in-process engine's), each to
+   the same torus cells; 65,536 turns through `SparseEngine`, every
+   publication from turn 1103 on counting 116; a `checkpoint_now` of it
+   restored into a fresh engine and 1,024 more turns on both to equal
+   cells; with turns/s, the final windows, episodes and grows.
    Each path runs with the launch counters at 0, read just after: every
-   kernel (and family) it runs must have launched. The paths of 4-4c run
-   under `torch.profiler`, which sums their device time by kernel, all
-   but the unbounded run: it steps as long as the wall clock says, so
-   its device time would rank nothing. Then the control plane's numbers
+   kernel (and family) it runs must have launched. The paths of 4-4c, 4f
+   and 4g run under `torch.profiler`, which sums their device time by
+   kernel (each path's and in all), all but the unbounded run: it steps
+   as long as the wall clock says, so its device time would rank
+   nothing. Then the control plane's numbers
    (Alivecount round trips; GetWorld at 5120² and 65536² under the
    packed and u8 codecs, byte for byte against the served board; GetView
    at 65536²; engine turns/s at 5120² through SER beside the in-process
@@ -90,8 +105,11 @@ Phases (each raises on failure; any failure exits non-zero):
    every tile against the FFT tier at 512², 1024² and 4096² up to
    r = 128 (the box crossover and the tile policy); the direct tier of a
    circular neighbourhood (F.conv2d, TF32 off) against the FFT tier at
-   the same sizes (the other kinds' crossover); and engine turns/s for
-   Bosco at 512² and 4096² and Orbium at 1024².
+   the same sizes (the other kinds' crossover), F.conv2d at 4096² for
+   r = 64 and 128 beside K7; engine turns/s for Bosco at 512² and 4096²
+   and Orbium at 1024²; and K8 at the window ladder's shapes and on the
+   65,536-turn run's final window, beside its plain version and its byte
+   bound.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -496,14 +514,16 @@ def read_csv(path: str) -> dict:
                 for r in csv.DictReader(f)}
 
 
-def drive(p, images_dir: str, out_dir: str, engine=None, poll=None):
+def drive(p, images_dir: str, out_dir: str, engine=None, poll=None,
+          sparse: bool = False):
     """gol_tpu_torch.run to CLOSE; returns (events, polled pairs)."""
     import gol_tpu_torch
     from gol_tpu_torch import events as ev
 
     events_q: queue.Queue = queue.Queue()
     t = gol_tpu_torch.run(p, events_q, None, engine=engine,
-                          images_dir=images_dir, out_dir=out_dir)
+                          images_dir=images_dir, out_dir=out_dir,
+                          sparse=sparse)
     pairs = set()
     while t.is_alive() and poll is not None:
         pair = poll()
@@ -2157,18 +2177,7 @@ def timing_ltl(torch, dev, card: Card) -> tuple:
     for r in CONV_RADII:
         rule = conv_rule(r)
         bound, by = card.bound(2 * n * n, cs.LTL_OPS_PER_CELL * n * n)
-        ones = torch.ones((1, 1, 2 * r + 1, 2 * r + 1), device=dev)
-        idx = (torch.arange(-r, n + r, device=dev) % n)
-        padded = b.float().index_select(0, idx).index_select(1, idx)[None,
-                                                                     None]
-
-        def library():
-            with torch.backends.cudnn.flags(
-                    enabled=True, benchmark=False, deterministic=False,
-                    allow_tf32=False):
-                return torch.nn.functional.conv2d(padded, ones)
-
-        lib_ms = time_ms(torch, library, 5)
+        lib_ms = conv2d_library_ms(torch, b, r, 5)
         plain = time_ms(torch, lambda: cs.ltl_box_run_turns_plain(
             b, 1, rule), 1)
         policy = cs.ltl_tile(n, n, r)
@@ -2190,7 +2199,6 @@ def timing_ltl(torch, dev, card: Card) -> tuple:
                         library_ms=lib_ms))
         log(f"  conv tier {n}² r={r}: K7 {fft[-1]['conv_ms']:.4f} ms, FFT "
             f"tier {f_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms a turn")
-        del padded, ones
     del b
     torch.cuda.empty_cache()
     # The box crossover beyond the bench's radii and on smaller boards, and
@@ -2210,13 +2218,19 @@ def timing_ltl(torch, dev, card: Card) -> tuple:
                      if cs.ltl_smem_bytes(t, r, cs.ltl_lut_words(r))
                      <= cs.SMEM_BYTES}
             f_ms = time_ms(torch, lambda: C._ltl_step(b, rule, "fft"), 5)
+            # The library call at the bench size beyond the bench's radii:
+            # one timed call (about 1 s at r = 64, 4 s at r = 128).
+            lib_ms = (conv2d_library_ms(torch, b, r, 1) if size == CONV_N
+                      else None)
             fft.append(dict(shape=f"{size}x{size}", radius=r, fft_ms=f_ms,
                             conv_ms=tiles[policy], tile=policy,
-                            tile_ms=tiles, library_ms=None))
+                            tile_ms=tiles, library_ms=lib_ms))
             log(f"  conv tier {size}² r={r}: K7 {tiles[policy]:.4f} ms "
                 f"(policy tile {policy}; "
                 + ", ".join(f"tile {t} {ms:.4f}" for t, ms in tiles.items())
-                + f"), FFT tier {f_ms:.4f} ms a turn")
+                + f"), FFT tier {f_ms:.4f} ms a turn"
+                + (f", F.conv2d {lib_ms:.4f} ms" if lib_ms is not None
+                   else ""))
         del b
     torch.cuda.empty_cache()
     # The other kinds' crossover: the direct tier of a circular
@@ -2271,6 +2285,27 @@ def timing_ltl(torch, dev, card: Card) -> tuple:
     return k7, fft, general, engine
 
 
+def conv2d_library_ms(torch, b, r: int, reps: int) -> float:
+    """ms of the library call that computes K7's box counts on the board
+    `b`: F.conv2d of the wrap-padded float32 board with a (2r+1)² ones
+    kernel, TF32 off (`reps` calls after one warm-up)."""
+    n = b.shape[0]
+    ones = torch.ones((1, 1, 2 * r + 1, 2 * r + 1), device=b.device)
+    idx = torch.arange(-r, n + r, device=b.device) % n
+    padded = b.float().index_select(0, idx).index_select(1, idx)[None, None]
+
+    def library():
+        with torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=False,
+                allow_tf32=False):
+            return torch.nn.functional.conv2d(padded, ones)
+
+    ms = time_ms(torch, library, reps)
+    del padded, ones
+    torch.cuda.empty_cache()
+    return ms
+
+
 def k7_record(card: Card, launches: dict, timing: tuple) -> dict:
     """K7's entry of the kernels line (head row: Bosco's r = 5 at
     4096²)."""
@@ -2288,6 +2323,343 @@ def k7_record(card: Card, launches: dict, timing: tuple) -> dict:
         bound_by=head["bound_by"], library_ms=head["library_ms"],
         by_shape=k7, fft_tier=fft, general_tier=general,
         engine=conv_engine)
+
+
+# ------------------------------------------------ phase 4g: sparse torus
+
+SPARSE_SIZE = 1 << 20
+SPARSE_TURNS = 8192        # the JAX bench's sparse leg (bench.py:58)
+SPARSE_LONG_TURNS = 65536
+# From turn 1103 on the R-pentomino is still lifes, blinkers and six free
+# gliders: 116 cells (LifeWiki), on any torus its light cone never wraps.
+SPARSE_STABLE_TURN = 1103
+SPARSE_STABLE_ALIVE = 116
+SPARSE_RESTORE_TURNS = 1024
+# The dense comparator: 3 + 2 x 8192 = 16,387 cells of light cone never
+# wrap a 32768² torus (128 MiB packed, K2 sweeps).
+SPARSE_DENSE = 32768
+# K8 at the window ladder's shapes (rows, words), and an odd one.
+OCC_SHAPES = ((256, 64), (768, 64), (10240, 384), (38656, 1280), (1000, 77))
+# Phase 4g's figures and final window, for K8's timing and record.
+SPARSE_STATS: dict = {}
+
+
+def phase_kernels_occupancy(torch, dev) -> None:
+    """K8 against its plain version on the card, bit-exact: random words
+    (every bit pattern, the sign bit included) at OCC_SHAPES, a row of
+    all-ones words and sign-bit-only words, and a mostly empty window
+    (the zero counts K8 skips)."""
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    log("phase 3: K8 (window_occupancy) against its plain version "
+        "(bit-exact)")
+    for h, wp in OCC_SHAPES:
+        w = seeded_words(torch, h, wp, h + 3 * wp, dev)
+        w[0] = -1
+        w[-1, ::3] = -2**31
+        check_equal(torch, f"K8 {h}x{wp} words, random",
+                    cs.window_occupancy(w), cs.window_occupancy_plain(w),
+                    "window_occupancy")
+        sparse = torch.zeros_like(w)
+        sparse[h // 2, wp // 3] = -2**31 + 5
+        sparse[h - 1, wp - 1] = 7
+        check_equal(torch, f"K8 {h}x{wp} words, two live words",
+                    cs.window_occupancy(sparse),
+                    cs.window_occupancy_plain(sparse), "window_occupancy")
+        del w, sparse
+
+
+def word_cells(rows, cols, words, ox: int, oy: int, size: int) -> set:
+    """Torus cells (x, y) of the np.uint32 `words` found at (rows, cols)
+    of a window whose cell (0, 0) lies at (ox, oy) on the torus."""
+    cells = set()
+    for r, c, v in zip(rows.tolist(), cols.tolist(), words.tolist()):
+        for j in range(32):
+            if v >> j & 1:
+                cells.add(((ox + 32 * c + j) % size, (oy + r) % size))
+    return cells
+
+
+def sparse_cells(words, ox: int, oy: int, size: int) -> set:
+    """Torus cells of a window of np.uint32 words at origin (ox, oy)."""
+    rows, cols = np.nonzero(words)
+    return word_cells(rows, cols, words[rows, cols], ox, oy, size)
+
+
+def window_cells(window, size: int) -> set:
+    """Torus cells of a (pixels, (ox, oy), turn) window."""
+    pix, (ox, oy), _ = window
+    ys, xs = np.nonzero(pix)
+    return {((int(x) + ox) % size, (int(y) + oy) % size)
+            for x, y in zip(xs, ys)}
+
+
+def sparse_reference(torch, dev) -> None:
+    """Phase 4g's comparator, run before the phase's counters and its
+    profile start: the R-pentomino for 8192 turns on a dense 32768² board
+    through the packed path (K2 sweeps, 128 MiB), its cells mapped to
+    where the sparse engines stamp the seed on the 2^20 torus."""
+    from gol_tpu_torch.models.lifelike import CONWAY
+    from gol_tpu_torch.models.sparse import R_PENTOMINO
+    from gol_tpu_torch.ops import bitpack
+    from gol_tpu_torch.parallel.halo import packed_run_turns
+
+    n, turns = SPARSE_SIZE, SPARSE_TURNS
+    off = (n - 3) // 2  # where the engines stamp a 3 x 3 seed board
+    d, doff = SPARSE_DENSE, SPARSE_DENSE // 2 - 1
+    words = np.zeros((d, d // 32), dtype=np.uint32)
+    for x, y in R_PENTOMINO:
+        words[y + doff, (x + doff) // 32] |= np.uint32(1 << ((x + doff) % 32))
+    dense = bitpack.words_from_numpy(words, dev)
+    del words
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = packed_run_turns(dense, turns, CONWAY)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    live = torch.nonzero(dense)
+    SPARSE_STATS["want"] = word_cells(
+        live[:, 0].cpu().numpy(), live[:, 1].cpu().numpy(),
+        bitpack.words_to_numpy(dense[live[:, 0], live[:, 1]]),
+        off - doff, off - doff, n)
+    SPARSE_STATS["dense"] = dict(size=d, turns=turns,
+                                 turns_per_s=turns / secs)
+    del dense, live
+    torch.cuda.empty_cache()
+    log(f"phase 4g: the dense comparator {d}² x {turns} (K2): "
+        f"{turns / secs:.1f} turns/s, {len(SPARSE_STATS['want'])} cells")
+
+
+def phase_sparse(torch, dev) -> None:
+    """The sparse torus on the card: the R-pentomino on the 2^20 torus
+    for 8192 turns through `SparseTorus` against the dense comparator
+    (`sparse_reference`), then the same run through
+    `gol_tpu_torch.run(..., sparse=True)`, the CLI and SER to a
+    `--sparse` server subprocess (its GetWindow against the in-process
+    engine's), each to the same torus cells; 65,536 turns through
+    `SparseEngine`, every published count from turn 1103 on equal to 116;
+    and a checkpoint of that engine restored into a fresh one, 1024 more
+    turns on both to equal cells."""
+    from gol_tpu_torch import Params, distributor
+    from gol_tpu_torch import events as ev
+    from gol_tpu_torch.client import RemoteEngine
+    from gol_tpu_torch.io.pgm import write_pgm
+    from gol_tpu_torch.models.sparse import R_PENTOMINO, SparseTorus
+    from gol_tpu_torch.sparse_engine import SparseEngine
+
+    log("phase 4g: the sparse torus (R-pentomino on the 2^20 torus)")
+    n, turns = SPARSE_SIZE, SPARSE_TURNS
+    off = (n - 3) // 2  # where the engines stamp a 3 x 3 seed board
+    seed = np.zeros((3, 3), dtype=np.uint8)
+    for x, y in R_PENTOMINO:
+        seed[y, x] = 255
+    want = SPARSE_STATS.pop("want")
+
+    # a. The dense comparator's turns on the sparse torus.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torus = SparseTorus(n, [(x + off, y + off) for x, y in R_PENTOMINO])
+    torus.run(turns)
+    alive = torus.alive_count()
+    secs = time.perf_counter() - t0
+    got = set(torus.alive_cells())
+    if got != want or alive != len(want):
+        raise AssertionError(f"SparseTorus {turns} turns: {len(got)} cells "
+                             f"({alive} counted) != the dense run's "
+                             f"{len(want)}")
+    h, w = torus.window_shape()
+    SPARSE_STATS["torus"] = dict(
+        turns=turns, turns_per_s=turns / secs, seconds=secs, window=[h, w],
+        margin_fetches=torus.margin_fetches, grows=torus.grows,
+        alive=alive)
+    log(f"  ok SparseTorus 2^20 x {turns}: {len(got)} cells equal the "
+        f"dense run's; {turns / secs:.1f} turns/s ({secs:.3f} s), window "
+        f"{h} x {w} cells, {torus.margin_fetches} episodes (margin "
+        f"fetches), {torus.grows} grows")
+    del torus
+
+    # b. The same run through run(sparse=True), the CLI and SER. A fixed
+    # chunk ladder (GOL_CHUNK_TARGET far above any chunk) gives the
+    # in-process engine and the server's the same episodes, and so the
+    # same window.
+    pinned = {"GOL_CHUNK_TARGET": "1000"}
+    with tempfile.TemporaryDirectory() as tmp:
+        seed_dir = os.path.join(tmp, "images")
+        write_pgm(os.path.join(seed_dir, "seed.pgm"), seed)
+        p = Params(image_width=n, image_height=n, turns=turns)
+        os.environ.update(pinned)
+        distributor._default_sparse.clear()
+        try:
+            t0 = time.perf_counter()
+            evs, _ = drive(p, seed_dir, os.path.join(tmp, "run"),
+                           sparse=True)
+            run_s = time.perf_counter() - t0
+        finally:
+            os.environ.pop("GOL_CHUNK_TARGET", None)
+        final = [e for e in evs if isinstance(e, ev.FinalTurnComplete)][0]
+        if final.completed_turns != turns or set(final.alive) != want:
+            raise AssertionError("run(sparse=True): final cells != the "
+                                 "dense run's")
+        eng = next(iter(distributor._default_sparse.values()))
+        window = eng.get_window()
+        log(f"  ok run(sparse=True) 2^20 x {turns}: final cells equal "
+            f"({run_s:.2f} s with its PGM)")
+
+        ck = os.path.join(tmp, "cli_ckpt")
+        cli = subprocess.run(
+            [sys.executable, "-m", "gol_tpu_torch", "-w", str(n), "-h",
+             str(n), "--sparse", "--rle", "rpentomino", "--turns",
+             str(turns), "--headless", "--checkpoint", ck, "--ckpt-every",
+             str(turns)], capture_output=True, text=True, timeout=600,
+            stdin=subprocess.DEVNULL, cwd=tmp,
+            env=dict(os.environ, PYTHONPATH=REPO,
+                     GOL_OUT=os.path.join(tmp, "cli")))
+        if cli.returncode != 0:
+            raise AssertionError(f"CLI --sparse exit {cli.returncode}: "
+                                 f"{cli.stderr[-2000:]}")
+        from gol_tpu_torch.ckpt import manifest as mf
+
+        turn, path, m = mf.latest_checkpoint(ck)
+        with np.load(mf.payload_path(path, m)) as z:
+            cli_cells = sparse_cells(z["sparse_words"], int(z["ox"]),
+                                     int(z["oy"]), n)
+        pgms = os.listdir(os.path.join(tmp, "cli"))
+        if turn != turns or cli_cells != want or not any(
+                f.endswith(f"x{turns}.pgm") for f in pgms):
+            raise AssertionError(f"CLI --sparse: turn {turn}, "
+                                 f"{len(cli_cells)} cells, PGMs {pgms}")
+        log(f"  ok CLI --sparse --rle rpentomino --turns {turns}: its "
+            f"final checkpoint's cells equal the dense run's ({pgms[0]})")
+
+        proc, port = spawn_server(0, "--sparse", str(n), env=pinned)
+        try:
+            os.environ["SER"] = f"127.0.0.1:{port}"
+            try:
+                evs, _ = drive(p, seed_dir, os.path.join(tmp, "ser"),
+                               sparse=True)
+            finally:
+                os.environ.pop("SER", None)
+            final = [e for e in evs if isinstance(e, ev.FinalTurnComplete)][0]
+            remote = RemoteEngine(f"127.0.0.1:{port}").get_window()
+        finally:
+            stop_server(proc)
+        if (set(final.alive) != want or remote[1:] != window[1:]
+                or not np.array_equal(remote[0], window[0])):
+            raise AssertionError(
+                f"SER --sparse: window {remote[0].shape} at {remote[1]} "
+                f"turn {remote[2]} != the in-process engine's "
+                f"{window[0].shape} at {window[1]} turn {window[2]}")
+        log(f"  ok SER to a --sparse server: final cells equal; GetWindow "
+            f"{remote[0].shape[1]} x {remote[0].shape[0]} at {remote[1]} "
+            "equals the in-process engine's pixels and origin")
+        distributor._default_sparse.clear()
+        del eng, window, remote
+
+    # c. 65,536 turns through SparseEngine; every publication recorded.
+    eng = SparseEngine(n)
+    pubs = []
+    publish = eng._publish_locked
+
+    def record(alive=None):
+        publish(alive)
+        pubs.append((eng._pub[3], eng._pub[4]))
+
+    eng._publish_locked = record
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.server_distributor(Params(image_width=n, image_height=n,
+                                  turns=SPARSE_STABLE_TURN), seed)
+    stable, at = eng.alive_count()
+    eng.server_distributor(
+        Params(image_width=n, image_height=n,
+               turns=SPARSE_LONG_TURNS - SPARSE_STABLE_TURN), None,
+        start_turn=SPARSE_STABLE_TURN)
+    long_s = time.perf_counter() - t0
+    late = [(t, a) for t, a in pubs if t >= SPARSE_STABLE_TURN]
+    bad = [(t, a) for t, a in late if a != stable]
+    if (at != SPARSE_STABLE_TURN or stable != SPARSE_STABLE_ALIVE or bad
+            or late[-1][0] != SPARSE_LONG_TURNS):
+        raise AssertionError(f"{SPARSE_LONG_TURNS} turns: {stable} alive at "
+                             f"turn {at}; publications off it: {bad[:5]}")
+    torus = eng._torus
+    h, w = torus.window_shape()
+    SPARSE_STATS["long"] = dict(
+        turns=SPARSE_LONG_TURNS, turns_per_s=SPARSE_LONG_TURNS / long_s,
+        seconds=long_s, window=[h, w], margin_fetches=torus.margin_fetches,
+        grows=torus.grows, publications=len(pubs), alive=stable)
+    SPARSE_STATS["final_words"] = torus._packed
+    log(f"  ok SparseEngine 2^20 x {SPARSE_LONG_TURNS}: {len(late)} "
+        f"publications from turn {SPARSE_STABLE_TURN} on all count "
+        f"{stable}; {SPARSE_LONG_TURNS / long_s:.1f} turns/s ({long_s:.3f} "
+        f"s), window {h} x {w} cells ({h * w // 8 / 2**20:.1f} MiB "
+        f"packed), {torus.margin_fetches} episodes, {torus.grows} grows")
+
+    # d. A checkpoint of that engine restored into a fresh one.
+    with tempfile.TemporaryDirectory() as tmp:
+        path, turn = eng.checkpoint_now(tmp)
+        fresh = SparseEngine(n)
+        if fresh.restore_run(path) != turn or fresh.get_window()[1:] != \
+                eng.get_window()[1:]:
+            raise AssertionError("sparse checkpoint: restored window != "
+                                 "the engine's")
+        more = Params(image_width=n, image_height=n,
+                      turns=SPARSE_RESTORE_TURNS)
+        for e in (eng, fresh):
+            e.server_distributor(more, None, start_turn=turn)
+        a, b = eng.get_window(), fresh.get_window()
+        if (a[2] != b[2] or window_cells(a, n) != window_cells(b, n)
+                or eng.alive_count() != fresh.alive_count()):
+            raise AssertionError("sparse checkpoint: restored engine's "
+                                 f"{SPARSE_RESTORE_TURNS} turns differ")
+    log(f"  ok checkpoint_now at turn {turn} restored into a fresh engine; "
+        f"{SPARSE_RESTORE_TURNS} more turns on both: equal cells")
+    log("sparse:" + json.dumps({k: v for k, v in SPARSE_STATS.items()
+                                if k != "final_words"}))
+
+
+def timing_occupancy(torch, dev, card: Card) -> list:
+    """K8 per launch at OCC_SHAPES on random words, and on the final
+    window of phase 4g's 65,536-turn run (its head row), beside its plain
+    version and its byte bound: (H Wp + H + Wp) x 4 bytes."""
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    rows = []
+    cases = [(f"{h}x{wp} random", seeded_words(torch, h, wp, 9, dev))
+             for h, wp in OCC_SHAPES]
+    final = SPARSE_STATS.pop("final_words", None)
+    if final is not None:
+        cases.append(("final window", final))
+    for what, w in cases:
+        h, wp = w.shape
+        b, by = card.bound(4 * h * wp + 4 * (h + wp), 4 * h * wp)
+        row = dict(shape=f"{h}x{wp * 32}", words=[h, wp], data=what,
+                   turns=0, ms=time_ms(torch, lambda: cs.window_occupancy(w),
+                                       20),
+                   plain_ms=time_ms(torch,
+                                    lambda: cs.window_occupancy_plain(w), 2),
+                   bound_ms=b, bound_by=by, library_ms=None)
+        rows.append(row)
+        log_row("window_occupancy", row)
+    del cases, final
+    torch.cuda.empty_cache()
+    return rows
+
+
+def k8_record(card: Card, launches: dict, rows: list) -> dict:
+    """K8's entry of the kernels line (head row: the final window of the
+    65,536-turn sparse run)."""
+    head = [r for r in rows if r["data"] == "final window"][0]
+    return dict(
+        name="window_occupancy", route="cuda",
+        source="gol_tpu_torch/csrc/stencil.cu", family=None,
+        replaces="gol_tpu/models/sparse.py:106",
+        launches=launches["window_occupancy"],
+        bit_exact=MAX_ABS_ERR["window_occupancy"] == 0,
+        max_abs_err=MAX_ABS_ERR["window_occupancy"], card=card.smi,
+        shape=head["shape"], turns=0, ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None, by_shape=rows,
+        sparse={k: v for k, v in SPARSE_STATS.items()})
 
 
 def main_path_launches(cs) -> dict:
@@ -2313,6 +2685,7 @@ KERNEL_SYMBOLS = (
     ("tiled_kernel<Gen3,", "tiled_sweep2p/gen3"),
     ("tiled_kernel<Gen4,", "tiled_sweep2p/gen4"),
     ("ltl_box_kernel", "ltl_box_run_turns"),
+    ("window_occupancy_kernel", "window_occupancy"),
 )
 
 
@@ -2367,6 +2740,8 @@ def main() -> int:
         log(f"  sass stepping loop of {name}: {json.dumps(loop)}")
     phase_kernels(torch, dev)
     phase_kernels_ltl(torch, dev)
+    phase_kernels_occupancy(torch, dev)
+    sparse_reference(torch, dev)
     # Each path runs with the counters at 0 and is read just after; each
     # must have launched every kernel (and family) it runs. The profiler
     # sums the device time of the profiled paths by kernel.
@@ -2388,7 +2763,9 @@ def main() -> int:
             (phase_checkpoints, ("resident_run_turns", "tiled_sweep",
                                  "row_popcounts",
                                  "tiled_sweep2p/gen3"), False),
-            (phase_conv, ("ltl_box_run_turns",), True)):
+            (phase_conv, ("ltl_box_run_turns",), True),
+            (phase_sparse, ("resident_run_turns", "tiled_sweep",
+                            "window_occupancy"), True)):
         cs.reset_launch_counts()
         with (profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) if profiled
@@ -2404,7 +2781,10 @@ def main() -> int:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
         if profiled:
-            for name, ms in device_ms_by_kernel(prof).items():
+            mine = device_ms_by_kernel(prof)
+            log(f"  {phase.__name__} device ms by kernel: "
+                + (json.dumps(mine) if mine else "not measured"))
+            for name, ms in mine.items():
                 device_ms[name] = device_ms.get(name, 0.0) + ms
         del prof
     log("  main-path device ms by kernel (torch.profiler): "
@@ -2415,6 +2795,8 @@ def main() -> int:
     kernels = phase_timing(torch, dev, card, launches)
     kernels.append(k7_record(card, launches,
                              timing_ltl(torch, dev, card)))
+    kernels.append(k8_record(card, launches,
+                             timing_occupancy(torch, dev, card)))
     for k in kernels:
         k["main_path_device_ms"] = device_ms.get(
             k["name"], 0.0 if device_ms else "not measured")

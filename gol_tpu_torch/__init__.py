@@ -11,6 +11,10 @@ Rules are life-like ('B3/S23') or Generations ('/2/3', '345/2/4'; the
 `rule=` argument, `GOL_RULE` or the CLI's `--rule`); Generations boards
 travel as gray PGM levels (`models/generations.py`).
 
+`run(..., sparse=True)` runs a small pattern on an enormous torus (the
+width and height give the torus, `images/seed.pgm` the pattern) on the
+sparse engine, which holds only the live window (`sparse_engine.py`).
+
 The engine runs on the CUDA device unless the caller asks for the CPU
 (`run(..., device="cpu")` or `engine=Engine(device="cpu")`). The package
 imports torch and numpy, never jax nor `gol_tpu`.

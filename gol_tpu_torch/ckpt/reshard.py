@@ -1,10 +1,12 @@
 """Reshard-at-restore: resume a checkpoint written under another geometry
 — the counterpart of `gol_tpu/ckpt/reshard.py` for the port's one-device
-dense engine.
+dense and sparse engines.
 
 * `restore_delta(manifest, engine)` names every way the checkpoint's
   recorded geometry disagrees with the engine that wants to load it
-  (mesh device count, sparse-window representation, cell-dtype family).
+  (mesh device count, sparse-window representation and torus size,
+  cell-dtype family). A sparse manifest restores directly onto a sparse
+  engine of the same torus.
   A non-empty delta without an explicit reshard request is refused with
   `GeometryMismatch` — tagged `rpc_error_kind="geometry"` so the wire
   layer answers with a `geometry:` error.
@@ -13,13 +15,14 @@ dense engine.
   decode the payload to a canonical board (exact, bit-identical — no
   resampling, the board IS the state), then re-encode it in the npz
   dialect the engine's own `load_checkpoint` verifies and installs. A
-  checkpoint of the JAX package's 8-device mesh, or of its sparse
-  engine, thus resumes on one card without a bit of drift.
+  checkpoint of the JAX package's 8-device mesh, or of a sparse engine
+  onto a dense one (and a torus-sized dense board onto a sparse engine),
+  thus resumes on one card without a bit of drift.
 
 Canonical decode covers every payload either package's writer emits:
 packed `words`, raw `world` pixels, Generations `gen_planes`/`gen_state`,
-Lenia's continuous `float_state`, and the JAX sparse engine's window
-words (embedded into its full torus with wraparound).
+Lenia's continuous `float_state`, and a sparse engine's window words
+(embedded into its full torus with wraparound).
 """
 
 from __future__ import annotations
@@ -143,12 +146,25 @@ def board01_of(can: Canonical) -> np.ndarray:
 def restore_delta(manifest: dict, engine) -> List[str]:
     """Every way `manifest`'s recorded geometry disagrees with
     `engine.geometry()`. Empty list = the direct payload load is already
-    correct. Board height/width are deliberately NOT a delta: the dense
-    install path adopts the checkpoint's shape."""
+    correct. Board height/width are deliberately NOT a delta for the
+    dense engine: its install path adopts the checkpoint's shape. A
+    sparse engine's torus size is fixed at construction, so it is."""
     geo = engine.geometry()
     deltas: List[str] = []
-    if str(manifest.get("repr", "")) == "sparse":
-        deltas.append(f"repr sparse -> {geo.get('kind')} engine")
+    mrepr = str(manifest.get("repr", ""))
+    kind = geo.get("kind")
+    if kind == "sparse":
+        if mrepr != "sparse":
+            deltas.append(f"repr {mrepr} -> sparse engine")
+        else:
+            extra = manifest.get("sparse") or {}
+            msize = int(extra.get("size",
+                                  manifest.get("board", {}).get("h", 0)))
+            if msize != int(geo.get("size", msize)):
+                deltas.append(f"sparse torus {msize} -> "
+                              f"{geo.get('size')}")
+    elif mrepr == "sparse":
+        deltas.append(f"repr sparse -> {kind} engine")
     mdev = (manifest.get("mesh") or {}).get("devices")
     gdev = geo.get("devices")
     if mdev and gdev and int(mdev) != int(gdev):
@@ -166,13 +182,29 @@ def restore_delta(manifest: dict, engine) -> List[str]:
 
 # -- the repack itself -------------------------------------------------
 
-def write_repacked(can: Canonical, out_path: str) -> None:
-    """Re-encode canonical state into the npz dialect the dense engine's
-    `load_checkpoint` accepts, at `out_path`."""
+def write_repacked(can: Canonical, out_path: str,
+                   geometry: Optional[dict] = None) -> None:
+    """Re-encode canonical state into the npz dialect the `load_checkpoint`
+    of the engine of `geometry` accepts (the dense engine's when None), at
+    `out_path`. A sparse engine takes the whole torus as its window, at
+    origin (0, 0)."""
     meta = {"turn": np.int64(can.turn)}
     if can.rule is not None:
         meta["rulestring"] = np.str_(can.rule)
-    if can.kind == "gen":
+    if (geometry or {}).get("kind") == "sparse":
+        from gol_tpu_torch.ops.bitpack import pack_np
+
+        board = board01_of(can)
+        size = int(geometry.get("size", 0))
+        if board.shape != (size, size):
+            raise GeometryMismatch(
+                f"board {board.shape[0]}x{board.shape[1]} cannot "
+                f"reshard onto a {size}-torus sparse engine (the torus "
+                f"size is fixed at construction)")
+        np.savez(out_path, sparse_words=pack_np(board),
+                 ox=np.int64(0), oy=np.int64(0), size=np.int64(size),
+                 **meta)
+    elif can.kind == "gen":
         np.savez(out_path, gen_state=can.board, **meta)
     elif can.kind == "float":
         # The float board is placement-invariant state; the engine's own
@@ -196,7 +228,7 @@ def reshard_into(engine, manifest: Optional[dict],
     fd, tmp = tempfile.mkstemp(suffix=".npz", prefix="gol-reshard-")
     os.close(fd)
     try:
-        write_repacked(can, tmp)
+        write_repacked(can, tmp, engine.geometry())
         turn = engine.load_checkpoint(tmp)
     finally:
         try:

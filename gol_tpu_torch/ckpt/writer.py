@@ -1,6 +1,8 @@
 """Background double-buffered checkpoint writer — the counterpart of
 `gol_tpu/ckpt/writer.py` (without its fleet `CheckpointWriterPool`,
-ROADMAP A11).
+ROADMAP A11). A sparse engine's window checkpoints as repr "sparse": its
+words as `sparse_words` beside the origin and torus size, which the
+manifest also records under "sparse".
 
 The turn loop never blocks on disk: at a chunk boundary the engine
 captures a Snapshot (the board tensor, the stream that produced it, and
@@ -72,15 +74,16 @@ class Snapshot:
     `stream`, the stream that produced it; None = the device's current
     stream) or an already-host numpy array. `mesh` is the writing
     engine's placement geometry (`{"devices": 1}` for the port's
-    engine), `fuse` its temporal-fusion depth."""
+    engine), `fuse` its temporal-fusion depth, `extra` the sparse
+    window's (size, ox, oy)."""
 
     __slots__ = ("cells", "repr", "turn", "board", "rule", "trigger",
-                 "mesh", "fuse", "stream")
+                 "mesh", "fuse", "stream", "extra")
 
     def __init__(self, cells, repr_: str, turn: int,
                  board: Tuple[int, int], rule: str,
                  trigger: str = "periodic", mesh: Optional[dict] = None,
-                 fuse: int = 1, stream=None):
+                 fuse: int = 1, stream=None, extra: Optional[dict] = None):
         self.cells = cells
         self.repr = repr_
         self.turn = turn
@@ -90,6 +93,7 @@ class Snapshot:
         self.mesh = dict(mesh) if mesh else None
         self.fuse = int(fuse)
         self.stream = stream
+        self.extra = dict(extra or {})
 
 
 def device_to_host(cells: torch.Tensor, stream=None) -> np.ndarray:
@@ -141,10 +145,16 @@ def _words(host: np.ndarray) -> np.ndarray:
     return a.view(np.uint32)
 
 
-def payload_arrays(host: np.ndarray, repr_: str) -> dict:
+def payload_arrays(host: np.ndarray, repr_: str,
+                   extra: Optional[dict] = None) -> dict:
     """The payload .npz members for one representation — EXACTLY the
-    format `Engine.load_checkpoint` (of either package) accepts, so every
-    manifest payload doubles as a legacy checkpoint file."""
+    format `Engine.load_checkpoint` / `SparseEngine.load_checkpoint` (of
+    either package) accepts, so every manifest payload doubles as a
+    legacy checkpoint file. `extra` holds a sparse window's origin and
+    torus size."""
+    if repr_ == "sparse":
+        return {"sparse_words": _words(host), "ox": int(extra["ox"]),
+                "oy": int(extra["oy"]), "size": int(extra["size"])}
     if repr_ == "packed":
         words = _words(host)
         return {"words": words, "width": words.shape[-1] * 32}
@@ -166,8 +176,9 @@ def payload_arrays(host: np.ndarray, repr_: str) -> dict:
 def _alive_count(host: np.ndarray, repr_: str) -> int:
     """Firing population of the host payload — the manifest's second
     determinism marker, exact and representation-aware."""
-    if repr_ == "packed":
-        return int(_POP8[host.view(np.uint8)].sum(dtype=np.int64))
+    if repr_ in ("packed", "sparse"):
+        return int(_POP8[np.ascontiguousarray(host).view(np.uint8)]
+                   .sum(dtype=np.int64))
     if repr_ == "gen3":
         return int(_POP8[np.ascontiguousarray(host[0]).view(np.uint8)]
                    .sum(dtype=np.int64))
@@ -289,7 +300,7 @@ class CheckpointWriter:
 
     def _write_inner(self, snap: Snapshot) -> str:
         host = _materialize(snap)
-        arrays = payload_arrays(host, snap.repr)
+        arrays = payload_arrays(host, snap.repr, snap.extra)
         payload_member = next(v for v in arrays.values()
                               if hasattr(v, "nbytes"))
         save = (np.savez_compressed
@@ -341,6 +352,9 @@ class CheckpointWriter:
                 manifest["mesh"] = snap.mesh
             if snap.fuse > 1:
                 manifest["fuse"] = snap.fuse
+            if snap.extra:
+                manifest["sparse"] = {k: int(v)
+                                      for k, v in snap.extra.items()}
             jinfo = self._journal_digest(snap, manifest)
             if jinfo is not None:
                 # The chain head rides the manifest: a restore knows the

@@ -1,7 +1,7 @@
 """Remote engine client — the controller side of the control plane, the
 counterpart of `gol_tpu/client.py` (without its live-view subscription
-and the methods of slices not yet ported: fleet runs, migration, sparse
-windows, telemetry).
+and the methods of slices not yet ported: fleet runs, migration,
+telemetry).
 
 Duck-typed to `Engine` (same method surface), so the controller does not
 care whether its engine is in-process or remote, nor whether the server
@@ -448,6 +448,12 @@ class RemoteEngine:
         if view is not None:
             self._view_basis = (turn, fy, fx, view)
         return view, turn, (fy, fx)
+
+    def get_window(self):
+        """Sparse engines: (window pixels, (ox, oy) torus origin, turn)."""
+        resp, world = self._call({"method": "GetWindow"},
+                                 timeout=self._timeout)
+        return world, (int(resp["ox"]), int(resp["oy"])), int(resp["turn"])
 
     def cf_put(self, flag: int) -> None:
         self._call({"method": "CFput", "flag": int(flag)},

@@ -44,6 +44,10 @@
 //   tiled_kernel<Gen3|4, 1>  K5 <- the same two, for boards beyond K4's
 //                                  shared memory (the TPU ran them from
 //                                  VMEM)
+//   window_occupancy_kernel  K8 <- the sparse window's occupancy, the row
+//                                  and word-column popcounts that the JAX
+//                                  package leaves to XLA
+//                                  (gol_tpu/models/sparse.py:106-112)
 //   ltl_box_kernel           K7 <- one Larger-than-Life turn of a Moore-box
 //                                  rule on a uint8 torus: the box path of
 //                                  `_conv_sum` and `_ltl_step`, which the
@@ -691,6 +695,46 @@ row_popcounts_kernel(const uint32_t* __restrict__ in,
   if (lane == 0) out[warp] = s;
 }
 
+// K8: the occupancy of an (h, wp) window, into one zeroed int32 buffer of
+// h + wp counts: rows[r] = live cells of row r (K3's row popcounts), then
+// cols[c] = live cells of word column c summed over all rows. A block
+// takes kOccRows rows x kOccThreads words, a thread one word column of
+// them: it adds each word's popcount into its column's count, and the
+// warp's popcounts of a row are summed (one redux) into the block's
+// shared row count. Rows and columns then go to the buffer with integer
+// atomicAdd, exact in any order, and only where the count is not 0, so
+// the empty margins of a sparse window cost loads and no atomics. Bound:
+// one read of the window (4 bytes a word) and one write of the counts.
+constexpr int kOccThreads = 128;
+constexpr int kOccRows = 32;
+
+__global__ void __launch_bounds__(kOccThreads)
+window_occupancy_kernel(const uint32_t* __restrict__ in,
+                        int32_t* __restrict__ rows,
+                        int32_t* __restrict__ cols, int h, int wp) {
+  __shared__ int32_t band[kOccRows];
+  const int lane = threadIdx.x % 32;
+  const int r0 = blockIdx.y * kOccRows;
+  const int n = min(kOccRows, h - r0);
+  const int c = blockIdx.x * kOccThreads + threadIdx.x;
+  const bool mine = c < wp;
+  if (threadIdx.x < kOccRows) band[threadIdx.x] = 0;
+  __syncthreads();
+  const uint32_t* p = in + (long long)r0 * wp + (mine ? c : 0);
+  int col = 0;
+#pragma unroll 8
+  for (int r = 0; r < n; ++r) {
+    const int v = mine ? __popc(p[(long long)r * wp]) : 0;
+    col += v;
+    const int s = __reduce_add_sync(0xFFFFFFFFu, v);
+    if (lane == 0 && s) atomicAdd(&band[r], s);
+  }
+  __syncthreads();
+  if (threadIdx.x < n && band[threadIdx.x]) {
+    atomicAdd(&rows[r0 + threadIdx.x], band[threadIdx.x]);
+  }
+  if (col) atomicAdd(&cols[c], col);
+}
 
 // K7: one Larger-than-Life turn of a Moore-box rule (R<r>,...,NM) on an
 // (h, w) uint8 {0,1} torus — what `_ltl_step(cells, rule, "conv")` of
@@ -935,6 +979,25 @@ int gol_row_popcounts(const void* in, void* out, int h, int wp, int device,
   row_popcounts_kernel<<<blocks, kPopcountThreads, 0,
                          (cudaStream_t)stream>>>(
       (const uint32_t*)in, (int32_t*)out, h, wp);
+  return cudaGetLastError();
+}
+
+// K8 into `out`: h row counts, then wp word-column counts. The buffer is
+// zeroed on the stream first (the kernel adds into it).
+int gol_window_occupancy(const void* in, void* out, int h, int wp,
+                         int device, void* stream) {
+  if (h < 1 || wp < 1) return cudaErrorInvalidValue;
+  const dim3 grid((wp + kOccThreads - 1) / kOccThreads,
+                  (h + kOccRows - 1) / kOccRows);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const cudaStream_t s = (cudaStream_t)stream;
+  int32_t* rows = (int32_t*)out;
+  e = cudaMemsetAsync(rows, 0, sizeof(int32_t) * ((size_t)h + wp), s);
+  if (e != cudaSuccess) return e;
+  window_occupancy_kernel<<<grid, kOccThreads, 0, s>>>(
+      (const uint32_t*)in, rows, rows + h, h, wp);
   return cudaGetLastError();
 }
 

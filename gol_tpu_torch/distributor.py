@@ -1,5 +1,5 @@
 """The controller: orchestrates one run — the counterpart of
-`gol_tpu/distributor.py` without its sparse mode (ROADMAP A10).
+`gol_tpu/distributor.py`.
 
 Contract (reference `Local/gol/distributor.go:55-226`): load
 `images/WxH.pgm`, drive the engine, emit the event stream, honour s/p/q/k
@@ -22,6 +22,14 @@ as in the JAX controller: a Lenia board's pixels are its quantized
 float state, so the run reaches FinalTurnComplete and then fails at the
 final PGM's {0,255} check (Lenia's working surfaces are the engine and
 the server).
+
+Sparse mode (`sparse=True`): the engine is the process's `SparseEngine`
+(or the remote one behind `SER`, whose `--sparse SIZE` must equal the
+Params' width and height, the TORUS size); the board source is the small
+seed pattern `<images_dir>/seed.pgm`, its live cells stamped centred;
+snapshots and the final PGM are the live WINDOW (named by its dims), and
+FinalTurnComplete carries torus-coordinate cells. CONT=yes and a
+reattach after loss resume the engine-held window.
 """
 
 from __future__ import annotations
@@ -86,6 +94,35 @@ def _resolve_rule(rule=None):
         return rule
     s = os.environ.get("GOL_RULE", "")
     return parse_rule(s) if s else CONWAY
+
+
+# The process-local sparse engine (one, keyed by (size, rulestring)): the
+# sparse analog of `_default_engine`, held across `run` calls so that `q`
+# then CONT=yes holds for sparse runs too.
+_default_sparse: dict = {}
+
+
+def _resolve_sparse_engine(size: int, rule=None, device=None):
+    """`SER` set: a `RemoteEngine` on that address. Otherwise the
+    process's sparse engine for (size, rule), on `device` (CUDA when
+    None); one held sparse state at a time."""
+    from gol_tpu_torch.sparse_engine import SparseEngine
+
+    ser = os.environ.get("SER", "")
+    if ser:
+        from gol_tpu_torch.client import RemoteEngine
+
+        return RemoteEngine(ser)
+    rule = _resolve_rule(rule)
+    dev = resolve_device(device)
+    key = (size, rule.rulestring)
+    with _default_engine_lock:
+        eng = _default_sparse.get(key)
+        if eng is None or eng._killed or eng.device != dev:
+            _default_sparse.clear()
+            eng = SparseEngine(size, rule=rule, device=dev)
+            _default_sparse[key] = eng
+        return eng
 
 
 def _resolve_engine(rule=None, device=None):
@@ -155,6 +192,39 @@ def _await_engine(engine, budget_s: float) -> None:
             time.sleep(min(0.5, budget_s / 10))
 
 
+def _finish_sparse(engine, final_world, final_turn: int, width: int,
+                   height: int, max_event_cells: int, out_dir: str,
+                   events_q: "queue.Queue"):
+    """A sparse run's FinalTurnComplete and window PGM; returns the PGM's
+    path, or None when there is no state to write. Cells are in TORUS
+    coordinates: the window's nonzeros offset by its torus origin, read
+    from the parked engine. When the engine is unreachable (killed or
+    lost) the origin is lost with it, so only the count of the run's
+    last-known window travels, never wrongly wrapped coordinates."""
+    origin = None
+    try:
+        win, origin, _ = engine.get_window()
+    except (EngineKilled, ConnectionError, OSError, RuntimeError):
+        win = final_world
+    if win is None:
+        # Killed before any state on a resume-only run.
+        events_q.put(ev.FinalTurnComplete(final_turn, (), 0))
+        return None
+    ys, xs = np.nonzero(win)
+    if origin is not None and len(xs) <= max_event_cells:
+        ox, oy = origin
+        alive = tuple((int((x + ox) % width), int((y + oy) % height))
+                      for x, y in zip(xs, ys))
+        count = len(alive)
+    else:
+        alive = ()
+        count = int(len(xs))
+    events_q.put(ev.FinalTurnComplete(final_turn, alive, count))
+    fname = output_path(win.shape[1], win.shape[0], final_turn, out_dir)
+    write_pgm(fname, win)
+    return fname
+
+
 def distributor(
     p: Params,
     events_q: "queue.Queue",
@@ -165,12 +235,23 @@ def distributor(
     live_view: bool = False,
     rule=None,
     device=None,
+    sparse: bool = False,
 ) -> None:
     """Run `p` to completion (or quit/kill), pushing events and, last of
     all, `events.CLOSE` onto `events_q`. `live_view` adds the
-    CellsFlipped/TurnComplete feed of a viewer."""
+    CellsFlipped/TurnComplete feed of a viewer. `sparse` runs on the
+    sparse-torus engine (module note)."""
     images_dir = images_dir or os.environ.get("GOL_IMAGES", "images")
     out_dir = out_dir or os.environ.get("GOL_OUT", "out")
+    if sparse and live_view:
+        # The live view renders a Params-sized display (a 2^20 torus would
+        # be a 1 TiB buffer) in window-local coordinates; snapshots ('s')
+        # are the sparse visualisation path.
+        import warnings
+
+        warnings.warn("live view is not supported for sparse runs; "
+                      "disabled (use 's' snapshots instead)")
+        live_view = False
     width, height = p.image_width, p.image_height
     done = threading.Event()
     helper_threads: list = []
@@ -189,7 +270,8 @@ def distributor(
     # the events queue would wait forever.
     try:
         if engine is None:
-            engine = _resolve_engine(rule, device)
+            engine = (_resolve_sparse_engine(width, rule, device) if sparse
+                      else _resolve_engine(rule, device))
         # The rule family's io: PGM value levels (the Generations gray
         # encoding, else the strict {0,255}); the firing cells are the
         # 255 pixels for every family. The engine's own rule decides, so
@@ -212,8 +294,13 @@ def distributor(
                 continue
             try:
                 if key == "s":
-                    world, turn = engine.get_world()
-                    fname = output_path(width, height, turn, out_dir)
+                    if sparse:  # the live window, named by its dims
+                        world, _, turn = engine.get_window()
+                        fname = output_path(world.shape[1], world.shape[0],
+                                            turn, out_dir)
+                    else:
+                        world, turn = engine.get_world()
+                        fname = output_path(width, height, turn, out_dir)
                     write_pgm(fname, world, levels=pgm_levels)
                     events_q.put(ev.ImageOutputComplete(
                         turn, os.path.basename(fname)))
@@ -302,6 +389,20 @@ def distributor(
             engine.drain_flags()
         except (EngineKilled, ConnectionError, OSError, RuntimeError):
             pass
+        if sparse:
+            # A remote sparse engine's torus size is server state
+            # (`--sparse SIZE`); a mismatched controller would wrap final
+            # torus coordinates by the wrong modulus. Fail fast on a
+            # definite mismatch; a transport error here is no verdict.
+            try:
+                board = (engine.stats() or {}).get("board")
+            except (EngineKilled, ConnectionError, OSError, RuntimeError):
+                board = None
+            if board is not None and tuple(board) != (height, width):
+                raise ValueError(
+                    f"engine torus is {board[1]}x{board[0]} but Params "
+                    f"say {width}x{height} — match the server's "
+                    f"--sparse SIZE")
         if key_presses is not None:
             helper_threads.append(threading.Thread(
                 target=keypress_loop, daemon=True))
@@ -315,7 +416,16 @@ def distributor(
 
         # -- board source: fresh from PGM, or reattach (`:171-178`) -------
         start_turn = 0
-        if os.environ.get("CONT", "") == "yes":
+        if sparse and os.environ.get("CONT", "") == "yes":
+            # The engine's held window IS the state; only the resume
+            # arithmetic travels.
+            world = None
+            start_turn = engine.ping()
+            turns_left = max(p.turns - start_turn, 0)
+        elif sparse:
+            world = read_pgm(os.path.join(images_dir, "seed.pgm"))
+            turns_left = p.turns
+        elif os.environ.get("CONT", "") == "yes":
             world, start_turn = engine.get_world()
             turns_left = max(p.turns - start_turn, 0)
         else:
@@ -425,9 +535,17 @@ def distributor(
             # -- reattach: refresh state, then resubmit ------------------
             contacted = True
             try:
-                # An engine back with authoritative state (it survived):
-                # resume from it.
-                world, start_turn = engine.get_world()
+                # An engine back with authoritative state (it survived, or
+                # was restarted from a checkpoint): resume from it. Sparse
+                # runs resume the ENGINE-HELD window (world stays None: a
+                # window re-stamped as a seed would lose its torus
+                # origin); an engine that came back empty fails the
+                # resubmit with "no sparse state to resume".
+                if sparse:
+                    start_turn = engine.ping()
+                    world = None
+                else:
+                    world, start_turn = engine.get_world()
             except EngineKilled:
                 final_world, final_turn = world, start_turn
                 break
@@ -463,18 +581,24 @@ def distributor(
         # GOL_MAX_EVENT_CELLS cells only the count travels (a 65536²
         # board's ~10^9 coordinate tuples would exhaust memory).
         max_event_cells = env_int("GOL_MAX_EVENT_CELLS", 1 << 24, minimum=0)
-        if final_world.size <= max_event_cells:
-            alive = tuple((c.x, c.y) for c in
-                          alive_cells_from_board(final_world == 255))
-            count = len(alive)
+        if sparse:
+            fname = _finish_sparse(engine, final_world, final_turn, width,
+                                   height, max_event_cells, out_dir,
+                                   events_q)
         else:
-            alive = ()
-            count = int((final_world == 255).sum())
-        events_q.put(ev.FinalTurnComplete(final_turn, alive, count))
-        fname = output_path(width, height, final_turn, out_dir)
-        write_pgm(fname, final_world, levels=pgm_levels)
-        events_q.put(
-            ev.ImageOutputComplete(final_turn, os.path.basename(fname)))
+            if final_world.size <= max_event_cells:
+                alive = tuple((c.x, c.y) for c in
+                              alive_cells_from_board(final_world == 255))
+                count = len(alive)
+            else:
+                alive = ()
+                count = int((final_world == 255).sum())
+            events_q.put(ev.FinalTurnComplete(final_turn, alive, count))
+            fname = output_path(width, height, final_turn, out_dir)
+            write_pgm(fname, final_world, levels=pgm_levels)
+        if fname is not None:
+            events_q.put(ev.ImageOutputComplete(
+                final_turn, os.path.basename(fname)))
         if killed_by_key.is_set():
             try:
                 engine.kill_prog()

@@ -98,6 +98,7 @@ from gol_tpu_torch.parallel.halo import (
     select_generations_representation,
     select_representation,
 )
+from gol_tpu_torch.utils.devicemem import half_device_memory
 from gol_tpu_torch.utils.envcfg import env_float, env_int
 
 # Control-flag wire values (reference Cf.Flag).
@@ -214,9 +215,31 @@ def _next_chunk(chunk: int, remaining: int) -> int:
 
 
 class ControlFlagProtocol:
-    """The reference control-flag protocol and liveness surface.
-    Subclasses provide `_flags` (queue.Queue), `_killed`, `_abort`
-    (threading.Event), `_state_lock`, `_running`, `_run_token`, `_turn`."""
+    """The reference control-flag protocol and liveness surface, and the
+    device helpers both engines share. Subclasses provide `_flags`
+    (queue.Queue), `_killed`, `_abort` (threading.Event), `_state_lock`,
+    `_running`, `_run_token`, `_turn` and `_device`."""
+
+    def _on_device(self):
+        """The engine's device as the current one: handler threads of the
+        server are not the thread that made the engine."""
+        if self._device.type == "cuda":
+            return torch.cuda.device(self._device)
+        return contextlib.nullcontext()
+
+    def _current_stream(self):
+        """The engine device's current stream on the calling thread, the
+        one a snapshot's board is copied on (None on the CPU)."""
+        if self._device.type != "cuda":
+            return None
+        return torch.cuda.current_stream(self._device)
+
+    def _ckpt_writer(self, directory: str):
+        return ckpt_mod.CheckpointWriter(
+            directory, run_id=obs_flight.RUN_ID,
+            keep_last=env_int(ckpt_mod.CKPT_KEEP_ENV,
+                              ckpt_mod.CKPT_KEEP_DEFAULT),
+            keep_every=env_int(ckpt_mod.CKPT_KEEP_EVERY_ENV, 0, minimum=0))
 
     def cf_put(self, flag: int) -> None:
         """Post a control flag (ref `Server:54-60`)."""
@@ -452,10 +475,7 @@ class Engine(ControlFlagProtocol):
         return out, host, event
 
     def _pipeline_depth(self, cells: torch.Tensor) -> int:
-        budget = PIPELINE_BOARD_BUDGET
-        if self._device.type == "cuda":
-            budget = torch.cuda.get_device_properties(
-                self._device).total_memory // 2
+        budget = half_device_memory(PIPELINE_BOARD_BUDGET, self._device)
         nbytes = cells.numel() * cells.element_size()
         return max(1, min(env_int(PIPELINE_DEPTH_ENV, PIPELINE_DEPTH), 8,
                           budget // max(nbytes, 1) - 1))
@@ -844,13 +864,6 @@ class Engine(ControlFlagProtocol):
         return wire.encode_board(self._materialize(cells, repr_), caps,
                                  binary=False), turn
 
-    def _on_device(self):
-        """The engine's device as the current one: handler threads of the
-        server are not the thread that made the engine."""
-        if self._device.type == "cuda":
-            return torch.cuda.device(self._device)
-        return contextlib.nullcontext()
-
     def _host_bands(self, cells: torch.Tensor, row_nbytes: int):
         """Yield the rows of a 2-D device board as host numpy bands of
         about GOL_WIRE_BAND_BYTES each. On CUDA each band is copied into
@@ -931,20 +944,6 @@ class Engine(ControlFlagProtocol):
             # boards hold int32 words of uint8 cells).
             geo["dtype"] = "float32" if repr_ == "f32" else "uint8"
         return geo
-
-    def _current_stream(self):
-        """The engine device's current stream on the calling thread, the
-        one a snapshot's board is copied on (None on the CPU)."""
-        if self._device.type != "cuda":
-            return None
-        return torch.cuda.current_stream(self._device)
-
-    def _ckpt_writer(self, directory: str):
-        return ckpt_mod.CheckpointWriter(
-            directory, run_id=obs_flight.RUN_ID,
-            keep_last=env_int(ckpt_mod.CKPT_KEEP_ENV,
-                              ckpt_mod.CKPT_KEEP_DEFAULT),
-            keep_every=env_int(ckpt_mod.CKPT_KEEP_EVERY_ENV, 0, minimum=0))
 
     def _ckpt_snapshot(self, trigger: str = "manual"):
         """Capture the current state as a ckpt.Snapshot (a lock-held

@@ -28,16 +28,19 @@ def run(
     live_view: bool = False,
     rule=None,
     device=None,
+    sparse: bool = False,
 ) -> threading.Thread:
     """Start a run. `engine` injects an engine (tests pass
     `Engine(device="cpu")`); otherwise the process's default engine runs
     on `device`, CUDA when None. `live_view` adds the CellsFlipped /
-    TurnComplete feed. The returned thread's `exception` holds the run's
+    TurnComplete feed. `sparse` runs on the sparse-torus engine: Params'
+    width and height give the TORUS size and `<images_dir>/seed.pgm` the
+    seed pattern. The returned thread's `exception` holds the run's
     failure, if any."""
     def _target() -> None:
         try:
             distributor(p, events, key_presses, engine, images_dir,
-                        out_dir, live_view, rule, device)
+                        out_dir, live_view, rule, device, sparse)
         except BaseException as e:
             t.exception = e
             _log.exception("distributor failed")

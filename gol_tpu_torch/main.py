@@ -1,5 +1,5 @@
 """Headless CLI — the counterpart of `gol_tpu/main.py` without its live
-window, its observability options and `--sparse` (ROADMAP A10).
+window and its observability options.
 
     python -m gol_tpu_torch -w 512 -h 512 --turns 100 --headless
     python -m gol_tpu_torch -w 64 -h 64 --turns 100 --headless --device cpu
@@ -11,6 +11,8 @@ window, its observability options and `--sparse` (ROADMAP A10).
     python -m gol_tpu_torch -w 512 -h 512 --turns 100000 --headless \
         --checkpoint ckpt --ckpt-every 4096
     python -m gol_tpu_torch --turns 100000 --headless --resume ckpt
+    python -m gol_tpu_torch -w 1048576 -h 1048576 --sparse --rle rpentomino \
+        --turns 8192 --headless
 
 Events print as `Completed Turns <n>  <event>`; on a terminal the keys
 s/p/q/k/c go to the run ('c' writes a manifest checkpoint).
@@ -87,6 +89,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "--checkpoint / GOL_CKPT. With SER set the "
                          "SERVER adopts the checkpoint from its own "
                          "configured directory (RestoreRun)")
+    ap.add_argument("--sparse", action="store_true",
+                    help="run on the sparse-torus engine: -w/-h give the "
+                         "TORUS size (equal, multiple of 32 — e.g. "
+                         "1048576 = 2^20) and --rle gives the seed; only "
+                         "the live window is ever held, snapshots and the "
+                         "final PGM are that window")
     return ap.parse_args(argv)
 
 
@@ -106,13 +114,7 @@ def _stage_rle_board(name_or_path: str, width: int, height: int):
     empty width x height board and write it as `WxH.pgm` in a fresh temp
     images dir, removed at exit. Returns (images_dir,
     rle_declared_rule_or_None)."""
-    import atexit
-    import shutil
-    import tempfile
-
     import numpy as np
-
-    from gol_tpu_torch.io.pgm import write_pgm
 
     cells, pw, ph, rle_rule = _parse_rle_arg(name_or_path)
     if pw > width or ph > height:
@@ -122,10 +124,37 @@ def _stage_rle_board(name_or_path: str, width: int, height: int):
     ox, oy = (width - pw) // 2, (height - ph) // 2
     for x, y in cells:
         board[oy + y, ox + x] = 255
-    d = tempfile.mkdtemp(prefix="gol_rle_")
+    return (_stage_tmp_pgm(board, f"{width}x{height}.pgm", "gol_rle_"),
+            rle_rule)
+
+
+def _stage_tmp_pgm(board, filename: str, prefix: str) -> str:
+    """Write `board` as `<fresh temp dir>/<filename>` (removed at exit);
+    returns the directory."""
+    import atexit
+    import shutil
+    import tempfile
+
+    from gol_tpu_torch.io.pgm import write_pgm
+
+    d = tempfile.mkdtemp(prefix=prefix)
     atexit.register(shutil.rmtree, d, ignore_errors=True)
-    write_pgm(os.path.join(d, f"{width}x{height}.pgm"), board)
-    return d, rle_rule
+    write_pgm(os.path.join(d, filename), board)
+    return d
+
+
+def _stage_sparse_seed(name_or_path: str):
+    """Write an RLE pattern as `<temp dir>/seed.pgm` at its own bounding
+    box's dims — the sparse controller's board source (the engine stamps
+    its live cells centred on the torus). Returns (images_dir,
+    rle_declared_rule_or_None)."""
+    import numpy as np
+
+    cells, pw, ph, rle_rule = _parse_rle_arg(name_or_path)
+    board = np.zeros((ph, pw), dtype=np.uint8)
+    for x, y in cells:
+        board[y, x] = 255
+    return _stage_tmp_pgm(board, "seed.pgm", "gol_sparse_"), rle_rule
 
 
 def _stdin_key_reader(key_presses: "queue.Queue",
@@ -185,7 +214,10 @@ def _resume(args, rule):
     board size are adopted unless given. With SER set the server adopts
     it from its own configured directory."""
     from gol_tpu_torch import ckpt as ckpt_mod
-    from gol_tpu_torch.distributor import _resolve_engine
+    from gol_tpu_torch.distributor import (
+        _resolve_engine,
+        _resolve_sparse_engine,
+    )
     from gol_tpu_torch.models import parse_rule
 
     if os.environ.get("SER"):
@@ -199,11 +231,15 @@ def _resume(args, rule):
         m = ckpt_mod.read_manifest(target)
         if rule is None:
             rule = parse_rule(m["rule"])
-        if m.get("board"):
+        if args.sparse and m["repr"] == "sparse" and m.get("board"):
+            # A sparse manifest knows its torus size.
+            args.width = args.height = int(m["board"]["w"])
+        elif not args.sparse and m.get("board"):
             # The out/WxHxT.pgm name describes the RESTORED board.
             args.width = int(m["board"]["w"])
             args.height = int(m["board"]["h"])
-    eng = _resolve_engine(rule, args.device)
+    eng = (_resolve_sparse_engine(args.width, rule, args.device)
+           if args.sparse else _resolve_engine(rule, args.device))
     return rule, eng.restore_run(target)
 
 
@@ -237,7 +273,27 @@ def main(argv=None) -> int:
     p = Params(threads=args.threads, image_width=args.width,
                image_height=args.height, turns=args.turns)
     images_dir = None
-    if args.rle:
+    if args.sparse:
+        if not args.rle and os.environ.get("CONT", "") != "yes":
+            print("gol_tpu_torch: --sparse needs --rle (the seed pattern) "
+                  "unless CONT=yes resumes an engine-held run",
+                  file=sys.stderr)
+            return 2
+        if args.width != args.height or args.width % 32:
+            print(f"gol_tpu_torch: --sparse torus must be square and a "
+                  f"multiple of 32, got {args.width}x{args.height}",
+                  file=sys.stderr)
+            return 2
+        if args.rle:
+            try:
+                images_dir, rle_rule = _stage_sparse_seed(args.rle)
+            except (OSError, ValueError) as e:
+                print(f"gol_tpu_torch: --rle {args.rle}: {e}",
+                      file=sys.stderr)
+                return 2
+            if rule is None:
+                rule = rle_rule
+    elif args.rle:
         # Materialise the pattern as the WxH.pgm the distributor expects
         # (in a temp images dir): the PGM board source stays the single
         # entry path. An RLE-declared rule applies unless --rule
@@ -260,7 +316,7 @@ def main(argv=None) -> int:
     events_q: "queue.Queue" = queue.Queue(maxsize=10000)
     key_presses: "queue.Queue" = queue.Queue(maxsize=10)
     t = run(p, events_q, key_presses, rule=rule, device=args.device,
-            images_dir=images_dir)
+            images_dir=images_dir, sparse=args.sparse)
     _print_events(events_q, key_presses)
     t.join(30)
     return 1 if t.exception is not None else 0

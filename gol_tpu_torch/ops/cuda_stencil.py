@@ -114,6 +114,19 @@ wrap-padded float32 board with a ones kernel (timed in `chip_smoke.py`,
 never called by the port). The gate is the rule's kind alone
 (`ops/conv.ltl_run_fn`); the plain version is `_ltl_step` of
 `ops/conv.py` on the conv tier, the JAX tier's own torch form.
+
+K8 `window_occupancy` is the sparse torus's occupancy (`models/sparse.py`):
+`_occupancy` of `gol_tpu/models/sparse.py` (:106-112), which the JAX
+package leaves to XLA (PyTorch has no popcount op). One launch on the
+engine's stream counts an (H, Wp) window into one (H + Wp,) int32 buffer,
+the live cells of each row and then of each word column, so a single
+copy brings both to the host. Blocks of
+32 rows x 128 words add each word's popcount, read as uint32, into its
+column and, summed over a warp, into its row; integer atomics merge the
+blocks, exact in any order, and are skipped where a count is 0. Bound:
+one read of the window and one write of the counts, (H Wp + H + Wp) x 4
+bytes at 3.35 TB/s. No PyTorch call computes a popcount, so no library
+call stands beside it.
 """
 
 from __future__ import annotations
@@ -156,6 +169,9 @@ RESIDENT_THREADS = 1024
 RESIDENT_CLUSTER_MIN_WORDS = 2048
 RESIDENT_MIN_THREADS = 128
 RESIDENT_MAX_PER = 9
+# K8: rows a block counts (csrc/stencil.cu kOccRows; the grid's y extent
+# caps a window at 65535 of them).
+OCC_ROWS = 32
 # K2 geometry, mirrored from csrc/stencil.cu (checked at load).
 TILE_MAX_T = 32
 TILE_ROW_CHOICES = (384, 128)
@@ -899,9 +915,49 @@ def ltl_box_run_turns(cells: torch.Tensor, num_turns: int, rule, *,
 ltl_box_run_turns.launches = 0
 
 
+# ------------------------------------------------------------------- K8
+
+def _byte_popcounts(words: torch.Tensor) -> torch.Tensor:
+    """(..., Wp) int32 popcount of each word read as uint32 (the sign bit
+    counts as one): a 256-entry table over the word's four bytes."""
+    lut = torch.tensor([bin(i).count("1") for i in range(256)],
+                       dtype=torch.int32, device=words.device)
+    raw = words.contiguous().view(torch.uint8).to(torch.int32)
+    return lut[raw].reshape(*words.shape, 4).sum(dim=-1, dtype=torch.int32)
+
+
+def window_occupancy_plain(words: torch.Tensor) -> torch.Tensor:
+    """K8's plain version: the (H + Wp,) int32 occupancy of an (H, Wp)
+    window, row counts then word-column counts."""
+    pop = _byte_popcounts(words)
+    return torch.cat([pop.sum(dim=1, dtype=torch.int32),
+                      pop.sum(dim=0, dtype=torch.int32)])
+
+
+def window_occupancy(words: torch.Tensor) -> torch.Tensor:
+    """The (H + Wp,) int32 occupancy of an (H, Wp) packed window in one K8
+    launch: the live cells of each row, then of each word column (what
+    `_occupancy` of the JAX sparse torus returns as a pair)."""
+    if words.device.type == "cpu":
+        return window_occupancy_plain(words)
+    lib, h, wp, dev, stream = _kernel_args(words, "window_occupancy")
+    if -(-h // OCC_ROWS) > 65535:
+        raise ValueError(f"window_occupancy: {h} rows exceed the launch "
+                         "grid")
+    out = torch.empty(h + wp, dtype=torch.int32, device=words.device)
+    _build.check(lib.gol_window_occupancy(
+        words.data_ptr(), out.data_ptr(), h, wp, dev, stream),
+        "window_occupancy")
+    window_occupancy.launches += 1
+    return out
+
+
+window_occupancy.launches = 0
+
+
 KERNELS = (resident_run_turns, tiled_sweep, row_popcounts,
            resident_run_turns2p, tiled_sweep2p, tiled_sweep_deep,
-           ltl_box_run_turns)
+           ltl_box_run_turns, window_occupancy)
 # The two-plane kernels count launches per family as well.
 KERNELS_2P = (resident_run_turns2p, tiled_sweep2p)
 

@@ -3,21 +3,23 @@ GPU — the counterpart of `gol_tpu/server.py`, wire-compatible with it in
 both directions (a JAX controller drives this server, and the port's
 controller drives a JAX server).
 
-Wraps an `Engine` behind the control protocol
-(`Server/gol/distributor.go:54-83` — ServerDistributor / Alivecount /
-GetWorld / CFput / KillProg, plus Ping, Stats, GetMetrics, GetView,
-DrainFlags, AbortRun, Checkpoint, RestoreRun and GetJournal) on a TCP
+Wraps an `Engine`, or with `--sparse SIZE` a `SparseEngine`, behind the
+control protocol (`Server/gol/distributor.go:54-83` — ServerDistributor /
+Alivecount / GetWorld / CFput / KillProg, plus Ping, Stats, GetMetrics,
+GetView, DrainFlags, AbortRun, Checkpoint, RestoreRun, GetJournal and,
+for the sparse engine, GetWindow) on a TCP
 socket (default :8080, the reference broker port, `Server:235`).
 Long-running: survives controller detach and serves `GetWorld` for
 `CONT=yes` reattach, as the Go broker holds `world`/`turn` in globals.
 With `--checkpoint DIR` a SIGTERM drains, writes a manifest checkpoint
 and the legacy `WxH.npz`, and exits 0; `--resume` restores before
 serving. The methods of later slices (subscriptions, fleet runs,
-migration, sparse windows) answer with an error naming their ROADMAP
-item; the connection is served as usual.
+migration) answer with an error naming their ROADMAP item; the
+connection is served as usual.
 
 Run:  python -m gol_tpu_torch.server [--port 8080] [--device cpu]
-          [--checkpoint DIR [--ckpt-every TURNS]] [--resume DIR|MANIFEST|NPZ]
+          [--sparse SIZE] [--checkpoint DIR [--ckpt-every TURNS]]
+          [--resume DIR|MANIFEST|NPZ]
 """
 
 from __future__ import annotations
@@ -73,7 +75,6 @@ NOT_YET_PORTED = {
     "DestroyRun": "A11", "SetRule": "A11",
     "AdoptRun": "A13", "Rescale": "A13", "ReceiveRun": "A13",
     "CommitRun": "A13",
-    "GetWindow": "A10",
 }
 
 
@@ -407,6 +408,14 @@ class EngineServer:
                 except (ConnectionError, OSError):
                     self._drop_view_basis(header)
                     raise
+            elif method == "GetWindow":
+                # Sparse engines only: live-window pixels and the torus
+                # origin of its cell (0, 0).
+                out, (ox, oy), turn = eng.get_window()
+                self._reply(conn, {"ok": True, "turn": turn,
+                                   "ox": ox, "oy": oy},
+                            frame=wire.encode_board(
+                                out, caps, binary=eng.binary_pixels))
             elif method == "CFput":
                 eng.cf_put(int(header["flag"]))
                 self._reply(conn, {"ok": True})
@@ -552,6 +561,12 @@ def main(argv=None) -> int:
                     help="device of the engine (default cuda; without a "
                          "CUDA device the server exits unless --device "
                          "cpu is given)")
+    ap.add_argument("--sparse", metavar="SIZE", type=int, default=0,
+                    help="serve a sparse-torus engine of SIZE x SIZE "
+                         "cells (SIZE %% 32 == 0, e.g. 1048576 = 2^20) "
+                         "instead of the dense engine: runs are seeded "
+                         "by a small pattern board, snapshots are the "
+                         "live window (life-like rules only)")
     ap.add_argument("--resume", metavar="DIR|MANIFEST|NPZ", default="",
                     help="restore (board, turn) before serving: a "
                          "checkpoint directory (newest durable manifest "
@@ -596,7 +611,13 @@ def main(argv=None) -> int:
     from gol_tpu_torch.models import parse_rule
 
     try:
-        eng = Engine(device=args.device, rule=parse_rule(args.rule))
+        if args.sparse:
+            from gol_tpu_torch.sparse_engine import SparseEngine
+
+            eng = SparseEngine(args.sparse, rule=parse_rule(args.rule),
+                               device=args.device)
+        else:
+            eng = Engine(device=args.device, rule=parse_rule(args.rule))
     except (RuntimeError, ValueError) as e:
         print(f"gol_tpu_torch.server: {e}", file=sys.stderr, flush=True)
         return 1
@@ -639,7 +660,8 @@ def main(argv=None) -> int:
     # This banner is the readiness contract: harnesses parse
     # "serving on :<port>" from stdout to learn the bound port.
     print(f"gol_tpu_torch engine serving on :{srv.port} "
-          f"(device {eng.device}, rule {eng._rule.rulestring})",
+          f"(device {eng.device}, rule {eng._rule.rulestring}"
+          + (f", sparse torus {args.sparse}" if args.sparse else "") + ")",
           flush=True)
     srv.serve_forever()
     # Orderly stop (accept loop closed, e.g. KillProg without the exit
