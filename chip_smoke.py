@@ -22,10 +22,14 @@ Phases (each raises on failure; any failure exits non-zero):
    both Generations families (gen3, gen4) and two rules each: K4 at every
    N = 1..16 on 512², 64², 96 x 1 and 33 x 1, K5 at every tile height R
    on 1024², 4096², 16384² and odd boards; K7 (the Moore-box
-   Larger-than-Life turn) on 64², 512², 4096², 1000 x 777 and 16² at
-   r = 1, 2, 5, 8, 16, 32, 128 (and 16² at r = 10: the box wraps the
-   torus more than once), every tile on 1000 x 777, and r = 128 on a
-   nearly full 300² board (counts past 65,535); K8 (the sparse window's
+   Larger-than-Life turn), route 2 at the policy's tile and route 1
+   where its gate admits the shape, on 64², 512², 4096², 1000 x 777 and
+   16² at r = 1, 2, 5, 8, 16, 32, 128 (and 16² at r = 10: the box wraps
+   the torus more than once), route 1 on 1024² at r = 5, 64, 128, route
+   2 at every tile and route 1 on 1000 x 777, route 1 at every cluster
+   size that fits on 512² and 64² for 1, 2 and 33 turns in one launch,
+   and both on a nearly full 300² board at r = 128 (counts past
+   65,535); K8 (the sparse window's
    occupancy) on random words with bit 31 set and on two-word windows,
    at the window ladder's 256 x 64, 768 x 64, 10,240 x 384 and 38,656 x
    1,280 words and an odd 1000 x 77;
@@ -51,7 +55,9 @@ Phases (each raises on failure; any failure exits non-zero):
    and a second server (rule /2/3) through Brian's Brain 512² x 100
    against the gen8 plain path.
    4f. the conv families: Bosco (`R5,C0,M1,S33..57,B34..45,NM`) through
-   `run` at 512² x 100 (K7) against the plain path; then, off the main
+   `run` at 512² x 100 (K7 route 1, one launch a chunk by the counter
+   against the engine's chunks) and 4096² x 100 (route 2) against the
+   plain path; then, off the main
    path, the FFT tier's counts at 4096² for r = 8, 16, 32 against
    `box_counts_np`, and the JAX bench's two Lenia legs (Orbium 1024² on
    the FFT tier, r = 4 512² on the conv tier; 8 turns from seed 42)
@@ -91,25 +97,29 @@ Phases (each raises on failure; any failure exits non-zero):
    in-process PGM; then `checkpoint_now` and restore seconds at 512²,
    5120² and 65536², and engine turns/s at 5120² with a 65,536-turn
    checkpoint cadence beside the rate without, on one warm engine;
-5. timings at 64², 128², 256², 512², 4096², 5120², 8192², 16384², 65536²
-   and 131072²: each kernel's ms per launch beside its plain version's
+5. timings at 64², 128², 256², 512², 4096², 5120², 8192², 16384²,
+   65536² and 131072²: each kernel's ms per launch beside its plain version's
    and its bound (K1 at N = 1, 2, 4, 8, 16 on 512², 256² and 64², K2 at
    every R on 5120², 8192², 16384² and 65536², K4 at every N on 64² to
    512², K5 at every R on 4096² and 16384²), B3 `fused_banded_run_turns`
    at pinned depths 16, 32 and 64, and engine turns/s and the largest
    publication gap (life-like, unfused and at GOL_FUSE_K=64 at 65536²,
-   Brian's Brain at 512² and 4096², Star Wars at 512²); K7 at 4096² for
-   r = 1, 2, 4, 5, 8, 16, 32 at every tile, beside its plain version, its
-   byte bound, the library call (F.conv2d of the wrap-padded float32
-   board with a ones kernel, TF32 off) and the FFT tier's turn; K7 at
-   every tile against the FFT tier at 512², 1024² and 4096² up to
-   r = 128 (the box crossover and the tile policy); the direct tier of a
-   circular neighbourhood (F.conv2d, TF32 off) against the FFT tier at
-   the same sizes (the other kinds' crossover), F.conv2d at 4096² for
-   r = 64 and 128 beside K7; engine turns/s for Bosco at 512² and 4096²
-   and Orbium at 1024²; and K8 at the window ladder's shapes and on the
-   65,536-turn run's final window, beside its plain version and its byte
-   bound.
+   Brian's Brain at 512² and 4096², Star Wars at 512²); K3 under
+   `torch.profiler` at 512², 5120² and 65536² (device ms a launch beside
+   the wrapper's host µs a call and CUDA events around the calls); K7's
+   route 2 at 4096² for r = 1, 2, 4, 5, 8, 16, 32, 64, 128 at every tile,
+   beside its plain version, its byte bound, the library call (F.conv2d
+   of the wrap-padded float32 board with a ones kernel, TF32 off) and
+   the FFT tier's turn; route 1 at 512² and 1024² (one launch of 1000
+   turns) for r = 1, 5, 16, 32, 64, 128 and at 64² (one CTA) for r = 1,
+   5, beside route 2 at every tile and,
+   at 512² r = 5, F.conv2d; K7 at the gate's route against the FFT tier
+   at 512² and 1024² up to r = 128 (the box crossover); the direct tier
+   of a circular neighbourhood (F.conv2d, TF32 off) against the FFT tier
+   at 512², 1024² and 4096² (the other kinds' crossover); engine turns/s
+   for Bosco at 512² and 4096² and Orbium at 1024²; and K8 at the window
+   ladder's shapes and on the 65,536-turn run's final window, beside its
+   plain version and its byte bound.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -275,7 +285,8 @@ def step_loops(lib: str) -> dict:
             funcs[name].append((int(m.group(1), 16), ins))
     out = {}
     for name, demangled in zip(funcs, demangle(list(funcs))):
-        if not re.search(r"(resident|tiled)\w*_kernel", name):
+        if (not re.search(r"(resident|tiled)\w*_kernel", name)
+                or "ltl_" in name):
             continue
         ins = funcs[name]
         spans = set()
@@ -1990,8 +2001,14 @@ CROSSOVER_RADII = (8, 16, 32, 64, 128)
 # ms a turn there at r = 16).
 GENERAL_RADII = (2, 3, 4, 5, 6, 8, 12, 16, 32)
 GENERAL_MAX_4096 = 16
-# Turns one timed K7 call issues (`k7_launch_ms`).
+# Turns one timed K7 call issues (`k7_launch_ms`), and one timed route-1
+# launch.
 LTL_TIMED_TURNS = 10
+LTL_RESIDENT_TURNS = 1000
+# Route 2's radii beyond the bench's at 4096², and route 1's at 512² and
+# 1024².
+LTL_WIDE_RADII = (64, 128)
+ROUTE1_RADII = (1, 5, 16, 32, 64, 128)
 # The JAX bench's Lenia legs (bench.py:851-861): (board, rule, tier, the
 # float64 oracle's pinned digest after 8 turns from seed 42).
 LENIA_TURNS = 8
@@ -2041,47 +2058,94 @@ def soup(torch, h: int, w: int, seed: int, dev, p: float = 0.4):
 
 
 def phase_kernels_ltl(torch, dev) -> None:
-    """K7 against its plain version (the JAX tier's shift-add and interval
-    tests in torch ops) on the card, bit-exact, 3 turns a case: every
-    shape and radius of LTL_SHAPES x LTL_RADII with M0 and M1 rules
-    (16² at r = 10 and beyond wraps the box around the torus more than
-    once; r = 128 counts past 16 bits), every tile on an odd board, and
-    Bosco."""
+    """K7's two routes against their plain versions on the card,
+    bit-exact: route 2 (`ltl_box_run_turns` at the policy's tile) against
+    `_ltl_step` in torch ops, route 1 (`ltl_resident_run_turns`, where
+    `ltl_resident_ctas` admits the shape) against its slab plain version,
+    3 turns a case: every shape and radius of LTL_SHAPES x LTL_RADII with
+    M0 and M1 rules (16² at r = 10 and beyond wraps the box around the
+    torus more than once; r = 128 counts past 16 bits), route 2 at every
+    tile and route 1 on the odd 1000 x 777 board, route 1 at every cluster
+    size N that fits on 512² and 64² (slabs down to 4 rows, thinner than
+    r) at k = 1, 2 and 33 turns in one launch and at 1024² (r = 128 goes
+    to route 2 there), and both on a nearly full 300² board at r = 128
+    (counts past 65,535)."""
     from gol_tpu_torch.models.largerthanlife import (
         BOSCO, LargerThanLifeRule)
     from gol_tpu_torch.ops import cuda_stencil as cs
 
-    log("phase 3: K7 (ltl_box_run_turns) against its plain version "
-        "(bit-exact)")
+    log("phase 3: K7 route 1 (ltl_resident_run_turns) and route 2 "
+        "(ltl_box_run_turns) against their plain versions (bit-exact)")
+
+    def route1(what, b, turns, rule, ctas=None):
+        want = cs.ltl_resident_run_turns_plain(b, turns, rule, ctas)
+        check_equal(torch, f"K7 route 1 {what}",
+                    cs.ltl_resident_run_turns(b, turns, rule, ctas=ctas),
+                    want, "ltl_resident_run_turns")
+        return want
+
     cases = [(h, w, r) for h, w in LTL_SHAPES for r in LTL_RADII]
-    cases.append((16, 16, 10))
+    cases += [(16, 16, 10), (1024, 1024, 5), (1024, 1024, 64),
+              (1024, 1024, 128)]
     for h, w, r in cases:
         rule = conv_rule(r)
         if r % 2:  # the same ranges with the cell left out (M0)
             rule = LargerThanLifeRule(rule.rulestring.replace(",M1,", ",M0,"))
         b = soup(torch, h, w, h * 31 + w + r, dev)
-        check_equal(torch, f"K7 {h}x{w} r={r} {rule.rulestring} 3 turns",
-                    cs.ltl_box_run_turns(b, 3, rule),
-                    cs.ltl_box_run_turns_plain(b, 3, rule),
-                    "ltl_box_run_turns")
+        what = f"{h}x{w} r={r} {rule.rulestring} 3 turns"
+        want = None
+        if (h, w) != (1024, 1024):
+            tile = cs.ltl_tile(h, w, r)
+            want = cs.ltl_box_run_turns_plain(b, 3, rule)
+            check_equal(torch, f"K7 route 2 {what} tile={tile}",
+                        cs.ltl_box_run_turns(b, 3, rule, tile=tile), want,
+                        "ltl_box_run_turns")
+        n = cs.ltl_resident_ctas(h, w, r)
+        if n:
+            got = route1(f"{what} N={n}", b, 3, rule)
+            if want is not None and not torch.equal(got, want):
+                raise AssertionError(f"K7 {what}: route 1's plain version "
+                                     "differs from route 2's")
     b = soup(torch, 1000, 777, 5, dev)
+    want = cs.ltl_box_run_turns_plain(b, 7, BOSCO)
     for tile in cs.LTL_TILE_CHOICES:
-        check_equal(torch, f"K7 1000x777 Bosco tile={tile} 7 turns",
-                    cs.ltl_box_run_turns(b, 7, BOSCO, tile=tile),
-                    cs.ltl_box_run_turns_plain(b, 7, BOSCO),
+        check_equal(torch, f"K7 route 2 1000x777 Bosco tile={tile} 7 turns",
+                    cs.ltl_box_run_turns(b, 7, BOSCO, tile=tile), want,
                     "ltl_box_run_turns")
+    if not torch.equal(route1("1000x777 Bosco 7 turns", b, 7, BOSCO), want):
+        raise AssertionError("K7 1000x777: route 1's plain version differs "
+                             "from route 2's")
+    for size in (512, 64):
+        b = soup(torch, size, size, size + 3, dev)
+        for r in (5, 32):
+            rule = conv_rule(r)
+            for n in range(1, cs.RESIDENT_MAX_CTAS + 1):
+                if cs.ltl_resident_smem_bytes(size, size, r, n) > \
+                        cs.SMEM_BYTES:
+                    continue
+                for turns in (1, 2, 33):
+                    route1(f"{size}² r={r} N={n} {turns} turns", b, turns,
+                           rule, n)
     dense = torch.ones((300, 300), dtype=torch.uint8, device=dev)
     dense[torch.randint(0, 300, (40,)), torch.randint(0, 300, (40,))] = 0
     rule = LargerThanLifeRule("R128,C0,M1,S66022..66049,B65900..66048,NM")
-    check_equal(torch, "K7 300x300 r=128 counts past 65,535, 2 turns",
-                cs.ltl_box_run_turns(dense, 2, rule),
-                cs.ltl_box_run_turns_plain(dense, 2, rule),
-                "ltl_box_run_turns")
+    want = cs.ltl_box_run_turns_plain(dense, 2, rule)
+    for tile in (64, 32):
+        check_equal(torch, f"K7 route 2 300x300 r=128 tile={tile} counts "
+                    "past 65,535, 2 turns",
+                    cs.ltl_box_run_turns(dense, 2, rule, tile=tile), want,
+                    "ltl_box_run_turns")
+    if not torch.equal(route1("300x300 r=128 counts past 65,535, 2 turns",
+                              dense, 2, rule), want):
+        raise AssertionError("K7 300x300 r=128: route 1's plain version "
+                             "differs from route 2's")
 
 
 def phase_conv(torch, dev) -> None:
     """The A12 main path: Bosco through `gol_tpu_torch.run` on a CUDA
-    engine (512² x 100, K7), against the plain path on the card."""
+    engine, against the plain path on the card: 512² x 100 on K7's route 1
+    (one launch a chunk, by the counter against the engine's chunks) and
+    4096² x 100 on route 2 (one launch a turn)."""
     from gol_tpu_torch import Params
     from gol_tpu_torch.engine import Engine
     from gol_tpu_torch.io.pgm import read_pgm, write_pgm
@@ -2089,24 +2153,49 @@ def phase_conv(torch, dev) -> None:
     from gol_tpu_torch.ops import cuda_stencil as cs
 
     log("phase 4f: Larger-than-Life (Bosco) through gol_tpu_torch.run")
-    with tempfile.TemporaryDirectory() as tmp:
-        images, out = os.path.join(tmp, "images"), os.path.join(tmp, "out")
-        rng = np.random.default_rng(512)
-        board = ((rng.random((512, 512)) < 0.4) * 255).astype(np.uint8)
-        write_pgm(os.path.join(images, "512x512.pgm"), board)
+    for size, turns in ((512, 100), (CONV_N, 100)):
+        chunks = []
         eng = Engine(rule=BOSCO)
-        drive(Params(image_width=512, image_height=512, turns=100), images,
-              out, engine=eng)
+        chunk = eng._chunk
+
+        def counted(run, cells, k, chunk=chunk, chunks=chunks):
+            chunks.append(k)
+            return chunk(run, cells, k)
+
+        eng._chunk = counted
+        before = (cs.ltl_resident_run_turns.launches,
+                  cs.ltl_box_run_turns.launches)
+        with tempfile.TemporaryDirectory() as tmp:
+            images, out = (os.path.join(tmp, "images"),
+                           os.path.join(tmp, "out"))
+            rng = np.random.default_rng(size)
+            board = ((rng.random((size, size)) < 0.4) * 255).astype(
+                np.uint8)
+            write_pgm(os.path.join(images, f"{size}x{size}.pgm"), board)
+            drive(Params(image_width=size, image_height=size, turns=turns),
+                  images, out, engine=eng)
+            got = read_pgm(os.path.join(out, f"{size}x{size}x{turns}.pgm"))
         if eng._repr != "u8":
             raise AssertionError(f"Bosco ran as {eng._repr}")
-        got = read_pgm(os.path.join(out, "512x512x100.pgm"))
         plain = cs.ltl_box_run_turns_plain(
-            torch.from_numpy((board != 0).astype(np.uint8)).to(dev), 100,
+            torch.from_numpy((board != 0).astype(np.uint8)).to(dev), turns,
             BOSCO).cpu().numpy()
         if not np.array_equal(got, plain * 255):
-            raise AssertionError("Bosco 512² x 100 through run != plain")
-        log(f"  ok Bosco 512² x 100 through run: PGM equals the plain "
-            f"path ({int(plain.sum())} alive)")
+            raise AssertionError(f"Bosco {size}² x {turns} through run != "
+                                 "plain")
+        r1 = cs.ltl_resident_run_turns.launches - before[0]
+        r2 = cs.ltl_box_run_turns.launches - before[1]
+        if cs.ltl_resident_ctas(size, size, BOSCO.radius):
+            ok = r1 == len(chunks) and r2 == 0
+        else:
+            ok = r1 == 0 and r2 == sum(chunks)
+        if not ok or sum(chunks) != turns:
+            raise AssertionError(
+                f"Bosco {size}²: {len(chunks)} chunks of {sum(chunks)} turns "
+                f"launched route 1 {r1} and route 2 {r2} times")
+        log(f"  ok Bosco {size}² x {turns} through run: PGM equals the plain "
+            f"path ({int(plain.sum())} alive); {len(chunks)} chunks "
+            f"{chunks}, route 1 launches {r1}, route 2 launches {r2}")
 
 
 def phase_conv_checks(torch, dev) -> None:
@@ -2149,24 +2238,37 @@ def phase_conv_checks(torch, dev) -> None:
 
 
 def k7_launch_ms(torch, cells, rule, tile=None) -> float:
-    """K7's device ms a launch: LTL_TIMED_TURNS turns issued by one C
-    call (as the engine issues a chunk), so the wrapper's host work
-    between Python calls stays out of the figure."""
+    """K7's device ms a turn: LTL_TIMED_TURNS turns issued by one C call
+    (as the engine issues a chunk; route 2 unless the gate admits the
+    shape and no `tile` is pinned, then one route-1 launch), so the
+    wrapper's host work between Python calls stays out of the figure."""
     from gol_tpu_torch.ops import cuda_stencil as cs
 
     return time_ms(torch, lambda: cs.ltl_box_run_turns(
         cells, LTL_TIMED_TURNS, rule, tile=tile), 5) / LTL_TIMED_TURNS
 
 
+def route2_tiles(torch, b, rule, r: int) -> dict:
+    """{tile: route 2's ms a turn} for every tile whose block fits."""
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    return {t: k7_launch_ms(torch, b, rule, t) for t in cs.LTL_TILE_CHOICES
+            if cs.ltl_tile_smem_bytes(t, r) <= cs.SMEM_BYTES}
+
+
 def timing_ltl(torch, dev, card: Card) -> tuple:
-    """K7 per launch (one turn, `k7_launch_ms`) at 4096² for CONV_RADII at
-    every tile that fits, beside its plain version, its bound, the library
-    call (F.conv2d of the wrap-padded float32 board with a (2r+1)² ones
-    kernel, TF32 off) and the FFT tier's turn (`_ltl_step(..., "fft")`);
-    then K7 at every tile against the FFT tier at 512², 1024² and 4096²
-    up to r = 128, a circular neighbourhood's direct tier against the FFT
-    tier, and engine turns/s for Bosco at 512² and 4096² and Orbium at
-    1024². Returns (K7 rows, FFT rows, general rows, engine rows)."""
+    """K7's two routes, the library call and the FFT tier on the card:
+    route 2 at 4096² for CONV_RADII and r = 64, 128 at every tile that
+    fits, beside its plain version, its bound, the library call (F.conv2d
+    of the wrap-padded float32 board with a (2r+1)² ones kernel, TF32 off)
+    and the FFT tier's turn; route 1 at 512² and 1024² (one launch of
+    LTL_RESIDENT_TURNS turns; at 64² on one CTA, r = 1 and 5) beside route
+    2 at every tile on the same boards, with F.conv2d at 512² r = 5; K7 at
+    the gate's route against the FFT tier at 512² and 1024² up to r = 128
+    (the box crossover); a circular neighbourhood's direct tier against
+    the FFT tier; and engine turns/s for Bosco at 512² and 4096² and
+    Orbium at 1024². Returns
+    (route 2 rows, route 1 rows, FFT rows, general rows, engine rows)."""
     from gol_tpu_torch.models.largerthanlife import BOSCO
     from gol_tpu_torch.models.lenia import ORBIUM, seed_board
     from gol_tpu_torch.ops import conv as C, cuda_stencil as cs
@@ -2174,17 +2276,14 @@ def timing_ltl(torch, dev, card: Card) -> tuple:
     n = CONV_N
     b = soup(torch, n, n, 13, dev, 0.35)
     k7, fft = [], []
-    for r in CONV_RADII:
+    for r in CONV_RADII + LTL_WIDE_RADII:
         rule = conv_rule(r)
         bound, by = card.bound(2 * n * n, cs.LTL_OPS_PER_CELL * n * n)
-        lib_ms = conv2d_library_ms(torch, b, r, 5)
+        lib_ms = conv2d_library_ms(torch, b, r, 5 if r <= 32 else 1)
         plain = time_ms(torch, lambda: cs.ltl_box_run_turns_plain(
             b, 1, rule), 1)
         policy = cs.ltl_tile(n, n, r)
-        for tile in cs.LTL_TILE_CHOICES:
-            if cs.ltl_smem_bytes(tile, r, cs.ltl_lut_words(r)) > cs.SMEM_BYTES:
-                continue
-            ms = k7_launch_ms(torch, b, rule, tile)
+        for tile, ms in route2_tiles(torch, b, rule, r).items():
             row = dict(shape=f"{n}x{n}", turns=1, radius=r, tile=tile,
                        policy=tile == policy, ms=ms,
                        plain_ms=plain if tile == policy else None,
@@ -2193,44 +2292,61 @@ def timing_ltl(torch, dev, card: Card) -> tuple:
             k7.append(row)
             log_row("ltl_box_run_turns", row)
         f_ms = time_ms(torch, lambda: C._ltl_step(b, rule, "fft"), 5)
+        conv_ms = [x["ms"] for x in k7 if x["radius"] == r and x["policy"]]
         fft.append(dict(shape=f"{n}x{n}", radius=r, fft_ms=f_ms,
-                        conv_ms=[x["ms"] for x in k7
-                                 if x["radius"] == r and x["policy"]][0],
-                        library_ms=lib_ms))
-        log(f"  conv tier {n}² r={r}: K7 {fft[-1]['conv_ms']:.4f} ms, FFT "
+                        conv_ms=conv_ms[0], library_ms=lib_ms))
+        log(f"  conv tier {n}² r={r}: K7 route 2 {conv_ms[0]:.4f} ms, FFT "
             f"tier {f_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms a turn")
     del b
     torch.cuda.empty_cache()
-    # The box crossover beyond the bench's radii and on smaller boards, and
-    # the tile policy: K7 at every tile that fits against the FFT tier's
-    # turn.
-    for size in (512, 1024, CONV_N):
-        b = soup(torch, size, size, size, dev, 0.35)
-        radii = (CROSSOVER_RADII if size == CONV_N
-                 else sorted(set(CONV_RADII) | set(CROSSOVER_RADII)))
-        for r in radii:
-            if 2 * r + 1 > size or (size == CONV_N and r in CONV_RADII):
+    # Route 1: one launch of LTL_RESIDENT_TURNS turns, beside route 2 at
+    # every tile on the same board; its head row (Bosco 512²) with its
+    # plain version over the same turns and F.conv2d.
+    r1 = []
+    k = LTL_RESIDENT_TURNS
+    for size in (64, 512, 1024):
+        b = soup(torch, size, size, size + 7, dev)
+        for r in ROUTE1_RADII if size > 64 else (1, 5):
+            ctas = cs.ltl_resident_ctas(size, size, r)
+            if not ctas:
                 continue
             rule = conv_rule(r)
-            policy = cs.ltl_tile(size, size, r)
-            tiles = {t: k7_launch_ms(torch, b, rule, t)
-                     for t in cs.LTL_TILE_CHOICES
-                     if cs.ltl_smem_bytes(t, r, cs.ltl_lut_words(r))
-                     <= cs.SMEM_BYTES}
+            ms = time_ms(torch, lambda: cs.ltl_resident_run_turns(
+                b, k, rule), 3)
+            bound, by = card.bound(2 * size * size,
+                                   cs.LTL_OPS_PER_CELL * size * size * k)
+            head = size == 512 and r == 5
+            plain = (time_ms(torch, lambda: cs.ltl_resident_run_turns_plain(
+                b, k, rule), 1) if head else None)
+            lib_ms = conv2d_library_ms(torch, b, r, 20) if head else None
+            tiles = route2_tiles(torch, b, rule, r)
+            row = dict(shape=f"{size}x{size}", turns=k, radius=r, ctas=ctas,
+                       ms=ms, turn_ms=ms / k, plain_ms=plain,
+                       library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                       route2_turn_ms=tiles,
+                       route2_policy_tile=cs.ltl_tile(size, size, r))
+            r1.append(row)
+            log_row("ltl_resident_run_turns", row)
+            log(f"    a turn: route 1 {ms / k:.5f} ms; route 2 "
+                + ", ".join(f"tile {t} {v:.5f}" for t, v in tiles.items())
+                + " ms")
+        del b
+    torch.cuda.empty_cache()
+    # The box crossover on smaller boards: K7 at the gate's route against
+    # the FFT tier's turn.
+    for size in (512, 1024):
+        b = soup(torch, size, size, size, dev, 0.35)
+        for r in sorted(set(CONV_RADII) | set(CROSSOVER_RADII)):
+            if 2 * r + 1 > size:
+                continue
+            rule = conv_rule(r)
+            route = 1 if cs.ltl_resident_ctas(size, size, r) else 2
+            c_ms = k7_launch_ms(torch, b, rule)
             f_ms = time_ms(torch, lambda: C._ltl_step(b, rule, "fft"), 5)
-            # The library call at the bench size beyond the bench's radii:
-            # one timed call (about 1 s at r = 64, 4 s at r = 128).
-            lib_ms = (conv2d_library_ms(torch, b, r, 1) if size == CONV_N
-                      else None)
             fft.append(dict(shape=f"{size}x{size}", radius=r, fft_ms=f_ms,
-                            conv_ms=tiles[policy], tile=policy,
-                            tile_ms=tiles, library_ms=lib_ms))
-            log(f"  conv tier {size}² r={r}: K7 {tiles[policy]:.4f} ms "
-                f"(policy tile {policy}; "
-                + ", ".join(f"tile {t} {ms:.4f}" for t, ms in tiles.items())
-                + f"), FFT tier {f_ms:.4f} ms a turn"
-                + (f", F.conv2d {lib_ms:.4f} ms" if lib_ms is not None
-                   else ""))
+                            conv_ms=c_ms, route=route))
+            log(f"  conv tier {size}² r={r}: K7 route {route} {c_ms:.4f} "
+                f"ms, FFT tier {f_ms:.4f} ms a turn")
         del b
     torch.cuda.empty_cache()
     # The other kinds' crossover: the direct tier of a circular
@@ -2251,20 +2367,8 @@ def timing_ltl(torch, dev, card: Card) -> tuple:
                 f"FFT tier {f_ms:.4f} ms a turn")
         del b
     torch.cuda.empty_cache()
-    # A chunk's turns as the engine issues them (one C call, k launches)
-    # beside one launch at a time, on Bosco at 512².
-    b = soup(torch, 512, 512, 7, dev)
-    one = time_ms(torch, lambda: cs.ltl_box_run_turns(b, 1, BOSCO), 200)
-    chunk = time_ms(torch, lambda: cs.ltl_box_run_turns(b, 1000, BOSCO),
-                    3) / 1000
-    log(f"  K7 Bosco 512²: {one:.4f} ms a launch alone, {chunk:.4f} ms a "
-        "turn in a 1000-turn chunk")
-    fft.append(dict(shape="512x512", radius=5, single_launch_ms=one,
-                    chunk_turn_ms=chunk))
-    del b
-    torch.cuda.empty_cache()
     engine = []
-    for size, rule in ((512, BOSCO), (4096, BOSCO), (1024, ORBIUM)):
+    for size, rule in ((512, BOSCO), (CONV_N, BOSCO), (1024, ORBIUM)):
         if rule is ORBIUM:
             world = seed_board(size, size, 3, ORBIUM)
         else:
@@ -2282,7 +2386,7 @@ def timing_ltl(torch, dev, card: Card) -> tuple:
             f"apart, chunk {chunk} turns")
     log("conv:" + json.dumps({"fft_vs_conv": fft, "general": general,
                               "engine": engine}))
-    return k7, fft, general, engine
+    return k7, r1, fft, general, engine
 
 
 def conv2d_library_ms(torch, b, r: int, reps: int) -> float:
@@ -2306,23 +2410,82 @@ def conv2d_library_ms(torch, b, r: int, reps: int) -> float:
     return ms
 
 
-def k7_record(card: Card, launches: dict, timing: tuple) -> dict:
-    """K7's entry of the kernels line (head row: Bosco's r = 5 at
-    4096²)."""
-    k7, fft, general, conv_engine = timing
-    head = [r for r in k7 if r["radius"] == 5 and r["policy"]][0]
-    return dict(
-        name="ltl_box_run_turns", route="cuda",
-        source="gol_tpu_torch/csrc/stencil.cu", family=None,
-        replaces="gol_tpu/ops/conv.py:218",
-        launches=launches["ltl_box_run_turns"],
-        bit_exact=MAX_ABS_ERR["ltl_box_run_turns"] == 0,
-        max_abs_err=MAX_ABS_ERR["ltl_box_run_turns"], card=card.smi,
-        shape=head["shape"], turns=1, ms=head["ms"],
-        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=head["library_ms"],
-        by_shape=k7, fft_tier=fft, general_tier=general,
-        engine=conv_engine)
+def k7_records(card: Card, launches: dict, timing: tuple) -> list:
+    """K7's two entries of the kernels line: route 2 (head row: Bosco's
+    r = 5 at 4096², the policy's tile) and route 1, K7's redesign for
+    boards that fit a cluster (head row: Bosco 512², one launch of
+    LTL_RESIDENT_TURNS turns; its library call is one F.conv2d, a turn's
+    counts)."""
+    k7, r1, fft, general, conv_engine = timing
+    head2 = [r for r in k7 if r["radius"] == 5 and r["policy"]][0]
+    head1 = [r for r in r1 if r["shape"] == "512x512" and r["radius"] == 5][0]
+    out = []
+    for name, head, rows, extra in (
+            ("ltl_box_run_turns", head2, k7,
+             dict(fft_tier=fft, general_tier=general, engine=conv_engine)),
+            ("ltl_resident_run_turns", head1, r1,
+             dict(redesign_of="ltl_box_run_turns (K7)", library_turns=1))):
+        out.append(dict(
+            name=name, route="cuda", source="gol_tpu_torch/csrc/stencil.cu",
+            family=None, replaces="gol_tpu/ops/conv.py:218",
+            launches=launches[name], bit_exact=MAX_ABS_ERR[name] == 0,
+            max_abs_err=MAX_ABS_ERR[name], card=card.smi,
+            shape=head["shape"], turns=head["turns"], ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=head["library_ms"],
+            by_shape=rows, **extra))
+    return out
+
+
+def timing_k3_trace(torch, dev, card: Card) -> list:
+    """K3 (`row_popcounts`) at 512², 5120² and 65536²: its device time a
+    launch under `torch.profiler` (the kernel's own span, summed over the
+    calls), beside the wrapper's host time a call (no synchronisation
+    between calls) and CUDA events around the Python calls (how phase 5
+    times every kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    rows = []
+    for h, wp in ((512, 16), (5120, 160), (65536, 2048)):
+        w = seeded_words(torch, h, wp, h + 3, dev)
+        calls = 50 if h == 65536 else 200
+        cs.row_popcounts(w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            cs.row_popcounts(w)
+        host_us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        events_ms = time_ms(torch, lambda: cs.row_popcounts(w), calls)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                cs.row_popcounts(w)
+            torch.cuda.synchronize()
+        spans = [e for e in prof.key_averages()
+                 if "row_popcounts_kernel" in e.key]
+        device_ms = None
+        if spans:
+            us = getattr(spans[0], "self_device_time_total",
+                         getattr(spans[0], "self_cuda_time_total", 0))
+            device_ms = us / 1e3 / max(spans[0].count, 1)
+        bound, by = card.bound(h * wp * 4 + h * 4, 0)
+        rows.append(dict(shape=f"{h}x{h}",
+                         words=wp, calls=calls,
+                         device_ms=device_ms if device_ms else
+                         "not measured", host_us_per_call=host_us,
+                         events_ms_per_call=events_ms, bound_ms=bound,
+                         bound_by=by))
+        log(f"  K3 {h}² under torch.profiler: "
+            + (f"{device_ms:.5f} ms a launch" if device_ms else
+               "no device time")
+            + f"; wrapper {host_us:.2f} µs of host a call; CUDA events "
+            f"{events_ms:.5f} ms a call; bound {bound:.5f} ms ({by})")
+        del w
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ------------------------------------------------ phase 4g: sparse torus
@@ -2684,7 +2847,8 @@ KERNEL_SYMBOLS = (
     ("resident_kernel<Gen4,", "resident_run_turns2p/gen4"),
     ("tiled_kernel<Gen3,", "tiled_sweep2p/gen3"),
     ("tiled_kernel<Gen4,", "tiled_sweep2p/gen4"),
-    ("ltl_box_kernel", "ltl_box_run_turns"),
+    ("ltl_tile_kernel", "ltl_box_run_turns"),
+    ("ltl_resident_kernel", "ltl_resident_run_turns"),
     ("window_occupancy_kernel", "window_occupancy"),
 )
 
@@ -2745,8 +2909,8 @@ def main() -> int:
     # Each path runs with the counters at 0 and is read just after; each
     # must have launched every kernel (and family) it runs. The profiler
     # sums the device time of the profiled paths by kernel.
-    launches, device_ms = {}, {}
-    for phase, kernels, profiled in (
+    launches, device_ms, profiled = {}, {}, {}
+    for phase, kernels, prof_on in (
             (phase_main_path, ("resident_run_turns", "tiled_sweep",
                                "row_popcounts"), True),
             (phase_controls, ("resident_run_turns", "row_popcounts"), False),
@@ -2763,12 +2927,13 @@ def main() -> int:
             (phase_checkpoints, ("resident_run_turns", "tiled_sweep",
                                  "row_popcounts",
                                  "tiled_sweep2p/gen3"), False),
-            (phase_conv, ("ltl_box_run_turns",), True),
+            (phase_conv, ("ltl_resident_run_turns", "ltl_box_run_turns"),
+             True),
             (phase_sparse, ("resident_run_turns", "tiled_sweep",
                             "window_occupancy"), True)):
         cs.reset_launch_counts()
         with (profile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) if profiled
+                                  ProfilerActivity.CUDA]) if prof_on
               else contextlib.nullcontext()) as prof:
             phase(torch, dev)
             torch.cuda.synchronize()
@@ -2780,7 +2945,9 @@ def main() -> int:
                                      f"{name}")
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
-        if profiled:
+            if prof_on:
+                profiled[name] = profiled.get(name, 0) + n
+        if prof_on:
             mine = device_ms_by_kernel(prof)
             log(f"  {phase.__name__} device ms by kernel: "
                 + (json.dumps(mine) if mine else "not measured"))
@@ -2789,12 +2956,15 @@ def main() -> int:
         del prof
     log("  main-path device ms by kernel (torch.profiler): "
         + (json.dumps(device_ms) if device_ms else "not measured"))
+    log(f"  launches in the profiled phases: {json.dumps(profiled)}")
     phase_conv_checks(torch, dev)
     phase_control_plane_measure(torch, dev, card)
     phase_checkpoint_measure(torch, dev, card)
     kernels = phase_timing(torch, dev, card, launches)
-    kernels.append(k7_record(card, launches,
-                             timing_ltl(torch, dev, card)))
+    kernels += k7_records(card, launches, timing_ltl(torch, dev, card))
+    k3 = [k for k in kernels if k["name"] == "row_popcounts"][0]
+    k3["trace"] = timing_k3_trace(torch, dev, card)
+    k3["profiled_launches"] = profiled.get("row_popcounts", 0)
     kernels.append(k8_record(card, launches,
                              timing_occupancy(torch, dev, card)))
     for k in kernels:

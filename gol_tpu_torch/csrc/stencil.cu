@@ -48,11 +48,13 @@
 //                                  and word-column popcounts that the JAX
 //                                  package leaves to XLA
 //                                  (gol_tpu/models/sparse.py:106-112)
-//   ltl_box_kernel           K7 <- one Larger-than-Life turn of a Moore-box
-//                                  rule on a uint8 torus: the box path of
+//   ltl_resident_kernel      K7 <- Larger-than-Life turns of a Moore-box
+//   ltl_tile_kernel                rule on a uint8 torus: the box path of
 //                                  `_conv_sum` and `_ltl_step`, which the
 //                                  JAX package leaves to XLA
-//                                  (gol_tpu/ops/conv.py:218, :363)
+//                                  (gol_tpu/ops/conv.py:218, :363); route
+//                                  1 holds a board that fits a cluster for
+//                                  a whole chunk, route 2 tiles the rest
 // The two-plane kernels spend per word and turn the 11-op count network,
 // two 9-mux trees (born and survive) and the transition (3 ops for Gen3;
 // 3 for Gen4 plus one b0 & ~b1 for each of the 3 words a row load reads)
@@ -736,54 +738,112 @@ window_occupancy_kernel(const uint32_t* __restrict__ in,
   if (col) atomicAdd(&cols[c], col);
 }
 
-// K7: one Larger-than-Life turn of a Moore-box rule (R<r>,...,NM) on an
+// K7: Larger-than-Life turns of a Moore-box rule (R<r>,...,NM) on an
 // (h, w) uint8 {0,1} torus — what `_ltl_step(cells, rule, "conv")` of
 // gol_tpu/ops/conv.py computes for a box kernel: the (2r+1)^2 box count
 // (minus the cell itself unless M1), then the rule's survive or born test
 // on the count. The JAX package runs it as 4r+2 rolled float32 adds and
-// interval compares under XLA; the card's bound is one read and one write
-// of the board (2 bytes a cell at 3.35 TB/s), so the kernel keeps every
-// intermediate in shared memory:
-//   A. a tile of `tile` x `tile` outputs loads its window of (tile + 2r)^2
-//      cells, rows and columns taken modulo the board by true modulo, so a
-//      board narrower than 2r + 1 is counted with the rolls' multiplicity
-//      (each of the (2r+1)^2 offsets once, however often it wraps);
-//   B. horizontal sums of 2r+1 cells for every window row and output
-//      column, as running sums along segments of kLtlSeg columns (uint16:
-//      at most 257);
-//   C. vertical running sums of 2r+1 horizontal sums down segments of rows
-//      (int32: (2*128+1)^2 = 66,049 does not fit 16 bits), then the rule:
-//      one bit of a survive or born table of neighbourhood size + 1 bits
-//      (the rule's `luts()`), held in shared memory.
-// Thread mappings keep shared memory conflict-free: in B lanes take
-// consecutive window rows, whose pitch is an odd number of words; in C
-// lanes take consecutive columns, and their stores to the board are
-// coalesced. Each running sum starts by adding 2r+1 terms: a B segment
-// serves kLtlSeg outputs and a C segment tile*tile/kLtlThreads rows (64 at
-// tile 128, 4 at tile 32), so a cell costs about 2 + (2r+1)/32 adds in B,
-// on (1 + 2r/tile) window rows an output row, and 2 + (2r+1)*256/tile^2 in
-// C (1 more at tile 128 and r = 32, 64 more at tile 32 and r = 128). The
-// window's halo costs (1 + 2r/tile)^2 loads a cell.
-constexpr int kLtlThreads = 256;
-constexpr int kLtlSeg = 32;        // phase B outputs per running sum
+// interval compares under XLA (`_conv_sum` :218, `_ltl_step` :363).
+//
+// Both routes count the box in two passes, rows and columns by true
+// modulo, so a board narrower or shorter than 2r + 1 counts each offset
+// as often as the rolls do:
+//   V. vertical sums of 2r + 1 cells for four columns at once: a 32-bit
+//      word of four cells is added to a running word of four byte lanes
+//      as the window slides down (exact while 2r + 1 <= 255, r < 128; at
+//      r = 128 the lanes are 16 bits, two columns a word). A turn's
+//      vertical pass costs about one instruction a cell;
+//   H. for each output a running sum of 2r + 1 vertical sums along the
+//      row (32-bit: counts reach 66,049 at r = 128), then the rule: one
+//      table indexed by (cell, box count including the cell), t[me][n]
+//      the cell's next state, M0's "minus the cell" folded in
+//      (ops/cuda_stencil.py:ltl_table builds it); bytes up to r = 64 (33
+//      KB), bits beyond. Loads go eight outputs at a time, ahead of the
+//      stores (`row_rule`).
+// A thread takes a run of rows (V) or columns (H) whose length balances
+// the 2r + 1 terms that start its running sum against the threads left
+// idle (`best_run`, picked by the entry point for the launch); H starts
+// its sums four bytes a load (`range_sum`).
+//
+// Route 1, ltl_resident_kernel: a board whose cells (two buffers), one
+// buffer of vertical sums and the table fit a CTA of one thread-block
+// cluster (up to 16 CTAs; 512² at every r, 1024² below r = 128) runs a
+// whole chunk of turns in one launch. Bound: the board is read and
+// written once a chunk, so the arithmetic (LTL_OPS_PER_CELL a cell and
+// turn) on at most 16 SMs and one cluster barrier a turn bound it, where
+// one launch a turn of tiles would pay a launch's issue and every tile's
+// halo loads each turn.
+// CTA i owns the rows [a_i, a_{i+1}) of the board (slab_start, as K1),
+// whole rows, so columns wrap inside a CTA. A turn k is: V from the cells
+// of buffer k & 1 of the 2r + 1 rows around each own row, read through
+// DSMEM from whichever CTAs own them (a walker follows the rows across
+// slabs, modulo h, so a slab thinner than r and a board shorter than
+// 2r + 1 are exact); a block barrier; H and the rule into buffer
+// (k + 1) & 1 of the CTA's own rows; a cluster barrier. Buffer (k + 1) & 1
+// was last read remotely in turn k - 1, before its readers arrived at
+// that turn's cluster barrier.
+//
+// Route 2, ltl_tile_kernel: every other board (4096², the JAX bench's
+// conv board), one launch a turn, a tile of `tile` x `tile` outputs a
+// block: the (tile + 2r)^2 window by asynchronous copies (cp.async, all
+// in flight at once) where it does not cross the torus seam and w is a
+// multiple of 16 (else a byte a lane by modulo, four loads in flight), V
+// over the window, H and the rule into a staged tile, written 16 bytes a
+// lane. Bound: one read and one write of the board, 2 bytes a cell at
+// 3.35 TB/s.
 constexpr int kLtlMaxRadius = 128;  // LargerThanLifeRule's radius limit
+constexpr int kLtlByteTableMaxRadius = 64;
+constexpr int kLtlWideRadius = 128;  // vertical sums past a byte from here
+constexpr int kLtlTileThreads = 256;
+constexpr int kLtlResidentThreads = 1024;
 
-// Window pitch in bytes: >= tile + 2r and 4 (mod 8), an odd number of
-// words.
-__host__ __device__ constexpr int ltl_win_pitch(int tile, int r) {
-  return ((tile + 2 * r + 7) / 8) * 8 + 4;
+// Entries of one half of the rule table: box counts 0 .. (2r+1)^2.
+__host__ __device__ constexpr int ltl_stride(int r) {
+  return (2 * r + 1) * (2 * r + 1) + 1;
 }
 
-// Horizontal-sum pitch in uint16 elements: tile + 2, an odd number of
-// words for the tiles taken (multiples of 4).
-__host__ __device__ constexpr int ltl_sum_pitch(int tile) { return tile + 2; }
+__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
 
-// Dynamic shared memory of one K7 block: both rule tables, the horizontal
-// sums and the window.
-__host__ __device__ constexpr int ltl_smem_bytes(int tile, int r,
-                                                 int lut_words) {
-  return 8 * lut_words + 2 * (tile + 2 * r) * ltl_sum_pitch(tile) +
-         (tile + 2 * r) * ltl_win_pitch(tile, r);
+// Bytes of the rule table in shared memory (16-byte multiples).
+__host__ __device__ constexpr int ltl_table_bytes(int r) {
+  return r <= kLtlByteTableMaxRadius
+             ? round16(2 * ltl_stride(r))
+             : round16(4 * ((2 * ltl_stride(r) + 31) / 32));
+}
+
+// Bytes of one vertical sum.
+__host__ __device__ constexpr int ltl_sum_bytes(int r) {
+  return r >= kLtlWideRadius ? 2 : 1;
+}
+
+// A byte pitch of at least n that is an odd number of words (lanes on
+// consecutive rows take distinct banks).
+__host__ __device__ constexpr int odd_word_pitch(int n) {
+  return (n + 7) / 8 * 8 + 4;
+}
+
+// Route 2's dynamic shared memory: the table, the window (room for a
+// 16-byte-aligned start up to 15 bytes before it and reads past its end),
+// the vertical sums of `tile` rows, 16 bytes of slack for the batched
+// reads past a row, and the staged outputs.
+__host__ __device__ constexpr int ltl_tile_smem_bytes(int tile, int r) {
+  return ltl_table_bytes(r) +
+         round16((tile + 2 * r) * odd_word_pitch(tile + 2 * r + 30)) +
+         round16(tile * odd_word_pitch((tile + 2 * r + 30) *
+                                       ltl_sum_bytes(r))) +
+         16 + tile * odd_word_pitch(tile);
+}
+
+// Route 1's dynamic shared memory a CTA: the table, the cluster's cell
+// bases and slab lengths, two buffers of ceil(h/N) rows of cells, one of
+// their vertical sums and 16 bytes of slack.
+__host__ __device__ constexpr int ltl_resident_smem_bytes(int h, int w, int r,
+                                                          int ctas) {
+  return ltl_table_bytes(r) + kResidentMaxCtas * 12 +
+         2 * ((h + ctas - 1) / ctas) * odd_word_pitch(w) +
+         round16((h + ctas - 1) / ctas *
+                 odd_word_pitch(w * ltl_sum_bytes(r))) +
+         16;
 }
 
 __device__ __forceinline__ int mod_floor(int a, int n) {
@@ -791,77 +851,562 @@ __device__ __forceinline__ int mod_floor(int a, int n) {
   return m < 0 ? m + n : m;
 }
 
-__global__ void __launch_bounds__(kLtlThreads)
-ltl_box_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-               int h, int w, int r, int middle, int tile,
-               const uint32_t* __restrict__ luts, int lut_words) {
-  extern __shared__ __align__(16) unsigned char ltl_smem[];
-  uint32_t* survive = reinterpret_cast<uint32_t*>(ltl_smem);
-  const uint32_t* born = survive + lut_words;
-  const int wp = ltl_win_pitch(tile, r);
-  const int hp = ltl_sum_pitch(tile);
-  uint16_t* sums = reinterpret_cast<uint16_t*>(survive + 2 * lut_words);
-  uint8_t* win = reinterpret_cast<uint8_t*>(sums + (tile + 2 * r) * hp);
+// First row of CTA `rank`'s slab in 32-bit arithmetic (K7's boards have
+// h * 16 < 2^31): slab_start's value without a 64-bit division.
+__device__ __forceinline__ int slab_start32(int rank, int h, int ctas) {
+  return rank * h / ctas;
+}
+
+// The run length, `unit` times a power of two, for `lines` lines of n
+// entries cut into runs among `threads` threads, where a run costs
+// `start` loads to begin and `per` an entry: the least rounds of the
+// longest chain, weighted by kLtlChainCycles, plus all the loads over
+// the 32 lanes an SM serves a cycle (a long run leaves threads idle, a
+// short one repeats its start). The entry points pick it once a launch,
+// for the kernels' arguments.
+constexpr int kLtlChainCycles = 16;  // a chained load, about an LDS latency
+
+int best_run(int n, int lines, int start, int per, int threads, int unit) {
+  int best = unit;
+  long long best_cost = -1;
+  for (int run = unit;; run *= 2) {
+    const long long items = (long long)lines * ((n + run - 1) / run);
+    const long long chain = start + (long long)per * run;
+    const long long cost =
+        (items + threads - 1) / threads * chain * kLtlChainCycles +
+        items * chain / 32;
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = run;
+    }
+    if (run >= n) break;
+  }
+  return best;
+}
+
+// The start cost of a horizontal running sum: 2r + 1 sums four bytes (two
+// 16-bit sums) a load, and its ends.
+constexpr int ltl_hstart(int r, int bytes) {
+  return (2 * r + 1) * bytes / 4 + 2;
+}
+
+// The sum of n >= 1 consecutive vertical sums from p: byte sums four to
+// a word load (`__dp4a`) between byte loads at the unaligned ends, 16-bit
+// sums two to a word.
+template <typename T>
+__device__ __forceinline__ uint32_t range_sum(const T* p, int n) {
+  const int each = 4 / (int)sizeof(T);
+  uint32_t s = 0;
+  int i = 0;
+  for (; i < n && (reinterpret_cast<uintptr_t>(p + i) & 3); ++i) s += p[i];
+  const uint32_t* q = reinterpret_cast<const uint32_t*>(p + i);
+  const int words = (n - i) / each;
+#pragma unroll 4
+  for (int k = 0; k < words; ++k) {
+    if constexpr (sizeof(T) == 1) {
+      s = __dp4a(q[k], 0x01010101u, s);
+    } else {
+      s += (q[k] & 0xFFFFu) + (q[k] >> 16);
+    }
+  }
+  for (i += words * each; i < n; ++i) s += p[i];
+  return s;
+}
+
+// The next state of a cell `me` whose box (itself included) counts n.
+template <bool kByte>
+__device__ __forceinline__ uint32_t ltl_next(const unsigned char* table,
+                                             uint32_t me, uint32_t n,
+                                             int stride) {
+  const uint32_t i = me * stride + n;
+  if constexpr (kByte) {
+    return table[i];
+  } else {
+    return (reinterpret_cast<const uint32_t*>(table)[i >> 5] >> (i & 31)) &
+           1u;
+  }
+}
+
+// An asynchronous 4-byte copy from device to shared memory, and the wait
+// for all of a thread's.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void copy_table(unsigned char* dst,
+                                           const unsigned char* src,
+                                           int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x) {
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+  }
+}
+
+// The vertical sums of a four-cell word `v` as the sum type's lanes: the
+// word itself for byte lanes, two words of 16-bit lanes (columns 0, 1 and
+// 2, 3) for wide sums.
+template <typename T>
+struct Lanes;
+
+template <>
+struct Lanes<uint8_t> {
+  uint32_t a;
+  __device__ __forceinline__ void add(uint32_t v) { a += v; }
+  __device__ __forceinline__ void step(uint32_t in, uint32_t out) {
+    a += in - out;
+  }
+  __device__ __forceinline__ void store(uint8_t* dst) const {
+    *reinterpret_cast<uint32_t*>(dst) = a;
+  }
+};
+
+template <>
+struct Lanes<uint16_t> {
+  uint32_t a, b;
+  __device__ __forceinline__ void add(uint32_t v) {
+    a += __byte_perm(v, 0, 0x4140);
+    b += __byte_perm(v, 0, 0x4342);
+  }
+  __device__ __forceinline__ void step(uint32_t in, uint32_t out) {
+    a += __byte_perm(in, 0, 0x4140) - __byte_perm(out, 0, 0x4140);
+    b += __byte_perm(in, 0, 0x4342) - __byte_perm(out, 0, 0x4342);
+  }
+  __device__ __forceinline__ void store(uint8_t* dst) const {
+    reinterpret_cast<uint32_t*>(dst)[0] = a;
+    reinterpret_cast<uint32_t*>(dst)[1] = b;
+  }
+};
+
+// n outputs of one row: output k's count is first plus add[1..k] minus
+// sub[1..k] (add[k] enters the box, sub[k] leaves it; add[0] and sub[0]
+// are read and cancel, so they need only lie in shared memory), and its
+// next state t[me[k]][count] goes to out[k]. Loads go eight outputs at a
+// time ahead of the stores, which are two words where out is 4-aligned.
+// Reads past n stay within eight entries of the row's end.
+template <typename T, bool kByte>
+__device__ __forceinline__ void row_rule(const T* add, const T* sub,
+                                         uint32_t first, int n,
+                                         const uint8_t* me, uint8_t* out,
+                                         const unsigned char* table,
+                                         int stride) {
+  uint32_t s = first - add[0] + sub[0];
+  for (int k = 0; k < n; k += 8) {
+    uint32_t v[8], m[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      v[u] = (uint32_t)add[k + u] - sub[k + u];
+      m[u] = me[k + u];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      s += v[u];
+      v[u] = k + u < n ? ltl_next<kByte>(table, m[u], s, stride) : 0u;
+    }
+    if (k + 8 <= n) {
+      uint32_t* o = reinterpret_cast<uint32_t*>(out + k);
+      o[0] = v[0] | v[1] << 8 | v[2] << 16 | v[3] << 24;
+      o[1] = v[4] | v[5] << 8 | v[6] << 16 | v[7] << 24;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (k + u < n) out[k + u] = (uint8_t)v[u];
+      }
+    }
+  }
+}
+
+template <bool kCluster, bool kByte, typename T>
+__global__ void __launch_bounds__(kLtlResidentThreads, 1)
+ltl_resident_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                    int h, int w, int r, long long turns, int vrows,
+                    int hseg, const unsigned char* __restrict__ table_g) {
+  extern __shared__ __align__(16) unsigned char smem8[];
+  const int ctas = gridDim.x;
+  const int rank = blockIdx.x;
+  const int a = slab_start32(rank, h, ctas);
+  const int len = slab_start32(rank + 1, h, ctas) - a;
+  const int rows = (h + ctas - 1) / ctas;  // a slab's allocation
+  const int stride = ltl_stride(r);
+  const int cp = odd_word_pitch(w);
+  const int vp = odd_word_pitch(w * (int)sizeof(T));
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  unsigned char* table = smem8;
+  const uint8_t** bases =
+      reinterpret_cast<const uint8_t**>(smem8 + ltl_table_bytes(r));
+  int* lens = reinterpret_cast<int*>(bases + kResidentMaxCtas);
+  uint8_t* cells = reinterpret_cast<uint8_t*>(lens + kResidentMaxCtas);
+  uint8_t* vsum = cells + 2 * rows * cp;
+  copy_table(table, table_g, ltl_table_bytes(r));
+  for (int i = tid; i < len * w; i += nt) {
+    const int j = i / w;
+    cells[j * cp + i - j * w] = in[(size_t)a * w + i];
+  }
+  if (tid < ctas) {
+    if constexpr (kCluster) {
+      bases[tid] = cg::this_cluster().map_shared_rank(cells, tid);
+    } else {
+      bases[tid] = cells;
+    }
+    lens[tid] = slab_start32(tid + 1, h, ctas) - slab_start32(tid, h, ctas);
+  }
+  if constexpr (kCluster) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+  // A thread's items: in V `vrows` rows of a word column, in H `hseg`
+  // columns of a row (`best_run`).
+  const int words = (w + 3) / 4;
+  const int vsegs = (len + vrows - 1) / vrows;
+  const int hsegs = (w + hseg - 1) / hseg;
+  for (long long k = 0; k < turns; ++k) {
+    const int cur = (int)(k & 1) * rows * cp;
+    const int nxt = rows * cp - cur;
+    // V: vsum[y][x] = cells[a + y - r .. a + y + r][x], rows modulo h,
+    // each read where its owner (the CTA whose slab holds it) keeps it. A
+    // walker (o, l) is a slab and a row in it; past a slab's last row
+    // comes the next CTA's first (after the last CTA's, CTA 0's: the
+    // torus). Within a run of rows that stays in both walkers' slabs the
+    // loads go four rows at a time.
+    for (int item = tid; item < words * vsegs; item += nt) {
+      const int q = item % words;
+      const int ya = (item / words) * vrows;
+      const int yb = min(ya + vrows, len);
+      const int g = mod_floor(a + ya - r, h);
+      int so = ((g + 1) * ctas - 1) / h;
+      int sl = g - slab_start32(so, h, ctas);
+      int ao = so, al = sl;
+      Lanes<T> acc{};
+      for (int left = 2 * r + 1; left > 0;) {
+        const int run = min(left, lens[ao] - al);
+        const uint32_t* p =
+            reinterpret_cast<const uint32_t*>(bases[ao] + cur + al * cp) + q;
+#pragma unroll 4
+        for (int i = 0; i < run; ++i) acc.add(p[i * (cp / 4)]);
+        left -= run;
+        al += run;
+        if (al == lens[ao]) {
+          ao = ao + 1 == ctas ? 0 : ao + 1;
+          al = 0;
+        }
+      }
+      for (int y = ya; y < yb;) {
+        const int run = min(yb - y, min(lens[ao] - al, lens[so] - sl));
+        const int pw = cp / 4;
+        const uint32_t* pa =
+            reinterpret_cast<const uint32_t*>(bases[ao] + cur + al * cp) + q;
+        const uint32_t* ps =
+            reinterpret_cast<const uint32_t*>(bases[so] + cur + sl * cp) + q;
+        uint8_t* d = vsum + y * vp + 4 * (int)sizeof(T) * q;
+        for (int i = 0; i < run; i += 4) {
+          uint32_t va[4], vs[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (i + u < run) {
+              va[u] = pa[u * pw];
+              vs[u] = ps[u * pw];
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (i + u < run) {
+              acc.store(d + u * vp);
+              acc.step(va[u], vs[u]);
+            }
+          }
+          pa += 4 * pw;
+          ps += 4 * pw;
+          d += 4 * vp;
+        }
+        y += run;
+        al += run;
+        sl += run;
+        if (al == lens[ao]) {
+          ao = ao + 1 == ctas ? 0 : ao + 1;
+          al = 0;
+        }
+        if (sl == lens[so]) {
+          so = so + 1 == ctas ? 0 : so + 1;
+          sl = 0;
+        }
+      }
+    }
+    __syncthreads();
+    // H and the rule: cells[nxt][j][x] from vsum[j][x - r .. x + r],
+    // columns modulo w. A segment whose box never wraps runs batched
+    // (`row_rule`), one that wraps a column at a time.
+    for (int item = tid; item < len * hsegs; item += nt) {
+      const int j = item % len;
+      const int x0 = (item / len) * hseg;
+      const int x1 = min(x0 + hseg, w);
+      const T* row = reinterpret_cast<const T*>(vsum + j * vp);
+      const uint8_t* me = cells + cur + j * cp;
+      uint8_t* dst = cells + nxt + j * cp;
+      if (x0 >= r && x1 + r <= w) {
+        row_rule<T, kByte>(row + x0 + r, row + x0 - r - 1,
+                           range_sum(row + x0 - r, 2 * r + 1), x1 - x0,
+                           me + x0, dst + x0, table, stride);
+        continue;
+      }
+      int is = mod_floor(x0 - r, w);
+      int ia = is;
+      uint32_t s = 0;
+      for (int c = 0; c <= 2 * r; ++c) {
+        s += row[ia];
+        if (++ia == w) ia = 0;
+      }
+      for (int x = x0; x < x1; ++x) {
+        dst[x] = (uint8_t)ltl_next<kByte>(table, me[x], s, stride);
+        s += row[ia] - row[is];
+        if (++ia == w) ia = 0;
+        if (++is == w) is = 0;
+      }
+    }
+    if constexpr (kCluster) {
+      cg::this_cluster().sync();
+    } else {
+      __syncthreads();
+    }
+  }
+  const uint8_t* last = cells + (int)(turns & 1) * rows * cp;
+  for (int i = tid; i < len * w; i += nt) {
+    const int j = i / w;
+    out[(size_t)a * w + i] = last[j * cp + i - j * w];
+  }
+}
+
+template <bool kByte, typename T>
+__global__ void __launch_bounds__(kLtlTileThreads)
+ltl_tile_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                int h, int w, int r, int tile, int vrows, int hseg,
+                const unsigned char* __restrict__ table_g) {
+  extern __shared__ __align__(16) unsigned char smem8[];
+  const int stride = ltl_stride(r);
+  const int span = tile + 2 * r;
+  const int wp = odd_word_pitch(span + 30);
+  const int vp = odd_word_pitch((span + 30) * (int)sizeof(T));
+  const int sp = odd_word_pitch(tile);
+  unsigned char* table = smem8;
+  uint8_t* win = smem8 + ltl_table_bytes(r);
+  uint8_t* vsum = win + round16(span * wp);
+  uint8_t* stage = vsum + round16(tile * vp) + 16;
+  const int tid = threadIdx.x;
   const int y0 = blockIdx.y * tile, x0 = blockIdx.x * tile;
   const int th = min(tile, h - y0), tw = min(tile, w - x0);
   const int wh = th + 2 * r, ww = tw + 2 * r;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < 2 * lut_words; i += kLtlThreads) survive[i] = luts[i];
+  copy_table(table, table_g, ltl_table_bytes(r));
 
-  // A: the window, one warp a row; a lane's column advances 32 modulo w.
-  const int lane = tid & 31;
-  const int step = 32 % w;
-  const int gx0 = mod_floor(x0 - r + lane, w);
-  for (int j = tid >> 5; j < wh; j += kLtlThreads / 32) {
-    const uint8_t* row = in + (size_t)mod_floor(y0 - r + j, h) * w;
-    uint8_t* dst = win + j * wp;
-    int gx = gx0;
-    for (int c = lane; c < ww; c += 32) {
-      dst[c] = row[gx];
-      gx += step;
-      if (gx >= w) gx -= w;
+  // The window: row j is board row y0 - r + j (mod h); its byte off + c
+  // is column x0 - r + c.
+  int off = 0;
+  if (w % 16 == 0 && x0 >= r && x0 + tw + r <= w) {
+    const int gs = (x0 - r) & ~15;
+    off = x0 - r - gs;
+    const int chunks = (off + ww + 15) / 16;
+    for (int item = tid; item < wh * chunks; item += kLtlTileThreads) {
+      const int j = item / chunks;
+      const int c = item - j * chunks;
+      const uint8_t* src =
+          in + (size_t)mod_floor(y0 - r + j, h) * w + gs + 16 * c;
+      uint8_t* d = win + j * wp + 16 * c;
+#pragma unroll
+      for (int b = 0; b < 16; b += 4) cp_async4(d + b, src + b);
+    }
+    cp_async_wait_all();
+  } else {
+    // Seam tiles and other widths: a byte a lane, one warp a row; a lane's
+    // column advances 32 modulo w.
+    const int lane = tid & 31;
+    const int step = 32 % w;
+    const int gx0 = mod_floor(x0 - r + lane, w);
+    for (int j = tid >> 5; j < wh; j += kLtlTileThreads / 32) {
+      const uint8_t* row = in + (size_t)mod_floor(y0 - r + j, h) * w;
+      uint8_t* d = win + j * wp;
+      int gx = gx0;
+      // Four loads in flight before their stores.
+      for (int c = lane; c < ww; c += 128) {
+        uint8_t v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (c + 32 * u < ww) v[u] = row[gx];
+          gx += step;
+          if (gx >= w) gx -= w;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (c + 32 * u < ww) d[c + 32 * u] = v[u];
+        }
+      }
     }
   }
   __syncthreads();
 
-  // B: sums[j][i] = win[j][i .. i + 2r].
-  const int segs = (tw + kLtlSeg - 1) / kLtlSeg;
-  for (int item = tid; item < wh * segs; item += kLtlThreads) {
-    const int j = item % wh;
-    const int i0 = (item / wh) * kLtlSeg;
-    const int i1 = min(i0 + kLtlSeg, tw);
-    const uint8_t* src = win + j * wp;
-    uint16_t* dst = sums + j * hp;
-    int s = 0;
-    for (int c = i0; c <= i0 + 2 * r; ++c) s += src[c];
-    dst[i0] = (uint16_t)s;
-    for (int i = i0 + 1; i < i1; ++i) {
-      s += src[i + 2 * r] - src[i - 1];
-      dst[i] = (uint16_t)s;
+  // V over the window's columns, four a word: vsum[y][c] = win[y .. y +
+  // 2r][c] for the output rows y.
+  const int words = (off + ww + 3) / 4;
+  const int vsegs = (th + vrows - 1) / vrows;
+  for (int item = tid; item < words * vsegs; item += kLtlTileThreads) {
+    const int q = item % words;
+    const int ya = (item / words) * vrows;
+    const int yb = min(ya + vrows, th);
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(win) + q;
+    uint8_t* dst = vsum + 4 * (int)sizeof(T) * q;
+    Lanes<T> acc{};
+#pragma unroll 4
+    for (int j = ya; j <= ya + 2 * r; ++j) acc.add(p[j * (wp / 4)]);
+    const int pw = wp / 4;
+    const uint32_t* pin = p + (ya + 2 * r + 1) * pw;  // the row that enters
+    const uint32_t* pout = p + ya * pw;               // the row that leaves
+    uint8_t* d = dst + ya * vp;
+    for (int y = ya; y < yb; y += 4) {
+      uint32_t va[4], vs[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (y + u < yb) {
+          va[u] = pin[u * pw];
+          vs[u] = pout[u * pw];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (y + u < yb) {
+          acc.store(d + u * vp);
+          acc.step(va[u], vs[u]);
+        }
+      }
+      pin += 4 * pw;
+      pout += 4 * pw;
+      d += 4 * vp;
     }
   }
   __syncthreads();
 
-  // C: count[y][i] = sums[y .. y + 2r][i], minus the cell unless M1, then
-  // the rule's bit; each thread walks `rows` rows of one column.
-  const int rows = tile * tile / kLtlThreads;
-  const int vsegs = (th + rows - 1) / rows;
-  for (int item = tid; item < tw * vsegs; item += kLtlThreads) {
-    const int i = item % tw;
-    const int ya = (item / tw) * rows;
-    const int yb = min(ya + rows, th);
-    int s = 0;
-    for (int j = ya; j <= ya + 2 * r; ++j) s += sums[j * hp + i];
-    for (int y = ya;;) {
-      const int me = win[(y + r) * wp + i + r];
-      const int n = s - (middle ? 0 : me);
-      const uint32_t* lut = me == 1 ? survive : born;
-      out[(size_t)(y0 + y) * w + x0 + i] =
-          (uint8_t)((lut[n >> 5] >> (n & 31)) & 1u);
-      if (++y >= yb) break;
-      s += sums[(y + 2 * r) * hp + i] - sums[(y - 1) * hp + i];
+  // H and the rule into the staged tile.
+  const int hsegs = (tw + hseg - 1) / hseg;
+  for (int item = tid; item < th * hsegs; item += kLtlTileThreads) {
+    const int y = item % th;
+    const int i0 = (item / th) * hseg;
+    const T* row = reinterpret_cast<const T*>(vsum + y * vp) + off + i0;
+    row_rule<T, kByte>(row + 2 * r, row - 1, range_sum(row, 2 * r + 1),
+                       min(hseg, tw - i0),
+                       win + (y + r) * wp + off + r + i0,
+                       stage + y * sp + i0, table, stride);
+  }
+  __syncthreads();
+
+  // Whole-width tiles of a width that is a multiple of 16 go out 16 bytes
+  // a lane, others a byte a lane.
+  if (tw == tile && w % 16 == 0) {
+    const int chunks = tile / 16;
+    for (int item = tid; item < th * chunks; item += kLtlTileThreads) {
+      const int y = item / chunks;
+      const int c = item - y * chunks;
+      const uint32_t* src =
+          reinterpret_cast<const uint32_t*>(stage + y * sp) + 4 * c;
+      *reinterpret_cast<uint4*>(out + (size_t)(y0 + y) * w + x0 + 16 * c) =
+          make_uint4(src[0], src[1], src[2], src[3]);
+    }
+  } else {
+    for (int item = tid; item < th * tw; item += kLtlTileThreads) {
+      const int y = item / tw;
+      const int x = item - y * tw;
+      out[(size_t)(y0 + y) * w + x0 + x] = stage[y * sp + x];
     }
   }
+}
+
+template <bool kCluster, bool kByte, typename T>
+cudaError_t launch_ltl_resident(const void* in, void* out, int h, int w,
+                                long long turns, int r, int ctas,
+                                const void* table, int smem,
+                                cudaStream_t stream) {
+  auto kernel = ltl_resident_kernel<kCluster, kByte, T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  if (ctas > kPortableClusterCtas) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = ctas;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(kLtlResidentThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = kCluster ? &attr : nullptr;
+  cfg.numAttrs = kCluster ? 1 : 0;
+  if constexpr (kCluster) {
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (clusters < 1) return cudaErrorLaunchOutOfResources;  // no fallback
+  }
+  const int rows = (h + ctas - 1) / ctas;
+  const int vrows = best_run(rows, (w + 3) / 4, 2 * r + 1, 2,
+                             kLtlResidentThreads, 1);
+  const int hseg = best_run(w, rows, ltl_hstart(r, sizeof(T)), 3,
+                            kLtlResidentThreads, 8);
+  e = cudaLaunchKernelEx(&cfg, kernel, (const uint8_t*)in, (uint8_t*)out, h,
+                         w, r, turns, vrows, hseg,
+                         (const unsigned char*)table);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <bool kCluster>
+cudaError_t launch_ltl_resident_r(const void* in, void* out, int h, int w,
+                                  long long turns, int r, int ctas,
+                                  const void* table, int smem,
+                                  cudaStream_t s) {
+  if (r >= kLtlWideRadius) {
+    return launch_ltl_resident<kCluster, false, uint16_t>(
+        in, out, h, w, turns, r, ctas, table, smem, s);
+  }
+  if (r <= kLtlByteTableMaxRadius) {
+    return launch_ltl_resident<kCluster, true, uint8_t>(
+        in, out, h, w, turns, r, ctas, table, smem, s);
+  }
+  return launch_ltl_resident<kCluster, false, uint8_t>(
+      in, out, h, w, turns, r, ctas, table, smem, s);
+}
+
+template <bool kByte, typename T>
+cudaError_t launch_ltl_tile(const void* in, void* buf_a, void* buf_b, int h,
+                            int w, long long turns, int r, int tile,
+                            const void* table, int smem,
+                            cudaStream_t stream) {
+  auto kernel = ltl_tile_kernel<kByte, T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((w + tile - 1) / tile, (h + tile - 1) / tile);
+  // Runs sized for a whole tile (edge tiles take the same).
+  const int vrows = best_run(tile, (tile + 2 * r + 18) / 4, 2 * r + 1, 2,
+                             kLtlTileThreads, 1);
+  const int hseg = best_run(tile, tile, ltl_hstart(r, sizeof(T)), 3,
+                            kLtlTileThreads, 8);
+  const uint8_t* src = (const uint8_t*)in;
+  for (long long t = 0; t < turns; ++t) {
+    uint8_t* dst = (uint8_t*)(t % 2 == 0 ? buf_a : buf_b);
+    kernel<<<grid, kLtlTileThreads, smem, stream>>>(
+        src, dst, h, w, r, tile, vrows, hseg, (const unsigned char*)table);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    src = dst;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1001,44 +1546,71 @@ int gol_window_occupancy(const void* in, void* out, int h, int wp,
   return cudaGetLastError();
 }
 
-// K7's dynamic shared memory for a tile, radius and table size; callers
-// pick a tile whose block fits kBlockSmemBytes.
-int gol_ltl_smem_bytes(int tile, int r, int lut_words) {
-  return ltl_smem_bytes(tile, r, lut_words);
+// K7's rule table bytes and each route's dynamic shared memory, for the
+// Python mirror's check at load.
+int gol_ltl_table_bytes(int r) { return ltl_table_bytes(r); }
+
+int gol_ltl_tile_smem_bytes(int tile, int r) {
+  return ltl_tile_smem_bytes(tile, r);
 }
 
-// K7 over a chunk: `turns` launches on the stream, turn t from the previous
-// turn's board (the input for t = 0) into buf_a for even t and buf_b for
-// odd t, so the result is in buf_a when `turns` is odd and buf_b when it
-// is even; the input is never written. `luts` holds the survive table
-// then the born table, `lut_words` 32-bit words each.
-int gol_ltl_box_run_turns(const void* in, void* buf_a, void* buf_b, int h,
-                          int w, long long turns, int r, int middle,
-                          int tile, const void* luts, int lut_words,
-                          int device, void* stream) {
+int gol_ltl_resident_smem_bytes(int h, int w, int r, int ctas) {
+  return ltl_resident_smem_bytes(h, w, r, ctas);
+}
+
+// K7 route 1: `turns` turns in one launch on a cluster of `ctas` CTAs
+// (1..16, at most h); `table` is the rule table
+// (ops/cuda_stencil.py:ltl_table). Returns cudaErrorInvalidValue for a
+// geometry it does not take and cudaErrorLaunchOutOfResources when the
+// cluster cannot be placed.
+int gol_ltl_resident_run_turns(const void* in, void* out, int h, int w,
+                               long long turns, int r, int ctas,
+                               const void* table, int device, void* stream) {
   if (turns < 1 || h < 1 || w < 1 || r < 1 || r > kLtlMaxRadius ||
-      (tile != 32 && tile != 64 && tile != 128) || lut_words < 1) {
+      ctas < 1 || ctas > kResidentMaxCtas || ctas > h) {
     return cudaErrorInvalidValue;
   }
-  const int smem = ltl_smem_bytes(tile, r, lut_words);
-  const dim3 grid((w + tile - 1) / tile, (h + tile - 1) / tile);
-  if (smem > kBlockSmemBytes || grid.y > 65535) return cudaErrorInvalidValue;
+  const int smem = ltl_resident_smem_bytes(h, w, r, ctas);
+  if (smem > kBlockSmemBytes) return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(ltl_box_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (ctas == 1) {
+    return launch_ltl_resident_r<false>(in, out, h, w, turns, r, 1, table,
+                                        smem, s);
+  }
+  return launch_ltl_resident_r<true>(in, out, h, w, turns, r, ctas, table,
+                                     smem, s);
+}
+
+// K7 route 2 over a chunk: `turns` launches on the stream, turn t from the
+// previous turn's board (the input for t = 0) into buf_a for even t and
+// buf_b for odd t, so the result is in buf_a when `turns` is odd and buf_b
+// when it is even; the input is never written.
+int gol_ltl_box_run_turns(const void* in, void* buf_a, void* buf_b, int h,
+                          int w, long long turns, int r, int tile,
+                          const void* table, int device, void* stream) {
+  if (turns < 1 || h < 1 || w < 1 || r < 1 || r > kLtlMaxRadius ||
+      (tile != 32 && tile != 64 && tile != 128)) {
+    return cudaErrorInvalidValue;
+  }
+  const int smem = ltl_tile_smem_bytes(tile, r);
+  if (smem > kBlockSmemBytes || (h + tile - 1) / tile > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   const cudaStream_t s = (cudaStream_t)stream;
-  const uint8_t* src = (const uint8_t*)in;
-  for (long long t = 0; t < turns; ++t) {
-    uint8_t* dst = (uint8_t*)(t % 2 == 0 ? buf_a : buf_b);
-    ltl_box_kernel<<<grid, kLtlThreads, smem, s>>>(
-        src, dst, h, w, r, middle, tile, (const uint32_t*)luts, lut_words);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    src = dst;
+  if (r >= kLtlWideRadius) {
+    return launch_ltl_tile<false, uint16_t>(in, buf_a, buf_b, h, w, turns, r,
+                                            tile, table, smem, s);
   }
-  return cudaSuccess;
+  if (r <= kLtlByteTableMaxRadius) {
+    return launch_ltl_tile<true, uint8_t>(in, buf_a, buf_b, h, w, turns, r,
+                                          tile, table, smem, s);
+  }
+  return launch_ltl_tile<false, uint8_t>(in, buf_a, buf_b, h, w, turns, r,
+                                         tile, table, smem, s);
 }
 
 }  // extern "C"

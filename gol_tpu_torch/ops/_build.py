@@ -70,10 +70,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gol_tiled_sweep2p.restype = i
     lib.gol_window_occupancy.argtypes = [vp, vp, i, i, i, vp]
     lib.gol_window_occupancy.restype = i
-    lib.gol_ltl_smem_bytes.argtypes = [i, i, i]
-    lib.gol_ltl_smem_bytes.restype = i
-    lib.gol_ltl_box_run_turns.argtypes = [vp, vp, vp, i, i, ll, i, i, i,
-                                          vp, i, i, vp]
+    lib.gol_ltl_table_bytes.argtypes = [i]
+    lib.gol_ltl_table_bytes.restype = i
+    lib.gol_ltl_tile_smem_bytes.argtypes = [i, i]
+    lib.gol_ltl_tile_smem_bytes.restype = i
+    lib.gol_ltl_resident_smem_bytes.argtypes = [i, i, i, i]
+    lib.gol_ltl_resident_smem_bytes.restype = i
+    lib.gol_ltl_resident_run_turns.argtypes = [vp, vp, i, i, ll, i, i,
+                                               vp, i, vp]
+    lib.gol_ltl_resident_run_turns.restype = i
+    lib.gol_ltl_box_run_turns.argtypes = [vp, vp, vp, i, i, ll, i, i, vp,
+                                          i, vp]
     lib.gol_ltl_box_run_turns.restype = i
 
 

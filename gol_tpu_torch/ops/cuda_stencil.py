@@ -93,27 +93,41 @@ launch count is kept per family too (`by_family`).
 No single PyTorch call computes a packed life-like or Generations step,
 so no library call stands beside K1, K2, K4, K5 or K6.
 
-K7 `ltl_box_run_turns` runs Larger-than-Life turns of a Moore-box rule
-(`R<r>,...,NM`) on a uint8 {0,1} torus: what `_ltl_step(cells, rule,
-"conv")` of `gol_tpu/ops/conv.py` computes, the box path of `_conv_sum`
-(:218) and the interval tests, which the JAX package leaves to XLA as
-4r + 2 rolled float32 passes (no Pallas kernel). A block takes a tile of
-`tile` x `tile` outputs (`ltl_tile`: 128, 64 or 32 from the shape and
-radius), loads its (tile + 2r)² window with rows and columns modulo the
-board (true modulo: a board narrower than 2r + 1 counts each offset as
-often as the rolls do), then runs horizontal and vertical running sums in
-shared memory (int32 counts: (2·128 + 1)² = 66,049 overflows 16 bits) and
-reads the rule's survive or born bit from the rule's `luts()` packed to
-bits in shared memory (`ltl_luts`). Bound: one read and one write of the
-board, 2 bytes a cell at 3.35 TB/s; the window's halo costs
-(1 + 2r/tile)² loads a cell. One C call launches the chunk's k turns on
-the stream in one call, ping-ponging two buffers the wrapper allocates,
-so the input is never written; each turn is one launch and counts one.
-The library call that computes the same counts is `F.conv2d` of the
-wrap-padded float32 board with a ones kernel (timed in `chip_smoke.py`,
-never called by the port). The gate is the rule's kind alone
-(`ops/conv.ltl_run_fn`); the plain version is `_ltl_step` of
-`ops/conv.py` on the conv tier, the JAX tier's own torch form.
+K7 runs Larger-than-Life turns of a Moore-box rule (`R<r>,...,NM`) on a
+uint8 {0,1} torus: what `_ltl_step(cells, rule, "conv")` of
+`gol_tpu/ops/conv.py` computes, the box path of `_conv_sum` (:218) and
+the interval tests, which the JAX package leaves to XLA as 4r + 2 rolled
+float32 passes (no Pallas kernel). `ltl_box_run_turns` is its entry, with
+two routes chosen from (h, w, r) alone, as K1 and K2 split B1/B2. Both
+count the box as vertical running sums of 2r + 1 cells, four columns to
+a 32-bit word of byte lanes (16-bit lanes at r = 128, whose 257 cells
+pass a byte), then horizontal running sums of those (32-bit), rows and
+columns by true modulo (a board narrower or shorter than 2r + 1 counts
+each offset as often as the rolls do), and read the next state from one
+table indexed by the cell and its box count (`ltl_table`: the rule's
+`luts()` with M0's "minus the cell" folded in; bytes up to r = 64, bits
+beyond).
+Route 1, `ltl_resident_run_turns`: a board whose slab of cells (two
+buffers), vertical sums and table fit a CTA of a 16-CTA cluster
+(`ltl_resident_ctas`: 512² at every r, 1024² below r = 128; one CTA up to
+64²) runs a whole chunk in one launch. Each CTA holds whole rows; a turn
+takes the vertical sums of its rows from the cells of whichever CTAs own
+the 2r + 1 rows around them (DSMEM), then the horizontal sums and the
+rule into its other buffer, and one cluster barrier. Its plain version
+(`ltl_resident_run_turns_plain`) follows the slabs and the owners' rows.
+Bound: one read and write of the board a chunk; the ops
+(`LTL_OPS_PER_CELL` a cell and turn) set it, on at most 16 SMs.
+Route 2, `ltl_box_run_turns` on any other board: one launch a turn, all
+issued by one C call that ping-pongs two buffers the wrapper allocates,
+a block a `tile`² tile (`ltl_tile`): the window in 16-byte loads away
+from the torus seam, the vertical then horizontal sums and the rule in
+shared memory, the outputs staged and stored 16 bytes a lane. Bound: one
+read and one write of the board, 2 bytes a cell at 3.35 TB/s. Its plain
+version is `_ltl_step` of `ops/conv.py` on the conv tier
+(`ltl_box_run_turns_plain`). The library call that computes the same
+counts is `F.conv2d` of the wrap-padded float32 board with a ones kernel
+(timed in `chip_smoke.py`, never called by the port). The engine's gate
+is the rule's kind alone (`ops/conv.ltl_run_fn`).
 
 K8 `window_occupancy` is the sparse torus's occupancy (`models/sparse.py`):
 `_occupancy` of `gol_tpu/models/sparse.py` (:106-112), which the JAX
@@ -134,6 +148,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from gol_tpu_torch.models.lifelike import CONWAY, LifeLikeRule
@@ -276,12 +291,17 @@ def _library():
     got += tuple(v.value for v in deep)
     n = lib.gol_tile2p_rows(rows, len(rows))
     got += (tuple(rows[:n]),)
-    got += tuple(lib.gol_ltl_smem_bytes(t, r, ltl_lut_words(r))
-                 for t in LTL_TILE_CHOICES for r in (1, 5, 128))
+    ltl = [(1, 5, 64, 65, 128), ((128, 5), (64, 128), (32, 65)),
+           ((512, 512, 5, 16), (512, 512, 128, 16), (1000, 777, 64, 16),
+            (16, 16, 10, 1))]
+    got += (tuple(lib.gol_ltl_table_bytes(r) for r in ltl[0]),
+            tuple(lib.gol_ltl_tile_smem_bytes(*a) for a in ltl[1]),
+            tuple(lib.gol_ltl_resident_smem_bytes(*a) for a in ltl[2]))
     want = (TILE_MAX_T, TILE_WORDS, TILE_ROW_CHOICES, DEEP_MAX_T, DEEP_ROWS,
-            DEEP_WORDS, TILE2P_ROW_CHOICES) + tuple(
-                ltl_smem_bytes(t, r, ltl_lut_words(r))
-                for t in LTL_TILE_CHOICES for r in (1, 5, 128))
+            DEEP_WORDS, TILE2P_ROW_CHOICES,
+            tuple(ltl_table_bytes(r) for r in ltl[0]),
+            tuple(ltl_tile_smem_bytes(*a) for a in ltl[1]),
+            tuple(ltl_resident_smem_bytes(*a) for a in ltl[2]))
     if got != want:
         raise RuntimeError(f"kernel tile geometry {got} != the Python "
                            f"mirror {want}")
@@ -795,75 +815,249 @@ def banded_run_turns2p(planes: torch.Tensor, num_turns: int, rule,
 
 # ------------------------------------------------------------------- K7
 
-# K7 tile sides (outputs a block computes per side), as
-# csrc/stencil.cu's entry point takes them; each block's shared memory
-# (`ltl_smem_bytes`) is checked against the kernel's own at load.
+# Route 2's tile sides (outputs a block computes per side), as
+# csrc/stencil.cu's entry point takes them.
 LTL_TILE_CHOICES = (128, 64, 32)
 # Least arithmetic for a separable box count: an add and a subtract for
 # each of the two running sums a cell (the bound's operation count).
 LTL_OPS_PER_CELL = 4
+# Radii up to which the rule table is held as bytes (csrc/stencil.cu
+# kLtlByteTableMaxRadius), beyond as bits.
+LTL_BYTE_TABLE_MAX_RADIUS = 64
+# Vertical sums take two bytes from this radius on ((2r+1) > 255).
+LTL_WIDE_RADIUS = 128
+# Route 2's tile policy: tile 128 only from this radius (`ltl_tile`).
+LTL_TILE128_MIN_RADIUS = 16
+# Route 1: boards of at most this many cells run on one CTA (a cluster
+# barrier costs more than the turn of a 64² board), larger ones on
+# min(16, h).
+LTL_RESIDENT_SOLO_CELLS = 4096
 
 
-def ltl_smem_bytes(tile: int, r: int, lut_words: int) -> int:
-    """K7's dynamic shared memory (csrc/stencil.cu:ltl_smem_bytes): both
-    rule tables, the uint16 horizontal sums (pitch tile + 2) and the
-    window (pitch tile + 2r rounded up to 8, plus 4)."""
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _odd_word_pitch(n: int) -> int:
+    """A byte pitch >= n that is an odd number of 32-bit words."""
+    return (n + 7) // 8 * 8 + 4
+
+
+def ltl_stride(r: int) -> int:
+    """Entries of one half of K7's rule table: box counts 0..(2r+1)²."""
+    return (2 * r + 1) ** 2 + 1
+
+
+def ltl_table_bytes(r: int) -> int:
+    """Bytes of K7's rule table (csrc/stencil.cu:ltl_table_bytes): bytes
+    up to `LTL_BYTE_TABLE_MAX_RADIUS`, bits beyond, 16-byte multiples."""
+    n = 2 * ltl_stride(r)
+    return _round16(n if r <= LTL_BYTE_TABLE_MAX_RADIUS
+                    else 4 * -(-n // 32))
+
+
+def ltl_sum_bytes(r: int) -> int:
+    """Bytes of one of K7's vertical sums: 1 while 2r + 1 fits a byte
+    (r < 128), else 2."""
+    return 1 if r < LTL_WIDE_RADIUS else 2
+
+
+def ltl_tile_smem_bytes(tile: int, r: int) -> int:
+    """Route 2's dynamic shared memory (csrc/stencil.cu:
+    ltl_tile_smem_bytes): the table, the window (room for a 16-byte
+    aligned start and reads past its end), the vertical sums of `tile`
+    rows and 16 bytes of slack, and the staged outputs."""
     span = tile + 2 * r
-    return (8 * lut_words + 2 * span * (tile + 2)
-            + span * (((span + 7) // 8) * 8 + 4))
+    return (ltl_table_bytes(r) + _round16(span * _odd_word_pitch(span + 30))
+            + _round16(tile * _odd_word_pitch((span + 30)
+                                              * ltl_sum_bytes(r)))
+            + 16 + tile * _odd_word_pitch(tile))
 
 
-def ltl_lut_words(r: int) -> int:
-    """32-bit words of one rule table at radius r, with room for the M1
-    count ((2r+1)² + 1 entries)."""
-    return -(-((2 * r + 1) ** 2 + 1) // 32)
+def ltl_resident_smem_bytes(h: int, w: int, r: int, ctas: int) -> int:
+    """Route 1's dynamic shared memory a CTA (csrc/stencil.cu:
+    ltl_resident_smem_bytes): the table, 16 cell bases and slab lengths,
+    two buffers of ceil(h/N) rows of cells, one of their vertical sums
+    and 16 bytes of slack."""
+    rows = -(-h // ctas)
+    return (ltl_table_bytes(r) + RESIDENT_MAX_CTAS * 12
+            + 2 * rows * _odd_word_pitch(w)
+            + _round16(rows * _odd_word_pitch(w * ltl_sum_bytes(r))) + 16)
+
+
+def ltl_resident_ctas(h: int, w: int, r: int) -> int:
+    """Route 1's gate and cluster size, from the shape alone: one CTA up
+    to `LTL_RESIDENT_SOLO_CELLS` cells, else min(16, h), when the slab's
+    two buffers of cells, its vertical sums and the table fit a CTA's
+    shared memory; 0 (route 2) when they do not."""
+    ctas = (1 if h * w <= LTL_RESIDENT_SOLO_CELLS
+            else min(RESIDENT_MAX_CTAS, h))
+    return ctas if ltl_resident_smem_bytes(h, w, r, ctas) <= SMEM_BYTES \
+        else 0
 
 
 def ltl_tile(h: int, w: int, r: int) -> int:
-    """K7's tile side for an (h, w) board at radius r: the largest of
-    `LTL_TILE_CHOICES` whose block fits shared memory and whose grid
-    gives every SM a block, else the smallest that fits; but where that
-    block leaves no room for a second one on its SM (1 KB reserved a
-    block, 228 KB an SM), the largest tile that fits, whose block does
-    less halo and running-sum work a cell in the same single slot.
+    """Route 2's tile side for an (h, w) board at radius r: of the tiles
+    of `LTL_TILE_CHOICES` whose block fits shared memory and whose grid
+    gives every SM a block, the largest, but 64 over 128 below
+    `LTL_TILE128_MIN_RADIUS`; the smallest that fits where none gives
+    every SM a block; and where that block leaves no room for a second
+    on its SM (1 KB reserved a block, 228 KB an SM), the largest tile
+    that fits, whose block does less halo work a cell in the same slot.
 
-    Measured (chip_smoke.py phase 5, every tile at 512², 1024² and 4096²
-    for r = 1-128; NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): the rule
-    picks the fastest tile in every case but ties of under 5% and one
-    miss, 4096² at r = 32, where tile 64 beats 128 (0.1217 against
-    0.1342 ms); its second clause moves 512² at r = 128 from tile 32 to
-    64 (0.0793 to 0.0544 ms)."""
+    Measured (chip_smoke.py phase 5; NVIDIA H100 80GB HBM3, 700 W;
+    PERF.md §6): at 4096² tiles 64 and 128 are within 6% for r <= 8 (64
+    ahead at r <= 4), 128 leads by 5-26% for r = 16-64, and at r = 128
+    only 64 and 32 fit (64 leads 3.3x); at 1024² 64 leads at every r; at
+    512² 32 leads up to r = 64 and 64 by 40% at r = 128, where a tile-32
+    block holds an SM alone."""
     fits = [t for t in LTL_TILE_CHOICES
-            if ltl_smem_bytes(t, r, ltl_lut_words(r)) <= SMEM_BYTES]
-    tile = next((t for t in fits if -(-h // t) * -(-w // t) >= CARD_SMS),
-                fits[-1])
-    if 2 * (ltl_smem_bytes(tile, r, ltl_lut_words(r)) + 1024) > \
-            SMEM_BYTES + 1024:
+            if ltl_tile_smem_bytes(t, r) <= SMEM_BYTES]
+    full = [t for t in fits if -(-h // t) * -(-w // t) >= CARD_SMS]
+    if r < LTL_TILE128_MIN_RADIUS and len(full) > 1:
+        full = [t for t in full if t != 128]
+    tile = full[0] if full else fits[-1]
+    if 2 * (ltl_tile_smem_bytes(tile, r) + 1024) > SMEM_BYTES + 1024:
         return fits[0]
     return tile
 
 
 @functools.lru_cache(maxsize=64)
-def ltl_luts(rule, device: torch.device) -> torch.Tensor:
-    """The rule's survive then born table (`rule.luts()`, neighbourhood
-    size + 1 entries each) packed little-endian to bits, as int32 words
-    on `device`, once per rule and device."""
-    import numpy as np
-
+def ltl_count_table(rule) -> np.ndarray:
+    """(2, (2r+1)² + 1) uint8: [me][n] is the next state of a cell `me`
+    whose box, the cell included, counts n — the rule's `luts()` with
+    M0's "minus the cell" folded into the survive half."""
     survive, born = rule.luts()
-    words = ltl_lut_words(rule.radius)
-    planes = []
-    for lut in (survive, born):
-        bits = np.zeros(words * 32, dtype=np.uint8)
-        bits[:len(lut)] = lut
-        planes.append(np.packbits(bits, bitorder="little").view("<i4"))
-    return torch.from_numpy(np.concatenate(planes)).to(device)
+    stride = ltl_stride(rule.radius)
+    table = np.zeros((2, stride), dtype=np.uint8)
+    table[0, :min(len(born), stride)] = born[:stride]
+    n = np.arange(stride) - (0 if rule.middle else 1)
+    ok = (n >= 0) & (n < len(survive))
+    table[1, ok] = survive[n[ok]]
+    return table
+
+
+@functools.lru_cache(maxsize=64)
+def ltl_table(rule, device: torch.device) -> torch.Tensor:
+    """K7's rule table as the kernels read it, `ltl_table_bytes` uint8 on
+    `device` (once per rule and device): `ltl_count_table` flattened, as
+    bytes up to `LTL_BYTE_TABLE_MAX_RADIUS` and packed little-endian to
+    bits beyond."""
+    r = rule.radius
+    flat = ltl_count_table(rule).reshape(-1)
+    if r > LTL_BYTE_TABLE_MAX_RADIUS:
+        flat = np.packbits(flat, bitorder="little")
+    out = np.zeros(ltl_table_bytes(r), dtype=np.uint8)
+    out[:len(flat)] = flat
+    return torch.from_numpy(out).to(device)
+
+
+def _check_box_rule(rule, what: str) -> None:
+    if rule.kind != "M":
+        raise ValueError(f"{what}: {rule.rulestring} is not a Moore-box "
+                         "rule")
+
+
+def _ltl_cells_args(cells: torch.Tensor, what: str):
+    """Validate CUDA cells; return (lib, stream)."""
+    if cells.dtype != torch.uint8 or cells.dim() != 2:
+        raise ValueError(f"{what}: want 2-D uint8 cells, got {cells.dtype} "
+                         f"{tuple(cells.shape)}")
+    if not cells.is_contiguous():
+        raise ValueError(f"{what}: cells must be contiguous")
+    return _library(), torch.cuda.current_stream(cells.device).cuda_stream
+
+
+def _running_sums(win: torch.Tensor, r: int, n: int, dim: int):
+    """Running sums of 2r + 1 along `dim` of a window of n + 2r entries,
+    as the kernels take them: the first sum in full, then each next one
+    the last plus the entry that enters minus the one that leaves."""
+    k = 2 * r + 1
+    first = win.narrow(dim, 0, k).sum(dim, keepdim=True)
+    steps = win.narrow(dim, k, n - 1) - win.narrow(dim, 0, n - 1)
+    return torch.cumsum(torch.cat([first, steps], dim), dim)
+
+
+def ltl_resident_run_turns_plain(cells: torch.Tensor, num_turns: int, rule,
+                                 ctas: int | None = None) -> torch.Tensor:
+    """Route 1's plain version on the kernel's slabs: each turn takes, for
+    every CTA, the vertical running sums of the cells of rows a_i - r ..
+    a_{i+1} + r - 1 modulo h, each row read from the slab of its owner
+    ((g + 1)·N - 1) // h at its row there, as the kernel's walker reads
+    them through DSMEM; then the horizontal running sums of those along
+    the CTA's own rows (columns modulo w) and the rule table. N is
+    `ltl_resident_ctas`'s unless `ctas` is given."""
+    h, w = cells.shape
+    r = rule.radius
+    if ctas is None:
+        ctas = ltl_resident_ctas(h, w, r)
+    _check_resident_geometry(h, ctas, None, "ltl_resident_run_turns")
+    dev = cells.device
+    starts = torch.tensor(_slab_starts(h, ctas), device=dev)
+    rows = -(-h // ctas)
+    lengths = starts[1:] - starts[:-1]
+    y = torch.arange(rows, device=dev)
+    # Each CTA's rows (a short slab's last row repeated to the
+    # allocation) and, for every board row, its slab and row there.
+    slab_rows = starts[:-1, None] + torch.minimum(y, lengths[:, None] - 1)
+    g = torch.arange(h, device=dev)
+    owner = ((g + 1) * ctas - 1) // h
+    local = g - starts[owner]
+    halo = (starts[:-1, None] - r + torch.arange(rows + 2 * r, device=dev)
+            ) % h
+    cols = torch.arange(-r, w + r, device=dev) % w
+    table = torch.from_numpy(ltl_count_table(rule)).to(dev)
+    for _ in range(num_turns):
+        slabs = cells[slab_rows]                       # (N, rows, w)
+        win = slabs[owner[halo], local[halo]]          # (N, rows + 2r, w)
+        vsum = _running_sums(win.to(torch.int32), r, rows, 1)
+        counts = _running_sums(vsum[..., cols], r, w, 2)
+        nxt = table[slabs.long(), counts.long()]
+        cells = nxt[owner, local]
+    return cells
+
+
+def ltl_resident_run_turns(cells: torch.Tensor, num_turns: int, rule, *,
+                           ctas: int | None = None) -> torch.Tensor:
+    """K7 route 1: advance an (H, W) uint8 {0,1} board that
+    `ltl_resident_ctas` admits `num_turns` turns of a Moore-box rule in
+    one launch, on a cluster of `ctas` CTAs (the gate's unless given).
+    The input is never written."""
+    _check_box_rule(rule, "ltl_resident_run_turns")
+    if num_turns == 0:
+        return cells
+    h, w = cells.shape
+    r = rule.radius
+    if ctas is None:
+        ctas = ltl_resident_ctas(h, w, r)
+        if not ctas:
+            raise ValueError(f"ltl_resident_run_turns: {h}x{w} at radius "
+                             f"{r} does not fit a cluster")
+    _check_resident_geometry(h, ctas, None, "ltl_resident_run_turns")
+    if cells.device.type == "cpu":
+        return ltl_resident_run_turns_plain(cells, num_turns, rule, ctas)
+    lib, stream = _ltl_cells_args(cells, "ltl_resident_run_turns")
+    if ltl_resident_smem_bytes(h, w, r, ctas) > SMEM_BYTES:
+        raise ValueError(f"ltl_resident_run_turns: {h}x{w} at radius {r} "
+                         f"does not fit {ctas} CTAs")
+    out = torch.empty_like(cells)
+    rc = lib.gol_ltl_resident_run_turns(
+        cells.data_ptr(), out.data_ptr(), h, w, num_turns, r, ctas,
+        ltl_table(rule, cells.device).data_ptr(), cells.device.index,
+        stream)
+    if rc:
+        raise _cluster_failed("ltl_resident_run_turns", lib, rc, ctas, h, w)
+    ltl_resident_run_turns.launches += 1
+    return out
+
+
+ltl_resident_run_turns.launches = 0
 
 
 def ltl_box_run_turns_plain(cells: torch.Tensor, num_turns: int,
                             rule) -> torch.Tensor:
-    """K7's plain version: `num_turns` turns of `_ltl_step(cells, rule,
-    "conv")` (ops/conv.py), the separable shift-add sum and interval
+    """Route 2's plain version: `num_turns` turns of `_ltl_step(cells,
+    rule, "conv")` (ops/conv.py), the separable shift-add sum and interval
     tests of the JAX tier, in torch ops."""
     from gol_tpu_torch.ops import conv
 
@@ -875,38 +1069,32 @@ def ltl_box_run_turns_plain(cells: torch.Tensor, num_turns: int,
 def ltl_box_run_turns(cells: torch.Tensor, num_turns: int, rule, *,
                       tile: int | None = None) -> torch.Tensor:
     """Advance an (H, W) uint8 {0,1} board `num_turns` turns of a
-    Moore-box Larger-than-Life rule: one K7 launch a turn, all issued by
-    one C call, on `tile`-sided tiles (`ltl_tile`'s unless given). The
-    input is never written."""
-    if rule.kind != "M":
-        raise ValueError(f"ltl_box_run_turns: {rule.rulestring} is not a "
-                         "Moore-box rule")
+    Moore-box Larger-than-Life rule on K7: a board that
+    `ltl_resident_ctas` admits in one route-1 launch
+    (`ltl_resident_run_turns`, unless `tile` pins route 2), any other on
+    route 2, one launch a turn, all issued by one C call, on `tile`-sided
+    tiles (`ltl_tile`'s unless given). The input is never written."""
+    _check_box_rule(rule, "ltl_box_run_turns")
     if num_turns == 0:
         return cells
-    if cells.device.type == "cpu":
-        return ltl_box_run_turns_plain(cells, num_turns, rule)
-    if cells.dtype != torch.uint8 or cells.dim() != 2:
-        raise ValueError(f"ltl_box_run_turns: want 2-D uint8 cells, got "
-                         f"{cells.dtype} {tuple(cells.shape)}")
-    if not cells.is_contiguous():
-        raise ValueError("ltl_box_run_turns: cells must be contiguous")
     h, w = cells.shape
     r = rule.radius
+    if tile is None and ltl_resident_ctas(h, w, r):
+        return ltl_resident_run_turns(cells, num_turns, rule)
+    if cells.device.type == "cpu":
+        return ltl_box_run_turns_plain(cells, num_turns, rule)
+    lib, stream = _ltl_cells_args(cells, "ltl_box_run_turns")
     if tile is None:
         tile = ltl_tile(h, w, r)
-    luts = ltl_luts(rule, cells.device)
-    words = luts.numel() // 2
-    if tile not in LTL_TILE_CHOICES or ltl_smem_bytes(
-            tile, r, words) > SMEM_BYTES:
+    if tile not in LTL_TILE_CHOICES or ltl_tile_smem_bytes(
+            tile, r) > SMEM_BYTES:
         raise ValueError(f"ltl_box_run_turns: tile {tile} does not fit "
                          f"radius {r}")
-    lib = _library()
-    stream = torch.cuda.current_stream(cells.device).cuda_stream
     a = torch.empty_like(cells)
     b = torch.empty_like(cells) if num_turns > 1 else a
     _build.check(lib.gol_ltl_box_run_turns(
         cells.data_ptr(), a.data_ptr(), b.data_ptr(), h, w, num_turns, r,
-        int(rule.middle), tile, luts.data_ptr(), words, cells.device.index,
+        tile, ltl_table(rule, cells.device).data_ptr(), cells.device.index,
         stream), "ltl_box_run_turns")
     ltl_box_run_turns.launches += num_turns
     return a if num_turns % 2 else b
@@ -957,7 +1145,7 @@ window_occupancy.launches = 0
 
 KERNELS = (resident_run_turns, tiled_sweep, row_popcounts,
            resident_run_turns2p, tiled_sweep2p, tiled_sweep_deep,
-           ltl_box_run_turns, window_occupancy)
+           ltl_box_run_turns, ltl_resident_run_turns, window_occupancy)
 # The two-plane kernels count launches per family as well.
 KERNELS_2P = (resident_run_turns2p, tiled_sweep2p)
 

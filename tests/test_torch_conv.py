@@ -284,17 +284,25 @@ def test_k7_wrapper_on_cpu_runs_the_plain_version():
 
 
 def test_k7_luts_are_the_rule_tables_as_bits():
+    """The kernels' rule table is the rule's `luts()` by (cell, box
+    count), M0's "minus the cell" folded in: bytes up to r = 64, the same
+    entries as little-endian bits beyond, nothing set past them."""
     for rule in (tltl.BOSCO, tltl.CONWAY_LTL,
                  tltl.LargerThanLifeRule(_k7_rule(128, False))):
-        words = cs.ltl_luts(rule, torch.device("cpu"))
-        nw = cs.ltl_lut_words(rule.radius)
-        assert words.dtype == torch.int32 and words.numel() == 2 * nw
-        bits = np.unpackbits(words.numpy().view(np.uint8),
-                             bitorder="little")
-        for i, lut in enumerate(rule.luts()):
-            plane = bits[i * nw * 32:(i + 1) * nw * 32]
-            np.testing.assert_array_equal(plane[:len(lut)], lut)
-            assert not plane[len(lut):].any()
+        packed = cs.ltl_table(rule, torch.device("cpu")).numpy()
+        assert packed.dtype == np.uint8
+        assert packed.size == cs.ltl_table_bytes(rule.radius)
+        if rule.radius <= cs.LTL_BYTE_TABLE_MAX_RADIUS:
+            entries = packed
+        else:
+            entries = np.unpackbits(packed, bitorder="little")
+        stride = cs.ltl_stride(rule.radius)
+        survive, born = rule.luts()
+        skip = 0 if rule.middle else 1
+        np.testing.assert_array_equal(entries[:len(born)], born)
+        np.testing.assert_array_equal(
+            entries[stride + skip:stride + skip + len(survive)], survive)
+        assert not entries[2 * stride:].any()
 
 
 def test_k7_tile_policy_fits_shared_memory():
@@ -303,13 +311,18 @@ def test_k7_tile_policy_fits_shared_memory():
                      (4096, 4096)):
             t = cs.ltl_tile(h, w, r)
             assert t in cs.LTL_TILE_CHOICES
-            assert cs.ltl_smem_bytes(t, r, cs.ltl_lut_words(r)) <= \
-                cs.SMEM_BYTES
-    assert cs.ltl_tile(4096, 4096, 5) == 128  # 1024 blocks
+            assert cs.ltl_tile_smem_bytes(t, r) <= cs.SMEM_BYTES
+    # Route 2's measured policy at 4096²: 64 below r = 16, 128 from it.
+    assert cs.ltl_tile(4096, 4096, 5) == 64
+    assert cs.ltl_tile(4096, 4096, 32) == 128
     assert cs.ltl_tile(4096, 4096, 128) == 64  # 128 does not fit
     assert cs.ltl_tile(512, 512, 5) == 32  # 16 tiles of 128 leave SMs idle
+    assert cs.ltl_tile(1024, 1024, 32) == 64  # 64 tiles of 128 idle SMs
     # A tile-32 block at r = 128 takes one SM alone: the widest tile wins.
     assert cs.ltl_tile(512, 512, 128) == 64
+    # 512² is route 1's; route 2 takes 4096².
+    assert cs.ltl_resident_ctas(512, 512, 128) == 16
+    assert cs.ltl_resident_ctas(4096, 4096, 5) == 0
 
 
 # ------------------------------------------------------- tier policy
