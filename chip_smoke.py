@@ -32,7 +32,11 @@ Phases (each raises on failure; any failure exits non-zero):
    65,535); K8 (the sparse window's
    occupancy) on random words with bit 31 set and on two-word windows,
    at the window ladder's 256 x 64, 768 x 64, 10,240 x 384 and 38,656 x
-   1,280 words and an odd 1000 x 77;
+   1,280 words and an odd 1000 x 77; K9 (the fleet's batched step),
+   words and per-slot popcounts, at 8 and 512 slots of 512², 2 of 64²,
+   the private 24 x 96 bucket (route 1) and 8 slots of 1024² and 2048²
+   (route 2) for 8, 32, 40 and 512 turns, route 1 at every CTA count a
+   slot takes and route 2 pinned on 512² slots;
 4. the main path through `gol_tpu_torch.run` on the default (CUDA)
    engine: the 16², 64² and 512² goldens x {0, 1, 100} against
    check/images (16² is the uint8 roll-sum path, its width not a
@@ -73,6 +77,16 @@ Phases (each raises on failure; any failure exits non-zero):
    publication from turn 1103 on counting 116; a `checkpoint_now` of it
    restored into a fresh engine and 1,024 more turns on both to equal
    cells; with turns/s, the final windows, episodes and grows.
+   4h. the fleet: a `python -m gol_tpu_torch.server --fleet` subprocess
+   serves the 16², 64² and 512² goldens x 100 to a controller through
+   SER, the 24 x 24 board through its private bucket (the dense engine's
+   board) and 50 legacy drives beside a client that creates and destroys
+   runs (each at its target turn with the oracle's board); then the
+   fleet RPCs (CreateRun, ListRuns, AttachRun with a run-scoped GetWorld,
+   SetRule, DestroyRun) through the port's client to an in-process
+   --fleet server, a run of each class (512², 1024², 2048²) to a turn
+   the 8-turn quantum does not divide against a `packed_run_turns`
+   replay (K9 both routes, the trims on K1 and K2).
    Each path runs with the launch counters at 0, read just after: every
    kernel (and family) it runs must have launched. The paths of 4-4c, 4f
    and 4g run under `torch.profiler`, which sums their device time by
@@ -97,6 +111,14 @@ Phases (each raises on failure; any failure exits non-zero):
    in-process PGM; then `checkpoint_now` and restore seconds at 512²,
    5120² and 65536², and engine turns/s at 5120² with a 65,536-turn
    checkpoint cadence beside the rate without, on one warm engine;
+   then phase 4h's measurements, the JAX bench's fleet leg
+   (`bench.py:1774-1782,1843-1856`): 1, 64 and 512 free-running 512²
+   runs in one FleetEngine over 3 s each (aggregate cell updates/s, p50
+   and p99 per-run turn latency, chunk_overhead_us, K9's device ms a
+   quantum under `torch.profiler`, one run's board against a K1 replay
+   of its seed), a wire-driven single 512² run (one ServerDistributor a
+   turn) as its comparator, and K9 a quantum by CUDA events at the
+   leg's and phase 3's buckets beside its bound and its plain version;
 5. timings at 64², 128², 256², 512², 4096², 5120², 8192², 16384²,
    65536² and 131072²: each kernel's ms per launch beside its plain version's
    and its bound (K1 at N = 1, 2, 4, 8, 16 on 512², 256² and 64², K2 at
@@ -2825,20 +2847,439 @@ def k8_record(card: Card, launches: dict, rows: list) -> dict:
         sparse={k: v for k, v in SPARSE_STATS.items()})
 
 
+# ------------------------------------------------- phase 4h: the fleet
+
+# K9's checked buckets (cap, rows, words) — route 1: 8 and 512 slots of
+# 512², 2 of 64² and the private 24 x 96 bucket; route 2: 8 slots of
+# 1024² and of 2048² — and quanta (turns): the default 8, one sweep
+# (32), a sweep and a remainder (40) and GOL_FUSE_K's 512.
+FLEET_SHAPES = ((8, 512, 16), (512, 512, 16), (2, 64, 2), (1, 24, 3),
+                (8, 1024, 32), (8, 2048, 64))
+FLEET_QUANTA = (8, 32, 40, 512)
+# The JAX bench's fleet leg (bench.py:1774-1782): free-running 512² runs
+# in one FleetEngine, counted over a wall window.
+FLEET_RUN_COUNTS = (1, 64, 512)
+FLEET_WINDOW_S = 3.0
+# Phase 4h's exact-target runs: one a class, the target not a multiple
+# of the 8-turn quantum, so the last 5 turns are the trim (K1 at 512², K2
+# at 1024² and 2048²).
+FLEET_TRIM_SIZES = (512, 1024, 2048)
+FLEET_TRIM_TARGET = 13
+# Legacy drives repeated beside a busy fleet.
+FLEET_DRIVES = 50
+# K9's timed buckets (cap, rows, words), at the default 8-turn quantum,
+# and the head row of each route in the kernels line (the bench leg's top
+# point for route 1, the largest class for route 2).
+FLEET_TIMED = ((1, 512, 16), (64, 512, 16), (512, 512, 16), (8, 512, 16),
+               (2, 64, 2), (1, 24, 3), (8, 1024, 32), (8, 2048, 64))
+FLEET_HEADS = {"fleet_run_turns/resident": (512, 512, 16),
+               "fleet_run_turns/tiled": (8, 2048, 64)}
+# Phase 4h's references, made before its counters start.
+FLEET_REF: dict = {}
+
+
+def seeded_batch(torch, cap: int, h: int, wp: int, seed: int, device):
+    """Random (cap, h, wp) packed words made on the device."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return torch.randint(-2**31, 2**31 - 1, (cap, h, wp), generator=g,
+                         dtype=torch.int32, device=device)
+
+
+def fleet_route(cs, shape, kind=None) -> str:
+    return f"fleet_run_turns/{kind or cs.fleet_run_kind(shape)}"
+
+
+def phase_kernels_fleet(torch, dev) -> None:
+    """Phase 3: K9 against its plain version, words and popcounts, at the
+    fleet's bucket shapes and quanta, route 1 at every CTA count a slot
+    takes at 512², and route 2 pinned on 512² slots."""
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    log("phase 3: K9 (fleet_run_turns) against its plain version "
+        "(bit-exact, words and popcounts)")
+    t0 = time.perf_counter()
+    for i, (cap, h, wp) in enumerate(FLEET_SHAPES):
+        w = seeded_batch(torch, cap, h, wp, 90 + i, dev)
+        name = fleet_route(cs, w.shape)
+        for turns in FLEET_QUANTA:
+            got, alive = cs.fleet_run_turns(w, turns)
+            want, want_alive = cs.fleet_run_turns_plain(w, turns)
+            what = f"K9 {name.split('/')[1]} {cap} x {h}x{wp * 32} x {turns}"
+            check_equal(torch, what, got, want, name)
+            check_equal(torch, what + " popcounts", alive, want_alive, name)
+        del w
+    w = seeded_batch(torch, 8, 512, 16, 99, dev)
+    for ctas in (1, 2, 4, 8, 16):
+        got, alive = cs.fleet_run_turns(w, 40, ctas=ctas)
+        want, want_alive = cs.fleet_run_turns_plain(w, 40, ctas=ctas)
+        check_equal(torch, f"K9 resident 8 x 512² x 40 at {ctas} CTAs a slot",
+                    torch.cat([got.flatten(), alive]),
+                    torch.cat([want.flatten(), want_alive]),
+                    "fleet_run_turns/resident")
+    for rows in cs.TILE_ROW_CHOICES:
+        got, alive = cs.fleet_run_turns(w, 40, kind="tiled", rows=rows)
+        want, want_alive = cs.fleet_run_turns_plain(w, 40, kind="tiled",
+                                                    rows=rows)
+        check_equal(torch, f"K9 tiled pinned 8 x 512² x 40, {rows} rows",
+                    torch.cat([got.flatten(), alive]),
+                    torch.cat([want.flatten(), want_alive]),
+                    "fleet_run_turns/tiled")
+    log(f"  K9 checks took {time.perf_counter() - t0:.1f} s")
+
+
+def fleet_seed(size: int, seed: int) -> np.ndarray:
+    """A {0,1} board with 25% alive (the bench's density)."""
+    rng = np.random.default_rng(seed)
+    return (rng.random((size, size)) < 0.25).astype(np.uint8)
+
+
+def fleet_reference(torch, dev) -> None:
+    """Phase 4h's references, made before its counters start: each trim
+    run's board by `packed_run_turns` (K1 or K2) from its seed, and the
+    dense engine's 24 x 24 legacy board."""
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.engine import Engine
+    from gol_tpu_torch.models.lifelike import CONWAY
+    from gol_tpu_torch.ops import bitpack
+    from gol_tpu_torch.parallel.halo import packed_run_turns
+
+    for size in FLEET_TRIM_SIZES:
+        seed = fleet_seed(size, size)
+        words = bitpack.words_from_numpy(bitpack.pack_np(seed), dev)
+        out = packed_run_turns(words, FLEET_TRIM_TARGET, CONWAY)
+        FLEET_REF[size] = (seed, bitpack.unpack_np(
+            bitpack.words_to_numpy(out)) * np.uint8(255))
+    world = fleet_seed(24, 3) * np.uint8(255)
+    FLEET_REF["legacy"] = (world, Engine().server_distributor(
+        Params(threads=1, image_width=24, image_height=24, turns=6),
+        world)[0])
+
+
+def legacy_drives_beside_churn(address: str, drives: int) -> dict:
+    """`drives` legacy (run_id-less) drives of 24 x 24 boards, 6 turns
+    each, through the port's client while another client creates and
+    destroys 512² runs on the same server; every drive must return turn
+    6 and the torus oracle's board."""
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.client import RemoteEngine
+    from gol_tpu_torch.ops.reference import run_turns_np
+
+    stop = threading.Event()
+    errors: list = []
+    churned = [0]
+
+    def churn():
+        cli = RemoteEngine(address)
+        try:
+            while not stop.is_set():
+                rid = f"busy{churned[0] % 4}"
+                cli.create_run(512, 512, run_id=rid)
+                cli.destroy_run(rid)
+                churned[0] += 1
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    t = threading.Thread(target=churn, daemon=True)
+    t.start()
+    cli = RemoteEngine(address)
+    p = Params(threads=1, image_width=24, image_height=24, turns=6)
+    t0 = time.perf_counter()
+    try:
+        for i in range(drives):
+            world = fleet_seed(24, 1000 + i) * np.uint8(255)
+            got, turn = cli.server_distributor(p, world)
+            if turn != 6:
+                raise AssertionError(f"legacy drive {i} returned turn "
+                                     f"{turn}, not 6")
+            want = run_turns_np(fleet_seed(24, 1000 + i), 6)
+            if not np.array_equal(got, want * np.uint8(255)):
+                raise AssertionError(f"legacy drive {i}: board != oracle")
+    finally:
+        stop.set()
+        t.join(30)
+    if errors:
+        raise AssertionError(f"churn thread failed: {errors[0]!r}")
+    return dict(drives=drives, churned_runs=churned[0],
+                seconds=time.perf_counter() - t0)
+
+
+def phase_fleet(torch, dev) -> None:
+    """Phase 4h: the fleet on the card. A `python -m gol_tpu_torch.server
+    --fleet` subprocess serves the goldens to a controller through SER,
+    the 24 x 24 board through its private bucket (the dense engine's
+    board) and 50 legacy drives beside a busy fleet; then the fleet RPCs
+    through the port's client against an in-process --fleet server (so
+    the counters see K9, and K1 and K2 in the trims), each class with a
+    target the quantum does not divide."""
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.client import RemoteEngine
+    from gol_tpu_torch.fleet import FleetEngine
+
+    log("phase 4h: the fleet: a --fleet server subprocess on the card")
+    images = os.path.join(REPO, "images")
+    proc, port = spawn_server(0, "--fleet")
+    try:
+        address = f"127.0.0.1:{port}"
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ["SER"] = address
+            try:
+                for size in (16, 64, 512):
+                    check_golden(images, tmp, size, 100, "--fleet SER")
+            finally:
+                os.environ.pop("SER", None)
+        log("  ok 16², 64², 512² x 100 through SER to the --fleet server: "
+            "alive sets and PGM bytes equal check/images")
+        world, want = FLEET_REF["legacy"]
+        got, turn = RemoteEngine(address).server_distributor(
+            Params(threads=1, image_width=24, image_height=24, turns=6),
+            world)
+        if turn != 6 or not np.array_equal(got, want):
+            raise AssertionError("24² x 6 through the private bucket != "
+                                 "the dense engine's board")
+        log("  ok 24² x 6 (private 24 x 96 bucket) equals the dense "
+            "Engine's board")
+        rec = legacy_drives_beside_churn(address, FLEET_DRIVES)
+        log(f"  ok {rec['drives']} of {rec['drives']} legacy drives at "
+            f"turn 6 with the oracle's board, beside {rec['churned_runs']} "
+            f"runs created and destroyed, in {rec['seconds']:.1f} s")
+        FLEET_STATS["legacy_drives"] = rec
+    finally:
+        stop_server(proc)
+
+    fleet = FleetEngine()
+    with served(fleet) as srv:
+        cli = RemoteEngine(f"127.0.0.1:{srv.port}")
+        for size in FLEET_TRIM_SIZES:
+            seed, want = FLEET_REF[size]
+            rid = f"trim{size}"
+            cli.create_run(size, size, board=seed * np.uint8(255),
+                           run_id=rid, target_turn=FLEET_TRIM_TARGET)
+            rv = cli.attach_run(rid)
+            deadline = time.monotonic() + 60
+            while rv.stats()["state"] != "parked":
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{rid} never parked")
+                time.sleep(0.01)
+            got, turn = rv.get_world()
+            if turn != FLEET_TRIM_TARGET or not np.array_equal(got, want):
+                raise AssertionError(f"{size}² fleet run at turn {turn}: "
+                                     "board != packed_run_turns replay")
+            log(f"  ok {size}² run to turn {FLEET_TRIM_TARGET} (quantum "
+                f"{srv.engine.turns_per_dispatch}): the packed_run_turns "
+                "replay's board")
+        runs, summary = cli.list_runs()
+        if ({r["run_id"] for r in runs} != {f"trim{s}"
+                                            for s in FLEET_TRIM_SIZES}
+                or summary["parked"] != len(FLEET_TRIM_SIZES)):
+            raise AssertionError(f"ListRuns: {runs}, {summary}")
+        rec = cli.set_rule("trim512", "B36/S23")
+        if rec["rule"] != "B36/S23":
+            raise AssertionError(f"SetRule: {rec}")
+        for size in FLEET_TRIM_SIZES:
+            if cli.destroy_run(f"trim{size}")["state"] != "removed":
+                raise AssertionError("DestroyRun")
+        if cli.list_runs()[0]:
+            raise AssertionError("runs left after DestroyRun")
+        log("  ok CreateRun, ListRuns, AttachRun + GetWorld, SetRule, "
+            "DestroyRun through the port's client")
+    fleet.kill_prog()
+
+
+FLEET_STATS: dict = {}
+
+
+def wire_single_cups(dev, n: int, window_s: float) -> dict:
+    """The bench leg's comparator (bench.py:1796-1834): ONE n² run served
+    turn by turn over loopback (one ServerDistributor RPC a turn, board
+    up and down), by the port's client and server on the card."""
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.client import RemoteEngine
+    from gol_tpu_torch.engine import Engine
+    from gol_tpu_torch.models.lifelike import CONWAY
+    from gol_tpu_torch.ops import bitpack, cuda_stencil as cs
+
+    world = fleet_seed(n, 0) * np.uint8(255)
+    with served(Engine()) as srv:
+        os.environ.pop("SER", None)
+        cli = RemoteEngine(f"127.0.0.1:{srv.port}")
+        p = Params(threads=1, image_width=n, image_height=n, turns=1)
+        board, turn = cli.server_distributor(p, world)
+        t0 = time.perf_counter()
+        reps = 0
+        while time.perf_counter() - t0 < window_s:
+            board, turn = cli.server_distributor(p, board, start_turn=turn)
+            reps += 1
+        elapsed = time.perf_counter() - t0
+    words = bitpack.words_from_numpy(bitpack.pack_np(world), dev)
+    want = bitpack.unpack_np(bitpack.words_to_numpy(
+        cs.resident_run_turns(words, turn, CONWAY))) * np.uint8(255)
+    if not np.array_equal(board, want):
+        raise AssertionError("wire-driven single run != its K1 replay")
+    return dict(size=n, turns=reps, seconds=elapsed,
+                cell_updates_per_s=reps * n * n / elapsed,
+                ms_per_turn=elapsed / max(reps, 1) * 1e3)
+
+
+def fleet_point(torch, dev, count: int, n: int, window_s: float,
+                profile) -> dict:
+    """One point of the bench leg: `count` free-running n² runs in one
+    FleetEngine (slot_base max(8, count), the bench's), counted over a
+    wall window; then a short profiled window for K9's device ms; run
+    b0's board against a K1 replay of its seed."""
+    from torch.profiler import ProfilerActivity
+
+    from gol_tpu_torch.fleet import FleetEngine
+    from gol_tpu_torch.models.lifelike import CONWAY
+    from gol_tpu_torch.ops import bitpack, cuda_stencil as cs
+
+    eng = FleetEngine(bucket_sizes=(n,), slot_base=max(8, count))
+    try:
+        seed0 = None
+        for i in range(count):
+            seed = fleet_seed(n, 10_000 + i)
+            if i == 0:
+                seed0 = seed
+            eng.create_run(n, n, board=seed, run_id=f"b{i}", wait=False)
+        deadline = time.monotonic() + 120
+        while eng.runs_summary()["resident"] < count:
+            if time.monotonic() > deadline:
+                raise AssertionError("fleet placement timed out")
+            time.sleep(0.02)
+        warm = eng.throughput_counters()["board_turns"]
+        while eng.throughput_counters()["board_turns"] == warm:
+            time.sleep(0.01)
+        time.sleep(0.5)  # past the first flush
+        eng.reset_bench_window()
+        c0 = eng.throughput_counters()
+        t0 = time.perf_counter()
+        time.sleep(window_s)
+        c1 = eng.throughput_counters()
+        elapsed = time.perf_counter() - t0
+        p50, p99 = eng.latency_percentiles()
+        d0 = eng.throughput_counters()["dispatches"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.5)
+            torch.cuda.synchronize()
+        quanta = eng.throughput_counters()["dispatches"] - d0
+        board, turn = eng.resolve_run("b0").get_world()
+    finally:
+        eng.kill_prog()
+    ms = device_ms_by_kernel(prof)
+    words = bitpack.words_from_numpy(bitpack.pack_np(seed0), dev)
+    want = bitpack.unpack_np(bitpack.words_to_numpy(
+        cs.resident_run_turns(words, turn, CONWAY))) * np.uint8(255)
+    if not np.array_equal(board, want):
+        raise AssertionError(f"fleet {count} x {n}²: run b0 at turn {turn}"
+                             " != its K1 replay")
+    cells = c1["cell_updates"] - c0["cell_updates"]
+    k9 = ms.get("fleet_run_turns/resident", 0.0)
+    return dict(runs=count, size=n, window_s=elapsed,
+                cell_updates_per_s=cells / elapsed,
+                turns_per_run_per_s=(c1["board_turns"] - c0["board_turns"])
+                / count / elapsed,
+                p50_turn_latency_ms=p50 * 1e3, p99_turn_latency_ms=p99 * 1e3,
+                chunk_overhead_us=c1["chunk_overhead_us"],
+                quanta_profiled=quanta,
+                k9_device_ms_profiled=k9 if ms else "not measured",
+                k9_device_ms_per_quantum=(k9 / quanta if ms and quanta
+                                          else "not measured"),
+                profiled_device_ms=ms or "not measured",
+                sampled_run_turn=turn, parity=True)
+
+
+def timing_fleet(torch, dev, card: Card) -> dict:
+    """Phase 4h's measurements: the JAX bench's fleet leg on the card (1,
+    64 and 512 free-running 512² runs), the wire-driven single run it is
+    measured against, and K9 a quantum (CUDA events) beside its bound
+    and its plain version, at the leg's and phase 3's buckets."""
+    from torch.profiler import profile
+
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    log(f"phase 4h: fleet measurements on {card.smi}")
+    single = wire_single_cups(dev, 512, 2.0)
+    log(f"  wire-driven single 512² run: {single['cell_updates_per_s']:.4g} "
+        f"cell updates/s ({single['ms_per_turn']:.3f} ms a turn) "
+        f"[{card.smi}]")
+    points = []
+    for count in FLEET_RUN_COUNTS:
+        r = fleet_point(torch, dev, count, 512, FLEET_WINDOW_S, profile)
+        points.append(r)
+        log(f"  fleet {count} x 512²: {r['cell_updates_per_s']:.4g} cell "
+            f"updates/s ({r['cell_updates_per_s'] / single['cell_updates_per_s']:.1f}"
+            f"x the wire-driven run), {r['turns_per_run_per_s']:.1f} turns/s "
+            f"a run, turn latency p50 {r['p50_turn_latency_ms']:.4f} ms "
+            f"p99 {r['p99_turn_latency_ms']:.4f} ms, chunk_overhead_us "
+            f"{r['chunk_overhead_us']:.1f}, K9 device "
+            f"{r['k9_device_ms_per_quantum']} ms a quantum under the "
+            f"profiler ({r['quanta_profiled']} quanta); run b0 equals its K1 "
+            f"replay at turn {r['sampled_run_turn']} [{card.smi}]")
+    ops = cs.OPS_PER_WORD_TURN
+    rows = []
+    for cap, h, wp in FLEET_TIMED:
+        w = seeded_batch(torch, cap, h, wp, 7, dev)
+        words = cap * h * wp
+        b, by = card.bound(8 * words + 4 * cap, ops * 8 * words)
+        ms = time_ms(torch, lambda: cs.fleet_run_turns(w, 8), 50)
+        plain = (time_ms(torch, lambda: cs.fleet_run_turns_plain(w, 8), 2)
+                 if (cap, h, wp) in FLEET_HEADS.values() else None)
+        rows.append(dict(name=fleet_route(cs, w.shape),
+                         shape=f"{cap} x {h}x{wp * 32}", turns=8,
+                         ctas=(cs.fleet_resident_ctas(cap, h, wp)
+                               if cs.fleet_run_kind(w.shape) == "resident"
+                               else None),
+                         rows=(cs.fleet_tile_rows(cap, h, wp)
+                               if cs.fleet_run_kind(w.shape) == "tiled"
+                               else None),
+                         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by))
+        log_row(rows[-1]["name"], rows[-1])
+        del w
+    FLEET_STATS.update(single=single, points=points, k9=rows)
+    log("fleet:" + json.dumps(FLEET_STATS))
+    return FLEET_STATS
+
+
+def k9_records(card: Card, launches: dict, stats: dict) -> list:
+    """K9's two routes for the kernels line: route 1 at the bench's top
+    point (512 slots of 512²), route 2 at 8 slots of 2048²."""
+    out = []
+    for name, (cap, h, wp) in FLEET_HEADS.items():
+        shape = f"{cap} x {h}x{wp * 32}"
+        rs = [r for r in stats["k9"] if r["name"] == name]
+        head = [r for r in rs if r["shape"] == shape][0]
+        out.append(dict(
+            name=name, route="cuda", source="gol_tpu_torch/csrc/stencil.cu",
+            family=None, replaces="gol_tpu/fleet/buckets.py:149",
+            launches=launches[name], bit_exact=MAX_ABS_ERR[name] == 0,
+            max_abs_err=MAX_ABS_ERR[name], card=card.smi, shape=shape,
+            turns=8, ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=None, by_shape=rs))
+    return out
+
+
 def main_path_launches(cs) -> dict:
     """Launches per kernel on the main path; the two-plane kernels per
-    family, as `name/family`."""
+    family, as `name/family`, and K9 per route, as `name/route`."""
     launches = {fn.__name__: fn.launches for fn in cs.KERNELS
-                if fn not in cs.KERNELS_2P}
+                if fn not in cs.KERNELS_2P and fn is not cs.fleet_run_turns}
     for fn in cs.KERNELS_2P:
         for fam, n in fn.by_family.items():
             launches[f"{fn.__name__}/{fam}"] = n
+    for route, n in cs.fleet_run_turns.by_route.items():
+        launches[f"fleet_run_turns/{route}"] = n
     return launches
 
 
 # Device kernel names (as the profiler reports them, without
 # "(anonymous namespace)::") of each wrapper.
 KERNEL_SYMBOLS = (
+    ("resident_kernel<Life, true, true>", "fleet_run_turns/resident"),
+    ("resident_kernel<Life, false, true>", "fleet_run_turns/resident"),
+    ("tiled_kernel<Life, 1, 128, true>", "fleet_run_turns/tiled"),
+    ("tiled_kernel<Life, 1, 384, true>", "fleet_run_turns/tiled"),
     ("resident_kernel<Life,", "resident_run_turns"),
     ("tiled_kernel<Life, 1,", "tiled_sweep"),
     ("tiled_kernel<Life, 2,", "tiled_sweep_deep"),
@@ -2905,7 +3346,9 @@ def main() -> int:
     phase_kernels(torch, dev)
     phase_kernels_ltl(torch, dev)
     phase_kernels_occupancy(torch, dev)
+    phase_kernels_fleet(torch, dev)
     sparse_reference(torch, dev)
+    fleet_reference(torch, dev)
     # Each path runs with the counters at 0 and is read just after; each
     # must have launched every kernel (and family) it runs. The profiler
     # sums the device time of the profiled paths by kernel.
@@ -2930,7 +3373,11 @@ def main() -> int:
             (phase_conv, ("ltl_resident_run_turns", "ltl_box_run_turns"),
              True),
             (phase_sparse, ("resident_run_turns", "tiled_sweep",
-                            "window_occupancy"), True)):
+                            "window_occupancy"), True),
+            (phase_fleet, ("fleet_run_turns/resident",
+                           "fleet_run_turns/tiled", "resident_run_turns",
+                           "tiled_sweep"), True)):
+        t_phase = time.monotonic()
         cs.reset_launch_counts()
         with (profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) if prof_on
@@ -2954,12 +3401,15 @@ def main() -> int:
             for name, ms in mine.items():
                 device_ms[name] = device_ms.get(name, 0.0) + ms
         del prof
+        log(f"  {phase.__name__} took {time.monotonic() - t_phase:.1f} s")
     log("  main-path device ms by kernel (torch.profiler): "
         + (json.dumps(device_ms) if device_ms else "not measured"))
     log(f"  launches in the profiled phases: {json.dumps(profiled)}")
     phase_conv_checks(torch, dev)
     phase_control_plane_measure(torch, dev, card)
     phase_checkpoint_measure(torch, dev, card)
+    fleet = timing_fleet(torch, dev, card)
+    log(f"  measurements so far: {time.monotonic() - t_start:.1f} s")
     kernels = phase_timing(torch, dev, card, launches)
     kernels += k7_records(card, launches, timing_ltl(torch, dev, card))
     k3 = [k for k in kernels if k["name"] == "row_popcounts"][0]
@@ -2967,6 +3417,7 @@ def main() -> int:
     k3["profiled_launches"] = profiled.get("row_popcounts", 0)
     kernels.append(k8_record(card, launches,
                              timing_occupancy(torch, dev, card)))
+    kernels += k9_records(card, launches, fleet)
     for k in kernels:
         k["main_path_device_ms"] = device_ms.get(
             k["name"], 0.0 if device_ms else "not measured")

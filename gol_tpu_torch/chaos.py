@@ -1,8 +1,9 @@
 """Deterministic wire-level fault injection (the `GOL_CHAOS` contract) —
 the counterpart of `gol_tpu/chaos.py` for the hooks that `wire.send_msg`,
-`wire.recv_msg` and the client's dial sites call. Its federation,
-migration and fleet triggers (`kill_member`, `migrate_fail`, `poison`)
-wait for ROADMAP A11 and A13.
+`wire.recv_msg` and the client's dial sites call, and of the fleet's
+popcount poison (`take_poison`, which the fleet loop reads as its
+quarantine witness). Its federation and migration triggers
+(`kill_member`, `migrate_fail`) wait for ROADMAP A13.
 
 Off by default: when `GOL_CHAOS` is unset every hook is one env lookup.
 Config is a comma-separated key=value string, e.g.::
@@ -26,6 +27,13 @@ package):
 - ``refuse=p``    dial-time refusal: the client-side connect raises
                   ConnectionRefusedError before the socket connects.
 - ``seed=N``      RNG seed (default 0).
+- ``poison=<run_id>[@<turn>]``
+                  arm the fleet poison hook: `take_poison(run_id, turn)`
+                  fires exactly once per process when the named run
+                  reaches the given turn, letting the fleet loop
+                  fabricate an implausible popcount (a real one can
+                  never exceed the slot's bits, so the quarantine
+                  detector needs a deliberate trigger to be testable).
 
 Every injection is metered as ``gol_chaos_injected_total{kind}``.
 """
@@ -53,6 +61,9 @@ def _parse(spec: str) -> dict:
         key, sep, val = part.partition("=")
         if not sep:
             continue
+        if key.strip() == "poison":
+            cfg["poison"] = val.strip()
+            continue
         try:
             cfg[key.strip()] = (int(val) if key.strip() == "seed"
                                 else float(val))
@@ -78,6 +89,18 @@ class ChaosInjector:
         self.refuse = float(cfg.get("refuse", 0.0))
         self._rng = random.Random(int(cfg.get("seed", 0)))
         self._lock = threading.Lock()
+        # poison=<run_id>[@<turn>]: one-shot fleet popcount poison.
+        self._poison_run: Optional[str] = None
+        self._poison_turn = 0
+        self._poison_fired = False
+        poison = cfg.get("poison")
+        if poison:
+            rid, _, turn = poison.partition("@")
+            self._poison_run = rid
+            try:
+                self._poison_turn = int(turn) if turn else 0
+            except ValueError:
+                self._poison_turn = 0
 
     def _plan(self, kinds) -> Optional[str]:
         """One uniform draw walked over the cumulative per-kind
@@ -155,6 +178,18 @@ class ChaosInjector:
             _INJECTED["refuse"].inc()
             raise ConnectionRefusedError(f"chaos: refused dial to {addr}")
 
+    def take_poison(self, run_id: str, turn: int) -> bool:
+        """True exactly once, when the armed run reaches the armed turn."""
+        if self._poison_run is None or self._poison_fired:
+            return False
+        if run_id != self._poison_run or turn < self._poison_turn:
+            return False
+        with self._lock:
+            if self._poison_fired:
+                return False
+            self._poison_fired = True
+        return True
+
 
 def _close_quiet(sock) -> None:
     try:
@@ -169,8 +204,8 @@ _STATE: Optional[ChaosInjector] = None
 
 def injector() -> Optional[ChaosInjector]:
     """The process-wide injector for the current GOL_CHAOS value, or None
-    when chaos is off. Rebuilt, with a fresh RNG, whenever the env value
-    changes."""
+    when chaos is off. Rebuilt, with a fresh RNG and poison state,
+    whenever the env value changes."""
     raw = os.environ.get(ENV, "")
     if not raw:
         return None
@@ -196,6 +231,11 @@ def recv_hook(sock) -> None:
     inj = injector()
     if inj is not None:
         inj.on_recv(sock)
+
+
+def take_poison(run_id: str, turn: int) -> bool:
+    inj = injector()
+    return False if inj is None else inj.take_poison(run_id, turn)
 
 
 def dial_hook(addr) -> None:

@@ -19,7 +19,8 @@ Layout of a checkpoint directory (GOL_CKPT / --checkpoint):
 Modules:
 
     manifest.py   schema, atomic write/read/verify, directory listing
-    writer.py     background double-buffered writer (off the hot loop)
+    writer.py     background double-buffered writer (off the hot loop),
+                  and the fleet's shared writer pool
     retention.py  keep-last + keep-every-K-turns GC, crash-safe
     restore.py    resolve dir|manifest|legacy-npz -> verified engine state
     reshard.py    geometry contract + host-side canonical repack
@@ -52,6 +53,7 @@ from gol_tpu_torch.ckpt.restore import resolve, restore_engine  # noqa: F401
 from gol_tpu_torch.ckpt.retention import RetentionPolicy  # noqa: F401
 from gol_tpu_torch.ckpt.writer import (  # noqa: F401
     CheckpointWriter,
+    CheckpointWriterPool,
     Snapshot,
 )
 

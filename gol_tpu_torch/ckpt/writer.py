@@ -1,6 +1,6 @@
-"""Background double-buffered checkpoint writer — the counterpart of
-`gol_tpu/ckpt/writer.py` (without its fleet `CheckpointWriterPool`,
-ROADMAP A11). A sparse engine's window checkpoints as repr "sparse": its
+"""Background double-buffered checkpoint writer, and the fleet's shared
+`CheckpointWriterPool` — the counterpart of `gol_tpu/ckpt/writer.py`. A
+sparse engine's window checkpoints as repr "sparse": its
 words as `sparse_words` beside the origin and torus size, which the
 manifest also records under "sparse".
 
@@ -363,6 +363,12 @@ class CheckpointWriter:
                 manifest["journal"] = jinfo
             mf.write_manifest(man_path, manifest)  # durability bit LAST
             obs.CKPT_BYTES.inc(payload_bytes)
+            try:  # per-run storage attribution, best-effort
+                from gol_tpu_torch.obs import usage as obs_usage
+                obs_usage.METER.charge_ckpt(
+                    self.run_id or "run0", payload_bytes)
+            except Exception:
+                pass
             self.retention.apply(self.directory, locked=True)
         return man_path
 
@@ -384,6 +390,144 @@ class CheckpointWriter:
             return jw.head_info()
         except Exception:  # journaling must never sink a checkpoint
             return None
+
+
+# Shared fleet pool sizing: a couple of workers keep up with hundreds
+# of residents (writes are newest-wins per run, so backlog collapses to
+# one snapshot per run regardless of cadence pressure).
+POOL_WRITERS_ENV = "GOL_FLEET_CKPT_WRITERS"
+POOL_WRITERS_DEFAULT = 2
+
+
+class CheckpointWriterPool:
+    """Bounded shared writer pool for fleet cadence checkpoints.
+
+    One CheckpointWriter per run means one daemon thread and one
+    double buffer per resident — 512 residents would hold 512 writer
+    threads. The pool replaces that with a FIXED set of worker threads
+    draining a per-run newest-wins pending map in round-robin order
+    (FIFO over distinct run_ids: every resident resubmitting each
+    cadence gets served once per rotation, no run can starve another).
+    A resubmit before a run's turn comes REPLACES its pending snapshot
+    and counts as `gol_ckpt_writes_total{status="dropped"}` — the same
+    double-buffer semantics as the per-run writer, bounded centrally.
+
+    Writes reuse the CheckpointWriter pipeline via per-run thread-LESS
+    writer cores (a core only starts a thread on `submit`, which the
+    pool never calls): same atomic publish, retention, and manifest
+    format bit for bit."""
+
+    def __init__(self, workers: Optional[int] = None) -> None:
+        if workers is None:
+            try:
+                workers = int(os.environ.get(POOL_WRITERS_ENV, "") or
+                              POOL_WRITERS_DEFAULT)
+            except ValueError:
+                workers = POOL_WRITERS_DEFAULT
+        self.workers = max(1, int(workers))
+        self._cv = threading.Condition()
+        self._pending: dict = {}      # run_id -> (core, Snapshot)
+        self._order: list = []        # distinct run_ids, FIFO rotation
+        self._cores: dict = {}        # run_id -> CheckpointWriter core
+        self._busy = 0
+        self._closed = False
+        self._threads: list = []
+
+    # ------------------------------------------------------------ submit
+
+    def submit(self, directory: str, run_id: str, snap: Snapshot,
+               keep_last: int = 3, keep_every: int = 0) -> bool:
+        """Queue one run's cadence snapshot; returns False when it
+        replaced that run's unwritten pending snapshot (metered as
+        dropped). Never blocks beyond the condition lock."""
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("checkpoint writer pool is closed")
+            self._ensure_threads()
+            core = self._cores.get(run_id)
+            if core is None or core.directory != directory:
+                core = CheckpointWriter(directory, run_id,
+                                        keep_last=keep_last,
+                                        keep_every=keep_every)
+                self._cores[run_id] = core
+            replaced = run_id in self._pending
+            self._pending[run_id] = (core, snap)
+            if not replaced:
+                self._order.append(run_id)
+            obs.CKPT_POOL_DEPTH.set(len(self._pending))
+            self._cv.notify()
+        if replaced:
+            obs.CKPT_WRITES.labels(status="dropped").inc()
+        return not replaced
+
+    def forget(self, run_id: str) -> None:
+        """Drop a removed run's writer core. A pending snapshot is NOT
+        cancelled — it drains normally (matching the flush-then-close
+        semantics of the per-run writer this pool replaces)."""
+        with self._cv:
+            self._cores.pop(run_id, None)
+
+    def depth(self) -> int:
+        with self._cv:
+            return len(self._pending)
+
+    def flush(self, timeout: Optional[float] = None) -> bool:
+        """Wait until every pending snapshot is durably written. True
+        on drained, False on timeout."""
+        deadline = (None if timeout is None
+                    else time.monotonic() + timeout)
+        with self._cv:
+            while self._pending or self._busy:
+                remaining = None
+                if deadline is not None:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        return False
+                self._cv.wait(remaining)
+        return True
+
+    def close(self, timeout: Optional[float] = None) -> bool:
+        """Flush then stop accepting snapshots; workers exit drained."""
+        drained = self.flush(timeout)
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        return drained
+
+    # ----------------------------------------------------------- workers
+
+    def _ensure_threads(self) -> None:
+        while len(self._threads) < self.workers:
+            t = threading.Thread(
+                target=self._worker, daemon=True,
+                name=f"gol-ckpt-pool-{len(self._threads)}")
+            self._threads.append(t)
+            t.start()
+        obs.CKPT_POOL_WRITERS.set(len(self._threads))
+
+    def _worker(self) -> None:
+        while True:
+            with self._cv:
+                while not self._order and not self._closed:
+                    self._cv.wait()
+                if not self._order:
+                    return  # closed and drained
+                run_id = self._order.pop(0)
+                core, snap = self._pending.pop(run_id)
+                obs.CKPT_POOL_DEPTH.set(len(self._pending))
+                self._busy += 1
+            try:
+                core._write(snap)
+            except Exception as e:
+                # Cadence checkpointing must never kill the runs it
+                # protects; counted inside _write, logged here.
+                obs_log("ckpt.pool_write_failed", level="error",
+                        run_id=run_id, turn=snap.turn,
+                        error=f"{type(e).__name__}: {e}")
+            finally:
+                with self._cv:
+                    self._busy -= 1
+                    self._cv.notify_all()
 
 
 def _writer_ident() -> dict:

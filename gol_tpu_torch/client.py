@@ -1,7 +1,9 @@
 """Remote engine client — the controller side of the control plane, the
-counterpart of `gol_tpu/client.py` (without its live-view subscription
-and the methods of slices not yet ported: fleet runs, migration,
-telemetry).
+counterpart of `gol_tpu/client.py`, its fleet half included (a client
+bound to a fleet run stamps its `run_id` on every run-scoped call;
+`create_run`, `list_runs`, `attach_run`, `destroy_run`, `set_rule`),
+without the live-view subscription and the methods of slices not yet
+ported (migration, telemetry).
 
 Duck-typed to `Engine` (same method surface), so the controller does not
 care whether its engine is in-process or remote, nor whether the server
@@ -151,10 +153,15 @@ class RemoteEngine:
     # or the peer, not local engine internals.
     recoverable = True
 
-    def __init__(self, address: str, timeout: float = 10.0) -> None:
+    def __init__(self, address: str, timeout: float = 10.0,
+                 run_id: str = None) -> None:
         host, _, port = address.rpartition(":")
         self._addr = (host or "localhost", int(port))
         self._timeout = timeout
+        # Fleet run this client is bound to: stamped as the "run_id"
+        # header on every call. None = the legacy single run (no header:
+        # pre-fleet servers never see the key).
+        self.run_id = run_id
         # Run-ownership token: lets abort_run() stop THIS controller's
         # orphaned run after a transient partition without being able to
         # touch another controller's run. It doubles as the GetView
@@ -180,9 +187,12 @@ class RemoteEngine:
             self._peer_caps = wire.SUPPORTED_CAPS & frozenset(
                 c for c in resp["caps"] if isinstance(c, str))
 
-    def _call(self, header: dict, timeout=None, xrle_basis=None):
+    def _call(self, header: dict, timeout=None, xrle_basis=None,
+              world=None):
         label = obs.method_label(str(header.get("method")))
         header.setdefault("caps", sorted(wire.local_caps()))
+        if self.run_id is not None:
+            header.setdefault("run_id", self.run_id)
         if label in MUTATING_METHODS:
             # One id for ALL attempts of this logical request: a retry
             # whose first attempt already committed replays the cached
@@ -195,7 +205,7 @@ class RemoteEngine:
         while True:
             try:
                 resp, resp_world = self._call_once(
-                    label, header, timeout, xrle_basis)
+                    label, header, timeout, xrle_basis, world)
                 self._note_caps(resp)
                 _check_resp(resp)
             except ConnectionError as e:
@@ -212,7 +222,8 @@ class RemoteEngine:
                 continue
             return resp, resp_world
 
-    def _call_once(self, label: str, header: dict, timeout, xrle_basis):
+    def _call_once(self, label: str, header: dict, timeout, xrle_basis,
+                   world=None):
         """One connect+send+recv attempt. Transport failures surface as
         ConnectionError tagged with .rpc_error_kind (timeout / refused /
         reset / protocol)."""
@@ -229,7 +240,7 @@ class RemoteEngine:
                     wire.enable_nodelay(sock)
                     sock.settimeout(timeout)
                     try:
-                        send_msg(sock, header)
+                        send_msg(sock, header, world)
                         resp, resp_world = recv_msg(sock,
                                                     xrle_basis=xrle_basis)
                     except wire.WireProtocolError as e:
@@ -283,6 +294,8 @@ class RemoteEngine:
             "token": self._token,
             "caps": sorted(wire.local_caps()),
         }
+        if self.run_id is not None:
+            header["run_id"] = self.run_id
         hb_interval = env_float(HB_INTERVAL_ENV, HB_INTERVAL_DEFAULT)
         hb_misses = env_int(HB_MISSES_ENV, HB_MISSES_DEFAULT)
         try:
@@ -493,6 +506,74 @@ class RemoteEngine:
                               "reshard": bool(reshard)},
                              timeout=max(self._timeout, 120.0))
         return int(resp["turn"])
+
+    # --- Fleet methods -------------------------------------------------
+
+    def create_run(self, h: int, w: int, board: np.ndarray = None,
+                   run_id: str = None, rule: str = None,
+                   ckpt_every: int = 0, target_turn: int = None,
+                   queue: bool = False) -> dict:
+        """Admit a new run on a fleet server; returns its describe()
+        record ({"run_id", "state", "turn", ...}). An optional seed
+        board uploads on the request payload; without one the server
+        seeds a deterministic soup. Single-run servers answer with a
+        FleetUnsupported error suggesting --fleet."""
+        header = {"method": "CreateRun", "h": int(h), "w": int(w),
+                  "ckpt_every": int(ckpt_every),
+                  "queue": bool(queue)}
+        if run_id is not None:
+            header["run_id"] = run_id
+        if rule is not None:
+            header["rule"] = rule
+        if target_turn is not None:
+            header["target_turn"] = int(target_turn)
+        resp, _ = self._call(header, timeout=self._timeout, world=board)
+        return dict(resp["run"])
+
+    def list_runs(self) -> Tuple[list, dict]:
+        """([describe() records], fleet summary) — one run on single-run
+        servers, the whole fleet on --fleet ones."""
+        resp, _ = self._call({"method": "ListRuns"},
+                             timeout=self._timeout)
+        return list(resp["runs"]), dict(resp.get("summary", {}))
+
+    def attach_run(self, run_id: str) -> "RemoteEngine":
+        """Verify `run_id` exists on the server, then return a client
+        BOUND to it: every run-scoped call on the returned engine
+        carries the run_id header. Raises on unknown runs."""
+        resp, _ = self._call({"method": "AttachRun", "run_id": run_id},
+                             timeout=self._timeout)
+        return self.for_run(str(resp["run"]["run_id"]))
+
+    def destroy_run(self, run_id: str) -> dict:
+        """Destroy a fleet run outright (resident, queued or parked):
+        frees its bucket slot and admission budget and lets a queued run
+        promote. Returns the run's final describe() record. Raises on
+        unknown ids, the legacy default run, and single-run servers."""
+        resp, _ = self._call({"method": "DestroyRun",
+                              "run_id": str(run_id)},
+                             timeout=self._timeout)
+        return dict(resp["run"])
+
+    def set_rule(self, run_id: str, rule: str) -> dict:
+        """Migrate a fleet run to a new life-like rule without dropping
+        its board (evict -> readmit through the placement queue).
+        Returns the run's describe() record — state "queued" until the
+        fleet loop re-places it. Raises on unknown ids, the legacy
+        default run, and non-life-like rules."""
+        resp, _ = self._call({"method": "SetRule",
+                              "run_id": str(run_id),
+                              "rule": str(rule)},
+                             timeout=self._timeout)
+        return dict(resp["run"])
+
+    def for_run(self, run_id: str) -> "RemoteEngine":
+        """A bound clone addressing one fleet run (no server round trip —
+        use attach_run to also verify existence)."""
+        clone = RemoteEngine(f"{self._addr[0]}:{self._addr[1]}",
+                             timeout=self._timeout, run_id=run_id)
+        clone._peer_caps = self._peer_caps
+        return clone
 
     def get_journal(self, since_seq: int = -1, limit: int = 100,
                     run_id: str = "") -> dict:

@@ -48,6 +48,15 @@
 //                                  and word-column popcounts that the JAX
 //                                  package leaves to XLA
 //                                  (gol_tpu/models/sparse.py:106-112)
+//   resident_kernel<Life,    K9 route 1 <- the fleet's batched step
+//     kCluster, true>                (gol_tpu/fleet/buckets.py:149-170,
+//                                    `step_program`: a jnp scan over
+//                                    (cap, hb, wpb) slots plus a per-slot
+//                                    popcount, XLA, not Pallas): K1 with a
+//                                    slot axis in the grid, for slots K1
+//                                    holds
+//   tiled_kernel<Life, 1,    K9 route 2: K2 with a slot axis in the grid,
+//     R, true>                       for slots beyond K1's shared memory
 //   ltl_resident_kernel      K7 <- Larger-than-Life turns of a Moore-box
 //   ltl_tile_kernel                rule on a uint8 torus: the box path of
 //                                  `_conv_sum` and `_ltl_step`, which the
@@ -399,19 +408,38 @@ __host__ __device__ __forceinline__ int slab_start(int rank, int h,
 // F::kResidentThreads, fixed before the turn loop; a slot walks `per`
 // rows (the interior split into slots), a lane columns lane, lane +
 // lanes, ... (once when wp <= lanes).
-template <typename F, bool kCluster>
+//
+// K9 route 1 (kBatched, F = Life): the same kernel over a (cap, h, wp)
+// batch of slots, each its own torus. The grid holds cap groups of
+// `slot_ctas` CTAs (a cluster each when kCluster); group g steps slot g,
+// whose words start g * h * wp words into `in` and `out`. After the last
+// turn each CTA counts the live cells of the slab it writes out, adds
+// them in its shared memory (in the buffer the last turn read, free once
+// the turn's barrier has passed) and adds its sum to alive[g], which
+// the launch zeroes first: integer atomics, exact in any order.
+template <typename F, bool kCluster, bool kBatched = false>
 __global__ void __launch_bounds__(F::kResidentThreads, 1)
 resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                 int h, int wp, long long turns, uint32_t born,
-                uint32_t survive, int lanes, int per) {
+                uint32_t survive, int lanes, int per,
+                int32_t* __restrict__ alive, int slot_ctas) {
+  static_assert(!kBatched || F::kPlanes == 1, "K9 steps one plane");
   extern __shared__ uint32_t smem[];
-  const int ctas = gridDim.x;
-  const int rank = blockIdx.x;
+  const long long board = (long long)h * wp;       // words per board plane
+  int ctas = gridDim.x;
+  int rank = blockIdx.x;
+  int group = 0;  // the batch slot this CTA steps (K9)
+  if constexpr (kBatched) {
+    ctas = slot_ctas;
+    group = blockIdx.x / slot_ctas;
+    rank = blockIdx.x - group * slot_ctas;
+    in += group * F::kPlanes * board;
+    out += group * F::kPlanes * board;
+  }
   const int a = slab_start(rank, h, ctas);
   const int len = slab_start(rank + 1, h, ctas) - a;
   const int plane = ((h + ctas - 1) / ctas) * wp;  // words per slab plane
   const int buf = F::kPlanes * plane;              // words per buffer
-  const long long board = (long long)h * wp;       // words per board plane
 #pragma unroll
   for (int p = 0; p < F::kPlanes; ++p) {
     const uint32_t* src_in = in + p * board + (long long)a * wp;
@@ -479,21 +507,39 @@ resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     if constexpr (kCluster) cluster_wait();
     src = dst;
   }
-#pragma unroll
-  for (int p = 0; p < F::kPlanes; ++p) {
-    uint32_t* dst_out = out + p * board + (long long)a * wp;
+  if constexpr (kBatched) {
+    int* count = reinterpret_cast<int*>(smem + (buf - src));
+    if (threadIdx.x == 0) *count = 0;
+    __syncthreads();
+    int pop = 0;
+    uint32_t* dst_out = out + (long long)a * wp;
     for (int i = threadIdx.x; i < len * wp; i += blockDim.x) {
-      dst_out[i] = smem[src + p * plane + i];
+      const uint32_t v = smem[src + i];
+      dst_out[i] = v;
+      pop += __popc(v);
+    }
+    if (pop) atomicAdd(count, pop);
+    __syncthreads();
+    if (threadIdx.x == 0 && *count) atomicAdd(alive + group, *count);
+  } else {
+#pragma unroll
+    for (int p = 0; p < F::kPlanes; ++p) {
+      uint32_t* dst_out = out + p * board + (long long)a * wp;
+      for (int i = threadIdx.x; i < len * wp; i += blockDim.x) {
+        dst_out[i] = smem[src + p * plane + i];
+      }
     }
   }
 }
 
-template <typename F, bool kCluster>
+// Launches `slots` groups of `ctas` CTAs (one group when not kBatched).
+template <typename F, bool kCluster, bool kBatched = false>
 cudaError_t launch_resident(const void* in, void* out, int h, int wp,
                             long long turns, unsigned born, unsigned survive,
                             int ctas, int lanes, int threads, int per,
-                            size_t smem, cudaStream_t stream) {
-  auto kernel = resident_kernel<F, kCluster>;
+                            size_t smem, cudaStream_t stream,
+                            int32_t* alive = nullptr, int slots = 1) {
+  auto kernel = resident_kernel<F, kCluster, kBatched>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -508,7 +554,7 @@ cudaError_t launch_resident(const void* in, void* out, int h, int wp,
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas);
+  cfg.gridDim = dim3(ctas * slots);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -520,7 +566,7 @@ cudaError_t launch_resident(const void* in, void* out, int h, int wp,
   if (clusters < 1) return cudaErrorLaunchOutOfResources;  // no fallback
   e = cudaLaunchKernelEx(&cfg, kernel, (const uint32_t*)in, (uint32_t*)out,
                          h, wp, turns, (uint32_t)born, (uint32_t)survive,
-                         lanes, per);
+                         lanes, per, alive, ctas);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -529,33 +575,45 @@ cudaError_t launch_resident(const void* in, void* out, int h, int wp,
 // slot walking `per` rows of its slab's interior. Returns
 // cudaErrorInvalidValue for a geometry it does not take and
 // cudaErrorLaunchOutOfResources when the cluster cannot be placed.
-template <typename F>
+//
+// With kBatched (K9 route 1): `groups` groups of `ctas` CTAs over a
+// (groups, h, wp) batch of slots, adding each slot's live cells into
+// `alive`, which is zeroed on the stream first.
+template <typename F, bool kBatched = false>
 int run_resident(const void* in, void* out, int h, int wp, long long turns,
                  unsigned born, unsigned survive, int ctas, int per,
-                 int device, void* stream) {
+                 int device, void* stream, int32_t* alive = nullptr,
+                 int groups = 1) {
   if (h < 1 || wp < 1 || ctas < 1 || ctas > kResidentMaxCtas || ctas > h ||
-      per < 1) {
+      per < 1 || groups < 1 || (long long)groups * ctas > 0x7FFFFFFF) {
     return cudaErrorInvalidValue;
   }
   const int len_max = (h + ctas - 1) / ctas;
   const size_t smem =
       2 * F::kPlanes * sizeof(uint32_t) * (size_t)len_max * wp;
   const int inner = len_max - 2;
-  const int slots = 2 + (inner > 0 ? (inner + per - 1) / per : 0);
+  const int thread_slots = 2 + (inner > 0 ? (inner + per - 1) / per : 0);
   constexpr int kThreads = F::kResidentThreads;
-  if (smem > (size_t)kBlockSmemBytes || slots > kThreads) {
+  if (smem > (size_t)kBlockSmemBytes || thread_slots > kThreads) {
     return cudaErrorInvalidValue;
   }
-  const int lanes = wp < kThreads / slots ? wp : kThreads / slots;
+  const int lanes =
+      wp < kThreads / thread_slots ? wp : kThreads / thread_slots;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (ctas == 1) {
-    return launch_resident<F, false>(in, out, h, wp, turns, born, survive,
-                                     1, lanes, lanes * slots, per, smem, s);
+  if constexpr (kBatched) {
+    e = cudaMemsetAsync(alive, 0, sizeof(int32_t) * (size_t)groups, s);
+    if (e != cudaSuccess) return e;
   }
-  return launch_resident<F, true>(in, out, h, wp, turns, born, survive,
-                                  ctas, lanes, lanes * slots, per, smem, s);
+  if (ctas == 1) {
+    return launch_resident<F, false, kBatched>(
+        in, out, h, wp, turns, born, survive, 1, lanes, lanes * thread_slots,
+        per, smem, s, alive, groups);
+  }
+  return launch_resident<F, true, kBatched>(
+      in, out, h, wp, turns, born, survive, ctas, lanes,
+      lanes * thread_slots, per, smem, s, alive, groups);
 }
 
 // Blocks of a tiled sweep that share one SM at its deepest sweep.
@@ -585,17 +643,30 @@ constexpr int tiled_blocks_per_sm(int planes, int halo, int rows) {
 // K5) against 8 (16 for K5) bytes per word read and written; the tile
 // height R sets how many blocks fill the 132 SMs and how much of each
 // window is margin ((R + t - 1) / R of the useful rows).
-template <typename F, int kHalo, int kRows>
+//
+// K9 route 2 (kBatched, F = Life, kHalo = 1): the grid's z axis is the
+// slot of a (cap, h, wp) batch, each slot its own torus, whose words
+// start z * h * wp words into `in` and `out`. With `alive` given (the
+// last sweep of a quantum) each block counts the live cells of the words
+// it writes, adds them in shared memory (in the buffer the last turn
+// read) and adds its sum to alive[z], zeroed by the launch.
+template <typename F, int kHalo, int kRows, bool kBatched = false>
 __global__ void __launch_bounds__(kWinWords * kTileSegments,
                                   tiled_blocks_per_sm(F::kPlanes, kHalo,
                                                       kRows))
 tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-             int h, int wp, int t, uint32_t born, uint32_t survive) {
+             int h, int wp, int t, uint32_t born, uint32_t survive,
+             int32_t* __restrict__ alive) {
+  static_assert(!kBatched || F::kPlanes == 1, "K9 steps one plane");
   constexpr int kWords = kWinWords - 2 * kHalo;
   constexpr int kRowWords = F::kPlanes * kWinWords;
   extern __shared__ uint32_t smem[];
   const int win_rows = kRows + 2 * t;
   const long long board = (long long)h * wp;  // words per board plane
+  if constexpr (kBatched) {
+    in += blockIdx.z * F::kPlanes * board;
+    out += blockIdx.z * F::kPlanes * board;
+  }
   const int r0 = blockIdx.y * kRows;
   const int c0 = blockIdx.x * kWords;
   const int col = threadIdx.x;
@@ -633,6 +704,27 @@ tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     src = done;
   }
   const int gw = c0 + col - kHalo;
+  if constexpr (kBatched) {
+    if (alive != nullptr) {
+      int* count = reinterpret_cast<int*>(dst);
+      if (col == 0 && seg == 0) *count = 0;
+      __syncthreads();
+      int pop = 0;
+      if (col >= kHalo && col < kHalo + kWords && gw < wp) {
+        for (int i = seg; i < kRows && r0 + i < h; i += kTileSegments) {
+          const uint32_t v = src[(t + i) * kRowWords + col];
+          out[(long long)(r0 + i) * wp + gw] = v;
+          pop += __popc(v);
+        }
+      }
+      if (pop) atomicAdd(count, pop);
+      __syncthreads();
+      if (col == 0 && seg == 0 && *count) {
+        atomicAdd(alive + blockIdx.z, *count);
+      }
+      return;
+    }
+  }
   if (col >= kHalo && col < kHalo + kWords && gw < wp) {
     for (int i = seg; i < kRows && r0 + i < h; i += kTileSegments) {
       const long long o = (long long)(r0 + i) * wp + gw;
@@ -644,21 +736,29 @@ tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   }
 }
 
-template <typename F, int kHalo, int kRows>
+// With kBatched (K9 route 2): `slots` slots in the grid's z axis, and
+// `alive` (when given) zeroed on the stream first.
+template <typename F, int kHalo, int kRows, bool kBatched = false>
 cudaError_t launch_tiled(const void* in, void* out, int h, int wp, int t,
                          unsigned born, unsigned survive,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, int32_t* alive = nullptr,
+                         int slots = 1) {
   constexpr int kWords = kWinWords - 2 * kHalo;
   const size_t smem = 2 * F::kPlanes * sizeof(uint32_t) *
                       (size_t)(kRows + 2 * t) * kWinWords;
   cudaError_t e = cudaFuncSetAttribute(
-      tiled_kernel<F, kHalo, kRows>,
+      tiled_kernel<F, kHalo, kRows, kBatched>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((wp + kWords - 1) / kWords, (h + kRows - 1) / kRows);
+  if (alive != nullptr) {
+    e = cudaMemsetAsync(alive, 0, sizeof(int32_t) * (size_t)slots, stream);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((wp + kWords - 1) / kWords, (h + kRows - 1) / kRows,
+                  slots);
   const dim3 block(kWinWords, kTileSegments);
-  tiled_kernel<F, kHalo, kRows><<<grid, block, smem, stream>>>(
-      (const uint32_t*)in, (uint32_t*)out, h, wp, t, born, survive);
+  tiled_kernel<F, kHalo, kRows, kBatched><<<grid, block, smem, stream>>>(
+      (const uint32_t*)in, (uint32_t*)out, h, wp, t, born, survive, alive);
   return cudaGetLastError();
 }
 
@@ -1513,6 +1613,45 @@ int gol_tiled_sweep2p(const void* in, void* out, int h, int wp, int t,
     return launch_tiled2p<Gen4>(in, out, h, wp, t, rows, born, survive, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// K9 route 1: `turns` turns of every slot of a (slots, h, wp) batch in
+// one launch of `slots` groups of `ctas` CTAs (a cluster each above 1),
+// thread slots walking `per` rows as K1's; alive[slot] gets each slot's
+// live cells.
+int gol_fleet_resident(const void* in, void* out, void* alive, int slots,
+                       int h, int wp, long long turns, unsigned born,
+                       unsigned survive, int ctas, int per, int device,
+                       void* stream) {
+  return run_resident<Life, true>(in, out, h, wp, turns, born, survive,
+                                  ctas, per, device, stream,
+                                  (int32_t*)alive, slots);
+}
+
+// K9 route 2: one sweep of t (1..32) turns of every slot of a (slots, h,
+// wp) batch at `rows` output rows per tile (one of kTileRowChoices);
+// with `alive` non-null (a quantum's last sweep) alive[slot] gets each
+// slot's live cells.
+int gol_fleet_tiled_sweep(const void* in, void* out, void* alive, int slots,
+                          int h, int wp, int t, int rows, unsigned born,
+                          unsigned survive, int device, void* stream) {
+  if (t < 1 || t > kTileMaxT || slots < 1 || slots > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const cudaStream_t s = (cudaStream_t)stream;
+  int32_t* a = (int32_t*)alive;
+  switch (rows) {
+    case kTileRowChoices[0]:
+      return launch_tiled<Life, 1, kTileRowChoices[0], true>(
+          in, out, h, wp, t, born, survive, s, a, slots);
+    case kTileRowChoices[1]:
+      return launch_tiled<Life, 1, kTileRowChoices[1], true>(
+          in, out, h, wp, t, born, survive, s, a, slots);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 int gol_row_popcounts(const void* in, void* out, int h, int wp, int device,

@@ -68,6 +68,7 @@ from gol_tpu_torch import ckpt as ckpt_mod
 from gol_tpu_torch import journal as journal_mod
 from gol_tpu_torch import wire
 from gol_tpu_torch.ckpt.writer import device_to_host, payload_arrays
+from gol_tpu_torch.fleet.handles import SingleRunSurface
 from gol_tpu_torch.models.generations import (
     GenerationsRule,
     from_pixels_gen,
@@ -317,7 +318,7 @@ class ControlFlagProtocol:
                 return True
 
 
-class Engine(ControlFlagProtocol):
+class Engine(SingleRunSurface, ControlFlagProtocol):
     """Holds (board, turn) across runs — the detach/resume contract
     (reference broker globals `world`/`turn`, and `CONT=yes`)."""
 

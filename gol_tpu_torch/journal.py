@@ -269,6 +269,11 @@ class JournalWriter:
         obs.JOURNAL_WALL_US.inc((time.perf_counter() - t0) * 1e6)
         if kind == "digest":
             obs.JOURNAL_DIGESTS.inc()
+        try:  # best-effort per-run attribution
+            from gol_tpu_torch.obs import usage as obs_usage
+            obs_usage.METER.charge_journal(self.run_id, len(line) + 1)
+        except Exception:
+            pass
         return rec
 
     def digest(self, turn: int, sha: str, repr_: str = "packed",

@@ -2,11 +2,13 @@
 against the shared default registry — the part of
 `gol_tpu/obs/catalog.py` that the wire codecs, the engine server, the
 remote engine client, the chaos hooks, the tracer, the flight recorder,
-the SLO estimators, the checkpoint writer and restore, the run journal
-and the conv-family kernel tiers emit. Names, kinds, labels and pre-seeded children are the JAX
-catalogue's, so a `GetMetrics` reply reads the same from either package.
-The engine, fleet, checkpoint-pool and fusion families wait for the
-modules that emit them (ROADMAP A11, A13).
+the SLO estimators, the checkpoint writer and its fleet pool, restore,
+the run journal, the conv-family kernel tiers, and the fleet engine
+(its engine-loop, run, SLO, audit, usage, fusion and step-signature
+families) emit. Names, kinds, labels and pre-seeded children are the
+JAX catalogue's, so a `GetMetrics` reply reads the same from either
+package. The single-run engine's chunk-loop families, the telemetry
+exporters and the mesh families wait for ROADMAP A13 and A5.
 """
 
 from __future__ import annotations
@@ -322,3 +324,309 @@ CONV_DISPATCHES = REGISTRY.counter(
 for _t in KERNEL_TIERS:
     KERNEL_TIER.labels(tier=_t)
     CONV_DISPATCHES.labels(tier=_t)
+
+# ----------------------------------------------------------------- engine
+
+ENGINE_TURN = REGISTRY.gauge(
+    "gol_engine_turn",
+    "Latest simulated turn completed by the engine chunk loop.")
+ENGINE_PUBLISHED_TURN = REGISTRY.gauge(
+    "gol_engine_published_turn",
+    "Turn of the last published (alive, turn) pair; monotone within a "
+    "run — regressions increment "
+    "gol_engine_published_turn_regressions_total instead of moving this "
+    "gauge backwards.")
+ENGINE_PUBLISHED_ALIVE = REGISTRY.gauge(
+    "gol_engine_published_alive",
+    "Alive-cell count of the last published (alive, turn) pair.")
+ENGINE_CUPS = REGISTRY.gauge(
+    "gol_engine_cups",
+    "Achieved cell updates per second over the most recent untraced "
+    "chunk.")
+ENGINE_TURNS_PER_S = REGISTRY.gauge(
+    "gol_engine_turns_per_s",
+    "Achieved turns per second over the most recent untraced chunk.")
+ENGINE_CHUNK_SIZE = REGISTRY.gauge(
+    "gol_engine_chunk_size",
+    "Turns per compiled chunk currently chosen by the pace adapter.")
+
+ENGINE_CHUNKS_TOTAL = REGISTRY.counter(
+    "gol_engine_chunks_total",
+    "Untraced chunks retired by the engine loop.")
+ENGINE_TURNS_TOTAL = REGISTRY.counter(
+    "gol_engine_turns_total",
+    "Turns simulated across all retired chunks (traced included).")
+ENGINE_TRACED_CHUNKS_TOTAL = REGISTRY.counter(
+    "gol_engine_traced_chunks_total",
+    "Chunks run under the GOL_TRACE profiler path; excluded from pace, "
+    "CUPS, and chunk-latency aggregates.")
+ENGINE_PUBLISHED_TURN_REGRESSIONS = REGISTRY.counter(
+    "gol_engine_published_turn_regressions_total",
+    "Publications that would have moved the published turn backwards "
+    "within a run (should stay 0).")
+
+ENGINE_CHUNK_SECONDS = REGISTRY.histogram(
+    "gol_engine_chunk_seconds",
+    "Wall seconds per retired untraced chunk (token wait + bookkeeping).")
+ENGINE_FLAG_SERVICE_SECONDS = REGISTRY.histogram(
+    "gol_engine_flag_service_seconds",
+    "Seconds the chunk loop spent servicing control flags between "
+    "chunk issues.")
+
+ENGINE_CHUNK_OVERHEAD_US = REGISTRY.gauge(
+    "gol_engine_chunk_overhead_us",
+    "Mean host-side microseconds per retired chunk spent OUTSIDE the "
+    "device-result wait (dispatch, publish, metrics, flag polling, "
+    "pipeline bookkeeping) over the run so far; refreshed at each "
+    "metrics flush and at run end.")
+
+# ------------------------------------------------------------ fleet runs
+
+RUNS_RESIDENT = REGISTRY.gauge(
+    "gol_runs_resident",
+    "Runs currently resident in the fleet engine (placed in a bucket "
+    "slot, charged against the admission memory budget). Single-run "
+    "engines leave this at 0.")
+RUNS_ADMITTED = REGISTRY.counter(
+    "gol_runs_admitted_total",
+    "CreateRun admissions (a run became resident), including queued "
+    "runs promoted when capacity freed.")
+RUNS_REJECTED = REGISTRY.counter(
+    "gol_runs_rejected_total",
+    "CreateRun rejections, by reason: memory (admission byte budget), "
+    "max_runs (GOL_FLEET_MAX_RUNS), queue_full, shape (board does not "
+    "tile any configured bucket), rule (unsupported rule family), "
+    "run_id (invalid or duplicate id).",
+    label_names=("reason",))
+
+# Same cardinality discipline as wire methods/flight reasons: reject
+# reasons are clamped to a declared set and pre-seeded at zero.
+RUN_REJECT_REASONS = ("memory", "max_runs", "queue_full", "shape",
+                      "rule", "run_id", "unknown")
+for _r in RUN_REJECT_REASONS:
+    RUNS_REJECTED.labels(reason=_r)
+
+
+def run_reject_label(reason: str) -> str:
+    """Clamp arbitrary rejection reasons to the declared set."""
+    return reason if reason in RUN_REJECT_REASONS else "unknown"
+
+
+RUNS_DESTROYED = REGISTRY.counter(
+    "gol_runs_destroyed_total",
+    "DestroyRun removals: runs explicitly destroyed over the wire (or "
+    "via FleetEngine.destroy_run), freeing their bucket slot and "
+    "admission budget. QUIT/KILL-flag removals are not counted here.")
+
+RUNS_QUARANTINED = REGISTRY.counter(
+    "gol_runs_quarantined_total",
+    "Runs evicted from their fleet bucket into state 'quarantined', by "
+    "reason: popcount (implausible per-slot alive count), step (the "
+    "shared bucket dispatch raised), restore (seed/restore of the slot "
+    "failed). A quarantined board never re-enters the shared lax.scan "
+    "dispatch until auto-restored from its last checkpoint.",
+    label_names=("reason",))
+
+QUARANTINE_REASONS = ("popcount", "step", "restore", "unknown")
+for _r in QUARANTINE_REASONS:
+    RUNS_QUARANTINED.labels(reason=_r)
+
+
+def quarantine_label(reason: str) -> str:
+    """Clamp arbitrary quarantine reasons to the declared set."""
+    return reason if reason in QUARANTINE_REASONS else "unknown"
+
+
+RUNS_QUARANTINE_RESTORES = REGISTRY.counter(
+    "gol_runs_quarantine_restores_total",
+    "Auto-restore attempts for quarantined runs from their last per-run "
+    "checkpoint, by outcome: ok (run re-queued for placement), error "
+    "(no usable checkpoint or restore raised; retried under backoff up "
+    "to GOL_QUARANTINE_TRIES).",
+    label_names=("status",))
+for _s in ("ok", "error"):
+    RUNS_QUARANTINE_RESTORES.labels(status=_s)
+
+
+RUNS_RULE_MIGRATIONS = REGISTRY.counter(
+    "gol_runs_rule_migrations_total",
+    "SetRule bucket migrations: fleet runs moved between (size, "
+    "rulestring) bucket classes via evict -> readmit through the "
+    "placement queue, board preserved. No-op SetRule (same rulestring) "
+    "is not counted.")
+
+FLEET_DEVICE_RESIDENT = REGISTRY.gauge(
+    "gol_fleet_device_resident_runs",
+    "Resident fleet runs whose bucket slot lives on each device of the "
+    "engine's placement mesh (batch-axis buckets put each slot on one "
+    "device; spatially sharded buckets count their residents on every "
+    "device holding a row shard). Label cardinality is bounded by the "
+    "local device count, same as gol_dev_live_bytes.",
+    label_names=("device",))
+
+FLEET_MESH_DEVICES = REGISTRY.gauge(
+    "gol_fleet_mesh_devices",
+    "Devices in the fleet engine's placement mesh (1 = the unsharded "
+    "single-device fleet; gol_mesh_* carries the full geometry stamp).")
+
+
+def runs_doc() -> dict:
+    """The /healthz runs summary: resident gauge + admission counters
+    (registry reads only — never a device sync or an engine lock).
+    On a mesh-placed fleet the summary also carries the placement
+    device count and the per-device resident split."""
+    rejected = 0.0
+    for child in RUNS_REJECTED.children().values():
+        rejected += child.value
+    doc = {"resident": int(RUNS_RESIDENT.value),
+           "admitted_total": int(RUNS_ADMITTED.value),
+           "rejected_total": int(rejected)}
+    mesh_devices = int(FLEET_MESH_DEVICES.value)
+    if mesh_devices:
+        doc["mesh_devices"] = mesh_devices
+        doc["resident_by_device"] = {
+            key[0]: int(child.value)
+            for key, child in sorted(
+                FLEET_DEVICE_RESIDENT.children().items())}
+    return doc
+
+
+# Fleet serving-tier SLOs (obs/slo.py's estimators, flushed by the fleet
+# loop): bucket labels come from the configured bucket sizes, never from
+# run ids.
+FLEET_QUANTUM_MS = REGISTRY.gauge(
+    "gol_fleet_quantum_latency_ms",
+    "Serving-quantum wall latency quantiles per fleet bucket class "
+    "(dispatch issue -> popcounts home), in milliseconds.",
+    label_names=("bucket", "q"))
+FLEET_QUEUE_DEPTH = REGISTRY.gauge(
+    "gol_fleet_queue_depth",
+    "Runs currently waiting in the fleet admission queue.")
+FLEET_QUEUE_WAIT_MS = REGISTRY.gauge(
+    "gol_fleet_queue_wait_ms",
+    "Admission queue wait quantiles in milliseconds (enqueue -> "
+    "promotion to placement).",
+    label_names=("q",))
+FLEET_STALENESS_MS = REGISTRY.gauge(
+    "gol_fleet_staleness_ms",
+    "Per-run turn staleness quantiles in milliseconds across resident "
+    "unpaused runs: time since each run's board last advanced. The "
+    "top-K worst runs are named on /healthz, never as metric labels.",
+    label_names=("q",))
+
+for _q in SLO_QUANTILES:
+    FLEET_QUEUE_WAIT_MS.labels(q=_q)
+    FLEET_STALENESS_MS.labels(q=_q)
+
+# Fleet audit log (obs/audit.py): the gol-fleet-audit/1 record kinds,
+# clamped like every other label set.
+AUDIT_KINDS = ("member_join", "member_rejoin", "member_death", "adopt",
+               "migrate", "quarantine", "alert_fired", "alert_resolved",
+               "other")
+AUDIT_RECORDS = REGISTRY.counter(
+    "gol_audit_records_total",
+    "gol-fleet-audit/1 records appended (durable log on the registry "
+    "tier, bounded in-memory event ring on members), by kind.",
+    label_names=("kind",))
+for _k in AUDIT_KINDS:
+    AUDIT_RECORDS.labels(kind=_k)
+
+# ------------------------- per-run usage metering & capacity attribution
+
+# Per-run accumulators live on the reference-swapped /healthz "usage"
+# doc (top-K talkers, K = GOL_USAGE_TOPK), never as metric labels —
+# the fleet-health cardinality posture. The registry only carries bounded
+# scalars and the closed per-bucket capacity families below.
+USAGE_RUNS_TRACKED = REGISTRY.gauge(
+    "gol_usage_runs_tracked",
+    "Runs with exact usage accumulators open on this member (resident "
+    "runs only; bounded by the admission controller's max_runs, not by "
+    "lifetime run count).")
+USAGE_WALL_US = REGISTRY.counter(
+    "gol_usage_wall_us_total",
+    "Host wall microseconds spent inside the usage meter — dispatch "
+    "apportionment, per-run charge updates, and doc rebuilds. The "
+    "bench.py --usage leg gates this as a share of run wall "
+    "(usage_overhead_pct), the same in-process cost-accounting pattern "
+    "as journal_overhead_pct: a direct measure that cannot flap with "
+    "host contention the way differential wall clock does.")
+USAGE_FLUSHES = REGISTRY.counter(
+    "gol_usage_flushes_total",
+    "Usage-doc rebuilds (reference-swapped /healthz 'usage' doc), "
+    "throttled to at most one per GOL_USAGE_FLUSH_S.")
+USAGE_UNTRACKED = REGISTRY.counter(
+    "gol_usage_untracked_total",
+    "Charges whose run id had no open accumulator (late broadcast or "
+    "checkpoint stragglers after destroy, unscoped legacy traffic) — "
+    "folded into a single aggregate so stragglers can never grow the "
+    "per-run map past its bound.")
+
+# Capacity headroom model: measured quantum wall + the admission
+# controller's memory charge, projected per bucket class. Bucket label
+# values are the engine's configured "<h>x<w>" classes — env-dependent
+# like gol_fleet_quantum_ms, so not pre-seeded here.
+CAPACITY_ADMISSIBLE_RUNS = REGISTRY.gauge(
+    "gol_capacity_admissible_runs",
+    "Projected additional runs of this bucket class the member could "
+    "admit right now: min(free admission budget // per-run memory "
+    "charge, free slots).",
+    label_names=("bucket",))
+CAPACITY_CUPS_HEADROOM = REGISTRY.gauge(
+    "gol_capacity_cups_headroom",
+    "Projected additional cell updates per second this bucket class "
+    "could absorb: admissible runs x cells per board x turns per "
+    "dispatch / measured mean quantum wall (0 until a quantum has "
+    "been measured).",
+    label_names=("bucket",))
+CAPACITY_RUN_COST_BYTES = REGISTRY.gauge(
+    "gol_capacity_run_cost_bytes",
+    "Admission memory charge for one run of this bucket class "
+    "(height x words-per-row x 4 bytes x the double-buffer/halo cost "
+    "factor).",
+    label_names=("bucket",))
+CAPACITY_FREE_BYTES = REGISTRY.gauge(
+    "gol_capacity_free_bytes",
+    "Uncommitted admission memory budget on this member "
+    "(budget_bytes - committed_bytes).")
+
+# ------------------------------------------------- checkpoint writer pool
+
+CKPT_POOL_WRITERS = REGISTRY.gauge(
+    "gol_ckpt_pool_writers",
+    "Worker threads in the shared fleet checkpoint writer pool "
+    "(GOL_FLEET_CKPT_WRITERS; 0 until a fleet cadence checkpoint is "
+    "first submitted). Replaces the one-CheckpointWriter-per-run "
+    "design: 512 residents share this fixed pool.")
+CKPT_POOL_DEPTH = REGISTRY.gauge(
+    "gol_ckpt_pool_depth",
+    "Runs with a cadence snapshot pending in the shared writer pool "
+    "(newest-wins per run; superseded snapshots count as "
+    "gol_ckpt_writes_total{status='dropped'}). Bounded by resident "
+    "runs, drained round-robin.")
+
+# ------------------------------------------ fusion and step signatures
+
+FUSE_K = REGISTRY.gauge(
+    "gol_fuse_k",
+    "Effective temporal-fusion depth of the most recently submitted "
+    "run: generations advanced per materialized HBM state / per halo "
+    "exchange round (ops/fused.py). 1 = auto/unfused (each dispatch "
+    "tier keeps its native adaptive depth).")
+# Closed dispatch-site label set: the three stack tiers that route
+# through a fused program when GOL_FUSE_K pins a depth.
+FUSE_TIERS = ("engine", "mesh", "fleet")
+FUSED_DISPATCHES = REGISTRY.counter(
+    "gol_fused_dispatches_total",
+    "Temporally fused dispatches issued (k > 1 only), by dispatch "
+    "site: 'engine' single/sharded chunk dispatches, 'mesh' bench mesh "
+    "legs, 'fleet' bucket scans.",
+    label_names=("tier",))
+for _t in FUSE_TIERS:
+    FUSED_DISPATCHES.labels(tier=_t)
+FUSE_K.set(1)
+
+COMPILE_STEP_SIGNATURES = REGISTRY.counter(
+    "gol_compile_step_signatures_total",
+    "Distinct engine step signatures (representation, board shape, "
+    "dtype, mesh, rule) seen this process; each new one implies a "
+    "fresh jit trace + compile.")

@@ -1,6 +1,5 @@
-"""RPC latency quantiles with bounded memory — the counterpart of
-`gol_tpu/obs/slo.py` for the control plane (its fleet-health cache waits
-for ROADMAP A11).
+"""RPC latency quantiles with bounded memory, and the fleet-health cache —
+the counterpart of `gol_tpu/obs/slo.py`.
 
 A **log-bucket quantile estimator**: a fixed array of log-spaced buckets
 covering [lo, hi] seconds. One observation is one `log()` plus one
@@ -14,6 +13,11 @@ Estimators are updated per RPC (`observe_rpc`); the derived
 objective in ms: a flush that finds a method's p99 above it increments
 `gol_slo_breaches_total{kind,method}` and records a flight-recorder
 event.
+
+Fleet health: the fleet loop publishes a cached health document here
+(`set_fleet_health`) at its batched flush: aggregate staleness and queue
+percentiles and the top-K worst runs by staleness (run ids live in the
+document, never in metric labels).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import math
 import os
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from gol_tpu_torch.obs import catalog as obs
 from gol_tpu_torch.obs import flight as obs_flight
@@ -86,6 +90,21 @@ class LogBucketEstimator:
             self.count += 1
             self.sum += v
 
+    def observe_batch(self, values: Iterable[float]) -> None:
+        idx: List[int] = []
+        total = 0.0
+        for v in values:
+            v = float(v)
+            idx.append(self.bucket_index(v))
+            total += v
+        if not idx:
+            return
+        with self._lock:
+            for i in idx:
+                self._counts[i] += 1
+            self.count += len(idx)
+            self.sum += total
+
     def percentiles(self, qs: Sequence[float]) -> Tuple[Optional[float],
                                                         ...]:
         """Quantile values for qs in [0, 1]; None while empty."""
@@ -106,6 +125,27 @@ class LogBucketEstimator:
                     break
             out.append(self.bucket_upper(hit))
         return tuple(out)
+
+
+    def snapshot(self) -> dict:
+        p50, p95, p99 = self.percentiles((0.50, 0.95, 0.99))
+        with self._lock:
+            count, total = self.count, self.sum
+        return {"count": count, "sum": round(total, 6),
+                "p50": p50, "p95": p95, "p99": p99}
+
+
+def exact_percentiles(values: Sequence[float],
+                      qs: Sequence[float]) -> Tuple[Optional[float],
+                                                    ...]:
+    """Exact sample quantiles (rank = ceil(q*n), 1-indexed), for small
+    in-memory populations such as the staleness of resident runs."""
+    vals = sorted(float(v) for v in values)
+    if not vals:
+        return tuple(None for _ in qs)
+    n = len(vals)
+    return tuple(vals[min(n, max(1, math.ceil(float(q) * n))) - 1]
+                 for q in qs)
 
 
 # ------------------------------------------------------- RPC instrumentation
@@ -184,3 +224,20 @@ def flush(now: Optional[float] = None) -> None:
                     "p99_ms": round(p99 * 1e3, 3),
                     "objective_ms": objective,
                     "samples": seen})
+
+
+# ------------------------------------------------------- fleet health cache
+
+# Written by the fleet loop's batched flush. A plain reference swap
+# (atomic under the GIL): readers never see a partial document and never
+# contend with the serving loop.
+_fleet_health: dict = {}
+
+
+def set_fleet_health(doc: dict) -> None:
+    global _fleet_health
+    _fleet_health = doc
+
+
+def fleet_health() -> dict:
+    return _fleet_health

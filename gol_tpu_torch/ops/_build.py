@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (`csrc/stencil.cu`: K1-K8).
+"""Build and load the port's CUDA kernels (`csrc/stencil.cu`: K1-K9).
 
 `nvcc` compiles the source into a shared library with a plain C interface
 under `build/gol_tpu_torch/` at the repository root, named by a hash of
@@ -59,6 +59,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gol_deep_geometry.restype = i
     lib.gol_tiled_sweep_deep.argtypes = [vp, vp, i, i, i, u, u, i, vp]
     lib.gol_tiled_sweep_deep.restype = i
+    lib.gol_fleet_resident.argtypes = [vp, vp, vp, i, i, i, ll, u, u, i, i,
+                                       i, vp]
+    lib.gol_fleet_resident.restype = i
+    lib.gol_fleet_tiled_sweep.argtypes = [vp, vp, vp, i, i, i, i, i, u, u,
+                                          i, vp]
+    lib.gol_fleet_tiled_sweep.restype = i
     lib.gol_row_popcounts.argtypes = [vp, vp, i, i, i, vp]
     lib.gol_row_popcounts.restype = i
     lib.gol_tile2p_rows.argtypes = [ip, i]

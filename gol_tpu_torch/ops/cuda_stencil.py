@@ -90,8 +90,30 @@ tiles 918 blocks in 7 waves (160: 927 in 8). The work done is
 at R = 96, T = 32. Families run as separate instantiations, so the
 launch count is kept per family too (`by_family`).
 
+K9 `fleet_run_turns` steps the fleet's buckets: what
+`step_program(rule, turns)` of `gol_tpu/fleet/buckets.py` (:149-170)
+computes, `turns` life-like torus turns of every slot of a (cap, hb, wpb)
+packed batch, each slot its own torus, and each slot's popcount as int32
+(cap,) — which the JAX package leaves to XLA as a jnp scan. One wrapper
+call steps every slot, so a serving quantum costs one wrapper's host time
+whatever the bucket's capacity (a loop of K1 calls over 512 slots would
+pay it 512 times). Two routes, chosen from the shape alone
+(`fleet_run_kind`, as `packed_run_kind` splits K1 and K2): route 1, for
+slots K1 holds, is K1 with a slot axis in the grid, `fleet_resident_ctas`
+CTAs a slot (K1's cluster for the slot's shape, halved while the batch's
+CTAs would outnumber the card's SMs: one CTA a slot from 132 slots up);
+route 2, for the 1024² and 2048² classes, is K2's sweep with the slot in
+the grid's z axis, one sweep per 32 turns, at `fleet_tile_rows` (K2's
+rule counted over the batch's blocks). Each counts the live cells it
+writes after its last turn and adds them to the slot's count with
+integer atomics, exact in any order; the fleet quarantines a slot whose
+count lies outside [0, hb x wb]. Bound: the ops, 30 per word and turn,
+against 8 bytes a word per launch. Its plain version,
+`fleet_run_turns_plain`, follows each route's decomposition on the batch
+axis.
+
 No single PyTorch call computes a packed life-like or Generations step,
-so no library call stands beside K1, K2, K4, K5 or K6.
+so no library call stands beside K1, K2, K4, K5, K6 or K9.
 
 K7 runs Larger-than-Life turns of a Moore-box rule (`R<r>,...,NM`) on a
 uint8 {0,1} torus: what `_ltl_step(cells, rule, "conv")` of
@@ -474,14 +496,14 @@ resident_run_turns.launches = 0
 
 # ------------------------------------------------------------ K2 and K6
 
-def _fewest_window_rows(h: int, wp: int, choices) -> int:
+def _fewest_window_rows(h: int, wp: int, choices, slots: int = 1) -> int:
     """The tile height whose busiest SM computes the fewest window rows
     at T = 32: ceil(blocks / 132) blocks of R + 31 rows each (the rows
     [turn, R + 2T - turn) over T turns; two blocks sharing an SM take as
-    long as two in turn; the larger R on a tie)."""
+    long as two in turn; the larger R on a tie), over `slots` boards."""
     cols = -(-wp // TILE_WORDS)
     return min(choices, key=lambda rows: -(
-        -cols * -(-h // rows) // CARD_SMS) * (rows + TILE_MAX_T - 1))
+        -slots * cols * -(-h // rows) // CARD_SMS) * (rows + TILE_MAX_T - 1))
 
 
 def tile_rows(h: int, wp: int) -> int:
@@ -1143,9 +1165,160 @@ def window_occupancy(words: torch.Tensor) -> torch.Tensor:
 window_occupancy.launches = 0
 
 
+# ------------------------------------------------------------------- K9
+
+# Most slots route 2's grid takes (its z extent).
+FLEET_MAX_SLOTS = 65535
+FLEET_ROUTES = ("resident", "tiled")
+
+
+def fleet_run_kind(shape) -> str:
+    """K9's route for a (cap, hb, wpb) batch: 'resident' (route 1) when a
+    slot fits K1's shared memory, else 'tiled' (route 2)."""
+    return "resident" if fits_resident(shape) else "tiled"
+
+
+def fleet_resident_ctas(cap: int, h: int, wp: int) -> int:
+    """Route 1's CTAs a slot: K1's cluster for the slot's shape, halved
+    while cap x N would exceed the card's SMs (one CTA a slot from 132
+    slots up: the batch fills the card without a cluster barrier)."""
+    n = resident_cluster_ctas(h, wp)
+    while n > 1 and cap * n > CARD_SMS:
+        n //= 2
+    return n
+
+
+def fleet_tile_rows(cap: int, h: int, wp: int) -> int:
+    """Route 2's output rows per tile: K2's rule (`_fewest_window_rows`)
+    over the blocks of all `cap` slots."""
+    return _fewest_window_rows(h, wp, TILE_ROW_CHOICES, cap)
+
+
+def slot_popcounts(words: torch.Tensor) -> torch.Tensor:
+    """(cap,) int32 live cells of each slot of a (cap, h, wp) batch."""
+    return _byte_popcounts(words).sum(dim=(-1, -2), dtype=torch.int32)
+
+
+def _fleet_geometry(words: torch.Tensor, ctas, rows, kind):
+    """(kind, ctas, rows) for a batch, the policy's where not given;
+    raises on a geometry the route does not take."""
+    if words.dim() != 3:
+        raise ValueError(f"fleet_run_turns: want (cap, H, Wp) words, got "
+                         f"{tuple(words.shape)}")
+    cap, h, wp = words.shape
+    if kind is None:
+        kind = fleet_run_kind(words.shape)
+    if kind not in FLEET_ROUTES:
+        raise ValueError(f"fleet_run_turns: route {kind!r} not in "
+                         f"{FLEET_ROUTES}")
+    if kind == "resident" and not fits_resident(words.shape):
+        raise ValueError(f"fleet_run_turns: a {h}x{wp}-word slot exceeds "
+                         f"route 1's {RESIDENT_BOARD_BYTES} bytes")
+    if kind == "resident":
+        if rows is not None:
+            raise ValueError("fleet_run_turns: rows= is route 2's")
+        if ctas is None:
+            ctas = fleet_resident_ctas(cap, h, wp)
+        _check_resident_geometry(h, ctas, None, "fleet_run_turns")
+    else:
+        if ctas is not None:
+            raise ValueError("fleet_run_turns: ctas= is route 1's")
+        if rows is None:
+            rows = fleet_tile_rows(cap, h, wp)
+        if rows not in TILE_ROW_CHOICES:
+            raise ValueError(f"fleet_run_turns: {rows} rows per tile not "
+                             f"in {TILE_ROW_CHOICES}")
+    return kind, ctas, rows
+
+
+def fleet_run_turns_plain(words: torch.Tensor, num_turns: int,
+                          rule: LifeLikeRule = CONWAY, *,
+                          ctas: int | None = None,
+                          rows: int | None = None, kind: str | None = None):
+    """K9's plain version: route 1's slabs (`_slab_plain`) or route 2's
+    tiles (`_tiled_plain`, one sweep per 32 turns) on the batch axis,
+    then each slot's popcount. Returns (words', alive)."""
+    kind, ctas, rows = _fleet_geometry(words, ctas, rows, kind)
+
+    def step(w):
+        return _step_shared_sums(w, rule)
+
+    if kind == "resident":
+        out = _slab_plain(words, num_turns, step, ctas)
+    else:
+        out = words
+        for t in sweep_depths(num_turns, TILE_MAX_T):
+            out = _tiled_plain(out, t, step, rows, TILE_WORDS, 1)
+    return out, slot_popcounts(out)
+
+
+def fleet_run_turns(words: torch.Tensor, num_turns: int,
+                    rule: LifeLikeRule = CONWAY, *,
+                    ctas: int | None = None, rows: int | None = None,
+                    kind: str | None = None):
+    """Advance every slot of a (cap, H, Wp) packed batch `num_turns`
+    turns, each slot its own torus, and count each slot's live cells:
+    (words', alive int32 (cap,)). Route 1 is one launch; route 2 one
+    launch a sweep of up to 32 turns, the last one counting. `kind`,
+    `ctas` (route 1) and `rows` (route 2) pin a route and a geometry for
+    tests and measurements. The input is never written."""
+    kind, ctas, rows = _fleet_geometry(words, ctas, rows, kind)
+    if words.device.type == "cpu":
+        return fleet_run_turns_plain(words, num_turns, rule, ctas=ctas,
+                                     rows=rows, kind=kind)
+    if num_turns < 1:
+        raise ValueError(f"fleet_run_turns: {num_turns} turns; want >= 1")
+    if (words.dtype != torch.int32 or not words.is_contiguous()):
+        raise ValueError(f"fleet_run_turns: want contiguous int32 words, "
+                         f"got {words.dtype}")
+    cap, h, wp = words.shape
+    if cap > FLEET_MAX_SLOTS:
+        raise ValueError(f"fleet_run_turns: {cap} slots exceed "
+                         f"{FLEET_MAX_SLOTS}")
+    lib = _library()
+    dev = words.device.index
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    born, survive = rule.masks()
+    alive = torch.empty(cap, dtype=torch.int32, device=words.device)
+    if kind == "resident":
+        out = torch.empty_like(words)
+        per = resident_rows_per_thread(h, wp, ctas)
+        rc = lib.gol_fleet_resident(
+            words.data_ptr(), out.data_ptr(), alive.data_ptr(), cap, h, wp,
+            num_turns, born, survive, ctas, per, dev, stream)
+        if rc:
+            raise _cluster_failed("fleet_run_turns", lib, rc, ctas, h, wp)
+        fleet_run_turns.launches += 1
+        fleet_run_turns.by_route["resident"] += 1
+        return out, alive
+    if -(-h // rows) > 65535:
+        raise ValueError(f"fleet_run_turns: {h} rows exceed the launch "
+                         "grid")
+    depths = sweep_depths(num_turns, TILE_MAX_T)
+    bufs: list = []
+    src = words
+    for i, t in enumerate(depths):
+        if len(bufs) < 2:
+            bufs.append(torch.empty_like(words))
+        dst = bufs[i % 2]
+        last = i == len(depths) - 1
+        _build.check(lib.gol_fleet_tiled_sweep(
+            src.data_ptr(), dst.data_ptr(),
+            alive.data_ptr() if last else None, cap, h, wp, t, rows, born,
+            survive, dev, stream), "fleet_run_turns")
+        fleet_run_turns.launches += 1
+        fleet_run_turns.by_route["tiled"] += 1
+        src = dst
+    return src, alive
+
+
+fleet_run_turns.launches = 0
+
+
 KERNELS = (resident_run_turns, tiled_sweep, row_popcounts,
            resident_run_turns2p, tiled_sweep2p, tiled_sweep_deep,
-           ltl_box_run_turns, ltl_resident_run_turns, window_occupancy)
+           ltl_box_run_turns, ltl_resident_run_turns, window_occupancy,
+           fleet_run_turns)
 # The two-plane kernels count launches per family as well.
 KERNELS_2P = (resident_run_turns2p, tiled_sweep2p)
 
@@ -1155,6 +1328,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in KERNELS_2P:
         fn.by_family = dict.fromkeys(FAMILIES, 0)
+    fleet_run_turns.by_route = dict.fromkeys(FLEET_ROUTES, 0)
 
 
 reset_launch_counts()

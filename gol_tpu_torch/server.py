@@ -3,22 +3,27 @@ GPU — the counterpart of `gol_tpu/server.py`, wire-compatible with it in
 both directions (a JAX controller drives this server, and the port's
 controller drives a JAX server).
 
-Wraps an `Engine`, or with `--sparse SIZE` a `SparseEngine`, behind the
+Wraps an `Engine`, with `--sparse SIZE` a `SparseEngine`, or with
+`--fleet` a `FleetEngine` (many resident runs, `fleet/`), behind the
 control protocol (`Server/gol/distributor.go:54-83` — ServerDistributor /
 Alivecount / GetWorld / CFput / KillProg, plus Ping, Stats, GetMetrics,
-GetView, DrainFlags, AbortRun, Checkpoint, RestoreRun, GetJournal and,
-for the sparse engine, GetWindow) on a TCP
+GetView, DrainFlags, AbortRun, Checkpoint, RestoreRun, GetJournal, the
+fleet's CreateRun / ListRuns / AttachRun / DestroyRun / SetRule and, for
+the sparse engine, GetWindow) on a TCP
 socket (default :8080, the reference broker port, `Server:235`).
+Run-scoped methods honour a `run_id` header (`RUN_SCOPED`); peers that
+never send one get the legacy run, on every engine.
 Long-running: survives controller detach and serves `GetWorld` for
 `CONT=yes` reattach, as the Go broker holds `world`/`turn` in globals.
 With `--checkpoint DIR` a SIGTERM drains, writes a manifest checkpoint
 and the legacy `WxH.npz`, and exits 0; `--resume` restores before
-serving. The methods of later slices (subscriptions, fleet runs,
-migration) answer with an error naming their ROADMAP item; the
-connection is served as usual.
+serving; on a fleet server SIGTERM also checkpoints every fleet run
+into its run-<id> directory. The methods of later slices
+(subscriptions, telemetry, migration) answer with an error naming their
+ROADMAP item; the connection is served as usual.
 
 Run:  python -m gol_tpu_torch.server [--port 8080] [--device cpu]
-          [--sparse SIZE] [--checkpoint DIR [--ckpt-every TURNS]]
+          [--sparse SIZE | --fleet] [--checkpoint DIR [--ckpt-every TURNS]]
           [--resume DIR|MANIFEST|NPZ]
 """
 
@@ -71,8 +76,6 @@ DRAIN_DEADLINE_DEFAULT = 5.0
 NOT_YET_PORTED = {
     "Subscribe": "A13", "GetTelemetry": "A13", "GetAudit": "A13",
     "GetUsage": "A13", "Profile": "A13",
-    "CreateRun": "A11", "ListRuns": "A11", "AttachRun": "A11",
-    "DestroyRun": "A11", "SetRule": "A11",
     "AdoptRun": "A13", "Rescale": "A13", "ReceiveRun": "A13",
     "CommitRun": "A13",
 }
@@ -169,6 +172,11 @@ class EngineServer:
 
     def shutdown(self) -> None:
         self._shutdown.set()
+        try:
+            # Wakes a thread blocked in accept(); close() alone does not.
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         try:
             self._sock.close()
         except OSError:
@@ -310,14 +318,14 @@ class EngineServer:
         return True
 
     def _encode_view(self, header: dict, caps, out, turn: int,
-                     fy: int, fx: int):
+                     fy: int, fx: int, eng):
         """Frame a GetView reply, delta-encoding (xrle) against the frame
-        this viewer already holds when the negotiation, the engine's
+        this viewer already holds when the negotiation, the run surface's
         diffability and the client's declared basis all line up; then
         remember `out` as the viewer's new basis."""
         vkey = self._view_cache_key(header)
         use_cache = (wire.CAP_XRLE in caps
-                     and getattr(self.engine, "frames_diffable", False)
+                     and getattr(eng, "frames_diffable", False)
                      and vkey is not None)
         basis = basis_turn = None
         if use_cache:
@@ -328,7 +336,7 @@ class EngineServer:
                 basis_turn, _, basis = ent
         frame = wire.encode_view_frame(
             out, caps, basis=basis, basis_turn=basis_turn,
-            binary=self.engine.binary_pixels)
+            binary=eng.binary_pixels)
         if use_cache:
             with self._view_cache_lock:
                 self._view_cache.pop(vkey, None)
@@ -339,12 +347,48 @@ class EngineServer:
 
     @staticmethod
     def _view_cache_key(header: dict):
-        """The per-viewer basis-cache key of a GetView request, or None
-        when the request names no usable viewer."""
+        """The per-viewer basis-cache key of a GetView request (the
+        client's vkey, namespaced per fleet run: one viewer key watching
+        two runs must not delta one run's frame against the other's), or
+        None when the request names no usable viewer."""
         vkey = header.get("vkey")
         if not (isinstance(vkey, str) and 0 < len(vkey) <= 64):
             return None
+        if header.get("run_id"):
+            return f"{header['run_id']}|{vkey}"
         return vkey
+
+    def _drop_run_views(self, run_id: str) -> None:
+        """DestroyRun eviction: every `run_id|vkey` basis entry of the
+        destroyed run goes, so a recycled run_id never deltas a new run's
+        first frame against the dead run's last one."""
+        if not run_id:
+            return
+        prefix = f"{run_id}|"
+        with self._view_cache_lock:
+            for k in [k for k in self._view_cache if k.startswith(prefix)]:
+                del self._view_cache[k]
+
+    # Methods that act on ONE run and therefore honour a `run_id` header:
+    # the engine's resolve_run maps it to a per-run surface (the engine
+    # itself for the legacy run and the single-run engines, a fleet
+    # RunView otherwise). Engine-wide methods (KillProg, AbortRun,
+    # RestoreRun, GetMetrics, ListRuns, CreateRun) stay on the engine.
+    RUN_SCOPED = frozenset({
+        "ServerDistributor", "Ping", "Stats", "Alivecount", "GetWorld",
+        "GetView", "GetWindow", "CFput", "DrainFlags", "Checkpoint",
+        "Subscribe",
+    })
+
+    def _resolve_target(self, method, header: dict):
+        """The engine surface a request dispatches against. Peers that
+        never send run_id (every pre-fleet client) resolve to the engine
+        itself — the legacy single run — on all engines; unknown ids
+        raise KeyError (an "unknown run" error)."""
+        rid = header.get("run_id")
+        if method in self.RUN_SCOPED and rid not in (None, ""):
+            return self.engine.resolve_run(str(rid))
+        return self.engine
 
     def _drop_view_basis(self, header: dict) -> None:
         """Invalidate a viewer's basis after a reply failed mid-send: the
@@ -363,8 +407,8 @@ class EngineServer:
         caps = wire.ConnectionEncoder(header).caps
         if self._dedupe_check(conn, method, label, header):
             return
-        eng = self.engine
         try:
+            eng = self._resolve_target(method, header)
             if method == "ServerDistributor":
                 p = Params(**header["params"])
                 out, turn = eng.server_distributor(
@@ -378,7 +422,7 @@ class EngineServer:
                             frame=wire.encode_board(
                                 out, caps, binary=eng.binary_pixels))
             elif method == "AbortRun":
-                aborted = eng.abort_run(header.get("token"))
+                aborted = self.engine.abort_run(header.get("token"))
                 self._reply(conn, {"ok": True, "aborted": aborted})
             elif method == "Ping":
                 self._reply(conn, {"ok": True, "turn": eng.ping()})
@@ -397,14 +441,19 @@ class EngineServer:
                 frame, turn = eng.get_world_frame(caps)
                 self._reply(conn, {"ok": True, "turn": turn}, frame=frame)
             elif method == "GetView":
-                # O(max_cells) downsampled live-view frame of the board.
+                # O(max_cells) downsampled live-view frame of the board;
+                # a fleet run records the viewer.
+                vkey = header.get("vkey")
+                if (hasattr(eng, "subscribe_view")
+                        and isinstance(vkey, str) and 0 < len(vkey) <= 64):
+                    eng.subscribe_view(vkey)
                 out, turn, (fy, fx) = eng.get_view(
                     int(header.get("max_cells", 0)))
                 try:
                     self._reply(conn, {"ok": True, "turn": turn,
                                        "fy": fy, "fx": fx},
                                 frame=self._encode_view(header, caps, out,
-                                                        turn, fy, fx))
+                                                        turn, fy, fx, eng))
                 except (ConnectionError, OSError):
                     self._drop_view_basis(header)
                     raise
@@ -449,6 +498,51 @@ class EngineServer:
                     "records": jw.tail(
                         int(since if since is not None else -1),
                         int(header.get("limit", 100) or 100))})
+            elif method == "CreateRun":
+                # Fleet admission: single-run engines answer with a
+                # FleetUnsupported error pointing at --fleet. The seed
+                # board (optional) rides the request payload like a
+                # ServerDistributor world upload.
+                tt = header.get("target_turn")
+                rec = self.engine.create_run(
+                    int(header["h"]), int(header["w"]),
+                    board=world,
+                    run_id=header.get("run_id"),
+                    rule=header.get("rule"),
+                    ckpt_every=int(header.get("ckpt_every", 0)),
+                    target_turn=int(tt) if tt is not None else None,
+                    queue=bool(header.get("queue", False)))
+                self._reply(conn, {"ok": True, "run": rec})
+            elif method == "ListRuns":
+                self._reply(conn, {
+                    "ok": True,
+                    "runs": self.engine.list_runs(),
+                    "summary": self.engine.runs_summary()})
+            elif method == "AttachRun":
+                surf = self.engine.resolve_run(
+                    str(header.get("run_id") or ""))
+                self._reply(conn, {"ok": True,
+                                   "run": surf.describe_run()})
+            elif method == "DestroyRun":
+                # Explicit slot release: removes the run wherever it
+                # sits, frees its admission budget and wakes the loop so
+                # a queued run promotes at once; then every viewer basis
+                # of the run goes. Single-run engines answer
+                # FleetUnsupported, as for CreateRun.
+                rid = str(header.get("run_id") or "")
+                rec = self.engine.destroy_run(rid)
+                self._drop_run_views(rid)
+                self._reply(conn, {"ok": True, "run": rec})
+            elif method == "SetRule":
+                # Rule migration: evict, re-home under the new rule's
+                # bucket, readmit through the placement queue, board
+                # intact. The legacy run0 is refused (its rule is fixed
+                # at construction); a single-run engine has no set_rule,
+                # and answers as `gol_tpu`'s does.
+                rec = self.engine.set_rule(
+                    str(header.get("run_id") or ""),
+                    str(header.get("rule") or ""))
+                self._reply(conn, {"ok": True, "run": rec})
             elif method == "KillProg":
                 eng.kill_prog()
                 self._reply(conn, {"ok": True})
@@ -465,6 +559,18 @@ class EngineServer:
             else:
                 self._reply(conn, {"ok": False,
                                    "error": f"unknown method {method!r}"})
+        except KeyError as e:
+            # resolve_run's contract: an unknown run id raises KeyError
+            # with a presentable message ("unknown run 'x'"), answered as
+            # is; any other KeyError (a malformed request header) keeps
+            # the generic "ExcName: detail" shape. (The migration
+            # redirect, "moved:", waits for ROADMAP A13(c).)
+            obs.SERVER_ERRORS.labels(method=label).inc()
+            msg = e.args[0] if e.args else ""
+            if isinstance(msg, str) and msg.startswith("unknown run"):
+                self._reply(conn, {"ok": False, "error": msg})
+            else:
+                self._reply(conn, {"ok": False, "error": f"KeyError: {e}"})
         except EngineKilled as e:
             obs.SERVER_ERRORS.labels(method=label).inc()
             self._reply(conn, {"ok": False, "error": f"killed: {e}"})
@@ -529,6 +635,15 @@ def _sigterm_checkpoint(engine, ckpt_dir: str) -> None:
         obs_log("server.sigterm_checkpoint", turn=turn, path=path)
     except Exception as e:
         obs_exception("server.sigterm_checkpoint_failed", e)
+    # Fleet residents: every non-legacy run gets its own per-run
+    # manifest, so a replacement server can restore the whole fleet.
+    ckpt_fleet = getattr(engine, "checkpoint_fleet", None)
+    if ckpt_fleet is not None:
+        try:
+            n = ckpt_fleet(trigger="sigterm")
+            obs_log("server.sigterm_fleet_checkpoint", runs=n)
+        except Exception as e:
+            obs_exception("server.sigterm_checkpoint_failed", e)
     try:
         board = engine.stats()["board"]
         if board is not None:
@@ -567,6 +682,17 @@ def main(argv=None) -> int:
                          "instead of the dense engine: runs are seeded "
                          "by a small pattern board, snapshots are the "
                          "live window (life-like rules only)")
+    ap.add_argument("--fleet", action="store_true",
+                    help="serve the batched multi-run fleet engine: "
+                         "many resident runs stepped in shared "
+                         "size-bucket launches, admitted against a "
+                         "device-memory budget (CreateRun/ListRuns/"
+                         "AttachRun/DestroyRun/SetRule + run_id routing "
+                         "on the existing methods; peers that never send "
+                         "run_id get the legacy single run, "
+                         "bit-identically; life-like rules only; "
+                         "GOL_FLEET_BUCKETS/GOL_FLEET_CHUNK/"
+                         "GOL_FLEET_MEM_BUDGET tune it)")
     ap.add_argument("--resume", metavar="DIR|MANIFEST|NPZ", default="",
                     help="restore (board, turn) before serving: a "
                          "checkpoint directory (newest durable manifest "
@@ -604,6 +730,8 @@ def main(argv=None) -> int:
                     help="board-digest journal events every TURNS (sets "
                          "GOL_JOURNAL_DIGEST_EVERY; default 512)")
     args = ap.parse_args(argv)
+    if args.fleet and args.sparse:
+        ap.error("--fleet and --sparse are mutually exclusive")
     if args.trace_spans:
         os.environ[trace.TRACE_SPANS_ENV] = args.trace_spans
     ckpt_mod.export_flags(args)
@@ -616,6 +744,11 @@ def main(argv=None) -> int:
 
             eng = SparseEngine(args.sparse, rule=parse_rule(args.rule),
                                device=args.device)
+        elif args.fleet:
+            from gol_tpu_torch.fleet import FleetEngine
+
+            eng = FleetEngine(rule=parse_rule(args.rule),
+                              device=args.device)
         else:
             eng = Engine(device=args.device, rule=parse_rule(args.rule))
     except (RuntimeError, ValueError) as e:
@@ -661,7 +794,8 @@ def main(argv=None) -> int:
     # "serving on :<port>" from stdout to learn the bound port.
     print(f"gol_tpu_torch engine serving on :{srv.port} "
           f"(device {eng.device}, rule {eng._rule.rulestring}"
-          + (f", sparse torus {args.sparse}" if args.sparse else "") + ")",
+          + (f", sparse torus {args.sparse}" if args.sparse else "")
+          + (", fleet" if args.fleet else "") + ")",
           flush=True)
     srv.serve_forever()
     # Orderly stop (accept loop closed, e.g. KillProg without the exit

@@ -55,6 +55,7 @@ from gol_tpu_torch.engine import (
     resolve_device,
     view_factor,
 )
+from gol_tpu_torch.fleet.handles import SingleRunSurface
 from gol_tpu_torch.models.lifelike import CONWAY, LifeLikeRule
 from gol_tpu_torch.models.sparse import SparseTorus, check_sparse_mesh
 from gol_tpu_torch.ops.bitpack import (
@@ -75,7 +76,7 @@ def _device_count(dev: torch.device) -> int:
     return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
-class SparseEngine(ControlFlagProtocol):
+class SparseEngine(SingleRunSurface, ControlFlagProtocol):
     def __init__(self, size: int, rule=CONWAY,
                  shards: Optional[int] = None, device=None) -> None:
         """`shards`: devices to row-shard the window over

@@ -213,6 +213,23 @@ def words_bytes(band: np.ndarray) -> np.ndarray:
     return a.view(np.uint32).astype("<u4", copy=False).view(np.uint8)
 
 
+# Run ids ride wire headers and name per-run checkpoint directories
+# (ckpt base / "run-<id>"), so the alphabet is filename-safe with no
+# separators: a hostile run_id can neither traverse paths nor mint
+# unbounded metric labels (`gol_tpu/wire.py`'s rule).
+RUN_ID_MAX = 64
+_RUN_ID_OK = frozenset(
+    "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789._-")
+
+
+def valid_run_id(run_id) -> bool:
+    """True iff `run_id` is a protocol-legal run identifier."""
+    return (isinstance(run_id, str)
+            and 0 < len(run_id) <= RUN_ID_MAX
+            and not run_id.startswith((".", "-"))
+            and all(c in _RUN_ID_OK for c in run_id))
+
+
 class WireProtocolError(ConnectionError):
     """A peer sent a frame that violates the protocol (oversized header,
     unknown codec, payload-size bound, corrupt delta …) — distinct from

@@ -211,7 +211,7 @@ def crossed(tmp_path, monkeypatch):
             srv = EngineServer(port=0, host="127.0.0.1",
                                engine=Engine(device="cpu"))
             run_id = flight.RUN_ID
-            client = JRemote(f"127.0.0.1:{srv.port}", run_id=run_id)
+            client = JRemote(f"127.0.0.1:{srv.port}")
         servers.append(srv)
         srv.start_background()
         world = (np.random.default_rng(5).random((64, 64)) < 0.3).astype(
@@ -262,7 +262,12 @@ def test_restore_run_across_packages(direction, crossed, tmp_path):
 @pytest.mark.parametrize("direction", sorted(CROSS))
 def test_get_journal_across_packages(direction, crossed):
     client, run_id, board = crossed(direction)
-    kw = {"run_id": run_id} if isinstance(client, RemoteEngine) else {}
+    if isinstance(client, RemoteEngine):
+        kw = {"run_id": run_id}
+    else:
+        # The JAX client names a run by binding to it: GetJournal carries
+        # the bound run_id, which run-scoped methods would route by.
+        client, kw = client.for_run(run_id), {}
     doc = client.get_journal(**kw)
     recs = doc["records"]
     assert [r["kind"] for r in recs] == ["create", "digest", "digest",
