@@ -34,9 +34,15 @@ Phases (each raises on failure; any failure exits non-zero):
    at the window ladder's 256 x 64, 768 x 64, 10,240 x 384 and 38,656 x
    1,280 words and an odd 1000 x 77; K9 (the fleet's batched step),
    words and per-slot popcounts, at 8 and 512 slots of 512², 2 of 64²,
-   the private 24 x 96 bucket (route 1) and 8 slots of 1024² and 2048²
-   (route 2) for 8, 32, 40 and 512 turns, route 1 at every CTA count a
-   slot takes and route 2 pinned on 512² slots;
+   the private 24 x 96 bucket and 8 slots of 1024² and 2048² (route 1;
+   route 2 pinned beside the last two) and 2 of 4096² (route 2) for 8,
+   32, 40 and 512 turns, route 1 at every CTA count a slot takes and
+   route 2 pinned on 512² slots; the counted launches (`count=`: the
+   engine's alive count rides a chunk's last stepping launch), board and
+   count against the plain board and popcount: K1 at N = 1 and 16, K2 at
+   each R, K6 at depth 64, B3 at k = 48, K4 and K5 for gen3, and a 65536²
+   all-ones board under B3/S012345678 counting exactly 2^32 cells on K2
+   and K6 (a 32-bit counter would wrap);
 4. the main path through `gol_tpu_torch.run` on the default (CUDA)
    engine: the 16², 64² and 512² goldens x {0, 1, 100} against
    check/images (16² is the uint8 roll-sum path, its width not a
@@ -86,9 +92,12 @@ Phases (each raises on failure; any failure exits non-zero):
    SetRule, DestroyRun) through the port's client to an in-process
    --fleet server, a run of each class (512², 1024², 2048²) to a turn
    the 8-turn quantum does not divide against a `packed_run_turns`
-   replay (K9 both routes, the trims on K1 and K2).
+   replay (K9 route 1 alone: route 2 must not launch; the trims on K1
+   and K2), then a 4096² class, beyond a cluster, to turn 13 on route 2.
    Each path runs with the launch counters at 0, read just after: every
-   kernel (and family) it runs must have launched. The paths of 4-4c, 4f
+   kernel (and family) it runs must have launched, and the paths whose
+   alive counts come from chunks alone (4, 4c, 4d) must have launched K3
+   no time. The paths of 4-4c, 4f
    and 4g run under `torch.profiler`, which sums their device time by
    kernel (each path's and in all), all but the unbounded run: it steps
    as long as the wall clock says, so its device time would rank
@@ -141,7 +150,14 @@ Phases (each raises on failure; any failure exits non-zero):
    at 512², 1024² and 4096² (the other kinds' crossover); engine turns/s
    for Bosco at 512² and 4096² and Orbium at 1024²; and K8 at the window
    ladder's shapes and on the 65,536-turn run's final window, beside its
-   plain version and its byte bound.
+   plain version and its byte bound; the engine's chunk token at 512² (1
+   and 1024 turns), 5120² and 65536² (32), the old sequence (stepping,
+   K3, the torch sum) against the counted launch, CUDA-event ms and host
+   µs a chunk, and each stepping kernel's head row counted beside
+   uncounted; K9's host µs a call beside its event ms, at every timed
+   bucket (route 2 pinned at 1024² and 2048²), and K9 route 1's device
+   µs a quantum at every CTA count a slot takes, 1-64 slots of 1024² and
+   2048², beside route 2 pinned.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -248,6 +264,17 @@ def check_equal(torch, what: str, got, want, kernel: str) -> None:
         bad = int((got != want).sum())
         raise AssertionError(f"{what}: {bad} words differ")
     log(f"  ok {what}")
+
+
+def check_count(what: str, got, want, kernel: str) -> None:
+    """A counted launch's one int64 against its plain count, exactly (no
+    32-bit mask: a counter that wrapped at 2^32 must fail)."""
+    got, want = int(got.item()), int(want)
+    err = abs(got - want)
+    MAX_ABS_ERR[kernel] = max(MAX_ABS_ERR.get(kernel, 0), err)
+    if err:
+        raise AssertionError(f"{what}: count {got} != {want}")
+    log(f"  ok {what}: {got} cells")
 
 
 def stack_frames(ptxas_log: str) -> dict:
@@ -419,6 +446,101 @@ def phase_kernels(torch, dev) -> None:
         check_equal(torch, f"K3 {h}x{wp}w", cs.row_popcounts(w),
                     bitpack.row_popcounts_plain(w), "row_popcounts")
     del w, got
+
+
+def plain_count(torch, words) -> int:
+    """The live cells of a board (of plane 0 of stacked planes) by the
+    plain popcount."""
+    from gol_tpu_torch.ops import bitpack
+
+    plane = words[0] if words.dim() == 3 else words
+    return int(bitpack.row_popcounts_plain(plane).sum(dtype=torch.int64))
+
+
+def phase_kernels_counted(torch, dev) -> None:
+    """The counted launches (`count=`: the alive count rides a chunk's
+    last stepping launch) bit-exact against their plain boards and plain
+    counts: K1 at N = 1 and 16, K2 at each R, K6 at depth 64, B3 at k =
+    48, K4 and K5 for gen3; and a 65536² all-ones board under
+    B3/S012345678 (which leaves it all ones) counting exactly 2^32 cells,
+    on K2 and K6: a 32-bit counter would wrap there."""
+    from gol_tpu_torch.models.generations import GenerationsRule
+    from gol_tpu_torch.models.lifelike import LifeLikeRule
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    log("phase 3: counted launches against their plain boards and counts")
+
+    def count():
+        return torch.full((1,), -1, dtype=torch.int64, device=dev)
+
+    for (h, wp) in [(512, 16), (64, 2), (33, 1)]:
+        w = seeded_words(torch, h, wp, 17 * h + wp, dev)
+        for n in sorted({1, min(16, h)}):
+            for turns in (1, 100):
+                c = count()
+                got = cs.resident_run_turns(w, turns, ctas=n, count=c)
+                what = f"K1 counted {h}x{wp}w N={n} {turns} turns"
+                check_equal(torch, what, got, cs.resident_run_turns_plain(
+                    w, turns, ctas=n), "resident_run_turns")
+                check_count(what, c, plain_count(torch, got),
+                            "resident_run_turns")
+    for (h, wp) in [(5120, 160), (1000, 200), (7, 5)]:
+        w = seeded_words(torch, h, wp, 19 * h + wp, dev)
+        for r in cs.TILE_ROW_CHOICES:
+            out, c = torch.empty_like(w), count()
+            cs.tiled_sweep(w, out, 32, rows=r, count=c)
+            what = f"K2 counted {h}x{wp}w R={r} T=32"
+            check_equal(torch, what, out, cs.tiled_sweep_plain(w, 32, rows=r),
+                        "tiled_sweep")
+            check_count(what, c, plain_count(torch, out), "tiled_sweep")
+        out, c = torch.empty_like(w), count()
+        cs.tiled_sweep_deep(w, out, 64, count=c)
+        what = f"K6 counted {h}x{wp}w T=64"
+        check_equal(torch, what, out, cs.tiled_sweep_deep_plain(w, 64),
+                    "tiled_sweep_deep")
+        check_count(what, c, plain_count(torch, out), "tiled_sweep_deep")
+        c = count()
+        got = cs.fused_banded_run_turns(w, 100, 48, count=c)
+        check_count(f"B3 counted {h}x{wp}w k=48 100 turns (K2 last)", c,
+                    plain_count(torch, got), "tiled_sweep")
+    rule = GenerationsRule("/2/3")
+    for (h, wp, n) in [(512, 16, 16), (512, 16, 1), (64, 2, 1)]:
+        p = seeded_planes(torch, h, wp, "gen3", h + n, dev)
+        c = count()
+        got = cs.resident_run_turns2p(p, 50, rule, "gen3", ctas=n, count=c)
+        what = f"K4 gen3 counted {h}x{wp}w N={n} 50 turns"
+        check_equal(torch, what, got, cs.resident_run_turns2p_plain(
+            p, 50, rule, "gen3", ctas=n), "resident_run_turns2p/gen3")
+        check_count(what, c, plain_count(torch, got),
+                    "resident_run_turns2p/gen3")
+    for (h, wp) in [(4096, 128), (97, 65)]:
+        p = seeded_planes(torch, h, wp, "gen3", h, dev)
+        for r in cs.TILE2P_ROW_CHOICES:
+            out, c = torch.empty_like(p), count()
+            cs.tiled_sweep2p(p, out, 32, rule, "gen3", rows=r, count=c)
+            what = f"K5 gen3 counted {h}x{wp}w R={r} T=32"
+            check_equal(torch, what, out, cs.tiled_sweep2p_plain(
+                p, 32, rule, "gen3", rows=r), "tiled_sweep2p/gen3")
+            check_count(what, c, plain_count(torch, out),
+                        "tiled_sweep2p/gen3")
+        c = count()
+        got = cs.banded_run_turns2p(p, 40, rule, "gen3", count=c)
+        check_count(f"K5 gen3 counted {h}x{wp}w 40 turns", c,
+                    plain_count(torch, got), "tiled_sweep2p/gen3")
+    del w, out, got, p
+    full = torch.full((65536, 2048), -1, dtype=torch.int32, device=dev)
+    keep = LifeLikeRule("B3/S012345678")
+    for name, run in (("tiled_sweep", lambda c: cs.banded_run_turns(
+            full, 32, keep, count=c)), ("tiled_sweep_deep", lambda c:
+            cs.fused_banded_run_turns(full, 64, 64, keep, count=c))):
+        c = count()
+        got = run(c)
+        what = f"{name} counted 65536² all ones, B3/S012345678"
+        check_equal(torch, what, got, full, name)
+        check_count(what, c, 1 << 32, name)
+        del got
+    del full
+    torch.cuda.empty_cache()
 
 
 def phase_kernels_deep(torch, dev) -> None:
@@ -2459,6 +2581,121 @@ def k7_records(card: Card, launches: dict, timing: tuple) -> list:
     return out
 
 
+# The engine's chunk token timed (`timing_token`): board side, turns a
+# chunk, wrapper calls timed.
+TOKEN_CHUNKS = ((512, 1, 200), (512, 1024, 50), (5120, 32, 100),
+                (65536, 32, 10))
+# Each stepping kernel's head row, timed counted and uncounted: (name,
+# rows, words, turns, fuse depth or family).
+COUNTED_HEADS = (("resident_run_turns", 512, 16, 1024, None),
+                 ("tiled_sweep", 65536, 2048, 32, None),
+                 ("tiled_sweep_deep", 65536, 2048, 64, 64),
+                 ("resident_run_turns2p/gen3", 512, 16, 1024, "gen3"),
+                 ("tiled_sweep2p/gen3", 4096, 128, 32, "gen3"))
+
+
+def host_us_per_call(torch, fn, calls: int) -> float:
+    """The host µs a call of `fn` takes to issue, with no synchronisation
+    between calls (after one warm-up and a sync)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def timing_token(torch, dev, card: Card) -> dict:
+    """The engine's alive token a chunk: the old sequence (the stepping
+    launches, then K3, then the torch int64 sum) against the counted
+    launch (`count=`: the count rides the chunk's last stepping launch),
+    through the engine's run function at 512² (1 and 1024 turns), 5120²
+    (32) and 65536² (32), as CUDA-event ms and host µs a chunk, in turns
+    (old, counted, counted, old); then each stepping kernel's head row
+    counted beside uncounted (events, the same order)."""
+    from gol_tpu_torch.models.generations import GenerationsRule
+    from gol_tpu_torch.ops import cuda_stencil as cs
+    from gol_tpu_torch.parallel.halo import packed_run_turns
+
+    log(f"phase 5: the chunk token, old sequence against the counted "
+        f"launch, on {card.smi}")
+    rule = cs.CONWAY
+    chunks = []
+    for size, turns, calls in TOKEN_CHUNKS:
+        w = seeded_words(torch, size, size // 32, size + turns, dev)
+
+        def old():
+            out = packed_run_turns(w, turns, rule)
+            return cs.row_popcounts(out).sum(dtype=torch.int64)
+
+        def counted():
+            c = torch.empty(1, dtype=torch.int64, device=dev)
+            packed_run_turns(w, turns, rule, count=c)
+            return c
+
+        if int(old()) != int(counted()):
+            raise AssertionError(f"token {size}² x {turns}: counts differ")
+        ms = {"old": [], "counted": []}
+        us = {"old": [], "counted": []}
+        for name, fn in (("old", old), ("counted", counted),
+                         ("counted", counted), ("old", old)):
+            ms[name].append(time_ms(torch, fn, calls))
+            us[name].append(host_us_per_call(torch, fn, calls))
+        row = dict(shape=f"{size}x{size}", turns=turns, calls=calls,
+                   card=card.smi,
+                   old_ms=statistics.mean(ms["old"]),
+                   counted_ms=statistics.mean(ms["counted"]),
+                   old_host_us=statistics.mean(us["old"]),
+                   counted_host_us=statistics.mean(us["counted"]),
+                   spread_ms=ms, spread_host_us=us)
+        chunks.append(row)
+        log(f"  token {size}² x {turns}: old {row['old_ms']:.5f} ms, "
+            f"{row['old_host_us']:.2f} µs of host a chunk; counted "
+            f"{row['counted_ms']:.5f} ms, {row['counted_host_us']:.2f} µs "
+            f"[{card.smi}]")
+        del w
+    heads = {}
+    gen3 = GenerationsRule("/2/3")
+    for name, h, wp, turns, extra in COUNTED_HEADS:
+        if extra == "gen3":
+            w = seeded_planes(torch, h, wp, "gen3", h + 1, dev)
+            run = (cs.resident_run_turns2p if name.startswith("resident")
+                   else cs.banded_run_turns2p)
+
+            def step(count=None):
+                return run(w, turns, gen3, "gen3", count=count)
+        else:
+            w = seeded_words(torch, h, wp, h + 1, dev)
+            if extra:
+                def step(count=None):
+                    return cs.fused_banded_run_turns(w, turns, extra,
+                                                     count=count)
+            else:
+                run = (cs.resident_run_turns if name.startswith("resident")
+                       else cs.banded_run_turns)
+
+                def step(count=None):
+                    return run(w, turns, count=count)
+        c = torch.empty(1, dtype=torch.int64, device=dev)
+        reps = 3 if h == 65536 else 20
+        times = {"uncounted": [], "counted": []}
+        for which in ("uncounted", "counted", "counted", "uncounted"):
+            times[which].append(time_ms(torch, (lambda: step(c)) if
+                                        which == "counted" else step, reps))
+        heads[name] = dict(shape=f"{h}x{wp * 32}", turns=turns,
+                           uncounted_ms=statistics.mean(times["uncounted"]),
+                           counted_ms=statistics.mean(times["counted"]),
+                           spread_ms=times, card=card.smi)
+        log(f"  {name} {h}x{wp * 32} x {turns}: uncounted "
+            f"{heads[name]['uncounted_ms']:.4f} ms, counted "
+            f"{heads[name]['counted_ms']:.4f} ms ({times}) [{card.smi}]")
+        del w
+    torch.cuda.empty_cache()
+    return {"chunks": chunks, "heads": heads}
+
+
 def timing_k3_trace(torch, dev, card: Card) -> list:
     """K3 (`row_popcounts`) at 512², 5120² and 65536²: its device time a
     launch under `torch.profiler` (the kernel's own span, summed over the
@@ -2849,12 +3086,15 @@ def k8_record(card: Card, launches: dict, rows: list) -> dict:
 
 # ------------------------------------------------- phase 4h: the fleet
 
-# K9's checked buckets (cap, rows, words) — route 1: 8 and 512 slots of
-# 512², 2 of 64² and the private 24 x 96 bucket; route 2: 8 slots of
-# 1024² and of 2048² — and quanta (turns): the default 8, one sweep
-# (32), a sweep and a remainder (40) and GOL_FUSE_K's 512.
+# K9's checked buckets (cap, rows, words), all route 1's: 8 and 512
+# slots of 512², 2 of 64², the private 24 x 96 bucket and 8 slots of
+# 1024² and of 2048² (route 2 pinned beside them), and 2 of 4096², route
+# 2's — and quanta (turns): the default 8, one sweep (32), a sweep and a
+# remainder (40) and GOL_FUSE_K's 512.
 FLEET_SHAPES = ((8, 512, 16), (512, 512, 16), (2, 64, 2), (1, 24, 3),
-                (8, 1024, 32), (8, 2048, 64))
+                (8, 1024, 32), (8, 2048, 64), (2, 4096, 128))
+# The classes that moved from route 2 to route 1, checked on both.
+FLEET_MOVED = ((8, 1024, 32), (8, 2048, 64))
 FLEET_QUANTA = (8, 32, 40, 512)
 # The JAX bench's fleet leg (bench.py:1774-1782): free-running 512² runs
 # in one FleetEngine, counted over a wall window.
@@ -2862,16 +3102,23 @@ FLEET_RUN_COUNTS = (1, 64, 512)
 FLEET_WINDOW_S = 3.0
 # Phase 4h's exact-target runs: one a class, the target not a multiple
 # of the 8-turn quantum, so the last 5 turns are the trim (K1 at 512², K2
-# at 1024² and 2048²).
+# at 1024² and 2048²). The default classes all step on K9 route 1; a
+# 4096² class, beyond a cluster, keeps route 2 on the path.
 FLEET_TRIM_SIZES = (512, 1024, 2048)
 FLEET_TRIM_TARGET = 13
+FLEET_WIDE = 4096
 # Legacy drives repeated beside a busy fleet.
 FLEET_DRIVES = 50
-# K9's timed buckets (cap, rows, words), at the default 8-turn quantum,
-# and the head row of each route in the kernels line (the bench leg's top
-# point for route 1, the largest class for route 2).
-FLEET_TIMED = ((1, 512, 16), (64, 512, 16), (512, 512, 16), (8, 512, 16),
-               (2, 64, 2), (1, 24, 3), (8, 1024, 32), (8, 2048, 64))
+# K9's timed buckets (cap, rows, words, route: None for the policy's),
+# at the default 8-turn quantum, and the head row of each route in the
+# kernels line (the bench leg's top point for route 1; for route 2 the
+# 2048² class pinned to it, its route before it moved to route 1).
+FLEET_TIMED = ((1, 512, 16, None), (64, 512, 16, None),
+               (512, 512, 16, None), (8, 512, 16, None), (2, 64, 2, None),
+               (1, 24, 3, None), (8, 1024, 32, None), (8, 2048, 64, None),
+               (64, 1024, 32, None), (64, 2048, 64, None),
+               (8, 1024, 32, "tiled"), (8, 2048, 64, "tiled"),
+               (2, 4096, 128, None))
 FLEET_HEADS = {"fleet_run_turns/resident": (512, 512, 16),
                "fleet_run_turns/tiled": (8, 2048, 64)}
 # Phase 4h's references, made before its counters start.
@@ -2908,6 +3155,12 @@ def phase_kernels_fleet(torch, dev) -> None:
             what = f"K9 {name.split('/')[1]} {cap} x {h}x{wp * 32} x {turns}"
             check_equal(torch, what, got, want, name)
             check_equal(torch, what + " popcounts", alive, want_alive, name)
+            if (cap, h, wp) in FLEET_MOVED:
+                got, alive = cs.fleet_run_turns(w, turns, kind="tiled")
+                what = f"K9 tiled pinned {cap} x {h}x{wp * 32} x {turns}"
+                check_equal(torch, what, got, want, "fleet_run_turns/tiled")
+                check_equal(torch, what + " popcounts", alive, want_alive,
+                            "fleet_run_turns/tiled")
         del w
     w = seeded_batch(torch, 8, 512, 16, 99, dev)
     for ctas in (1, 2, 4, 8, 16):
@@ -2944,7 +3197,7 @@ def fleet_reference(torch, dev) -> None:
     from gol_tpu_torch.ops import bitpack
     from gol_tpu_torch.parallel.halo import packed_run_turns
 
-    for size in FLEET_TRIM_SIZES:
+    for size in FLEET_TRIM_SIZES + (FLEET_WIDE,):
         seed = fleet_seed(size, size)
         words = bitpack.words_from_numpy(bitpack.pack_np(seed), dev)
         out = packed_run_turns(words, FLEET_TRIM_TARGET, CONWAY)
@@ -3011,10 +3264,12 @@ def phase_fleet(torch, dev) -> None:
     board) and 50 legacy drives beside a busy fleet; then the fleet RPCs
     through the port's client against an in-process --fleet server (so
     the counters see K9, and K1 and K2 in the trims), each class with a
-    target the quantum does not divide."""
+    target the quantum does not divide, all on K9 route 1; then a 4096²
+    class, beyond a cluster, on route 2."""
     from gol_tpu_torch import Params
     from gol_tpu_torch.client import RemoteEngine
     from gol_tpu_torch.fleet import FleetEngine
+    from gol_tpu_torch.ops import cuda_stencil as cs
 
     log("phase 4h: the fleet: a --fleet server subprocess on the card")
     images = os.path.join(REPO, "images")
@@ -3084,6 +3339,33 @@ def phase_fleet(torch, dev) -> None:
         log("  ok CreateRun, ListRuns, AttachRun + GetWorld, SetRule, "
             "DestroyRun through the port's client")
     fleet.kill_prog()
+    tiled = cs.fleet_run_turns.by_route["tiled"]
+    if tiled or not cs.fleet_run_turns.by_route["resident"]:
+        raise AssertionError(f"the default classes' runs launched K9 "
+                             f"{cs.fleet_run_turns.by_route}")
+    log(f"  ok the default classes stepped on K9 route 1 alone: "
+        f"{cs.fleet_run_turns.by_route}")
+    fleet = FleetEngine(bucket_sizes=(FLEET_WIDE,))
+    try:
+        seed, want = FLEET_REF[FLEET_WIDE]
+        fleet.create_run(FLEET_WIDE, FLEET_WIDE, board=seed * np.uint8(255),
+                         run_id="wide", target_turn=FLEET_TRIM_TARGET)
+        view = fleet.resolve_run("wide")
+        deadline = time.monotonic() + 60
+        while view.stats()["state"] != "parked":
+            if time.monotonic() > deadline:
+                raise AssertionError("the 4096² run never parked")
+            time.sleep(0.01)
+        got, turn = view.get_world()
+    finally:
+        fleet.kill_prog()
+    if turn != FLEET_TRIM_TARGET or not np.array_equal(got, want):
+        raise AssertionError(f"{FLEET_WIDE}² fleet run at turn {turn}: "
+                             "board != packed_run_turns replay")
+    if cs.fleet_run_turns.by_route["tiled"] <= tiled:
+        raise AssertionError("the 4096² class never launched K9 route 2")
+    log(f"  ok {FLEET_WIDE}² run (K9 route 2) to turn {FLEET_TRIM_TARGET}: "
+        "the packed_run_turns replay's board")
 
 
 FLEET_STATS: dict = {}
@@ -3133,6 +3415,7 @@ def fleet_point(torch, dev, count: int, n: int, window_s: float,
     from gol_tpu_torch.models.lifelike import CONWAY
     from gol_tpu_torch.ops import bitpack, cuda_stencil as cs
 
+    k9_before = cs.fleet_run_turns.launches
     eng = FleetEngine(bucket_sizes=(n,), slot_base=max(8, count))
     try:
         seed0 = None
@@ -3166,7 +3449,9 @@ def fleet_point(torch, dev, count: int, n: int, window_s: float,
         board, turn = eng.resolve_run("b0").get_world()
     finally:
         eng.kill_prog()
+    k9_launches = cs.fleet_run_turns.launches - k9_before
     ms = device_ms_by_kernel(prof)
+    k9 = ms.get("fleet_run_turns/resident")
     words = bitpack.words_from_numpy(bitpack.pack_np(seed0), dev)
     want = bitpack.unpack_np(bitpack.words_to_numpy(
         cs.resident_run_turns(words, turn, CONWAY))) * np.uint8(255)
@@ -3174,7 +3459,6 @@ def fleet_point(torch, dev, count: int, n: int, window_s: float,
         raise AssertionError(f"fleet {count} x {n}²: run b0 at turn {turn}"
                              " != its K1 replay")
     cells = c1["cell_updates"] - c0["cell_updates"]
-    k9 = ms.get("fleet_run_turns/resident", 0.0)
     return dict(runs=count, size=n, window_s=elapsed,
                 cell_updates_per_s=cells / elapsed,
                 turns_per_run_per_s=(c1["board_turns"] - c0["board_turns"])
@@ -3182,11 +3466,11 @@ def fleet_point(torch, dev, count: int, n: int, window_s: float,
                 p50_turn_latency_ms=p50 * 1e3, p99_turn_latency_ms=p99 * 1e3,
                 chunk_overhead_us=c1["chunk_overhead_us"],
                 quanta_profiled=quanta,
-                k9_device_ms_profiled=k9 if ms else "not measured",
-                k9_device_ms_per_quantum=(k9 / quanta if ms and quanta
+                k9_device_ms_profiled=k9 or "not measured",
+                k9_device_ms_per_quantum=(k9 / quanta if k9 and quanta
                                           else "not measured"),
                 profiled_device_ms=ms or "not measured",
-                sampled_run_turn=turn, parity=True)
+                k9_launches=k9_launches, sampled_run_turn=turn, parity=True)
 
 
 def timing_fleet(torch, dev, card: Card) -> dict:
@@ -3217,28 +3501,109 @@ def timing_fleet(torch, dev, card: Card) -> dict:
             f"profiler ({r['quanta_profiled']} quanta); run b0 equals its K1 "
             f"replay at turn {r['sampled_run_turn']} [{card.smi}]")
     ops = cs.OPS_PER_WORD_TURN
+    lib = cs._library()
     rows = []
-    for cap, h, wp in FLEET_TIMED:
+    for cap, h, wp, pin in FLEET_TIMED:
         w = seeded_batch(torch, cap, h, wp, 7, dev)
         words = cap * h * wp
+        kind = pin or cs.fleet_run_kind(w.shape)
         b, by = card.bound(8 * words + 4 * cap, ops * 8 * words)
-        ms = time_ms(torch, lambda: cs.fleet_run_turns(w, 8), 50)
+        ms = time_ms(torch, lambda: cs.fleet_run_turns(w, 8, kind=pin), 50)
+        host_us = host_us_per_call(
+            torch, lambda: cs.fleet_run_turns(w, 8, kind=pin), 200)
         plain = (time_ms(torch, lambda: cs.fleet_run_turns_plain(w, 8), 2)
                  if (cap, h, wp) in FLEET_HEADS.values() else None)
-        rows.append(dict(name=fleet_route(cs, w.shape),
-                         shape=f"{cap} x {h}x{wp * 32}", turns=8,
-                         ctas=(cs.fleet_resident_ctas(cap, h, wp)
-                               if cs.fleet_run_kind(w.shape) == "resident"
-                               else None),
-                         rows=(cs.fleet_tile_rows(cap, h, wp)
-                               if cs.fleet_run_kind(w.shape) == "tiled"
-                               else None),
-                         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by))
+        ctas = (cs.fleet_resident_ctas(cap, h, wp) if kind == "resident"
+                else None)
+        rows.append(dict(
+            name=f"fleet_run_turns/{kind}", pinned=pin is not None,
+            shape=f"{cap} x {h}x{wp * 32}", turns=8, ctas=ctas,
+            rows=(cs.fleet_tile_rows(cap, h, wp) if kind == "tiled"
+                  else None),
+            clusters_at_once=(lib.gol_fleet_resident_clusters(
+                h, wp, ctas, cs.resident_rows_per_thread(h, wp, ctas),
+                dev.index) if ctas else None),
+            ms=ms, host_us_per_call=host_us, plain_ms=plain, bound_ms=b,
+            bound_by=by))
         log_row(rows[-1]["name"], rows[-1])
+        log(f"    host {host_us:.2f} µs a call; clusters the card holds "
+            f"at once: {rows[-1]['clusters_at_once']} [{card.smi}]")
         del w
-    FLEET_STATS.update(single=single, points=points, k9=rows)
+    FLEET_STATS.update(single=single, points=points, k9=rows,
+                       bench_leg_k9_launches=sum(p["k9_launches"]
+                                                 for p in points),
+                       cluster_sweep=fleet_cluster_sweep(torch, dev, card))
     log("fleet:" + json.dumps(FLEET_STATS))
     return FLEET_STATS
+
+
+# K9 route 1's CTAs a slot swept (`fleet_cluster_sweep`): the buckets
+# (cap, rows, words) and quanta.
+FLEET_SWEEP = ((1, 2048, 64), (8, 2048, 64), (64, 2048, 64),
+               (8, 1024, 32), (64, 1024, 32))
+FLEET_SWEEP_TURNS = (8, 64)
+
+
+# A spin on the card long enough to cover the issue of `calls` wrapper
+# calls (cycles at ~2 GHz: 10 ms).
+QUEUE_SPIN_CYCLES = 20_000_000
+
+
+def device_us_per_call(torch, fn, calls: int) -> float:
+    """The card's µs a call of `fn`, by CUDA events around `calls` calls
+    queued behind a spin kernel, so that no host time falls between the
+    events (the calls are issued while the card still spins). Raises when
+    the spin ended before the last call was issued."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    if start.query():
+        raise AssertionError("the spin ended before the calls were issued")
+    end.synchronize()
+    return start.elapsed_time(end) / calls * 1e3
+
+
+def fleet_cluster_sweep(torch, dev, card: Card) -> list:
+    """K9 route 1's device µs a quantum at every CTA count a slot takes
+    (powers of two from the fewest that hold it to 16), beside route 2
+    pinned, at 1-64 slots of 1024² and 2048² for 8 and 64 turns, with
+    the clusters the card holds at once: the data behind
+    `fleet_resident_ctas`. Events behind a spin, not `torch.profiler`,
+    which can return a window with no device time."""
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    lib = cs._library()
+    rows = []
+    for cap, h, wp in FLEET_SWEEP:
+        w = seeded_batch(torch, cap, h, wp, 11, dev)
+        for turns in FLEET_SWEEP_TURNS:
+            row = dict(shape=f"{cap} x {h}x{wp * 32}", turns=turns,
+                       policy_ctas=cs.fleet_resident_ctas(cap, h, wp),
+                       card=card.smi, route1_us={}, clusters_at_once={})
+            n = cs.fleet_slot_ctas(h, wp)
+            while n <= cs.RESIDENT_MAX_CTAS:
+                row["route1_us"][n] = device_us_per_call(
+                    torch, lambda: cs.fleet_run_turns(w, turns, ctas=n), 20)
+                row["clusters_at_once"][n] = lib.gol_fleet_resident_clusters(
+                    h, wp, n, cs.resident_rows_per_thread(h, wp, n),
+                    dev.index)
+                n *= 2
+            row["route2_us"] = device_us_per_call(
+                torch, lambda: cs.fleet_run_turns(w, turns, kind="tiled"), 20)
+            rows.append(row)
+            log(f"  K9 {row['shape']} x {turns} device µs by CTAs a slot "
+                f"{row['route1_us']} (clusters at once "
+                f"{row['clusters_at_once']}), policy N = "
+                f"{row['policy_ctas']}, route 2 pinned {row['route2_us']} "
+                f"[{card.smi}]")
+        del w
+    return rows
 
 
 def k9_records(card: Card, launches: dict, stats: dict) -> list:
@@ -3257,6 +3622,8 @@ def k9_records(card: Card, launches: dict, stats: dict) -> list:
             turns=8, ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=None, by_shape=rs))
+    out[0]["bench_leg_launches"] = stats["bench_leg_k9_launches"]
+    out[0]["cluster_sweep"] = stats["cluster_sweep"]
     return out
 
 
@@ -3310,6 +3677,11 @@ def device_ms_by_kernel(prof) -> dict:
     return sums
 
 
+# The main-path phases whose alive counts come from chunks alone.
+CHUNK_COUNTED_PHASES = (phase_main_path, phase_controls, phase_fused,
+                        phase_control_plane)
+
+
 def main() -> int:
     import torch
 
@@ -3344,6 +3716,7 @@ def main() -> int:
     for name, loop in step_loops(rec["path"]).items():
         log(f"  sass stepping loop of {name}: {json.dumps(loop)}")
     phase_kernels(torch, dev)
+    phase_kernels_counted(torch, dev)
     phase_kernels_ltl(torch, dev)
     phase_kernels_occupancy(torch, dev)
     phase_kernels_fleet(torch, dev)
@@ -3352,20 +3725,20 @@ def main() -> int:
     # Each path runs with the counters at 0 and is read just after; each
     # must have launched every kernel (and family) it runs. The profiler
     # sums the device time of the profiled paths by kernel.
+    # The phases whose counts come from chunks alone (the goldens, the
+    # CSV ticker, the fused runs, SER) must launch K3 no time: the count
+    # rides each chunk's last stepping launch. 4b's `GenerationsTorus`
+    # and 4e's restores count boards no chunk just stepped (K3).
     launches, device_ms, profiled = {}, {}, {}
     for phase, kernels, prof_on in (
-            (phase_main_path, ("resident_run_turns", "tiled_sweep",
-                               "row_popcounts"), True),
-            (phase_controls, ("resident_run_turns", "row_popcounts"), False),
-            (phase_generations, ("row_popcounts",
-                                 "resident_run_turns2p/gen3",
+            (phase_main_path, ("resident_run_turns", "tiled_sweep"), True),
+            (phase_controls, ("resident_run_turns",), False),
+            (phase_generations, ("resident_run_turns2p/gen3",
                                  "resident_run_turns2p/gen4",
                                  "tiled_sweep2p/gen3",
                                  "tiled_sweep2p/gen4"), True),
-            (phase_fused, ("tiled_sweep_deep", "tiled_sweep",
-                           "row_popcounts"), True),
+            (phase_fused, ("tiled_sweep_deep", "tiled_sweep"), True),
             (phase_control_plane, ("resident_run_turns", "tiled_sweep",
-                                   "row_popcounts",
                                    "resident_run_turns2p/gen3"), False),
             (phase_checkpoints, ("resident_run_turns", "tiled_sweep",
                                  "row_popcounts",
@@ -3390,6 +3763,9 @@ def main() -> int:
             if counts[name] <= 0:
                 raise AssertionError(f"{phase.__name__} never launched "
                                      f"{name}")
+        if phase in CHUNK_COUNTED_PHASES and counts["row_popcounts"]:
+            raise AssertionError(f"{phase.__name__} launched K3 "
+                                 f"{counts['row_popcounts']} times")
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
             if prof_on:
@@ -3415,6 +3791,11 @@ def main() -> int:
     k3 = [k for k in kernels if k["name"] == "row_popcounts"][0]
     k3["trace"] = timing_k3_trace(torch, dev, card)
     k3["profiled_launches"] = profiled.get("row_popcounts", 0)
+    token = timing_token(torch, dev, card)
+    k3["chunk_token"] = token["chunks"]
+    for k in kernels:
+        if k["name"] in token["heads"]:
+            k["counted"] = token["heads"][k["name"]]
     kernels.append(k8_record(card, launches,
                              timing_occupancy(torch, dev, card)))
     kernels += k9_records(card, launches, fleet)

@@ -37,7 +37,11 @@
 //                                  tiled sweep with a two-word halo
 //   row_popcounts_kernel     K3 <- the alive token's popcount reduction,
 //                                  which the JAX package leaves to XLA
-//                                  (engine.py:158-160)
+//                                  (engine.py:158-160); the engine's
+//                                  chunks now count in their last
+//                                  stepping launch (below), and K3 serves
+//                                  the counts of boards not just stepped
+//                                  (a restore)
 //   resident_kernel<Gen3|4>  K4 <- pallas_packed_run_turns3
 //                                  (pallas_stencil.py:274) and
 //                                  pallas_packed_run_turns4 (:296)
@@ -53,10 +57,29 @@
 //                                    `step_program`: a jnp scan over
 //                                    (cap, hb, wpb) slots plus a per-slot
 //                                    popcount, XLA, not Pallas): K1 with a
-//                                    slot axis in the grid, for slots K1
-//                                    holds
+//                                    slot axis in the grid, a cluster of
+//                                    up to 16 CTAs a slot, for every slot
+//                                    a cluster holds (the 512², 1024² and
+//                                    2048² classes): each slot read and
+//                                    written once a quantum, its edge rows
+//                                    through DSMEM, no column computed
+//                                    twice
 //   tiled_kernel<Life, 1,    K9 route 2: K2 with a slot axis in the grid,
-//     R, true>                       for slots beyond K1's shared memory
+//     R, true>                       for slots beyond a cluster
+//
+// The alive count rides the stepping launch: with a counter given, K1,
+// K2, K4 (Gen3), K5 (Gen3) and K6 add the live cells of the words they
+// store (plane 0, the alive plane of Gen3) to one 64-bit counter, and K9
+// to one int32 a slot: a 32-bit sum in each block's shared memory, then
+// one atomicAdd a block (`add_block_count`). The engine counts only a
+// chunk's last launch, so its alive token costs no launch of its own:
+// K3's own launch is floored at a launch's ~1-2 µs on the card and ~20 µs
+// of host (ctypes, the stream, its output), against a bound of
+// nanoseconds at 512². The resident kernels zero their counter in the
+// kernel, before their first barrier; the tiled ones, whose blocks share
+// no barrier, have it zeroed on the stream first. Each launch's driver
+// set-up (shared-memory attributes, the cluster placement check) runs
+// once per kernel and geometry and is kept (`prepare_launch`).
 //   ltl_resident_kernel      K7 <- Larger-than-Life turns of a Moore-box
 //   ltl_tile_kernel                rule on a uint8 torus: the box path of
 //                                  `_conv_sum` and `_ltl_step`, which the
@@ -75,6 +98,10 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <type_traits>
+#include <vector>
 
 namespace {
 
@@ -368,6 +395,27 @@ __host__ __device__ __forceinline__ int slab_start(int rank, int h,
   return (int)((long long)rank * h / ctas);
 }
 
+// The counter a counted launch adds the live cells it stores into: K9's
+// one int32 a slot (`step_program` counts in int32; a 2048² slot holds
+// 2^22 cells), else one 64-bit count for the board (a 65536² board holds
+// 2^32 cells, 131072² 2^34).
+template <bool kBatched>
+using Count = std::conditional_t<kBatched, int, unsigned long long>;
+
+// A counted launch's epilogue: `pop` is this thread's __popc sum over the
+// words it stored. The block sums them in a 32-bit count at `scratch`
+// (shared memory that no thread reads any more, zeroed by `leader` before
+// a barrier that precedes the stores; a block stores under 2^20 cells)
+// and `leader` adds the block's sum to *counter with one atomic: integer
+// atomics, exact in any order.
+template <typename C>
+__device__ __forceinline__ void add_block_count(int* scratch, int pop,
+                                                C* counter, bool leader) {
+  if (pop) atomicAdd(scratch, pop);
+  __syncthreads();
+  if (leader && *scratch) atomicAdd(counter, (C)*scratch);
+}
+
 // K1 (F = Life) and K4 (F = Gen3, Gen4): the board's planes in the shared
 // memory of one cluster of N CTAs (kCluster), or of one CTA, for `turns`
 // turns.
@@ -409,20 +457,26 @@ __host__ __device__ __forceinline__ int slab_start(int rank, int h,
 // rows (the interior split into slots), a lane columns lane, lane +
 // lanes, ... (once when wp <= lanes).
 //
+// The count (`alive` given): after the last turn each CTA counts the
+// live cells of the slab it writes out (plane 0, the alive plane of
+// Gen3), adds them in its shared memory (in the buffer the last turn
+// read, free once the turn's barrier has passed) and adds its sum to the
+// counter (`add_block_count`). Rank 0 zeroes the counter before the
+// barrier that every CTA of its group passes before its first turn, so
+// the launch needs no memset before it: the count of K1's and K4's
+// chunk token (64-bit) and of K9's slots.
+//
 // K9 route 1 (kBatched, F = Life): the same kernel over a (cap, h, wp)
 // batch of slots, each its own torus. The grid holds cap groups of
 // `slot_ctas` CTAs (a cluster each when kCluster); group g steps slot g,
-// whose words start g * h * wp words into `in` and `out`. After the last
-// turn each CTA counts the live cells of the slab it writes out, adds
-// them in its shared memory (in the buffer the last turn read, free once
-// the turn's barrier has passed) and adds its sum to alive[g], which
-// the launch zeroes first: integer atomics, exact in any order.
+// whose words start g * h * wp words into `in` and `out`, and counts
+// into alive[g].
 template <typename F, bool kCluster, bool kBatched = false>
 __global__ void __launch_bounds__(F::kResidentThreads, 1)
 resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                 int h, int wp, long long turns, uint32_t born,
                 uint32_t survive, int lanes, int per,
-                int32_t* __restrict__ alive, int slot_ctas) {
+                Count<kBatched>* __restrict__ alive, int slot_ctas) {
   static_assert(!kBatched || F::kPlanes == 1, "K9 steps one plane");
   extern __shared__ uint32_t smem[];
   const long long board = (long long)h * wp;       // words per board plane
@@ -440,6 +494,7 @@ resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   const int len = slab_start(rank + 1, h, ctas) - a;
   const int plane = ((h + ctas - 1) / ctas) * wp;  // words per slab plane
   const int buf = F::kPlanes * plane;              // words per buffer
+  if (alive != nullptr && rank == 0 && threadIdx.x == 0) alive[group] = 0;
 #pragma unroll
   for (int p = 0; p < F::kPlanes; ++p) {
     const uint32_t* src_in = in + p * board + (long long)a * wp;
@@ -507,113 +562,201 @@ resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     if constexpr (kCluster) cluster_wait();
     src = dst;
   }
-  if constexpr (kBatched) {
-    int* count = reinterpret_cast<int*>(smem + (buf - src));
-    if (threadIdx.x == 0) *count = 0;
+  const bool counted = alive != nullptr;
+  int* scratch = reinterpret_cast<int*>(smem + (buf - src));
+  if (counted) {
+    if (threadIdx.x == 0) *scratch = 0;
     __syncthreads();
-    int pop = 0;
-    uint32_t* dst_out = out + (long long)a * wp;
-    for (int i = threadIdx.x; i < len * wp; i += blockDim.x) {
-      const uint32_t v = smem[src + i];
-      dst_out[i] = v;
-      pop += __popc(v);
-    }
-    if (pop) atomicAdd(count, pop);
-    __syncthreads();
-    if (threadIdx.x == 0 && *count) atomicAdd(alive + group, *count);
-  } else {
+  }
+  int pop = 0;
 #pragma unroll
-    for (int p = 0; p < F::kPlanes; ++p) {
-      uint32_t* dst_out = out + p * board + (long long)a * wp;
-      for (int i = threadIdx.x; i < len * wp; i += blockDim.x) {
-        dst_out[i] = smem[src + p * plane + i];
-      }
+  for (int p = 0; p < F::kPlanes; ++p) {
+    uint32_t* dst_out = out + p * board + (long long)a * wp;
+    for (int i = threadIdx.x; i < len * wp; i += blockDim.x) {
+      const uint32_t v = smem[src + p * plane + i];
+      dst_out[i] = v;
+      if (p == 0) pop += __popc(v);
     }
   }
+  if (counted) {
+    add_block_count(scratch, pop, alive + group, threadIdx.x == 0);
+  }
 }
+
+// The device as the current one, with no driver call when it already is.
+cudaError_t use_device(int device) {
+  int current = -1;
+  if (cudaGetDevice(&current) == cudaSuccess && current == device) {
+    return cudaSuccess;
+  }
+  return cudaSetDevice(device);
+}
+
+// A launch's set-up, kept for the process: the largest dynamic shared
+// memory allowed so far and whether clusters above 8 CTAs are allowed,
+// per (kernel, device); and the (kernel, device, shared memory, cluster
+// size, threads) whose cluster the card was found to place. A launch
+// whose set-up is kept makes none of these driver calls: at a few slots
+// they cost more host time than K9's kernel takes on the card.
+struct KernelAttrs {
+  const void* kernel;
+  int device;
+  size_t smem;
+  bool wide;
+};
+struct PlacedCluster {
+  const void* kernel;
+  int device;
+  size_t smem;
+  int ctas, threads;
+};
+std::mutex g_setup_mu;
+std::vector<KernelAttrs> g_attrs;
+std::vector<PlacedCluster> g_placed;
+
+// Allows `smem` bytes of dynamic shared memory (and, with `ctas` above 8,
+// a non-portable cluster) for `kernel` on `device`; with `cfg`, checks
+// once that the card places the launch's cluster (no fallback when it
+// cannot: cudaErrorLaunchOutOfResources).
+cudaError_t prepare_launch(const void* kernel, int device, size_t smem,
+                           int ctas, int threads,
+                           const cudaLaunchConfig_t* cfg) {
+  std::lock_guard<std::mutex> lock(g_setup_mu);
+  for (const PlacedCluster& p : g_placed) {
+    if (p.kernel == kernel && p.device == device && p.smem == smem &&
+        p.ctas == ctas && p.threads == threads) {
+      return cudaSuccess;
+    }
+  }
+  KernelAttrs* attrs = nullptr;
+  for (KernelAttrs& k : g_attrs) {
+    if (k.kernel == kernel && k.device == device) attrs = &k;
+  }
+  if (attrs == nullptr) {
+    g_attrs.push_back({kernel, device, 0, false});
+    attrs = &g_attrs.back();
+  }
+  cudaError_t e;
+  if (smem > attrs->smem) {  // the attribute is a maximum: only raised
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    attrs->smem = smem;
+  }
+  if (ctas > kPortableClusterCtas && !attrs->wide) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    attrs->wide = true;
+  }
+  if (cfg != nullptr) {
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, cfg);
+    if (e != cudaSuccess) return e;
+    if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  }
+  g_placed.push_back({kernel, device, smem, ctas, threads});
+  return cudaSuccess;
+}
+
+// The configuration of a launch of `blocks` blocks of `threads` threads
+// in clusters of `ctas`, with `smem` bytes of dynamic shared memory a
+// block (not copyable: `cfg` points at `attr`).
+struct ClusterLaunch {
+  cudaLaunchAttribute attr = {};
+  cudaLaunchConfig_t cfg = {};
+  ClusterLaunch(int ctas, int blocks, int threads, size_t smem,
+                cudaStream_t stream) {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = ctas;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+  ClusterLaunch& operator=(const ClusterLaunch&) = delete;
+};
 
 // Launches `slots` groups of `ctas` CTAs (one group when not kBatched).
 template <typename F, bool kCluster, bool kBatched = false>
 cudaError_t launch_resident(const void* in, void* out, int h, int wp,
                             long long turns, unsigned born, unsigned survive,
                             int ctas, int lanes, int threads, int per,
-                            size_t smem, cudaStream_t stream,
-                            int32_t* alive = nullptr, int slots = 1) {
+                            size_t smem, int device, cudaStream_t stream,
+                            Count<kBatched>* alive, int slots) {
   auto kernel = resident_kernel<F, kCluster, kBatched>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const ClusterLaunch launch(ctas, ctas * slots, threads, smem, stream);
+  cudaError_t e = prepare_launch((const void*)kernel, device, smem, ctas,
+                                 threads, &launch.cfg);
   if (e != cudaSuccess) return e;
-  if (ctas > kPortableClusterCtas) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
-  }
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = ctas;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas * slots);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
-  if (e != cudaSuccess) return e;
-  if (clusters < 1) return cudaErrorLaunchOutOfResources;  // no fallback
-  e = cudaLaunchKernelEx(&cfg, kernel, (const uint32_t*)in, (uint32_t*)out,
-                         h, wp, turns, (uint32_t)born, (uint32_t)survive,
-                         lanes, per, alive, ctas);
+  e = cudaLaunchKernelEx(&launch.cfg, kernel, (const uint32_t*)in,
+                         (uint32_t*)out, h, wp, turns, (uint32_t)born,
+                         (uint32_t)survive, lanes, per, alive, ctas);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// K1 or K4 on one cluster of `ctas` CTAs (1..16, at most h), each thread
-// slot walking `per` rows of its slab's interior. Returns
-// cudaErrorInvalidValue for a geometry it does not take and
-// cudaErrorLaunchOutOfResources when the cluster cannot be placed.
-//
-// With kBatched (K9 route 1): `groups` groups of `ctas` CTAs over a
-// (groups, h, wp) batch of slots, adding each slot's live cells into
-// `alive`, which is zeroed on the stream first.
-template <typename F, bool kBatched = false>
-int run_resident(const void* in, void* out, int h, int wp, long long turns,
-                 unsigned born, unsigned survive, int ctas, int per,
-                 int device, void* stream, int32_t* alive = nullptr,
-                 int groups = 1) {
+// The geometry of K1, K4 and K9 route 1 for `ctas` CTAs a board or slot
+// whose thread slots walk `per` rows: the dynamic shared memory of a CTA,
+// its lanes and threads. Returns false for a geometry they do not take.
+template <typename F>
+bool resident_geometry(int h, int wp, int ctas, int per, size_t* smem,
+                       int* lanes, int* threads) {
   if (h < 1 || wp < 1 || ctas < 1 || ctas > kResidentMaxCtas || ctas > h ||
-      per < 1 || groups < 1 || (long long)groups * ctas > 0x7FFFFFFF) {
-    return cudaErrorInvalidValue;
+      per < 1) {
+    return false;
   }
   const int len_max = (h + ctas - 1) / ctas;
-  const size_t smem =
-      2 * F::kPlanes * sizeof(uint32_t) * (size_t)len_max * wp;
+  *smem = 2 * F::kPlanes * sizeof(uint32_t) * (size_t)len_max * wp;
   const int inner = len_max - 2;
   const int thread_slots = 2 + (inner > 0 ? (inner + per - 1) / per : 0);
   constexpr int kThreads = F::kResidentThreads;
-  if (smem > (size_t)kBlockSmemBytes || thread_slots > kThreads) {
+  if (*smem > (size_t)kBlockSmemBytes || thread_slots > kThreads) {
+    return false;
+  }
+  *lanes = wp < kThreads / thread_slots ? wp : kThreads / thread_slots;
+  *threads = *lanes * thread_slots;
+  return true;
+}
+
+// K1 or K4 on one cluster of `ctas` CTAs (1..16, at most h), each thread
+// slot walking `per` rows of its slab's interior; with `alive` given,
+// the live cells of plane 0 of the result added into *alive, which the
+// launch zeroes. Returns cudaErrorInvalidValue for a geometry it does not
+// take and cudaErrorLaunchOutOfResources when the cluster cannot be
+// placed.
+//
+// With kBatched (K9 route 1): `groups` groups of `ctas` CTAs over a
+// (groups, h, wp) batch of slots, each slot's live cells into
+// alive[slot].
+template <typename F, bool kBatched = false>
+int run_resident(const void* in, void* out, int h, int wp, long long turns,
+                 unsigned born, unsigned survive, int ctas, int per,
+                 int device, void* stream, Count<kBatched>* alive = nullptr,
+                 int groups = 1) {
+  size_t smem;
+  int lanes, threads;
+  if (!resident_geometry<F>(h, wp, ctas, per, &smem, &lanes, &threads) ||
+      turns < 1 || groups < 1 || (long long)groups * ctas > 0x7FFFFFFF) {
     return cudaErrorInvalidValue;
   }
-  const int lanes =
-      wp < kThreads / thread_slots ? wp : kThreads / thread_slots;
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
   const cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (kBatched) {
-    e = cudaMemsetAsync(alive, 0, sizeof(int32_t) * (size_t)groups, s);
-    if (e != cudaSuccess) return e;
-  }
   if (ctas == 1) {
     return launch_resident<F, false, kBatched>(
-        in, out, h, wp, turns, born, survive, 1, lanes, lanes * thread_slots,
-        per, smem, s, alive, groups);
+        in, out, h, wp, turns, born, survive, 1, lanes, threads, per, smem,
+        device, s, alive, groups);
   }
   return launch_resident<F, true, kBatched>(
-      in, out, h, wp, turns, born, survive, ctas, lanes,
-      lanes * thread_slots, per, smem, s, alive, groups);
+      in, out, h, wp, turns, born, survive, ctas, lanes, threads, per, smem,
+      device, s, alive, groups);
 }
 
 // Blocks of a tiled sweep that share one SM at its deepest sweep.
@@ -644,19 +787,23 @@ constexpr int tiled_blocks_per_sm(int planes, int halo, int rows) {
 // height R sets how many blocks fill the 132 SMs and how much of each
 // window is margin ((R + t - 1) / R of the useful rows).
 //
+// The count (`alive` given: the last sweep of a chunk or a quantum):
+// each block counts the live cells of the words it writes (plane 0, the
+// alive plane of Gen3), adds them in shared memory (in the buffer the
+// last turn read) and adds its sum to the counter (`add_block_count`),
+// which the entry point zeroes on the stream before the launch: the
+// blocks share no barrier that could order a zeroing in the kernel.
+//
 // K9 route 2 (kBatched, F = Life, kHalo = 1): the grid's z axis is the
 // slot of a (cap, h, wp) batch, each slot its own torus, whose words
-// start z * h * wp words into `in` and `out`. With `alive` given (the
-// last sweep of a quantum) each block counts the live cells of the words
-// it writes, adds them in shared memory (in the buffer the last turn
-// read) and adds its sum to alive[z], zeroed by the launch.
+// start z * h * wp words into `in` and `out`, counted into alive[z].
 template <typename F, int kHalo, int kRows, bool kBatched = false>
 __global__ void __launch_bounds__(kWinWords * kTileSegments,
                                   tiled_blocks_per_sm(F::kPlanes, kHalo,
                                                       kRows))
 tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
              int h, int wp, int t, uint32_t born, uint32_t survive,
-             int32_t* __restrict__ alive) {
+             Count<kBatched>* __restrict__ alive) {
   static_assert(!kBatched || F::kPlanes == 1, "K9 steps one plane");
   constexpr int kWords = kWinWords - 2 * kHalo;
   constexpr int kRowWords = F::kPlanes * kWinWords;
@@ -704,54 +851,46 @@ tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     src = done;
   }
   const int gw = c0 + col - kHalo;
-  if constexpr (kBatched) {
-    if (alive != nullptr) {
-      int* count = reinterpret_cast<int*>(dst);
-      if (col == 0 && seg == 0) *count = 0;
-      __syncthreads();
-      int pop = 0;
-      if (col >= kHalo && col < kHalo + kWords && gw < wp) {
-        for (int i = seg; i < kRows && r0 + i < h; i += kTileSegments) {
-          const uint32_t v = src[(t + i) * kRowWords + col];
-          out[(long long)(r0 + i) * wp + gw] = v;
-          pop += __popc(v);
-        }
-      }
-      if (pop) atomicAdd(count, pop);
-      __syncthreads();
-      if (col == 0 && seg == 0 && *count) {
-        atomicAdd(alive + blockIdx.z, *count);
-      }
-      return;
-    }
+  const bool counted = alive != nullptr;
+  int* scratch = reinterpret_cast<int*>(dst);  // the buffer last read
+  if (counted) {
+    if (col == 0 && seg == 0) *scratch = 0;
+    __syncthreads();
   }
+  int pop = 0;
   if (col >= kHalo && col < kHalo + kWords && gw < wp) {
     for (int i = seg; i < kRows && r0 + i < h; i += kTileSegments) {
       const long long o = (long long)(r0 + i) * wp + gw;
 #pragma unroll
       for (int p = 0; p < F::kPlanes; ++p) {
-        out[p * board + o] = src[(t + i) * kRowWords + p * kWinWords + col];
+        const uint32_t v = src[(t + i) * kRowWords + p * kWinWords + col];
+        out[p * board + o] = v;
+        if (p == 0) pop += __popc(v);
       }
     }
   }
+  if (counted) {
+    add_block_count(scratch, pop, alive + (kBatched ? blockIdx.z : 0),
+                    col == 0 && seg == 0);
+  }
 }
 
-// With kBatched (K9 route 2): `slots` slots in the grid's z axis, and
-// `alive` (when given) zeroed on the stream first.
+// `alive` (when given) is zeroed on the stream first: `slots` counters
+// with kBatched (K9 route 2, the slots in the grid's z axis), else one.
 template <typename F, int kHalo, int kRows, bool kBatched = false>
 cudaError_t launch_tiled(const void* in, void* out, int h, int wp, int t,
-                         unsigned born, unsigned survive,
-                         cudaStream_t stream, int32_t* alive = nullptr,
-                         int slots = 1) {
+                         unsigned born, unsigned survive, int device,
+                         cudaStream_t stream,
+                         Count<kBatched>* alive = nullptr, int slots = 1) {
   constexpr int kWords = kWinWords - 2 * kHalo;
   const size_t smem = 2 * F::kPlanes * sizeof(uint32_t) *
                       (size_t)(kRows + 2 * t) * kWinWords;
-  cudaError_t e = cudaFuncSetAttribute(
-      tiled_kernel<F, kHalo, kRows, kBatched>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = prepare_launch(
+      (const void*)tiled_kernel<F, kHalo, kRows, kBatched>, device, smem, 1,
+      kWinWords * kTileSegments, nullptr);
   if (e != cudaSuccess) return e;
   if (alive != nullptr) {
-    e = cudaMemsetAsync(alive, 0, sizeof(int32_t) * (size_t)slots, stream);
+    e = cudaMemsetAsync(alive, 0, sizeof(*alive) * (size_t)slots, stream);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((wp + kWords - 1) / kWords, (h + kRows - 1) / kRows,
@@ -766,14 +905,15 @@ cudaError_t launch_tiled(const void* in, void* out, int h, int wp, int t,
 template <typename F>
 cudaError_t launch_tiled2p(const void* in, void* out, int h, int wp, int t,
                            int rows, unsigned born, unsigned survive,
-                           cudaStream_t stream) {
+                           int device, cudaStream_t stream,
+                           unsigned long long* count) {
   switch (rows) {
     case kTile2pRowChoices[0]:
-      return launch_tiled<F, 1, kTile2pRowChoices[0]>(in, out, h, wp, t,
-                                                      born, survive, stream);
+      return launch_tiled<F, 1, kTile2pRowChoices[0]>(
+          in, out, h, wp, t, born, survive, device, stream, count);
     case kTile2pRowChoices[1]:
-      return launch_tiled<F, 1, kTile2pRowChoices[1]>(in, out, h, wp, t,
-                                                      born, survive, stream);
+      return launch_tiled<F, 1, kTile2pRowChoices[1]>(
+          in, out, h, wp, t, born, survive, device, stream, count);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1527,30 +1667,37 @@ int gol_tile_geometry(int* max_t, int* words, int* rows, int cap) {
   return n;
 }
 
+// Every stepping entry point below takes `count`: null, or one 64-bit
+// counter (K9: one int32 a slot) that the launch sets to the live cells
+// of its result (plane 0 for the two-plane families; not taken for
+// family 4, whose plane 0 is not the alive plane).
+
 // K1 on one cluster of `ctas` CTAs (1..16, at most h), each thread slot
 // walking `per` rows of its slab's interior.
-int gol_resident_run_turns(const void* in, void* out, int h, int wp,
-                           long long turns, unsigned born, unsigned survive,
-                           int ctas, int per, int device, void* stream) {
+int gol_resident_run_turns(const void* in, void* out, void* count, int h,
+                           int wp, long long turns, unsigned born,
+                           unsigned survive, int ctas, int per, int device,
+                           void* stream) {
   return run_resident<Life>(in, out, h, wp, turns, born, survive, ctas, per,
-                            device, stream);
+                            device, stream, (unsigned long long*)count);
 }
 
 // K2 at `rows` output rows per tile, one of kTileRowChoices.
-int gol_tiled_sweep(const void* in, void* out, int h, int wp, int t,
-                    int rows, unsigned born, unsigned survive, int device,
-                    void* stream) {
+int gol_tiled_sweep(const void* in, void* out, void* count, int h, int wp,
+                    int t, int rows, unsigned born, unsigned survive,
+                    int device, void* stream) {
   if (t < 1 || t > kTileMaxT) return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
   const cudaStream_t s = (cudaStream_t)stream;
+  unsigned long long* c = (unsigned long long*)count;
   switch (rows) {
     case kTileRowChoices[0]:
-      return launch_tiled<Life, 1, kTileRowChoices[0]>(in, out, h, wp, t,
-                                                       born, survive, s);
+      return launch_tiled<Life, 1, kTileRowChoices[0]>(
+          in, out, h, wp, t, born, survive, device, s, c);
     case kTileRowChoices[1]:
-      return launch_tiled<Life, 1, kTileRowChoices[1]>(in, out, h, wp, t,
-                                                       born, survive, s);
+      return launch_tiled<Life, 1, kTileRowChoices[1]>(
+          in, out, h, wp, t, born, survive, device, s, c);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1563,14 +1710,15 @@ int gol_deep_geometry(int* max_t, int* rows, int* words) {
   return 0;
 }
 
-int gol_tiled_sweep_deep(const void* in, void* out, int h, int wp, int t,
-                         unsigned born, unsigned survive, int device,
-                         void* stream) {
+int gol_tiled_sweep_deep(const void* in, void* out, void* count, int h,
+                         int wp, int t, unsigned born, unsigned survive,
+                         int device, void* stream) {
   if (t < 1 || t > kDeepMaxT) return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
   return launch_tiled<Life, 2, kDeepRows>(in, out, h, wp, t, born, survive,
-                                          (cudaStream_t)stream);
+                                          device, (cudaStream_t)stream,
+                                          (unsigned long long*)count);
 }
 
 // K5's row choices (at most `cap` written to `rows`); returns how many
@@ -1583,15 +1731,16 @@ int gol_tile2p_rows(int* rows, int cap) {
 
 // K4, family 3 (alive, dying planes) or 4 (binary-encoded planes), on one
 // cluster of `ctas` CTAs whose thread slots walk `per` rows, as K1.
-int gol_resident_run_turns2p(const void* in, void* out, int h, int wp,
-                             long long turns, unsigned born,
+int gol_resident_run_turns2p(const void* in, void* out, void* count, int h,
+                             int wp, long long turns, unsigned born,
                              unsigned survive, int family, int ctas, int per,
                              int device, void* stream) {
   if (family == 3) {
     return run_resident<Gen3>(in, out, h, wp, turns, born, survive, ctas,
-                              per, device, stream);
+                              per, device, stream,
+                              (unsigned long long*)count);
   }
-  if (family == 4) {
+  if (family == 4 && count == nullptr) {
     return run_resident<Gen4>(in, out, h, wp, turns, born, survive, ctas,
                               per, device, stream);
   }
@@ -1599,18 +1748,21 @@ int gol_resident_run_turns2p(const void* in, void* out, int h, int wp,
 }
 
 // K5 at `rows` output rows per tile, one of kTile2pRowChoices.
-int gol_tiled_sweep2p(const void* in, void* out, int h, int wp, int t,
-                      int rows, unsigned born, unsigned survive, int family,
-                      int device, void* stream) {
+int gol_tiled_sweep2p(const void* in, void* out, void* count, int h, int wp,
+                      int t, int rows, unsigned born, unsigned survive,
+                      int family, int device, void* stream) {
   if (t < 1 || t > kTileMaxT) return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
   const cudaStream_t s = (cudaStream_t)stream;
+  unsigned long long* c = (unsigned long long*)count;
   if (family == 3) {
-    return launch_tiled2p<Gen3>(in, out, h, wp, t, rows, born, survive, s);
+    return launch_tiled2p<Gen3>(in, out, h, wp, t, rows, born, survive,
+                                device, s, c);
   }
-  if (family == 4) {
-    return launch_tiled2p<Gen4>(in, out, h, wp, t, rows, born, survive, s);
+  if (family == 4 && c == nullptr) {
+    return launch_tiled2p<Gen4>(in, out, h, wp, t, rows, born, survive,
+                                device, s, nullptr);
   }
   return cudaErrorInvalidValue;
 }
@@ -1618,14 +1770,39 @@ int gol_tiled_sweep2p(const void* in, void* out, int h, int wp, int t,
 // K9 route 1: `turns` turns of every slot of a (slots, h, wp) batch in
 // one launch of `slots` groups of `ctas` CTAs (a cluster each above 1),
 // thread slots walking `per` rows as K1's; alive[slot] gets each slot's
-// live cells.
+// live cells (zeroed by the launch itself).
 int gol_fleet_resident(const void* in, void* out, void* alive, int slots,
                        int h, int wp, long long turns, unsigned born,
                        unsigned survive, int ctas, int per, int device,
                        void* stream) {
+  if (alive == nullptr) return cudaErrorInvalidValue;
   return run_resident<Life, true>(in, out, h, wp, turns, born, survive,
-                                  ctas, per, device, stream,
-                                  (int32_t*)alive, slots);
+                                  ctas, per, device, stream, (int*)alive,
+                                  slots);
+}
+
+// How many of K9 route 1's slot groups (clusters of `ctas` CTAs) the card
+// holds at once for (h, wp) slots at `per` rows a thread slot, or minus a
+// CUDA error code.
+int gol_fleet_resident_clusters(int h, int wp, int ctas, int per,
+                                int device) {
+  size_t smem;
+  int lanes, threads;
+  if (!resident_geometry<Life>(h, wp, ctas, per, &smem, &lanes, &threads)) {
+    return -(int)cudaErrorInvalidValue;
+  }
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return -(int)e;
+  auto kernel = ctas == 1 ? resident_kernel<Life, false, true>
+                          : resident_kernel<Life, true, true>;
+  const ClusterLaunch launch(ctas, ctas, threads, smem, nullptr);
+  e = prepare_launch((const void*)kernel, device, smem, ctas, threads,
+                     &launch.cfg);
+  if (e != cudaSuccess) return -(int)e;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel,
+                                     &launch.cfg);
+  return e == cudaSuccess ? clusters : -(int)e;
 }
 
 // K9 route 2: one sweep of t (1..32) turns of every slot of a (slots, h,
@@ -1638,17 +1815,17 @@ int gol_fleet_tiled_sweep(const void* in, void* out, void* alive, int slots,
   if (t < 1 || t > kTileMaxT || slots < 1 || slots > 65535) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
   const cudaStream_t s = (cudaStream_t)stream;
-  int32_t* a = (int32_t*)alive;
+  int* a = (int*)alive;
   switch (rows) {
     case kTileRowChoices[0]:
       return launch_tiled<Life, 1, kTileRowChoices[0], true>(
-          in, out, h, wp, t, born, survive, s, a, slots);
+          in, out, h, wp, t, born, survive, device, s, a, slots);
     case kTileRowChoices[1]:
       return launch_tiled<Life, 1, kTileRowChoices[1], true>(
-          in, out, h, wp, t, born, survive, s, a, slots);
+          in, out, h, wp, t, born, survive, device, s, a, slots);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1656,7 +1833,7 @@ int gol_fleet_tiled_sweep(const void* in, void* out, void* alive, int slots,
 
 int gol_row_popcounts(const void* in, void* out, int h, int wp, int device,
                       void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
   const int rows_per_block = kPopcountThreads / 32;
   const int blocks = (h + rows_per_block - 1) / rows_per_block;

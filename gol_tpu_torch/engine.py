@@ -22,12 +22,14 @@ Chunks are powers of two, sized so one chunk takes about
 CHUNK_TARGET_SECONDS, and up to PIPELINE_DEPTH chunks are in flight on
 the device's stream. Each chunk ends with its completion token, the alive
 count (for Generations, the firing count: cells in state 1; for Lenia,
-cells above `ALIVE_THRESHOLD`): per-row counts (int32, K3 on the card for
-packed words) summed in int64 on the device and copied
+cells above `ALIVE_THRESHOLD`) as one int64 on the device, copied
 without blocking into pinned host memory, with a CUDA event recorded
-after the copy. Popping the oldest chunk waits on its
-event alone and publishes its exact (alive, turn) pair, which
-`alive_count` then returns without touching the device.
+after the copy. For `packed` boards and `gen3` planes the chunk's last
+stepping launch counts it (`count=` of the run functions: no launch of
+its own); the other reprs sum per-row int32 counts in int64 with torch.
+Popping the oldest chunk waits on its event alone and publishes its
+exact (alive, turn) pair, which `alive_count` then returns without
+touching the device.
 
 `GOL_FUSE_K`, read at each submit, pins the temporal-fusion depth of
 packed and gen3 boards (`ops/fused.py`); chunk sizes stay powers of two,
@@ -185,11 +187,16 @@ def _or_rows(words: torch.Tensor, f: int) -> torch.Tensor:
     return band
 
 
+# Reprs whose run functions count the chunk's result in its last
+# stepping launch (`count=`).
+COUNTED_REPRS = ("packed", "gen3")
+
+
 def _firing_row_counts(cells: torch.Tensor, repr_: str) -> torch.Tensor:
     """(H,) int32 per-row counts of the firing population, per repr:
-    K3 popcounts for `packed` and for `gen3`'s alive plane, state == 1
-    for `gen8`, cells above `ALIVE_THRESHOLD` for `f32`, sums for {0,1}
-    `u8`."""
+    K3 popcounts for `packed` and for `gen3`'s alive plane (a board no
+    chunk just counted: a restore), state == 1 for `gen8`, cells above
+    `ALIVE_THRESHOLD` for `f32`, sums for {0,1} `u8`."""
     if repr_ == "packed":
         return row_popcounts(cells)
     if repr_ == "gen3":
@@ -465,11 +472,16 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
     def _chunk(self, run, cells: torch.Tensor, k: int):
         """Issue one chunk and its alive token; returns (cells, host
         count, event). On the CPU the count is ready and event is None."""
-        out = run(cells, k, self._rule)
-        total = _firing_row_counts(out, self._repr).sum(dtype=torch.int64)
+        if self._repr in COUNTED_REPRS:
+            total = torch.empty(1, dtype=torch.int64, device=cells.device)
+            out = run(cells, k, self._rule, count=total)
+        else:
+            out = run(cells, k, self._rule)
+            total = _firing_row_counts(out, self._repr).sum(
+                dtype=torch.int64)
         if self._device.type != "cuda":
             return out, total, None
-        host = torch.empty((), dtype=torch.int64, pin_memory=True)
+        host = torch.empty(total.shape, dtype=torch.int64, pin_memory=True)
         host.copy_(total, non_blocking=True)
         event = torch.cuda.Event()
         event.record()

@@ -50,18 +50,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gol_error_string.restype = ctypes.c_char_p
     lib.gol_tile_geometry.argtypes = [ip, ip, ip, i]
     lib.gol_tile_geometry.restype = i
-    lib.gol_resident_run_turns.argtypes = [vp, vp, i, i, ll, u, u, i, i, i,
-                                           vp]
+    lib.gol_resident_run_turns.argtypes = [vp, vp, vp, i, i, ll, u, u, i,
+                                           i, i, vp]
     lib.gol_resident_run_turns.restype = i
-    lib.gol_tiled_sweep.argtypes = [vp, vp, i, i, i, i, u, u, i, vp]
+    lib.gol_tiled_sweep.argtypes = [vp, vp, vp, i, i, i, i, u, u, i, vp]
     lib.gol_tiled_sweep.restype = i
     lib.gol_deep_geometry.argtypes = [ip, ip, ip]
     lib.gol_deep_geometry.restype = i
-    lib.gol_tiled_sweep_deep.argtypes = [vp, vp, i, i, i, u, u, i, vp]
+    lib.gol_tiled_sweep_deep.argtypes = [vp, vp, vp, i, i, i, u, u, i, vp]
     lib.gol_tiled_sweep_deep.restype = i
     lib.gol_fleet_resident.argtypes = [vp, vp, vp, i, i, i, ll, u, u, i, i,
                                        i, vp]
     lib.gol_fleet_resident.restype = i
+    lib.gol_fleet_resident_clusters.argtypes = [i, i, i, i, i]
+    lib.gol_fleet_resident_clusters.restype = i
     lib.gol_fleet_tiled_sweep.argtypes = [vp, vp, vp, i, i, i, i, i, u, u,
                                           i, vp]
     lib.gol_fleet_tiled_sweep.restype = i
@@ -69,10 +71,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gol_row_popcounts.restype = i
     lib.gol_tile2p_rows.argtypes = [ip, i]
     lib.gol_tile2p_rows.restype = i
-    lib.gol_resident_run_turns2p.argtypes = [vp, vp, i, i, ll, u, u, i, i,
-                                             i, i, vp]
+    lib.gol_resident_run_turns2p.argtypes = [vp, vp, vp, i, i, ll, u, u, i,
+                                             i, i, i, vp]
     lib.gol_resident_run_turns2p.restype = i
-    lib.gol_tiled_sweep2p.argtypes = [vp, vp, i, i, i, i, u, u, i, i, vp]
+    lib.gol_tiled_sweep2p.argtypes = [vp, vp, vp, i, i, i, i, u, u, i, i,
+                                      vp]
     lib.gol_tiled_sweep2p.restype = i
     lib.gol_window_occupancy.argtypes = [vp, vp, i, i, i, vp]
     lib.gol_window_occupancy.restype = i

@@ -54,9 +54,24 @@ depth is at most 32 and on K6 beyond; every depth 1..64 is legal, so the
 TPU's remainder fallbacks (the VMEM kernel, the jnp trim scan) have no
 counterpart.
 
+The engine's alive token rides the stepping launch: K1, K2, K6, K4 and
+K5 take `count=`, one int64 on the board's device, which the launch sets
+to the live cells of the words it stores (plane 0, gen3's alive plane):
+a 32-bit `__popc` sum in each block's shared memory, then one 64-bit
+atomic a block (a 65536² board holds 2^32 cells). The run functions
+(`banded_run_turns`, `fused_banded_run_turns`, `banded_run_turns2p`)
+count in their last sweep. Their plain versions fill it with
+`row_popcounts_plain(out).sum()`. On the CPU the count is ready when
+the call returns; gen4 takes none (its plane 0 is not alive).
+
 K3 `row_popcounts` counts live cells per row with `__popc` (one warp per
-row) for the engine's alive token; the JAX package leaves that reduction
-to XLA (`engine.py:158-160`). Bound: one read of the board at 3.35 TB/s.
+row); the JAX package leaves that reduction to XLA
+(`engine.py:158-160`). The engine's chunks no longer call it: a
+standalone launch is floored at ~1-2 µs on the card and ~20 µs of host
+(ctypes, the stream, its output) against a bound of nanoseconds below
+5120², so the count moved into the stepping launch. K3 serves the counts
+of boards no chunk just stepped (a restore, `GenerationsTorus`). Bound:
+one read of the board at 3.35 TB/s.
 
 K4 `resident_run_turns2p` and K5 `tiled_sweep2p` (driven by
 `banded_run_turns2p`) replace `pallas_packed_run_turns3`
@@ -98,19 +113,30 @@ packed batch, each slot its own torus, and each slot's popcount as int32
 call steps every slot, so a serving quantum costs one wrapper's host time
 whatever the bucket's capacity (a loop of K1 calls over 512 slots would
 pay it 512 times). Two routes, chosen from the shape alone
-(`fleet_run_kind`, as `packed_run_kind` splits K1 and K2): route 1, for
-slots K1 holds, is K1 with a slot axis in the grid, `fleet_resident_ctas`
-CTAs a slot (K1's cluster for the slot's shape, halved while the batch's
-CTAs would outnumber the card's SMs: one CTA a slot from 132 slots up);
-route 2, for the 1024² and 2048² classes, is K2's sweep with the slot in
-the grid's z axis, one sweep per 32 turns, at `fleet_tile_rows` (K2's
-rule counted over the batch's blocks). Each counts the live cells it
-writes after its last turn and adds them to the slot's count with
-integer atomics, exact in any order; the fleet quarantines a slot whose
-count lies outside [0, hb x wb]. Bound: the ops, 30 per word and turn,
-against 8 bytes a word per launch. Its plain version,
-`fleet_run_turns_plain`, follows each route's decomposition on the batch
-axis.
+(`fleet_run_kind`): route 1 is K1 with a slot axis in the grid, for
+every slot whose two buffers fit a cluster of at most 16 CTAs
+(`fleet_slot_ctas`: the 512², 1024² and 2048² classes). Each slot is
+read and written once a quantum, its slabs' edge rows go through DSMEM,
+and no column is computed twice; route 2 at 1024² and 2048² computed
+64-word windows for 32- and 64-word slots, about twice the useful work.
+`fleet_resident_ctas` gives a slot K1's cluster for its shape, halved
+while the batch's CTAs would outnumber the card's SMs, but never below
+the fewest that hold the slot (1 at 512², 2 at 1024², 8 at 2048²); slots
+need not run at once, so a larger batch runs in waves (the card places 7
+clusters of 16 whole-SM CTAs at once: 8 slots of 2048² take two).
+Route 2, for slots beyond a cluster (4096² up; `kind="tiled"` pins it),
+is K2's sweep with the slot in the grid's z axis, one sweep per 32
+turns, at `fleet_tile_rows` (K2's rule counted over the batch's blocks).
+Each counts the live cells it writes after its last turn and adds them
+to the slot's int32 with integer atomics, exact in any order; route 1's
+groups zero their own count before their first barrier, route 2's is
+zeroed on the stream. A quantum's launch repeats no set-up once its
+geometry was seen: `cudaFuncSetAttribute` and the cluster placement
+check are kept per kernel and geometry in the library, and the Python
+geometry per batch shape (`_fleet_geometry`). The fleet quarantines a slot whose count lies
+outside [0, hb x wb]. Bound: the ops, 30 per word and turn, against 8
+bytes a word per launch. Its plain version, `fleet_run_turns_plain`,
+follows each route's decomposition on the batch axis.
 
 No single PyTorch call computes a packed life-like or Generations step,
 so no library call stands beside K1, K2, K4, K5, K6 or K9.
@@ -330,6 +356,41 @@ def _library():
     return lib
 
 
+@functools.lru_cache(maxsize=64)
+def _masks(rule) -> tuple:
+    """The rule's (born, survive) masks, once per rule."""
+    return rule.masks()
+
+
+def _check_count(count, words: torch.Tensor, num_turns: int,
+                 what: str) -> None:
+    """Raise unless `count` is None or a one-element int64 tensor on the
+    board's device, given with at least one turn to ride on."""
+    if count is None:
+        return
+    if (count.dtype != torch.int64 or count.numel() != 1
+            or count.device != words.device or not count.is_contiguous()):
+        raise ValueError(f"{what}: count= wants a one-element int64 tensor "
+                         f"on {words.device}, got {count.dtype} "
+                         f"{tuple(count.shape)} on {count.device}")
+    if num_turns < 1:
+        raise ValueError(f"{what}: count= rides a launch; {num_turns} "
+                         "turns launch none")
+
+
+def _count_plain(count, words: torch.Tensor) -> None:
+    """The counted launch's plain version: the live cells of an (H, Wp)
+    board, or of plane 0 of stacked planes, into `count`."""
+    if count is not None:
+        plane = words[0] if words.dim() == 3 else words
+        count.copy_(row_popcounts_plain(plane).sum(
+            dtype=torch.int64).reshape(count.shape))
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 def _kernel_args(words: torch.Tensor, what: str, planes: bool = False):
     """Validate a CUDA words tensor, (H, Wp) or with `planes` a stacked
     (2, H, Wp) pair; return (lib, h, wp, device, stream)."""
@@ -462,10 +523,14 @@ def _cluster_failed(what: str, lib, rc: int, ctas: int, h: int,
 def resident_run_turns(words: torch.Tensor, num_turns: int,
                        rule: LifeLikeRule = CONWAY, *,
                        ctas: int | None = None,
-                       per: int | None = None) -> torch.Tensor:
+                       per: int | None = None,
+                       count: torch.Tensor | None = None) -> torch.Tensor:
     """Advance an (H, Wp) packed board that fits `RESIDENT_BOARD_BYTES`
     `num_turns` turns in one launch of K1, on a cluster of `ctas` CTAs
-    whose threads walk `per` rows (by default the shape's policy)."""
+    whose threads walk `per` rows (by default the shape's policy). With
+    `count` (one int64 on the board's device) the launch also sets it to
+    the result's live cells."""
+    _check_count(count, words, num_turns, "resident_run_turns")
     if num_turns == 0:
         return words
     h, wp = words.shape[-2:]
@@ -475,16 +540,18 @@ def resident_run_turns(words: torch.Tensor, num_turns: int,
         per = resident_rows_per_thread(h, wp, ctas)
     _check_resident_geometry(h, ctas, per)
     if words.device.type == "cpu":
-        return resident_run_turns_plain(words, num_turns, rule, ctas)
+        out = resident_run_turns_plain(words, num_turns, rule, ctas)
+        _count_plain(count, out)
+        return out
     lib, h, wp, dev, stream = _kernel_args(words, "resident_run_turns")
     if not fits_resident(words.shape):
         raise ValueError(f"resident_run_turns: board {h}x{wp} words "
                          f"exceeds {RESIDENT_BOARD_BYTES} bytes")
     out = torch.empty_like(words)
-    born, survive = rule.masks()
+    born, survive = _masks(rule)
     rc = lib.gol_resident_run_turns(
-        words.data_ptr(), out.data_ptr(), h, wp, num_turns, born, survive,
-        ctas, per, dev, stream)
+        words.data_ptr(), out.data_ptr(), _ptr(count), h, wp, num_turns,
+        born, survive, ctas, per, dev, stream)
     if rc:
         raise _cluster_failed("resident_run_turns", lib, rc, ctas, h, wp)
     resident_run_turns.launches += 1
@@ -583,24 +650,28 @@ def _sweep_launch_args(what: str, words_in: torch.Tensor,
 
 def tiled_sweep(words_in: torch.Tensor, words_out: torch.Tensor, t: int,
                 rule: LifeLikeRule = CONWAY, *,
-                rows: int | None = None) -> None:
+                rows: int | None = None,
+                count: torch.Tensor | None = None) -> None:
     """Advance `words_in` t (1..32) turns into `words_out` in one K2
-    sweep of R-row tiles (R = `tile_rows`'s unless `rows` is given)."""
+    sweep of R-row tiles (R = `tile_rows`'s unless `rows` is given); with
+    `count`, also its live cells (as `resident_run_turns`)."""
     _check_sweep("tiled_sweep", words_in, words_out, t, TILE_MAX_T)
+    _check_count(count, words_in, t, "tiled_sweep")
     if rows is not None and rows not in TILE_ROW_CHOICES:
         raise ValueError(f"tiled_sweep: {rows} rows per tile not in "
                          f"{TILE_ROW_CHOICES}")
     if words_in.device.type == "cpu":
         words_out.copy_(tiled_sweep_plain(words_in, t, rule, rows))
+        _count_plain(count, words_out)
         return
     if rows is None:
         rows = tile_rows(*words_in.shape)
     lib, h, wp, dev, stream = _sweep_launch_args(
         "tiled_sweep", words_in, words_out, rows)
-    born, survive = rule.masks()
+    born, survive = _masks(rule)
     _build.check(lib.gol_tiled_sweep(
-        words_in.data_ptr(), words_out.data_ptr(), h, wp, t, rows, born,
-        survive, dev, stream), "tiled_sweep")
+        words_in.data_ptr(), words_out.data_ptr(), _ptr(count), h, wp, t,
+        rows, born, survive, dev, stream), "tiled_sweep")
     tiled_sweep.launches += 1
 
 
@@ -608,19 +679,22 @@ tiled_sweep.launches = 0
 
 
 def tiled_sweep_deep(words_in: torch.Tensor, words_out: torch.Tensor,
-                     t: int, rule: LifeLikeRule = CONWAY) -> None:
+                     t: int, rule: LifeLikeRule = CONWAY, *,
+                     count: torch.Tensor | None = None) -> None:
     """Advance `words_in` t (1..64) turns into `words_out` in one K6
-    sweep."""
+    sweep; with `count`, also its live cells."""
     _check_sweep("tiled_sweep_deep", words_in, words_out, t, DEEP_MAX_T)
+    _check_count(count, words_in, t, "tiled_sweep_deep")
     if words_in.device.type == "cpu":
         words_out.copy_(tiled_sweep_deep_plain(words_in, t, rule))
+        _count_plain(count, words_out)
         return
     lib, h, wp, dev, stream = _sweep_launch_args(
         "tiled_sweep_deep", words_in, words_out, DEEP_ROWS)
-    born, survive = rule.masks()
+    born, survive = _masks(rule)
     _build.check(lib.gol_tiled_sweep_deep(
-        words_in.data_ptr(), words_out.data_ptr(), h, wp, t, born, survive,
-        dev, stream), "tiled_sweep_deep")
+        words_in.data_ptr(), words_out.data_ptr(), _ptr(count), h, wp, t,
+        born, survive, dev, stream), "tiled_sweep_deep")
     tiled_sweep_deep.launches += 1
 
 
@@ -633,38 +707,55 @@ def sweep_depths(num_turns: int, depth: int) -> list:
     return [depth] * full + ([rem] if rem else [])
 
 
-def _run_sweeps(words: torch.Tensor, depths, rule) -> torch.Tensor:
-    """One sweep per depth, on K2 up to 32 and on K6 beyond, alternating
-    between two fresh buffers; the input is never written."""
+def _run_sweeps(words: torch.Tensor, depths, sweep, count, *args
+                ) -> torch.Tensor:
+    """One `sweep(src, dst, depth, *args)` per depth, alternating between
+    two fresh buffers, the last one counting into `count`; the input is
+    never written."""
     bufs = []
     src = words
     for i, depth in enumerate(depths):
         if len(bufs) < 2:
             bufs.append(torch.empty_like(words))
         dst = bufs[i % 2]
-        sweep = tiled_sweep if depth <= TILE_MAX_T else tiled_sweep_deep
-        sweep(src, dst, depth, rule)
+        last = i == len(depths) - 1
+        sweep(src, dst, depth, *args, count=count if last else None)
         src = dst
     return src
 
 
+def _sweep_k2_k6(words_in, words_out, depth, rule, *, count=None) -> None:
+    """One sweep on K2 up to depth 32, on K6 beyond."""
+    sweep = tiled_sweep if depth <= TILE_MAX_T else tiled_sweep_deep
+    sweep(words_in, words_out, depth, rule, count=count)
+
+
 def banded_run_turns(words: torch.Tensor, num_turns: int,
-                     rule: LifeLikeRule = CONWAY) -> torch.Tensor:
+                     rule: LifeLikeRule = CONWAY, *,
+                     count: torch.Tensor | None = None) -> torch.Tensor:
     """Advance a packed board `num_turns` turns by K2 sweeps:
-    floor(K/32) at depth 32, then one at depth K mod 32."""
-    return _run_sweeps(words, sweep_depths(num_turns, TILE_MAX_T), rule)
+    floor(K/32) at depth 32, then one at depth K mod 32; with `count`,
+    the last sweep also counts the result's live cells into it."""
+    _check_count(count, words, num_turns, "banded_run_turns")
+    return _run_sweeps(words, sweep_depths(num_turns, TILE_MAX_T),
+                       _sweep_k2_k6, count, rule)
 
 
 def fused_banded_run_turns(words: torch.Tensor, num_turns: int, fuse: int,
-                           rule: LifeLikeRule = CONWAY) -> torch.Tensor:
+                           rule: LifeLikeRule = CONWAY, *,
+                           count: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """Advance a packed board `num_turns` turns by `fuse`-deep sweeps:
     floor(n/k) at depth k, then one at depth n mod k; depths up to 32 run
-    on K2, deeper ones on K6. Every depth 1..64 (`MAX_FUSE_K` of
-    ops/fused.py) is legal on every shape: the TPU's 8-row alignment of
-    the depth and 128-lane alignment of the words have no counterpart."""
+    on K2, deeper ones on K6, and the last one counts into `count` when
+    given. Every depth 1..64 (`MAX_FUSE_K` of ops/fused.py) is legal on
+    every shape: the TPU's 8-row alignment of the depth and 128-lane
+    alignment of the words have no counterpart."""
     if not 1 <= fuse <= DEEP_MAX_T:
         raise ValueError(f"fuse depth {fuse} not in 1..{DEEP_MAX_T}")
-    return _run_sweeps(words, sweep_depths(num_turns, fuse), rule)
+    _check_count(count, words, num_turns, "fused_banded_run_turns")
+    return _run_sweeps(words, sweep_depths(num_turns, fuse), _sweep_k2_k6,
+                       count, rule)
 
 
 # ------------------------------------------------------------------- K3
@@ -737,14 +828,26 @@ def resident_run_turns2p_plain(planes: torch.Tensor, num_turns: int, rule,
                        lambda p: _step2p_shared_sums(p, rule, family), ctas)
 
 
+def _check_count2p(count, planes, num_turns: int, family: str,
+                   what: str) -> None:
+    """`_check_count`, and gen3 only: plane 0 is its alive plane, not
+    gen4's."""
+    _check_count(count, planes, num_turns, what)
+    if count is not None and family != "gen3":
+        raise ValueError(f"{what}: count= counts gen3's alive plane; "
+                         f"{family}'s plane 0 is not alive")
+
+
 def resident_run_turns2p(planes: torch.Tensor, num_turns: int, rule,
                          family: str, *, ctas: int | None = None,
-                         per: int | None = None) -> torch.Tensor:
+                         per: int | None = None,
+                         count: torch.Tensor | None = None) -> torch.Tensor:
     """Advance stacked (2, H, Wp) planes whose planes fit
     `RESIDENT2P_PLANE_BYTES` `num_turns` turns in one launch of K4, on a
     cluster of `ctas` CTAs whose threads walk `per` rows (by default the
-    shape's policy)."""
+    shape's policy); with `count` (gen3), also the result's live cells."""
     code = _family_code(family)
+    _check_count2p(count, planes, num_turns, family, "resident_run_turns2p")
     if num_turns == 0:
         return planes
     h, wp = planes.shape[-2:]
@@ -755,18 +858,20 @@ def resident_run_turns2p(planes: torch.Tensor, num_turns: int, rule,
     _check_resident_geometry(h, ctas, per, "resident_run_turns2p",
                              RESIDENT2P_THREADS)
     if planes.device.type == "cpu":
-        return resident_run_turns2p_plain(planes, num_turns, rule, family,
-                                          ctas)
+        out = resident_run_turns2p_plain(planes, num_turns, rule, family,
+                                         ctas)
+        _count_plain(count, out)
+        return out
     lib, h, wp, dev, stream = _kernel_args(planes, "resident_run_turns2p",
                                            planes=True)
     if not fits_resident2p(planes.shape):
         raise ValueError(f"resident_run_turns2p: planes {h}x{wp} words "
                          f"exceed {RESIDENT2P_PLANE_BYTES} bytes each")
     out = torch.empty_like(planes)
-    born, survive = rule.masks()
+    born, survive = _masks(rule)
     rc = lib.gol_resident_run_turns2p(
-        planes.data_ptr(), out.data_ptr(), h, wp, num_turns, born, survive,
-        code, ctas, per, dev, stream)
+        planes.data_ptr(), out.data_ptr(), _ptr(count), h, wp, num_turns,
+        born, survive, code, ctas, per, dev, stream)
     if rc:
         raise _cluster_failed("resident_run_turns2p", lib, rc, ctas, h, wp)
     resident_run_turns2p.launches += 1
@@ -794,45 +899,44 @@ def tiled_sweep2p_plain(planes: torch.Tensor, t: int, rule, family: str,
 
 def tiled_sweep2p(planes_in: torch.Tensor, planes_out: torch.Tensor,
                   t: int, rule, family: str, *,
-                  rows: int | None = None) -> None:
+                  rows: int | None = None,
+                  count: torch.Tensor | None = None) -> None:
     """Advance stacked planes `planes_in` t (1..32) turns into
     `planes_out` in one K5 sweep of R-row tiles (R = `tile2p_rows`'s
-    unless `rows` is given)."""
+    unless `rows` is given); with `count` (gen3), also its live cells."""
     code = _family_code(family)
     _check_sweep("tiled_sweep2p", planes_in, planes_out, t, TILE_MAX_T)
+    _check_count2p(count, planes_in, t, family, "tiled_sweep2p")
     if rows is not None and rows not in TILE2P_ROW_CHOICES:
         raise ValueError(f"tiled_sweep2p: {rows} rows per tile not in "
                          f"{TILE2P_ROW_CHOICES}")
     if planes_in.device.type == "cpu":
         planes_out.copy_(tiled_sweep2p_plain(planes_in, t, rule, family,
                                              rows))
+        _count_plain(count, planes_out)
         return
     if rows is None:
         rows = tile2p_rows(*planes_in.shape[-2:])
     lib, h, wp, dev, stream = _sweep_launch_args(
         "tiled_sweep2p", planes_in, planes_out, rows, planes=True)
-    born, survive = rule.masks()
+    born, survive = _masks(rule)
     _build.check(lib.gol_tiled_sweep2p(
-        planes_in.data_ptr(), planes_out.data_ptr(), h, wp, t, rows, born,
-        survive, code, dev, stream), "tiled_sweep2p")
+        planes_in.data_ptr(), planes_out.data_ptr(), _ptr(count), h, wp, t,
+        rows, born, survive, code, dev, stream), "tiled_sweep2p")
     tiled_sweep2p.launches += 1
     tiled_sweep2p.by_family[family] += 1
 
 
 def banded_run_turns2p(planes: torch.Tensor, num_turns: int, rule,
-                       family: str) -> torch.Tensor:
+                       family: str, *,
+                       count: torch.Tensor | None = None) -> torch.Tensor:
     """Advance stacked planes `num_turns` turns by K5 sweeps:
-    floor(K/32) at depth 32, then one at depth K mod 32. Sweeps alternate
-    between two fresh buffers; the input is never written."""
-    bufs = []
-    src = planes
-    for i, depth in enumerate(sweep_depths(num_turns, TILE_MAX_T)):
-        if len(bufs) < 2:
-            bufs.append(torch.empty_like(planes))
-        dst = bufs[i % 2]
-        tiled_sweep2p(src, dst, depth, rule, family)
-        src = dst
-    return src
+    floor(K/32) at depth 32, then one at depth K mod 32, the last one
+    counting into `count` when given (gen3). Sweeps alternate between two
+    fresh buffers; the input is never written."""
+    _check_count2p(count, planes, num_turns, family, "banded_run_turns2p")
+    return _run_sweeps(planes, sweep_depths(num_turns, TILE_MAX_T),
+                       tiled_sweep2p, count, rule, family)
 
 
 # ------------------------------------------------------------------- K7
@@ -1172,18 +1276,41 @@ FLEET_MAX_SLOTS = 65535
 FLEET_ROUTES = ("resident", "tiled")
 
 
+def _slab_buffers_bytes(h: int, wp: int, ctas: int) -> int:
+    """A K1 CTA's two buffers of ceil(h/N) rows (csrc/stencil.cu:
+    resident_geometry)."""
+    return 2 * 4 * -(-h // ctas) * wp
+
+
+def fleet_slot_ctas(h: int, wp: int) -> int:
+    """The fewest CTAs a route-1 slot takes: the smallest power of two
+    (or min(16, h)) whose slabs' two buffers fit a CTA's shared memory;
+    0 when not even min(16, h) CTAs hold the slot (route 2's slots)."""
+    top = min(RESIDENT_MAX_CTAS, h)
+    if _slab_buffers_bytes(h, wp, top) > SMEM_BYTES:
+        return 0
+    n = 1
+    while n < top and _slab_buffers_bytes(h, wp, n) > SMEM_BYTES:
+        n *= 2
+    return min(n, top)
+
+
 def fleet_run_kind(shape) -> str:
     """K9's route for a (cap, hb, wpb) batch: 'resident' (route 1) when a
-    slot fits K1's shared memory, else 'tiled' (route 2)."""
-    return "resident" if fits_resident(shape) else "tiled"
+    cluster of at most 16 CTAs holds a slot (512², 1024², 2048²), else
+    'tiled' (route 2)."""
+    return "resident" if fleet_slot_ctas(*shape[-2:]) else "tiled"
 
 
 def fleet_resident_ctas(cap: int, h: int, wp: int) -> int:
     """Route 1's CTAs a slot: K1's cluster for the slot's shape, halved
-    while cap x N would exceed the card's SMs (one CTA a slot from 132
-    slots up: the batch fills the card without a cluster barrier)."""
-    n = resident_cluster_ctas(h, wp)
-    while n > 1 and cap * n > CARD_SMS:
+    while cap x N would exceed the card's SMs, but never below the
+    fewest that hold the slot (`fleet_slot_ctas`): one CTA a 512² slot
+    from 132 slots up, 2 a 1024² slot, 8 a 2048² slot. Slots need not run
+    at once, so a batch above 132 SMs runs in waves."""
+    floor = fleet_slot_ctas(h, wp)
+    n = max(resident_cluster_ctas(h, wp), floor)
+    while n > floor and cap * n > CARD_SMS:
         n //= 2
     return n
 
@@ -1199,36 +1326,42 @@ def slot_popcounts(words: torch.Tensor) -> torch.Tensor:
     return _byte_popcounts(words).sum(dim=(-1, -2), dtype=torch.int32)
 
 
-def _fleet_geometry(words: torch.Tensor, ctas, rows, kind):
-    """(kind, ctas, rows) for a batch, the policy's where not given;
+@functools.lru_cache(maxsize=256)
+def _fleet_geometry(shape: tuple, ctas, rows, kind):
+    """(kind, ctas, per, rows) for a (cap, H, Wp) batch, the policy's
+    where not given, once per argument set (a quantum repeats them);
     raises on a geometry the route does not take."""
-    if words.dim() != 3:
+    if len(shape) != 3:
         raise ValueError(f"fleet_run_turns: want (cap, H, Wp) words, got "
-                         f"{tuple(words.shape)}")
-    cap, h, wp = words.shape
+                         f"{shape}")
+    cap, h, wp = shape
     if kind is None:
-        kind = fleet_run_kind(words.shape)
+        kind = fleet_run_kind(shape)
     if kind not in FLEET_ROUTES:
         raise ValueError(f"fleet_run_turns: route {kind!r} not in "
                          f"{FLEET_ROUTES}")
-    if kind == "resident" and not fits_resident(words.shape):
-        raise ValueError(f"fleet_run_turns: a {h}x{wp}-word slot exceeds "
-                         f"route 1's {RESIDENT_BOARD_BYTES} bytes")
     if kind == "resident":
+        if not fleet_slot_ctas(h, wp):
+            raise ValueError(
+                f"fleet_run_turns: a {h}x{wp}-word slot fits no cluster of "
+                f"route 1 ({RESIDENT_MAX_CTAS} CTAs of {SMEM_BYTES} bytes)")
         if rows is not None:
             raise ValueError("fleet_run_turns: rows= is route 2's")
         if ctas is None:
             ctas = fleet_resident_ctas(cap, h, wp)
         _check_resident_geometry(h, ctas, None, "fleet_run_turns")
-    else:
-        if ctas is not None:
-            raise ValueError("fleet_run_turns: ctas= is route 1's")
-        if rows is None:
-            rows = fleet_tile_rows(cap, h, wp)
-        if rows not in TILE_ROW_CHOICES:
-            raise ValueError(f"fleet_run_turns: {rows} rows per tile not "
-                             f"in {TILE_ROW_CHOICES}")
-    return kind, ctas, rows
+        if _slab_buffers_bytes(h, wp, ctas) > SMEM_BYTES:
+            raise ValueError(f"fleet_run_turns: {ctas} CTAs do not hold a "
+                             f"{h}x{wp}-word slot in route 1")
+        return kind, ctas, resident_rows_per_thread(h, wp, ctas), None
+    if ctas is not None:
+        raise ValueError("fleet_run_turns: ctas= is route 1's")
+    if rows is None:
+        rows = fleet_tile_rows(cap, h, wp)
+    if rows not in TILE_ROW_CHOICES:
+        raise ValueError(f"fleet_run_turns: {rows} rows per tile not "
+                         f"in {TILE_ROW_CHOICES}")
+    return kind, None, None, rows
 
 
 def fleet_run_turns_plain(words: torch.Tensor, num_turns: int,
@@ -1238,7 +1371,8 @@ def fleet_run_turns_plain(words: torch.Tensor, num_turns: int,
     """K9's plain version: route 1's slabs (`_slab_plain`) or route 2's
     tiles (`_tiled_plain`, one sweep per 32 turns) on the batch axis,
     then each slot's popcount. Returns (words', alive)."""
-    kind, ctas, rows = _fleet_geometry(words, ctas, rows, kind)
+    kind, ctas, _, rows = _fleet_geometry(tuple(words.shape), ctas, rows,
+                                          kind)
 
     def step(w):
         return _step_shared_sums(w, rule)
@@ -1262,7 +1396,8 @@ def fleet_run_turns(words: torch.Tensor, num_turns: int,
     launch a sweep of up to 32 turns, the last one counting. `kind`,
     `ctas` (route 1) and `rows` (route 2) pin a route and a geometry for
     tests and measurements. The input is never written."""
-    kind, ctas, rows = _fleet_geometry(words, ctas, rows, kind)
+    kind, ctas, per, rows = _fleet_geometry(tuple(words.shape), ctas, rows,
+                                            kind)
     if words.device.type == "cpu":
         return fleet_run_turns_plain(words, num_turns, rule, ctas=ctas,
                                      rows=rows, kind=kind)
@@ -1278,11 +1413,10 @@ def fleet_run_turns(words: torch.Tensor, num_turns: int,
     lib = _library()
     dev = words.device.index
     stream = torch.cuda.current_stream(words.device).cuda_stream
-    born, survive = rule.masks()
+    born, survive = _masks(rule)
     alive = torch.empty(cap, dtype=torch.int32, device=words.device)
     if kind == "resident":
         out = torch.empty_like(words)
-        per = resident_rows_per_thread(h, wp, ctas)
         rc = lib.gol_fleet_resident(
             words.data_ptr(), out.data_ptr(), alive.data_ptr(), cap, h, wp,
             num_turns, born, survive, ctas, per, dev, stream)

@@ -42,22 +42,31 @@ def packed_run_by_kind(kind: str):
     return {"resident": resident_run_turns, "tiled": banded_run_turns}[kind]
 
 
-def packed_run_turns(words, num_turns: int, rule):
-    """Advance a packed board by the stepper its shape selects."""
+def _counting(count) -> dict:
+    """A stepper's keyword arguments for `count` (none without one, so a
+    stepper of the plain `(words, num_turns, rule)` form still fits)."""
+    return {} if count is None else {"count": count}
+
+
+def packed_run_turns(words, num_turns: int, rule, *, count=None):
+    """Advance a packed board by the stepper its shape selects; with
+    `count` (one int64 on the board's device) its last launch also
+    counts the result's live cells into it."""
     return packed_run_by_kind(packed_run_kind(words.shape))(
-        words, num_turns, rule)
+        words, num_turns, rule, **_counting(count))
 
 
 def fused_packed_run_turns(words, num_turns: int, rule=CONWAY,
-                           fuse: int = 0):
+                           fuse: int = 0, *, count=None):
     """Advance a packed board `num_turns` turns at fuse depth `fuse` (the
     counterpart of `gol_tpu/ops/fused.py`'s), bit-identical to
     `packed_run_turns`. `fuse <= 1` and a board K1 holds take the native
-    stepper; any other board sweeps at depth min(fuse, MAX_FUSE_K)."""
+    stepper; any other board sweeps at depth min(fuse, MAX_FUSE_K).
+    `count` as `packed_run_turns`'s."""
     if fuse <= 1 or packed_run_kind(words.shape) == "resident":
-        return packed_run_turns(words, num_turns, rule)
+        return packed_run_turns(words, num_turns, rule, count=count)
     return fused_banded_run_turns(words, num_turns, min(fuse, MAX_FUSE_K),
-                                  rule)
+                                  rule, **_counting(count))
 
 
 def fused_run_fn(fuse: int):
@@ -91,17 +100,19 @@ def planes_run_by_kind(kind: str):
             "tiled": banded_run_turns2p}[kind]
 
 
-def planes_run_turns(planes, num_turns: int, rule, family: str):
+def planes_run_turns(planes, num_turns: int, rule, family: str, *,
+                     count=None):
     """Advance stacked (2, H, Wp) planes of `family` ('gen3' or 'gen4')
-    by the stepper their shape selects."""
+    by the stepper their shape selects; `count` (gen3) as
+    `packed_run_turns`'s, of the alive plane."""
     return planes_run_by_kind(planes_run_kind(planes.shape))(
-        planes, num_turns, rule, family)
+        planes, num_turns, rule, family, **_counting(count))
 
 
-def gen3_run_turns(stacked, num_turns: int, rule):
+def gen3_run_turns(stacked, num_turns: int, rule, *, count=None):
     """The engine's gen3 run: stacked (alive, dying) planes — one shard
-    of `sharded_gen3_run_turns`."""
-    return planes_run_turns(stacked, num_turns, rule, "gen3")
+    of `sharded_gen3_run_turns`; `count` as `planes_run_turns`'s."""
+    return planes_run_turns(stacked, num_turns, rule, "gen3", count=count)
 
 
 def generations_run_turns(state, num_turns: int, rule):

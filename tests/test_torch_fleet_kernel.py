@@ -87,24 +87,63 @@ def test_popcounts_exact_at_the_extremes():
 
 
 def test_route_and_geometry_policy():
-    """Route from the shape alone (K1's shared memory); route 1's CTAs a
-    slot from K1's cluster, halved until the batch fits the card's SMs;
-    route 2's tile height over the batch's blocks."""
+    """Route from the shape alone (a slot that a cluster of at most 16
+    CTAs holds goes to route 1); route 1's CTAs a slot from K1's cluster,
+    halved until the batch fits the card's SMs but never below the fewest
+    CTAs that hold the slot; route 2's tile height over the batch's
+    blocks."""
     assert cs.fleet_run_kind((8, 512, 16)) == "resident"
-    assert cs.fleet_run_kind((8, 1024, 32)) == "tiled"
-    assert cs.fleet_run_kind((8, 2048, 64)) == "tiled"
+    assert cs.fleet_run_kind((8, 1024, 32)) == "resident"
+    assert cs.fleet_run_kind((8, 2048, 64)) == "resident"
     assert cs.fleet_run_kind((1, 24, 3)) == "resident"
+    assert cs.fleet_run_kind((8, 4096, 128)) == "tiled"
+    assert cs.fleet_slot_ctas(512, 16) == 1
+    assert cs.fleet_slot_ctas(1024, 32) == 2
+    assert cs.fleet_slot_ctas(2048, 64) == 8
+    assert cs.fleet_slot_ctas(4096, 128) == 0
     assert cs.fleet_resident_ctas(1, 512, 16) == 16
     assert cs.fleet_resident_ctas(8, 512, 16) == 16
     assert cs.fleet_resident_ctas(64, 512, 16) == 2
     assert cs.fleet_resident_ctas(512, 512, 16) == 1
     assert cs.fleet_resident_ctas(2, 64, 2) == 1
+    assert cs.fleet_resident_ctas(8, 1024, 32) == 16
+    assert cs.fleet_resident_ctas(8, 2048, 64) == 16
+    assert cs.fleet_resident_ctas(64, 1024, 32) == 2
+    assert cs.fleet_resident_ctas(64, 2048, 64) == 8
+    assert cs.fleet_resident_ctas(512, 2048, 64) == 8
     for cap in (1, 8, 64, 512):
         n = cs.fleet_resident_ctas(cap, 512, 16)
         assert n == 1 or cap * n <= cs.CARD_SMS
     assert cs.fleet_tile_rows(8, 1024, 32) == 128
     assert cs.fleet_tile_rows(1, 65536, 2048) == cs.tile_rows(65536, 2048)
     assert cs.fleet_tile_rows(8, 2048, 64) in cs.TILE_ROW_CHOICES
+
+
+@pytest.mark.parametrize("turns", (8, 13))
+@pytest.mark.parametrize("shape", ((1024, 32), (2048, 64)),
+                         ids=lambda s: f"{s[0]}x{s[1]}w")
+def test_route1_holds_the_large_classes(shape, turns):
+    """The 1024² and 2048² classes on route 1 at the policy's CTAs a slot
+    (16 for 2 slots: slabs of 64 and 128 rows): words and int32 counts
+    equal the JAX scan's."""
+    h, wp = shape
+    words = _batch(2, h, wp, seed=h + turns)
+    assert cs.fleet_run_kind(words.shape) == "resident"
+    _check(words, turns, ctas=cs.fleet_resident_ctas(2, h, wp))
+
+
+@pytest.mark.parametrize("shape,ctas", (((1, 4096, 128), None),
+                                        ((1, 2048, 64), 4),
+                                        ((1, 1024, 32), 1)),
+                         ids=("4096x128w", "2048x64w-4", "1024x32w-1"))
+def test_route1_refuses_a_slot_its_ctas_do_not_hold(shape, ctas):
+    """A slot that no cluster of 16 CTAs holds, or fewer CTAs than hold
+    it, is refused on route 1 (no fallback to route 2)."""
+    words = torch.zeros(shape, dtype=torch.int32)
+    with pytest.raises(ValueError, match="route 1"):
+        cs.fleet_run_turns(words, 8, kind="resident", ctas=ctas)
+    with pytest.raises(ValueError, match="route 1"):
+        cs.fleet_run_turns_plain(words, 8, kind="resident", ctas=ctas)
 
 
 def test_wrapper_refuses_what_the_routes_do_not_take():
@@ -119,7 +158,7 @@ def test_wrapper_refuses_what_the_routes_do_not_take():
         cs.fleet_run_turns(words, 8, kind="tiled", ctas=2)
     with pytest.raises(ValueError, match="not in"):
         cs.fleet_run_turns(words, 8, kind="tiled", rows=100)
-    big = torch.zeros((1, 1024, 32), dtype=torch.int32)
+    big = torch.zeros((1, 4096, 128), dtype=torch.int32)
     with pytest.raises(ValueError, match="route 1"):
         cs.fleet_run_turns(big, 8, kind="resident")
 
