@@ -94,6 +94,29 @@ Phases (each raises on failure; any failure exits non-zero):
    the 8-turn quantum does not divide against a `packed_run_turns`
    replay (K9 route 1 alone: route 2 must not launch; the trims on K1
    and K2), then a 4096² class, beyond a cluster, to turn 13 on route 2.
+   4i. the broadcast tier and the telemetry surface: the JAX bench's
+   broadcast leg (`bench.py:2276-2495`) on a free-running 64² fleet run
+   (chunk 2, K9 route 1) behind an in-process server, 1000 Subscribe
+   viewers (clamped to RLIMIT_NOFILE; 2 decoding, the rest drained
+   unread) over a 3 s window: exactly 1.0 encode call per published
+   frame, frames published, fan-out recorded, and after a pause and a
+   forced publish a decoded frame equal to a fresh GetView at that turn;
+   then a served CUDA engine at 512² (K1) and 5120² (K2): a run with no
+   subscriber publishes no frame and starts no hub; two subscribers at
+   2^20 cells see every frame of a 100 / 1000-turn drive equal the view
+   of the plain board at its turn (512²: check/'s boards at turns 0 and
+   100 and the CSV's count); the engine's turns/s with both attached;
+   and the view's device ms a publication (CUDA events around
+   `get_view`), there and at 65536², where `poll_device_memory` names
+   the card as nvidia-smi does and counts the 512 MiB board live; last,
+   a `python -m gol_tpu_torch.server --metrics-port --profile-dir`
+   subprocess (a fresh process: this one's profiled windows leave later
+   `torch.profiler` sessions without device events) takes a Profile RPC
+   of 64 turns on each of the two drives, whose status reaches "ok",
+   whose Chrome trace names K1 or K2 and around which every published
+   pair equals the CSV or the plain count, then serves a subscriber,
+   GetTelemetry, GetAudit and GetUsage, and the gol_bcast_* families on
+   /metrics.
    Each path runs with the launch counters at 0, read just after: every
    kernel (and family) it runs must have launched, and the paths whose
    alive counts come from chunks alone (4, 4c, 4d) must have launched K3
@@ -1954,6 +1977,10 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
         del world
     engine += engine_rates_generations(torch, dev, card)
     log("engine:" + json.dumps(engine))
+    BCAST_RESULTS["phase5_turns_per_s"] = {
+        r["size"]: r["turns_per_s"] for r in engine
+        if r.get("size") in (512, 5120) and not r.get("fuse_k")
+        and "rule" not in r}
     deep, b3 = timing_deep(torch, dev, card, rows["tiled_sweep"])
     rows["tiled_sweep_deep"] = deep
     rows.update(timing_2p(torch, dev, card))
@@ -3627,6 +3654,664 @@ def k9_records(card: Card, launches: dict, stats: dict) -> list:
     return out
 
 
+# ------------------------------------- phase 4i: broadcast tier, telemetry
+
+# The JAX bench's broadcast leg (`bench.py:2276-2495`): one free-running
+# 64² fleet run (chunk 2) behind an in-process server, 1000 Subscribe
+# viewers (2 of them decoding), a 3 s window.
+BCAST_VIEWERS = 1000
+BCAST_TRACKED = 2
+BCAST_WINDOW_S = 3.0
+BCAST_BOARD = 64
+# Single-run subscriptions: each board, its drive's turns, and the view
+# every subscriber asks for (2^20 cells: the whole 512² board, a
+# downsampled view of 5120²).
+SUB_BOARDS = ((512, 100), (5120, 1000))
+SUB_MAX_CELLS = 1 << 20
+PROFILE_TURNS = 64
+# Phase 4i's numbers, for the summary lines at the end.
+BCAST_RESULTS: dict = {}
+
+
+class DrainPool:
+    """Parked subscriptions drained byte-wise (recv and discard, no
+    decode) on one selectors thread, so they look idle to the server:
+    the gateway keeps pushing and no kernel buffer fills."""
+
+    def __init__(self) -> None:
+        import selectors
+        import socket
+
+        self._sel = selectors.DefaultSelector()
+        self._wake_r, self._wake_w = socket.socketpair()
+        self._wake_r.setblocking(False)
+        self._sel.register(self._wake_r, selectors.EVENT_READ, None)
+        self._lock = threading.Lock()
+        self._pending: list = []
+        self._subs: dict = {}
+        self.bytes = 0
+        self.closed = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def add(self, sub) -> None:
+        with self._lock:
+            self._pending.append(sub)
+        self._wake_w.send(b"\x01")
+
+    def close(self) -> None:
+        self._stop.set()
+        self._wake_w.send(b"\x01")
+        self._thread.join(timeout=10.0)
+        if self._thread.is_alive():
+            raise AssertionError("viewer drain thread did not stop")
+
+    def _loop(self) -> None:
+        import selectors
+
+        while not self._stop.is_set():
+            for key, _ in self._sel.select(timeout=0.5):
+                if key.data is None:
+                    self._wake_r.recv(4096)
+                else:
+                    self._drain(key.data)
+            with self._lock:
+                pending, self._pending = self._pending, []
+            for sub in pending:
+                sub._sock.setblocking(False)
+                self._sel.register(sub._sock, selectors.EVENT_READ, sub)
+                self._subs[sub._sock.fileno()] = sub
+        for sub in list(self._subs.values()):
+            self._sel.unregister(sub._sock)
+            sub.close()
+        for sub in self._pending:
+            sub.close()
+        self._wake_r.close()
+        self._wake_w.close()
+        self._sel.close()
+
+    def _drain(self, sub) -> None:
+        try:
+            while True:
+                data = sub._sock.recv(1 << 16)
+                if not data:
+                    break
+                self.bytes += len(data)
+        except BlockingIOError:
+            return
+        except OSError:
+            pass
+        self._sel.unregister(sub._sock)
+        del self._subs[sub._sock.fileno()]
+        self.closed += 1
+        sub.close()
+
+
+def open_viewers(address: str, run_id, count: int, view_cells: int):
+    """`count` Subscribe upgrades bound to `run_id`, opened by 8 threads
+    and parked in a DrainPool; raises on the first refusal."""
+    from gol_tpu_torch.client import RemoteEngine
+
+    pool = DrainPool()
+    errors: list = []
+    left = [count]
+    lock = threading.Lock()
+
+    def opener() -> None:
+        eng = RemoteEngine(address, timeout=30.0, run_id=run_id)
+        while True:
+            with lock:
+                if left[0] <= 0 or errors:
+                    return
+                left[0] -= 1
+            try:
+                pool.add(eng.subscribe(view_cells, timeout=30.0))
+            except Exception as e:  # reported below, on this thread
+                with lock:
+                    errors.append(f"{type(e).__name__}: {e}")
+                return
+
+    workers = [threading.Thread(target=opener, daemon=True)
+               for _ in range(8)]
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join(timeout=300)
+    if errors or any(t.is_alive() for t in workers):
+        pool.close()
+        raise AssertionError(f"subscribe failed: {errors[:3]}")
+    return pool
+
+
+class Tracked:
+    """A decoding subscriber on its own thread: every (turn, view) it
+    receives, in order, and the error that ended it, if any."""
+
+    def __init__(self, sub) -> None:
+        self.sub = sub
+        self.frames: list = []
+        self.error = None
+        self._lock = threading.Lock()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            for view, turn, geom, _header in self.sub.frames(timeout=60.0):
+                with self._lock:
+                    self.frames.append((turn, geom, view))
+        except Exception as e:  # reported by wait_turn
+            self.error = f"{type(e).__name__}: {e}"
+
+    def snapshot(self) -> list:
+        with self._lock:
+            return list(self.frames)
+
+    def wait_turn(self, turn: int, seconds: float = 60.0):
+        """The first frame at `turn`, waiting up to `seconds`."""
+        deadline = time.monotonic() + seconds
+        while time.monotonic() < deadline:
+            got = [f for f in self.snapshot() if f[0] == turn]
+            if got:
+                return got[0]
+            if self.error is not None:
+                break
+            time.sleep(0.01)
+        raise AssertionError(f"no frame at turn {turn} "
+                             f"(error {self.error}, turns "
+                             f"{[f[0] for f in self.snapshot()][-8:]})")
+
+    def close(self) -> None:
+        self.sub.close()
+        self._thread.join(timeout=10.0)
+
+
+def bcast_frames_total() -> float:
+    from gol_tpu_torch.obs import catalog as obs
+
+    return sum(c.value for c in obs.BCAST_FRAMES.children().values())
+
+
+def broadcast_leg(dev) -> dict:
+    """The JAX bench's broadcast leg on the port: encode calls per
+    published frame (exactly 1.0), the gateway's fan-out quantiles, and
+    a tracked viewer's frame bit-identical to a fresh GetView at a
+    pinned turn."""
+    import resource
+
+    from gol_tpu_torch.client import RemoteEngine
+    from gol_tpu_torch.engine import FLAG_PAUSE
+    from gol_tpu_torch.fleet import FleetEngine
+    from gol_tpu_torch.obs import catalog as obs
+    from gol_tpu_torch.server import EngineServer
+
+    # Two fds a viewer (client and server ends): clamp to the limit.
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    soft = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+    viewers = min(BCAST_VIEWERS, max(BCAST_TRACKED + 1, (soft - 256) // 2))
+    n = BCAST_BOARD
+    cells = n * n
+    eng = FleetEngine(bucket_sizes=(n,), chunk_turns=2, slot_base=8,
+                      device=dev)
+    srv = EngineServer(port=0, host="127.0.0.1", engine=eng)
+    srv.start_background()
+    address = f"127.0.0.1:{srv.port}"
+    tracked, pool = [], None
+    try:
+        ctl = RemoteEngine(address, timeout=30.0)
+        rid = ctl.create_run(n, n, board=seeded_board(n, 14))["run_id"]
+        bound = ctl.attach_run(rid)
+        tracked = [Tracked(bound.subscribe(cells, timeout=30.0))
+                   for _ in range(BCAST_TRACKED)]
+        deadline = time.monotonic() + 120.0
+        while (min(len(t.snapshot()) for t in tracked) < 2
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        if min(len(t.snapshot()) for t in tracked) < 2:
+            raise AssertionError("the tracked viewers never warmed")
+        pool = open_viewers(address, rid, viewers - BCAST_TRACKED, cells)
+        hub, gateway = srv._bcast
+        # Admission catch-up frames carry publish stamps older than
+        # their subscriber: settle, then measure from a clean estimator.
+        time.sleep(0.5)
+        gateway.fanout_reset()
+        e0, f0 = obs.WIRE_ENCODE_CALLS.value, bcast_frames_total()
+        d0, s0 = obs.BCAST_FRAMES_DROPPED.value, obs.BCAST_SENT_BYTES.value
+        time.sleep(BCAST_WINDOW_S)
+        frames = bcast_frames_total() - f0
+        encodes = obs.WIRE_ENCODE_CALLS.value - e0
+        dropped = obs.BCAST_FRAMES_DROPPED.value - d0
+        snap = gateway.fanout_snapshot()
+        gateway._flush(time.monotonic())  # the sent-bytes counter
+        sent = obs.BCAST_SENT_BYTES.value - s0
+        if frames <= 0:
+            raise AssertionError("no frames published in the window")
+        ratio = encodes / frames
+        if ratio != 1.0:
+            raise AssertionError(f"encode-once broken: {encodes} encodes "
+                                 f"for {frames} published frames")
+        if not snap["count"]:
+            raise AssertionError("the gateway recorded no fan-out")
+        # Parity: pause, publish the parked turn, and a tracked frame
+        # of that turn equals a fresh GetView, bit for bit.
+        bound.cf_put(FLAG_PAUSE)
+        ref, ref_turn, _ = bound.get_view(cells)
+        for _ in range(100):
+            out, turn, _ = bound.get_view(cells)
+            if turn == ref_turn:
+                break
+            ref, ref_turn = out, turn
+            time.sleep(0.05)
+        hub.publish_now(force=True)
+        got = tracked[0].wait_turn(ref_turn, 10.0)
+        if not np.array_equal(got[2], ref):
+            raise AssertionError(f"pushed frame != GetView at turn "
+                                 f"{ref_turn}")
+        res = dict(viewers=viewers, tracked=BCAST_TRACKED, board=n,
+                   window_s=BCAST_WINDOW_S, frames_published=frames,
+                   encode_calls=encodes,
+                   encode_calls_per_published_frame=ratio,
+                   frames_dropped=dropped, bytes_sent=sent,
+                   pool_bytes=pool.bytes, fanout_samples=snap["count"],
+                   delivered_share=snap["count"] / (frames * viewers),
+                   viewer_fanout_p50_ms=snap["p50"] * 1e3,
+                   viewer_fanout_p95_ms=snap["p95"] * 1e3,
+                   viewer_fanout_p99_ms=snap["p99"] * 1e3,
+                   parity_turn=ref_turn)
+    finally:
+        for t in tracked:
+            t.close()
+        if pool is not None:
+            pool.close()
+        eng.kill_prog()
+        srv.shutdown()
+    log(f"  ok broadcast leg: {viewers} viewers of a {n}² fleet run, "
+        f"{frames:.0f} frames published in {BCAST_WINDOW_S} s with "
+        f"{encodes:.0f} encodes (1.0 a frame), {dropped:.0f} dropped, "
+        f"{sent:.0f} bytes sent; fan-out p50 {res['viewer_fanout_p50_ms']:.3f}"
+        f" ms, p99 {res['viewer_fanout_p99_ms']:.3f} ms over "
+        f"{snap['count']} deliveries ({res['delivered_share']:.3f} of "
+        f"frames x viewers); a tracked frame equals GetView at turn "
+        f"{ref_turn}")
+    return res
+
+
+def host_view(words_np, f: int) -> np.ndarray:
+    """The engine's view of packed words at factor f, made on the host
+    from the unpacked board: each f x f block's brightest pixel (0 or
+    255), the board zero-padded to whole blocks."""
+    from gol_tpu_torch.ops import bitpack
+
+    board = bitpack.unpack_np(words_np)
+    h, w = board.shape
+    hp, wp = -(-h // f) * f, -(-w // f) * f
+    pad = np.zeros((hp, wp), np.uint8)
+    pad[:h, :w] = board
+    return (pad.reshape(hp // f, f, wp // f, f).max(axis=(1, 3))
+            * np.uint8(255))
+
+
+def plain_history(torch, world: np.ndarray, turns, dev) -> dict:
+    """{turn: packed words on the host} for each of `turns`, stepped from
+    `world` by the plain packed step (`bitpack.packed_step`), one turn at
+    a time, and the plain count at every turn up to the last."""
+    from gol_tpu_torch.ops import bitpack
+
+    want = set(turns)
+    words = bitpack.words_from_numpy(bitpack.pack_np(world), dev)
+    boards, counts = {}, {}
+    for t in range(max(want) + 1):
+        if t:
+            words = bitpack.packed_step(words)
+        counts[t] = plain_count(torch, words)
+        if t in want:
+            boards[t] = bitpack.words_to_numpy(words)
+    return {"boards": boards, "counts": counts}
+
+
+def view_device_ms(torch, eng, max_cells: int, reps: int = 5) -> float:
+    """Median device ms of one publication's view (`Engine.get_view`,
+    the reduction and its copy to the host), by CUDA events."""
+    eng.get_view(max_cells)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        eng.get_view(max_cells)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def trace_kernels(path: str) -> set:
+    """Names of the device kernels in a torch.profiler Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {str(e.get("name", "")).replace("(anonymous namespace)::", "")
+            for e in events if e.get("cat") == "kernel"}
+
+
+def subscribe_engine(torch, dev, size: int, turns: int):
+    """One served CUDA engine at `size`²: no subscriber means no frame and
+    no hub; two subscribers then see every frame of a `turns`-turn drive
+    equal the engine's view at its turn (a host view of the plain board;
+    at 512² also the check/ boards at turns 0 and 100 and the CSV's
+    count); the engine's turns/s with both attached; the view's device
+    ms. Returns (results, the plain count at every turn of the drive)."""
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.client import RemoteEngine
+    from gol_tpu_torch.engine import Engine, view_factor
+    from gol_tpu_torch.io.pgm import read_pgm
+    from gol_tpu_torch.server import EngineServer
+
+    world = sub_world(size)
+    csv = (read_csv(os.path.join(REPO, "check", "alive", "512x512.csv"))
+           if size == 512 else None)
+    f = view_factor(size, size, SUB_MAX_CELLS)
+    eng = Engine(device=dev)
+    srv = EngineServer(port=0, host="127.0.0.1", engine=eng)
+    srv.start_background()
+    address = f"127.0.0.1:{srv.port}"
+    res = {"size": size, "view_factor": f}
+    tracked = []
+    try:
+        f0 = bcast_frames_total()
+        eng.server_distributor(Params(image_width=size, image_height=size,
+                                      turns=turns), world)
+        if srv._bcast is not None or bcast_frames_total() != f0:
+            raise AssertionError("a run with no subscriber published "
+                                 "frames or started the hub")
+        eng.server_distributor(Params(image_width=size, image_height=size,
+                                      turns=0), world)
+        tracked = [Tracked(RemoteEngine(address).subscribe(
+            SUB_MAX_CELLS, timeout=30.0)) for _ in range(2)]
+        for t in tracked:
+            t.wait_turn(0)
+        eng.server_distributor(Params(image_width=size, image_height=size,
+                                      turns=turns), world)
+        srv._bcast[0].publish_now(force=True)
+        for t in tracked:
+            t.wait_turn(turns)
+        frames = [fr for t in tracked for fr in t.snapshot()]
+        hist = plain_history(torch, world,
+                             {fr[0] for fr in frames} | {turns}, dev)
+        for turn, geom, view in frames:
+            want = host_view(hist["boards"][turn], f)
+            if geom != (f, f) or not np.array_equal(view, want):
+                raise AssertionError(f"{size}²: the frame at turn {turn} "
+                                     f"!= the view at its turn")
+            if csv is not None and int((view != 0).sum()) != csv[turn]:
+                raise AssertionError(f"{size}²: the frame at turn {turn} "
+                                     f"counts {(view != 0).sum()}, the "
+                                     f"CSV {csv[turn]}")
+        if size == 512:
+            gold = read_pgm(os.path.join(REPO, "check", "images",
+                                         f"512x512x{turns}.pgm"))
+            for turn, board in ((0, world), (turns, gold)):
+                if not np.array_equal(tracked[0].wait_turn(turn)[2], board):
+                    raise AssertionError(f"512²: the frame at turn {turn} "
+                                         "!= check/'s board")
+        res["frames_checked"] = len(frames)
+        res["frame_turns"] = sorted({fr[0] for fr in frames})
+        for t in tracked:
+            t.frames.clear()
+        rate, _, _, chunk = engine_rate(torch, world, 3.0, eng=eng)
+        res["turns_per_s_subscribed"] = rate
+        res["frames_during_rate"] = [len(t.snapshot()) for t in tracked]
+        # The run ended on a quit: its parked turn, published, equals a
+        # fresh view.
+        want, turn_end, _ = eng.get_view(SUB_MAX_CELLS)
+        srv._bcast[0].publish_now(force=True)
+        if not np.array_equal(tracked[1].wait_turn(turn_end)[2], want):
+            raise AssertionError(f"{size}²: the frame at the parked turn "
+                                 f"{turn_end} != get_view")
+        res["view_device_ms"] = view_device_ms(torch, eng, SUB_MAX_CELLS)
+    finally:
+        for t in tracked:
+            t.close()
+        eng.kill_prog()
+        srv.shutdown()
+    log(f"  ok {size}² subscribed: {res['frames_checked']} frames at turns "
+        f"{res['frame_turns']} equal the view at their turn (factor {f}); "
+        f"{res['turns_per_s_subscribed']:.1f} turns/s with 2 subscribers "
+        f"({res['frames_during_rate']} frames each); view "
+        f"{res['view_device_ms']:.3f} device ms a publication")
+    return res, (csv if csv is not None else hist["counts"])
+
+
+def sub_world(size: int) -> np.ndarray:
+    """The board phase 4i drives at `size`²: the 512² image, or a
+    seeded soup."""
+    from gol_tpu_torch.io.pgm import read_pgm
+
+    if size == 512:
+        return read_pgm(os.path.join(REPO, "images", "512x512.pgm"))
+    return seeded_board(size, 15)
+
+
+def big_view_and_memory(torch, dev, card: Card) -> dict:
+    """A 65536² engine (512 MiB of packed words, restored from a legacy
+    checkpoint of seeded words): `poll_device_memory` names the card as
+    nvidia-smi does and counts at least the board's bytes live; the
+    view's device ms a publication."""
+    from gol_tpu_torch.engine import Engine
+    from gol_tpu_torch.models.lifelike import CONWAY
+    from gol_tpu_torch.obs import devstats
+    from gol_tpu_torch.ops import bitpack
+
+    size = 65536
+    words = bitpack.words_to_numpy(
+        seeded_words(torch, size, size // 32, 16, dev))
+    eng = Engine(device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{size}x{size}.npz")
+        np.savez(path, turn=0, rulestring=CONWAY.rulestring,
+                 words=words, width=size)
+        del words
+        eng.load_checkpoint(path)
+    mem = devstats.poll_device_memory()
+    name = card.smi.split(",")[0].strip()
+    board_bytes = size * size // 8
+    if mem["device_kind"] != name:
+        raise AssertionError(f"device_kind {mem['device_kind']!r} != "
+                             f"nvidia-smi's {name!r}")
+    if not mem["supported"] or mem["live_bytes"] < board_bytes:
+        raise AssertionError(f"live bytes {mem['live_bytes']} < the "
+                             f"board's {board_bytes}")
+    ms = view_device_ms(torch, eng, SUB_MAX_CELLS)
+    res = dict(size=size, device_kind=mem["device_kind"],
+               live_bytes=mem["live_bytes"], peak_bytes=mem["peak_bytes"],
+               board_bytes=board_bytes, view_device_ms=ms)
+    eng.kill_prog()
+    del eng
+    torch.cuda.empty_cache()
+    log(f"  ok 65536²: poll_device_memory names {mem['device_kind']!r}, "
+        f"{mem['live_bytes']} live bytes >= the board's {board_bytes}; "
+        f"view {ms:.3f} device ms a publication")
+    return res
+
+
+def served_profiles_and_documents(counts: dict) -> dict:
+    """A `python -m gol_tpu_torch.server --metrics-port --profile-dir`
+    subprocess on the card (a fresh process, like an operator's server:
+    in this one the earlier phases' profiled windows of many thousand
+    kernels leave later `torch.profiler` sessions without device
+    events). At 512² and 5120² a Profile RPC arms PROFILE_TURNS turns of
+    a SUB_BOARDS drive through the client: the status reaches "ok", the
+    Chrome trace names K1 / K2, and every (alive, turn) pair Alivecount
+    reads around the capture equals `counts` (the CSV, the plain count).
+    Then a subscriber, GetTelemetry, GetAudit, GetUsage and the
+    gol_bcast_* families on /metrics."""
+    import socket
+    import urllib.request
+
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.client import RemoteEngine
+    from gol_tpu_torch.io.pgm import read_pgm
+
+    with socket.socket() as s:  # a free port for the metrics endpoint
+        s.bind(("127.0.0.1", 0))
+        mport = s.getsockname()[1]
+    res = {"profile": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        proc, port = spawn_server(0, "--metrics-port", str(mport),
+                                  "--profile-dir", tmp)
+        try:
+            cli = RemoteEngine(f"127.0.0.1:{port}", timeout=120.0)
+            poll = RemoteEngine(f"127.0.0.1:{port}", timeout=60.0)
+            for size, turns in SUB_BOARDS:
+                if not cli.profile(PROFILE_TURNS)["armed"]:
+                    raise AssertionError("Profile did not arm")
+                t0 = poll.ping()
+                pairs, failed = set(), []
+
+                def drive(size=size, turns=turns) -> None:
+                    try:
+                        cli.server_distributor(
+                            Params(image_width=size, image_height=size,
+                                   turns=turns), sub_world(size))
+                    except BaseException as e:  # re-raised below
+                        failed.append(e)
+
+                runner = threading.Thread(target=drive)
+                runner.start()
+                while runner.is_alive():
+                    pair = poll.alive_count()
+                    if pair[1] != t0:
+                        pairs.add(pair)
+                runner.join()
+                if failed:
+                    raise failed[0]
+                pairs.add(poll.alive_count())
+                last = cli.profile()["status"]["last"]
+                if last.get("status") != "ok" or len(
+                        last["artifacts"]) != 1:
+                    raise AssertionError(f"Profile capture: {last}")
+                names = trace_kernels(last["artifacts"][0])
+                step = ("resident_kernel<Life," if size == 512
+                        else "tiled_kernel<Life, 1,")
+                if not any(step in n for n in names):
+                    raise AssertionError(f"{size}² trace names no {step}: "
+                                         f"{sorted(names)[:8]}")
+                for alive, turn in pairs:
+                    if counts[size][turn] != alive:
+                        raise AssertionError(
+                            f"{size}²: published ({alive}, {turn}) around "
+                            f"the capture != {counts[size][turn]}")
+                res["profile"][size] = dict(
+                    turns=last["turns"], seconds=last["seconds"],
+                    trace_bytes=os.path.getsize(last["artifacts"][0]),
+                    pairs_checked=len(pairs),
+                    kernels=sorted({n.split("(")[0] for n in names}))
+                log(f"  ok Profile {size}²: {last['turns']} turns in "
+                    f"{last['seconds']} s, the trace names {step}, "
+                    f"{len(pairs)} published pairs around it exact")
+            world = read_pgm(os.path.join(REPO, "images", "512x512.pgm"))
+            _, turn = cli.server_distributor(
+                Params(image_width=512, image_height=512, turns=100), world)
+            sub = cli.subscribe(SUB_MAX_CELLS, timeout=60.0)
+            try:
+                view, vturn, _, _ = sub.recv(timeout=60.0)
+            finally:
+                sub.close()
+            gold = read_pgm(os.path.join(REPO, "check", "images",
+                                         "512x512x100.pgm"))
+            if (turn, vturn) != (100, 100) or not np.array_equal(view,
+                                                                  gold):
+                raise AssertionError("the subprocess's frame != check/'s")
+            tel = cli.get_telemetry()
+            audit = cli.get_audit()
+            usage = cli.get_usage()
+            if (set(tel) != {"families", "pending_events", "snapshot_max",
+                             "ts"} or not isinstance(audit, list)
+                    or "attribution" not in usage):
+                raise AssertionError(f"documents: {tel} {audit} {usage}")
+            text = urllib.request.urlopen(
+                f"http://127.0.0.1:{mport}/metrics", timeout=30).read(
+                ).decode()
+            fams = sorted({m for m in re.findall(r"^(gol_bcast_\w+)", text,
+                                                 re.M)})
+            keys = re.findall(r'^gol_bcast_frames_total\{kind="key"\} (\S+)',
+                              text, re.M)
+            if len(fams) < 6 or not keys or float(keys[0]) < 1:
+                raise AssertionError(f"/metrics gol_bcast_*: {fams} {keys}")
+            health = json.loads(urllib.request.urlopen(
+                f"http://127.0.0.1:{mport}/healthz", timeout=30).read())
+        finally:
+            stop_server(proc)
+    res.update(telemetry_keys=sorted(tel), families=tel["families"],
+               audit_records=len(audit), usage_keys=sorted(usage),
+               metrics_bcast_families=fams,
+               healthz_device=health.get("device_kind"))
+    log(f"  ok served documents: GetTelemetry {sorted(tel['families'])}, "
+        f"GetAudit {len(audit)} records, GetUsage {sorted(usage)}; "
+        f"/metrics serves {fams}; /healthz names "
+        f"{health.get('device_kind')!r}")
+    return res
+
+
+def log_broadcast_summary(card: Card) -> None:
+    """Phase 4i's lines of the summary: the broadcast leg, Subscribe's
+    turns/s beside phase 5's unsubscribed engine_rate, the view's device
+    ms a publication, the Profile captures and the device memory."""
+    leg = BCAST_RESULTS["leg"]
+    log(f"phase 4i summary on {card.smi}:")
+    log(f"  broadcast leg: encode_calls_per_published_frame "
+        f"{leg['encode_calls_per_published_frame']}, viewer_fanout_p99_ms "
+        f"{leg['viewer_fanout_p99_ms']:.3f} (p50 "
+        f"{leg['viewer_fanout_p50_ms']:.3f}), {leg['viewers']} viewers, "
+        f"{leg['frames_published']:.0f} frames published, "
+        f"{leg['frames_dropped']:.0f} dropped, {leg['bytes_sent']:.0f} "
+        f"bytes sent, {leg['fanout_samples']} deliveries "
+        f"({leg['delivered_share']:.3f} of frames x viewers)")
+    base = BCAST_RESULTS.get("phase5_turns_per_s", {})
+    for r in BCAST_RESULTS["single_run"]:
+        plain = base.get(r["size"])
+        prof = BCAST_RESULTS["served"]["profile"][r["size"]]
+        log(f"  {r['size']}²: {r['turns_per_s_subscribed']:.1f} turns/s "
+            f"with 2 subscribers, phase 5's engine_rate without them "
+            + (f"{plain:.1f}" if plain is not None else "not measured")
+            + f"; view {r['view_device_ms']:.3f} device ms a publication; "
+            f"Profile {prof['turns']} turns ok ({prof['kernels']}), trace "
+            f"{prof['trace_bytes']} bytes")
+    big = BCAST_RESULTS["65536"]
+    log(f"  65536²: view {big['view_device_ms']:.3f} device ms a "
+        f"publication; device memory {big['live_bytes']} live bytes "
+        f"({big['device_kind']})")
+
+
+def phase_broadcast(torch, dev) -> None:
+    """Phase 4i: the broadcast tier and the telemetry surface on the
+    card (see the module docstring)."""
+    log("phase 4i: the broadcast tier and the telemetry surface")
+    BCAST_RESULTS["card"] = nvidia_smi("name,power.limit")
+    seconds = {}
+    t0 = time.monotonic()
+    BCAST_RESULTS["leg"] = broadcast_leg(dev)
+    seconds["leg"] = time.monotonic() - t0
+    BCAST_RESULTS["single_run"], counts = [], {}
+    for size, turns in SUB_BOARDS:
+        t0 = time.monotonic()
+        res, counts[size] = subscribe_engine(torch, dev, size, turns)
+        BCAST_RESULTS["single_run"].append(res)
+        seconds[size] = time.monotonic() - t0
+    t0 = time.monotonic()
+    BCAST_RESULTS["65536"] = big_view_and_memory(torch, dev, Card(torch))
+    seconds[65536] = time.monotonic() - t0
+    t0 = time.monotonic()
+    BCAST_RESULTS["served"] = served_profiles_and_documents(counts)
+    seconds["served"] = time.monotonic() - t0
+    log("  phase 4i seconds by part: " + json.dumps(
+        {k: round(v, 1) for k, v in seconds.items()}))
+    log("broadcast:" + json.dumps(BCAST_RESULTS, default=str))
+
+
 def main_path_launches(cs) -> dict:
     """Launches per kernel on the main path; the two-plane kernels per
     family, as `name/family`, and K9 per route, as `name/route`."""
@@ -3749,7 +4434,11 @@ def main() -> int:
                             "window_occupancy"), True),
             (phase_fleet, ("fleet_run_turns/resident",
                            "fleet_run_turns/tiled", "resident_run_turns",
-                           "tiled_sweep"), True)):
+                           "tiled_sweep"), True),
+            # 4i runs torch.profiler itself (the Profile captures).
+            (phase_broadcast, ("fleet_run_turns/resident",
+                               "resident_run_turns", "tiled_sweep"),
+             False)):
         t_phase = time.monotonic()
         cs.reset_launch_counts()
         with (profile(activities=[ProfilerActivity.CPU,
@@ -3802,6 +4491,7 @@ def main() -> int:
     for k in kernels:
         k["main_path_device_ms"] = device_ms.get(
             k["name"], 0.0 if device_ms else "not measured")
+    log_broadcast_summary(card)
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@ the counterpart of `gol_tpu/chaos.py` for the hooks that `wire.send_msg`,
 `wire.recv_msg` and the client's dial sites call, and of the fleet's
 popcount poison (`take_poison`, which the fleet loop reads as its
 quarantine witness). Its federation and migration triggers
-(`kill_member`, `migrate_fail`) wait for ROADMAP A13.
+(`kill_member`, `migrate_fail`) wait for ROADMAP A13(c).
 
 Off by default: when `GOL_CHAOS` is unset every hook is one env lookup.
 Config is a comma-separated key=value string, e.g.::

@@ -2,8 +2,10 @@
 counterpart of `gol_tpu/client.py`, its fleet half included (a client
 bound to a fleet run stamps its `run_id` on every run-scoped call;
 `create_run`, `list_runs`, `attach_run`, `destroy_run`, `set_rule`),
-without the live-view subscription and the methods of slices not yet
-ported (migration, telemetry).
+the live-view subscription (`subscribe` -> `ViewSubscription`, the
+broadcast tier's push stream) and the telemetry methods (`get_telemetry`,
+`get_audit`, `get_usage`, `profile`); the migration methods wait for
+ROADMAP A13(c).
 
 Duck-typed to `Engine` (same method surface), so the controller does not
 care whether its engine is in-process or remote, nor whether the server
@@ -29,7 +31,7 @@ import socket
 import threading
 import time
 import uuid
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -411,6 +413,54 @@ class RemoteEngine:
                              timeout=self._timeout)
         return dict(resp["metrics"])
 
+    def get_telemetry(self, series: Optional[str] = None,
+                      tier: str = "raw", since: float = 0.0,
+                      labels: Optional[dict] = None) -> dict:
+        """The peer's telemetry document: a member's own family values
+        (`obs/export.local_doc`); a federation router's fleet view, where
+        `series` adds one tsdb series' merged buckets."""
+        header: dict = {"method": "GetTelemetry"}
+        if series:
+            header["series"] = series
+            header["tier"] = tier
+            if since:
+                header["since"] = float(since)
+            if labels:
+                header["labels"] = dict(labels)
+        resp, _ = self._call(header, timeout=self._timeout)
+        return dict(resp["telemetry"])
+
+    def get_audit(self, since_seq: int = 0, limit: int = 100) -> list:
+        """gol-fleet-audit/1 records with seq > since_seq, oldest first
+        (a member answers from its local event ring)."""
+        resp, _ = self._call(
+            {"method": "GetAudit", "since_seq": int(since_seq),
+             "limit": int(limit)},
+            timeout=self._timeout)
+        return list(resp.get("records", []))
+
+    def get_usage(self) -> dict:
+        """The server's per-run usage doc: top-K talkers by device-time
+        share, wire/broadcast/checkpoint/journal bytes, attribution
+        conservation and capacity headroom rows. A client bound to a run
+        also gets that run's live record under "run"."""
+        resp, _ = self._call({"method": "GetUsage"},
+                             timeout=self._timeout)
+        doc = dict(resp["usage"])
+        if "run" in resp:
+            doc["run"] = dict(resp["run"])
+        return doc
+
+    def profile(self, turns: int = 0) -> dict:
+        """Arm a profiler capture of the next `turns` engine turns on the
+        SERVER, into its configured --profile-dir (the client never
+        chooses remote write paths). `turns=0` returns the profile
+        controller's status instead of arming."""
+        resp, _ = self._call({"method": "Profile", "turns": int(turns)},
+                             timeout=self._timeout)
+        resp.pop("ok", None)
+        return dict(resp)
+
     def abort_run(self) -> bool:
         """Stop the engine's current run IF it is this controller's own
         (token match); returns whether an abort was delivered."""
@@ -461,6 +511,37 @@ class RemoteEngine:
         if view is not None:
             self._view_basis = (turn, fy, fx, view)
         return view, turn, (fy, fx)
+
+    def subscribe(self, max_cells: int,
+                  timeout: float = None) -> "ViewSubscription":
+        """Upgrade one connection to a server-push live-view stream (the
+        broadcast tier): the server ACKs, then pushes epoch-stream frames
+        — a keyframe every `keyframe_every` frames plus xrle deltas
+        against the previous pushed frame — until either side hangs up.
+        N subscribers of one run cost the server ONE encode per
+        published frame.
+
+        Requires full codec caps (every subscriber shares the same frozen
+        bytes); servers refuse partial-caps peers with an error — poll
+        get_view then."""
+        header = {"method": "Subscribe", "max_cells": int(max_cells),
+                  "vkey": self._token,
+                  "caps": sorted(wire.local_caps())}
+        if self.run_id is not None:
+            header["run_id"] = self.run_id
+        to = self._timeout if timeout is None else timeout
+        sock = _dial(self._addr, to)
+        try:
+            wire.enable_nodelay(sock)
+            sock.settimeout(to)
+            send_msg(sock, header)
+            resp, _ = recv_msg(sock)
+            self._note_caps(resp)
+            _check_resp(resp)
+        except BaseException:
+            sock.close()
+            raise
+        return ViewSubscription(sock, resp)
 
     def get_window(self):
         """Sparse engines: (window pixels, (ox, oy) torus origin, turn)."""
@@ -589,3 +670,72 @@ class RemoteEngine:
         return {"head": resp.get("head"), "seq": resp.get("seq"),
                 "path": resp.get("path"),
                 "records": list(resp.get("records", []))}
+
+
+class ViewSubscription:
+    """Consumer half of a Subscribe upgrade: a persistent socket the
+    server pushes epoch-stream frames down.
+
+    `recv()` blocks for the next frame and keeps the xrle basis chain:
+    keyframes decode standalone, deltas decode against the previous
+    received frame. After the gateway skips this subscriber forward (it
+    was too slow), the next frame is a keyframe by protocol, so the chain
+    re-anchors with no client logic. The stream ends with a
+    ConnectionError carrying the server's end sentinel (run destroyed,
+    server shutdown) or a raw hangup."""
+
+    def __init__(self, sock: socket.socket, ack: dict) -> None:
+        self._sock = sock
+        self.run_id = ack.get("run_id")
+        self.epoch = int(ack.get("epoch", 0))
+        self.keyframe_every = int(ack.get("keyframe_every", 0))
+        self.max_cells = int(ack.get("max_cells", 0))
+        self._basis = None  # (turn, pixels): the last received frame
+        self.frames_received = 0
+        self.closed = False
+
+    def fileno(self) -> int:
+        return self._sock.fileno()
+
+    def recv(self, timeout: float = None):
+        """Block for the next pushed frame; returns (view pixels, turn,
+        (fy, fx), header). Raises ConnectionError when the stream ends
+        (with the server's end-sentinel reason when one was sent). ANY
+        failure, a recv timeout included, closes the subscription: a
+        frame may have been half-consumed, and the push framing is not
+        resumable mid-message. Re-subscribe to continue (the first frame
+        is always a keyframe)."""
+        if self.closed:
+            raise ConnectionError("subscription closed")
+        self._sock.settimeout(timeout)
+        try:
+            header, view = recv_msg(self._sock, xrle_basis=self._basis)
+        except BaseException:
+            self.close()
+            raise
+        if header.get("push") == "end" or not header.get("ok", False):
+            self.close()
+            raise ConnectionError(
+                f"stream ended: {header.get('error', 'closed by server')}")
+        turn = int(header["turn"])
+        self.epoch = int(header.get("epoch", self.epoch))
+        if view is not None:
+            self._basis = (turn, view)
+        self.frames_received += 1
+        return view, turn, (int(header["fy"]), int(header["fx"])), header
+
+    def frames(self, timeout: float = None):
+        """Yield (view, turn, (fy, fx), header) until the stream ends (a
+        clean end sentinel returns; transport errors propagate)."""
+        while True:
+            try:
+                yield self.recv(timeout)
+            except ConnectionError:
+                return
+
+    def close(self) -> None:
+        self.closed = True
+        try:
+            self._sock.close()
+        except OSError:
+            pass

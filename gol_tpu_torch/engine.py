@@ -48,6 +48,17 @@ turns, so those turns depend on the cadence alone. `checkpoint_now`,
 `restore_run`, `save_checkpoint` and `load_checkpoint` are the
 synchronous surface.
 
+Telemetry, as in the JAX engine: each issued chunk pokes
+`_bcast_notify` (the broadcast hub's publish hook, once a server has a
+subscriber); a Profile request (`obs/prof.py`: the Profile RPC, POST
+/profile, `GOL_PROFILE_DIR`) drains the in-flight chunks and steps the
+requested turns one chunk at a time under `torch.profiler`, each chunk
+still counted by its last stepping launch, so every published pair stays
+exact; `GOL_TRACE` traces one chunk the same way; `GOL_RUN_REPORT`
+writes the run's timeline; the chunk-loop metric families move at most
+every METRICS_FLUSH_SECONDS, and the device-memory gauges every
+DEVPOLL_SECONDS.
+
 The device is explicit: `Engine(device=None)` means CUDA and raises where
 there is none; `Engine(device="cpu")` runs the plain versions of the
 kernels on the CPU, as the tests do.
@@ -82,7 +93,11 @@ from gol_tpu_torch.models.largerthanlife import LargerThanLifeRule
 from gol_tpu_torch.models.lenia import ALIVE_THRESHOLD, LeniaRule
 from gol_tpu_torch.models.lifelike import CONWAY
 from gol_tpu_torch.obs import catalog as obs
+from gol_tpu_torch.obs import devstats as obs_devstats
 from gol_tpu_torch.obs import flight as obs_flight
+from gol_tpu_torch.obs import prof as obs_prof
+from gol_tpu_torch.obs import timeline as obs_timeline
+from gol_tpu_torch.obs import trace as obs_trace
 from gol_tpu_torch.ops import conv as conv_ops
 from gol_tpu_torch.ops.bitpack import (
     WORD_BITS,
@@ -129,6 +144,21 @@ PIPELINE_BOARD_BUDGET = 8 << 30
 # seconds (the manifest cadence is GOL_CKPT_EVERY_TURNS, `ckpt/`).
 CKPT_EVERY_ENV = "GOL_CKPT_EVERY"
 CKPT_EVERY_DEFAULT = 30.0
+
+# GOL_TRACE=<dir>: one torch.profiler Chrome trace of a representative
+# chunk per run (the second; the first when it is the whole run) — the
+# counterpart of the reference's runtime/trace artifact.
+TRACE_ENV = "GOL_TRACE"
+
+# The chunk loop's metric families move at most this often (batched, as
+# in the JAX engine), and the gol_dev_* memory gauges every
+# DEVPOLL_SECONDS.
+METRICS_FLUSH_SECONDS = 0.5
+DEVPOLL_SECONDS = 2.0
+
+# The JAX package's storage dtype of the packed reprs, for step
+# signatures that read the same in both packages.
+_SIGNATURE_DTYPE = {"packed": "uint32", "gen3": "uint32"}
 
 
 class EngineKilled(RuntimeError):
@@ -363,6 +393,10 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         # Temporal-fusion depth of the last submitted run: checkpoint
         # manifests stamp it (`fuse`) when above 1.
         self._fuse_eff = 1
+        # Broadcast publish hook (`broadcast.py`): called once per issued
+        # chunk, no arguments, cheap and never raising (the hub installs
+        # threading.Event.set). None = no broadcast tier attached.
+        self._bcast_notify = None
 
     @property
     def device(self) -> torch.device:
@@ -466,6 +500,12 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
             self._run_token = token
             self._abort.clear()
             self._fuse_eff = fuse_eff
+        obs_devstats.note_signature(
+            (repr_, tuple(cells.shape),
+             _SIGNATURE_DTYPE.get(repr_,
+                                  str(cells.dtype).replace("torch.", "")),
+             (1,), self._rule.rulestring, fuse_eff))
+        obs_devstats.note_fuse(fuse_eff)
         with self._on_device():
             return self._run_loop(params, cells, run, start_turn, fuse_eff)
 
@@ -521,6 +561,57 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         stepped = False
         repr_ = self._repr
         height, width = cells.shape[-2], _board_width(cells, repr_)
+
+        # Telemetry, all at chunk boundaries on this host thread: the run
+        # report (GOL_RUN_REPORT / --run-report), the chunk-loop metric
+        # families (batched, flushed every METRICS_FLUSH_SECONDS), the
+        # gol_dev_* memory gauges, and profiler captures: a Profile
+        # request (RPC, POST /profile, GOL_PROFILE_DIR) or the GOL_TRACE
+        # chunk. A captured chunk runs alone and synchronously, and its
+        # profiler-skewed timing stays out of the adapter, the pace and
+        # the CUPS aggregates (a traced chunk, as in the JAX engine).
+        reporter = obs_timeline.from_env()
+        run_t0 = time.monotonic()
+        board_cells = height * width
+        if reporter is not None:
+            reporter.emit(
+                "run_start", w=width, h=height,
+                model=self._rule.rulestring, repr=repr_, devices=1,
+                shards=1, turns_requested=params.turns,
+                start_turn=start_turn, fuse_k=fuse_eff)
+        obs.ENGINE_CHUNK_SIZE.set(chunk)
+        obs_prof.arm_from_env()
+        obs_devstats.poll_device_memory()
+        last_devpoll = time.monotonic()
+        trace_dir = os.environ.get(TRACE_ENV, "")
+        capture = None  # the running profiler capture, if any
+        capture_to = 0  # ... and the turn it ends at
+        chunks_done = traced_chunks = 0
+        pend_chunks = pend_turns = 0
+        pend_elapsed: list = []
+        flag_pending = 0.0
+        last_rate = 0.0
+        last_done_turn = start_turn
+        last_flush = time.monotonic()
+
+        def _flush_metrics(now: float) -> None:
+            """Drain the batched chunk-loop telemetry into the registry."""
+            nonlocal pend_chunks, pend_turns, last_flush
+            if pend_chunks:
+                if fuse_eff > 1:
+                    obs.FUSED_DISPATCHES.labels(tier="engine").inc(
+                        pend_chunks)
+                obs.ENGINE_CHUNKS_TOTAL.inc(pend_chunks)
+                obs.ENGINE_TURNS_TOTAL.inc(pend_turns)
+                obs.ENGINE_CHUNK_SECONDS.observe_batch(pend_elapsed)
+                pend_elapsed.clear()
+                pend_chunks = pend_turns = 0
+            obs.ENGINE_TURN.set(last_done_turn)
+            obs.ENGINE_CHUNK_SIZE.set(chunk)
+            if last_rate > 0:
+                obs.ENGINE_CUPS.set(last_rate * board_cells)
+                obs.ENGINE_TURNS_PER_S.set(last_rate)
+            last_flush = now
 
         # GOL_CKPT: the legacy WxH.npz autosave every GOL_CKPT_EVERY
         # seconds, and with GOL_CKPT_EVERY_TURNS manifest checkpoints at
@@ -578,9 +669,9 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                 stream=self._current_stream()))
 
         def _reset_pace(at: float) -> None:
-            """Keep a host stall (a pause, a legacy autosave) out of pace
-            measurements; the chunks that completed during it drain as a
-            burst, so skip the next `depth` pops."""
+            """Keep a host stall (a pause, a legacy autosave, a capture)
+            out of pace measurements; the chunks that completed during it
+            drain as a burst, so skip the next `depth` pops."""
             nonlocal last_pop
             last_pop = at
             self._pace_window.clear()
@@ -588,17 +679,30 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
 
         def _pop_oldest() -> None:
             """Wait for the oldest chunk's token, publish its exact
-            (alive, turn) pair and feed the chunk adapter; journal its
-            board's digest when its turn is a digest turn."""
-            nonlocal chunk, last_pop, ramping
-            done_cells, host, event, done_k, done_turn = inflight.popleft()
+            (alive, turn) pair and feed the chunk adapter and the
+            telemetry; journal its board's digest when its turn is a
+            digest turn."""
+            nonlocal chunk, last_pop, ramping, traced_chunks, pend_chunks
+            nonlocal pend_turns, flag_pending, last_rate, last_done_turn
+            nonlocal last_devpoll
+            (done_cells, host, event, done_k, done_turn, issue_s,
+             traced) = inflight.popleft()
+            t_wait = time.monotonic()
             if event is not None:
                 event.synchronize()
             done_alive = int(host)
             now = time.monotonic()
             elapsed = now - last_pop
             last_pop = now
-            if ramping or depth == 1:
+            rate = 0.0
+            if traced:
+                traced_chunks += 1
+                obs.ENGINE_TRACED_CHUNKS_TOTAL.inc()
+                obs.ENGINE_TURNS_TOTAL.inc(done_k)
+                if reporter is not None:
+                    reporter.emit("traced_chunk", turn=done_turn,
+                                  turns=done_k)
+            elif ramping or depth == 1:
                 new_chunk = self._adapt_chunk(chunk, done_k, elapsed)
                 if ramping and done_k == chunk and new_chunk == chunk:
                     ramping = False
@@ -612,6 +716,22 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                 if rate > 0:
                     self._turns_per_s = rate
                 self._alive_pub = (done_alive, done_turn)
+            last_done_turn = done_turn
+            if not traced:
+                pend_chunks += 1
+                pend_turns += done_k
+                pend_elapsed.append(elapsed)
+                if rate > 0:
+                    last_rate = rate
+                if reporter is not None:
+                    reporter.emit(
+                        "chunk", turn=done_turn, turns=done_k,
+                        chunk_size=chunk, wall_s=round(elapsed, 6),
+                        cups=rate * board_cells, turns_per_s=rate,
+                        token_wait_s=round(now - t_wait, 6),
+                        dispatch_s=round(issue_s, 6),
+                        flag_s=round(flag_pending, 6), alive=done_alive)
+                    flag_pending = 0.0
             if (journal_writer is not None and digest_every_turns > 0
                     and done_turn > start_turn
                     and done_turn % digest_every_turns == 0):
@@ -626,12 +746,36 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                     # A failed digest must never sink the run; the
                     # journal sink latches itself dead on OSError.
                     pass
+            if now - last_devpoll >= DEVPOLL_SECONDS:
+                obs_devstats.poll_device_memory()
+                last_devpoll = now
+            if now - last_flush >= METRICS_FLUSH_SECONDS:
+                _flush_metrics(now)
 
+        # The run span parents under whatever is on this thread's context
+        # stack: the server's ServerDistributor handler span for remote
+        # runs, the controller's run span for in-process ones.
+        run_span = obs_trace.start(
+            "engine.run", attrs={"w": width, "h": height,
+                                 "turns": params.turns,
+                                 "start_turn": start_turn, "repr": repr_})
+        obs_trace.TRACER.push(run_span)
         try:
             while self._turn < target and not quit_run:
                 if self._killed or self._abort.is_set():
                     break
+                if capture is None:
+                    preq = obs_prof.PROFILER.take()
+                    if preq is not None:
+                        # Drain, so the trace holds the requested turns
+                        # alone; they run one chunk at a time.
+                        while inflight:
+                            _pop_oldest()
+                        capture = obs_prof.PROFILER.begin(preq)
+                        capture_to = min(self._turn + preq.turns, target)
                 k_cap = target - self._turn
+                if capture is not None:
+                    k_cap = min(k_cap, capture_to - self._turn)
                 # Land chunk boundaries exactly on checkpoint and digest
                 # turns: those turns are a function of (start_turn,
                 # cadence) alone, never of the adapter's chunk sizes, so
@@ -642,14 +786,36 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                 if next_digest_turn is not None:
                     k_cap = min(k_cap, next_digest_turn - self._turn)
                 k = _next_chunk(chunk, k_cap)
+                if capture is None and trace_dir and (
+                        chunks_done == 1
+                        or (chunks_done == 0 and k == target - self._turn)):
+                    # GOL_TRACE: the second chunk (the first is warm-up),
+                    # or the first when it is the whole run.
+                    while inflight:
+                        _pop_oldest()
+                    capture = obs_prof.Capture(trace_dir)
+                    capture_to = self._turn + k
+                    trace_dir = ""
+                t_issue = time.monotonic()
                 cells, host, event = self._chunk(run, cells, k)
-                inflight.append((cells, host, event, k, self._turn + k))
-                while len(inflight) >= (1 if ramping else depth):
+                inflight.append((cells, host, event, k, self._turn + k,
+                                 time.monotonic() - t_issue,
+                                 capture is not None))
+                while len(inflight) >= (
+                        1 if ramping or capture is not None else depth):
                     _pop_oldest()
+                chunks_done += 1
                 stepped = True
                 with self._state_lock:
                     self._cells = cells
                     self._turn += k
+                cb = self._bcast_notify
+                if cb is not None:
+                    cb()
+                if capture is not None and self._turn >= capture_to:
+                    capture.finish()
+                    capture = None
+                    _reset_pace(time.monotonic())
                 if (next_ckpt_turn is not None
                         and self._turn >= next_ckpt_turn):
                     _ckpt_submit(cells, "periodic")
@@ -676,13 +842,19 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                         or self._abort.is_set()):
                     t_flags = time.monotonic()
                     quit_run = self._handle_flags()
-                    if time.monotonic() - t_flags > 0.01:
+                    flag_s = time.monotonic() - t_flags
+                    flag_pending += flag_s
+                    obs.ENGINE_FLAG_SERVICE_SECONDS.observe(flag_s)
+                    if flag_s > 0.01:
                         _reset_pace(time.monotonic())
             if ckpt_writer is not None and stepped:
                 # Every loop exit — completion, quit, kill, abort —
                 # leaves durable state at the final turn.
                 _ckpt_submit(cells, "final")
-        except Exception:
+        except Exception as e:
+            if capture is not None:
+                capture.finish(e)
+                capture = None
             if ckpt_writer is not None:
                 # Emergency best-effort checkpoint: synchronous (there is
                 # no later boundary to wait for) and never allowed to
@@ -698,6 +870,10 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
             # pair (the turn only advances once a chunk is issued).
             while inflight:
                 _pop_oldest()
+            if capture is not None:
+                # The run ended (quit, kill, abort) before the capture's
+                # last turn: what was stepped is in the trace.
+                capture.finish()
             with self._state_lock:
                 final_cells, final_turn = self._cells, self._turn
                 final_repr = self._repr
@@ -717,6 +893,25 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                     journal_writer.append("end", turn=final_turn)
                 except Exception:
                     pass
+            # Run-end flush: the batched families land before anyone can
+            # observe the run as finished, so post-run totals are exact.
+            _flush_metrics(time.monotonic())
+            obs.ENGINE_TURN.set(final_turn)
+            if reporter is not None:
+                devmem = obs_devstats.poll_device_memory()
+                reporter.emit(
+                    "run_end", turn=final_turn,
+                    turns_total=final_turn - start_turn,
+                    chunks=chunks_done - traced_chunks,
+                    traced_chunks=traced_chunks,
+                    wall_s=round(time.monotonic() - run_t0, 6),
+                    device_kind=devmem["device_kind"],
+                    dev_live_bytes=devmem["live_bytes"],
+                    dev_peak_bytes=devmem["peak_bytes"])
+                reporter.close()
+            run_span.attrs["final_turn"] = final_turn
+            obs_trace.TRACER.pop(run_span)
+            obs_trace.finish(run_span)
         return self._materialize(final_cells, final_repr), final_turn
 
     def _journal_create(self, journal_writer, cells: torch.Tensor,

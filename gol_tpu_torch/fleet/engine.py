@@ -1582,7 +1582,7 @@ class FleetEngine(ControlFlagProtocol):
         obs_log("fleet.quarantine", level="error", run_id=h.run_id,
                 reason=reason, turn=h.turn)
         # Fleet audit: a gol-fleet-audit/1 record in the member-side
-        # queue (its exporter and GetAudit wait for ROADMAP A13(b)).
+        # queue and ring (GetAudit reads the ring).
         obs_audit.note("quarantine", run_id=h.run_id, reason=reason,
                        turn=h.turn)
         # NOTE: h.done is NOT set — a driven run stays driven; the

@@ -105,10 +105,9 @@ class RunHandle:
         # run, which predates admission and is never rejected).
         self.admitted_cost = 0
         self.flags: "queue.Queue[int]" = queue.Queue()
-        # vkeys of live-view subscribers (GetView with run_id): purely
-        # observational today — lets ListRuns show which runs anyone is
-        # actually watching, and is the subscription set per-run
-        # push-snapshots (ROADMAP A13(a)) would fan out to.
+        # vkeys of live-view viewers (GetView or Subscribe with run_id):
+        # observational — lets ListRuns show which runs anyone is
+        # actually watching.
         self.viewers: set = set()
         self.ckpt_every = int(ckpt_every)
         self.next_ckpt_turn = (self.turn + self.ckpt_every

@@ -1,5 +1,5 @@
 """Headless CLI — the counterpart of `gol_tpu/main.py` without its live
-window and its observability options.
+window (`--live` waits for ROADMAP A13(d)).
 
     python -m gol_tpu_torch -w 512 -h 512 --turns 100 --headless
     python -m gol_tpu_torch -w 64 -h 64 --turns 100 --headless --device cpu
@@ -13,6 +13,9 @@ window and its observability options.
     python -m gol_tpu_torch --turns 100000 --headless --resume ckpt
     python -m gol_tpu_torch -w 1048576 -h 1048576 --sparse --rle rpentomino \
         --turns 8192 --headless
+    python -m gol_tpu_torch -w 512 -h 512 --turns 10000 --headless \
+        --profile-dir prof --profile-turns 64 --run-report run.jsonl \
+        --trace-spans spans.json --metrics-port 0
 
 Events print as `Completed Turns <n>  <event>`; on a terminal the keys
 s/p/q/k/c go to the run ('c' writes a manifest checkpoint).
@@ -60,6 +63,32 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "stamped centred on an empty WxH torus")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="device of the engine (default cuda)")
+    ap.add_argument("--trace", metavar="DIR", default="",
+                    help="write one torch.profiler Chrome trace of a "
+                         "representative chunk to DIR (sets GOL_TRACE)")
+    ap.add_argument("--profile-dir", metavar="DIR", default="",
+                    help="capture a torch.profiler Chrome trace "
+                         "(*.trace.json) of the run's first "
+                         "--profile-turns turns into DIR; equivalent to "
+                         "GOL_PROFILE_DIR=DIR")
+    ap.add_argument("--profile-turns", type=int, default=0, metavar="N",
+                    help="turns per profiler capture (sets "
+                         "GOL_PROFILE_TURNS; default 256)")
+    ap.add_argument("--run-report", metavar="PATH", default="",
+                    help="append a JSON-lines chunk-timeline run report "
+                         "(schema gol-run-report/1) to PATH; equivalent "
+                         "to GOL_RUN_REPORT=PATH")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    metavar="PORT",
+                    help="serve Prometheus text on "
+                         "http://127.0.0.1:PORT/metrics, plus /healthz "
+                         "and /profile (0 = ephemeral port; unset = no "
+                         "endpoint)")
+    ap.add_argument("--trace-spans", metavar="PATH", default="",
+                    help="export controller/RPC/engine spans as Chrome "
+                         "trace-event JSON to PATH when the run ends; "
+                         "equivalent to GOL_TRACE_SPANS=PATH (a "
+                         "directory gets one file per pid)")
     ap.add_argument("--checkpoint", metavar="DIR", default="",
                     help="checkpoint directory (sets GOL_CKPT): the "
                          "engine writes gol-ckpt/1 manifest checkpoints "
@@ -243,8 +272,35 @@ def _resume(args, rule):
     return rule, eng.restore_run(target)
 
 
+def _export_obs_flags(args) -> None:
+    """The observability flags travel as env, read by the engine at run
+    start (so a forked or remote engine inherits them), as in the JAX
+    CLI; `--metrics-port` starts its endpoint here."""
+    from gol_tpu_torch.engine import TRACE_ENV
+    from gol_tpu_torch.obs import prof as obs_prof
+    from gol_tpu_torch.obs import trace as obs_trace
+    from gol_tpu_torch.obs.timeline import RUN_REPORT_ENV
+
+    for flag, env in ((args.trace, TRACE_ENV),
+                      (args.profile_dir, obs_prof.PROFILE_DIR_ENV),
+                      (args.run_report, RUN_REPORT_ENV),
+                      (args.trace_spans, obs_trace.TRACE_SPANS_ENV)):
+        if flag:
+            os.environ[env] = flag
+    if args.profile_turns:
+        os.environ[obs_prof.PROFILE_TURNS_ENV] = str(args.profile_turns)
+    obs_trace.set_process_name("gol-controller")
+    if args.metrics_port is not None:
+        from gol_tpu_torch.obs.http import start_metrics_server
+        from gol_tpu_torch.obs.log import log as obs_log
+
+        msrv = start_metrics_server(args.metrics_port)
+        obs_log("metrics.serving", url=msrv.url, port=msrv.port)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
+    _export_obs_flags(args)
     rule = None
     if args.rule:
         from gol_tpu_torch.models import parse_rule
@@ -319,6 +375,11 @@ def main(argv=None) -> int:
             images_dir=images_dir, sparse=args.sparse)
     _print_events(events_q, key_presses)
     t.join(30)
+    # Export whatever spans the run recorded (no-op without
+    # --trace-spans / GOL_TRACE_SPANS; never raises).
+    from gol_tpu_torch.obs import trace as obs_trace
+
+    obs_trace.export_from_env()
     return 1 if t.exception is not None else 0
 
 

@@ -1,8 +1,8 @@
 """The fleet audit log: who joined, who died, who adopted what, when —
 the counterpart of `gol_tpu/obs/audit.py`, writing the same
-`gol-fleet-audit/1` records. The port's fleet notes quarantines here;
-the `GetAudit` RPC and the heartbeat exporter that drain it wait for
-ROADMAP A13(b).
+`gol-fleet-audit/1` records. The port's fleet notes quarantines here,
+and the `GetAudit` RPC reads the member ring; the heartbeat that drains
+the queue to a router waits for ROADMAP A13(c).
 
 Two halves, one schema (`gol-fleet-audit/1`):
 

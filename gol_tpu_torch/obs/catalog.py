@@ -3,12 +3,14 @@ against the shared default registry — the part of
 `gol_tpu/obs/catalog.py` that the wire codecs, the engine server, the
 remote engine client, the chaos hooks, the tracer, the flight recorder,
 the SLO estimators, the checkpoint writer and its fleet pool, restore,
-the run journal, the conv-family kernel tiers, and the fleet engine
-(its engine-loop, run, SLO, audit, usage, fusion and step-signature
-families) emit. Names, kinds, labels and pre-seeded children are the
-JAX catalogue's, so a `GetMetrics` reply reads the same from either
-package. The single-run engine's chunk-loop families, the telemetry
-exporters and the mesh families wait for ROADMAP A13 and A5.
+the run journal, the conv-family kernel tiers, both engines (their
+chunk-loop, run, SLO, audit, usage, fusion and step-signature families),
+the telemetry exporter, tsdb and alerts, the broadcast tier and its
+gateway, device-memory polling and the profiler emit. Names, kinds,
+labels and pre-seeded children are the JAX catalogue's, so a
+`GetMetrics` reply reads the same from either package. The federation
+and migration families wait for ROADMAP A13(c), the mesh and halo
+families for A5; the JAX compile hooks have no counterpart.
 """
 
 from __future__ import annotations
@@ -630,3 +632,276 @@ COMPILE_STEP_SIGNATURES = REGISTRY.counter(
     "Distinct engine step signatures (representation, board shape, "
     "dtype, mesh, rule) seen this process; each new one implies a "
     "fresh jit trace + compile.")
+
+# --------------------------------------------------- telemetry plane
+
+# Heartbeat-borne snapshot export (obs/export.py, member side). The
+# drop family labels mirror export.FAMILY_LABELS plus "events" — a
+# closed set, so an over-budget snapshot meters exactly what it shed.
+SNAPSHOT_FAMILIES = ("resident", "queue", "staleness", "quantum",
+                     "slo", "cups", "dev_bytes", "usage", "events",
+                     "unknown")
+
+FED_SNAPSHOT_BYTES = REGISTRY.gauge(
+    "gol_fed_snapshot_bytes",
+    "Encoded size in bytes of the most recent telemetry snapshot this "
+    "member attached to its RegisterMember heartbeat; always <= "
+    "GOL_FED_SNAPSHOT_MAX (over-budget snapshots degrade by dropping "
+    "families, never by fattening the beat).")
+FED_SNAPSHOT_TOTAL = REGISTRY.counter(
+    "gol_fed_snapshot_total",
+    "Telemetry snapshots built for heartbeat export, by kind: full "
+    "(first beat, or after the router requested a resync) or delta "
+    "(only families whose value changed since the last ACKED beat).",
+    label_names=("kind",))
+for _k in ("full", "delta"):
+    FED_SNAPSHOT_TOTAL.labels(kind=_k)
+FED_SNAPSHOT_DROPPED = REGISTRY.counter(
+    "gol_fed_snapshot_dropped_total",
+    "Snapshot families (or the event batch) dropped to fit the "
+    "GOL_FED_SNAPSHOT_MAX byte budget, lowest priority first; dropped "
+    "deltas stay uncommitted and re-ship on the next beat.",
+    label_names=("family",))
+for _f in SNAPSHOT_FAMILIES:
+    FED_SNAPSHOT_DROPPED.labels(family=_f)
+FED_SNAPSHOT_INGESTED = REGISTRY.counter(
+    "gol_fed_snapshot_ingested_total",
+    "Heartbeat telemetry snapshots the registry tier merged into its "
+    "per-member state (router side).")
+
+# Fleet rollups the registry tier re-publishes every sweep from the
+# ingested member snapshots (router side) — the sensing inputs of the
+# ROADMAP item-3 control loop.
+FED_AGG_RUNS_RESIDENT = REGISTRY.gauge(
+    "gol_fed_agg_runs_resident",
+    "Fleet-wide resident-run total: exact sum of gol_runs_resident "
+    "reported by live members at the router's last telemetry sweep.")
+FED_AGG_QUEUE_DEPTH = REGISTRY.gauge(
+    "gol_fed_agg_queue_depth",
+    "Fleet-wide admission-queue depth: sum of gol_fleet_queue_depth "
+    "across live members at the last telemetry sweep.")
+FED_AGG_CUPS = REGISTRY.gauge(
+    "gol_fed_agg_cups",
+    "Aggregate cell updates per second: sum of gol_engine_cups across "
+    "live members at the last telemetry sweep.")
+FED_AGG_STALENESS_MS = REGISTRY.gauge(
+    "gol_fed_agg_staleness_ms",
+    "Fleet staleness quantiles in milliseconds: per-quantile MAX of "
+    "gol_fleet_staleness_ms across live members (the worst member "
+    "bounds the fleet).",
+    label_names=("q",))
+for _q in SLO_QUANTILES:
+    FED_AGG_STALENESS_MS.labels(q=_q)
+FED_AGG_IMBALANCE = REGISTRY.gauge(
+    "gol_fed_agg_imbalance_ratio",
+    "max/mean of per-member resident-run counts across reporting live "
+    "members (1.0 = balanced or fewer than one resident anywhere).")
+FED_AGG_MEMBERS_REPORTING = REGISTRY.gauge(
+    "gol_fed_agg_members_reporting",
+    "Live members whose telemetry snapshot the registry has ingested "
+    "(<= gol_fed_members{state='live'}; lags one heartbeat on join).")
+FED_AGG_SLO_BREACHES = REGISTRY.gauge(
+    "gol_fed_agg_slo_breaches_total",
+    "Fleet-wide SLO breach total: sum of each live member's "
+    "gol_slo_breaches_total as last reported (a gauge of summed "
+    "member counters, so member death can lower it).")
+FED_AGG_DEV_LIVE_BYTES = REGISTRY.gauge(
+    "gol_fed_agg_dev_live_bytes",
+    "Fleet-wide live device memory in bytes: sum of per-device "
+    "gol_dev_live_bytes across live members at the last sweep.")
+FED_AGG_PAYLOAD_BYTES = REGISTRY.gauge(
+    "gol_fed_agg_payload_bytes",
+    "Quantiles of ingested heartbeat-snapshot sizes in bytes (router "
+    "side, log-bucket estimator over all members since start).",
+    label_names=("q",))
+for _q in SLO_QUANTILES:
+    FED_AGG_PAYLOAD_BYTES.labels(q=_q)
+
+# Bounded time-series store (obs/tsdb.py, registry tier).
+TSDB_SERIES = REGISTRY.gauge(
+    "gol_tsdb_series",
+    "Distinct series currently resident in the telemetry tsdb rings "
+    "(hard-capped at GOL_TSDB_MAX_SERIES).")
+TSDB_POINTS = REGISTRY.gauge(
+    "gol_tsdb_points_total",
+    "Samples appended to the telemetry tsdb since process start "
+    "(every sample lands in all retention tiers at once).")
+TSDB_EVICTIONS = REGISTRY.gauge(
+    "gol_tsdb_evictions_total",
+    "Series evicted least-recently-appended-first because the tsdb "
+    "hit its GOL_TSDB_MAX_SERIES cardinality cap; a runaway label "
+    "source degrades retention, never memory.")
+
+# Alerting (obs/alerts.py). Built-in rule names are pre-seeded; rules
+# added via GOL_ALERT_RULES seed their children at manager start.
+ALERT_BUILTIN_RULES = ("member-death", "staleness-ceiling",
+                       "queue-depth", "resident-imbalance")
+ALERTS_ACTIVE = REGISTRY.gauge(
+    "gol_alerts_active",
+    "1 while the named alert rule is firing, else 0 (firing requires "
+    "the breach to hold for the rule's for_s; resolving requires "
+    "clear_s continuously below threshold — hysteresis, so a flapping "
+    "signal cannot strobe this gauge).",
+    label_names=("rule",))
+ALERTS_FIRED = REGISTRY.counter(
+    "gol_alerts_fired_total",
+    "firing transitions of the named alert rule (each one also lands "
+    "a flight-recorder event and a fleet audit-log record).",
+    label_names=("rule",))
+for _r in ALERT_BUILTIN_RULES:
+    ALERTS_ACTIVE.labels(rule=_r)
+    ALERTS_FIRED.labels(rule=_r)
+
+# Router-side fleet rollups of the heartbeat-borne "use" family.
+FED_AGG_USAGE_RUNS_TRACKED = REGISTRY.gauge(
+    "gol_fed_agg_usage_runs_tracked",
+    "Fleet-wide sum of gol_usage_runs_tracked across live members at "
+    "the router's last telemetry sweep.")
+FED_AGG_USAGE_ADMISSIBLE_RUNS = REGISTRY.gauge(
+    "gol_fed_agg_usage_admissible_runs",
+    "Fleet-wide projected admissible runs: sum over live members of "
+    "each member's best bucket-class gol_capacity_admissible_runs as "
+    "last reported on the heartbeat snapshot.")
+FED_AGG_USAGE_CUPS_HEADROOM = REGISTRY.gauge(
+    "gol_fed_agg_usage_cups_headroom",
+    "Fleet-wide aggregate CUPS headroom: sum of per-member capacity "
+    "headroom (all bucket classes) as last reported on the heartbeat "
+    "snapshot.")
+
+
+# ------------------------------------------ broadcast tier & gateway
+
+# Deliberately run_id-free: one scalar per family. 100k spectators of
+# one viral run must not become 100k label children, and per-run detail
+# already lives on /healthz — same cardinality discipline as the fleet
+# staleness gauges.
+BCAST_STREAMS = REGISTRY.gauge(
+    "gol_bcast_streams",
+    "Epoch broadcast streams currently open on this server (one per "
+    "(run, view geometry) with at least one subscriber ever; dropped "
+    "with the run).")
+BCAST_SUBSCRIBERS = REGISTRY.gauge(
+    "gol_bcast_subscribers",
+    "Viewer sockets currently attached to any broadcast stream "
+    "(Subscribe upgrades adopted by the gateway event loop). "
+    "Deliberately run_id-free — bounded cardinality regardless of how "
+    "many runs or viewers exist.")
+GATEWAY_CONNECTIONS = REGISTRY.gauge(
+    "gol_gateway_connections",
+    "Sockets currently owned by the selectors-based viewer gateway "
+    "(subscribers plus connections mid-adoption); capped by "
+    "GOL_GATEWAY_MAX.")
+
+BCAST_FRAMES = REGISTRY.counter(
+    "gol_bcast_frames_total",
+    "Frames published into broadcast epoch streams, by kind: key "
+    "(standalone keyframe — plain codec, decodable with no basis) or "
+    "delta (xrle against the shared epoch basis). Each published frame "
+    "is encoded exactly once no matter how many subscribers consume "
+    "it: gol_wire_encode_calls_total advances by exactly 1 per "
+    "publication (the bench.py --broadcast zero-work witness).",
+    label_names=("kind",))
+for _k in ("key", "delta"):
+    BCAST_FRAMES.labels(kind=_k)
+
+BCAST_FRAMES_DROPPED = REGISTRY.counter(
+    "gol_bcast_frames_dropped_total",
+    "Frames a slow subscriber never received because the stream ring "
+    "overtook it and the gateway skipped it forward to the newest "
+    "keyframe (the drop policy that keeps one stalled socket from "
+    "backpressuring the ring, other subscribers, or the engine chunk "
+    "loop).")
+BCAST_SENT_BYTES = REGISTRY.counter(
+    "gol_bcast_sent_bytes_total",
+    "Bytes the gateway pushed to subscribers (every socket counts the "
+    "shared frame bytes it actually received). Fan-out cost of the "
+    "broadcast tier; the encode cost is in gol_wire_frame_bytes_total "
+    "exactly once per published frame.")
+
+BCAST_FANOUT_MS = REGISTRY.gauge(
+    "gol_bcast_fanout_ms",
+    "Fan-out latency quantiles in milliseconds from a log-bucket "
+    "estimator (obs/slo.py): publication of a frame into the stream "
+    "ring -> the last byte of that frame handed to a subscriber's "
+    "socket, one sample per (frame, subscriber) delivery.",
+    label_names=("q",))
+for _q in SLO_QUANTILES:
+    BCAST_FANOUT_MS.labels(q=_q)
+
+
+# --------------------------------------------------- device telemetry
+
+# Values come from devstats.poll_device_memory() (torch.cuda.memory_stats
+# on the engine's CUDA device); the CPU leaves the per-device families
+# empty and gol_dev_mem_supported at 0.
+DEV_LIVE_BYTES = REGISTRY.gauge(
+    "gol_dev_live_bytes",
+    "Live device memory in bytes per device, from "
+    "device.memory_stats(); absent stats (CPU backends) leave the "
+    "family empty and flip gol_dev_mem_supported to 0.",
+    label_names=("device",))
+DEV_PEAK_BYTES = REGISTRY.gauge(
+    "gol_dev_peak_bytes",
+    "Peak device memory in bytes per device since process start, from "
+    "device.memory_stats().",
+    label_names=("device",))
+DEV_LIMIT_BYTES = REGISTRY.gauge(
+    "gol_dev_limit_bytes",
+    "Device memory capacity in bytes per device, where the backend "
+    "reports one.",
+    label_names=("device",))
+DEV_MEM_SUPPORTED = REGISTRY.gauge(
+    "gol_dev_mem_supported",
+    "1 if device.memory_stats() returns data on this backend, else 0.")
+DEV_DEVICES = REGISTRY.gauge(
+    "gol_dev_devices",
+    "Number of addressable devices visible to the process.")
+
+# Per-device kind census: heterogeneous device lists (a CPU host plus
+# accelerators, or mixed TPU generations) get one gauge child per kind,
+# clamped to a small declared budget so a pathological backend cannot
+# mint unbounded label values.
+DEV_KIND_MAX = 8
+
+DEV_KIND_DEVICES = REGISTRY.gauge(
+    "gol_dev_kind_devices",
+    "Addressable devices by device_kind string, from the last device "
+    "poll. At most DEV_KIND_MAX distinct kinds are labelled; overflow "
+    "kinds aggregate under 'other'.",
+    label_names=("kind",))
+
+_seen_kinds: set = set()
+
+
+def dev_kind_label(kind: str) -> str:
+    """Clamp device-kind label values to a bounded set (first
+    DEV_KIND_MAX distinct kinds seen, then 'other')."""
+    if kind in _seen_kinds:
+        return kind
+    if len(_seen_kinds) < DEV_KIND_MAX:
+        _seen_kinds.add(kind)
+        return kind
+    return "other"
+
+
+DEV_MEM_STATS_SUPPORTED = REGISTRY.gauge(
+    "gol_dev_mem_stats_supported",
+    "1 if device.memory_stats() returns data for this device, else 0 — "
+    "one child per addressable device, so heterogeneous lists (some "
+    "devices with stats, some without) are visible per device rather "
+    "than collapsed into the scalar gol_dev_mem_supported.",
+    label_names=("device",))
+
+
+# ----------------------------------------------------------- profiler
+
+PROFILE_CAPTURES = REGISTRY.counter(
+    "gol_profile_captures_total",
+    "On-demand torch.profiler trace captures, by outcome.",
+    label_names=("status",))
+PROFILE_ARMED = REGISTRY.gauge(
+    "gol_profile_armed",
+    "1 while a profile capture request is pending or in progress.")
+
+for _s in ("ok", "error"):
+    PROFILE_CAPTURES.labels(status=_s)

@@ -1,6 +1,6 @@
 """Crash-time flight recorder: a bounded ring of recent spans and events —
 the counterpart of `gol_tpu/obs/flight.py` (its `crash` trigger and
-`validate_dump` wait for ROADMAP A13).
+`validate_dump` wait for ROADMAP A13(c)).
 
 Every finished span (`obs/trace.py`) and every structured-log event
 (`obs/log.py`) is also appended to a small in-memory ring. When something

@@ -1,8 +1,7 @@
 """Chunk-timeline run reports: JSON-lines records of how a run paced —
 the counterpart of `gol_tpu/obs/timeline.py`, the same
-`gol-run-report/1` schema. The port's fleet loop emits `chunk` records
-under `GOL_RUN_REPORT`; the CLI's `--run-report` waits for ROADMAP
-A13(b).
+`gol-run-report/1` schema. Both engines' loops emit it under
+`GOL_RUN_REPORT`, which the CLI's `--run-report` sets.
 
 One `RunReporter` per engine run, activated by `GOL_RUN_REPORT=PATH`
 (the `--run-report` CLI flag sets the env var, mirroring how `--trace`

@@ -1,7 +1,7 @@
 """Per-run usage metering and capacity attribution — the counterpart of
-`gol_tpu/obs/usage.py`. The port's fleet loop, checkpoint writer and
-journal charge it; the `GetUsage` RPC and the heartbeat exporter that
-read it wait for ROADMAP A13(b).
+`gol_tpu/obs/usage.py`. The port's fleet loop, checkpoint writer,
+journal, broadcast tier and server charge it; the `GetUsage` RPC and the
+telemetry exporter read it.
 
 The fleet engine dispatches one compiled program per bucket quantum; a
 quantum's wall clock is the only device time there is, so attribution

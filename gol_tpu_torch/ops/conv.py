@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from gol_tpu_torch.obs import catalog as obs
+from gol_tpu_torch.obs import devstats as obs_devstats
 from gol_tpu_torch.ops import cuda_stencil
 
 TIER_ENV = "GOL_KERNEL_TIER"
@@ -423,14 +424,14 @@ def lenia_run_fn(tier: str):
 def run_turns(cells, num_turns: int, rule, tier: Optional[str] = None):
     """Standalone conv-tier turn loop (tests, `chip_smoke.py`): advance
     `num_turns` turns of an LtL or Lenia rule on the given tier
-    (auto-selected from the board when None). The JAX package's
-    step-signature counter (`obs/devstats.note_signature`) waits for
-    ROADMAP A13."""
+    (auto-selected from the board when None). Each call notes its step
+    signature (`obs/devstats.note_signature`) under the JAX package's
+    key."""
     cells = torch.as_tensor(cells)
     h, w = cells.shape[-2], cells.shape[-1]
+    dtype = str(cells.dtype).replace("torch.", "")
     if tier is None:
-        tier = select_tier(h, w, rule.radius,
-                           str(cells.dtype).replace("torch.", ""),
+        tier = select_tier(h, w, rule.radius, dtype,
                            allowed=("conv", "fft"),
                            kind=getattr(rule, "kind", "shell"))
     from gol_tpu_torch.models.lenia import LeniaRule
@@ -438,6 +439,8 @@ def run_turns(cells, num_turns: int, rule, tier: Optional[str] = None):
     fn = (lenia_run_fn(tier) if isinstance(rule, LeniaRule)
           else ltl_run_fn(tier))
     note_dispatch(tier)
+    obs_devstats.note_signature(
+        ("conv", tier, (h, w), dtype, rule.rulestring))
     return fn(cells, num_turns, rule)
 
 

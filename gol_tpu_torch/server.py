@@ -8,23 +8,29 @@ Wraps an `Engine`, with `--sparse SIZE` a `SparseEngine`, or with
 control protocol (`Server/gol/distributor.go:54-83` — ServerDistributor /
 Alivecount / GetWorld / CFput / KillProg, plus Ping, Stats, GetMetrics,
 GetView, DrainFlags, AbortRun, Checkpoint, RestoreRun, GetJournal, the
-fleet's CreateRun / ListRuns / AttachRun / DestroyRun / SetRule and, for
-the sparse engine, GetWindow) on a TCP
-socket (default :8080, the reference broker port, `Server:235`).
+fleet's CreateRun / ListRuns / AttachRun / DestroyRun / SetRule, for
+the sparse engine GetWindow, the broadcast tier's Subscribe and the
+telemetry surface's GetTelemetry / GetAudit / GetUsage / Profile) on a
+TCP socket (default :8080, the reference broker port, `Server:235`).
 Run-scoped methods honour a `run_id` header (`RUN_SCOPED`); peers that
-never send one get the legacy run, on every engine.
+never send one get the legacy run, on every engine. A Subscribe is
+ACKed on its handler thread and its socket handed to the viewer gateway
+(`gateway.py`), which pushes the run's encode-once epoch stream
+(`broadcast.py`) until either side hangs up.
 Long-running: survives controller detach and serves `GetWorld` for
 `CONT=yes` reattach, as the Go broker holds `world`/`turn` in globals.
 With `--checkpoint DIR` a SIGTERM drains, writes a manifest checkpoint
 and the legacy `WxH.npz`, and exits 0; `--resume` restores before
 serving; on a fleet server SIGTERM also checkpoints every fleet run
-into its run-<id> directory. The methods of later slices
-(subscriptions, telemetry, migration) answer with an error naming their
-ROADMAP item; the connection is served as usual.
+into its run-<id> directory. The methods of the migration slice answer
+with an error naming their ROADMAP item; the connection is served as
+usual. `--metrics-port` serves /metrics, /healthz and /profile;
+`--profile-dir` is where Profile's torch.profiler traces land.
 
 Run:  python -m gol_tpu_torch.server [--port 8080] [--device cpu]
           [--sparse SIZE | --fleet] [--checkpoint DIR [--ckpt-every TURNS]]
-          [--resume DIR|MANIFEST|NPZ]
+          [--resume DIR|MANIFEST|NPZ] [--metrics-port PORT]
+          [--profile-dir DIR]
 """
 
 from __future__ import annotations
@@ -42,10 +48,14 @@ from gol_tpu_torch import ckpt as ckpt_mod
 from gol_tpu_torch import journal as journal_mod
 from gol_tpu_torch import wire
 from gol_tpu_torch.engine import Engine, EngineBusy, EngineKilled
+from gol_tpu_torch.obs import audit as obs_audit
 from gol_tpu_torch.obs import catalog as obs
+from gol_tpu_torch.obs import export as obs_export
 from gol_tpu_torch.obs import flight as obs_flight
 from gol_tpu_torch.obs import slo as obs_slo
 from gol_tpu_torch.obs import trace
+from gol_tpu_torch.obs import usage as obs_usage
+from gol_tpu_torch.obs.prof import PROFILER, ProfileUnavailable
 from gol_tpu_torch.obs.log import exception as obs_exception
 from gol_tpu_torch.obs.log import log as obs_log
 from gol_tpu_torch.obs.metrics import REGISTRY
@@ -71,13 +81,11 @@ MAX_CONNS_DEFAULT = 64
 DRAIN_DEADLINE_ENV = "GOL_DRAIN_DEADLINE"
 DRAIN_DEADLINE_DEFAULT = 5.0
 
-# Methods of the protocol that later slices of the port bring, and the
+# Methods of the protocol that a later slice of the port brings, and the
 # ROADMAP item each waits for.
 NOT_YET_PORTED = {
-    "Subscribe": "A13", "GetTelemetry": "A13", "GetAudit": "A13",
-    "GetUsage": "A13", "Profile": "A13",
-    "AdoptRun": "A13", "Rescale": "A13", "ReceiveRun": "A13",
-    "CommitRun": "A13",
+    "AdoptRun": "A13(c)", "Rescale": "A13(c)", "ReceiveRun": "A13(c)",
+    "CommitRun": "A13(c)",
 }
 
 
@@ -116,6 +124,19 @@ class EngineServer:
         # In-flight handler census for graceful drain.
         self._inflight = 0
         self._inflight_lock = threading.Lock()
+        # Broadcast tier (hub + selectors gateway): created on the first
+        # Subscribe, so servers that never see one start no threads.
+        # (hub, gateway) once armed; _bcast is written last.
+        self._bcast = None
+        self._bcast_lock = threading.Lock()
+        # Set by a Subscribe handler after it handed its socket to the
+        # gateway: _serve_conn must then not close the fd the event loop
+        # now owns.
+        self._adopted_conn = threading.local()
+        # The ConnectionEncoder of the request this thread serves: _reply
+        # adds its sent bytes there, and the dispatch tail charges them to
+        # the run named in the header.
+        self._usage_ctx = threading.local()
 
     VIEW_CACHE_MAX = 4
     DEDUPE_MAX = 512
@@ -172,6 +193,15 @@ class EngineServer:
 
     def shutdown(self) -> None:
         self._shutdown.set()
+        bc = self._bcast
+        if bc is not None:
+            # Every stream ends with its sentinel before the gateway stops.
+            hub, gateway = bc
+            try:
+                hub.stop()
+                gateway.stop()
+            except Exception as e:  # shutdown must not raise
+                obs_exception("server.bcast_stop_failed", e)
         try:
             # Wakes a thread blocked in accept(); close() alone does not.
             self._sock.shutdown(socket.SHUT_RDWR)
@@ -232,10 +262,14 @@ class EngineServer:
             # A handler bug must not leak the fd or die silently.
             obs_exception("server.handler_crashed", e, method=label)
         finally:
-            try:
-                conn.close()
-            except OSError:
-                pass
+            if getattr(self._adopted_conn, "flag", False):
+                # Subscribe upgrade: the gateway owns this fd now.
+                self._adopted_conn.flag = False
+            else:
+                try:
+                    conn.close()
+                except OSError:
+                    pass
 
     def _dispatch(
         self, conn: socket.socket, header: dict, world,
@@ -272,7 +306,10 @@ class EngineServer:
         if key is not None:
             self._dedupe_ctx.key = None
             self._record_reply(key, dict(header))
-        send_msg(conn, header, frame=frame)
+        n = send_msg(conn, header, frame=frame)
+        enc = getattr(self._usage_ctx, "enc", None)
+        if enc is not None:
+            enc.bytes_out += n
 
     def _record_reply(self, key: str, reply: dict) -> None:
         with self._dedupe_lock:
@@ -358,6 +395,28 @@ class EngineServer:
             return f"{header['run_id']}|{vkey}"
         return vkey
 
+    def _ensure_broadcast(self):
+        """The lazily armed (hub, gateway) pair. The first Subscribe
+        starts the publisher and event-loop threads and installs the
+        hub's poke as the engine's per-chunk publish hook."""
+        bc = self._bcast
+        if bc is not None:
+            return bc
+        with self._bcast_lock:
+            if self._bcast is None:
+                from gol_tpu_torch.broadcast import BroadcastHub
+                from gol_tpu_torch.gateway import ViewerGateway
+
+                hub = BroadcastHub()
+                gateway = ViewerGateway()
+                hub.start(sink=gateway.notify)
+                gateway.start()
+                # Every engine carries _bcast_notify; a stream also
+                # publishes on the hub's GOL_BCAST_HZ tick alone.
+                self.engine._bcast_notify = hub.poke
+                self._bcast = (hub, gateway)
+        return self._bcast
+
     def _drop_run_views(self, run_id: str) -> None:
         """DestroyRun eviction: every `run_id|vkey` basis entry of the
         destroyed run goes, so a recycled run_id never deltas a new run's
@@ -404,7 +463,9 @@ class EngineServer:
     ) -> None:
         # One encoder per connection (one request per connection): the
         # negotiation and the advert resolve here, once.
-        caps = wire.ConnectionEncoder(header).caps
+        enc = wire.ConnectionEncoder(header)
+        caps = enc.caps
+        self._usage_ctx.enc = enc
         if self._dedupe_check(conn, method, label, header):
             return
         try:
@@ -431,6 +492,42 @@ class EngineServer:
             elif method == "GetMetrics":
                 self._reply(conn,
                             {"ok": True, "metrics": REGISTRY.snapshot()})
+            elif method == "GetTelemetry":
+                # A member answers with its own family values (a
+                # federation router answers with fleet rollups, A13(c)).
+                self._reply(conn, {"ok": True,
+                                   "telemetry": obs_export.local_doc()})
+            elif method == "GetAudit":
+                # The member-local event ring.
+                self._reply(conn, {
+                    "ok": True,
+                    "records": obs_audit.recent(
+                        int(header.get("since_seq", 0) or 0),
+                        int(header.get("limit", 100) or 100))})
+            elif method == "GetUsage":
+                # The usage meter's doc; a request naming a run also
+                # gets that run's live record. Not RUN_SCOPED.
+                rid = str(header.get("run_id") or "")
+                resp = {"ok": True, "usage": obs_usage.usage_doc()}
+                if rid:
+                    resp["run"] = obs_usage.METER.run_doc(rid)
+                self._reply(conn, resp)
+            elif method == "Profile":
+                # Arm a torch.profiler capture of the next N engine
+                # turns into the server's configured --profile-dir: a
+                # peer never chooses paths on this host. turns=0 asks
+                # for the status only.
+                turns = int(header.get("turns", 0))
+                if turns > 0:
+                    try:
+                        armed = PROFILER.request(turns=turns,
+                                                 source="wire")
+                    except ProfileUnavailable as e:
+                        raise RuntimeError(str(e)) from e
+                    self._reply(conn, {"ok": True, **armed})
+                else:
+                    self._reply(conn, {"ok": True,
+                                       "status": PROFILER.status()})
             elif method == "Alivecount":
                 alive, turn = eng.alive_count()
                 self._reply(conn,
@@ -457,6 +554,42 @@ class EngineServer:
                 except (ConnectionError, OSError):
                     self._drop_view_basis(header)
                     raise
+            elif method == "Subscribe":
+                # Broadcast upgrade: ACK on this thread, then hand the
+                # socket to the gateway, which pushes the stream's
+                # frames until the peer hangs up; this handler and its
+                # connection slot return at once. Every subscriber
+                # shares the stream's frozen bytes, so the peer must
+                # have negotiated all of the stream's caps (a peer with
+                # fewer polls GetView instead).
+                if not hasattr(eng, "get_view"):
+                    raise RuntimeError("engine has no live view surface")
+                vkey = header.get("vkey")
+                if (hasattr(eng, "subscribe_view")
+                        and isinstance(vkey, str) and 0 < len(vkey) <= 64):
+                    eng.subscribe_view(vkey)
+                hub, gateway = self._ensure_broadcast()
+                stream = hub.stream_for(
+                    str(header.get("run_id") or ""), eng,
+                    int(header.get("max_cells", 0)))
+                if not stream.caps <= caps:
+                    raise RuntimeError(
+                        "subscribe requires caps "
+                        f"{sorted(stream.caps)}; poll GetView instead")
+                if not gateway.try_reserve():
+                    raise RuntimeError(
+                        "overloaded: gateway connection limit")
+                try:
+                    self._reply(conn, {
+                        "ok": True, "run_id": stream.run_id or None,
+                        "epoch": stream.epoch,
+                        "keyframe_every": stream.keyframe_every,
+                        "max_cells": stream.max_cells})
+                except BaseException:
+                    gateway.release_reservation()
+                    raise
+                gateway.adopt(conn, stream)
+                self._adopted_conn.flag = True
             elif method == "GetWindow":
                 # Sparse engines only: live-window pixels and the torus
                 # origin of its cell (0, 0).
@@ -527,11 +660,16 @@ class EngineServer:
                 # Explicit slot release: removes the run wherever it
                 # sits, frees its admission budget and wakes the loop so
                 # a queued run promotes at once; then every viewer basis
-                # of the run goes. Single-run engines answer
-                # FleetUnsupported, as for CreateRun.
+                # of the run goes and its broadcast streams end (each
+                # subscriber gets the end sentinel, then a hangup).
+                # Single-run engines answer FleetUnsupported, as for
+                # CreateRun.
                 rid = str(header.get("run_id") or "")
                 rec = self.engine.destroy_run(rid)
                 self._drop_run_views(rid)
+                bc = self._bcast
+                if bc is not None:
+                    bc[0].drop_run(rid, f"killed: run {rid} destroyed")
                 self._reply(conn, {"ok": True, "run": rec})
             elif method == "SetRule":
                 # Rule migration: evict, re-home under the new rule's
@@ -591,6 +729,14 @@ class EngineServer:
             else:
                 self._reply(conn, {"ok": False,
                                    "error": f"{type(e).__name__}: {e}"})
+        finally:
+            self._usage_ctx.enc = None
+            rid = header.get("run_id")
+            if rid:
+                # Only run-scoped traffic is tenant cost; unscoped RPCs
+                # (Stats, GetMetrics, ...) are fleet overhead.
+                obs_usage.METER.charge_wire(
+                    str(rid), enc.bytes_in, enc.bytes_out)
 
     def _restore_run(self, req: str, reshard: bool = False) -> int:
         """RestoreRun target resolution: the request names a checkpoint
@@ -672,6 +818,17 @@ def main(argv=None) -> int:
                     help="export handler spans as Chrome trace-event JSON "
                          "to PATH on shutdown (sets GOL_TRACE_SPANS; a "
                          "directory gets one file per pid)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    metavar="PORT",
+                    help="serve Prometheus text on "
+                         "http://127.0.0.1:PORT/metrics, plus /healthz "
+                         "and /profile (0 = ephemeral port; unset = no "
+                         "endpoint)")
+    ap.add_argument("--profile-dir", metavar="DIR", default="",
+                    help="directory for on-demand torch.profiler captures "
+                         "(the Profile method and POST /profile arm one; "
+                         "the peer only picks the turn count, this flag "
+                         "fixes where the Chrome traces land)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="device of the engine (default cuda; without a "
                          "CUDA device the server exits unless --device "
@@ -735,6 +892,10 @@ def main(argv=None) -> int:
     if args.trace_spans:
         os.environ[trace.TRACE_SPANS_ENV] = args.trace_spans
     ckpt_mod.export_flags(args)
+    if args.profile_dir:
+        # configure() only: the server arms nothing at startup; a
+        # Profile RPC or POST /profile picks the moment and turn count.
+        PROFILER.configure(args.profile_dir)
     trace.set_process_name("gol-server")
     from gol_tpu_torch.models import parse_rule
 
@@ -790,6 +951,11 @@ def main(argv=None) -> int:
         os._exit(0)
 
     signal.signal(signal.SIGTERM, _on_term)
+    if args.metrics_port is not None:
+        from gol_tpu_torch.obs.http import start_metrics_server
+
+        msrv = start_metrics_server(args.metrics_port)
+        print(f"metrics on {msrv.url}", flush=True)
     # This banner is the readiness contract: harnesses parse
     # "serving on :<port>" from stdout to learn the bound port.
     print(f"gol_tpu_torch engine serving on :{srv.port} "

@@ -300,14 +300,30 @@ class ConnectionEncoder:
     frames TO this peer and the caps advert for headers, both resolved
     once at connection setup instead of per reply. The server builds one
     per accepted connection; every frame built for that reply reuses
-    `caps` without touching the environment or the peer header again."""
+    `caps` without touching the environment or the peer header again.
 
-    __slots__ = ("caps", "advert")
+    It also carries the request's wire-byte attribution: `bytes_in` is
+    the request's on-wire size recomputed from the header (length prefix
+    + canonical header dump + the payload size the framing rules imply),
+    and `bytes_out` accumulates send_msg return values, so the server
+    can charge the run named in the header once the reply is down."""
+
+    __slots__ = ("caps", "advert", "bytes_in", "bytes_out")
 
     def __init__(self, header: Optional[dict] = None) -> None:
         self.caps = negotiate(header) if header is not None \
             else frozenset()
         self.advert = advertised_caps()
+        self.bytes_out = 0
+        if header is None:
+            self.bytes_in = 0
+        else:
+            try:
+                self.bytes_in = 4 + len(json.dumps(
+                    header, separators=(",", ":"))) \
+                    + payload_nbytes(header)
+            except (WireProtocolError, TypeError, ValueError):
+                self.bytes_in = 0
 
     def stamp(self, header: dict) -> dict:
         """Add this connection's caps advert to a reply header."""
@@ -850,7 +866,7 @@ def recv_msg(sock: socket.socket,
 # tc trace context and the negotiated codecs (including per-viewer xrle
 # bases) intact across the proxy. None of this touches send_msg/
 # recv_msg. The JAX package's federation router is the user; the port's
-# waits for ROADMAP A13.
+# waits for ROADMAP A13(c).
 
 def recv_head_raw(sock: socket.socket) -> Tuple[dict, bytes]:
     """Receive one message's framed header WITHOUT consuming its board
