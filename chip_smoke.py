@@ -117,6 +117,33 @@ Phases (each raises on failure; any failure exits non-zero):
    pair equals the CSV or the plain count, then serves a subscriber,
    GetTelemetry, GetAudit and GetUsage, and the gol_bcast_* families on
    /metrics.
+   4j. migration and federation: `python -m gol_tpu_torch.server --fleet
+   --checkpoint ROOT --ckpt-every 4 --federate ROUTER` member processes
+   on the card (each beside a thread that writes its launch counts to a
+   file, merged into the phase's) behind the port's in-process
+   `FederationRouter`. The JAX bench's federation leg
+   (`bench.py:2657-2910`): 3 members, 6 seeded 64² runs created through
+   the router and parked at turn 32, a 2 s window of routed Stats, then
+   `kill_member` picks the owner of run 0 and it is SIGKILLed; the router
+   declares it dead (gol_fed_failovers_total moves by 1, /healthz shows
+   one death), adopts its runs onto the survivors from the shared root,
+   and every run reads back at turn 32 equal to the numpy replay of its
+   seed (availability_pct, failover_downtime_p99_ms,
+   router_overhead_p99_ms). The migration leg (`bench.py:3115-3497`): 3
+   members (GOL_FLEET_BUCKETS with 4096), one armed with
+   GOL_CHAOS=migrate_fail=transfer, 8+ seeded 64² runs parked at turn
+   24: the armed member's first Rescale rolls back (the run intact on its
+   source, routable, migrated on the next try), four runs ping-pong
+   between the clean members, every board equal to the numpy replay;
+   then the real sizes: a 2048² run (K9 route 1) and a 4096² run (K9
+   route 2), each free-running toward its target turn and Rescaled
+   mid-flight, end at the target with the board and alive count of an
+   unmigrated control run in this process (K9), itself equal to K9's
+   plain version, with each phase's wall ms, the bytes transferred and
+   the downtime; last, `kill_member@migrating` SIGKILLs a Rescale's
+   source mid-cutover and exactly one listed copy of its run remains
+   (migration_downtime_p99_ms, availability_pct, gol_migrations_total by
+   status). The card's memory in use before and with three members.
    Each path runs with the launch counters at 0, read just after: every
    kernel (and family) it runs must have launched, and the paths whose
    alive counts come from chunks alone (4, 4c, 4d) must have launched K3
@@ -166,8 +193,7 @@ Phases (each raises on failure; any failure exits non-zero):
    of the wrap-padded float32 board with a ones kernel, TF32 off) and
    the FFT tier's turn; route 1 at 512² and 1024² (one launch of 1000
    turns) for r = 1, 5, 16, 32, 64, 128 and at 64² (one CTA) for r = 1,
-   5, beside route 2 at every tile and,
-   at 512² r = 5, F.conv2d; K7 at the gate's route against the FFT tier
+   5, beside route 2 at every tile and one F.conv2d turn (TF32 off); K7 at the gate's route against the FFT tier
    at 512² and 1024² up to r = 128 (the box crossover); the direct tier
    of a circular neighbourhood (F.conv2d, TF32 off) against the FFT tier
    at 512², 1024² and 4096² (the other kinds' crossover); engine turns/s
@@ -195,6 +221,7 @@ import os
 import queue
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2434,7 +2461,7 @@ def timing_ltl(torch, dev, card: Card) -> tuple:
     of the wrap-padded float32 board with a (2r+1)² ones kernel, TF32 off)
     and the FFT tier's turn; route 1 at 512² and 1024² (one launch of
     LTL_RESIDENT_TURNS turns; at 64² on one CTA, r = 1 and 5) beside route
-    2 at every tile on the same boards, with F.conv2d at 512² r = 5; K7 at
+    2 at every tile on the same boards and one F.conv2d turn; K7 at
     the gate's route against the FFT tier at 512² and 1024² up to r = 128
     (the box crossover); a circular neighbourhood's direct tier against
     the FFT tier; and engine turns/s for Bosco at 512² and 4096² and
@@ -2471,8 +2498,8 @@ def timing_ltl(torch, dev, card: Card) -> tuple:
     del b
     torch.cuda.empty_cache()
     # Route 1: one launch of LTL_RESIDENT_TURNS turns, beside route 2 at
-    # every tile on the same board; its head row (Bosco 512²) with its
-    # plain version over the same turns and F.conv2d.
+    # every tile on the same board and one F.conv2d turn; its head row
+    # (Bosco 512²) with its plain version over the same turns.
     r1 = []
     k = LTL_RESIDENT_TURNS
     for size in (64, 512, 1024):
@@ -2489,7 +2516,7 @@ def timing_ltl(torch, dev, card: Card) -> tuple:
             head = size == 512 and r == 5
             plain = (time_ms(torch, lambda: cs.ltl_resident_run_turns_plain(
                 b, k, rule), 1) if head else None)
-            lib_ms = conv2d_library_ms(torch, b, r, 20) if head else None
+            lib_ms = conv2d_library_ms(torch, b, r, 20 if r <= 32 else 3)
             tiles = route2_tiles(torch, b, rule, r)
             row = dict(shape=f"{size}x{size}", turns=k, radius=r, ctas=ctas,
                        ms=ms, turn_ms=ms / k, plain_ms=plain,
@@ -4312,6 +4339,698 @@ def phase_broadcast(torch, dev) -> None:
     log("broadcast:" + json.dumps(BCAST_RESULTS, default=str))
 
 
+# ------------------------------------ phase 4j: migration and federation
+
+# The JAX bench's federation leg (bench.py:2650-2654) and migration leg
+# (:3108-3112), on port members: `python -m gol_tpu_torch.server --fleet
+# --checkpoint ROOT --ckpt-every 4 --federate ROUTER` subprocesses on the
+# card behind the port's in-process FederationRouter.
+FED_ENV = {"GOL_FED_HEARTBEAT": "0.2", "GOL_FED_DEAD_AFTER": "1.2",
+           "GOL_FED_REROUTE": "30"}
+FED_MEMBERS = 3
+FED_RUNS = 6
+FED_BOARD = 64
+FED_TARGET = 32
+FED_WARM_WINDOW_S = 2.0
+MIG_MEMBERS = 3
+MIG_RUNS = 8
+MIG_BOARD = 64
+MIG_TARGET = 24
+MIG_WARM_WINDOW_S = 1.5
+# The migration members' classes: the default three and 4096², so the
+# real-size leg's 4096² run (K9 route 2) has a class on both members.
+MIG_BUCKETS = "512,1024,2048,4096"
+# The real-size leg: (board side, target turn), each run free-running
+# toward its target and Rescaled once it passed a quarter of it.
+BIG_RUNS = ((2048, 16384), (4096, 4096))
+# Phase 4j's numbers, for the summary lines at the end; and the launches
+# of every member process a phase started, merged into that phase's.
+FED_RESULTS: dict = {}
+MEMBER_LAUNCHES: dict = {}
+
+# A member: the server's entry point, beside a thread that writes the
+# process's launch counts to a file every 0.1 s (a member may die by
+# SIGKILL, so the last file stands for it).
+MEMBER_LAUNCHER = (
+    "import json, os, sys, threading\n"
+    "import chip_smoke\n"
+    "from gol_tpu_torch import server\n"
+    "from gol_tpu_torch.ops import cuda_stencil as cs\n"
+    "def dump(path):\n"
+    "    while True:\n"
+    "        with open(path + '.tmp', 'w') as f:\n"
+    "            json.dump(chip_smoke.main_path_launches(cs), f)\n"
+    "        os.replace(path + '.tmp', path)\n"
+    "        threading.Event().wait(0.1)\n"
+    "threading.Thread(target=dump, args=(sys.argv[1],), daemon=True)"
+    ".start()\n"
+    "sys.exit(server.main(sys.argv[2:]))\n")
+
+
+class Members:
+    """`n` federated fleet members started together; `env_for(i)` adds
+    to member i's environment."""
+
+    def __init__(self, n: int, tmp: str, ckpt_root: str, router_port: int,
+                 device: str, env_for=lambda i: {}) -> None:
+        self.procs, self.counts, self.addrs = [], [], []
+        found = []
+        for i in range(n):
+            counts = os.path.join(tmp, f"launches-{router_port}-{i}.json")
+            env = dict(os.environ, PYTHONPATH=REPO, **FED_ENV,
+                       **env_for(i))
+            env.pop("SER", None)
+            proc = subprocess.Popen(
+                [sys.executable, "-u", "-c", MEMBER_LAUNCHER, counts,
+                 "--port", "0", "--host", "127.0.0.1", "--fleet",
+                 "--device", device, "--checkpoint", ckpt_root,
+                 "--ckpt-every", "4", "--federate",
+                 f"127.0.0.1:{router_port}", "--advertise", "127.0.0.1"],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=env, cwd=tmp)
+            q: queue.Queue = queue.Queue()
+
+            def scan(proc=proc, q=q):
+                for line in proc.stdout:
+                    m = re.search(r"serving on :(\d+)", line)
+                    if m:
+                        q.put(int(m.group(1)))
+                q.put(None)
+
+            threading.Thread(target=scan, daemon=True).start()
+            self.procs.append(proc)
+            self.counts.append(counts)
+            found.append(q)
+        for q in found:
+            try:
+                port = q.get(timeout=180)
+            except queue.Empty:
+                port = None
+            if port is None:
+                self.stop()
+                raise AssertionError("a member gave no banner")
+            self.addrs.append(f"127.0.0.1:{port}")
+
+    def kill(self, i: int) -> None:
+        os.kill(self.procs[i].pid, signal.SIGKILL)
+        self.procs[i].wait(10)
+
+    def launches(self) -> dict:
+        total: dict = {}
+        for path in self.counts:
+            try:
+                with open(path) as f:
+                    for k, v in json.load(f).items():
+                        total[k] = total.get(k, 0) + v
+            except (OSError, ValueError):
+                pass
+        return total
+
+    def stop(self) -> None:
+        for k, v in self.launches().items():
+            MEMBER_LAUNCHES[k] = MEMBER_LAUNCHES.get(k, 0) + v
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+
+
+def wait_live(router, n: int, timeout: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout
+    while router.registry.members_doc().get("live", 0) < n:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the router never saw {n} live members")
+        time.sleep(0.05)
+
+
+def wait_runs_at(cli, run_ids, turn: int, timeout: float = 240.0) -> dict:
+    """{run_id: member} once ListRuns through the router shows every run
+    at `turn` or past it."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            recs = {r["run_id"]: r for r in cli.list_runs()[0]}
+        except (ConnectionError, RuntimeError):
+            recs = {}
+        if all(rid in recs and recs[rid]["turn"] >= turn
+               for rid in run_ids):
+            return {rid: recs[rid]["member"] for rid in run_ids}
+        if time.monotonic() > deadline:
+            raise AssertionError(f"runs never reached turn {turn}: "
+                                 f"{ {r: recs.get(r) for r in run_ids} }")
+        time.sleep(0.1)
+
+
+class Sampler:
+    """Routed protected calls (run-scoped Stats through the router):
+    (ok, wall s) per call."""
+
+    def __init__(self, cli, ids) -> None:
+        self.bound = {rid: cli.for_run(rid) for rid in ids}
+        self.samples: list = []
+
+    def call(self, rid) -> bool:
+        t0 = time.perf_counter()
+        try:
+            self.bound[rid].stats()
+            ok = True
+        except Exception:
+            ok = False
+        self.samples.append((ok, time.perf_counter() - t0))
+        return ok
+
+    def window(self, ids, seconds: float) -> None:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for rid in ids:
+                self.call(rid)
+
+    def availability_pct(self) -> float:
+        calls = len(self.samples)
+        failures = sum(1 for ok, _ in self.samples if not ok)
+        return 100.0 * (calls - failures) / max(calls, 1)
+
+
+def check_boards(cli, seeds: dict, target: int, what: str) -> None:
+    """Every run through the router at `target`, equal to the numpy
+    oracle's replay of its seed."""
+    from gol_tpu_torch.ops.reference import run_turns_np
+
+    for rid, seed in seeds.items():
+        board, turn = cli.for_run(rid).get_world()
+        if turn != target or not np.array_equal(
+                (board != 0).astype(np.uint8), run_turns_np(seed, target)):
+            raise AssertionError(f"{what}: run {rid} at turn {turn} != the "
+                                 f"numpy replay of its seed at {target}")
+
+
+def p99_ms(values_s) -> float:
+    from gol_tpu_torch.obs import slo as obs_slo
+
+    return obs_slo.exact_percentiles(sorted(values_s), (0.99,))[0] * 1e3
+
+
+def card_memory(torch) -> dict:
+    """Device memory in use on the card, by every process on it
+    (`torch.cuda.mem_get_info`: one figure for the card, none for each
+    process)."""
+    free, total = torch.cuda.mem_get_info()
+    return {"used_bytes": total - free, "total_bytes": total}
+
+
+def federation_leg(torch, tmp: str, device: str) -> dict:
+    """The JAX bench's federation leg: 3 members, 6 seeded 64² runs
+    parked at turn 32 with per-run manifests under one root; after a 2 s
+    window of routed traffic, kill_member picks the owner of run 0 and
+    the harness SIGKILLs it. The router must declare it dead (one
+    failover), adopt its runs onto the survivors, and every run must come
+    back at turn 32 equal to the numpy replay of its seed."""
+    from gol_tpu_torch import chaos
+    from gol_tpu_torch.client import RemoteEngine
+    from gol_tpu_torch.federation.router import FederationRouter
+    from gol_tpu_torch.obs import catalog as obs
+    from gol_tpu_torch.obs import http as obs_http
+
+    os.environ.update(FED_ENV)
+    mem0 = card_memory(torch) if device == "cuda" else None
+    router = FederationRouter(port=0).start_background()
+    members = None
+    try:
+        t0 = time.monotonic()
+        members = Members(FED_MEMBERS, tmp, os.path.join(tmp, "ck-fed"),
+                          router.port, device)
+        wait_live(router, FED_MEMBERS)
+        start_s = time.monotonic() - t0
+        cli = RemoteEngine(f"127.0.0.1:{router.port}", timeout=60.0)
+        rng = np.random.default_rng(21)
+        seeds = {}
+        for i in range(FED_RUNS):
+            rid = f"b{i}"
+            seeds[rid] = (rng.random((FED_BOARD, FED_BOARD))
+                          < 0.3).astype(np.uint8)
+            cli.create_run(FED_BOARD, FED_BOARD, board=seeds[rid],
+                           run_id=rid, ckpt_every=4, target_turn=FED_TARGET)
+        ids = sorted(seeds)
+        owners = wait_runs_at(cli, ids, FED_TARGET)
+        mem = card_memory(torch) if device == "cuda" else None
+        sampler = Sampler(cli, ids)
+        sampler.window(ids, FED_WARM_WINDOW_S)
+        o50, o95, o99 = (v * 1e3 if v is not None else None for v in
+                         router._overhead.percentiles((0.50, 0.95, 0.99)))
+        if o99 is None:
+            raise AssertionError("no steady-state router overhead samples")
+        victim = owners["b0"]
+        victim_runs = sorted(r for r in ids if owners[r] == victim)
+        failovers0 = obs.FED_FAILOVERS.value
+        injected0 = obs.CHAOS_INJECTED.labels(kind="kill_member").value
+        os.environ["GOL_CHAOS"] = f"kill_member={victim}@0.4,seed=5"
+        t_kill = None
+        try:
+            t_arm = time.perf_counter()
+            while t_kill is None:
+                elapsed = time.perf_counter() - t_arm
+                if elapsed > 10.0:
+                    raise AssertionError("kill_member never fired")
+                for i, addr in enumerate(members.addrs):
+                    if chaos.take_kill_member(addr, i, elapsed):
+                        members.kill(i)
+                        t_kill = time.perf_counter()
+                        break
+                else:
+                    for rid in ids:
+                        sampler.call(rid)
+        finally:
+            os.environ.pop("GOL_CHAOS", None)
+        if obs.CHAOS_INJECTED.labels(kind="kill_member").value \
+                != injected0 + 1:
+            raise AssertionError("chaos injected no kill_member")
+        downtimes = {}
+
+        def recover(rid):
+            deadline = time.monotonic() + 90.0
+            while time.monotonic() < deadline:
+                if sampler.call(rid):
+                    downtimes[rid] = time.perf_counter() - t_kill
+                    return
+                time.sleep(0.05)
+
+        threads = [threading.Thread(target=recover, args=(rid,),
+                                    daemon=True) for rid in victim_runs]
+        for t in threads:
+            t.start()
+        while any(t.is_alive() for t in threads):
+            for rid in ids:
+                if rid not in victim_runs:
+                    sampler.call(rid)
+            for t in threads:
+                t.join(timeout=0.05)
+        if sorted(downtimes) != victim_runs:
+            raise AssertionError(f"runs never recovered after the kill: "
+                                 f"{sorted(set(victim_runs) - set(downtimes))}")
+        post = wait_runs_at(cli, ids, FED_TARGET)
+        if set(post[r] for r in victim_runs) & {victim}:
+            raise AssertionError(f"a run stayed on the dead member: {post}")
+        listed = sorted(r["run_id"] for r in cli.list_runs()[0])
+        if listed != ids:
+            raise AssertionError(f"runs lost or doubled: {listed}")
+        check_boards(cli, seeds, FED_TARGET, "federation leg")
+        failovers = obs.FED_FAILOVERS.value - failovers0
+        if failovers != 1:
+            raise AssertionError(f"gol_fed_failovers_total moved by "
+                                 f"{failovers}, not 1")
+        table = obs_http.healthz_doc()["federation"]
+        dead = [m["member_id"] for m in table["members"]
+                if m["state"] == "dead"]
+        if dead != [victim] or table["live"] != FED_MEMBERS - 1:
+            raise AssertionError(f"/healthz member table: {table}")
+        return {
+            "members": FED_MEMBERS, "runs": FED_RUNS, "size": FED_BOARD,
+            "target_turn": FED_TARGET, "member_start_s": start_s,
+            "victim_runs": victim_runs,
+            "adopted_to": {r: post[r] for r in victim_runs},
+            "routed_calls": len(sampler.samples),
+            "availability_pct": sampler.availability_pct(),
+            "failover_downtime_p99_ms": p99_ms(downtimes.values()),
+            "downtime_ms_per_victim_run": {
+                r: v * 1e3 for r, v in downtimes.items()},
+            "router_overhead_ms": {"p50": o50, "p95": o95, "p99": o99},
+            "router_overhead_p99_ms": o99, "failovers": failovers,
+            "healthz_dead": len(dead),
+            "memory_before_members": mem0, "memory_three_members": mem}
+    finally:
+        if members is not None:
+            members.stop()
+        router.shutdown()
+
+
+def migrations_by_status(addrs) -> dict:
+    """gol_migrations_total by status, summed over the members reached."""
+    from gol_tpu_torch.client import RemoteEngine
+
+    out: dict = {}
+    for a in addrs:
+        fam = RemoteEngine(a, timeout=30.0).get_metrics()[
+            "gol_migrations_total"]
+        for v in fam["values"]:
+            s = v["labels"]["status"]
+            out[s] = out.get(s, 0) + v["value"]
+    return out
+
+
+def migrate_once(cli, sampler, rid: str, dst: str, stalls: list) -> dict:
+    """One Rescale with a reader on the migrating run; a successful
+    cutover's client-visible stall (the longest gap between successful
+    reads, window edges included) goes into `stalls`."""
+    out = {}
+    done = threading.Event()
+
+    def call():
+        try:
+            out["result"] = cli.rescale(rid, dst)
+        except Exception as e:
+            out["error"] = e
+        finally:
+            done.set()
+
+    th = threading.Thread(target=call, daemon=True)
+    last = time.perf_counter()
+    gap = 0.0
+    th.start()
+    while not done.is_set():
+        if sampler.call(rid):
+            now = time.perf_counter()
+            gap = max(gap, now - last)
+            last = now
+    th.join()
+    deadline = time.monotonic() + 60.0
+    while not sampler.call(rid):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{rid} unreadable after its Rescale")
+        time.sleep(0.02)
+    gap = max(gap, time.perf_counter() - last)
+    if "error" not in out:
+        stalls.append(gap)
+    return out
+
+
+def plain_fleet_board(torch, dev, seed: np.ndarray, turns: int):
+    """(board01, alive) of one run's slot stepped `turns` turns by K9's
+    plain version."""
+    from gol_tpu_torch.ops import bitpack, cuda_stencil as cs
+
+    words = bitpack.words_from_numpy(bitpack.pack_np(seed), dev)[None]
+    out, alive = cs.fleet_run_turns_plain(words, turns)
+    h, w = seed.shape
+    board = bitpack.unpack_np(bitpack.words_to_numpy(out[0]))[:h, :w]
+    return board, int(alive[0])
+
+
+def big_runs_leg(torch, dev, cli, members, clean: list) -> list:
+    """The real sizes: a 2048² run (K9 route 1) and a 4096² run (K9 route
+    2) on `clean[0]`, each free-running toward its target and Rescaled to
+    `clean[1]` mid-flight; at the target, board and alive count equal an
+    unmigrated control run of the same seed in this process (K9), held
+    against K9's plain version."""
+    from gol_tpu_torch.federation import hrw
+    from gol_tpu_torch.fleet import FleetEngine
+
+    live = members.addrs
+    rows = []
+    control = FleetEngine(bucket_sizes=(2048, 4096), device=dev)
+    try:
+        for side, target in BIG_RUNS:
+            rid = next(f"big{side}-{i}" for i in range(10000)
+                       if hrw.place(f"big{side}-{i}", live) == clean[0])
+            seed = fleet_seed(side, side + 1)
+            control.create_run(side, side, board=seed * np.uint8(255),
+                               run_id=rid, target_turn=target)
+            cli.create_run(side, side, board=seed * np.uint8(255),
+                           run_id=rid, target_turn=target)
+            bound = cli.for_run(rid)
+            deadline = time.monotonic() + 120
+            while bound.stats()["turn"] < target // 4:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{rid} never reached a quarter "
+                                         "of its target")
+                time.sleep(0.002)
+            rec = cli.rescale(rid, clean[1])
+            if rec["status"] != "ok" or not rec["turn"] < target:
+                raise AssertionError(f"{rid}: Rescale not mid-flight: {rec}")
+            deadline = time.monotonic() + 300
+            while True:
+                st = bound.stats()
+                if st["turn"] >= target and st["state"] == "parked":
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{rid} never reached {target}")
+                time.sleep(0.05)
+            view = control.resolve_run(rid)
+            while view.stats()["state"] != "parked":
+                time.sleep(0.05)
+            got, turn = bound.get_world()
+            want, want_turn = view.get_world()
+            alive = bound.stats()["alive"]
+            want_alive = view.stats()["alive"]
+            plain, plain_alive = plain_fleet_board(torch, dev, seed, target)
+            if (turn != target or want_turn != target
+                    or not np.array_equal(got != 0, want != 0)
+                    or alive != want_alive):
+                raise AssertionError(f"{rid}: migrated run at {turn} != the "
+                                     "unmigrated control")
+            if (not np.array_equal((want != 0).astype(np.uint8), plain)
+                    or want_alive != plain_alive):
+                raise AssertionError(f"{rid}: control != K9's plain version")
+            owner = {r["run_id"]: r["member"]
+                     for r in cli.list_runs()[0]}[rid]
+            if owner != clean[1]:
+                raise AssertionError(f"{rid} listed on {owner}")
+            control.destroy_run(rid)
+            cli.destroy_run(rid)
+            rows.append({"side": side, "target_turn": target,
+                         "quiesce_turn": rec["turn"], "alive": alive,
+                         "phase_ms": rec["phase_ms"],
+                         "transfer_bytes": rec["transfer_bytes"],
+                         "downtime_ms": rec["downtime_ms"]})
+            log(f"  ok {side}² run Rescaled at turn {rec['turn']} of "
+                f"{target}: board and alive count ({alive}) equal the "
+                f"unmigrated control's and K9's plain version; phases "
+                f"{json.dumps(rec['phase_ms'])} ms, "
+                f"{rec['transfer_bytes']} bytes, downtime "
+                f"{rec['downtime_ms']} ms")
+    finally:
+        control.kill_prog()
+    return rows
+
+
+def migration_leg(torch, dev, tmp: str, device: str) -> dict:
+    """The JAX bench's migration leg: 3 members, one armed with
+    GOL_CHAOS=migrate_fail=transfer; 8+ seeded 64² runs parked at turn
+    24, Rescaled between members while a sampler reads every run. The
+    armed member's first Rescale must roll back (the run intact,
+    routable, migratable again); clean cutovers ping-pong; then the real
+    sizes (`big_runs_leg`); then kill_member@migrating SIGKILLs a source
+    mid-Rescale and exactly one listed copy of its run must remain."""
+    from gol_tpu_torch import chaos
+    from gol_tpu_torch.client import RemoteEngine
+    from gol_tpu_torch.federation.router import FederationRouter
+    from gol_tpu_torch.obs import catalog as obs
+
+    os.environ.update(FED_ENV)
+    router = FederationRouter(port=0).start_background()
+    members = None
+    mig_env = {"GOL_MIGRATE_DEADLINE": "120", "GOL_FLEET_BUCKETS":
+               MIG_BUCKETS}
+    try:
+        members = Members(
+            MIG_MEMBERS, tmp, os.path.join(tmp, "ck-mig"), router.port,
+            device, env_for=lambda i: dict(
+                mig_env, **({"GOL_CHAOS": "migrate_fail=transfer"}
+                            if i == MIG_MEMBERS - 1 else {})))
+        wait_live(router, MIG_MEMBERS)
+        addrs = members.addrs
+        chaos_addr, clean = addrs[-1], addrs[:-1]
+        cli = RemoteEngine(f"127.0.0.1:{router.port}", timeout=120.0)
+        rng = np.random.default_rng(37)
+        seeds = {}
+
+        def create_batch(count):
+            for _ in range(count):
+                rid = f"m{len(seeds)}"
+                seeds[rid] = (rng.random((MIG_BOARD, MIG_BOARD))
+                              < 0.3).astype(np.uint8)
+                cli.create_run(MIG_BOARD, MIG_BOARD, board=seeds[rid],
+                               run_id=rid, ckpt_every=4,
+                               target_turn=MIG_TARGET)
+
+        create_batch(MIG_RUNS)
+        for _ in range(6):
+            owners = wait_runs_at(cli, sorted(seeds), MIG_TARGET)
+            by_owner = {a: sorted(r for r, m in owners.items() if m == a)
+                        for a in addrs}
+            if by_owner[chaos_addr] and sum(
+                    len(by_owner[a]) for a in clean) >= 2:
+                break
+            create_batch(3)
+        else:
+            raise AssertionError("HRW never placed a run on every member "
+                                 "the scenario needs")
+        ids = sorted(seeds)
+        sampler = Sampler(cli, ids)
+        sampler.window(ids, MIG_WARM_WINDOW_S)
+        stalls: list = []
+        # The armed member's first Rescale fails at transfer and rolls
+        # back; the run stays on its source at its turn, and migrates on
+        # the next try.
+        chaos_rid = by_owner[chaos_addr][0]
+        out = migrate_once(cli, sampler, chaos_rid, clean[0], stalls)
+        if "rolled back" not in str(out.get("error")):
+            raise AssertionError(f"the armed member's Rescale did not roll "
+                                 f"back: {out}")
+        rec = {r["run_id"]: r for r in cli.list_runs()[0]}[chaos_rid]
+        if rec["member"] != chaos_addr or rec["turn"] != MIG_TARGET:
+            raise AssertionError(f"rollback left {chaos_rid} as {rec}")
+        check_boards(cli, {chaos_rid: seeds[chaos_rid]}, MIG_TARGET,
+                     "rolled-back run")
+        out = migrate_once(cli, sampler, chaos_rid, clean[0], stalls)
+        if "error" in out:
+            raise AssertionError(f"{chaos_rid} after its rollback: {out}")
+        coordinator_ms = [out["result"]["downtime_ms"]]
+        mig_runs = [r for a in clean for r in by_owner[a]][:4]
+        for rid in mig_runs:
+            src = owners[rid]
+            dst = [a for a in clean if a != src][0]
+            for hop in (dst, src):
+                out = migrate_once(cli, sampler, rid, hop, stalls)
+                if "error" in out:
+                    raise AssertionError(f"Rescale of {rid} to {hop}: {out}")
+                coordinator_ms.append(out["result"]["downtime_ms"])
+        check_boards(cli, seeds, MIG_TARGET, "migration leg")
+        big = big_runs_leg(torch, dev, cli, members, clean)
+        statuses = migrations_by_status(addrs)
+        # kill_member@migrating: the source of a Rescale dies mid-cutover.
+        victim_rid = mig_runs[0]
+        src = owners[victim_rid]
+        src_i = addrs.index(src)
+        dst = [a for a in clean if a != src][0]
+        before_kill = migrations_by_status([a for a in addrs if a != src])
+        injected0 = obs.CHAOS_INJECTED.labels(kind="kill_member").value
+        os.environ["GOL_CHAOS"] = f"kill_member={src}@migrating"
+        killed = False
+        kill_out: dict = {}
+        kill_done = threading.Event()
+
+        def kill_call():
+            try:
+                kill_out["result"] = cli.rescale(victim_rid, dst)
+            except Exception as e:
+                kill_out["error"] = e
+            finally:
+                kill_done.set()
+
+        try:
+            th = threading.Thread(target=kill_call, daemon=True)
+            t_arm = time.perf_counter()
+            th.start()
+            while not killed:
+                elapsed = time.perf_counter() - t_arm
+                if chaos.take_kill_member(src, src_i, elapsed,
+                                          migrating=not kill_done.is_set()):
+                    members.kill(src_i)
+                    killed = True
+                elif kill_done.is_set():
+                    break
+                else:
+                    for rid in ids:
+                        if rid != victim_rid:
+                            sampler.call(rid)
+            th.join(timeout=150.0)
+        finally:
+            os.environ.pop("GOL_CHAOS", None)
+        if not killed or obs.CHAOS_INJECTED.labels(
+                kind="kill_member").value != injected0 + 1:
+            raise AssertionError("kill_member@migrating never fired")
+        wait_runs_at(cli, ids, MIG_TARGET)
+        survivors = [a for a in addrs if a != src]
+        listed_at = [a for a in survivors
+                     for r in RemoteEngine(a, timeout=30.0).list_runs()[0]
+                     if r["run_id"] == victim_rid]
+        if len(listed_at) != 1:
+            raise AssertionError(f"{victim_rid} listed {len(listed_at)} "
+                                 f"times after the kill: {listed_at}")
+        check_boards(cli, seeds, MIG_TARGET, "after the mid-Rescale kill")
+        after_kill = migrations_by_status(survivors)
+        for s, n in after_kill.items():
+            statuses[s] = statuses.get(s, 0) + n - before_kill.get(s, 0)
+        if statuses.get("rolled_back", 0) < 1 or statuses.get("ok", 0) < 9:
+            raise AssertionError(f"gol_migrations_total: {statuses}")
+        return {
+            "members": MIG_MEMBERS, "runs": len(ids), "size": MIG_BOARD,
+            "target_turn": MIG_TARGET, "migrations": len(stalls),
+            "migration_downtime_p99_ms": p99_ms(stalls),
+            "stall_ms": [v * 1e3 for v in stalls],
+            "coordinator_downtime_ms": coordinator_ms,
+            "availability_pct": sampler.availability_pct(),
+            "routed_calls": len(sampler.samples),
+            "migrations_by_status": statuses,
+            "kill_copies_listed": len(listed_at),
+            "kill_rescale_outcome": (str(kill_out.get("error"))[:200]
+                                     if "error" in kill_out
+                                     else kill_out.get("result")),
+            "big_runs": big}
+    finally:
+        if members is not None:
+            members.stop()
+        router.shutdown()
+
+
+def phase_federation(torch, dev) -> None:
+    """Phase 4j: migration and federation on the card (see the module
+    docstring)."""
+    log("phase 4j: federation failover and live migration across "
+        "--fleet --federate member processes")
+    FED_RESULTS["card"] = nvidia_smi("name,power.limit")
+    saved = {k: os.environ.get(k) for k in list(FED_ENV) + ["GOL_CHAOS"]}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.monotonic()
+            FED_RESULTS["federation"] = federation_leg(torch, tmp, "cuda")
+            f = FED_RESULTS["federation"]
+            log(f"  ok federation leg: the owner of b0 SIGKILLed, "
+                f"{len(f['victim_runs'])} runs adopted "
+                f"({json.dumps(f['adopted_to'])}), one failover, one death "
+                f"on /healthz, every run at turn {FED_TARGET} equal to the "
+                f"numpy replay; availability_pct {f['availability_pct']:.3f}"
+                f", failover_downtime_p99_ms "
+                f"{f['failover_downtime_p99_ms']:.1f}, "
+                f"router_overhead_p99_ms {f['router_overhead_p99_ms']:.3f}"
+                f" ({time.monotonic() - t0:.1f} s)")
+            t0 = time.monotonic()
+            FED_RESULTS["migration"] = migration_leg(torch, dev, tmp,
+                                                     "cuda")
+            m = FED_RESULTS["migration"]
+            log(f"  ok migration leg: {m['migrations']} cutovers, the "
+                f"armed member's first Rescale rolled back and the run "
+                f"migrated on the next, one listed copy after the "
+                f"mid-Rescale kill, every board equal to the numpy replay; "
+                f"migration_downtime_p99_ms "
+                f"{m['migration_downtime_p99_ms']:.1f}, availability_pct "
+                f"{m['availability_pct']:.3f}, gol_migrations_total "
+                f"{json.dumps(m['migrations_by_status'])} "
+                f"({time.monotonic() - t0:.1f} s)")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log("federation:" + json.dumps(FED_RESULTS, default=str))
+
+
+def log_federation_summary() -> None:
+    """Phase 4j's lines of the summary."""
+    f, m = FED_RESULTS["federation"], FED_RESULTS["migration"]
+    log(f"phase 4j summary on {FED_RESULTS['card']}:")
+    log(f"  federation: availability_pct {f['availability_pct']:.3f}, "
+        f"failover_downtime_p99_ms {f['failover_downtime_p99_ms']:.1f}, "
+        f"router_overhead_p99_ms {f['router_overhead_p99_ms']:.3f} "
+        f"({f['routed_calls']} routed calls)")
+    log(f"  migration: migration_downtime_p99_ms "
+        f"{m['migration_downtime_p99_ms']:.1f}, availability_pct "
+        f"{m['availability_pct']:.3f}, gol_migrations_total "
+        f"{json.dumps(m['migrations_by_status'])}")
+    for r in m["big_runs"]:
+        log(f"  {r['side']}² Rescaled at turn {r['quiesce_turn']} of "
+            f"{r['target_turn']}: phases {json.dumps(r['phase_ms'])} ms, "
+            f"{r['transfer_bytes']} bytes, downtime {r['downtime_ms']} ms")
+    mem = f.get("memory_three_members") or {}
+    base = f.get("memory_before_members") or {}
+    if mem and base:
+        log(f"  three members with 6 runs placed: "
+            f"{mem['used_bytes'] - base['used_bytes']} bytes of device "
+            f"memory (the card's {mem['used_bytes']} in use, "
+            f"{base['used_bytes']} before they started)")
+
+
 def main_path_launches(cs) -> dict:
     """Launches per kernel on the main path; the two-plane kernels per
     family, as `name/family`, and K9 per route, as `name/route`."""
@@ -4438,15 +5157,25 @@ def main() -> int:
             # 4i runs torch.profiler itself (the Profile captures).
             (phase_broadcast, ("fleet_run_turns/resident",
                                "resident_run_turns", "tiled_sweep"),
-             False)):
+             False),
+            # 4j's runs step in member processes (their launches are
+            # merged in) and in this one (the real-size controls).
+            (phase_federation, ("fleet_run_turns/resident",
+                                "fleet_run_turns/tiled"), False)):
         t_phase = time.monotonic()
         cs.reset_launch_counts()
+        MEMBER_LAUNCHES.clear()
         with (profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) if prof_on
               else contextlib.nullcontext()) as prof:
             phase(torch, dev)
             torch.cuda.synchronize()
         counts = main_path_launches(cs)
+        if MEMBER_LAUNCHES:
+            log(f"  {phase.__name__} launches in member processes: "
+                f"{MEMBER_LAUNCHES}")
+            for name, n in MEMBER_LAUNCHES.items():
+                counts[name] = counts.get(name, 0) + n
         log(f"  {phase.__name__} launches: {counts}")
         for name in kernels:
             if counts[name] <= 0:
@@ -4492,6 +5221,7 @@ def main() -> int:
         k["main_path_device_ms"] = device_ms.get(
             k["name"], 0.0 if device_ms else "not measured")
     log_broadcast_summary(card)
+    log_federation_summary()
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

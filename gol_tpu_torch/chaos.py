@@ -2,8 +2,8 @@
 the counterpart of `gol_tpu/chaos.py` for the hooks that `wire.send_msg`,
 `wire.recv_msg` and the client's dial sites call, and of the fleet's
 popcount poison (`take_poison`, which the fleet loop reads as its
-quarantine witness). Its federation and migration triggers
-(`kill_member`, `migrate_fail`) wait for ROADMAP A13(c).
+quarantine witness) and the federation and migration triggers
+(`take_kill_member`, `take_migrate_fail`).
 
 Off by default: when `GOL_CHAOS` is unset every hook is one env lookup.
 Config is a comma-separated key=value string, e.g.::
@@ -26,6 +26,23 @@ package):
                   client read timeouts.
 - ``refuse=p``    dial-time refusal: the client-side connect raises
                   ConnectionRefusedError before the socket connects.
+- ``kill_member=<addr|idx>[@s|@migrating]``
+                  arm the federation process-kill hook:
+                  `take_kill_member(addr, idx, elapsed_s)` fires exactly
+                  once per process when the harness polling it reports
+                  elapsed seconds >= s (omitted s draws a seeded time in
+                  [0.5, 1.5) s) for the member whose address or index
+                  matches. ``@migrating`` defers the trigger until the
+                  harness reports a Rescale in flight on that member
+                  (`migrating=True`), killing the coordinator mid-cutover.
+                  Chaos decides WHICH member and WHEN; the harness that
+                  owns the subprocess delivers the SIGKILL.
+- ``migrate_fail=<phase>``
+                  arm the migration-phase fault: `take_migrate_fail(p)`
+                  fires exactly once per process when the Rescale
+                  coordinator enters the named phase (quiesce /
+                  checkpoint / transfer / resume / redirect), forcing
+                  that phase to fail so the rollback path runs.
 - ``seed=N``      RNG seed (default 0).
 - ``poison=<run_id>[@<turn>]``
                   arm the fleet poison hook: `take_poison(run_id, turn)`
@@ -61,8 +78,8 @@ def _parse(spec: str) -> dict:
         key, sep, val = part.partition("=")
         if not sep:
             continue
-        if key.strip() == "poison":
-            cfg["poison"] = val.strip()
+        if key.strip() in ("poison", "kill_member", "migrate_fail"):
+            cfg[key.strip()] = val.strip()
             continue
         try:
             cfg[key.strip()] = (int(val) if key.strip() == "seed"
@@ -89,6 +106,30 @@ class ChaosInjector:
         self.refuse = float(cfg.get("refuse", 0.0))
         self._rng = random.Random(int(cfg.get("seed", 0)))
         self._lock = threading.Lock()
+        # kill_member=<addr|idx>[@s|@migrating]: one-shot member kill.
+        self._kill_target: Optional[str] = None
+        self._kill_at_s = 0.0
+        self._kill_fired = False
+        self._kill_on_migrating = False
+        km = cfg.get("kill_member")
+        if km:
+            target, _, at = km.partition("@")
+            self._kill_target = target.strip()
+            if at == "migrating":
+                # Fire while a Rescale cutover is in flight, whenever
+                # that happens: the harness reports the condition.
+                self._kill_on_migrating = True
+            elif at:
+                try:
+                    self._kill_at_s = float(at)
+                except ValueError:
+                    self._kill_at_s = 0.0
+            else:
+                # Seeded default: same spec, same kill time, every run.
+                self._kill_at_s = 0.5 + self._rng.random()
+        # migrate_fail=<phase>: one-shot forced Rescale phase failure.
+        self._migrate_phase: Optional[str] = cfg.get("migrate_fail") or None
+        self._migrate_fired = False
         # poison=<run_id>[@<turn>]: one-shot fleet popcount poison.
         self._poison_run: Optional[str] = None
         self._poison_turn = 0
@@ -178,6 +219,42 @@ class ChaosInjector:
             _INJECTED["refuse"].inc()
             raise ConnectionRefusedError(f"chaos: refused dial to {addr}")
 
+    def take_kill_member(self, addr: str, idx: int, elapsed_s: float,
+                         migrating: bool = False) -> bool:
+        """True exactly once, when the armed member (by address or index)
+        is polled at or after the armed elapsed time, or, for an
+        `@migrating` spec, while the harness reports a migration in
+        flight on it."""
+        if self._kill_target is None or self._kill_fired:
+            return False
+        if self._kill_on_migrating:
+            if not migrating:
+                return False
+        elif elapsed_s < self._kill_at_s:
+            return False
+        if self._kill_target not in (addr, str(idx)):
+            return False
+        with self._lock:
+            if self._kill_fired:
+                return False
+            self._kill_fired = True
+        _INJECTED["kill_member"].inc()
+        return True
+
+    def take_migrate_fail(self, phase: str) -> bool:
+        """True exactly once, when the Rescale coordinator enters the
+        armed phase name."""
+        if self._migrate_phase is None or self._migrate_fired:
+            return False
+        if phase != self._migrate_phase:
+            return False
+        with self._lock:
+            if self._migrate_fired:
+                return False
+            self._migrate_fired = True
+        _INJECTED["migrate_fail"].inc()
+        return True
+
     def take_poison(self, run_id: str, turn: int) -> bool:
         """True exactly once, when the armed run reaches the armed turn."""
         if self._poison_run is None or self._poison_fired:
@@ -242,3 +319,16 @@ def dial_hook(addr) -> None:
     inj = injector()
     if inj is not None:
         inj.on_dial(addr)
+
+
+def take_kill_member(addr: str, idx: int, elapsed_s: float,
+                     migrating: bool = False) -> bool:
+    inj = injector()
+    if inj is None:
+        return False
+    return inj.take_kill_member(addr, idx, elapsed_s, migrating=migrating)
+
+
+def take_migrate_fail(phase: str) -> bool:
+    inj = injector()
+    return False if inj is None else inj.take_migrate_fail(phase)

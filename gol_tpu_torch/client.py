@@ -3,9 +3,10 @@ counterpart of `gol_tpu/client.py`, its fleet half included (a client
 bound to a fleet run stamps its `run_id` on every run-scoped call;
 `create_run`, `list_runs`, `attach_run`, `destroy_run`, `set_rule`),
 the live-view subscription (`subscribe` -> `ViewSubscription`, the
-broadcast tier's push stream) and the telemetry methods (`get_telemetry`,
-`get_audit`, `get_usage`, `profile`); the migration methods wait for
-ROADMAP A13(c).
+broadcast tier's push stream), the telemetry methods (`get_telemetry`,
+`get_audit`, `get_usage`, `profile`) and live migration (`rescale`; a
+"moved:" answer from a run's old member is a tagged transport error the
+retry loop re-sends through the router).
 
 Duck-typed to `Engine` (same method surface), so the controller does not
 care whether its engine is in-process or remote, nor whether the server
@@ -141,6 +142,13 @@ def _check_resp(resp: dict):
             # transport condition, not an engine state — surface it like
             # a network failure so the recovery paths apply.
             raise ConnectionError(err)
+        if err.startswith("moved:"):
+            # Live migration: the run left this member after the request
+            # was relayed. A TAGGED transport error, so the retry loop
+            # re-sends through the router, whose placement is already
+            # pinned at the new owner: downtime is latency, never a
+            # caller-visible error.
+            raise _transport_error(err, "moved")
         if err.startswith("geometry:"):
             raise GeometryRefused(err)
         if err.startswith("nodiff:"):
@@ -209,6 +217,10 @@ class RemoteEngine:
                 resp, resp_world = self._call_once(
                     label, header, timeout, xrle_basis, world)
                 self._note_caps(resp)
+                # Inside the try: a server-replied error that _check_resp
+                # turns into a TAGGED ConnectionError ("moved:") retries
+                # like a transport failure; untagged ones ("overloaded:")
+                # propagate unretried.
                 _check_resp(resp)
             except ConnectionError as e:
                 kind = getattr(e, "rpc_error_kind", None)
@@ -587,6 +599,21 @@ class RemoteEngine:
                               "reshard": bool(reshard)},
                              timeout=max(self._timeout, 120.0))
         return int(resp["turn"])
+
+    def rescale(self, run_id: str, target: str) -> dict:
+        """Live-migrate a fleet run to another federation member (`target`
+        = its advertised host:port) via the failure-atomic two-phase
+        cutover: quiesce -> durable checkpoint -> transfer -> resume on
+        the target -> router redirect, with rollback to THIS member on
+        any failure. Returns the coordinator's summary record. Generous
+        timeout: the transfer moves the whole board and the redirect
+        waits on the router."""
+        resp, _ = self._call({"method": "Rescale",
+                              "run_id": str(run_id),
+                              "target": str(target)},
+                             timeout=max(self._timeout, 120.0))
+        resp.pop("ok", None)
+        return dict(resp)
 
     # --- Fleet methods -------------------------------------------------
 

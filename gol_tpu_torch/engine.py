@@ -855,6 +855,10 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
             if capture is not None:
                 capture.finish(e)
                 capture = None
+            # The black box: an unhandled chunk-loop error dumps the
+            # flight ring (recent spans and events, and the chunk spans
+            # still in flight) before the error propagates.
+            obs_flight.crash("engine.run_loop", e, turn=self._turn)
             if ckpt_writer is not None:
                 # Emergency best-effort checkpoint: synchronous (there is
                 # no later boundary to wait for) and never allowed to

@@ -37,10 +37,17 @@ handle whose seed is pending (only the loop applies seeds, at its next
 service pass, so a pending seed is the one way a reseed meets a quantum
 in flight).
 
-Not ported yet: mesh placement (ROADMAP A5), federation adoption and
-live migration (`adopt_run`, `migrate_*`, `import_run`,
-`activate_imported`; A13(c)). The device is CUDA unless the caller
-passes `device="cpu"` (`engine.resolve_device`); there is no fallback.
+Federation adoption and live migration are the engine halves of
+`federation/router.py` and `migrate.py`: `adopt_run` registers a dead
+member's run quarantined so the restore path re-homes it from its
+per-run checkpoints; `migrate_quiesce` parks a run with a readback of
+its slot ordered after every K9 launch before it on the device's stream;
+`import_run` stages a migrated-in board hidden from ListRuns and out of
+every bucket until `activate_imported` (CommitRun) queues it.
+
+Not ported yet: mesh placement (ROADMAP A5). The device is CUDA unless
+the caller passes `device="cpu"` (`engine.resolve_device`); there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -122,6 +129,13 @@ QUARANTINE_TRIES_ENV = "GOL_QUARANTINE_TRIES"
 QUARANTINE_TRIES_DEFAULT = 3
 QUARANTINE_BACKOFF_ENV = "GOL_QUARANTINE_BACKOFF"
 QUARANTINE_BACKOFF_DEFAULT_S = 0.5
+
+# A staged migration import whose coordinator died (source process
+# killed mid-cutover) must not hold admission budget forever: the
+# fleet loop expires it after this long. Any live cutover commits or
+# rolls it back within GOL_MIGRATE_DEADLINE, well before this fires.
+IMPORT_STALE_ENV = "GOL_MIGRATE_STALE"
+IMPORT_STALE_DEFAULT_S = 60.0
 
 
 
@@ -250,9 +264,14 @@ class FleetEngine(ControlFlagProtocol):
         return RunView(self, handle)
 
     def list_runs(self) -> list:
+        # Staged (un-committed) migration imports are hidden: until
+        # CommitRun flips authority, the SOURCE member's copy is the
+        # one listed copy fleet-wide — never zero, never two.
         with self._fleet_lock:
             return [h.describe() for h in sorted(
-                self._runs.values(), key=lambda h: h.created_s)]
+                self._runs.values(), key=lambda h: h.created_s)
+                if h.migrating is None
+                or not h.migrating.startswith("staged")]
 
     def runs_summary(self) -> dict:
         with self._fleet_lock:
@@ -369,6 +388,11 @@ class FleetEngine(ControlFlagProtocol):
             h = self._runs.get(rid)
             if h is None:
                 raise KeyError(f"unknown run {rid!r}")
+            if h.migrating and not h.migrating.startswith("staged"):
+                # A quiesced source copy is the rollback anchor; only
+                # the migration coordinator may retire it (a staged
+                # TARGET copy is destroyable — that IS the rollback).
+                raise EngineBusy(f"run {rid} is migrating")
             rec = h.describe()
             self._remove_locked(h)
             rec["state"] = h.state
@@ -376,6 +400,335 @@ class FleetEngine(ControlFlagProtocol):
             # happens now, not at the next natural wakeup.
             self._wake.notify_all()
         obs.RUNS_DESTROYED.inc()
+        return rec
+
+    def adopt_run(self, run_id: str, ckpt_every: int = 0,
+                  target_turn: Optional[int] = None) -> dict:
+        """Adopt a dead federation member's run from its per-run
+        checkpoint directory under the shared GOL_CKPT root.
+
+        Only the newest durable MANIFEST is read here — geometry, rule
+        and turn; the payload itself stays untrusted. The run is
+        admitted against the local budget and registered directly in
+        state "quarantined", so the quarantine machinery performs the
+        capped-backoff, integrity-verified restore and re-queues it for
+        placement — adoption moves only checkpoint bytes and route
+        state, never live board traffic."""
+        from gol_tpu_torch.ckpt import manifest as mf
+
+        self._check_alive()
+        rid = str(run_id or "")
+        if not valid_run_id(rid) or rid == LEGACY_RUN_ID:
+            self.admission.reject("run_id")
+            raise RuntimeError("admission rejected: run_id")
+        with self._fleet_lock:
+            existing = self._runs.get(rid)
+            staged = (existing is not None and
+                      (existing.migrating or "").startswith("staged"))
+        if staged:
+            # This member already holds the run's board as a staged
+            # migration import (the source died mid-cutover, after the
+            # transfer): promote it instead of restoring from the
+            # checkpoint — its board is at the quiesce turn, at least
+            # as new as any durable manifest.
+            obs_log("fleet.adopt_staged", run_id=rid)
+            rec = self.activate_imported(rid)
+            obs.FED_ADOPTED_RUNS.labels(status="ok").inc()
+            return rec
+        base = os.environ.get(CKPT_ENV, "")
+        if not base:
+            raise RuntimeError(
+                "checkpointing not configured (set GOL_CKPT)")
+        directory = self._ckpt_dir(rid, base)
+        latest = mf.latest_checkpoint(directory)
+        if latest is None:
+            raise FileNotFoundError(
+                f"no durable checkpoint for run {rid} in {directory}")
+        m = latest[2]
+        board_meta = m.get("board")
+        if not board_meta:
+            raise RuntimeError(
+                f"manifest for run {rid} carries no board dims")
+        h_, w_ = int(board_meta["h"]), int(board_meta["w"])
+        run_rule = self._resolve_rule(m.get("rule"))
+        size = choose_bucket_size(h_, w_, self.bucket_sizes)
+        if size is None:
+            self.admission.reject("shape")
+            raise RuntimeError(
+                "admission rejected: shape (board sides must divide a "
+                f"bucket class {self.bucket_sizes})")
+        cost = run_cost(size, size // WORD_BITS)
+        handle = RunHandle(rid, run_rule, h_, w_,
+                           ckpt_every=int(ckpt_every),
+                           target_turn=target_turn,
+                           start_turn=int(m["turn"]))
+        handle.bucket_key = (size, size, run_rule.rulestring,
+                             cell_dtype(run_rule))
+        handle.admitted_cost = cost
+        # Born quarantined: no trusted board yet. The fleet loop's
+        # restore path verifies + loads the checkpoint and queues the
+        # run for placement; h.adopted routes the outcome to
+        # gol_fed_adopted_runs_total.
+        handle.state = "quarantined"
+        handle.quarantine_reason = "restore"
+        handle.adopted = True
+        with self._fleet_lock:
+            if rid in self._runs:
+                self.admission.reject("run_id")
+                raise RuntimeError("admission rejected: run_id")
+            ok, reason = self.admission.try_admit(cost)
+            if not ok:
+                self.admission.reject(reason or "unknown")
+                raise RuntimeError(f"admission rejected: {reason}")
+            self._runs[rid] = handle
+            obs_usage.METER.track(rid)
+            self._wake.notify_all()
+        obs_log("fleet.adopt", run_id=rid, turn=handle.turn,
+                rule=run_rule.rulestring, board=f"{h_}x{w_}")
+        # Lineage link: if the predecessor journaled, reference its
+        # chain head so verify_segments can stitch across the failover
+        # (the manifest's journal stamp is the durable carrier).
+        jstamp = m.get("journal") or {}
+        self._journal_event(
+            rid, "link", turn=int(m["turn"]),
+            prev_head=jstamp.get("head"), prev_seq=jstamp.get("seq"),
+            reason="adopt")
+        self._ensure_loop()
+        return handle.describe()
+
+    # ------------------------------------------------- live migration
+    #
+    # Engine-side halves of the Rescale cutover (migrate.py is the
+    # coordinator). Authority discipline: quiesce marks the SOURCE copy
+    # migrating (frozen board authoritative, flags deferred, destroy
+    # refused) but it stays the listed owner; import_run stages a
+    # hidden TARGET copy; only commit/rollback resolve which one
+    # survives — at every instant exactly one copy is authoritative.
+
+    def migrate_quiesce(self, run_id: str) -> dict:
+        """Phase 1: freeze a run for transfer. Parks a resident run (a
+        device readback to `frozen`: the slot's copy is enqueued on the
+        stream every K9 launch of the bucket is on, so it reads the
+        words of the last launch credited to `h.turn`, and the host copy
+        waits for it), pulls a queued run out of the placement queue,
+        and marks the handle migrating with its PRIOR state so rollback
+        restores exactly what quiesce saw. The recorded target_turn
+        rides the transfer, so a drive continues on the new owner.
+        Returns the transfer record (board copy + identity)."""
+        self._check_alive()
+        rid = str(run_id or "")
+        with self._fleet_lock, self._on_device():
+            if rid in ("", LEGACY_RUN_ID):
+                raise PermissionError(
+                    f"run {LEGACY_RUN_ID!r} is the legacy engine "
+                    "surface; it cannot be live-migrated")
+            h = self._runs.get(rid)
+            if h is None:
+                raise KeyError(f"unknown run {rid!r}")
+            if h.migrating is not None:
+                raise EngineBusy(f"run {rid} is already migrating")
+            if h.state == "quarantined" or h in self._waitq:
+                raise EngineBusy(
+                    f"run {rid} is {h.state} (no trusted board to "
+                    "transfer); retry once it is placed")
+            prior = h.state
+            if h.state == "resident":
+                self._park_locked(self._buckets[h.bucket_key], h)
+            elif h.state == "queued":
+                if h in self._placeq:
+                    self._placeq.remove(h)
+                h.state = "parked"
+            if h.frozen is None:
+                raise RuntimeError(
+                    f"run {rid} has no board to transfer")
+            h.migrating = prior
+            self._wake.notify_all()
+            jw = journal_mod.get(rid)
+            return {
+                "run_id": rid,
+                "board": h.frozen.copy(),
+                "turn": int(h.turn),
+                "rule": h.rule.rulestring,
+                "h": int(h.h), "w": int(h.w),
+                "ckpt_every": int(h.ckpt_every),
+                "target_turn": h.target_turn,
+                "state": prior,
+                # Chain head rides the transfer so the target's link
+                # event can reference this segment's lineage.
+                "journal_head": (jw.head_info() if jw is not None
+                                 else None),
+            }
+
+    def migrate_checkpoint(self, run_id: str,
+                           trigger: str = "migrate"):
+        """Phase 2: durable belt under the transfer — if GOL_CKPT is
+        configured, write a synchronous verified checkpoint of the
+        quiesced board so a crash of BOTH processes mid-migration still
+        resumes from this exact turn (adoption path). No-op without a
+        checkpoint root."""
+        if not os.environ.get(CKPT_ENV, ""):
+            return None
+        with self._fleet_lock:
+            h = self._runs.get(str(run_id or ""))
+            if h is None:
+                raise KeyError(f"unknown run {run_id!r}")
+        return self._ckpt_sync(h, None, trigger)
+
+    def migrate_commit(self, run_id: str) -> list:
+        """Final phase on the SOURCE: retire the migrated-away copy and
+        hand back any control flags that arrived while quiesced (the
+        coordinator relays them to the new owner). Idempotent: a second
+        commit (or a commit after rollback already ran) returns []."""
+        with self._fleet_lock:
+            h = self._runs.get(str(run_id or ""))
+            if h is None or h.migrating is None:
+                return []
+            flags = []
+            while True:
+                try:
+                    flags.append(h.flags.get_nowait())
+                except queue_mod.Empty:
+                    break
+            h.migrating = None
+            # The run lives on elsewhere: flush its final usage
+            # accounting, then bookend this segment with migrate_out
+            # (not "end") so the stitched lineage reads as a handoff,
+            # not a termination.
+            self._retire_usage_locked(h)
+            self._journal_event(h.run_id, "migrate_out",
+                                turn=int(h.turn))
+            self._remove_locked(h, journal_end=False)
+            self._wake.notify_all()
+        return flags
+
+    def migrate_rollback(self, run_id: str) -> dict:
+        """Undo a quiesce: restore the run to the state migrate_quiesce
+        recorded. Idempotent — a handle that is gone or not migrating
+        reports {"restored": False} and changes nothing."""
+        with self._fleet_lock, self._on_device():
+            h = self._runs.get(str(run_id or ""))
+            if h is None or h.migrating is None:
+                return {"restored": False}
+            prior = h.migrating
+            h.migrating = None
+            if (prior in ("resident", "queued")
+                    and h.state == "parked"
+                    and (h.target_turn is None
+                         or h.turn < h.target_turn)):
+                # frozen reseeds the slot (or the placement queue for a
+                # never-placed run) on the next service pass; a drive
+                # the quiesce park disarmed re-arms. A run quiesced
+                # resident AT its target stays parked — the loop only
+                # parks armed drives, so resuming it would free-run it
+                # past the target.
+                self._resume_locked(h)
+                if h.target_turn is not None:
+                    h.done.clear()
+            self._wake.notify_all()
+            rec = h.describe()
+        rec["restored"] = True
+        return rec
+
+    def import_run(self, run_id: str, board: np.ndarray, turn: int,
+                   rule=None, ckpt_every: int = 0,
+                   target_turn: Optional[int] = None,
+                   activate: bool = True,
+                   journal_head: Optional[dict] = None) -> dict:
+        """TARGET half of the transfer: stage a migrated-in run. The
+        board is admitted and registered parked+hidden ("staged"), with
+        no slot in any bucket — invisible to list_runs and never
+        auto-resumed — until CommitRun activates it. `activate=False`
+        stages "staged-parked": commit leaves the run parked, preserving
+        a source run that was itself parked (it must not start advancing
+        because it moved)."""
+        self._check_alive()
+        rid = str(run_id or "")
+        if not valid_run_id(rid) or rid == LEGACY_RUN_ID:
+            self.admission.reject("run_id")
+            raise RuntimeError("admission rejected: run_id")
+        run_rule = self._resolve_rule(rule)
+        board01 = np.asarray(board)
+        h_, w_ = int(board01.shape[-2]), int(board01.shape[-1])
+        board01 = self._board01(board01, h_, w_)
+        size = choose_bucket_size(h_, w_, self.bucket_sizes)
+        if size is None:
+            self.admission.reject("shape")
+            raise RuntimeError(
+                "admission rejected: shape (board sides must divide a "
+                f"bucket class {self.bucket_sizes})")
+        cost = run_cost(size, size // WORD_BITS)
+        handle = RunHandle(rid, run_rule, h_, w_,
+                           ckpt_every=int(ckpt_every),
+                           target_turn=target_turn,
+                           start_turn=int(turn))
+        handle.bucket_key = (size, size, run_rule.rulestring,
+                             cell_dtype(run_rule))
+        handle.frozen = board01
+        handle.alive = int(board01.sum())
+        handle.alive_turn = handle.turn
+        handle.admitted_cost = cost
+        handle.state = "parked"
+        handle.migrating = "staged" if activate else "staged-parked"
+        # A staged run with a target_turn must NOT look drivable to the
+        # loop (it would auto-resume before commit) — done is only
+        # cleared by a real drive request after activation.
+        handle.done.set()
+        with self._fleet_lock:
+            if rid in self._runs:
+                self.admission.reject("run_id")
+                raise RuntimeError("admission rejected: run_id")
+            ok, reason = self.admission.try_admit(cost)
+            if not ok:
+                self.admission.reject(reason or "unknown")
+                raise RuntimeError(f"admission rejected: {reason}")
+            self._runs[rid] = handle
+            obs_usage.METER.track(rid)
+        obs_log("fleet.import", run_id=rid, turn=handle.turn,
+                rule=run_rule.rulestring, board=f"{h_}x{w_}")
+        jstamp = journal_head or {}
+        self._journal_event(
+            rid, "link", turn=int(turn),
+            prev_head=jstamp.get("head"), prev_seq=jstamp.get("seq"),
+            reason="migrate")
+        return handle.describe()
+
+    def activate_imported(self, run_id: str) -> dict:
+        """CommitRun on the TARGET: flip a staged import live. "staged"
+        queues the run for placement (it resumes stepping where the
+        source parked it); "staged-parked" stays parked — readable, not
+        advancing — exactly as it was on the source."""
+        self._check_alive()
+        rid = str(run_id or "")
+        with self._fleet_lock:
+            h = self._runs.get(rid)
+            if h is None:
+                raise KeyError(f"unknown run {rid!r}")
+            if not (h.migrating or "").startswith("staged"):
+                raise RuntimeError(
+                    f"run {rid} is not a staged import")
+            staged = h.migrating
+            h.migrating = None
+            if staged == "staged":
+                if (h.target_turn is not None
+                        and h.turn >= h.target_turn):
+                    # The source was resident only transiently (e.g.
+                    # quiesced between placement and the loop's
+                    # target-park pass). Nothing left to step — and the
+                    # loop only parks runs with an ARMED drive, so
+                    # queueing this one would free-run it past its
+                    # target forever. Activate parked instead.
+                    h.state = "parked"
+                else:
+                    h.state = "queued"
+                    self._placeq.append(h)
+                    # Re-arm the drive the staging deliberately
+                    # disarmed: a run migrated mid-flight resumes
+                    # stepping toward its original target.
+                    if h.target_turn is not None:
+                        h.done.clear()
+                    self._wake.notify_all()
+            rec = h.describe()
+        self._ensure_loop()
         return rec
 
     def geometry(self) -> dict:
@@ -1432,6 +1785,18 @@ class FleetEngine(ControlFlagProtocol):
         for h in list(self._runs.values()):
             if h.state == "removed":
                 continue
+            if ((h.migrating or "").startswith("staged")
+                    and time.time() - h.created_s
+                    > env_float(IMPORT_STALE_ENV,
+                                IMPORT_STALE_DEFAULT_S)):
+                # Orphaned import: its migration coordinator never came
+                # back to commit or roll back. The source (or adopter)
+                # copy is authoritative; this hidden copy only holds
+                # budget — expire it.
+                obs_log("fleet.import_expired", level="warning",
+                        run_id=h.run_id, turn=h.turn)
+                self._remove_locked(h)
+                continue
             if h.state == "quarantined":
                 self._service_quarantined_locked(h)
             if h.pending_seed is not None:
@@ -1643,6 +2008,9 @@ class FleetEngine(ControlFlagProtocol):
             if h.quarantine_tries >= max_tries:
                 obs_log("fleet.quarantine_terminal", level="error",
                         run_id=h.run_id, tries=h.quarantine_tries)
+                if h.adopted:
+                    h.adopted = False
+                    obs.FED_ADOPTED_RUNS.labels(status="error").inc()
                 h.done.set()  # drives must not wait on a dead run
             return
         h.frozen = board01
@@ -1654,6 +2022,9 @@ class FleetEngine(ControlFlagProtocol):
         h.state = "queued"
         self._placeq.append(h)
         obs.RUNS_QUARANTINE_RESTORES.labels(status="ok").inc()
+        if h.adopted:
+            h.adopted = False
+            obs.FED_ADOPTED_RUNS.labels(status="ok").inc()
         obs_log("fleet.quarantine_restored", run_id=h.run_id,
                 turn=h.turn, attempt=h.quarantine_tries,
                 reason=h.quarantine_reason)

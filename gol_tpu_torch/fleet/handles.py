@@ -130,10 +130,15 @@ class RunHandle:
         self.quarantine_reason: Optional[str] = None
         self.quarantine_tries = 0
         self.quarantine_next_s = 0.0
-        # Federation adoption and live migration (ROADMAP A13(c)) set
-        # these; the port's fleet keeps them at False / None so the
-        # records and the checks on them read as `gol_tpu`'s.
+        # Federation: True while this handle is an adopted run whose
+        # checkpoint restore has not resolved yet; the quarantine service
+        # meters its outcome under gol_fed_adopted_runs_total.
         self.adopted = False
+        # Live migration: None = not migrating; on a quiesced SOURCE the
+        # state quiesce saw ("resident", "parked", ...), the rollback
+        # anchor; on a staged TARGET import "staged" or "staged-parked"
+        # (hidden from ListRuns, out of every bucket, never auto-resumed
+        # until CommitRun).
         self.migrating: Optional[str] = None
 
     @property

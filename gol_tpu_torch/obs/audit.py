@@ -1,8 +1,9 @@
 """The fleet audit log: who joined, who died, who adopted what, when —
 the counterpart of `gol_tpu/obs/audit.py`, writing the same
-`gol-fleet-audit/1` records. The port's fleet notes quarantines here,
-and the `GetAudit` RPC reads the member ring; the heartbeat that drains
-the queue to a router waits for ROADMAP A13(c).
+`gol-fleet-audit/1` records. The port's fleet notes quarantines here and
+the migration coordinator its phases; the `GetAudit` RPC reads the member
+ring, and the federation agent's heartbeat drains the queue to the
+router's durable log (`obs/export.SnapshotExporter`).
 
 Two halves, one schema (`gol-fleet-audit/1`):
 

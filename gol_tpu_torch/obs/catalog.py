@@ -5,12 +5,12 @@ remote engine client, the chaos hooks, the tracer, the flight recorder,
 the SLO estimators, the checkpoint writer and its fleet pool, restore,
 the run journal, the conv-family kernel tiers, both engines (their
 chunk-loop, run, SLO, audit, usage, fusion and step-signature families),
-the telemetry exporter, tsdb and alerts, the broadcast tier and its
-gateway, device-memory polling and the profiler emit. Names, kinds,
-labels and pre-seeded children are the JAX catalogue's, so a
-`GetMetrics` reply reads the same from either package. The federation
-and migration families wait for ROADMAP A13(c), the mesh and halo
-families for A5; the JAX compile hooks have no counterpart.
+the telemetry exporter, tsdb and alerts, the federation registry and
+router, the migration coordinator, the broadcast tier and its gateway,
+device-memory polling and the profiler emit. Names, kinds, labels and
+pre-seeded children are the JAX catalogue's, so a `GetMetrics` reply
+reads the same from either package. The mesh and halo families wait for
+ROADMAP A5; the JAX compile hooks have no counterpart.
 """
 
 from __future__ import annotations
@@ -137,10 +137,9 @@ def method_label(method: str) -> str:
 # ------------------------------------------------- chaos & fault tolerance
 
 # Closed kind sets, pre-seeded like the wire methods so the resilience
-# families are visible at zero before the first fault. The port's chaos
-# module injects the wire-level kinds only (no federation member kills
-# or migration faults).
-CHAOS_KINDS = ("drop", "delay", "truncate", "corrupt", "stall", "refuse")
+# families are visible at zero before the first fault.
+CHAOS_KINDS = ("drop", "delay", "truncate", "corrupt", "stall",
+               "kill_member", "refuse", "migrate_fail")
 RPC_ERROR_KINDS = ("timeout", "refused", "reset", "protocol")
 
 CHAOS_INJECTED = REGISTRY.counter(
@@ -151,7 +150,9 @@ CHAOS_INJECTED = REGISTRY.counter(
     "then close), corrupt (one header byte zeroed so the peer sees a "
     "protocol error), stall (long sleep that outlasts read timeouts), "
     "refuse (dial-time ConnectionRefusedError before the socket "
-    "connects). Stays 0 unless GOL_CHAOS is set.",
+    "connects), kill_member (process-level SIGKILL of a federation "
+    "member at a seeded time), migrate_fail (one forced failure at a "
+    "named Rescale migration phase). Stays 0 unless GOL_CHAOS is set.",
     label_names=("kind",))
 for _k in CHAOS_KINDS:
     CHAOS_INJECTED.labels(kind=_k)
@@ -633,6 +634,59 @@ COMPILE_STEP_SIGNATURES = REGISTRY.counter(
     "dtype, mesh, rule) seen this process; each new one implies a "
     "fresh jit trace + compile.")
 
+# ------------------------------------------------------------ federation
+
+# Member lifecycle states the router's registry distinguishes. Closed
+# set, pre-seeded like every other resilience family.
+FED_MEMBER_STATES = ("live", "dead")
+
+FED_MEMBERS = REGISTRY.gauge(
+    "gol_fed_members",
+    "Fleet servers known to the federation router's member registry, by "
+    "state: live (heartbeat within GOL_FED_DEAD_AFTER) or dead "
+    "(heartbeats lapsed; its runs are being adopted by survivors). A "
+    "re-registering dead member moves back to live.",
+    label_names=("state",))
+for _s in FED_MEMBER_STATES:
+    FED_MEMBERS.labels(state=_s)
+
+FED_HEARTBEAT_AGE_MS = REGISTRY.gauge(
+    "gol_fed_heartbeat_age_ms",
+    "Heartbeat age quantiles in milliseconds across live members at the "
+    "router's last registry sweep (now - last heartbeat stamp). Climbs "
+    "toward GOL_FED_DEAD_AFTER*1000 as a member goes quiet.",
+    label_names=("q",))
+for _q in SLO_QUANTILES:
+    FED_HEARTBEAT_AGE_MS.labels(q=_q)
+
+FED_FAILOVERS = REGISTRY.counter(
+    "gol_fed_failovers_total",
+    "Members declared dead by the router's heartbeat sweep (each "
+    "declaration triggers adoption of the member's placed runs by "
+    "rendezvous re-placement over the survivors).")
+
+FED_ADOPTED_RUNS = REGISTRY.counter(
+    "gol_fed_adopted_runs_total",
+    "Runs adopted from a dead member via its shared-root per-run "
+    "checkpoints, by outcome: ok (the adopting member verified and "
+    "restored the manifest, run re-queued for placement), error "
+    "(adoption RPC failed or the restore exhausted its quarantine "
+    "budget).",
+    label_names=("status",))
+for _s in ("ok", "error"):
+    FED_ADOPTED_RUNS.labels(status=_s)
+
+FED_ROUTER_OVERHEAD_MS = REGISTRY.gauge(
+    "gol_fed_router_overhead_ms",
+    "Router proxy overhead quantiles in milliseconds: client-facing "
+    "wall time of a proxied RPC minus the member-facing round trip "
+    "(relay framing + placement lookup + dedupe bookkeeping), from a "
+    "log-bucket estimator flushed at the SLO cadence.",
+    label_names=("q",))
+for _q in SLO_QUANTILES:
+    FED_ROUTER_OVERHEAD_MS.labels(q=_q)
+
+
 # --------------------------------------------------- telemetry plane
 
 # Heartbeat-borne snapshot export (obs/export.py, member side). The
@@ -767,6 +821,43 @@ FED_AGG_USAGE_CUPS_HEADROOM = REGISTRY.gauge(
     "Fleet-wide aggregate CUPS headroom: sum of per-member capacity "
     "headroom (all bucket classes) as last reported on the heartbeat "
     "snapshot.")
+
+
+# ------------------------------------------- live migration & resharding
+
+# Terminal outcomes of one Rescale cutover. Closed set, pre-seeded:
+# ok (target authoritative, source copy retired), rolled_back (a phase
+# failed before the redirect committed; the source copy resumed),
+# error (rollback itself failed — the source copy is still present and
+# authoritative, but the failure needed operator-visible attribution).
+MIGRATION_STATUSES = ("ok", "rolled_back", "error")
+
+MIGRATIONS = REGISTRY.counter(
+    "gol_migrations_total",
+    "Rescale live-migration attempts completed by this process's "
+    "migration coordinator, by terminal status: ok (two-phase cutover "
+    "committed — the run now lives on the target member and the router "
+    "placement is pinned there), rolled_back (a phase failed or a "
+    "GOL_CHAOS migrate_fail fault fired before the redirect committed; "
+    "the staged target copy was destroyed and the source copy resumed "
+    "authoritative), error (rollback was itself incomplete; exactly-one-"
+    "owner still holds — the source was never released — but the "
+    "attempt needs attention).",
+    label_names=("status",))
+for _s in MIGRATION_STATUSES:
+    MIGRATIONS.labels(status=_s)
+
+MIGRATION_DOWNTIME_MS = REGISTRY.gauge(
+    "gol_migration_downtime_ms",
+    "Quantiles of the redirect-slice wall time in milliseconds across "
+    "completed migrations: the window between pinning the router "
+    "placement at the target and retiring the source copy (with viewer "
+    "re-key), during which a racing run-scoped RPC is answered with a "
+    "retryable 'moved:' redirect instead of an error — downtime is "
+    "latency, never an error.",
+    label_names=("q",))
+for _q in SLO_QUANTILES:
+    MIGRATION_DOWNTIME_MS.labels(q=_q)
 
 
 # ------------------------------------------ broadcast tier & gateway

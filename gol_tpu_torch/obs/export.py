@@ -1,8 +1,8 @@
 """Federated telemetry export/ingest: snapshots on the heartbeat — the
 counterpart of `gol_tpu/obs/export.py`. The member answers `GetTelemetry`
-with `local_doc()`; the heartbeat that carries `SnapshotExporter`'s
-snapshots and the router that runs `FleetTelemetry` wait for ROADMAP
-A13(c), federation.
+with `local_doc()`; the federation agent's heartbeat carries
+`SnapshotExporter`'s snapshots, and the router runs `FleetTelemetry`
+(`federation/`).
 
 Member half — `SnapshotExporter`. Every `RegisterMember` beat may
 carry a `"snap"` key: a compact, delta-encoded snapshot of selected

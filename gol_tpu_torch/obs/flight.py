@@ -1,11 +1,11 @@
 """Crash-time flight recorder: a bounded ring of recent spans and events —
-the counterpart of `gol_tpu/obs/flight.py` (its `crash` trigger and
-`validate_dump` wait for ROADMAP A13(c)).
+the counterpart of `gol_tpu/obs/flight.py`.
 
 Every finished span (`obs/trace.py`) and every structured-log event
 (`obs/log.py`) is also appended to a small in-memory ring. When something
 dies (SIGTERM on the server, the client heartbeat watchdog declaring the
-engine lost) the ring is dumped as ONE JSON document (schema
+engine lost, an unhandled exception in the engine's chunk loop, which
+calls `crash`) the ring is dumped as ONE JSON document (schema
 `gol-flight/1`): the recent spans, the spans still OPEN at the instant of
 death, the recent log events, and a metrics-registry snapshot.
 
@@ -137,3 +137,42 @@ class FlightRecorder:
 # The process-wide recorder — what the tracer, the structured logger,
 # and every crash trigger share.
 FLIGHT = FlightRecorder()
+
+
+def crash(event: str, exc: BaseException,
+          reason: str = "exception", **fields) -> Optional[str]:
+    """Record an exception event into the ring and dump: the one-call
+    crash trigger for the engine loop. Never raises."""
+    try:
+        import traceback
+
+        rec = {"ts": round(time.time(), 3), "level": "error",
+               "event": event,
+               "error": f"{type(exc).__name__}: {exc}",
+               "traceback": "".join(traceback.format_exception(
+                   type(exc), exc, exc.__traceback__))}
+        rec.update(fields)
+        FLIGHT.record_event(rec)
+        return FLIGHT.dump(reason)
+    except Exception:
+        return None
+
+
+def validate_dump(doc: dict) -> None:
+    """Raise ValueError unless `doc` is a structurally valid flight dump
+    (the test-side check; `gol_tpu`'s accepts the port's dumps)."""
+    if not isinstance(doc, dict):
+        raise ValueError(f"dump is {type(doc).__name__}, not object")
+    if doc.get("schema") != SCHEMA:
+        raise ValueError(f"schema {doc.get('schema')!r} != {SCHEMA!r}")
+    for key in ("reason", "run_id"):
+        if not isinstance(doc.get(key), str) or not doc[key]:
+            raise ValueError(f"missing {key}")
+    for key in ("ts", "uptime_s", "pid"):
+        if not isinstance(doc.get(key), (int, float)):
+            raise ValueError(f"bad {key} {doc.get(key)!r}")
+    for key in ("open_spans", "spans", "events"):
+        if not isinstance(doc.get(key), list):
+            raise ValueError(f"{key} is not a list")
+    if not isinstance(doc.get("metrics"), dict):
+        raise ValueError("metrics is not a dict")

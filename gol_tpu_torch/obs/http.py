@@ -33,6 +33,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from gol_tpu_torch.federation import registry as fed_registry
 from gol_tpu_torch.obs import catalog, devstats
 from gol_tpu_torch.obs import export as obs_export
 from gol_tpu_torch.obs import flight as obs_flight
@@ -62,9 +63,12 @@ def healthz_doc() -> dict:
     # engine lock or syncs a device; empty dict on single-run engines.
     doc["slo"] = obs_slo.fleet_health()
     doc.update(devstats.healthz_fields())
-    # The JAX package adds a "federation" member table in a process that
-    # runs a router registry; the port has none until ROADMAP A13(c), so
-    # the key is absent, as it is there without a registry.
+    # Federation member table: present only in a process running a router
+    # registry. A cached-reference read, the same no-lock discipline as
+    # the fleet health document.
+    fed = fed_registry.active_doc()
+    if fed is not None:
+        doc["federation"] = fed
     # Fleet telemetry plane: the aggregator's rollups, absent on
     # processes that run no router.
     telemetry = obs_export.active_telemetry_doc()

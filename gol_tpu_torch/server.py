@@ -9,9 +9,11 @@ control protocol (`Server/gol/distributor.go:54-83` — ServerDistributor /
 Alivecount / GetWorld / CFput / KillProg, plus Ping, Stats, GetMetrics,
 GetView, DrainFlags, AbortRun, Checkpoint, RestoreRun, GetJournal, the
 fleet's CreateRun / ListRuns / AttachRun / DestroyRun / SetRule, for
-the sparse engine GetWindow, the broadcast tier's Subscribe and the
-telemetry surface's GetTelemetry / GetAudit / GetUsage / Profile) on a
-TCP socket (default :8080, the reference broker port, `Server:235`).
+the sparse engine GetWindow, the broadcast tier's Subscribe, the
+telemetry surface's GetTelemetry / GetAudit / GetUsage / Profile, and the
+federation's AdoptRun and live migration's Rescale / ReceiveRun /
+CommitRun on a fleet) on a TCP socket (default :8080, the reference
+broker port, `Server:235`).
 Run-scoped methods honour a `run_id` header (`RUN_SCOPED`); peers that
 never send one get the legacy run, on every engine. A Subscribe is
 ACKed on its handler thread and its socket handed to the viewer gateway
@@ -22,20 +24,24 @@ Long-running: survives controller detach and serves `GetWorld` for
 With `--checkpoint DIR` a SIGTERM drains, writes a manifest checkpoint
 and the legacy `WxH.npz`, and exits 0; `--resume` restores before
 serving; on a fleet server SIGTERM also checkpoints every fleet run
-into its run-<id> directory. The methods of the migration slice answer
-with an error naming their ROADMAP item; the connection is served as
-usual. `--metrics-port` serves /metrics, /healthz and /profile;
-`--profile-dir` is where Profile's torch.profiler traces land.
+into its run-<id> directory. `--metrics-port` serves /metrics, /healthz
+and /profile; `--profile-dir` is where Profile's torch.profiler traces
+land. `--federate ROUTER` joins a federation router (either package's):
+a heartbeat thread registers the member as `--advertise HOST` plus the
+bound port, and the router places runs here, adopts a dead member's runs
+through AdoptRun, and takes the Rescale coordinator's PinRun. A run that
+migrated away answers a late request with the retryable "moved:" error.
 
 Run:  python -m gol_tpu_torch.server [--port 8080] [--device cpu]
           [--sparse SIZE | --fleet] [--checkpoint DIR [--ckpt-every TURNS]]
           [--resume DIR|MANIFEST|NPZ] [--metrics-port PORT]
-          [--profile-dir DIR]
+          [--profile-dir DIR] [--federate ROUTER [--advertise HOST]]
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import os
 import signal
 import socket
@@ -48,6 +54,7 @@ from gol_tpu_torch import ckpt as ckpt_mod
 from gol_tpu_torch import journal as journal_mod
 from gol_tpu_torch import wire
 from gol_tpu_torch.engine import Engine, EngineBusy, EngineKilled
+from gol_tpu_torch.fleet.handles import FleetUnsupported
 from gol_tpu_torch.obs import audit as obs_audit
 from gol_tpu_torch.obs import catalog as obs
 from gol_tpu_torch.obs import export as obs_export
@@ -80,13 +87,6 @@ MAX_CONNS_DEFAULT = 64
 # for in-flight handlers, then exit 0.
 DRAIN_DEADLINE_ENV = "GOL_DRAIN_DEADLINE"
 DRAIN_DEADLINE_DEFAULT = 5.0
-
-# Methods of the protocol that a later slice of the port brings, and the
-# ROADMAP item each waits for.
-NOT_YET_PORTED = {
-    "AdoptRun": "A13(c)", "Rescale": "A13(c)", "ReceiveRun": "A13(c)",
-    "CommitRun": "A13(c)",
-}
 
 
 class EngineServer:
@@ -137,6 +137,18 @@ class EngineServer:
         # adds its sent bytes there, and the dispatch tail charges them to
         # the run named in the header.
         self._usage_ctx = threading.local()
+        # Live migration forwarding map: run_id -> the member address it
+        # migrated to. A straggler whose request was relayed here before
+        # the router's pin flipped gets a RETRYABLE "moved:" answer
+        # instead of "unknown run". Bounded LRU.
+        self._moved: "collections.OrderedDict[str, str]" = \
+            collections.OrderedDict()
+        self._moved_lock = threading.Lock()
+        # Federation identity, stamped by main() with --federate: the
+        # router address (PinRun destination) and the address this
+        # member advertised (its member_id in the registry).
+        self._fed_router = ""
+        self._self_addr = ""
 
     VIEW_CACHE_MAX = 4
     DEDUPE_MAX = 512
@@ -150,6 +162,31 @@ class EngineServer:
         "DrainFlags", "RestoreRun", "AbortRun", "Profile", "KillProg",
         "AdoptRun", "Rescale", "ReceiveRun", "CommitRun", "PinRun",
     })
+
+    MOVED_MAX = 256
+
+    def note_moved(self, run_id: str, target: str) -> None:
+        """Record that `run_id` now lives at member `target`, so late
+        requests answer "moved:" (retryable) instead of "unknown run"."""
+        with self._moved_lock:
+            self._moved[str(run_id)] = str(target)
+            self._moved.move_to_end(str(run_id))
+            while len(self._moved) > self.MOVED_MAX:
+                self._moved.popitem(last=False)
+
+    def moved_to(self, run_id: str) -> Optional[str]:
+        with self._moved_lock:
+            return self._moved.get(str(run_id))
+
+    def drop_run_viewers(self, run_id: str, sentinel: str) -> None:
+        """Purge every per-viewer xrle basis of a run that left this
+        server and end its broadcast streams with `sentinel`: each
+        subscriber reconnects and re-keys (the first frame after any
+        reconnect is a keyframe by protocol)."""
+        self._drop_run_views(run_id)
+        bc = self._bcast
+        if bc is not None:
+            bc[0].drop_run(run_id, sentinel)
 
     def serve_forever(self) -> None:
         while not self._shutdown.is_set():
@@ -494,7 +531,7 @@ class EngineServer:
                             {"ok": True, "metrics": REGISTRY.snapshot()})
             elif method == "GetTelemetry":
                 # A member answers with its own family values (a
-                # federation router answers with fleet rollups, A13(c)).
+                # federation router answers with fleet rollups).
                 self._reply(conn, {"ok": True,
                                    "telemetry": obs_export.local_doc()})
             elif method == "GetAudit":
@@ -666,10 +703,7 @@ class EngineServer:
                 # CreateRun.
                 rid = str(header.get("run_id") or "")
                 rec = self.engine.destroy_run(rid)
-                self._drop_run_views(rid)
-                bc = self._bcast
-                if bc is not None:
-                    bc[0].drop_run(rid, f"killed: run {rid} destroyed")
+                self.drop_run_viewers(rid, f"killed: run {rid} destroyed")
                 self._reply(conn, {"ok": True, "run": rec})
             elif method == "SetRule":
                 # Rule migration: evict, re-home under the new rule's
@@ -690,23 +724,87 @@ class EngineServer:
                 self.shutdown()
                 if os.environ.get("GOL_SERVER_EXIT_ON_KILL", "1") == "1":
                     threading.Timer(0.2, _exit_after_flush).start()
-            elif method in NOT_YET_PORTED:
-                raise NotImplementedError(
-                    f"{method} is not ported to gol_tpu_torch yet "
-                    f"(ROADMAP {NOT_YET_PORTED[method]})")
+            elif method == "AdoptRun":
+                # Federation failover: adopt a dead member's run from its
+                # per-run manifests under the shared GOL_CKPT root. A
+                # fleet registers the run quarantined, so the verified,
+                # backed-off restore machinery re-homes it; single-run
+                # engines answer FleetUnsupported.
+                adopt = getattr(self.engine, "adopt_run", None)
+                if adopt is None:
+                    raise FleetUnsupported(
+                        f"{type(self.engine).__name__} serves a single "
+                        "run; start the server with --fleet for "
+                        "AdoptRun")
+                tt = header.get("target_turn")
+                rec = adopt(
+                    str(header.get("run_id") or ""),
+                    ckpt_every=int(header.get("ckpt_every", 0) or 0),
+                    target_turn=int(tt) if tt is not None else None)
+                self._reply(conn, {"ok": True, "run": rec})
+            elif method == "Rescale":
+                # Live migration: THIS member is the source; migrate.py
+                # coordinates the failure-atomic quiesce -> checkpoint ->
+                # transfer -> resume -> redirect cutover (rollback to here
+                # on any failure).
+                from gol_tpu_torch import migrate as migrate_mod
+
+                rec = migrate_mod.rescale(
+                    self, str(header.get("run_id") or ""),
+                    str(header.get("target") or ""))
+                self._reply(conn, {"ok": True, **rec})
+            elif method == "ReceiveRun":
+                # Target half of a migration transfer: stage the incoming
+                # board hidden ("staged") until CommitRun.
+                imp = getattr(self.engine, "import_run", None)
+                if imp is None:
+                    raise FleetUnsupported(
+                        f"{type(self.engine).__name__} serves a single "
+                        "run; start the server with --fleet for "
+                        "ReceiveRun")
+                if world is None:
+                    raise RuntimeError(
+                        "ReceiveRun carries the board as its payload")
+                tt = header.get("target_turn")
+                rec = imp(
+                    str(header.get("run_id") or ""), world,
+                    int(header.get("turn", 0)),
+                    rule=header.get("rule"),
+                    ckpt_every=int(header.get("ckpt_every", 0) or 0),
+                    target_turn=int(tt) if tt is not None else None,
+                    activate=str(header.get("state", "resident"))
+                    in ("resident", "queued"),
+                    journal_head=header.get("journal_head"))
+                self._reply(conn, {"ok": True, "run": rec})
+            elif method == "CommitRun":
+                act = getattr(self.engine, "activate_imported", None)
+                if act is None:
+                    raise RuntimeError(
+                        f"{type(self.engine).__name__} cannot commit "
+                        "migrated runs")
+                rec = act(str(header.get("run_id") or ""))
+                self._reply(conn, {"ok": True, "run": rec})
             else:
                 self._reply(conn, {"ok": False,
                                    "error": f"unknown method {method!r}"})
         except KeyError as e:
             # resolve_run's contract: an unknown run id raises KeyError
             # with a presentable message ("unknown run 'x'"), answered as
-            # is; any other KeyError (a malformed request header) keeps
-            # the generic "ExcName: detail" shape. (The migration
-            # redirect, "moved:", waits for ROADMAP A13(c).)
+            # is — or, for a run that MIGRATED away, with the retryable
+            # redirect: by the time the client retries, the router's pin
+            # points at the new owner. Any other KeyError (a malformed
+            # request header) keeps the generic "ExcName: detail" shape.
             obs.SERVER_ERRORS.labels(method=label).inc()
             msg = e.args[0] if e.args else ""
             if isinstance(msg, str) and msg.startswith("unknown run"):
-                self._reply(conn, {"ok": False, "error": msg})
+                moved = self.moved_to(str(header.get("run_id") or ""))
+                if moved is not None:
+                    self._reply(conn, {
+                        "ok": False,
+                        "error": f"moved: run {header.get('run_id')} "
+                                 f"migrated to {moved}"})
+                else:
+                    self._reply(conn, {"ok": False, "error": msg})
             else:
                 self._reply(conn, {"ok": False, "error": f"KeyError: {e}"})
         except EngineKilled as e:
@@ -886,6 +984,17 @@ def main(argv=None) -> int:
                     default=0,
                     help="board-digest journal events every TURNS (sets "
                          "GOL_JOURNAL_DIGEST_EVERY; default 512)")
+    ap.add_argument("--federate", metavar="ROUTER_ADDR", default="",
+                    help="join a federation: register with the router "
+                         "at host:port and heartbeat every "
+                         "GOL_FED_HEARTBEAT seconds (the router "
+                         "declares this member dead after "
+                         "GOL_FED_DEAD_AFTER of silence and re-homes "
+                         "its runs from the shared GOL_CKPT root)")
+    ap.add_argument("--advertise", metavar="HOST", default="127.0.0.1",
+                    help="hostname the router should dial this member "
+                         "back on (default 127.0.0.1; the port is the "
+                         "bound serving port)")
     args = ap.parse_args(argv)
     if args.fleet and args.sparse:
         ap.error("--fleet and --sparse are mutually exclusive")
@@ -956,6 +1065,17 @@ def main(argv=None) -> int:
 
         msrv = start_metrics_server(args.metrics_port)
         print(f"metrics on {msrv.url}", flush=True)
+    agent = None
+    if args.federate:
+        from gol_tpu_torch.federation.agent import FederationAgent
+
+        # The Rescale coordinator pins redirects at this router, as this
+        # member. The port's engine holds one device: capacity 1.
+        srv._fed_router = args.federate
+        srv._self_addr = f"{args.advertise}:{srv.port}"
+        agent = FederationAgent(
+            args.federate, srv._self_addr,
+            capacity=1, mesh={"devices": 1}).start()
     # This banner is the readiness contract: harnesses parse
     # "serving on :<port>" from stdout to learn the bound port.
     print(f"gol_tpu_torch engine serving on :{srv.port} "
@@ -964,6 +1084,8 @@ def main(argv=None) -> int:
           + (", fleet" if args.fleet else "") + ")",
           flush=True)
     srv.serve_forever()
+    if agent is not None:
+        agent.stop()
     # Orderly stop (accept loop closed, e.g. KillProg without the exit
     # timer): still export whatever spans were recorded.
     trace.export_from_env()

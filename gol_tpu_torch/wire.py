@@ -865,8 +865,8 @@ def recv_msg(sock: socket.socket,
 # then forwards every byte verbatim, which keeps the req_id dedupe, the
 # tc trace context and the negotiated codecs (including per-viewer xrle
 # bases) intact across the proxy. None of this touches send_msg/
-# recv_msg. The JAX package's federation router is the user; the port's
-# waits for ROADMAP A13(c).
+# recv_msg. The federation router (`federation/router.py`, and the JAX
+# package's) is the user.
 
 def recv_head_raw(sock: socket.socket) -> Tuple[dict, bytes]:
     """Receive one message's framed header WITHOUT consuming its board

@@ -45,6 +45,51 @@ BOARD = 32
 VIEW_CELLS = BOARD * BOARD
 
 
+def _stop_server(srv) -> None:
+    """Stop an engine server of either package and join its accept
+    thread. `gol_tpu`'s shutdown closes the listening socket, which does
+    not wake a thread blocked in accept(); one connection does, and the
+    loop then sees the shutdown flag."""
+    serve = [t for t in threading.enumerate()
+             if getattr(t, "_target", None) == srv.serve_forever]
+    srv.shutdown()
+    try:
+        socket.create_connection(("127.0.0.1", srv.port),
+                                 timeout=1.0).close()
+    except OSError:
+        pass
+    for t in serve:
+        t.join(timeout=10)
+        assert not t.is_alive(), "accept thread outlived its server"
+
+
+# The threads alive when this file's first test starts: a worker runs
+# several files in one process, and the leftover check below holds this
+# file to the threads it started.
+_THREADS_BEFORE: set = set()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _threads_before_this_file():
+    _THREADS_BEFORE.update(threading.enumerate())
+    yield
+
+
+def _gol_tpu_threads() -> list:
+    """Live threads running code of the JAX package that this file
+    started."""
+    out = []
+    for t in threading.enumerate():
+        if t in _THREADS_BEFORE:
+            continue
+        target = getattr(t, "_target", None)
+        mod = (getattr(target, "__module__", None) if target is not None
+               else type(t).__module__) or ""
+        if mod.split(".")[0] == "gol_tpu":
+            out.append(f"{t.name} ({mod})")
+    return out
+
+
 class FakeSurface:
     """Deterministic publish surface: each turn flips one cell."""
 
@@ -505,7 +550,7 @@ def test_subscription_crosses_packages(side, monkeypatch):
             sub.close()
         eng.cf_put(FLAG_QUIT)
         runner.join(timeout=60)
-        srv.shutdown()
+        _stop_server(srv)
     assert not runner.is_alive()
 
 
@@ -561,3 +606,13 @@ def test_single_run_frames_equal_gol_tpu_views(repr_, max_cells,
         if sub is not None:
             sub.close()
         srv.shutdown()
+
+
+def test_no_gol_tpu_thread_outlives_this_file():
+    """Every `gol_tpu` server, hub, gateway and engine thread this file
+    started has ended: a leftover would move the JAX package's
+    process-global counters under a JAX test that shares this worker."""
+    deadline = time.monotonic() + 10.0
+    while _gol_tpu_threads() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert _gol_tpu_threads() == []

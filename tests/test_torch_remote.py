@@ -31,7 +31,7 @@ from gol_tpu_torch.io.pgm import read_pgm
 from gol_tpu_torch.models.generations import BRIANS_BRAIN
 from gol_tpu_torch.obs import catalog as obs
 from gol_tpu_torch.obs import trace
-from gol_tpu_torch.server import NOT_YET_PORTED, EngineServer
+from gol_tpu_torch.server import EngineServer
 from tests.server_harness import wait_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -243,17 +243,33 @@ def test_remote_bad_method_and_garbage(server):
     assert RemoteEngine(f"127.0.0.1:{server.port}").alive_count()[0] >= 0
 
 
-@pytest.mark.parametrize("method", sorted(NOT_YET_PORTED))
+# The fleet-only methods of the migration slice, and the refusal a
+# single-run engine gives each (`gol_tpu`'s words).
+FLEET_ONLY_REFUSALS = {
+    "AdoptRun": "start the server with --fleet for AdoptRun",
+    "CommitRun": "Engine cannot commit migrated runs",
+    "ReceiveRun": "start the server with --fleet for ReceiveRun",
+    "Rescale": "start the server with --fleet for Rescale",
+}
+
+
+@pytest.mark.parametrize("method", sorted(FLEET_ONLY_REFUSALS))
 def test_not_yet_ported_method_names_its_roadmap_item(method, server):
+    """Every method of the protocol is ported now: a fleet-only method
+    sent to a single-run server is refused as `gol_tpu`'s server refuses
+    it (pointing at --fleet), never with "not ported", and the
+    connection is served as usual."""
     s = socket.create_connection(("127.0.0.1", server.port), timeout=5)
     try:
-        wire.send_msg(s, {"method": method, "caps": ["packed"]})
+        wire.send_msg(s, {"method": method, "caps": ["packed"],
+                          "run_id": "r1", "target": "127.0.0.1:1"})
         resp, world = wire.recv_msg(s)
     finally:
         s.close()
     assert resp["ok"] is False and world is None
-    assert f"ROADMAP {NOT_YET_PORTED[method]}" in resp["error"]
-    assert method in resp["error"]
+    assert FLEET_ONLY_REFUSALS[method] in resp["error"]
+    assert "not ported" not in resp["error"]
+    assert "ROADMAP" not in resp["error"]
     assert resp["caps"] == wire.advertised_caps()
     # the server serves on
     assert RemoteEngine(f"127.0.0.1:{server.port}").ping() == 0

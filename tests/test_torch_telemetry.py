@@ -4,8 +4,8 @@
     and `tests/test_alerts.py`, plus one script run through both packages'
     stores and rule managers with equal answers;
   * `obs/export.py` and `obs/audit.py` — the export, ingest and audit-log
-    cases of `tests/test_telemetry.py` (the router's wire face waits for
-    federation, ROADMAP A13(c));
+    cases of `tests/test_telemetry.py` (the router's wire face is held in
+    `tests/test_torch_federation.py`);
   * the GetTelemetry, GetAudit and GetUsage RPCs: one fleet script (two
     runs, a chaos popcount poison that quarantines one, a destroy) through
     each package's server gives equal replies. Clock fields are excluded:
@@ -29,6 +29,7 @@ import json
 import os
 import queue
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -71,6 +72,51 @@ from gol_tpu_torch.params import Params
 from gol_tpu_torch.server import EngineServer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _stop_server(srv) -> None:
+    """Stop an engine server of either package and join its accept
+    thread. `gol_tpu`'s shutdown closes the listening socket, which does
+    not wake a thread blocked in accept(); one connection does, and the
+    loop then sees the shutdown flag."""
+    serve = [t for t in threading.enumerate()
+             if getattr(t, "_target", None) == srv.serve_forever]
+    srv.shutdown()
+    try:
+        socket.create_connection(("127.0.0.1", srv.port),
+                                 timeout=1.0).close()
+    except OSError:
+        pass
+    for t in serve:
+        t.join(timeout=10)
+        assert not t.is_alive(), "accept thread outlived its server"
+
+
+# The threads alive when this file's first test starts: a worker runs
+# several files in one process, and the leftover check below holds this
+# file to the threads it started.
+_THREADS_BEFORE: set = set()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _threads_before_this_file():
+    _THREADS_BEFORE.update(threading.enumerate())
+    yield
+
+
+def _gol_tpu_threads() -> list:
+    """Live threads running code of the JAX package that this file
+    started."""
+    out = []
+    for t in threading.enumerate():
+        if t in _THREADS_BEFORE:
+            continue
+        target = getattr(t, "_target", None)
+        mod = (getattr(target, "__module__", None) if target is not None
+               else type(t).__module__) or ""
+        if mod.split(".")[0] == "gol_tpu":
+            out.append(f"{t.name} ({mod})")
+    return out
 
 
 @pytest.fixture(autouse=True)
@@ -690,7 +736,7 @@ def test_telemetry_rpcs_answer_as_gol_tpu_for_one_fleet_script(
                 str(tmp_path / name), monkeypatch))
         finally:
             srv.engine.kill_prog()
-            srv.shutdown()
+            _stop_server(srv)
     (ju, jt, ja), (tu, tt, ta) = answers
     # GetUsage: the meter's doc and run a's live record.
     assert _unclocked(tu) == _unclocked(ju)
@@ -1098,3 +1144,13 @@ def test_telemetry_modules_stand_alone():
                          cwd=tempfile.gettempdir())
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_no_gol_tpu_thread_outlives_this_file():
+    """Every `gol_tpu` server, hub, gateway and engine thread this file
+    started has ended: a leftover would move the JAX package's
+    process-global counters under a JAX test that shares this worker."""
+    deadline = time.monotonic() + 10.0
+    while _gol_tpu_threads() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert _gol_tpu_threads() == []
