@@ -5031,6 +5031,489 @@ def log_federation_summary() -> None:
             f"{base['used_bytes']} before they started)")
 
 
+# ------------------------------------------ phase 4k: row sharding (A5)
+
+# Meshes that name cuda:0 once a shard: the machinery of `parallel/`
+# on one card (the engine's default mesh clamps to one shard there).
+MESH_SHARDS = (2, 3, 4, 8)
+MESH_BOARD = 5120       # the JAX bench's life-like width (PERF.md §2)
+MESH_BIG = 65536
+MESH_MULTI_TURNS = 256
+# Phase 4k's numbers, for the summary lines and the kernels' records:
+# rates (sharded beside unsharded), halo traffic, and each distinct
+# window a stepping kernel launched (kernel, shape, T) with its times.
+MESH_RESULTS: dict = {"rates": [], "windows": {}}
+
+# One multi-process run: rank `argv[2]` of 2 joins a gloo group at
+# `argv[1]`, holds 2 of 4 row shards of the seeded 5120² board on
+# cuda:0, steps them MESH_MULTI_TURNS turns (counted) and saves its
+# shards, counts and launches to `argv[3]`.
+MULTIHOST_RUNNER = (
+    "import json, os, sys\n"
+    "import numpy as np, torch\n"
+    "os.environ.update(GOL_COORDINATOR=sys.argv[1], GOL_NUM_PROCS='2',\n"
+    "                  GOL_PROC_ID=sys.argv[2])\n"
+    "import chip_smoke\n"
+    "from gol_tpu_torch.ops import cuda_stencil as cs\n"
+    "from gol_tpu_torch.ops.bitpack import pack_np, words_from_numpy\n"
+    "from gol_tpu_torch.parallel import halo, multihost\n"
+    "from gol_tpu_torch.parallel.mesh import shard\n"
+    "assert multihost.initialize()\n"
+    "dev = torch.device('cuda', 0)\n"
+    "mesh = multihost.make_global_mesh(4, [dev, dev])\n"
+    "assert mesh.backend == 'gloo', mesh.backend\n"
+    "world = chip_smoke.seeded_board(chip_smoke.MESH_BOARD, 15)\n"
+    "board = shard(words_from_numpy(pack_np(world)), mesh)\n"
+    "counts = [torch.zeros(1, dtype=torch.int64, device=dev)\n"
+    "          if mesh.local(p) else None for p in range(mesh.size)]\n"
+    "torch.cuda.synchronize()\n"
+    "import time; t0 = time.perf_counter()\n"
+    "out = halo.sharded_packed_run_turns(\n"
+    "    board, chip_smoke.MESH_MULTI_TURNS, mesh, count=counts)\n"
+    "torch.cuda.synchronize()\n"
+    "secs = time.perf_counter() - t0\n"
+    "saved = {f'shard_{p}': s.cpu().numpy() for p, s in\n"
+    "         enumerate(out.shards) if s is not None}\n"
+    "saved.update({f'count_{p}': c.cpu().numpy() for p, c in\n"
+    "              enumerate(counts) if c is not None})\n"
+    "np.savez(sys.argv[3], seconds=secs,\n"
+    "         launches=json.dumps(chip_smoke.main_path_launches(cs)),\n"
+    "         **saved)\n"
+    "torch.distributed.destroy_process_group()\n")
+
+
+def window_plain(torch, cs, repr_: str, window, T: int, rule):
+    """The plain version of the one launch `_step_window` makes for a
+    window of `repr_`: (kernel name, plain result)."""
+    from gol_tpu_torch.parallel import halo
+
+    if repr_ == "packed":
+        kind = halo.window_kind(tuple(window.shape), T)
+        if kind == "resident":
+            return ("resident_run_turns",
+                    cs.resident_run_turns_plain(window, T, rule))
+        if kind == "tiled":
+            return "tiled_sweep", cs.tiled_sweep_plain(window, T, rule)
+        return "tiled_sweep_deep", cs.tiled_sweep_deep_plain(window, T,
+                                                              rule)
+    if halo.planes_run_kind(tuple(window.shape)) == "resident":
+        return ("resident_run_turns2p",
+                cs.resident_run_turns2p_plain(window, T, rule, "gen3"))
+    return "tiled_sweep2p", cs.tiled_sweep2p_plain(window, T, rule, "gen3")
+
+
+@contextlib.contextmanager
+def checked_windows(torch, card: Card):
+    """While active, the first launch of each distinct (repr, window
+    shape, T, counted) that `parallel.halo` steps is held bit-exact
+    against its plain version on the same window (and a counted one's
+    count against the plain count of its box), and timed beside it.
+    The plain versions launch no kernel."""
+    from gol_tpu_torch.ops import cuda_stencil as cs
+    from gol_tpu_torch.parallel import halo
+
+    step = halo._step_window
+
+    def checked(repr_, window, T, rule, count, box):
+        out = step(repr_, window, T, rule, count, box)
+        key = (repr_, tuple(window.shape), T, count is not None)
+        if (repr_ not in ("packed", "gen3") or key in MESH_RESULTS["seen"]
+                or not MESH_RESULTS["check"]):
+            return out
+        MESH_RESULTS["seen"].add(key)
+        name, want = window_plain(torch, cs, repr_, window, T, rule)
+        fam = "gen3" if repr_ == "gen3" else None
+        name = f"{name}/gen3" if fam else name
+        what = f"4k window {name} {tuple(window.shape)} T={T}"
+        check_equal(torch, what, out, want, name)
+        if count is not None:
+            r0, r1, c0, c1 = box
+            plane = want[0] if want.dim() == 3 else want
+            check_count(what + " counted box", count,
+                        plain_count(torch, plane[r0:r1, c0:c1]
+                                    .contiguous()), name)
+        h, wp = window.shape[-2:]
+        per_word = (cs.OPS_PER_WORD_TURN_2P["gen3"] if fam
+                    else cs.OPS_PER_WORD_TURN)
+        planes = 2 if fam else 1
+        bound, by = card.bound(8 * planes * h * wp, per_word * T * h * wp)
+        # Timing launches are not the path's: the counters are restored.
+        saved = [(fn, fn.launches, dict(getattr(fn, "by_family", {})))
+                 for fn in cs.KERNELS]
+        ms = time_ms(torch, lambda: step(repr_, window, T, rule, None,
+                                         None), 5)
+        for fn, n, fams in saved:
+            fn.launches = n
+            if fams:
+                fn.by_family = fams
+        MESH_RESULTS["windows"].setdefault(name, []).append({
+            "shape": list(window.shape), "turns": T, "ms": ms,
+            "plain_ms": time_ms(torch, lambda: window_plain(
+                torch, cs, repr_, window, T, rule), 1),
+            "bound_ms": bound, "bound_by": by})
+        return out
+
+    MESH_RESULTS["seen"] = set()
+    MESH_RESULTS["check"] = True
+    halo._step_window = checked
+    try:
+        yield
+    finally:
+        halo._step_window = step
+
+
+@contextlib.contextmanager
+def unchecked():
+    """Timed runs: no window is checked (or timed) meanwhile."""
+    MESH_RESULTS["check"] = False
+    try:
+        yield
+    finally:
+        MESH_RESULTS["check"] = True
+
+
+def halo_deltas(cat_before: dict) -> dict:
+    from gol_tpu_torch.obs import catalog as cat
+
+    return {a: (cat.HALO_EXCHANGES.labels(axis=a).value
+                - cat_before[a][0],
+                cat.HALO_BYTES.labels(axis=a).value - cat_before[a][1])
+            for a in ("rows", "cols")}
+
+
+def halo_values() -> dict:
+    from gol_tpu_torch.obs import catalog as cat
+
+    return {a: (cat.HALO_EXCHANGES.labels(axis=a).value,
+                cat.HALO_BYTES.labels(axis=a).value)
+            for a in ("rows", "cols")}
+
+
+def mesh_run_check(torch, what: str, run, board, want, turns: int,
+                   unsharded_s: float, traffic: dict) -> None:
+    """Run a sharded dispatch; hold the gathered board against `want`
+    (the unsharded run), the shards' summed count against its plain
+    popcount and the gol_halo_* deltas against `traffic`; then time it
+    again with no window checked and log turns/s beside the unsharded
+    rate."""
+    counts = [torch.zeros(1, dtype=torch.int64, device=s.device)
+              for s in board.shards]
+    before = halo_values()
+    out = run(board, counts)
+    delta = {a: v for a, v in halo_deltas(before).items() if v != (0, 0)}
+    with unchecked():
+        _, secs = timed(torch, lambda: run(board, counts))
+    got = out.gather()
+    if not torch.equal(got[:want.shape[-2]], want):
+        raise AssertionError(f"4k {what}: sharded board != unsharded")
+    total = sum(int(c) for c in counts)
+    if total != plain_count(torch, want):
+        raise AssertionError(f"4k {what}: counted {total} != popcount "
+                             f"{plain_count(torch, want)}")
+    want_t = {a: tuple(v) for a, v in traffic.items()}
+    if delta != want_t:
+        raise AssertionError(f"4k {what}: gol_halo_* {delta} != "
+                             f"halo_traffic {want_t}")
+    row = {"what": what, "turns": turns,
+           "turns_per_s": turns / secs,
+           "unsharded_turns_per_s": turns / unsharded_s,
+           "halo": {a: {"rounds": r, "bytes": b}
+                    for a, (r, b) in delta.items()},
+           "alive": total}
+    MESH_RESULTS["rates"].append(row)
+    log(f"  ok 4k {what}: bit-identical to the unsharded board, count "
+        f"{total}; {row['turns_per_s']:.1f} turns/s sharded beside "
+        f"{row['unsharded_turns_per_s']:.1f} unsharded; halo "
+        f"{json.dumps(row['halo'])}")
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mesh_1d(torch, dev) -> None:
+    """The 1-D ring at 5120² over 2, 3, 4 and 8 shards of cuda:0 (3: the
+    exact-N wrap extension), 1024 turns (T = 16, K2 windows) and 1023
+    (the per-turn path); 65536² over 4 at 32 turns and at fuse 64 (T =
+    64, K6 windows)."""
+    from gol_tpu_torch.ops.bitpack import pack_np, words_from_numpy
+    from gol_tpu_torch.parallel import halo
+    from gol_tpu_torch.parallel.mesh import make_mesh, shard
+
+    words = words_from_numpy(pack_np(seeded_board(MESH_BOARD, 15)), dev)
+    for turns in (1024, 1023):
+        want = halo.packed_run_turns(words, turns, halo.CONWAY)
+        _, secs = timed(torch, lambda: halo.packed_run_turns(
+            words, turns, halo.CONWAY))
+        for n in MESH_SHARDS:
+            mesh = make_mesh(n, [dev] * n)
+            ext = halo.exact_shard_ext(MESH_BOARD, n)
+            if ext:
+                ewords = words_from_numpy(halo.extend_rows(
+                    words.cpu().numpy().view(np.uint32), ext), dev)
+                board = shard(ewords, mesh)
+                run = (lambda b, c, ext=ext, mesh=mesh:
+                       halo.extended_run_turns(
+                           b, turns, mesh, height=MESH_BOARD, ext=ext,
+                           packed=True, count=c))
+                traffic = {}
+            else:
+                board = shard(words, mesh)
+                run = (lambda b, c, mesh=mesh: halo.sharded_packed_run_turns(
+                    b, turns, mesh, count=c))
+                traffic = halo.halo_traffic("packed", tuple(words.shape),
+                                            mesh, turns)
+            mesh_run_check(torch, f"{MESH_BOARD}² x {turns} over {n}"
+                           + (f" (exact-N, ext {ext})" if ext else ""),
+                           run, board, want, turns, secs, traffic)
+    del words
+    big = seeded_words(torch, MESH_BIG, MESH_BIG // 32, 16, dev)
+    mesh = make_mesh(4, [dev] * 4)
+    for turns, fuse in ((32, 0), (64, 64)):
+        want = halo.fused_packed_run_turns(big, turns, halo.CONWAY, fuse)
+        _, secs = timed(torch, lambda: halo.fused_packed_run_turns(
+            big, turns, halo.CONWAY, fuse))
+        mesh_run_check(
+            torch, f"{MESH_BIG}² x {turns} over 4" + (
+                f" at GOL_FUSE_K={fuse}" if fuse else ""),
+            lambda b, c: halo.sharded_packed_run_turns(
+                b, turns, mesh, fuse=fuse, count=c),
+            shard(big, mesh), want, turns, secs,
+            halo.halo_traffic("packed", tuple(big.shape), mesh, turns,
+                              fuse))
+        del want
+    del big
+
+
+def engine_world(eng_args: dict, world, turns: int, subs=(), rule=None):
+    """(pixels, turn, alive pair, stats, seconds) of one engine run."""
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.engine import Engine
+
+    eng = Engine(**eng_args) if rule is None else Engine(rule=rule,
+                                                          **eng_args)
+    h, w = world.shape
+    t0 = time.perf_counter()
+    out, turn = eng.server_distributor(
+        Params(threads=1, image_width=w, image_height=h, turns=turns),
+        world, sub_workers=subs)
+    secs = time.perf_counter() - t0
+    return out, turn, eng.alive_count(), eng.stats(), secs
+
+
+def mesh_engine(torch, dev, images: str, tmp: str) -> None:
+    """The contract through `run` (SUB of 4 on `Engine(devices=[cuda:0]
+    * 4)`, the goldens), GOL_MESH=2x2 at 1024² and 4096², Brian's Brain
+    over 4 (K4, K5 windows), Star Wars over 3 (gen8, exact-N), each
+    engine board against the one-shard engine's; and the default
+    engine, whose SUB of 4 runs one shard on the one card."""
+    from gol_tpu_torch.engine import Engine
+    from gol_tpu_torch.models import parse_rule
+
+    four = {"devices": [dev] * 4}
+    os.environ["SUB"] = ",".join(f"fake:{8030 + i}" for i in range(4))
+    try:
+        for size, turns in GOLDENS:
+            out = os.path.join(tmp, f"g{size}x{turns}")
+            os.makedirs(out, exist_ok=True)
+            from gol_tpu_torch import Params, events as ev
+            from gol_tpu_torch.io.pgm import read_pgm
+
+            eng = Engine(**four)
+            evs, _ = drive(Params(image_width=size, image_height=size,
+                                  turns=turns), images, out, engine=eng)
+            final = [e for e in evs if isinstance(e, ev.FinalTurnComplete)]
+            gold = os.path.join(REPO, "check", "images",
+                                f"{size}x{size}x{turns}.pgm")
+            ys, xs = np.nonzero(read_pgm(gold))
+            if set(final[0].alive) != set(zip(xs.tolist(), ys.tolist())):
+                raise AssertionError(f"4k golden {size}² x {turns} over 4 "
+                                     "!= golden")
+            with open(os.path.join(out, f"{size}x{size}x{turns}.pgm"),
+                      "rb") as f, open(gold, "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"4k golden {size}² x {turns}: "
+                                         "PGM bytes")
+            if eng.stats()["mesh"]["shards"] != 4:
+                raise AssertionError(f"4k golden {size}²: "
+                                     f"{eng.stats()['mesh']}")
+        log("  ok 4k goldens through run with SUB of 4 on "
+            "Engine(devices=[cuda:0] * 4): alive sets and PGM bytes")
+    finally:
+        os.environ.pop("SUB", None)
+    for spec, size, turns in (("2x2", 1024, 2048), ("2x2", 4096, 512)):
+        world = seeded_board(size, 17)
+        os.environ["GOL_MESH"] = spec
+        try:
+            got = engine_world(four, world, turns)
+            with unchecked():
+                timed_got = engine_world(four, world, turns)
+        finally:
+            os.environ.pop("GOL_MESH", None)
+        one = engine_world({"device": dev}, world, turns)
+        engine_pair_check(f"GOL_MESH={spec} {size}² x {turns}", got, one,
+                          {"rows": 2, "cols": 2}, turns, timed_got)
+    for rule, size, turns, n in (("/2/3", 512, 200, 4),
+                                 ("/2/3", 4096, 100, 4),
+                                 ("345/2/4", 512, 100, 3)):
+        r = parse_rule(rule)
+        from gol_tpu_torch.models.generations import gray_levels
+
+        rng = np.random.default_rng(size + n)
+        levels = gray_levels(r)
+        world = levels[rng.integers(0, len(levels), size=(size, size))]
+        subs = [f"fake:{i}" for i in range(n)]
+        got = engine_world({"devices": [dev] * n}, world, turns, subs, r)
+        with unchecked():
+            timed_got = engine_world({"devices": [dev] * n}, world, turns,
+                                     subs, r)
+        one = engine_world({"device": dev}, world, turns, (), r)
+        engine_pair_check(f"{rule} {size}² x {turns} over {n}", got, one,
+                          {"rows": n}, turns, timed_got)
+    world = seeded_board(MESH_BOARD, 18)
+    subs = [f"fake:{i}" for i in range(4)]
+    default = Engine()
+    if len(default._devices) != torch.cuda.device_count():
+        raise AssertionError("Engine() is not the visible CUDA devices")
+    rates = {}
+    for label, s in (("SUB of 4", subs), ("no SUB", ())):
+        from gol_tpu_torch import Params
+
+        t0 = time.perf_counter()
+        default.server_distributor(
+            Params(threads=1, image_width=MESH_BOARD,
+                   image_height=MESH_BOARD, turns=65536), world,
+            sub_workers=s)
+        rates[label] = 65536 / (time.perf_counter() - t0)
+        st = default.stats()
+        if torch.cuda.device_count() == 1 and (
+                st["devices"] != 1 or st["mesh"]["shards"] != 1):
+            raise AssertionError(f"4k default engine {label}: {st}")
+    MESH_RESULTS["default_engine"] = rates
+    log(f"  ok 4k Engine() with a SUB of 4 on one card: 1 device, 1 "
+        f"shard in Stats; 5120² x 65536: {rates['SUB of 4']:.1f} turns/s "
+        f"beside {rates['no SUB']:.1f} without SUB")
+
+
+def engine_pair_check(what: str, got, one, axes: dict, turns: int,
+                      timed_got) -> None:
+    """An engine's checked run `got` against the one-shard engine's run
+    `one`; `timed_got` (the same run, no window checked) gives the
+    rate."""
+    out, turn, pair, stats, _ = got
+    out1, turn1, pair1, _, secs1 = one
+    secs = timed_got[4]
+    if turn != turns or turn1 != turns or not np.array_equal(out, out1):
+        raise AssertionError(f"4k {what}: engine board != one shard's")
+    if pair != pair1:
+        raise AssertionError(f"4k {what}: alive pair {pair} != {pair1}")
+    if stats["mesh"]["axes"] != axes:
+        raise AssertionError(f"4k {what}: mesh {stats['mesh']}")
+    MESH_RESULTS["rates"].append({
+        "what": what + " (engine)", "turns": turns,
+        "turns_per_s": turns / secs, "unsharded_turns_per_s": turns / secs1,
+        "alive": pair[0]})
+    log(f"  ok 4k {what}: engine board equals the one-shard engine's, "
+        f"alive {pair[0]}; {turns / secs:.1f} turns/s beside "
+        f"{turns / secs1:.1f} (wall of a whole run, submit included)")
+
+
+def mesh_multihost(torch, dev, tmp: str) -> None:
+    """Two processes on cuda:0, 2 of 4 shards each, over gloo (NCCL
+    refuses two ranks on one card): their gathered shards equal the
+    unsharded run's board and their counts its popcount."""
+    import socket
+
+    from gol_tpu_torch.ops.bitpack import pack_np, words_from_numpy
+    from gol_tpu_torch.parallel import halo
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    outs = [os.path.join(tmp, f"multihost-{r}.npz") for r in (0, 1)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MULTIHOST_RUNNER, f"127.0.0.1:{port}",
+         str(r), outs[r]], env=env, cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            raise AssertionError(f"4k multihost rank {r}: exit "
+                                 f"{p.returncode}\n{text[-3000:]}")
+    shards, total, secs = {}, 0, []
+    for path in outs:
+        with np.load(path) as z:
+            secs.append(float(z["seconds"]))
+            for name, n in json.loads(str(z["launches"])).items():
+                MEMBER_LAUNCHES[name] = MEMBER_LAUNCHES.get(name, 0) + n
+            for k in z.files:
+                if k.startswith("shard_"):
+                    shards[int(k[6:])] = z[k]
+                elif k.startswith("count_"):
+                    total += int(z[k][0])
+    got = np.concatenate([shards[p] for p in range(4)])
+    words = words_from_numpy(pack_np(seeded_board(MESH_BOARD, 15)), dev)
+    want, one_s = timed(torch, lambda: halo.packed_run_turns(
+        words, MESH_MULTI_TURNS, halo.CONWAY))
+    if not np.array_equal(got, want.cpu().numpy()):
+        raise AssertionError("4k multihost: gathered shards != unsharded")
+    if total != plain_count(torch, want):
+        raise AssertionError(f"4k multihost: count {total}")
+    rate = MESH_MULTI_TURNS / max(secs)
+    MESH_RESULTS["rates"].append({
+        "what": f"{MESH_BOARD}² x {MESH_MULTI_TURNS}, 2 processes x 2 "
+                "shards, gloo", "turns": MESH_MULTI_TURNS,
+        "turns_per_s": rate,
+        "unsharded_turns_per_s": MESH_MULTI_TURNS / one_s, "alive": total})
+    log(f"  ok 4k multihost: 2 processes x 2 shards on cuda:0 over gloo "
+        f"(halos staged through pinned host buffers) equal the unsharded "
+        f"board, count {total}; {rate:.1f} turns/s beside "
+        f"{MESH_MULTI_TURNS / one_s:.1f} unsharded")
+
+
+def phase_mesh(torch, dev) -> None:
+    """4k: row sharding and halo exchange on meshes of cuda:0."""
+    card = Card(torch)
+    tmp = tempfile.mkdtemp(prefix="gol_4k_")
+    images = os.path.join(REPO, "images")
+    t0 = time.monotonic()
+    try:
+        with checked_windows(torch, card):
+            mesh_1d(torch, dev)
+            log(f"  4k 1-D rings took {time.monotonic() - t0:.1f} s")
+            mesh_engine(torch, dev, images, tmp)
+            log(f"  4k engines took {time.monotonic() - t0:.1f} s")
+        mesh_multihost(torch, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  4k windows checked against their plain versions: "
+        f"{len(MESH_RESULTS['seen'])} distinct (repr, shape, T, counted)")
+
+
+def log_mesh_summary(card: Card) -> None:
+    log(f"4k row sharding on {card.smi} (meshes of cuda:0: the sharded "
+        f"rates measure the machinery, not what one card's user gets):")
+    for row in MESH_RESULTS["rates"]:
+        log("  4k " + json.dumps(row))
+    for name, rows in MESH_RESULTS["windows"].items():
+        for row in rows:
+            log(f"  4k window {name} {json.dumps(row)}")
+    log("  4k default engine turns/s: "
+        + json.dumps(MESH_RESULTS.get("default_engine", {})))
+
+
 def main_path_launches(cs) -> dict:
     """Launches per kernel on the main path; the two-plane kernels per
     family, as `name/family`, and K9 per route, as `name/route`."""
@@ -5161,7 +5644,12 @@ def main() -> int:
             # 4j's runs step in member processes (their launches are
             # merged in) and in this one (the real-size controls).
             (phase_federation, ("fleet_run_turns/resident",
-                                "fleet_run_turns/tiled"), False)):
+                                "fleet_run_turns/tiled"), False),
+            # 4k's sharded windows; its multi-process run's launches are
+            # merged in from the two processes.
+            (phase_mesh, ("resident_run_turns", "tiled_sweep",
+                          "tiled_sweep_deep", "resident_run_turns2p/gen3",
+                          "tiled_sweep2p/gen3"), False)):
         t_phase = time.monotonic()
         cs.reset_launch_counts()
         MEMBER_LAUNCHES.clear()
@@ -5220,8 +5708,11 @@ def main() -> int:
     for k in kernels:
         k["main_path_device_ms"] = device_ms.get(
             k["name"], 0.0 if device_ms else "not measured")
+        if k["name"] in MESH_RESULTS["windows"]:
+            k["mesh_windows"] = MESH_RESULTS["windows"][k["name"]]
     log_broadcast_summary(card)
     log_federation_summary()
+    log_mesh_summary(card)
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

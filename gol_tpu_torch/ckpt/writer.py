@@ -51,6 +51,7 @@ from gol_tpu_torch.ckpt import manifest as mf
 from gol_tpu_torch.ckpt.retention import RetentionPolicy, dir_lock
 from gol_tpu_torch.models.lenia import ALIVE_THRESHOLD
 from gol_tpu_torch.obs import catalog as obs
+from gol_tpu_torch.obs import devstats
 from gol_tpu_torch.obs import trace as obs_trace
 from gol_tpu_torch.obs.log import log as obs_log
 
@@ -348,8 +349,12 @@ class CheckpointWriter:
             device = _device_ident(snap.cells)
             if device is not None:
                 manifest["device"] = device
-            if snap.mesh:
-                manifest["mesh"] = snap.mesh
+            # An engine stamps its own; a bare snapshot takes the last
+            # submitted run's geometry (`devstats.note_mesh`), as in
+            # gol_tpu's writer.
+            mesh_geom = snap.mesh or devstats.mesh_fields()
+            if mesh_geom:
+                manifest["mesh"] = mesh_geom
             if snap.fuse > 1:
                 manifest["fuse"] = snap.fuse
             if snap.extra:

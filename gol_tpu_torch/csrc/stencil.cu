@@ -416,6 +416,16 @@ __device__ __forceinline__ void add_block_count(int* scratch, int pop,
   if (leader && *scratch) atomicAdd(counter, (C)*scratch);
 }
 
+// The words a counted launch counts: rows [r0, r1) x word columns [c0,
+// c1) of its result. A sharded board's window (`parallel/halo.py`)
+// counts its shard's own rows and words, not the halo around them; a
+// whole board or a fleet slot counts everything (`full_box`).
+struct CountBox {
+  int r0, r1, c0, c1;
+};
+
+inline CountBox full_box(int h, int wp) { return CountBox{0, h, 0, wp}; }
+
 // K1 (F = Life) and K4 (F = Gen3, Gen4): the board's planes in the shared
 // memory of one cluster of N CTAs (kCluster), or of one CTA, for `turns`
 // turns.
@@ -476,7 +486,8 @@ __global__ void __launch_bounds__(F::kResidentThreads, 1)
 resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                 int h, int wp, long long turns, uint32_t born,
                 uint32_t survive, int lanes, int per,
-                Count<kBatched>* __restrict__ alive, int slot_ctas) {
+                Count<kBatched>* __restrict__ alive, int slot_ctas,
+                CountBox box) {
   static_assert(!kBatched || F::kPlanes == 1, "K9 steps one plane");
   extern __shared__ uint32_t smem[];
   const long long board = (long long)h * wp;       // words per board plane
@@ -569,13 +580,25 @@ resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     __syncthreads();
   }
   int pop = 0;
+  // The box in slab rows; a slab inside it counts every word it stores.
+  const int b0 = box.r0 - a, b1 = box.r1 - a;
+  const bool whole = b0 <= 0 && b1 >= len && box.c0 <= 0 && box.c1 >= wp;
 #pragma unroll
   for (int p = 0; p < F::kPlanes; ++p) {
     uint32_t* dst_out = out + p * board + (long long)a * wp;
     for (int i = threadIdx.x; i < len * wp; i += blockDim.x) {
       const uint32_t v = smem[src + p * plane + i];
       dst_out[i] = v;
-      if (p == 0) pop += __popc(v);
+      if (p == 0 && counted) {
+        if (whole) {
+          pop += __popc(v);
+        } else {
+          const int r = i / wp, c = i - r * wp;
+          if (r >= b0 && r < b1 && c >= box.c0 && c < box.c1) {
+            pop += __popc(v);
+          }
+        }
+      }
     }
   }
   if (counted) {
@@ -689,7 +712,8 @@ cudaError_t launch_resident(const void* in, void* out, int h, int wp,
                             long long turns, unsigned born, unsigned survive,
                             int ctas, int lanes, int threads, int per,
                             size_t smem, int device, cudaStream_t stream,
-                            Count<kBatched>* alive, int slots) {
+                            Count<kBatched>* alive, int slots,
+                            CountBox box) {
   auto kernel = resident_kernel<F, kCluster, kBatched>;
   const ClusterLaunch launch(ctas, ctas * slots, threads, smem, stream);
   cudaError_t e = prepare_launch((const void*)kernel, device, smem, ctas,
@@ -697,7 +721,7 @@ cudaError_t launch_resident(const void* in, void* out, int h, int wp,
   if (e != cudaSuccess) return e;
   e = cudaLaunchKernelEx(&launch.cfg, kernel, (const uint32_t*)in,
                          (uint32_t*)out, h, wp, turns, (uint32_t)born,
-                         (uint32_t)survive, lanes, per, alive, ctas);
+                         (uint32_t)survive, lanes, per, alive, ctas, box);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -739,7 +763,7 @@ template <typename F, bool kBatched = false>
 int run_resident(const void* in, void* out, int h, int wp, long long turns,
                  unsigned born, unsigned survive, int ctas, int per,
                  int device, void* stream, Count<kBatched>* alive = nullptr,
-                 int groups = 1) {
+                 int groups = 1, const CountBox* box = nullptr) {
   size_t smem;
   int lanes, threads;
   if (!resident_geometry<F>(h, wp, ctas, per, &smem, &lanes, &threads) ||
@@ -749,14 +773,15 @@ int run_resident(const void* in, void* out, int h, int wp, long long turns,
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
   const cudaStream_t s = (cudaStream_t)stream;
+  const CountBox b = box != nullptr ? *box : full_box(h, wp);
   if (ctas == 1) {
     return launch_resident<F, false, kBatched>(
         in, out, h, wp, turns, born, survive, 1, lanes, threads, per, smem,
-        device, s, alive, groups);
+        device, s, alive, groups, b);
   }
   return launch_resident<F, true, kBatched>(
       in, out, h, wp, turns, born, survive, ctas, lanes, threads, per, smem,
-      device, s, alive, groups);
+      device, s, alive, groups, b);
 }
 
 // Blocks of a tiled sweep that share one SM at its deepest sweep.
@@ -803,7 +828,7 @@ __global__ void __launch_bounds__(kWinWords * kTileSegments,
                                                       kRows))
 tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
              int h, int wp, int t, uint32_t born, uint32_t survive,
-             Count<kBatched>* __restrict__ alive) {
+             Count<kBatched>* __restrict__ alive, CountBox box) {
   static_assert(!kBatched || F::kPlanes == 1, "K9 steps one plane");
   constexpr int kWords = kWinWords - 2 * kHalo;
   constexpr int kRowWords = F::kPlanes * kWinWords;
@@ -859,13 +884,15 @@ tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   }
   int pop = 0;
   if (col >= kHalo && col < kHalo + kWords && gw < wp) {
+    const bool in_cols = gw >= box.c0 && gw < box.c1;
     for (int i = seg; i < kRows && r0 + i < h; i += kTileSegments) {
       const long long o = (long long)(r0 + i) * wp + gw;
+      const bool in_box = in_cols && r0 + i >= box.r0 && r0 + i < box.r1;
 #pragma unroll
       for (int p = 0; p < F::kPlanes; ++p) {
         const uint32_t v = src[(t + i) * kRowWords + p * kWinWords + col];
         out[p * board + o] = v;
-        if (p == 0) pop += __popc(v);
+        if (p == 0 && in_box) pop += __popc(v);
       }
     }
   }
@@ -881,7 +908,8 @@ template <typename F, int kHalo, int kRows, bool kBatched = false>
 cudaError_t launch_tiled(const void* in, void* out, int h, int wp, int t,
                          unsigned born, unsigned survive, int device,
                          cudaStream_t stream,
-                         Count<kBatched>* alive = nullptr, int slots = 1) {
+                         Count<kBatched>* alive = nullptr, int slots = 1,
+                         const CountBox* box = nullptr) {
   constexpr int kWords = kWinWords - 2 * kHalo;
   const size_t smem = 2 * F::kPlanes * sizeof(uint32_t) *
                       (size_t)(kRows + 2 * t) * kWinWords;
@@ -897,7 +925,8 @@ cudaError_t launch_tiled(const void* in, void* out, int h, int wp, int t,
                   slots);
   const dim3 block(kWinWords, kTileSegments);
   tiled_kernel<F, kHalo, kRows, kBatched><<<grid, block, smem, stream>>>(
-      (const uint32_t*)in, (uint32_t*)out, h, wp, t, born, survive, alive);
+      (const uint32_t*)in, (uint32_t*)out, h, wp, t, born, survive, alive,
+      box != nullptr ? *box : full_box(h, wp));
   return cudaGetLastError();
 }
 
@@ -906,14 +935,14 @@ template <typename F>
 cudaError_t launch_tiled2p(const void* in, void* out, int h, int wp, int t,
                            int rows, unsigned born, unsigned survive,
                            int device, cudaStream_t stream,
-                           unsigned long long* count) {
+                           unsigned long long* count, const CountBox* box) {
   switch (rows) {
     case kTile2pRowChoices[0]:
       return launch_tiled<F, 1, kTile2pRowChoices[0]>(
-          in, out, h, wp, t, born, survive, device, stream, count);
+          in, out, h, wp, t, born, survive, device, stream, count, 1, box);
     case kTile2pRowChoices[1]:
       return launch_tiled<F, 1, kTile2pRowChoices[1]>(
-          in, out, h, wp, t, born, survive, device, stream, count);
+          in, out, h, wp, t, born, survive, device, stream, count, 1, box);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1670,34 +1699,40 @@ int gol_tile_geometry(int* max_t, int* words, int* rows, int cap) {
 // Every stepping entry point below takes `count`: null, or one 64-bit
 // counter (K9: one int32 a slot) that the launch sets to the live cells
 // of its result (plane 0 for the two-plane families; not taken for
-// family 4, whose plane 0 is not the alive plane).
+// family 4, whose plane 0 is not the alive plane). The engine's entry
+// points count the box rows [r0, r1) x words [c0, c1) of the result
+// (`CountBox`; the whole board is 0, h, 0, wp).
 
 // K1 on one cluster of `ctas` CTAs (1..16, at most h), each thread slot
 // walking `per` rows of its slab's interior.
 int gol_resident_run_turns(const void* in, void* out, void* count, int h,
                            int wp, long long turns, unsigned born,
                            unsigned survive, int ctas, int per, int device,
-                           void* stream) {
+                           void* stream, int r0, int r1, int c0, int c1) {
+  const CountBox box{r0, r1, c0, c1};
   return run_resident<Life>(in, out, h, wp, turns, born, survive, ctas, per,
-                            device, stream, (unsigned long long*)count);
+                            device, stream, (unsigned long long*)count, 1,
+                            &box);
 }
 
 // K2 at `rows` output rows per tile, one of kTileRowChoices.
 int gol_tiled_sweep(const void* in, void* out, void* count, int h, int wp,
                     int t, int rows, unsigned born, unsigned survive,
-                    int device, void* stream) {
+                    int device, void* stream, int r0, int r1, int c0,
+                    int c1) {
   if (t < 1 || t > kTileMaxT) return cudaErrorInvalidValue;
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
   const cudaStream_t s = (cudaStream_t)stream;
   unsigned long long* c = (unsigned long long*)count;
+  const CountBox box{r0, r1, c0, c1};
   switch (rows) {
     case kTileRowChoices[0]:
       return launch_tiled<Life, 1, kTileRowChoices[0]>(
-          in, out, h, wp, t, born, survive, device, s, c);
+          in, out, h, wp, t, born, survive, device, s, c, 1, &box);
     case kTileRowChoices[1]:
       return launch_tiled<Life, 1, kTileRowChoices[1]>(
-          in, out, h, wp, t, born, survive, device, s, c);
+          in, out, h, wp, t, born, survive, device, s, c, 1, &box);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1712,13 +1747,16 @@ int gol_deep_geometry(int* max_t, int* rows, int* words) {
 
 int gol_tiled_sweep_deep(const void* in, void* out, void* count, int h,
                          int wp, int t, unsigned born, unsigned survive,
-                         int device, void* stream) {
+                         int device, void* stream, int r0, int r1, int c0,
+                         int c1) {
   if (t < 1 || t > kDeepMaxT) return cudaErrorInvalidValue;
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
+  const CountBox box{r0, r1, c0, c1};
   return launch_tiled<Life, 2, kDeepRows>(in, out, h, wp, t, born, survive,
                                           device, (cudaStream_t)stream,
-                                          (unsigned long long*)count);
+                                          (unsigned long long*)count, 1,
+                                          &box);
 }
 
 // K5's row choices (at most `cap` written to `rows`); returns how many
@@ -1734,11 +1772,13 @@ int gol_tile2p_rows(int* rows, int cap) {
 int gol_resident_run_turns2p(const void* in, void* out, void* count, int h,
                              int wp, long long turns, unsigned born,
                              unsigned survive, int family, int ctas, int per,
-                             int device, void* stream) {
+                             int device, void* stream, int r0, int r1,
+                             int c0, int c1) {
   if (family == 3) {
+    const CountBox box{r0, r1, c0, c1};
     return run_resident<Gen3>(in, out, h, wp, turns, born, survive, ctas,
                               per, device, stream,
-                              (unsigned long long*)count);
+                              (unsigned long long*)count, 1, &box);
   }
   if (family == 4 && count == nullptr) {
     return run_resident<Gen4>(in, out, h, wp, turns, born, survive, ctas,
@@ -1750,19 +1790,21 @@ int gol_resident_run_turns2p(const void* in, void* out, void* count, int h,
 // K5 at `rows` output rows per tile, one of kTile2pRowChoices.
 int gol_tiled_sweep2p(const void* in, void* out, void* count, int h, int wp,
                       int t, int rows, unsigned born, unsigned survive,
-                      int family, int device, void* stream) {
+                      int family, int device, void* stream, int r0, int r1,
+                      int c0, int c1) {
   if (t < 1 || t > kTileMaxT) return cudaErrorInvalidValue;
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
   const cudaStream_t s = (cudaStream_t)stream;
   unsigned long long* c = (unsigned long long*)count;
+  const CountBox box{r0, r1, c0, c1};
   if (family == 3) {
     return launch_tiled2p<Gen3>(in, out, h, wp, t, rows, born, survive,
-                                device, s, c);
+                                device, s, c, &box);
   }
   if (family == 4 && c == nullptr) {
     return launch_tiled2p<Gen4>(in, out, h, wp, t, rows, born, survive,
-                                device, s, nullptr);
+                                device, s, nullptr, &box);
   }
   return cudaErrorInvalidValue;
 }

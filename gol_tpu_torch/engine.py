@@ -59,15 +59,31 @@ writes the run's timeline; the chunk-loop metric families move at most
 every METRICS_FLUSH_SECONDS, and the device-memory gauges every
 DEVPOLL_SECONDS.
 
-The device is explicit: `Engine(device=None)` means CUDA and raises where
-there is none; `Engine(device="cpu")` runs the plain versions of the
-kernels on the CPU, as the tests do.
+The devices are explicit: `Engine()` means the distinct visible CUDA
+devices and raises where there are none; `Engine(device="cpu")` runs the
+plain versions of the kernels on the CPU, as the tests do;
+`Engine(devices=[...])` names them, one device possibly more than once
+(`[torch.device("cpu")] * 8` in the tests, `[cuda:0] * S` in
+`chip_smoke.py`). A run's shard count is the length of `sub_workers`
+(the reference's `SUB`), else `params.threads`, clamped to the device
+count (`gol_tpu/engine.py:646-652`); one CUDA card runs one shard. More
+shards hold the board as a `parallel.mesh.ShardedBoard`: life-like
+boards on a 2-D mesh (`mesh_shape=` or GOL_MESH="RxC") when asked and
+the board tiles it, else row shards — the exact-N wrap extension when
+the count does not divide the height, else equal shards with deep-halo
+macro-steps; Generations on row shards (gen3 and gen8, exact-N
+included); the conv families on one shard. Each shard's last stepping
+launch counts its own rows (pad rows excluded) into an int64 of its
+own, and the host adds them. GetWorld, GetView, captures, digests and
+checkpoints read the shards in mesh order (`ShardedBoard.gather`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
+import warnings
 import queue
 import threading
 import time
@@ -95,6 +111,7 @@ from gol_tpu_torch.models.lifelike import CONWAY
 from gol_tpu_torch.obs import catalog as obs
 from gol_tpu_torch.obs import devstats as obs_devstats
 from gol_tpu_torch.obs import flight as obs_flight
+from gol_tpu_torch.obs import halostats as obs_halostats
 from gol_tpu_torch.obs import prof as obs_prof
 from gol_tpu_torch.obs import timeline as obs_timeline
 from gol_tpu_torch.obs import trace as obs_trace
@@ -112,9 +129,20 @@ from gol_tpu_torch.ops.fused import configured_fuse_k
 from gol_tpu_torch.ops.stencil import row_alive_counts
 from gol_tpu_torch.params import Params
 from gol_tpu_torch.parallel.halo import (
+    exact_shard_ext,
+    extend_rows,
     fused_run_fn,
+    halo_traffic,
+    mesh_run_fn,
     select_generations_representation,
     select_representation,
+)
+from gol_tpu_torch.parallel.mesh import (
+    ShardedBoard,
+    default_devices,
+    make_mesh,
+    mesh_geometry,
+    shard,
 )
 from gol_tpu_torch.utils.devicemem import half_device_memory
 from gol_tpu_torch.utils.envcfg import env_float, env_int
@@ -359,10 +387,42 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
     """Holds (board, turn) across runs — the detach/resume contract
     (reference broker globals `world`/`turn`, and `CONT=yes`)."""
 
-    def __init__(self, device=None, rule=CONWAY) -> None:
-        self._device = resolve_device(device)
+    def __init__(self, device=None, rule=CONWAY, devices=None,
+                 mesh_shape: Optional[Tuple[int, int]] = None) -> None:
+        """`devices`: the devices runs shard over (by default the distinct
+        visible CUDA devices, or `[device]` when `device` is given).
+        `mesh_shape=(rows, cols)` asks for the 2-D mesh instead of row
+        sharding, as GOL_MESH="RxC" does; a request the board or the
+        devices cannot serve falls back to 1-D with a warning."""
+        if devices is not None:
+            self._devices = [resolve_device(d) for d in devices]
+        elif device is not None:
+            self._devices = [resolve_device(device)]
+        else:
+            self._devices = default_devices()
+        self._device = self._devices[0]
         # A LifeLikeRule, GenerationsRule, LargerThanLifeRule or LeniaRule.
         self._rule = rule
+        if mesh_shape is None:
+            spec = os.environ.get("GOL_MESH", "").lower()
+            if "x" in spec:
+                try:
+                    r, c = spec.split("x", 1)
+                    mesh_shape = (int(r), int(c))
+                    if mesh_shape[0] <= 0 or mesh_shape[1] <= 0:
+                        raise ValueError("non-positive mesh dims")
+                except ValueError:
+                    warnings.warn(
+                        f"GOL_MESH={spec!r} is not 'RxC'; "
+                        "falling back to 1-D row sharding")
+                    mesh_shape = None
+        self._mesh_shape = mesh_shape
+        # The last submitted run's mesh, its geometry (Stats, /healthz,
+        # the run report) and the wrap-extension rows its board carries
+        # below row H (the exact-N path; 0 otherwise).
+        self._mesh = make_mesh(1, self._devices)
+        self._mesh_geom: Optional[dict] = None
+        self._pad_rows = 0
         self._state_lock = threading.Lock()
         # "packed": int32 words (H, W/32); "u8": {0,1} uint8 (H, W);
         # "gen3": stacked int32 (alive, dying) planes (2, H, W/32);
@@ -420,8 +480,9 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         Lenia: a float32 world is the state (clipped to [0, 1]), a uint8
         one is pixels / 255; returns the quantized pixels. `gol_tpu`'s
         `Engine.get_world()` result carries over as is for all.
-        `sub_workers` is accepted for API parity; the port runs one
-        device."""
+        `sub_workers` mirrors the reference's worker-address list: its
+        length is the requested shard count (else `params.threads`),
+        clamped to the engine's devices."""
         self._check_alive()
         if self._running:
             raise EngineBusy("engine already running a board")
@@ -433,16 +494,24 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         # gen8 boards, which have no fused tier.
         fuse = configured_fuse_k()
         fuse_eff = 1
+        # The shard count: the worker list's length (SUB), else the
+        # threads hint, clamped to the devices.
+        requested = len(sub_workers) if sub_workers else params.threads
+        requested = max(1, min(requested, len(self._devices)))
+        pad_rows = 0
+        mesh = make_mesh(1, self._devices)
         if isinstance(self._rule, (LargerThanLifeRule, LeniaRule)):
             # Conv/FFT families: one device, no halo; the tier policy
             # picks direct-space conv (K7 for a Moore box) or the FFT.
             # LtL stays u8 at every width: this branch comes before the
             # packing choice.
-            if len(sub_workers) > 1:
-                import warnings
-
+            if self._mesh_shape is not None:
                 warnings.warn(
-                    f"{len(sub_workers)} shards requested for rule "
+                    f"2-D mesh request {self._mesh_shape} ignored (the "
+                    f"conv/FFT kernel tier runs single-shard)")
+            if requested > 1:
+                warnings.warn(
+                    f"{requested} shards requested for rule "
                     f"{self._rule.rulestring}; the conv/FFT kernel tier "
                     f"has no halo machinery — running single-shard")
             lenia = isinstance(self._rule, LeniaRule)
@@ -468,32 +537,74 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                    else conv_ops.ltl_run_fn)(tier)
             conv_ops.note_dispatch(tier)
         elif isinstance(self._rule, GenerationsRule):
+            # Row shards only: the 2-D path is life-like and packed.
+            self._resolve_mesh2d(height, width, False, generations=True)
             state = from_pixels_gen(world, self._rule)
             alive0 = int(np.count_nonzero(state == 1))
             repr_, run = select_generations_representation(
                 width, self._rule)
+            pad_rows = exact_shard_ext(height, requested)
+            mesh = make_mesh(requested, self._devices)
             if repr_ == "gen3":
-                cells = pack_state3(state, self._device)
-                fuse_eff = max(fuse, 1)
-            else:
+                if requested == 1:
+                    cells = pack_state3(state, self._device)
+                    fuse_eff = max(fuse, 1)
+                else:
+                    planes = np.stack([pack_np(state == 1),
+                                       pack_np(state == 2)])
+                    if pad_rows:
+                        planes = extend_rows(planes, pad_rows, axis=1)
+                    cells = shard(words_from_numpy(planes), mesh)
+            elif requested == 1:
                 cells = torch.from_numpy(state).to(self._device)
+            else:
+                if pad_rows:
+                    state = extend_rows(state, pad_rows)
+                cells = shard(torch.from_numpy(state), mesh)
+            if requested > 1:
+                # Multi-shard gen3 keeps the per-turn alive-plane
+                # exchange, as in the JAX package: fuse_eff stays 1.
+                run = mesh_run_fn(repr_, height=height, ext=pad_rows)
         else:
             packed, run = select_representation(width)
             repr_ = "packed" if packed else "u8"
             alive0 = int(np.count_nonzero(world))
-            if packed:
-                cells = words_from_numpy(pack_np(world), self._device)
-                if fuse > 1:
-                    run, fuse_eff = fused_run_fn(fuse), fuse
+            base = (pack_np(world) if packed
+                    else (np.asarray(world) != 0).astype(np.uint8))
+            host = words_from_numpy if packed else torch.from_numpy
+            mesh2d = self._resolve_mesh2d(height, width, packed)
+            if mesh2d is not None:
+                from gol_tpu_torch.parallel.mesh2d import mesh2d_run_fn
+
+                mesh = mesh2d
+                cells = shard(host(base), mesh)
+                run = mesh2d_run_fn(fuse)
+                fuse_eff = max(fuse, 1)
             else:
-                cells = torch.from_numpy(
-                    (np.asarray(world) != 0).astype(np.uint8)).to(
-                        self._device)
+                pad_rows = exact_shard_ext(height, requested)
+                mesh = make_mesh(requested, self._devices)
+                if requested == 1:
+                    cells = host(base).to(self._device)
+                    if packed and fuse > 1:
+                        run, fuse_eff = fused_run_fn(fuse), fuse
+                elif pad_rows:
+                    # The exact shard count on a height it does not
+                    # divide: the wrap extension (fuse_eff stays 1).
+                    cells = shard(host(extend_rows(base, pad_rows)), mesh)
+                    run = mesh_run_fn(repr_, height=height, ext=pad_rows)
+                else:
+                    cells = shard(host(base), mesh)
+                    run = mesh_run_fn(repr_, fuse=fuse)
+                    if packed and fuse > 1:
+                        fuse_eff = fuse
         with self._state_lock:
             if self._running:
                 raise EngineBusy("engine already running a board")
             self._cells = cells
             self._repr = repr_
+            self._pad_rows = pad_rows
+            self._mesh = mesh
+            self._mesh_geom = mesh_geometry(mesh)
             self._turn = start_turn
             self._alive_pub = (alive0, start_turn)
             self._running = True
@@ -504,14 +615,18 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
             (repr_, tuple(cells.shape),
              _SIGNATURE_DTYPE.get(repr_,
                                   str(cells.dtype).replace("torch.", "")),
-             (1,), self._rule.rulestring, fuse_eff))
+             tuple(mesh.devices.shape), self._rule.rulestring, fuse_eff))
+        obs_devstats.note_mesh(self._mesh_geom)
         obs_devstats.note_fuse(fuse_eff)
         with self._on_device():
             return self._run_loop(params, cells, run, start_turn, fuse_eff)
 
-    def _chunk(self, run, cells: torch.Tensor, k: int):
+    def _chunk(self, run, cells, k: int):
         """Issue one chunk and its alive token; returns (cells, host
-        count, event). On the CPU the count is ready and event is None."""
+        count, events): the count is one int64, or one a shard, which the
+        pop adds. On the CPU the count is ready and there are no events."""
+        if isinstance(cells, ShardedBoard):
+            return self._sharded_chunk(run, cells, k)
         if self._repr in COUNTED_REPRS:
             total = torch.empty(1, dtype=torch.int64, device=cells.device)
             out = run(cells, k, self._rule, count=total)
@@ -520,16 +635,49 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
             total = _firing_row_counts(out, self._repr).sum(
                 dtype=torch.int64)
         if self._device.type != "cuda":
-            return out, total, None
+            return out, total, ()
         host = torch.empty(total.shape, dtype=torch.int64, pin_memory=True)
         host.copy_(total, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return out, host, event
+        return out, host, (event,)
 
-    def _pipeline_depth(self, cells: torch.Tensor) -> int:
+    def _sharded_chunk(self, run, cells: ShardedBoard, k: int):
+        """`_chunk` of a sharded board: each shard's last stepping launch
+        counts its own rows into an int64 on its device (packed, gen3);
+        the other reprs count their shards' rows with torch, the pad
+        rows of the exact-N path left out. Each count is copied without
+        blocking into one pinned host buffer, an event a device after."""
+        if self._repr in COUNTED_REPRS:
+            counts = [None if s is None else
+                      torch.empty(1, dtype=torch.int64, device=s.device)
+                      for s in cells.shards]
+            out = run(cells, k, self._rule, count=counts)
+        else:
+            out = run(cells, k, self._rule)
+            height = out.shape[-2] - self._pad_rows
+            counts = []
+            for pos, s in enumerate(out.shards):
+                rows = s.shape[-2]
+                keep = max(0, min(rows, height - pos * rows))
+                counts.append(_firing_row_counts(s, self._repr)[:keep].sum(
+                    dtype=torch.int64).reshape(1))
+        if self._device.type != "cuda":
+            return out, torch.cat(counts), ()
+        host = torch.empty(len(counts), dtype=torch.int64, pin_memory=True)
+        events = {}
+        for i, c in enumerate(counts):
+            with torch.cuda.device(c.device):
+                host[i:i + 1].copy_(c, non_blocking=True)
+                events[c.device] = torch.cuda.Event()
+                events[c.device].record()
+        return out, host, tuple(events.values())
+
+    def _pipeline_depth(self, cells) -> int:
         budget = half_device_memory(PIPELINE_BOARD_BUDGET, self._device)
-        nbytes = cells.numel() * cells.element_size()
+        # The budget is per device: a sharded board's busiest device.
+        nbytes = (cells.device_bytes() if isinstance(cells, ShardedBoard)
+                  else cells.numel() * cells.element_size())
         return max(1, min(env_int(PIPELINE_DEPTH_ENV, PIPELINE_DEPTH), 8,
                           budget // max(nbytes, 1) - 1))
 
@@ -542,8 +690,9 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         self._chunk_target = (
             env_float(CHUNK_TARGET_ENV, CHUNK_TARGET_SECONDS)
             or CHUNK_TARGET_SECONDS)
-        hint_key = (tuple(cells.shape), self._repr, self._chunk_target,
-                    fuse_eff)
+        mesh = self._mesh
+        hint_key = (tuple(cells.shape), self._repr,
+                    tuple(mesh.devices.shape), self._chunk_target, fuse_eff)
         chunk = 1
         hinted = min(self._chunk_hints.get(hint_key, 1), self._max_chunk)
         while chunk * 2 <= hinted:
@@ -560,7 +709,9 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         quit_run = False
         stepped = False
         repr_ = self._repr
-        height, width = cells.shape[-2], _board_width(cells, repr_)
+        pad_rows = self._pad_rows
+        height = cells.shape[-2] - pad_rows
+        width = _board_width(cells, repr_)
 
         # Telemetry, all at chunk boundaries on this host thread: the run
         # report (GOL_RUN_REPORT / --run-report), the chunk-loop metric
@@ -574,10 +725,13 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         run_t0 = time.monotonic()
         board_cells = height * width
         if reporter is not None:
+            geom = self._mesh_geom
             reporter.emit(
                 "run_start", w=width, h=height,
-                model=self._rule.rulestring, repr=repr_, devices=1,
-                shards=1, turns_requested=params.turns,
+                model=self._rule.rulestring, repr=repr_,
+                devices=int(mesh.size), shards=geom["shards"],
+                mesh_shape=geom["shape"], mesh_axes=geom["axes"],
+                turns_requested=params.turns,
                 start_turn=start_turn, fuse_k=fuse_eff)
         obs.ENGINE_CHUNK_SIZE.set(chunk)
         obs_prof.arm_from_env()
@@ -593,6 +747,15 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         last_rate = 0.0
         last_done_turn = start_turn
         last_flush = time.monotonic()
+        # Halo accounting of a sharded run: (turns, wall) a popped chunk,
+        # drained at the flush through the analytic traffic model. The
+        # wrap-extension path is not modelled (`halo_traffic`).
+        pend_halo: list = []
+        halo_traffic_fn = None
+        if pad_rows == 0 and mesh.size > 1:
+            halo_traffic_fn = functools.partial(
+                halo_traffic, repr_, tuple(cells.shape), mesh,
+                fuse=fuse_eff)
 
         def _flush_metrics(now: float) -> None:
             """Drain the batched chunk-loop telemetry into the registry."""
@@ -606,6 +769,9 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                 obs.ENGINE_CHUNK_SECONDS.observe_batch(pend_elapsed)
                 pend_elapsed.clear()
                 pend_chunks = pend_turns = 0
+            if pend_halo:
+                obs_halostats.flush_chunk_walls(pend_halo, halo_traffic_fn)
+                pend_halo.clear()
             obs.ENGINE_TURN.set(last_done_turn)
             obs.ENGINE_CHUNK_SIZE.set(chunk)
             if last_rate > 0:
@@ -647,8 +813,9 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                     start_turn // digest_every_turns + 1
                 ) * digest_every_turns
             try:
-                self._journal_create(journal_writer, cells, start_turn,
-                                     fuse_eff)
+                self._journal_create(journal_writer,
+                                     self._whole(cells, pad_rows),
+                                     start_turn, fuse_eff)
             except Exception:  # journaling must never sink a run
                 journal_writer = None
                 next_digest_turn = None
@@ -663,9 +830,9 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
             background writer: a pointer hand-off; the writer copies the
             board on this stream, behind the chunk that produced it."""
             ckpt_writer.submit(ckpt_mod.Snapshot(
-                snap_cells, repr_, self._turn, (height, width),
-                self._rule.rulestring, trigger=trigger,
-                mesh={"devices": 1}, fuse=fuse_eff,
+                self._whole(snap_cells, pad_rows), repr_, self._turn,
+                (height, width), self._rule.rulestring, trigger=trigger,
+                mesh={"devices": len(self._devices)}, fuse=fuse_eff,
                 stream=self._current_stream()))
 
         def _reset_pace(at: float) -> None:
@@ -685,12 +852,12 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
             nonlocal chunk, last_pop, ramping, traced_chunks, pend_chunks
             nonlocal pend_turns, flag_pending, last_rate, last_done_turn
             nonlocal last_devpoll
-            (done_cells, host, event, done_k, done_turn, issue_s,
+            (done_cells, host, events, done_k, done_turn, issue_s,
              traced) = inflight.popleft()
             t_wait = time.monotonic()
-            if event is not None:
+            for event in events:
                 event.synchronize()
-            done_alive = int(host)
+            done_alive = int(host.sum())
             now = time.monotonic()
             elapsed = now - last_pop
             last_pop = now
@@ -721,6 +888,8 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                 pend_chunks += 1
                 pend_turns += done_k
                 pend_elapsed.append(elapsed)
+                if halo_traffic_fn is not None:
+                    pend_halo.append((done_k, elapsed))
                 if rate > 0:
                     last_rate = rate
                 if reporter is not None:
@@ -740,7 +909,8 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                 try:
                     journal_writer.digest(
                         done_turn, journal_mod.board_digest(
-                            device_to_host(done_cells, digest_stream),
+                            device_to_host(self._whole(done_cells, pad_rows),
+                                           digest_stream),
                             repr_), repr_=repr_)
                 except Exception:
                     # A failed digest must never sink the run; the
@@ -797,8 +967,8 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                     capture_to = self._turn + k
                     trace_dir = ""
                 t_issue = time.monotonic()
-                cells, host, event = self._chunk(run, cells, k)
-                inflight.append((cells, host, event, k, self._turn + k,
+                cells, host, events = self._chunk(run, cells, k)
+                inflight.append((cells, host, events, k, self._turn + k,
                                  time.monotonic() - t_issue,
                                  capture is not None))
                 while len(inflight) >= (
@@ -880,7 +1050,7 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                 capture.finish()
             with self._state_lock:
                 final_cells, final_turn = self._cells, self._turn
-                final_repr = self._repr
+                final_repr, final_pad = self._repr, self._pad_rows
                 self._chunk_hints[hint_key] = chunk
                 self._running = False
                 self._run_token = None
@@ -916,7 +1086,8 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
             run_span.attrs["final_turn"] = final_turn
             obs_trace.TRACER.pop(run_span)
             obs_trace.finish(run_span)
-        return self._materialize(final_cells, final_repr), final_turn
+        return (self._materialize(self._whole(final_cells, final_pad),
+                                  final_repr), final_turn)
 
     def _journal_create(self, journal_writer, cells: torch.Tensor,
                         start_turn: int, fuse_eff: int) -> None:
@@ -957,9 +1128,26 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         """(pixel board snapshot, completed turn) (ref `Server:62-67`):
         {0,255} for life-like rules, gray levels for Generations."""
         self._check_alive()
+        cells, turn, repr_ = self._board()
+        return self._materialize(cells, repr_), turn
+
+    def _whole(self, cells, pad: int):
+        """A board as one tensor: a sharded board's shards read in mesh
+        order onto the first device, its `pad` wrap-extension rows
+        dropped; a whole board as it is."""
+        if not isinstance(cells, ShardedBoard):
+            return cells
+        with self._on_device():
+            board = cells.gather()
+        return board[..., :board.shape[-2] - pad, :] if pad else board
+
+    def _board(self):
+        """(whole board or None, turn, repr), read coherently."""
         with self._state_lock:
             cells, turn, repr_ = self._cells, self._turn, self._repr
-        return self._materialize(cells, repr_), turn
+            pad = self._pad_rows
+        return (None if cells is None else self._whole(cells, pad), turn,
+                repr_)
 
     def get_view(
         self, max_cells: int
@@ -974,8 +1162,7 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         Packed words are OR-reduced over each f-row band before
         unpacking, so no unpacked board is ever made."""
         self._check_alive()
-        with self._state_lock:
-            cells, turn, repr_ = self._cells, self._turn, self._repr
+        cells, turn, repr_ = self._board()
         if cells is None:
             raise RuntimeError("no board loaded")
         h, w = cells.shape[-2], _board_width(cells, repr_)
@@ -1056,8 +1243,7 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         u8 pixels. Generations boards are materialized as gray pixels and
         never packed. Caps-less peers get raw u8."""
         self._check_alive()
-        with self._state_lock:
-            cells, turn, repr_ = self._cells, self._turn, self._repr
+        cells, turn, repr_ = self._board()
         if cells is None:
             raise RuntimeError("no board loaded")
         caps = frozenset(caps)
@@ -1117,7 +1303,7 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         with self._state_lock:
             shape = None
             if self._cells is not None:
-                shape = [self._cells.shape[-2],
+                shape = [self._cells.shape[-2] - self._pad_rows,
                          _board_width(self._cells, self._repr)]
             pub = self._alive_pub
             return {
@@ -1131,6 +1317,10 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                 "turns_per_s": round(self._turns_per_s, 1),
                 "rule": self._rule.rulestring,
                 "device": str(self._device),
+                "devices": len(self._devices),
+                # The last submitted run's mesh geometry (None before
+                # the first run): axis sizes, shard count, grid shape.
+                "mesh": self._mesh_geom,
             }
 
     # -------------------------------------------------------- checkpointing
@@ -1142,14 +1332,14 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
 
     def geometry(self) -> dict:
         """Placement geometry for the reshard-at-restore contract
-        (`ckpt/reshard.py`): one device; a manifest recording another
-        mesh (or a sparse window) is refused at restore unless a reshard
-        is requested."""
+        (`ckpt/reshard.py`): the engine's device count; a manifest
+        recording another mesh (or a sparse window) is refused at restore
+        unless a reshard is requested."""
         with self._state_lock:
-            cells, repr_ = self._cells, self._repr
-        geo = {"kind": "dense", "devices": 1}
+            cells, repr_, pad = self._cells, self._repr, self._pad_rows
+        geo = {"kind": "dense", "devices": len(self._devices)}
         if cells is not None:
-            geo["h"] = int(cells.shape[-2])
+            geo["h"] = int(cells.shape[-2] - pad)
             geo["w"] = int(_board_width(cells, repr_))
             geo["repr"] = repr_
             # The logical CELL dtype, not the storage dtype (packed
@@ -1160,14 +1350,14 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
     def _ckpt_snapshot(self, trigger: str = "manual"):
         """Capture the current state as a ckpt.Snapshot (a lock-held
         pointer copy — the expensive work happens in the writer)."""
-        with self._state_lock:
-            cells, repr_, turn = self._cells, self._repr, self._turn
+        cells, turn, repr_ = self._board()
         if cells is None:
             raise RuntimeError("no board loaded")
         return ckpt_mod.Snapshot(
             cells, repr_, turn, (cells.shape[-2], _board_width(cells, repr_)),
-            self._rule.rulestring, trigger=trigger, mesh={"devices": 1},
-            fuse=self._fuse_eff, stream=self._current_stream())
+            self._rule.rulestring, trigger=trigger,
+            mesh={"devices": len(self._devices)}, fuse=self._fuse_eff,
+            stream=self._current_stream())
 
     def checkpoint_now(self, directory: Optional[str] = None,
                        trigger: str = "manual") -> Tuple[str, int]:
@@ -1198,8 +1388,7 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         as `gen_state`, f32 as `float_state`, u8 as {0,255} `world`
         pixels. The temp name is per writer: the SIGTERM handler can race
         the run thread's autosave on the same target."""
-        with self._state_lock:
-            cells, turn, repr_ = self._cells, self._turn, self._repr
+        cells, turn, repr_ = self._board()
         if cells is None:
             raise RuntimeError("no board loaded")
         arrays = payload_arrays(device_to_host(cells), repr_)
@@ -1343,9 +1532,50 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                 raise RuntimeError("cannot restore while running")
             self._cells = cells
             self._repr = repr_
+            self._pad_rows = 0  # checkpoints hold whole, cropped boards
             self._turn = turn
             self._alive_pub = (alive, turn)
         return turn
+
+    def _resolve_mesh2d(self, height: int, width: int, packed: bool,
+                        generations: bool = False):
+        """The requested 2-D mesh, or None for row sharding (no request,
+        an unpacked board, a Generations rule, or a request the board or
+        the devices cannot serve — each explicit one warned about, as in
+        `gol_tpu`)."""
+        if self._mesh_shape is None:
+            return None
+
+        def _fallback(reason: str):
+            warnings.warn(
+                f"2-D mesh request {self._mesh_shape} ignored ({reason}); "
+                f"falling back to 1-D row sharding")
+            return None
+
+        if generations:
+            return _fallback(
+                f"the 2-D perimeter-halo path serves life-like packed "
+                f"boards only; Generations rule {self._rule.rulestring} "
+                f"uses 1-D row sharding")
+        if not packed:
+            return _fallback(
+                f"width {width} is not a whole number of 32-bit words — "
+                f"the 2-D perimeter-halo path is packed-only")
+        from gol_tpu_torch.parallel.mesh2d import make_mesh2d
+
+        r, c = self._mesh_shape
+        wp = width // WORD_BITS
+        if r <= 0 or c <= 0:
+            return _fallback("non-positive mesh dims")
+        if r * c > len(self._devices):
+            return _fallback(
+                f"{r}x{c} needs {r * c} devices, have "
+                f"{len(self._devices)}")
+        if height % r or wp % c:
+            return _fallback(
+                f"board {height} rows x {wp} words does not tile "
+                f"{r}x{c} evenly")
+        return make_mesh2d((r, c), self._devices)
 
     # ------------------------------------------------------- chunk adapter
 

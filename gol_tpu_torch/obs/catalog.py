@@ -7,10 +7,10 @@ the run journal, the conv-family kernel tiers, both engines (their
 chunk-loop, run, SLO, audit, usage, fusion and step-signature families),
 the telemetry exporter, tsdb and alerts, the federation registry and
 router, the migration coordinator, the broadcast tier and its gateway,
-device-memory polling and the profiler emit. Names, kinds, labels and
-pre-seeded children are the JAX catalogue's, so a `GetMetrics` reply
-reads the same from either package. The mesh and halo families wait for
-ROADMAP A5; the JAX compile hooks have no counterpart.
+device-memory polling, the profiler and the mesh and halo statistics
+of sharded runs emit. Names, kinds, labels and pre-seeded children are
+the JAX catalogue's, so a `GetMetrics` reply reads the same from either
+package. The JAX compile hooks have no counterpart.
 """
 
 from __future__ import annotations
@@ -606,6 +606,84 @@ CKPT_POOL_DEPTH = REGISTRY.gauge(
     "(newest-wins per run; superseded snapshots count as "
     "gol_ckpt_writes_total{status='dropped'}). Bounded by resident "
     "runs, drained round-robin.")
+
+# ---------------------------------------------------- mesh & halo telemetry
+
+# Geometry of the most recently submitted run's device mesh (from
+# parallel.mesh.mesh_geometry via devstats.note_mesh) plus the halo
+# traffic of sharded dispatches (obs/halostats.py) — `gol_tpu`'s
+# families, names, help texts and label sets. Axis labels are clamped to
+# the declared mesh axes.
+MESH_AXES = ("rows", "cols", "slots")
+
+MESH_DEVICES = REGISTRY.gauge(
+    "gol_mesh_devices",
+    "Devices in the most recently submitted run's mesh (1 for "
+    "single-device runs).")
+MESH_SHARDS = REGISTRY.gauge(
+    "gol_mesh_shards",
+    "Board shards in the most recently submitted run's mesh (equal to "
+    "gol_mesh_devices for the 1-D and 2-D meshes the engine builds).")
+MESH_AXIS_SIZE = REGISTRY.gauge(
+    "gol_mesh_axis_size",
+    "Mesh extent along each named axis for the most recently submitted "
+    "run; 0 for an axis the mesh does not have (a 1-D rows mesh leaves "
+    "cols at 0).",
+    label_names=("axis",))
+
+HALO_EXCHANGES = REGISTRY.counter(
+    "gol_halo_exchanges_total",
+    "Halo exchange rounds dispatched, by mesh axis. One round is one "
+    "paired ppermute send (both ring directions issued together) across "
+    "the whole mesh — the latency-exposure unit of the deep-halo macro "
+    "schedule. Analytic from the dispatch geometry, not a link probe.",
+    label_names=("axis",))
+HALO_BYTES = REGISTRY.counter(
+    "gol_halo_bytes_total",
+    "Bytes moved by halo exchange rounds, by mesh axis, summed over "
+    "every shard's sends (whole-mesh traffic). Analytic from the "
+    "dispatch geometry: rows x row-bytes x shards per round.",
+    label_names=("axis",))
+HALO_EXCHANGE_SECONDS = REGISTRY.histogram(
+    "gol_halo_exchange_seconds",
+    "Wall seconds per halo exchange round: dispatch wall divided by the "
+    "round count of that dispatch. Exact for synchronous callers "
+    "(bench legs); pipeline-amortized for engine chunks. Prices the "
+    "round including any local compute it failed to overlap.",
+    buckets=(1e-6, 5e-6, 1e-5, 5e-5, 1e-4, 5e-4, 1e-3, 5e-3,
+             1e-2, 5e-2, 1e-1, 5e-1, 1.0))
+SHARD_IMBALANCE = REGISTRY.gauge(
+    "gol_shard_imbalance_ratio",
+    "max/mean of per-shard cumulative readiness waits observed host-"
+    "side after a sharded dispatch (obs/halostats."
+    "measure_shard_imbalance): a completion-spread signal (1.0 = "
+    "balanced), not a per-device timer.")
+HALO_BYTES_PER_TURN = REGISTRY.gauge(
+    "gol_halo_bytes_per_turn",
+    "Analytic halo bytes per TURN of the most recent sharded dispatch, "
+    "by mesh axis. Conserved under temporal fusion on the rows axis (a "
+    "k-deep exchange ships 2k rows per k turns = 2 rows/turn) — the "
+    "honest companion to the k-fold drop in exchange rounds/turn.",
+    label_names=("axis",))
+HALO_EXCHANGES_PER_TURN = REGISTRY.gauge(
+    "gol_halo_exchanges_per_turn",
+    "Analytic halo exchange rounds per TURN of the most recent sharded "
+    "dispatch, by mesh axis: 1/T for a T-deep macro schedule — drops "
+    "~k-fold when GOL_FUSE_K pins the depth (the latency-exposure win "
+    "of temporal fusion).",
+    label_names=("axis",))
+for _a in MESH_AXES:
+    MESH_AXIS_SIZE.labels(axis=_a)
+    HALO_EXCHANGES.labels(axis=_a)
+    HALO_BYTES.labels(axis=_a)
+    HALO_BYTES_PER_TURN.labels(axis=_a)
+    HALO_EXCHANGES_PER_TURN.labels(axis=_a)
+
+
+def mesh_axis_label(axis: str) -> str:
+    """Clamp arbitrary mesh-axis names to the declared set."""
+    return axis if axis in MESH_AXES else "other"
+
 
 # ------------------------------------------ fusion and step signatures
 

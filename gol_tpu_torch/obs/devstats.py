@@ -18,8 +18,10 @@ signature and fusion families) — the counterpart of
   most recent engine, behind the `gol_fuse_k` gauge.
 * `healthz_fields()` — the device fields a health document carries,
   read from the last poll's cache (never a device sync). The JAX
-  compile hooks have no counterpart, so `compile_count` stays 0; mesh
-  geometry waits for ROADMAP A5.
+  compile hooks have no counterpart, so `compile_count` stays 0.
+* `note_mesh()` / `mesh_fields()` — the most recently submitted run's
+  mesh geometry (`parallel.mesh.mesh_geometry`) behind the gol_mesh_*
+  gauges and /healthz `mesh`.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ from gol_tpu_torch.obs import catalog as _cat
 _lock = threading.Lock()
 _signatures: set = set()
 _fuse_k: int = 1
+# Mesh geometry of the most recently submitted run (the engine calls
+# note_mesh at submit), read by /healthz without touching a device.
+_mesh: dict = {}
 
 # Cache of the last poll, read by healthz_fields() so the HTTP layer
 # never touches the device.
@@ -165,10 +170,34 @@ def fuse_field() -> int:
         return _fuse_k
 
 
+def note_mesh(geom: Optional[dict]) -> None:
+    """Record the most recently submitted run's mesh geometry (a
+    `parallel.mesh.mesh_geometry` dict) and publish the gol_mesh_*
+    gauges; empty/None input is a no-op, so a failed probe never clears
+    the last good one."""
+    if not geom:
+        return
+    with _lock:
+        _mesh.clear()
+        _mesh.update(geom)
+    _cat.MESH_DEVICES.set(float(geom.get("devices", 0)))
+    _cat.MESH_SHARDS.set(float(geom.get("shards", 0)))
+    axes = geom.get("axes") or {}
+    for axis in _cat.MESH_AXES:
+        _cat.MESH_AXIS_SIZE.labels(axis=axis).set(float(axes.get(axis, 0)))
+
+
+def mesh_fields() -> dict:
+    """Cached mesh geometry of the last submitted run ({} before any
+    note_mesh)."""
+    with _lock:
+        return dict(_mesh)
+
+
 def healthz_fields() -> dict:
     """Cached device fields for a health document — no device sync."""
     with _lock:
         cached = dict(_last_poll)
     return {"device_kind": cached["device_kind"],
             "live_bytes": cached["live_bytes"],
-            "compile_count": 0, "mesh": {}}
+            "compile_count": 0, "mesh": mesh_fields()}

@@ -305,3 +305,12 @@ def export_from_env() -> Optional[str]:
         return TRACER.export_chrome(path)
     except Exception:
         return None
+
+
+def hot_spans_enabled() -> bool:
+    """Should spans whose count scales with dispatches (a sharded run's
+    'halo.dispatch') be recorded? True when someone will consume them: a
+    span export destination (GOL_TRACE_SPANS) or a flight-recorder dump
+    path (GOL_FLIGHT) is configured — `gol_tpu`'s gate."""
+    return bool(os.environ.get(TRACE_SPANS_ENV, "").strip()
+                or os.environ.get(obs_flight.FLIGHT_ENV, "").strip())

@@ -50,14 +50,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gol_error_string.restype = ctypes.c_char_p
     lib.gol_tile_geometry.argtypes = [ip, ip, ip, i]
     lib.gol_tile_geometry.restype = i
+    box = [i, i, i, i]  # the counted rows and words (`CountBox`)
     lib.gol_resident_run_turns.argtypes = [vp, vp, vp, i, i, ll, u, u, i,
-                                           i, i, vp]
+                                           i, i, vp, *box]
     lib.gol_resident_run_turns.restype = i
-    lib.gol_tiled_sweep.argtypes = [vp, vp, vp, i, i, i, i, u, u, i, vp]
+    lib.gol_tiled_sweep.argtypes = [vp, vp, vp, i, i, i, i, u, u, i, vp,
+                                    *box]
     lib.gol_tiled_sweep.restype = i
     lib.gol_deep_geometry.argtypes = [ip, ip, ip]
     lib.gol_deep_geometry.restype = i
-    lib.gol_tiled_sweep_deep.argtypes = [vp, vp, vp, i, i, i, u, u, i, vp]
+    lib.gol_tiled_sweep_deep.argtypes = [vp, vp, vp, i, i, i, u, u, i, vp,
+                                         *box]
     lib.gol_tiled_sweep_deep.restype = i
     lib.gol_fleet_resident.argtypes = [vp, vp, vp, i, i, i, ll, u, u, i, i,
                                        i, vp]
@@ -72,10 +75,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gol_tile2p_rows.argtypes = [ip, i]
     lib.gol_tile2p_rows.restype = i
     lib.gol_resident_run_turns2p.argtypes = [vp, vp, vp, i, i, ll, u, u, i,
-                                             i, i, i, vp]
+                                             i, i, i, vp, *box]
     lib.gol_resident_run_turns2p.restype = i
     lib.gol_tiled_sweep2p.argtypes = [vp, vp, vp, i, i, i, i, u, u, i, i,
-                                      vp]
+                                      vp, *box]
     lib.gol_tiled_sweep2p.restype = i
     lib.gol_window_occupancy.argtypes = [vp, vp, i, i, i, vp]
     lib.gol_window_occupancy.restype = i

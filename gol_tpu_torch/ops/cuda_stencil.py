@@ -378,13 +378,28 @@ def _check_count(count, words: torch.Tensor, num_turns: int,
                          "turns launch none")
 
 
-def _count_plain(count, words: torch.Tensor) -> None:
+def _box_args(box, words: torch.Tensor) -> tuple:
+    """The counted box (rows r0:r1, words c0:c1 of the result) as the
+    entry points take it; the whole board when None. A sharded board's
+    window counts only its shard (`parallel/halo.py`)."""
+    h, wp = words.shape[-2:]
+    if box is None:
+        return (0, h, 0, wp)
+    r0, r1, c0, c1 = (int(v) for v in box)
+    if not (0 <= r0 <= r1 <= h and 0 <= c0 <= c1 <= wp):
+        raise ValueError(f"count box {box} outside a {h}x{wp} board")
+    return (r0, r1, c0, c1)
+
+
+def _count_plain(count, words: torch.Tensor, box=None) -> None:
     """The counted launch's plain version: the live cells of an (H, Wp)
-    board, or of plane 0 of stacked planes, into `count`."""
+    board, or of plane 0 of stacked planes, within `box`, into `count`."""
     if count is not None:
         plane = words[0] if words.dim() == 3 else words
-        count.copy_(row_popcounts_plain(plane).sum(
-            dtype=torch.int64).reshape(count.shape))
+        r0, r1, c0, c1 = _box_args(box, plane)
+        count.copy_(row_popcounts_plain(
+            plane[r0:r1, c0:c1].contiguous()).sum(
+                dtype=torch.int64).reshape(count.shape))
 
 
 def _ptr(t) -> int | None:
@@ -524,12 +539,14 @@ def resident_run_turns(words: torch.Tensor, num_turns: int,
                        rule: LifeLikeRule = CONWAY, *,
                        ctas: int | None = None,
                        per: int | None = None,
-                       count: torch.Tensor | None = None) -> torch.Tensor:
+                       count: torch.Tensor | None = None,
+                       box=None) -> torch.Tensor:
     """Advance an (H, Wp) packed board that fits `RESIDENT_BOARD_BYTES`
     `num_turns` turns in one launch of K1, on a cluster of `ctas` CTAs
     whose threads walk `per` rows (by default the shape's policy). With
     `count` (one int64 on the board's device) the launch also sets it to
-    the result's live cells."""
+    the result's live cells, those of rows r0:r1 and words c0:c1 when
+    `box` = (r0, r1, c0, c1) is given."""
     _check_count(count, words, num_turns, "resident_run_turns")
     if num_turns == 0:
         return words
@@ -541,7 +558,7 @@ def resident_run_turns(words: torch.Tensor, num_turns: int,
     _check_resident_geometry(h, ctas, per)
     if words.device.type == "cpu":
         out = resident_run_turns_plain(words, num_turns, rule, ctas)
-        _count_plain(count, out)
+        _count_plain(count, out, box)
         return out
     lib, h, wp, dev, stream = _kernel_args(words, "resident_run_turns")
     if not fits_resident(words.shape):
@@ -551,7 +568,7 @@ def resident_run_turns(words: torch.Tensor, num_turns: int,
     born, survive = _masks(rule)
     rc = lib.gol_resident_run_turns(
         words.data_ptr(), out.data_ptr(), _ptr(count), h, wp, num_turns,
-        born, survive, ctas, per, dev, stream)
+        born, survive, ctas, per, dev, stream, *_box_args(box, words))
     if rc:
         raise _cluster_failed("resident_run_turns", lib, rc, ctas, h, wp)
     resident_run_turns.launches += 1
@@ -651,10 +668,11 @@ def _sweep_launch_args(what: str, words_in: torch.Tensor,
 def tiled_sweep(words_in: torch.Tensor, words_out: torch.Tensor, t: int,
                 rule: LifeLikeRule = CONWAY, *,
                 rows: int | None = None,
-                count: torch.Tensor | None = None) -> None:
+                count: torch.Tensor | None = None, box=None) -> None:
     """Advance `words_in` t (1..32) turns into `words_out` in one K2
     sweep of R-row tiles (R = `tile_rows`'s unless `rows` is given); with
-    `count`, also its live cells (as `resident_run_turns`)."""
+    `count`, also its live cells (within `box`, as
+    `resident_run_turns`)."""
     _check_sweep("tiled_sweep", words_in, words_out, t, TILE_MAX_T)
     _check_count(count, words_in, t, "tiled_sweep")
     if rows is not None and rows not in TILE_ROW_CHOICES:
@@ -662,7 +680,7 @@ def tiled_sweep(words_in: torch.Tensor, words_out: torch.Tensor, t: int,
                          f"{TILE_ROW_CHOICES}")
     if words_in.device.type == "cpu":
         words_out.copy_(tiled_sweep_plain(words_in, t, rule, rows))
-        _count_plain(count, words_out)
+        _count_plain(count, words_out, box)
         return
     if rows is None:
         rows = tile_rows(*words_in.shape)
@@ -671,7 +689,8 @@ def tiled_sweep(words_in: torch.Tensor, words_out: torch.Tensor, t: int,
     born, survive = _masks(rule)
     _build.check(lib.gol_tiled_sweep(
         words_in.data_ptr(), words_out.data_ptr(), _ptr(count), h, wp, t,
-        rows, born, survive, dev, stream), "tiled_sweep")
+        rows, born, survive, dev, stream, *_box_args(box, words_in)),
+        "tiled_sweep")
     tiled_sweep.launches += 1
 
 
@@ -680,21 +699,22 @@ tiled_sweep.launches = 0
 
 def tiled_sweep_deep(words_in: torch.Tensor, words_out: torch.Tensor,
                      t: int, rule: LifeLikeRule = CONWAY, *,
-                     count: torch.Tensor | None = None) -> None:
+                     count: torch.Tensor | None = None, box=None) -> None:
     """Advance `words_in` t (1..64) turns into `words_out` in one K6
-    sweep; with `count`, also its live cells."""
+    sweep; with `count`, also its live cells (within `box`)."""
     _check_sweep("tiled_sweep_deep", words_in, words_out, t, DEEP_MAX_T)
     _check_count(count, words_in, t, "tiled_sweep_deep")
     if words_in.device.type == "cpu":
         words_out.copy_(tiled_sweep_deep_plain(words_in, t, rule))
-        _count_plain(count, words_out)
+        _count_plain(count, words_out, box)
         return
     lib, h, wp, dev, stream = _sweep_launch_args(
         "tiled_sweep_deep", words_in, words_out, DEEP_ROWS)
     born, survive = _masks(rule)
     _build.check(lib.gol_tiled_sweep_deep(
         words_in.data_ptr(), words_out.data_ptr(), _ptr(count), h, wp, t,
-        born, survive, dev, stream), "tiled_sweep_deep")
+        born, survive, dev, stream, *_box_args(box, words_in)),
+        "tiled_sweep_deep")
     tiled_sweep_deep.launches += 1
 
 
@@ -707,11 +727,11 @@ def sweep_depths(num_turns: int, depth: int) -> list:
     return [depth] * full + ([rem] if rem else [])
 
 
-def _run_sweeps(words: torch.Tensor, depths, sweep, count, *args
-                ) -> torch.Tensor:
+def _run_sweeps(words: torch.Tensor, depths, sweep, count, *args,
+                box=None) -> torch.Tensor:
     """One `sweep(src, dst, depth, *args)` per depth, alternating between
-    two fresh buffers, the last one counting into `count`; the input is
-    never written."""
+    two fresh buffers, the last one counting into `count` (within `box`);
+    the input is never written."""
     bufs = []
     src = words
     for i, depth in enumerate(depths):
@@ -719,32 +739,36 @@ def _run_sweeps(words: torch.Tensor, depths, sweep, count, *args
             bufs.append(torch.empty_like(words))
         dst = bufs[i % 2]
         last = i == len(depths) - 1
-        sweep(src, dst, depth, *args, count=count if last else None)
+        sweep(src, dst, depth, *args, count=count if last else None,
+              box=box if last else None)
         src = dst
     return src
 
 
-def _sweep_k2_k6(words_in, words_out, depth, rule, *, count=None) -> None:
+def _sweep_k2_k6(words_in, words_out, depth, rule, *, count=None,
+                 box=None) -> None:
     """One sweep on K2 up to depth 32, on K6 beyond."""
     sweep = tiled_sweep if depth <= TILE_MAX_T else tiled_sweep_deep
-    sweep(words_in, words_out, depth, rule, count=count)
+    sweep(words_in, words_out, depth, rule, count=count, box=box)
 
 
 def banded_run_turns(words: torch.Tensor, num_turns: int,
                      rule: LifeLikeRule = CONWAY, *,
-                     count: torch.Tensor | None = None) -> torch.Tensor:
+                     count: torch.Tensor | None = None,
+                     box=None) -> torch.Tensor:
     """Advance a packed board `num_turns` turns by K2 sweeps:
     floor(K/32) at depth 32, then one at depth K mod 32; with `count`,
-    the last sweep also counts the result's live cells into it."""
+    the last sweep also counts the result's live cells (within `box`)
+    into it."""
     _check_count(count, words, num_turns, "banded_run_turns")
     return _run_sweeps(words, sweep_depths(num_turns, TILE_MAX_T),
-                       _sweep_k2_k6, count, rule)
+                       _sweep_k2_k6, count, rule, box=box)
 
 
 def fused_banded_run_turns(words: torch.Tensor, num_turns: int, fuse: int,
                            rule: LifeLikeRule = CONWAY, *,
-                           count: torch.Tensor | None = None
-                           ) -> torch.Tensor:
+                           count: torch.Tensor | None = None,
+                           box=None) -> torch.Tensor:
     """Advance a packed board `num_turns` turns by `fuse`-deep sweeps:
     floor(n/k) at depth k, then one at depth n mod k; depths up to 32 run
     on K2, deeper ones on K6, and the last one counts into `count` when
@@ -755,7 +779,7 @@ def fused_banded_run_turns(words: torch.Tensor, num_turns: int, fuse: int,
         raise ValueError(f"fuse depth {fuse} not in 1..{DEEP_MAX_T}")
     _check_count(count, words, num_turns, "fused_banded_run_turns")
     return _run_sweeps(words, sweep_depths(num_turns, fuse), _sweep_k2_k6,
-                       count, rule)
+                       count, rule, box=box)
 
 
 # ------------------------------------------------------------------- K3
@@ -841,7 +865,8 @@ def _check_count2p(count, planes, num_turns: int, family: str,
 def resident_run_turns2p(planes: torch.Tensor, num_turns: int, rule,
                          family: str, *, ctas: int | None = None,
                          per: int | None = None,
-                         count: torch.Tensor | None = None) -> torch.Tensor:
+                         count: torch.Tensor | None = None,
+                         box=None) -> torch.Tensor:
     """Advance stacked (2, H, Wp) planes whose planes fit
     `RESIDENT2P_PLANE_BYTES` `num_turns` turns in one launch of K4, on a
     cluster of `ctas` CTAs whose threads walk `per` rows (by default the
@@ -860,7 +885,7 @@ def resident_run_turns2p(planes: torch.Tensor, num_turns: int, rule,
     if planes.device.type == "cpu":
         out = resident_run_turns2p_plain(planes, num_turns, rule, family,
                                          ctas)
-        _count_plain(count, out)
+        _count_plain(count, out, box)
         return out
     lib, h, wp, dev, stream = _kernel_args(planes, "resident_run_turns2p",
                                            planes=True)
@@ -871,7 +896,8 @@ def resident_run_turns2p(planes: torch.Tensor, num_turns: int, rule,
     born, survive = _masks(rule)
     rc = lib.gol_resident_run_turns2p(
         planes.data_ptr(), out.data_ptr(), _ptr(count), h, wp, num_turns,
-        born, survive, code, ctas, per, dev, stream)
+        born, survive, code, ctas, per, dev, stream,
+        *_box_args(box, planes))
     if rc:
         raise _cluster_failed("resident_run_turns2p", lib, rc, ctas, h, wp)
     resident_run_turns2p.launches += 1
@@ -900,7 +926,7 @@ def tiled_sweep2p_plain(planes: torch.Tensor, t: int, rule, family: str,
 def tiled_sweep2p(planes_in: torch.Tensor, planes_out: torch.Tensor,
                   t: int, rule, family: str, *,
                   rows: int | None = None,
-                  count: torch.Tensor | None = None) -> None:
+                  count: torch.Tensor | None = None, box=None) -> None:
     """Advance stacked planes `planes_in` t (1..32) turns into
     `planes_out` in one K5 sweep of R-row tiles (R = `tile2p_rows`'s
     unless `rows` is given); with `count` (gen3), also its live cells."""
@@ -913,7 +939,7 @@ def tiled_sweep2p(planes_in: torch.Tensor, planes_out: torch.Tensor,
     if planes_in.device.type == "cpu":
         planes_out.copy_(tiled_sweep2p_plain(planes_in, t, rule, family,
                                              rows))
-        _count_plain(count, planes_out)
+        _count_plain(count, planes_out, box)
         return
     if rows is None:
         rows = tile2p_rows(*planes_in.shape[-2:])
@@ -922,21 +948,23 @@ def tiled_sweep2p(planes_in: torch.Tensor, planes_out: torch.Tensor,
     born, survive = _masks(rule)
     _build.check(lib.gol_tiled_sweep2p(
         planes_in.data_ptr(), planes_out.data_ptr(), _ptr(count), h, wp, t,
-        rows, born, survive, code, dev, stream), "tiled_sweep2p")
+        rows, born, survive, code, dev, stream,
+        *_box_args(box, planes_in)), "tiled_sweep2p")
     tiled_sweep2p.launches += 1
     tiled_sweep2p.by_family[family] += 1
 
 
 def banded_run_turns2p(planes: torch.Tensor, num_turns: int, rule,
                        family: str, *,
-                       count: torch.Tensor | None = None) -> torch.Tensor:
+                       count: torch.Tensor | None = None,
+                       box=None) -> torch.Tensor:
     """Advance stacked planes `num_turns` turns by K5 sweeps:
     floor(K/32) at depth 32, then one at depth K mod 32, the last one
-    counting into `count` when given (gen3). Sweeps alternate between two
-    fresh buffers; the input is never written."""
+    counting into `count` (within `box`) when given (gen3). Sweeps
+    alternate between two fresh buffers; the input is never written."""
     _check_count2p(count, planes, num_turns, family, "banded_run_turns2p")
     return _run_sweeps(planes, sweep_depths(num_turns, TILE_MAX_T),
-                       tiled_sweep2p, count, rule, family)
+                       tiled_sweep2p, count, rule, family, box=box)
 
 
 # ------------------------------------------------------------------- K7

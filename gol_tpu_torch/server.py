@@ -991,6 +991,13 @@ def main(argv=None) -> int:
                          "declares this member dead after "
                          "GOL_FED_DEAD_AFTER of silence and re-homes "
                          "its runs from the shared GOL_CKPT root)")
+    ap.add_argument("--coordinator", metavar="HOST:PORT", default="",
+                    help="join a torch.distributed group at this "
+                         "address before any CUDA context (falls back to "
+                         "GOL_COORDINATOR, with GOL_NUM_PROCS and "
+                         "GOL_PROC_ID; unset = one process); the served "
+                         "engine still shards over this process's "
+                         "devices only")
     ap.add_argument("--advertise", metavar="HOST", default="127.0.0.1",
                     help="hostname the router should dial this member "
                          "back on (default 127.0.0.1; the port is the "
@@ -1006,6 +1013,11 @@ def main(argv=None) -> int:
         # Profile RPC or POST /profile picks the moment and turn count.
         PROFILER.configure(args.profile_dir)
     trace.set_process_name("gol-server")
+    # Join the multi-process group first, before any CUDA context is made
+    # (`parallel/multihost.py`).
+    from gol_tpu_torch.parallel import multihost
+
+    joined = multihost.initialize(args.coordinator or None)
     from gol_tpu_torch.models import parse_rule
 
     try:
@@ -1024,6 +1036,18 @@ def main(argv=None) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"gol_tpu_torch.server: {e}", file=sys.stderr, flush=True)
         return 1
+    if joined:
+        import torch.distributed as dist
+
+        # The group is there for direct `parallel.halo` meshes
+        # (`multihost.make_global_mesh`); this engine shards over its own
+        # process's devices, which the line says beside the group's.
+        own = getattr(eng, "_devices", [eng.device])
+        every = multihost.global_devices(own)
+        print(f"multi-process group: process {dist.get_rank()}/"
+              f"{dist.get_world_size()}, {len(every)} device(s), backend "
+              f"{dist.get_backend()}; this engine serves its own "
+              f"{len(own)} device(s)", flush=True)
     if args.resume:
         try:
             turn = eng.restore_run(args.resume, reshard=args.reshard)

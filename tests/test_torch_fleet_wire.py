@@ -167,20 +167,50 @@ def _raw_call(port: int, header: dict):
         s.close()
 
 
+def _parked_run0(describe) -> None:
+    """Wait until the legacy run0 reads `parked` at its target turn.
+    `describe()` returns its ListRuns/AttachRun record."""
+    def parked():
+        rec = describe()
+        return (rec["state"] == "parked"
+                and rec.get("turn") == rec.get("target_turn"))
+
+    _wait(parked, what="run0 to park at its target turn")
+
+
+def _attach_run0(port: int) -> dict:
+    resp, _ = _raw_call(port, {"method": "AttachRun", "run_id": "run0"})
+    assert resp["ok"] is True, resp
+    return resp["run"]
+
+
 def test_legacy_no_caps_peer_gets_the_same_bytes(servers, monkeypatch):
     """A pre-fleet, pre-codec client (no run_id, no caps) drives run0 on
     each server through the other package's client and reads the same
-    raw-u8 world bytes back, equal to the torus oracle's."""
+    raw-u8 world bytes back, equal to the torus oracle's.
+
+    Each server's run0 is created by a first drive of the same shape (0
+    turns), and the asserted drive starts once run0 reads `parked` at
+    that target: `gol_tpu`'s loop may step a freshly queued run0 before
+    its drive seeds it (ROADMAP C), never a parked one. The port's first
+    drive is asserted too; `gol_tpu`'s is the one the race can spoil."""
     monkeypatch.setenv("GOL_WIRE_CAPS", "")
     world = _soup(24, 24, seed=3) * np.uint8(255)
     want = run_turns_np((world != 0).astype(np.uint8), 6) * np.uint8(255)
-    for name, cls, params in (
-            ("port", JRemote, JParams(threads=1, image_width=24,
-                                      image_height=24, turns=6)),
-            ("jax", TRemote, TParams(threads=1, image_width=24,
-                                     image_height=24, turns=6))):
+    drives = (("port", JRemote, JParams), ("jax", TRemote, TParams))
+    for name, cls, params in drives:
+        got, turn = cls(f"127.0.0.1:{servers[name].port}").server_distributor(
+            params(threads=1, image_width=24, image_height=24, turns=0),
+            world)
+        if name == "port":
+            assert turn == 0
+            np.testing.assert_array_equal(got, world)
+        _parked_run0(lambda: _attach_run0(servers[name].port))
+    for name, cls, params in drives:
         got, turn = cls(f"127.0.0.1:{servers[name].port}"
-                        ).server_distributor(params, world)
+                        ).server_distributor(
+            params(threads=1, image_width=24, image_height=24, turns=6),
+            world)
         assert turn == 6, name
         np.testing.assert_array_equal(got, want, err_msg=name)
     replies = {name: _raw_call(srv.port, {"method": "GetWorld"})
@@ -215,6 +245,16 @@ def _checkpoint(eng, package, seed, tmp_path):
         path, turn = rv.checkpoint_now(directory=str(tmp_path))
         directory = tmp_path / "run-ck"
     else:
+        # The legacy run0 is created by a first drive of 0 turns and
+        # parks at it before the stepping drive (see
+        # test_legacy_no_caps_peer_gets_the_same_bytes).
+        first, turn0 = eng.server_distributor(
+            PARAMS[package](threads=1, image_width=w, image_height=h,
+                            turns=0), seed * np.uint8(255))
+        if package == "port":
+            assert turn0 == 0
+            np.testing.assert_array_equal(first, seed * np.uint8(255))
+        _parked_run0(eng.describe_run)
         p = PARAMS[package](threads=1, image_width=w, image_height=h,
                             turns=8)
         eng.server_distributor(p, seed * np.uint8(255))

@@ -798,7 +798,11 @@ def test_healthz_fields_read_the_cache():
     assert fields["device_kind"] == "cpu"
     assert fields["live_bytes"] is None
     assert fields["compile_count"] == 0
-    assert fields["mesh"] == {}
+    # The last submitted run's mesh geometry, as gol_tpu's /healthz
+    # carries it: {} before any run noted one.
+    assert fields["mesh"] == devstats.mesh_fields()
+    assert fields["mesh"] == {} or set(fields["mesh"]) == {
+        "devices", "shards", "axes", "shape"}
 
 
 def test_healthz_doc_carries_device_fields():
