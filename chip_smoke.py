@@ -144,6 +144,21 @@ Phases (each raises on failure; any failure exits non-zero):
    source mid-cutover and exactly one listed copy of its run remains
    (migration_downtime_p99_ms, availability_pct, gol_migrations_total by
    status). The card's memory in use before and with three members.
+   4k. row sharding on meshes of cuda:0 (`log_mesh_summary`).
+   4l. fleet mesh placement and sharded sparse windows on meshes of
+   cuda:0: a batch bucket of 64 512² runs over 4 positions and one of 8
+   1024² runs over 2, each held quantum by quantum against a one-device
+   bucket and K1/K2 on every board, and free-running fleets of each beside
+   the unsharded fleet; a 2048² class over 4 with
+   GOL_FLEET_MIN_SLOTS_PER_DEV making it spatial: exact targets (a trim
+   through the sharded path), a quarantine restored from its cadence
+   checkpoint and a `migrate_quiesce` readback against K2, each new
+   window's first K9 launch against `fleet_run_turns_plain` with its
+   counted box (`spatial_windows` in the kernels line); the R-pentomino
+   on the 2^20 torus for 65,536 turns through SparseEngine unsharded and
+   over 2 and 4, every publication, the window, grows, episodes and cells
+   equal; `Engine.stats()["chunk_overhead_us"]` at 512² and 5120²
+   against its gauge. Each rate beside the unsharded one and the card.
    Each path runs with the launch counters at 0, read just after: every
    kernel (and family) it runs must have launched, and the paths whose
    alive counts come from chunks alone (4, 4c, 4d) must have launched K3
@@ -3150,6 +3165,8 @@ FLEET_SHAPES = ((8, 512, 16), (512, 512, 16), (2, 64, 2), (1, 24, 3),
 # The classes that moved from route 2 to route 1, checked on both.
 FLEET_MOVED = ((8, 1024, 32), (8, 2048, 64))
 FLEET_QUANTA = (8, 32, 40, 512)
+# A spatial bucket's window: a quarter of a 2048² slot haloed by 8 rows.
+FLEET_BOXED = (528, 64)
 # The JAX bench's fleet leg (bench.py:1774-1782): free-running 512² runs
 # in one FleetEngine, counted over a wall window.
 FLEET_RUN_COUNTS = (1, 64, 512)
@@ -3232,6 +3249,20 @@ def phase_kernels_fleet(torch, dev) -> None:
                     torch.cat([got.flatten(), alive]),
                     torch.cat([want.flatten(), want_alive]),
                     "fleet_run_turns/tiled")
+    # The counted box (a spatial bucket's window counts its shard's own
+    # rows): a 2048² slot's quarter haloed by 8 rows, both routes.
+    w = seeded_batch(torch, 8, *FLEET_BOXED, 98, dev)
+    for box in ((8, FLEET_BOXED[0] - 8, 0, FLEET_BOXED[1]),
+                (5, 200, 3, 40)):
+        for kind, pin in (("resident", {}), ("resident", {"ctas": 16}),
+                          ("tiled", {"rows": 128}), ("tiled", {"rows": 384})):
+            got, alive = cs.fleet_run_turns(w, 8, kind=kind, box=box, **pin)
+            want, want_alive = cs.fleet_run_turns_plain(w, 8, kind=kind,
+                                                        box=box, **pin)
+            check_equal(torch, f"K9 {kind} {pin} 8 x {FLEET_BOXED} x 8, "
+                        f"box {box}", torch.cat([got.flatten(), alive]),
+                        torch.cat([want.flatten(), want_alive]),
+                        f"fleet_run_turns/{kind}")
     log(f"  K9 checks took {time.perf_counter() - t0:.1f} s")
 
 
@@ -5514,6 +5545,422 @@ def log_mesh_summary(card: Card) -> None:
         + json.dumps(MESH_RESULTS.get("default_engine", {})))
 
 
+# --------------- phase 4l: fleet mesh placement, sharded sparse windows
+#
+# Meshes of cuda:0 only, as in 4k: on one card the sharded rates measure
+# the machinery (a block or a shard a position, the halo exchange), not
+# what a user of one card gets, and each is printed beside the unsharded
+# rate of the same work.
+
+FM_CHUNK = 8             # the fleet's serving quantum (turns)
+FM_QUANTA = 8            # quanta held bucket against bucket, one by one
+# Batch placement: (runs, class side, devices).
+FM_BATCH = ((64, 512, 4), (8, 1024, 2))
+FM_SPATIAL = 2048        # a class below batch occupancy: spatial over 4
+FM_SPATIAL_DEVICES = 4
+FM_SPATIAL_TARGETS = (13, 21)   # exact targets: quanta of 8 and a trim
+FM_QUARANTINE_TARGET = 40
+FM_RATE_S = 1.5          # a free-running fleet's counted window
+SPARSE_SHARDS = (2, 4)
+C1_BOARDS = ((512, 20000), (5120, 2000))   # (side, turns)
+FM_RESULTS: dict = {"rates": [], "windows": {}, "seen": set(),
+                    "check": True}
+
+
+@contextlib.contextmanager
+def checked_fleet_windows(torch, card: Card):
+    """While active, the first K9 launch on each distinct spatial window
+    (shape, T) is held bit-exact against `fleet_run_turns_plain` on the
+    same windows with the same box (words and every slot's boxed count)
+    and timed beside it; the timing launches are not the path's."""
+    from gol_tpu_torch.fleet import buckets
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    step = buckets.step_slot_windows
+
+    def checked(windows, turns, rule, box):
+        out, alive = step(windows, turns, rule, box)
+        key = (tuple(windows.shape), turns)
+        if key in FM_RESULTS["seen"] or not FM_RESULTS["check"]:
+            return out, alive
+        FM_RESULTS["seen"].add(key)
+        name = f"fleet_run_turns/{cs.fleet_run_kind(tuple(windows.shape))}"
+        want, want_alive = cs.fleet_run_turns_plain(windows, turns, rule,
+                                                    box=box)
+        what = f"4l spatial window {name} {tuple(windows.shape)} T={turns}"
+        check_equal(torch, what, out, want, name)
+        check_equal(torch, f"{what} box {box} counts", alive, want_alive,
+                    name)
+        cap, h, wp = windows.shape
+        bound, by = card.bound(8 * cap * h * wp,
+                               cs.OPS_PER_WORD_TURN * turns * cap * h * wp)
+        saved = [(fn, fn.launches) for fn in cs.KERNELS]
+        routes = dict(cs.fleet_run_turns.by_route)
+        ms = time_ms(torch, lambda: step(windows, turns, rule, box), 5)
+        for fn, n in saved:
+            fn.launches = n
+        cs.fleet_run_turns.by_route = routes
+        FM_RESULTS["windows"].setdefault(name, []).append({
+            "shape": list(windows.shape), "turns": turns, "box": list(box),
+            "ms": ms, "plain_ms": time_ms(torch, lambda: cs
+                                          .fleet_run_turns_plain(
+                                              windows, turns, rule,
+                                              box=box), 1),
+            "bound_ms": bound, "bound_by": by, "card": card.smi})
+        return out, alive
+
+    FM_RESULTS["seen"] = set()
+    buckets.step_slot_windows = checked
+    try:
+        yield
+    finally:
+        buckets.step_slot_windows = step
+
+
+def fm_rate(card: Card, what: str, sharded: float, unsharded: float,
+            unit: str, **extra) -> None:
+    """Log and keep one rate beside the unsharded rate of the same work."""
+    row = {"what": what, unit: sharded, f"unsharded_{unit}": unsharded,
+           "card": card.smi, **extra}
+    FM_RESULTS["rates"].append(row)
+    log(f"  4l {what}: {row[unit]:.1f} {unit} sharded beside "
+        f"{row['unsharded_' + unit]:.1f} unsharded ({card.smi})")
+
+
+def fm_buckets(torch, dev, card: Card) -> None:
+    """Batch placement bucket against bucket: the same seeds in a batch
+    Bucket over `n` positions of cuda:0 and in a one-device Bucket; after
+    every quantum the words and per-slot counts are equal, and each
+    run's slot equals its board stepped alone by K1 or K2. Then a
+    quantum of each is timed (one, many, many, one)."""
+    from gol_tpu_torch.fleet.buckets import Bucket
+    from gol_tpu_torch.fleet.handles import RunHandle
+    from gol_tpu_torch.models.lifelike import CONWAY
+    from gol_tpu_torch.ops import bitpack, cuda_stencil as cs
+    from gol_tpu_torch.parallel.halo import packed_run_turns
+    from gol_tpu_torch.parallel.mesh import make_batch_mesh
+
+    for runs, size, n in FM_BATCH:
+        one = Bucket(size, size, CONWAY, slot_base=runs, device=dev)
+        many = Bucket(size, size, CONWAY, slot_base=runs,
+                      placement="batch", mesh=make_batch_mesh([dev] * n))
+        boards = []
+        for i in range(runs):
+            seed = fleet_seed(size, 20_000 + i)
+            one.place(RunHandle(f"b{i}", CONWAY, size, size), seed)
+            many.place(RunHandle(f"b{i}", CONWAY, size, size), seed)
+            boards.append(bitpack.words_from_numpy(bitpack.pack_np(seed),
+                                                   dev))
+        if many.cap != one.cap or len(many.parts) != n:
+            raise AssertionError(f"4l batch {size}²: cap {many.cap} in "
+                                 f"{len(many.parts)} blocks")
+        for q in range(FM_QUANTA):
+            a1 = one.dispatch(FM_CHUNK)
+            an = many.dispatch(FM_CHUNK)
+            boards = [packed_run_turns(b, FM_CHUNK, CONWAY) for b in boards]
+            want = torch.stack(boards)
+            if not (torch.equal(many.words, one.words)
+                    and torch.equal(many.words[:runs], want)):
+                raise AssertionError(f"4l batch {runs} x {size}² over {n}: "
+                                     f"words differ after quantum {q}")
+            if not (torch.equal(an, a1) and torch.equal(
+                    an[:runs], cs.slot_popcounts(want))):
+                raise AssertionError(f"4l batch {runs} x {size}² over {n}: "
+                                     f"counts differ after quantum {q}")
+        log(f"  ok 4l batch {runs} x {size}² over {n} positions: words and "
+            f"counts equal the one-device bucket and K1/K2 on each board "
+            f"after each of {FM_QUANTA} quanta ({card.smi})")
+        secs = {}
+        for tag, b in (("one", one), ("many", many), ("many", many),
+                       ("one", one)):
+            _, t = timed(torch, lambda b=b: b.dispatch(FM_CHUNK))
+            secs.setdefault(tag, []).append(t)
+        cells = runs * size * size * FM_CHUNK
+        fm_rate(card, f"batch bucket {runs} x {size}² over {n}, a quantum "
+                f"of {FM_CHUNK}", cells / min(secs["many"]),
+                cells / min(secs["one"]), "cell_updates_per_s")
+        del one, many, boards
+
+
+def fm_free_running(torch, dev, card: Card, runs: int, size: int,
+                    devices: int, **kw) -> float:
+    """Cell updates/s of `runs` free-running size² runs over FM_RATE_S
+    in a FleetEngine on `devices` positions of cuda:0; run b0's board is
+    held against its K1/K2 replay at its turn."""
+    from gol_tpu_torch.fleet import FleetEngine
+    from gol_tpu_torch.models.lifelike import CONWAY
+    from gol_tpu_torch.ops import bitpack
+    from gol_tpu_torch.parallel.halo import packed_run_turns
+
+    eng = FleetEngine(devices=[dev] * devices, bucket_sizes=(size,),
+                      slot_base=kw.get("slot_base", runs))
+    try:
+        for i in range(runs):
+            eng.create_run(size, size, board=fleet_seed(size, 30_000 + i),
+                           run_id=f"b{i}", wait=False)
+        deadline = time.monotonic() + 120
+        while eng.runs_summary()["resident"] < runs:
+            if time.monotonic() > deadline:
+                raise AssertionError("4l fleet placement timed out")
+            time.sleep(0.02)
+        time.sleep(0.5)
+        c0 = eng.throughput_counters()
+        t0 = time.perf_counter()
+        time.sleep(FM_RATE_S)
+        c1 = eng.throughput_counters()
+        elapsed = time.perf_counter() - t0
+        placement = eng.stats()["fleet"]["buckets"][0]["placement"]
+        board, turn = eng.resolve_run("b0").get_world()
+    finally:
+        eng.kill_prog()
+    words = bitpack.words_from_numpy(bitpack.pack_np(
+        fleet_seed(size, 30_000)), dev)
+    want = bitpack.unpack_np(bitpack.words_to_numpy(
+        packed_run_turns(words, turn, CONWAY))) * np.uint8(255)
+    if not np.array_equal(board, want):
+        raise AssertionError(f"4l fleet {runs} x {size}² on {devices}: b0 "
+                             f"at turn {turn} != its replay")
+    log(f"  ok 4l fleet {runs} x {size}² on {devices} position(s) "
+        f"({placement}): b0 at turn {turn} equals its replay")
+    return (c1["cell_updates"] - c0["cell_updates"]) / elapsed
+
+
+def fm_spatial(torch, dev, card: Card, tmp: str) -> None:
+    """A 2048² class over 4 positions with GOL_FLEET_MIN_SLOTS_PER_DEV
+    making the spatial placement win: exact targets (a trim through the
+    sharded path), a quarantine restored from its cadence checkpoint,
+    and a migrate_quiesce readback, each against K2 on the board."""
+    from gol_tpu_torch import chaos
+    from gol_tpu_torch.fleet import FleetEngine
+    from gol_tpu_torch.models.lifelike import CONWAY
+    from gol_tpu_torch.ops import bitpack
+    from gol_tpu_torch.parallel.halo import packed_run_turns
+
+    n = FM_SPATIAL
+
+    def replay(seed, turns):
+        words = bitpack.words_from_numpy(bitpack.pack_np(seed), dev)
+        return bitpack.unpack_np(bitpack.words_to_numpy(
+            packed_run_turns(words, turns, CONWAY)))
+
+    def parked(eng, rid):
+        rv = eng.resolve_run(rid)
+        deadline = time.monotonic() + 120
+        while rv.describe_run()["state"] != "parked":
+            if time.monotonic() > deadline:
+                raise AssertionError(f"4l spatial run {rid} never parked")
+            time.sleep(0.02)
+        board, turn = rv.get_world()
+        return (board != 0).astype(np.uint8), turn
+
+    env = {"GOL_FLEET_MIN_SLOTS_PER_DEV": "4",
+           "GOL_CKPT": os.path.join(tmp, "ck"),
+           "GOL_QUARANTINE_BACKOFF": "0.05"}
+    os.environ.update(env)
+    eng = FleetEngine(devices=[dev] * FM_SPATIAL_DEVICES,
+                      bucket_sizes=(n,), chunk_turns=FM_CHUNK, slot_base=8)
+    try:
+        seeds = {}
+        for t in FM_SPATIAL_TARGETS:
+            seeds[t] = fleet_seed(n, 40_000 + t)
+            eng.create_run(n, n, board=seeds[t], run_id=f"t{t}",
+                           target_turn=t)
+        for t in FM_SPATIAL_TARGETS:
+            board, turn = parked(eng, f"t{t}")
+            if turn != t or not np.array_equal(board, replay(seeds[t], t)):
+                raise AssertionError(f"4l spatial target {t}: turn {turn}, "
+                                     "board != K2's")
+        row = eng.stats()["fleet"]["buckets"][0]
+        if row["placement"] != "spatial" or row["devices"] != 4:
+            raise AssertionError(f"4l spatial bucket: {row}")
+        log(f"  ok 4l spatial {n}² over {FM_SPATIAL_DEVICES}: exact targets "
+            f"{FM_SPATIAL_TARGETS} equal K2 on each board")
+
+        qseed = fleet_seed(n, 41_000)
+        eng.create_run(n, n, board=qseed, run_id="clean", ckpt_every=8,
+                       target_turn=FM_QUARANTINE_TARGET)
+        clean, _ = parked(eng, "clean")
+        from gol_tpu_torch.obs import catalog as obs_cat
+
+        q0 = obs_cat.RUNS_QUARANTINED.labels(reason="popcount").value
+        os.environ[chaos.ENV] = "poison=victim@20,seed=1"
+        chaos.injector()
+        eng.create_run(n, n, board=qseed, run_id="victim", ckpt_every=8,
+                       target_turn=FM_QUARANTINE_TARGET)
+        victim, vturn = parked(eng, "victim")
+        os.environ.pop(chaos.ENV, None)
+        quarantined = obs_cat.RUNS_QUARANTINED.labels(
+            reason="popcount").value - q0
+        if (vturn != FM_QUARANTINE_TARGET or quarantined != 1
+                or not np.array_equal(victim, clean) or not np.array_equal(
+                    clean, replay(qseed, FM_QUARANTINE_TARGET))):
+            raise AssertionError(f"4l spatial quarantine: turn {vturn}, "
+                                 f"{quarantined} quarantined, boards differ")
+        log(f"  ok 4l spatial quarantine restored from its checkpoint: "
+            f"turn {vturn} equals the clean run and K2")
+
+        mseed = fleet_seed(n, 42_000)
+        eng.create_run(n, n, board=mseed, run_id="mv")
+        rv = eng.resolve_run("mv")
+        while rv.describe_run()["turn"] < 2 * FM_CHUNK:
+            time.sleep(0.01)
+        rec = eng.migrate_quiesce("mv")
+        if not np.array_equal(rec["board"], replay(mseed, rec["turn"])):
+            raise AssertionError(f"4l spatial migrate_quiesce at turn "
+                                 f"{rec['turn']}: board != K2's")
+        log(f"  ok 4l spatial migrate_quiesce readback at turn "
+            f"{rec['turn']} equals K2 on the board")
+    finally:
+        eng.kill_prog()
+        os.environ.pop(chaos.ENV, None)
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def fm_sparse(torch, dev, card: Card) -> None:
+    """The R-pentomino on the 2^20 torus for 65,536 turns through
+    SparseEngine unsharded and over 2 and 4 positions of cuda:0, with a
+    pinned chunk ladder: every publication's (turn, count, window shape,
+    origin), the margins, grows, episodes and final cells are equal, and
+    the count is 116 from turn 1,103 on."""
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.models.sparse import R_PENTOMINO
+    from gol_tpu_torch.sparse_engine import SparseEngine
+
+    n = SPARSE_SIZE
+    seed = np.zeros((3, 3), dtype=np.uint8)
+    for x, y in R_PENTOMINO:
+        seed[y, x] = 255
+    os.environ["GOL_CHUNK_TARGET"] = "1000"
+    runs = {}
+    try:
+        for shards in (1,) + SPARSE_SHARDS:
+            eng = SparseEngine(n, devices=[dev] * shards, shards=shards)
+            pubs = []
+            publish = eng._publish_locked
+
+            def record(alive=None, eng=eng, pubs=pubs, publish=publish):
+                publish(alive)
+                words, ox, oy, turn, count = eng._pub
+                pubs.append((turn, count, tuple(words.shape), ox, oy))
+
+            eng._publish_locked = record
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.server_distributor(Params(image_width=n, image_height=n,
+                                          turns=SPARSE_STABLE_TURN), seed)
+            eng.server_distributor(
+                Params(image_width=n, image_height=n,
+                       turns=SPARSE_LONG_TURNS - SPARSE_STABLE_TURN), None,
+                start_turn=SPARSE_STABLE_TURN)
+            secs = time.perf_counter() - t0
+            torus = eng._torus
+            runs[shards] = dict(
+                pubs=pubs, secs=secs, window=torus.window_shape(),
+                origin=(torus._ox, torus._oy), margins=torus._margins(),
+                grows=torus.grows, episodes=torus.margin_fetches,
+                cells=window_cells(eng.get_window(), n),
+                devices=eng.stats()["devices"])
+            eng.kill_prog()
+            del eng, torus
+            late = [c for t, c, *_ in pubs if t >= SPARSE_STABLE_TURN]
+            if set(late) != {SPARSE_STABLE_ALIVE} or pubs[-1][0] != \
+                    SPARSE_LONG_TURNS:
+                raise AssertionError(f"4l sparse over {shards}: counts "
+                                     f"{sorted(set(late))} from turn "
+                                     f"{SPARSE_STABLE_TURN}")
+    finally:
+        os.environ.pop("GOL_CHUNK_TARGET", None)
+    base = runs[1]
+    for shards in SPARSE_SHARDS:
+        r = runs[shards]
+        same = {k: r[k] == base[k] for k in ("pubs", "window", "origin",
+                                             "margins", "grows", "episodes",
+                                             "cells")}
+        if not all(same.values()) or r["devices"] != shards:
+            raise AssertionError(f"4l sparse over {shards}: {same}, "
+                                 f"{r['devices']} devices")
+        log(f"  ok 4l sparse 2^20 x {SPARSE_LONG_TURNS} over {shards}: "
+            f"{len(r['pubs'])} publications, window {r['window']} at "
+            f"{r['origin']}, {r['grows']} grows, {r['episodes']} episodes "
+            f"and {len(r['cells'])} cells equal the unsharded run's")
+        fm_rate(card, f"sparse 2^20 x {SPARSE_LONG_TURNS} over {shards}",
+                SPARSE_LONG_TURNS / r["secs"],
+                SPARSE_LONG_TURNS / base["secs"], "turns_per_s",
+                window=list(r["window"]), grows=r["grows"],
+                episodes=r["episodes"])
+
+
+def c1_overhead(torch, dev, card: Card) -> None:
+    """C1 on the card: the engine's chunk_overhead_us after a run at 512²
+    (K1) and 5120² (K2) is positive and equal to its gauge."""
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.engine import Engine
+    from gol_tpu_torch.obs import catalog as obs_cat
+
+    for size, turns in C1_BOARDS:
+        eng = Engine()
+        eng.server_distributor(Params(threads=1, image_width=size,
+                                      image_height=size, turns=turns),
+                               seeded_board(size, 7))
+        us = eng.stats()["chunk_overhead_us"]
+        gauge = obs_cat.ENGINE_CHUNK_OVERHEAD_US.value
+        eng.kill_prog()
+        if not (us > 0 and abs(gauge - us) <= 0.011):
+            raise AssertionError(f"4l C1 {size}²: chunk_overhead_us {us}, "
+                                 f"gauge {gauge}")
+        FM_RESULTS.setdefault("chunk_overhead_us", {})[f"{size}²"] = us
+        log(f"  ok 4l C1 {size}² x {turns}: chunk_overhead_us {us} equals "
+            f"the gauge ({gauge:.4f}) ({card.smi})")
+
+
+def phase_fleet_mesh(torch, dev) -> None:
+    """4l: fleet mesh placement (batch, spatial) and sharded sparse
+    windows on meshes of cuda:0, and C1's gauge on the card."""
+    card = Card(torch)
+    tmp = tempfile.mkdtemp(prefix="gol_4l_")
+    t0 = time.monotonic()
+    try:
+        with checked_fleet_windows(torch, card):
+            fm_buckets(torch, dev, card)
+            for runs, size, n in FM_BATCH:
+                one = fm_free_running(torch, dev, card, runs, size, 1)
+                many = fm_free_running(torch, dev, card, runs, size, n)
+                fm_rate(card, f"fleet {runs} free-running {size}² over "
+                        f"{n} (batch)", many, one, "cell_updates_per_s")
+            fm_spatial(torch, dev, card, tmp)
+            os.environ["GOL_FLEET_MIN_SLOTS_PER_DEV"] = "4"
+            try:
+                many = fm_free_running(torch, dev, card, 4, FM_SPATIAL,
+                                       FM_SPATIAL_DEVICES, slot_base=8)
+            finally:
+                os.environ.pop("GOL_FLEET_MIN_SLOTS_PER_DEV", None)
+            one = fm_free_running(torch, dev, card, 4, FM_SPATIAL, 1,
+                                  slot_base=8)
+            fm_rate(card, f"fleet 4 free-running {FM_SPATIAL}² over "
+                    f"{FM_SPATIAL_DEVICES} (spatial)", many, one,
+                    "cell_updates_per_s")
+        log(f"  4l fleet took {time.monotonic() - t0:.1f} s")
+        fm_sparse(torch, dev, card)
+        log(f"  4l sparse took {time.monotonic() - t0:.1f} s")
+        c1_overhead(torch, dev, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not FM_RESULTS["windows"]:
+        raise AssertionError("4l checked no spatial window")
+    log(f"  4l spatial windows checked against fleet_run_turns_plain: "
+        f"{len(FM_RESULTS['seen'])} distinct (shape, T)")
+
+
+def log_fleet_mesh_summary(card: Card) -> None:
+    log(f"4l fleet mesh placement and sharded sparse windows on {card.smi} "
+        "(meshes of cuda:0: the sharded rates measure the machinery):")
+    for row in FM_RESULTS["rates"]:
+        log("  4l " + json.dumps(row))
+    log("  4l chunk_overhead_us: "
+        + json.dumps(FM_RESULTS.get("chunk_overhead_us", {})))
+
+
 def main_path_launches(cs) -> dict:
     """Launches per kernel on the main path; the two-plane kernels per
     family, as `name/family`, and K9 per route, as `name/route`."""
@@ -5649,7 +6096,13 @@ def main() -> int:
             # merged in from the two processes.
             (phase_mesh, ("resident_run_turns", "tiled_sweep",
                           "tiled_sweep_deep", "resident_run_turns2p/gen3",
-                          "tiled_sweep2p/gen3"), False)):
+                          "tiled_sweep2p/gen3"), False),
+            # 4l's batch blocks and spatial windows (K9 route 1 with its
+            # counted box), the spatial trims' and the sharded sparse
+            # windows' K1/K2 windows, and K8 a shard.
+            (phase_fleet_mesh, ("fleet_run_turns/resident",
+                                "resident_run_turns", "tiled_sweep",
+                                "window_occupancy"), False)):
         t_phase = time.monotonic()
         cs.reset_launch_counts()
         MEMBER_LAUNCHES.clear()
@@ -5710,9 +6163,13 @@ def main() -> int:
             k["name"], 0.0 if device_ms else "not measured")
         if k["name"] in MESH_RESULTS["windows"]:
             k["mesh_windows"] = MESH_RESULTS["windows"][k["name"]]
+        if k["name"] in FM_RESULTS["windows"]:
+            # K9's counted box on the spatial buckets' windows (4l).
+            k["spatial_windows"] = FM_RESULTS["windows"][k["name"]]
     log_broadcast_summary(card)
     log_federation_summary()
     log_mesh_summary(card)
+    log_fleet_mesh_summary(card)
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

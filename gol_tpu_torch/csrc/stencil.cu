@@ -417,8 +417,9 @@ __device__ __forceinline__ void add_block_count(int* scratch, int pop,
 }
 
 // The words a counted launch counts: rows [r0, r1) x word columns [c0,
-// c1) of its result. A sharded board's window (`parallel/halo.py`)
-// counts its shard's own rows and words, not the halo around them; a
+// c1) of its result. A sharded board's window (`parallel/halo.py`) and
+// each slot of a spatial fleet bucket's window (`fleet/buckets.py`, K9)
+// count their shard's own rows and words, not the halo around them; a
 // whole board or a fleet slot counts everything (`full_box`).
 struct CountBox {
   int r0, r1, c0, c1;
@@ -1811,16 +1812,19 @@ int gol_tiled_sweep2p(const void* in, void* out, void* count, int h, int wp,
 
 // K9 route 1: `turns` turns of every slot of a (slots, h, wp) batch in
 // one launch of `slots` groups of `ctas` CTAs (a cluster each above 1),
-// thread slots walking `per` rows as K1's; alive[slot] gets each slot's
-// live cells (zeroed by the launch itself).
+// thread slots walking `per` rows as K1's; alive[slot] gets the live
+// cells of each slot's box rows [r0, r1) x words [c0, c1) (the same box
+// for every slot; zeroed by the launch itself). A spatial bucket's
+// window counts its shard's own rows; a whole slot is 0, h, 0, wp.
 int gol_fleet_resident(const void* in, void* out, void* alive, int slots,
                        int h, int wp, long long turns, unsigned born,
                        unsigned survive, int ctas, int per, int device,
-                       void* stream) {
+                       void* stream, int r0, int r1, int c0, int c1) {
   if (alive == nullptr) return cudaErrorInvalidValue;
+  const CountBox box{r0, r1, c0, c1};
   return run_resident<Life, true>(in, out, h, wp, turns, born, survive,
                                   ctas, per, device, stream, (int*)alive,
-                                  slots);
+                                  slots, &box);
 }
 
 // How many of K9 route 1's slot groups (clusters of `ctas` CTAs) the card
@@ -1849,11 +1853,12 @@ int gol_fleet_resident_clusters(int h, int wp, int ctas, int per,
 
 // K9 route 2: one sweep of t (1..32) turns of every slot of a (slots, h,
 // wp) batch at `rows` output rows per tile (one of kTileRowChoices);
-// with `alive` non-null (a quantum's last sweep) alive[slot] gets each
-// slot's live cells.
+// with `alive` non-null (a quantum's last sweep) alive[slot] gets the
+// live cells of each slot's box, as route 1's.
 int gol_fleet_tiled_sweep(const void* in, void* out, void* alive, int slots,
                           int h, int wp, int t, int rows, unsigned born,
-                          unsigned survive, int device, void* stream) {
+                          unsigned survive, int device, void* stream,
+                          int r0, int r1, int c0, int c1) {
   if (t < 1 || t > kTileMaxT || slots < 1 || slots > 65535) {
     return cudaErrorInvalidValue;
   }
@@ -1861,13 +1866,14 @@ int gol_fleet_tiled_sweep(const void* in, void* out, void* alive, int slots,
   if (e != cudaSuccess) return e;
   const cudaStream_t s = (cudaStream_t)stream;
   int* a = (int*)alive;
+  const CountBox box{r0, r1, c0, c1};
   switch (rows) {
     case kTileRowChoices[0]:
       return launch_tiled<Life, 1, kTileRowChoices[0], true>(
-          in, out, h, wp, t, born, survive, device, s, a, slots);
+          in, out, h, wp, t, born, survive, device, s, a, slots, &box);
     case kTileRowChoices[1]:
       return launch_tiled<Life, 1, kTileRowChoices[1], true>(
-          in, out, h, wp, t, born, survive, device, s, a, slots);
+          in, out, h, wp, t, born, survive, device, s, a, slots, &box);
     default:
       return cudaErrorInvalidValue;
   }

@@ -447,6 +447,12 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         self._chunk_target = CHUNK_TARGET_SECONDS
         self._last_chunk = 0
         self._turns_per_s = 0.0
+        self._chunk_overhead_us = 0.0
+        # (shape, repr, mesh shape, fuse, k) of every chunk this engine
+        # has issued: the first issue of one builds and sets up its
+        # kernels (the JAX engine's compile), a stall kept out of
+        # chunk_overhead_us.
+        self._issued: set = set()
         # Converged chunk per (board shape, repr, target): later runs of
         # the same configuration start there.
         self._chunk_hints: dict = {}
@@ -747,6 +753,14 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         last_rate = 0.0
         last_done_turn = start_turn
         last_flush = time.monotonic()
+        # Host overhead a chunk (`chunk_overhead_us`, the JAX engine's
+        # accounting): each iteration's wall less the wait for the counted
+        # token and the excluded stalls (first issue of a shape, pause,
+        # synchronous checkpoint). On the CPU the chunk's steps run inside
+        # its issue, which therefore stands for the token wait.
+        host_overhead = 0.0
+        overhead_iters = 0
+        wait_accum = 0.0
         # Halo accounting of a sharded run: (turns, wall) a popped chunk,
         # drained at the flush through the analytic traffic model. The
         # wrap-extension path is not modelled (`halo_traffic`).
@@ -777,6 +791,10 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
             if last_rate > 0:
                 obs.ENGINE_CUPS.set(last_rate * board_cells)
                 obs.ENGINE_TURNS_PER_S.set(last_rate)
+            if overhead_iters:
+                self._chunk_overhead_us = (
+                    host_overhead / overhead_iters * 1e6)
+                obs.ENGINE_CHUNK_OVERHEAD_US.set(self._chunk_overhead_us)
             last_flush = now
 
         # GOL_CKPT: the legacy WxH.npz autosave every GOL_CKPT_EVERY
@@ -851,7 +869,7 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
             digest turn."""
             nonlocal chunk, last_pop, ramping, traced_chunks, pend_chunks
             nonlocal pend_turns, flag_pending, last_rate, last_done_turn
-            nonlocal last_devpoll
+            nonlocal last_devpoll, wait_accum
             (done_cells, host, events, done_k, done_turn, issue_s,
              traced) = inflight.popleft()
             t_wait = time.monotonic()
@@ -859,6 +877,7 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                 event.synchronize()
             done_alive = int(host.sum())
             now = time.monotonic()
+            wait_accum += now - t_wait
             elapsed = now - last_pop
             last_pop = now
             rate = 0.0
@@ -934,6 +953,9 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
             while self._turn < target and not quit_run:
                 if self._killed or self._abort.is_set():
                     break
+                t_iter = time.monotonic()
+                wait_accum = 0.0
+                stall_excl = 0.0
                 if capture is None:
                     preq = obs_prof.PROFILER.take()
                     if preq is not None:
@@ -966,11 +988,22 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                     capture = obs_prof.Capture(trace_dir)
                     capture_to = self._turn + k
                     trace_dir = ""
+                # A captured chunk's profiler-skewed wall stays out of
+                # the overhead, as a traced chunk's in the JAX engine.
+                count_overhead = capture is None
                 t_issue = time.monotonic()
                 cells, host, events = self._chunk(run, cells, k)
+                issue_s = time.monotonic() - t_issue
+                issued = (tuple(cells.shape), repr_,
+                          tuple(mesh.devices.shape), fuse_eff, k)
+                first = issued not in self._issued
+                self._issued.add(issued)
+                if self._device.type != "cuda":
+                    wait_accum += issue_s
+                elif first:
+                    stall_excl += issue_s
                 inflight.append((cells, host, events, k, self._turn + k,
-                                 time.monotonic() - t_issue,
-                                 capture is not None))
+                                 issue_s, capture is not None))
                 while len(inflight) >= (
                         1 if ramping or capture is not None else depth):
                     _pop_oldest()
@@ -1001,9 +1034,11 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                     ) * digest_every_turns
                 if ckpt_path and \
                         time.monotonic() - last_ckpt >= ckpt_every:
+                    t_sync = time.monotonic()
                     self.save_checkpoint(ckpt_path)
                     last_ckpt = time.monotonic()
                     _reset_pace(last_ckpt)
+                    stall_excl += last_ckpt - t_sync
                 # Flags are honoured only while turns remain: a pause
                 # landing with the final chunk must not park a finished
                 # run. An empty queue with no kill/abort needs no call.
@@ -1016,7 +1051,14 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                     flag_pending += flag_s
                     obs.ENGINE_FLAG_SERVICE_SECONDS.observe(flag_s)
                     if flag_s > 0.01:
+                        # A pause (or a slow flag drain) stalled the host.
                         _reset_pace(time.monotonic())
+                        stall_excl += flag_s
+                if count_overhead:
+                    host_overhead += max(
+                        0.0, time.monotonic() - t_iter - wait_accum
+                        - stall_excl)
+                    overhead_iters += 1
             if ckpt_writer is not None and stepped:
                 # Every loop exit — completion, quit, kill, abort —
                 # leaves durable state at the final turn.
@@ -1079,6 +1121,7 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                     chunks=chunks_done - traced_chunks,
                     traced_chunks=traced_chunks,
                     wall_s=round(time.monotonic() - run_t0, 6),
+                    chunk_overhead_us=round(self._chunk_overhead_us, 2),
                     device_kind=devmem["device_kind"],
                     dev_live_bytes=devmem["live_bytes"],
                     dev_peak_bytes=devmem["peak_bytes"])
@@ -1315,6 +1358,8 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                 "packed": self._repr == "packed",
                 "chunk": self._last_chunk,
                 "turns_per_s": round(self._turns_per_s, 1),
+                # Mean host µs a chunk outside the token wait.
+                "chunk_overhead_us": round(self._chunk_overhead_us, 2),
                 "rule": self._rule.rulestring,
                 "device": str(self._device),
                 "devices": len(self._devices),

@@ -65,8 +65,9 @@ class AdmissionController:
                  devices: int = 1, device=None) -> None:
         self._lock = threading.Lock()
         self._budget = budget_bytes
-        # The torch device whose memory the default budget is a share of
-        # (None or a CPU device: DEFAULT_BUDGET_BYTES).
+        # The torch device, or the placement devices, whose memory the
+        # default budget is a share of (None or CPU devices:
+        # DEFAULT_BUDGET_BYTES x devices).
         self.device = device
         # Placement-mesh width: the DEFAULT budget scales as
         # devices × per-device bytes — a bucket sharded over 8 devices
@@ -99,11 +100,16 @@ class AdmissionController:
             self._budget = env_budget
             return self._budget
         budget = DEFAULT_BUDGET_BYTES * self.devices
-        dev = self.device
-        if dev is not None and getattr(dev, "type", None) == "cuda":
+        devs = (self.device if isinstance(self.device, (list, tuple))
+                else [self.device])
+        cards = {d for d in devs if getattr(d, "type", None) == "cuda"}
+        if cards:
             import torch
 
-            total = int(torch.cuda.get_device_properties(dev).total_memory)
+            # The distinct cards' memory, summed (the JAX package sums
+            # its devices' limits): a card named twice counts once.
+            total = sum(int(torch.cuda.get_device_properties(d)
+                            .total_memory) for d in cards)
             frac = env_float(MEM_FRACTION_ENV, DEFAULT_MEM_FRACTION)
             budget = int(total * min(max(frac, 0.01), 1.0))
         self._budget = budget

@@ -14,8 +14,9 @@ from the batch axis, not from long chunks. Between dispatches the loop
 services per-run control flags (the same pause/quit/kill semantics as
 `ControlFlagProtocol`, per handle), admissions, reseeds, and target
 completions; a run whose remaining turns are smaller than the quantum
-is trimmed by stepping its slot's bucket torus with `packed_run_turns`
-(K1 for a slot K1 holds, K2 beyond) so targets are hit EXACTLY.
+is trimmed by stepping its slot's bucket torus outside the batch
+(`Bucket.run_slot`: K1 for a slot K1 holds, K2 beyond, the sharded
+deep-halo path on a spatial bucket) so targets are hit EXACTLY.
 
 Pause/park freeze mechanics: the batch steps every slot every quantum,
 so a paused or parked run's authoritative board is COPIED to the handle
@@ -45,9 +46,13 @@ its slot ordered after every K9 launch before it on the device's stream;
 `import_run` stages a migrated-in board hidden from ListRuns and out of
 every bucket until `activate_imported` (CommitRun) queues it.
 
-Not ported yet: mesh placement (ROADMAP A5). The device is CUDA unless
-the caller passes `device="cpu"` (`engine.resolve_device`); there is no
-fallback.
+Mesh placement: an explicit `devices=[...]` list (a device may repeat,
+as `Engine(devices=)` allows) wins; else GOL_FLEET_MESH_DEVICES=N takes
+the first N distinct visible CUDA devices; else the fleet stays on one
+device. Each bucket class is placed by `choose_placement` over those
+devices ('single', 'batch' or 'spatial', `fleet/buckets.py`). The device
+is CUDA unless the caller passes `device="cpu"`
+(`engine.resolve_device`); there is no fallback.
 """
 
 from __future__ import annotations
@@ -106,12 +111,18 @@ from gol_tpu_torch.obs import usage as obs_usage
 from gol_tpu_torch.obs.log import exception as obs_exception
 from gol_tpu_torch.obs.log import log as obs_log
 from gol_tpu_torch.ops.bitpack import WORD_BITS, words_to_numpy
-from gol_tpu_torch.parallel.halo import packed_run_turns
+from gol_tpu_torch.parallel.mesh import (
+    default_devices,
+    make_batch_mesh,
+    make_mesh,
+    mesh_geometry,
+)
 from gol_tpu_torch.utils.envcfg import env_float, env_int
 
 BUCKETS_ENV = "GOL_FLEET_BUCKETS"     # csv of square class sides
 CHUNK_ENV = "GOL_FLEET_CHUNK"         # serving quantum in turns
 SLOT_BASE_ENV = "GOL_FLEET_SLOT_BASE"  # initial slots per bucket
+MESH_DEVICES_ENV = "GOL_FLEET_MESH_DEVICES"  # placement mesh width
 DEFAULT_CHUNK = 8
 
 METRICS_FLUSH_SECONDS = 0.5  # same batched-flush cadence as engine.py
@@ -169,15 +180,31 @@ class FleetEngine(ControlFlagProtocol):
         slot_base: Optional[int] = None,
         admission: Optional[AdmissionController] = None,
         device=None,
+        devices=None,
     ) -> None:
         if not isinstance(rule, LifeLikeRule):
             raise ValueError(
                 "fleet engine batches the packed life-like stencil; "
                 f"rule {getattr(rule, 'rulestring', rule)!r} unsupported")
-        self._device = resolve_device(device)
         self._rule = rule
-        # One placement device: mesh placement waits for ROADMAP A5.
-        self._devices = [self._device]
+        # Placement devices: the mesh the fleet shards buckets over, as
+        # stamped in stats and bench records. Explicit `devices` wins;
+        # else GOL_FLEET_MESH_DEVICES takes the first N distinct visible
+        # CUDA devices; else the fleet stays on one device.
+        if devices is not None:
+            self._devices = [resolve_device(d) for d in devices]
+        else:
+            first = resolve_device(device)
+            want = env_int(MESH_DEVICES_ENV, 0, minimum=0)
+            self._devices = ([first] if want <= 1 or first.type != "cuda"
+                             else default_devices()[:want])
+        if not self._devices:
+            raise ValueError("fleet engine needs at least one device")
+        self._device = self._devices[0]
+        self._mesh_batch = (make_batch_mesh(self._devices)
+                            if len(self._devices) > 1 else None)
+        if self._mesh_batch is not None:
+            obs_devstats.note_mesh(mesh_geometry(self._mesh_batch))
         obs.FLEET_MESH_DEVICES.set(len(self._devices))
         if bucket_sizes is not None:
             sizes = tuple(int(s) for s in bucket_sizes)
@@ -202,7 +229,7 @@ class FleetEngine(ControlFlagProtocol):
         self.slot_base = int(slot_base) if slot_base else env_int(
             SLOT_BASE_ENV, DEFAULT_SLOT_BASE, minimum=1)
         self.admission = admission or AdmissionController(
-            devices=len(self._devices), device=self._device)
+            devices=len(self._devices), device=self._devices)
         # Shared checkpoint writer pool: a bounded worker set
         # serves every run's cadence checkpoints round-robin instead of
         # one lazy thread per resident run. Created on first use.
@@ -1019,11 +1046,20 @@ class FleetEngine(ControlFlagProtocol):
                     "chunk_turns": self.chunk_turns,
                     "fuse_k": self.fuse_k,
                     "turns_per_dispatch": self.turns_per_dispatch,
-                    "mesh": {"devices": len(self._devices)},
+                    "mesh": self._mesh_doc_locked(),
                     **self.runs_summary(),
                 },
             }
         doc["fleet"]["admission"] = self.admission.summary()
+        return doc
+
+    def _mesh_doc_locked(self) -> dict:
+        """The placement mesh's stamp for stats() and bench records: the
+        devices the fleet shards over, with the batch mesh's geometry
+        when there is one."""
+        doc: dict = {"devices": len(self._devices)}
+        if self._mesh_batch is not None:
+            doc.update(mesh_geometry(self._mesh_batch))
         return doc
 
     def _legacy_or_raise(self) -> RunHandle:
@@ -1162,7 +1198,8 @@ class FleetEngine(ControlFlagProtocol):
             return ckpt_mod.Snapshot(
                 cells.contiguous(), "packed", h.turn, board_meta,
                 rulestring, trigger=trigger, mesh=mesh, fuse=self.fuse_k,
-                stream=self._current_stream())
+                stream=(torch.cuda.current_stream(cells.device)
+                        if cells.is_cuda else None))
         board = bucket.read_board(h.slot, h.h, h.w)
         return ckpt_mod.Snapshot(
             board, "u8", h.turn, board_meta, rulestring, trigger=trigger,
@@ -1422,10 +1459,19 @@ class FleetEngine(ControlFlagProtocol):
                     f"no fleet bucket class for cell dtype {dtype!r}; "
                     "float-state (Lenia) runs are served by the dense "
                     "engine's conv/FFT kernel tier")
-            placement = choose_placement(hb, wb, self.slot_base,
-                                         len(self._devices))
+            ndev = len(self._devices)
+            placement = choose_placement(hb, wb, self.slot_base, ndev)
+            if placement == "batch":
+                mesh = self._mesh_batch
+            elif placement == "spatial":
+                # Big-board fallback: too few slots a device to keep the
+                # batch axis occupied, so each board is row-sharded.
+                mesh = make_mesh(ndev, devices=self._devices)
+            else:
+                mesh = None
             bucket = Bucket(hb, wb, h.rule, slot_base=self.slot_base,
-                            device=self._device, placement=placement)
+                            device=self._device, placement=placement,
+                            mesh=mesh)
             self._buckets[key] = bucket
             self._rr.append(key)
         return bucket
@@ -1724,10 +1770,20 @@ class FleetEngine(ControlFlagProtocol):
                                 **rec)
 
     def _device_resident_locked(self) -> List[int]:
-        """Resident-run count per placement-device index: every bucket
-        lives on the one device."""
-        return [sum(1 for b in self._buckets.values() for h in b.slots
-                    if h is not None and h.state == "resident")]
+        """Resident-run count per placement-device index. A batch bucket
+        holds slot s on the device of its block (`Bucket.slot_device`); a
+        spatial bucket holds every board on every device; a single one
+        on device 0."""
+        counts = [0] * len(self._devices)
+        for b in self._buckets.values():
+            for slot, h in enumerate(b.slots):
+                if h is None or h.state != "resident":
+                    continue
+                if b.placement == "spatial":
+                    counts = [c + 1 for c in counts]
+                else:
+                    counts[b.slot_device(slot)] += 1
+        return counts
 
     def _next_bucket_locked(self):
         """Fair rotation: each non-empty bucket gets one quantum per
@@ -2107,14 +2163,15 @@ class FleetEngine(ControlFlagProtocol):
 
     def _trim_locked(self, h: RunHandle, rem: int) -> None:
         """Exact-target remainder: the slot's FULL bucket torus advances
-        `rem` turns by `packed_run_turns` (K1 for a slot K1 holds, K2
-        beyond: the same torus as the batch, bit-identical), then the run
-        parks at its target."""
+        `rem` turns outside the batch (`Bucket.run_slot`: K1 for a slot K1
+        holds, K2 beyond, the sharded path on a spatial bucket — the same
+        torus as the batch, bit-identical), then the run parks at its
+        target."""
         bucket = self._buckets[h.bucket_key]
         obs_devstats.note_signature(
             ("fleet-trim", bucket.hb, bucket.wpb, rem,
              h.rule.rulestring))
-        out = packed_run_turns(bucket.slot_words(h.slot), rem, h.rule)
+        out = bucket.run_slot(h.slot, rem)
         h.turn += rem
         h.frozen = words_to_board(words_to_numpy(out), h.h, h.w)
         self._board_turns += rem

@@ -27,6 +27,19 @@ turn for turn.
 
 The device is explicit: `device=None` means CUDA and raises without one;
 `device="cpu"` runs the kernels' plain versions, as the tests do.
+
+Sharded windows (`mesh=`, a 1-D row mesh of `parallel/mesh.py`, as the
+JAX package's r5 `mesh`): the window's rows are split over the mesh's
+devices (a `ShardedBoard`), which raises its memory ceiling by the device
+count. Each macro-step is `parallel/halo.sharded_packed_run_turns`: T-row
+halos from the ring neighbours, then K1 or K2 on each shard's haloed
+window. K8 runs on each shard's own rows; the row occupancies are
+concatenated in shard order and the word-column occupancies summed, which
+is K8 of the gathered window. A grow gathers the window, rebuilds it as
+on one device and reshards it. Window shapes are multiples of
+_ROW_ALIGN rows or the whole torus, so `check_sparse_mesh` keeps every
+window divisible by the shard count; shapes, origins, margins and grows
+do not depend on it.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ from gol_tpu_torch.ops.bitpack import (
     words_to_numpy,
 )
 from gol_tpu_torch.ops.cuda_stencil import window_occupancy
+from gol_tpu_torch.parallel.mesh import ShardedBoard, shard
 
 # R-pentomino in (col, row) offsets — the reference-era standard pattern.
 R_PENTOMINO = ((1, 0), (2, 0), (0, 1), (1, 1), (1, 2))
@@ -81,8 +95,9 @@ def _round_up(v: int, align: int) -> int:
     return -(-v // align) * align
 
 
-# The live window's hard ceiling is the device's memory. Enforce it with a
-# clear error instead of an allocator OOM deep inside a kernel.
+# The live window's hard ceiling is the device's memory (per device when
+# the window is row-sharded). Enforce it with a clear error instead of an
+# allocator OOM deep inside a kernel.
 # GOL_SPARSE_MAX_BYTES overrides the budget (0 disables the check); the
 # default is half the device's memory (kernel temporaries need the rest),
 # 8 GiB for a device that reports none (the CPU).
@@ -122,18 +137,21 @@ def check_sparse_mesh(n: int, size: int) -> None:
             f"{_ROW_ALIGN} and the torus size {size}")
 
 
-def _check_window_fits(win_h: int, win_w: int, device=None) -> None:
+def _check_window_fits(win_h: int, win_w: int, device=None,
+                       n_devices: int = 1) -> None:
     """Raise a diagnosable error when a window this size cannot run on the
-    device — BEFORE the allocation that would fail."""
-    need = win_h * (win_w // 8) * _WINDOW_COST_FACTOR
+    devices — BEFORE the allocation that would fail. A sharded window
+    divides its bytes over `n_devices`."""
+    need = win_h * (win_w // 8) * _WINDOW_COST_FACTOR // max(n_devices, 1)
     budget = _window_budget(device)
     if need > budget:
         raise RuntimeError(
             f"sparse window {win_w}x{win_h} needs ~{need / 2**30:.1f} "
-            f"GiB (> budget {budget / 2**30:.1f} GiB) on one device: the "
-            f"pattern has outgrown this sparse engine — run the dense "
-            f"engine, or raise {_MAX_BYTES_ENV} (a window sharded over "
-            f"devices is ROADMAP A5).")
+            f"GiB per device (> budget {budget / 2**30:.1f} GiB) on "
+            f"{n_devices} device(s): the pattern has outgrown this sparse "
+            f"engine — shard the window over more devices (SparseTorus "
+            f"mesh / GOL_SPARSE_SHARDS), run the dense engine, or raise "
+            f"{_MAX_BYTES_ENV}.")
 
 
 def _cyclic_extent(coords, size: int):
@@ -159,6 +177,31 @@ def _check_rule(rule: LifeLikeRule) -> None:
             "use the dense engine")
 
 
+def window_words(packed) -> torch.Tensor:
+    """A window's words as one tensor: itself, or a sharded window
+    gathered in shard order on its first device."""
+    return packed.gather() if isinstance(packed, ShardedBoard) else packed
+
+
+def occupancy(packed) -> torch.Tensor:
+    """K8 of a window: its row occupancies, then its word-column
+    occupancies, in one int32 tensor. A sharded window runs K8 on each
+    shard's own rows; the rows are concatenated in shard order and the
+    columns summed (on the first shard's device)."""
+    if not isinstance(packed, ShardedBoard):
+        return window_occupancy(packed)
+    from gol_tpu_torch.parallel.halo import _to_device
+
+    dev = packed.shards[0].device
+    rows, cols = [], None
+    for s in packed.shards:
+        occ = _to_device(window_occupancy(s), dev)
+        rows.append(occ[:s.shape[0]])
+        part = occ[s.shape[0]:]
+        cols = part if cols is None else cols + part
+    return torch.cat(rows + [cols])
+
+
 class SparseTorus:
     """A sparse pattern on a `size` x `size` torus (size % 32 == 0)."""
 
@@ -168,13 +211,14 @@ class SparseTorus:
         cells: Iterable[Tuple[int, int]],
         rule: LifeLikeRule = CONWAY,
         device=None,
+        mesh=None,
     ) -> None:
-        from gol_tpu_torch.engine import resolve_device
-
+        """`mesh`: a 1-D row mesh to shard the window over (module note);
+        None or one device keeps the single-device window on `device`."""
         if size % WORD_BITS != 0:
             raise ValueError(f"torus size {size} not a multiple of 32")
         _check_rule(rule)
-        self.device = resolve_device(device)
+        self._set_mesh(size, mesh, device)
         self.size = size
         self.rule = rule
         self.turn = 0
@@ -194,15 +238,36 @@ class SparseTorus:
         margin = 64
         win_w = min(_round_up(w + 2 * margin, _COL_ALIGN), size)
         win_h = min(_round_up(h + 2 * margin, _ROW_ALIGN), size)
-        _check_window_fits(win_h, win_w, self.device)
+        _check_window_fits(win_h, win_w, self.device, self._n_devices())
         # Torus origin of window cell (0, 0); word-aligned columns.
         self._ox = ((x0 - (win_w - w) // 2) // WORD_BITS * WORD_BITS) % size
         self._oy = (y0 - (win_h - h) // 2) % size
         board = np.zeros((win_h, win_w), dtype=np.uint8)
         for x, y in zip(xs, ys):
             board[(y - self._oy) % size, (x - self._ox) % size] = 1
-        self._packed = words_from_numpy(pack_np(board), self.device)
+        self._packed = self._place(words_from_numpy(pack_np(board)))
         self._reset_occupancy()
+
+    def _set_mesh(self, size: int, mesh, device) -> None:
+        from gol_tpu_torch.engine import resolve_device
+
+        self._mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        if self._mesh is not None:
+            check_sparse_mesh(self._mesh.size, size)
+            self.device = torch.device(self._mesh.devices.flat[0])
+        else:
+            self.device = resolve_device(
+                mesh.devices.flat[0] if mesh is not None else device)
+
+    def _n_devices(self) -> int:
+        return self._mesh.size if self._mesh is not None else 1
+
+    def _place(self, words: torch.Tensor):
+        """Install a whole window: row-sharded over the mesh when one is
+        set, else on the device."""
+        if self._mesh is not None:
+            return shard(words, self._mesh)
+        return words.to(self.device)
 
     def _reset_occupancy(self) -> None:
         # The (rows, word columns) occupancy of `_packed` as one device
@@ -227,24 +292,28 @@ class SparseTorus:
         oy: int,
         rule: LifeLikeRule = CONWAY,
         device=None,
+        mesh=None,
     ) -> "SparseTorus":
         """Rebuild a torus from checkpointed window state (np.uint32
         packed words + torus origin) — the restore half of
-        `SparseEngine.save_checkpoint`."""
-        from gol_tpu_torch.engine import resolve_device
-
+        `SparseEngine.save_checkpoint`; sharded over `mesh` when given
+        (a window of any shard count restores onto any other)."""
         _check_rule(rule)
         self = cls.__new__(cls)
-        self.device = resolve_device(device)
+        self._set_mesh(size, mesh, device)
         self.size = size
         self.rule = rule
         self.turn = 0
         self._ox = ox % size
         self._oy = oy % size
         words = np.asarray(words, dtype=np.uint32)
+        if self._mesh is not None and words.shape[0] % self._mesh.size:
+            raise ValueError(
+                f"checkpoint window of {words.shape[0]} rows does not "
+                f"split over {self._mesh.size} devices")
         _check_window_fits(words.shape[0], words.shape[1] * WORD_BITS,
-                           self.device)
-        self._packed = words_from_numpy(words, self.device)
+                           self.device, self._n_devices())
+        self._packed = self._place(words_from_numpy(words))
         self._reset_occupancy()
         return self
 
@@ -252,7 +321,7 @@ class SparseTorus:
 
     def _occupancy(self) -> torch.Tensor:
         if self._occ is None:
-            self._occ = window_occupancy(self._packed)
+            self._occ = occupancy(self._packed)
         return self._occ
 
     def alive_count(self) -> int:
@@ -265,7 +334,7 @@ class SparseTorus:
 
     def alive_cells(self) -> List[Tuple[int, int]]:
         """Live cells in torus coordinates (col, row), unordered."""
-        dense = unpack_np(words_to_numpy(self._packed))
+        dense = unpack_np(words_to_numpy(window_words(self._packed)))
         ys, xs = np.nonzero(dense)
         return [
             (int((x + self._ox) % self.size),
@@ -321,21 +390,22 @@ class SparseTorus:
                     self.size)
         new_w = min(_round_up(live_w + 2 * headroom, col_align),
                     self.size)
-        _check_window_fits(new_h, new_w, self.device)
+        _check_window_fits(new_h, new_w, self.device, self._n_devices())
         pad_top = (new_h - live_h) // 2
         pad_left_words = ((new_w - live_w) // 2) // WORD_BITS
+        old = window_words(self._packed)
         new = torch.zeros((new_h, new_w // WORD_BITS),
-                          dtype=self._packed.dtype, device=self.device)
+                          dtype=old.dtype, device=self.device)
         # The counterpart of lax.dynamic_update_slice: the live box,
-        # copied on the device's stream.
+        # copied on the device's stream (a sharded window is gathered,
+        # rebuilt and resharded: grows are rare).
         new[pad_top:pad_top + live_h,
             pad_left_words:pad_left_words + live_w // WORD_BITS] = \
-            self._packed[top:h - bottom,
-                         left // WORD_BITS:wp - right // WORD_BITS]
+            old[top:h - bottom, left // WORD_BITS:wp - right // WORD_BITS]
         self._ox = (self._ox + left - pad_left_words * WORD_BITS) \
             % self.size
         self._oy = (self._oy + top - pad_top) % self.size
-        self._packed = new
+        self._packed = self._place(new)
         self._occ = None
         self.grows += 1
         # The grow only repositioned a live box whose bounds are known, so
@@ -375,11 +445,16 @@ class SparseTorus:
         from gol_tpu_torch.parallel.halo import (
             packed_run_by_kind,
             packed_run_kind,
+            sharded_packed_run_turns,
         )
 
-        step = packed_run_by_kind(packed_run_kind(self._packed.shape))
-        self._packed = step(self._packed, k, self.rule)
-        self._occ = window_occupancy(self._packed)
+        if self._mesh is not None:
+            self._packed = sharded_packed_run_turns(
+                self._packed, k, self._mesh, self.rule)
+        else:
+            step = packed_run_by_kind(packed_run_kind(self._packed.shape))
+            self._packed = step(self._packed, k, self.rule)
+        self._occ = occupancy(self._packed)
         self._margins_valid = False
         self.turn += k
 

@@ -63,12 +63,12 @@ def _declare(lib: ctypes.CDLL) -> None:
                                          *box]
     lib.gol_tiled_sweep_deep.restype = i
     lib.gol_fleet_resident.argtypes = [vp, vp, vp, i, i, i, ll, u, u, i, i,
-                                       i, vp]
+                                       i, vp, *box]
     lib.gol_fleet_resident.restype = i
     lib.gol_fleet_resident_clusters.argtypes = [i, i, i, i, i]
     lib.gol_fleet_resident_clusters.restype = i
     lib.gol_fleet_tiled_sweep.argtypes = [vp, vp, vp, i, i, i, i, i, u, u,
-                                          i, vp]
+                                          i, vp, *box]
     lib.gol_fleet_tiled_sweep.restype = i
     lib.gol_row_popcounts.argtypes = [vp, vp, i, i, i, vp]
     lib.gol_row_popcounts.restype = i

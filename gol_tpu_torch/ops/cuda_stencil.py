@@ -1349,9 +1349,12 @@ def fleet_tile_rows(cap: int, h: int, wp: int) -> int:
     return _fewest_window_rows(h, wp, TILE_ROW_CHOICES, cap)
 
 
-def slot_popcounts(words: torch.Tensor) -> torch.Tensor:
-    """(cap,) int32 live cells of each slot of a (cap, h, wp) batch."""
-    return _byte_popcounts(words).sum(dim=(-1, -2), dtype=torch.int32)
+def slot_popcounts(words: torch.Tensor, box=None) -> torch.Tensor:
+    """(cap,) int32 live cells of each slot of a (cap, h, wp) batch, within
+    `box` = (r0, r1, c0, c1) of every slot when given."""
+    r0, r1, c0, c1 = _box_args(box, words)
+    return _byte_popcounts(words[:, r0:r1, c0:c1]).sum(
+        dim=(-1, -2), dtype=torch.int32)
 
 
 @functools.lru_cache(maxsize=256)
@@ -1395,10 +1398,12 @@ def _fleet_geometry(shape: tuple, ctas, rows, kind):
 def fleet_run_turns_plain(words: torch.Tensor, num_turns: int,
                           rule: LifeLikeRule = CONWAY, *,
                           ctas: int | None = None,
-                          rows: int | None = None, kind: str | None = None):
+                          rows: int | None = None, kind: str | None = None,
+                          box=None):
     """K9's plain version: route 1's slabs (`_slab_plain`) or route 2's
     tiles (`_tiled_plain`, one sweep per 32 turns) on the batch axis,
-    then each slot's popcount. Returns (words', alive)."""
+    then each slot's popcount (of `box` when given). Returns (words',
+    alive)."""
     kind, ctas, _, rows = _fleet_geometry(tuple(words.shape), ctas, rows,
                                           kind)
 
@@ -1411,24 +1416,28 @@ def fleet_run_turns_plain(words: torch.Tensor, num_turns: int,
         out = words
         for t in sweep_depths(num_turns, TILE_MAX_T):
             out = _tiled_plain(out, t, step, rows, TILE_WORDS, 1)
-    return out, slot_popcounts(out)
+    return out, slot_popcounts(out, box)
 
 
 def fleet_run_turns(words: torch.Tensor, num_turns: int,
                     rule: LifeLikeRule = CONWAY, *,
                     ctas: int | None = None, rows: int | None = None,
-                    kind: str | None = None):
+                    kind: str | None = None, box=None):
     """Advance every slot of a (cap, H, Wp) packed batch `num_turns`
     turns, each slot its own torus, and count each slot's live cells:
     (words', alive int32 (cap,)). Route 1 is one launch; route 2 one
-    launch a sweep of up to 32 turns, the last one counting. `kind`,
-    `ctas` (route 1) and `rows` (route 2) pin a route and a geometry for
-    tests and measurements. The input is never written."""
+    launch a sweep of up to 32 turns, the last one counting. `box` =
+    (r0, r1, c0, c1), the same for every slot, counts only those rows and
+    words of each (a spatial bucket's window counts its shard's own rows,
+    `fleet/buckets.py`); None counts the whole slot. `kind`, `ctas`
+    (route 1) and `rows` (route 2) pin a route and a geometry for tests
+    and measurements. The input is never written."""
     kind, ctas, per, rows = _fleet_geometry(tuple(words.shape), ctas, rows,
                                             kind)
+    r0, r1, c0, c1 = _box_args(box, words)
     if words.device.type == "cpu":
         return fleet_run_turns_plain(words, num_turns, rule, ctas=ctas,
-                                     rows=rows, kind=kind)
+                                     rows=rows, kind=kind, box=box)
     if num_turns < 1:
         raise ValueError(f"fleet_run_turns: {num_turns} turns; want >= 1")
     if (words.dtype != torch.int32 or not words.is_contiguous()):
@@ -1447,7 +1456,8 @@ def fleet_run_turns(words: torch.Tensor, num_turns: int,
         out = torch.empty_like(words)
         rc = lib.gol_fleet_resident(
             words.data_ptr(), out.data_ptr(), alive.data_ptr(), cap, h, wp,
-            num_turns, born, survive, ctas, per, dev, stream)
+            num_turns, born, survive, ctas, per, dev, stream, r0, r1, c0,
+            c1)
         if rc:
             raise _cluster_failed("fleet_run_turns", lib, rc, ctas, h, wp)
         fleet_run_turns.launches += 1
@@ -1467,7 +1477,7 @@ def fleet_run_turns(words: torch.Tensor, num_turns: int,
         _build.check(lib.gol_fleet_tiled_sweep(
             src.data_ptr(), dst.data_ptr(),
             alive.data_ptr() if last else None, cap, h, wp, t, rows, born,
-            survive, dev, stream), "fleet_run_turns")
+            survive, dev, stream, r0, r1, c0, c1), "fleet_run_turns")
         fleet_run_turns.launches += 1
         fleet_run_turns.by_route["tiled"] += 1
         src = dst

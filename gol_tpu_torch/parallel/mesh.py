@@ -127,6 +127,14 @@ def make_mesh(num_shards: Optional[int] = None,
     return Mesh(device_grid(devices[:n], (n,)), (ROWS_AXIS,))
 
 
+def make_batch_mesh(devices: Sequence) -> Mesh:
+    """1-D mesh over `devices`, axis name 'slots': the fleet bucket's
+    batch mesh (`fleet/buckets.py`), kept apart from `make_mesh` so that
+    geometry stamps never confuse a batch placement with row sharding."""
+    devices = list(devices)
+    return Mesh(device_grid(devices, (len(devices),)), (SLOTS_AXIS,))
+
+
 def mesh_geometry(mesh: Mesh) -> dict:
     """The geometry dict every surface stamps (/healthz `mesh`, the run
     report's `run_start`, Stats): device count, shard count (equal for

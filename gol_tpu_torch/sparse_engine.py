@@ -24,8 +24,10 @@ origin, turn, alive) as one coherent snapshot; inside a chunk
 device once each.
 
 The device is explicit: `SparseEngine(device=None)` means CUDA and raises
-without one; `device="cpu"` runs the kernels' plain versions. A window
-sharded over several devices (`GOL_SPARSE_SHARDS`) is ROADMAP A5.
+without one; `device="cpu"` runs the kernels' plain versions. `shards`
+(GOL_SPARSE_SHARDS) row-shards the window over that many of the engine's
+`devices` (`models/sparse.py`); readers and checkpoints see the window
+gathered in shard order, so every surface reads as on one device.
 """
 
 from __future__ import annotations
@@ -57,13 +59,18 @@ from gol_tpu_torch.engine import (
 )
 from gol_tpu_torch.fleet.handles import SingleRunSurface
 from gol_tpu_torch.models.lifelike import CONWAY, LifeLikeRule
-from gol_tpu_torch.models.sparse import SparseTorus, check_sparse_mesh
+from gol_tpu_torch.models.sparse import (
+    SparseTorus,
+    check_sparse_mesh,
+    window_words,
+)
 from gol_tpu_torch.ops.bitpack import (
     WORD_BITS,
     unpack,
     unpack_np,
     words_to_numpy,
 )
+from gol_tpu_torch.parallel.mesh import default_devices, make_mesh
 from gol_tpu_torch.utils.envcfg import env_float, env_int
 
 SPARSE_CHUNK_MIN = 64
@@ -71,17 +78,17 @@ SPARSE_CHUNK_MAX = 1 << 16
 SHARDS_ENV = "GOL_SPARSE_SHARDS"
 
 
-def _device_count(dev: torch.device) -> int:
-    """Devices of the engine's type: the CUDA devices, or one CPU."""
-    return torch.cuda.device_count() if dev.type == "cuda" else 1
-
-
 class SparseEngine(SingleRunSurface, ControlFlagProtocol):
     def __init__(self, size: int, rule=CONWAY,
-                 shards: Optional[int] = None, device=None) -> None:
+                 shards: Optional[int] = None, device=None,
+                 devices=None) -> None:
         """`shards`: devices to row-shard the window over
-        (GOL_SPARSE_SHARDS when None; default 1), clamped to the devices
-        of the engine's type. More than one is ROADMAP A5 and raises."""
+        (GOL_SPARSE_SHARDS when None; default 1), clamped to `devices`:
+        as `Engine(devices=)`, by default the distinct visible CUDA
+        devices, or `[device]` when `device` is given; a device may
+        repeat (`["cpu"] * 4` in the tests, `cuda:0` N times on one
+        card). The count must divide 256 and the torus size
+        (`check_sparse_mesh`)."""
         if not isinstance(rule, LifeLikeRule):
             # The live-window argument is a 2-state property; another
             # family's rule would evolve wrongly.
@@ -96,18 +103,26 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
                 "use the dense engine")
         if size % WORD_BITS != 0:
             raise ValueError(f"torus size {size} not a multiple of 32")
-        self._device = resolve_device(device)
+        if devices is not None:
+            devices = [resolve_device(d) for d in devices]
+        elif device is not None:
+            devices = [resolve_device(device)]
+        else:
+            devices = default_devices()
         self.size = size
         self._rule = rule
         if shards is None:
             shards = env_int(SHARDS_ENV, 1)
-        shards = max(1, min(shards, _device_count(self._device)))
+        shards = max(1, min(shards, len(devices)))
         if shards > 1:
+            # A bad shard count fails at construction (server start), not
+            # as a per-submission error.
             check_sparse_mesh(shards, size)
-            raise NotImplementedError(
-                f"a sparse window sharded over {shards} devices is not "
-                f"ported to gol_tpu_torch yet (ROADMAP A5); unset "
-                f"{SHARDS_ENV}")
+            self._mesh = make_mesh(shards, devices=devices)
+        else:
+            self._mesh = None
+        self._devices = devices[:shards]
+        self._device = self._devices[0]
         self._state_lock = threading.Lock()
         self._torus: Optional[SparseTorus] = None
         self._turn = 0
@@ -154,7 +169,7 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
             cells = [(int(x) + offx, int(y) + offy)
                      for x, y in zip(xs, ys)]
             torus = SparseTorus(self.size, cells, self._rule,
-                                device=self._device)
+                                device=self._device, mesh=self._mesh)
         else:
             torus = None
         with self._on_device():
@@ -370,7 +385,7 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
                 "turns_per_s": round(self._turns_per_s, 1),
                 "chunk_overhead_us": round(self._chunk_overhead_us, 2),
                 "rule": self._rule.rulestring,
-                "devices": 1,
+                "devices": len(self._devices),
                 "device": str(self._device),
             }
 
@@ -383,7 +398,8 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
         words, ox, oy, turn, _ = self._published()
         return ckpt_mod.Snapshot(
             words, "sparse", turn, (self.size, self.size),
-            self._rule.rulestring, trigger=trigger, mesh={"devices": 1},
+            self._rule.rulestring, trigger=trigger,
+            mesh={"devices": len(self._devices)},
             extra={"size": self.size, "ox": ox, "oy": oy},
             stream=self._current_stream())
 
@@ -405,7 +421,8 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
         (`ckpt/reshard.py`): the torus size is fixed at construction, so
         a mismatched checkpoint is refused unless resharded (and then it
         must decode to exactly this torus)."""
-        return {"kind": "sparse", "devices": 1, "size": int(self.size)}
+        return {"kind": "sparse", "devices": len(self._devices),
+                "size": int(self.size)}
 
     def restore_run(self, path: str, reshard: bool = False) -> int:
         """Verified manifest/legacy restore; returns the restored turn.
@@ -469,7 +486,7 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
             with self._on_device():
                 torus = SparseTorus._from_state(
                     self.size, words, ox, oy, self._rule,
-                    device=self._device)
+                    device=self._device, mesh=self._mesh)
         with self._state_lock:
             if self._running:
                 raise RuntimeError("cannot restore while running")
@@ -482,12 +499,15 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
     # ------------------------------------------------------------- internals
 
     def _published(self) -> tuple:
+        """The published (window words, ox, oy, turn, alive), a sharded
+        window gathered in shard order on the first device."""
         self._check_alive()
         with self._state_lock:
             pub = self._pub
         if pub is None:
             raise RuntimeError("no board loaded")
-        return pub
+        with self._on_device():
+            return (window_words(pub[0]),) + pub[1:]
 
     def _publish_locked(self, alive: Optional[int] = None) -> None:
         """Refresh the coherent poll snapshot; caller holds the lock."""
@@ -497,11 +517,13 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
             return
         if alive is None:
             alive = t.alive_count()
+        # The window as stepped (sharded or not): a macro-step makes new
+        # tensors, so the published one never changes under a reader.
         self._pub = (t._packed, t._ox, t._oy, self._turn, alive)
 
     def _window_pixels(self, pub) -> np.ndarray:
         if pub is None:
             raise RuntimeError("no board loaded")
         with self._on_device():
-            host = words_to_numpy(pub[0])
+            host = words_to_numpy(window_words(pub[0]))
         return unpack_np(host) * np.uint8(255)

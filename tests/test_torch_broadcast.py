@@ -20,6 +20,7 @@ Tolerance: none; the f32 (Lenia) frames are compared after both packages'
 
 from __future__ import annotations
 
+import contextlib
 import socket
 import threading
 import time
@@ -327,6 +328,20 @@ def _pinned_view(client, max_cells):
     raise AssertionError("the run never parked")
 
 
+def _encodes_and_frames(hub, run_id):
+    """(wire encode calls, published frames), read while every stream of
+    `run_id` holds its publish lock: a publication encodes and counts its
+    frame inside one hold of that lock (`EpochStream.publish`)."""
+    with hub._lock:
+        streams = [st for key, st in hub._streams.items()
+                   if key.startswith(f"{run_id}|")]
+    with contextlib.ExitStack() as held:
+        for st in streams:
+            held.enter_context(st._pub_lock)
+        return (obs.WIRE_ENCODE_CALLS.value,
+                sum(c.value for c in obs.BCAST_FRAMES.children().values()))
+
+
 def test_subscribe_e2e_parity_encode_once_and_destroy(bcast_server):
     srv, address = bcast_server
     ctl = RemoteEngine(address, timeout=30.0)
@@ -341,19 +356,18 @@ def test_subscribe_e2e_parity_encode_once_and_destroy(bcast_server):
 
         # Encode-once witness over a live window: wire encodes advance
         # exactly as much as published broadcast frames, with two
-        # subscribers attached.
-        e0 = obs.WIRE_ENCODE_CALLS.value
-        f0 = sum(c.value for c in obs.BCAST_FRAMES.children().values())
+        # subscribers attached. Each pair is read with the run's streams'
+        # publish locks held, so no publication falls between its reads.
+        hub, gateway = srv._bcast
+        e0, f0 = _encodes_and_frames(hub, rid)
         for _ in range(6):
             sub1.recv(timeout=30.0)
             sub2.recv(timeout=30.0)
-        e1 = obs.WIRE_ENCODE_CALLS.value
-        f1 = sum(c.value for c in obs.BCAST_FRAMES.children().values())
+        e1, f1 = _encodes_and_frames(hub, rid)
         assert f1 - f0 > 0
         assert e1 - e0 == f1 - f0
 
         # Adopted sockets carry TCP_NODELAY + SO_KEEPALIVE.
-        hub, gateway = srv._bcast
         gsubs = list(gateway._subs.values())
         assert len(gsubs) == 2
         for gs in gsubs:

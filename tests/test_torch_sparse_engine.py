@@ -33,7 +33,6 @@ from gol_tpu.sparse_engine import SparseEngine as JSparse
 import gol_tpu_torch
 from gol_tpu_torch import Params, events as ev
 from gol_tpu_torch import wire as tw
-from gol_tpu_torch import sparse_engine as tse
 from gol_tpu_torch.ckpt import manifest as mf
 from gol_tpu_torch.client import RemoteEngine as TRemote
 from gol_tpu_torch.engine import FLAG_PAUSE, FLAG_QUIT, EngineKilled
@@ -445,17 +444,18 @@ def test_sparse_engine_refuses_bad_size():
 
 
 def test_shards_clamp_to_devices_and_name_a5(monkeypatch):
-    """GOL_SPARSE_SHARDS clamps to the devices of the engine's type (one
-    CPU); past the clamp a sharded window is ROADMAP A5."""
+    """GOL_SPARSE_SHARDS clamps to the engine's devices (one CPU for
+    `device="cpu"`); past the clamp the window shards over the named
+    devices (ROADMAP A5's leftover, ported), and a count that does not
+    divide 256 and the torus is refused at construction."""
     monkeypatch.setenv("GOL_SPARSE_SHARDS", "4")
     assert SparseEngine(SIZE, device="cpu").stats()["devices"] == 1
     assert SparseEngine(SIZE, shards=3, device="cpu").geometry()[
         "devices"] == 1
-    monkeypatch.setattr(tse, "_device_count", lambda dev: 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        SparseEngine(SIZE, device="cpu")
+    cpus = [torch.device("cpu")] * 8
+    assert SparseEngine(SIZE, devices=cpus).geometry()["devices"] == 4
     with pytest.raises(ValueError, match="must divide"):
-        SparseEngine(SIZE, shards=3, device="cpu")
+        SparseEngine(SIZE, shards=3, devices=cpus)
 
 
 def test_sparse_checkpoint_geometry_validated(tmp_path):
