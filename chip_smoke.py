@@ -7,7 +7,9 @@ is right and runs its main path on one CUDA GPU.
 Phases (each raises on failure; any failure exits non-zero):
 
 1. the card (nvidia-smi name and power limit, max SM clock), torch, CUDA;
-2. the nvcc build of gol_tpu_torch/csrc/stencil.cu: ptxas registers and
+2. the nvcc build of gol_tpu_torch/csrc/stencil.cu, with the g++ build
+   of the host layer gol_tpu_torch/csrc/golnative.cpp beside it (the run
+   fails if either fails): ptxas registers and
    stack frames (every kernel's must be 0 bytes), and the stepping loop
    of each stepping kernel's SASS (K1, K2, K4, K5, K6; `cuobjdump
    -sass`: its instructions, in all, by opcode and per word);
@@ -159,6 +161,29 @@ Phases (each raises on failure; any failure exits non-zero):
    over 2 and 4, every publication, the window, grows, episodes and cells
    equal; `Engine.stats()["chunk_overhead_us"]` at 512² and 5120²
    against its gauge. Each rate beside the unsharded one and the card.
+   4m. the live view and the native host layer: the port's C++ codec
+   (`gol_tpu_torch/csrc/golnative.cpp`, built with g++ at first use; the
+   run fails if it does not build) reads the 512² golden and a seeded
+   5120² board, and writes them byte-equal to the numpy path, and phase
+   4's goldens must have been read by it alone (the codec counter); an
+   unbounded 512² `run(..., live_view=True)` on a CUDA engine (K1) for
+   3 s and until it has drawn 12 frames (30 s at most), its events
+   consumed by `sdl.loop.start` into a window whose every frame at
+   TurnComplete(t) counts the CSV's alive cells (t <= 10,000) or
+   the settled ash's (`fixtures.ash_512_alive`), at least 10 frames, the
+   last equal to the host oracle's board (`native.step_torus`), every
+   polled pair and ticker event exact, each poll traced (its host ms
+   beside when the engine's stream drained and when its turn was
+   published); the same at GOL_CHUNK_TARGET=0.025 for 3 s; a 5120² glider
+   lattice (K2), unbounded, drained by `sdl.loop.start` into the
+   view-sized window it opens, every frame the lattice's view at its turn
+   and at least 5 frames with diffs; a 5120² live run of 1000 turns (K2),
+   paused at its start so frames arrive, every frame `get_view`'s
+   downsampled shape within GOL_LIVE_MAX_CELLS and no world read, the
+   first frame the plain board's view, the final PGM the plain version's;
+   each live run's own K1 or K2 launches above 0; and
+   `native.render_halfblocks` of a 512² frame against the numpy glyphs,
+   with host ms of each codec and renderer.
    Each path runs with the launch counters at 0, read just after: every
    kernel (and family) it runs must have launched, and the paths whose
    alive counts come from chunks alone (4, 4c, 4d) must have launched K3
@@ -820,6 +845,7 @@ def phase_main_path(torch, dev) -> None:
 
     log("phase 4: main path through gol_tpu_torch.run on the card")
     images = os.path.join(REPO, "images")
+    read_pgm.served.update(native=0, numpy=0)
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out")
         # 16² runs the uint8 roll-sum path (its width is not a multiple
@@ -828,6 +854,13 @@ def phase_main_path(torch, dev) -> None:
             check_golden(images, out, size, turns, "run")
         log(f"  ok goldens {', '.join(f'{s}² x {t}' for s, t in GOLDENS)}: "
             "alive sets and PGM bytes equal check/images")
+        # The goldens' reads went through the native codec.
+        served = dict(read_pgm.served)
+        LIVE_RESULTS["phase4_codec"] = served
+        if served["numpy"] or not served["native"]:
+            raise AssertionError(f"phase 4's goldens were not all read "
+                                 f"by the native codec: {served}")
+        log(f"  ok goldens' PGM codec: {json.dumps(served)}")
 
         eng = Engine()
         check_ticker(images, out, eng.alive_count, engine=eng)
@@ -5961,6 +5994,530 @@ def log_fleet_mesh_summary(card: Card) -> None:
         + json.dumps(FM_RESULTS.get("chunk_overhead_us", {})))
 
 
+# -- 4m: the live view and the native host layer ---------------------------
+
+# The unbounded 512² live run lasts LIVE_SECONDS, and then until it has
+# drawn LIVE_MIN_FRAMES + 2 frames, LIVE_DEADLINE_S at most. A frame is a
+# newly published board: a view reads the newest board the engine has
+# issued, so each poll waits for the chunk that made it, behind the
+# chunks in flight (~0.44 s a chunk at 512² by default). The same run at
+# LIVE_SHORT_TARGET (the chunk's target seconds, GOL_CHUNK_TARGET) shows
+# the polls shrinking with the chunks.
+LIVE_SECONDS = 3.0
+LIVE_MIN_FRAMES = 10
+LIVE_DEADLINE_S = 30.0
+LIVE_SHORT_TARGET = 0.025
+LIVE_BIG = 5120           # the bounded live run, downsampled frames
+LIVE_BIG_TURNS = 1000
+# The glider lattice: one glider a GLIDER_TILE² tile of the LIVE_BIG²
+# torus, all moving alike, so the board never settles and every board is
+# the tile's (a GLIDER_TILE² torus) repeated. Drawn through loop.start
+# until LIVE_GLIDER_FRAMES frames with diffs, LIVE_DEADLINE_S at most.
+GLIDER_TILE = 40
+LIVE_GLIDER_FRAMES = 5
+NATIVE_SIZES = (512, 5120)
+LIVE_RESULTS: dict = {}
+
+
+def native_codec(torch, card: Card, tmp: str) -> None:
+    """4m: the port's C++ host layer built on this host; the 512² golden
+    and a seeded 5120² board read through it (host ms beside the numpy
+    path, which `levels=` takes), and its write byte-equal to io.pgm's
+    (numpy) write, with the write's host ms."""
+    from gol_tpu_torch import native
+    from gol_tpu_torch.io.pgm import MAXVAL, read_pgm, write_pgm
+
+    t0 = time.perf_counter()
+    if native.lib() is None:
+        raise AssertionError("4m: the native library did not build (the "
+                             "native.build_failed line says why)")
+    log(f"  ok 4m native library {native.library_path()} "
+        f"({(time.perf_counter() - t0) * 1e3:.1f} ms to load)")
+    numpy_path = (0, MAXVAL)
+    for size in NATIVE_SIZES:
+        src = os.path.join(REPO, "images", f"{size}x{size}.pgm")
+        board = (read_pgm(src, levels=numpy_path) if size == 512
+                 else seeded_board(size, size))
+        path = os.path.join(tmp, f"numpy_{size}.pgm")
+        t0 = time.perf_counter()
+        write_pgm(path, board)
+        ms = {"write_numpy": (time.perf_counter() - t0) * 1e3}
+        for codec, levels in (("native", None), ("numpy", numpy_path)):
+            t0 = time.perf_counter()
+            got = read_pgm(path, levels=levels)
+            ms[f"read_{codec}"] = (time.perf_counter() - t0) * 1e3
+            if not np.array_equal(got, board):
+                raise AssertionError(f"4m {size}²: the {codec} read != "
+                                     "the board")
+        native_path = os.path.join(tmp, f"native_{size}.pgm")
+        if not native.write_pgm(native_path, board):
+            raise AssertionError(f"4m {size}²: the native write failed")
+        with open(native_path, "rb") as f, open(path, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"4m {size}²: native PGM bytes != "
+                                     "the numpy path's")
+        if size == 512:
+            with open(path, "rb") as f, open(src, "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError("4m 512²: PGM bytes != "
+                                         "images/512x512.pgm")
+        LIVE_RESULTS.setdefault("codec_ms", {})[f"{size}²"] = ms
+        log(f"  ok 4m PGM {size}²: native and numpy bytes equal; host ms "
+            f"{json.dumps({k: round(v, 3) for k, v in ms.items()})} "
+            f"({card.smi})")
+    log(f"  phase 4's goldens were read by: "
+        f"{json.dumps(LIVE_RESULTS['phase4_codec'])}")
+
+
+class _TapQueue(queue.Queue):
+    """An events queue that keeps every event its consumer takes."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.taken: list = []
+
+    def get(self, block=True, timeout=None):
+        e = super().get(block, timeout)
+        self.taken.append(e)
+        return e
+
+
+def live_512(torch, dev, card: Card, chunk_target=None) -> None:
+    """4m: `run(..., live_view=True)` on a CUDA engine at 512², unbounded,
+    its events consumed by `sdl.loop.start` into a window that checks
+    each frame: at every TurnComplete(t) the window's popcount is the CSV
+    count (t <= 10,000) or the settled ash's, the last frame equals the
+    host oracle's board, every polled (alive, turn) is exact, and the run
+    itself launched K1. Each poll records its host ms, how far the view's
+    turn ran ahead of the pair published when it began, when the work
+    queued on the engine's stream at its start drained and when the
+    view's turn was published: which handle the view's copy waits for.
+    `chunk_target` sets GOL_CHUNK_TARGET for the run."""
+    import gol_tpu_torch
+    from gol_tpu_torch import Params, events as ev, native
+    from gol_tpu_torch.engine import CHUNK_TARGET_ENV, Engine
+    from gol_tpu_torch.fixtures import ASH_512_SETTLED_BY, ash_512_alive
+    from gol_tpu_torch.io.pgm import read_pgm
+    from gol_tpu_torch.ops import cuda_stencil as cs
+    from gol_tpu_torch.sdl import loop
+    from gol_tpu_torch.sdl.window import Window
+
+    key = "512" if chunk_target is None else "512_short_chunks"
+    csv_counts = read_csv(os.path.join(REPO, "check", "alive",
+                                       "512x512.csv"))
+
+    def want(t: int) -> int:
+        return csv_counts[t] if t <= ASH_512_SETTLED_BY else ash_512_alive(t)
+
+    frames, flips = [], [0]
+
+    class CheckedWindow(Window):
+        def flip_pixel(self, x: int, y: int) -> None:
+            flips[0] += 1
+            super().flip_pixel(x, y)
+
+        def render_frame(self, status: str = "") -> None:
+            t = int(status.split()[-1])
+            frames.append((t, int(self._pixels.sum()), flips[0]))
+            flips[0] = 0
+            if frames[-1][1] != want(t):
+                raise AssertionError(f"4m 512² live frame at turn {t}: "
+                                     f"{frames[-1][1]} alive, want {want(t)}")
+            super().render_frame(status)
+
+    images = os.path.join(REPO, "images")
+    p = Params(image_width=512, image_height=512, turns=10**12)
+    eng = Engine()
+    # Per poll: host ms, view turn - published turn, chunk, start, view
+    # turn; and [start, an event recorded on the engine's stream at the
+    # start, when the main loop saw it complete].
+    polls, marks = [], []
+    get_view = eng.get_view
+    cuda = torch.cuda.is_available()
+
+    def timed_view(max_cells):
+        published = eng.alive_count()[1]
+        t0 = time.monotonic()
+        if cuda:
+            mark = torch.cuda.Event()
+            mark.record()  # the current stream: the one the chunks run on
+            marks.append([t0, mark, None])
+        out = get_view(max_cells)
+        ms = (time.monotonic() - t0) * 1e3
+        polls.append((ms, out[1] - published, eng.stats()["chunk"], t0,
+                      out[1]))
+        return out
+
+    eng.get_view = timed_view
+    win = CheckedWindow(512, 512)
+    events_q, keys = _TapQueue(), queue.Queue()
+    failed = []
+
+    def consume() -> None:
+        try:
+            loop.start(p, events_q, None, window=win)
+        except BaseException as e:  # re-raised on the main thread
+            failed.append(e)
+
+    if chunk_target is not None:
+        os.environ[CHUNK_TARGET_ENV] = str(chunk_target)
+    k1_before = cs.resident_run_turns.launches
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t = gol_tpu_torch.run(p, events_q, keys, engine=eng,
+                                  images_dir=images, out_dir=tmp,
+                                  live_view=True)
+            viewer = threading.Thread(target=consume)
+            viewer.start()
+            seen, pairs = [], set()
+            t_start = time.monotonic()
+            t_end = None
+            while t.is_alive() and viewer.is_alive():
+                alive, turn = eng.alive_count()
+                now = time.monotonic()
+                for m in marks[-3:]:
+                    if m[2] is None and m[1].query():
+                        m[2] = now
+                if turn > 0:
+                    pairs.add((alive, turn))
+                    seen.append((now, turn))
+                    t_end = t_end or now + LIVE_SECONDS
+                if t_end is not None and now >= t_end and (
+                        len(frames) >= LIVE_MIN_FRAMES + 2
+                        or now - t_start >= LIVE_DEADLINE_S):
+                    break
+                time.sleep(0.0005)
+            live_s = time.monotonic() - t_start
+            keys.put("q")
+            t.join(60)
+            viewer.join(60)
+    finally:
+        os.environ.pop(CHUNK_TARGET_ENV, None)
+    k1 = cs.resident_run_turns.launches - k1_before
+    if t.is_alive() or viewer.is_alive():
+        raise AssertionError("4m 512² live run did not end after 'q'")
+    if failed:
+        raise failed[0]
+    if t.exception is not None:
+        raise t.exception
+    if k1 <= 0:
+        raise AssertionError(f"4m {key} live run launched K1 {k1} times")
+    for alive, turn in pairs:
+        if alive != want(turn):
+            raise AssertionError(f"4m 512² polled ({alive}, {turn}), want "
+                                 f"{want(turn)}")
+    for e in events_q.taken:
+        if isinstance(e, ev.AliveCellsCount) \
+                and e.cells_count != want(e.completed_turns):
+            raise AssertionError(f"4m 512² ticker {e}: want "
+                                 f"{want(e.completed_turns)}")
+    if len(frames) < LIVE_MIN_FRAMES:
+        raise AssertionError(f"4m {key} live run drew {len(frames)} frames "
+                             f"in {live_s:.1f} s (polls, host ms: "
+                             f"{[round(v[0], 1) for v in polls]})")
+    # The last frame against the host oracle: the ash is period 2 from
+    # turn 10,000, which the oracle checks.
+    start = (read_pgm(os.path.join(images, "512x512.pgm")) != 0)
+    last = frames[-1][0]
+    if last >= ASH_512_SETTLED_BY:
+        settled = native.step_torus(start.astype(np.uint8),
+                                    ASH_512_SETTLED_BY)
+        if not np.array_equal(native.step_torus(settled, 2), settled):
+            raise AssertionError("4m: the 512² ash is not period 2")
+        oracle = native.step_torus(settled,
+                                   (last - ASH_512_SETTLED_BY) % 2)
+    else:
+        oracle = native.step_torus(start.astype(np.uint8), last)
+    if not np.array_equal(win._pixels, oracle != 0):
+        raise AssertionError(f"4m 512² last frame (turn {last}) != the "
+                             "host oracle's board")
+    steady = first_sightings(seen)
+    steady = steady[len(steady) // 4:] if len(steady) >= 8 else steady
+    live_rate = publication_rate(steady)
+    # A poll's predicted wait: the turns its view ran ahead of the
+    # published pair, at the run's rate (the polls of the chunk ramp,
+    # before any chunk was published, left out).
+    traced = [(ms, ahead, chunk) for ms, ahead, chunk, _, _ in polls
+              if 0 < ahead <= 4 * chunk]
+    # Which handle a poll waits on: the work queued on the engine's
+    # stream at its start (the event's completion), or the chunk that
+    # made its board (the first sighting of that turn's pair).
+    drained = [(m[2] - m[0]) * 1e3 for m in marks if m[2] is not None]
+    board_ready = []
+    for _, _, _, t0, view_turn in polls:
+        at = next((t for t, turn in seen if t >= t0 and turn >= view_turn),
+                  None)
+        if at is not None:
+            board_ready.append((at - t0) * 1e3)
+    cells = [c for _, _, c in frames]
+    LIVE_RESULTS[key] = {
+        "chunk_target_s": chunk_target, "frames": len(frames),
+        "seconds": live_s, "last_turn": last,
+        "frames_per_s": len(frames) / live_s,
+        "cells_flipped_per_frame_median": statistics.median(cells),
+        "cells_flipped_first_frame": cells[0],
+        "poll_host_ms_median": statistics.median(v[0] for v in polls),
+        "poll_host_ms_max": max(v[0] for v in polls), "polls": len(polls),
+        "poll_chunks_ahead_median": statistics.median(
+            ahead / chunk for _, ahead, chunk in traced) if traced else None,
+        "poll_predicted_ms_median": statistics.median(
+            ahead / live_rate * 1e3 for _, ahead, _ in traced)
+        if traced and live_rate else None,
+        "poll_stream_drained_ms_median": statistics.median(drained)
+        if drained else None,
+        "poll_board_published_ms_median": statistics.median(board_ready)
+        if board_ready else None,
+        "chunk_turns": polls[-1][2], "turns_per_s_live": live_rate,
+        "polled_pairs": len(pairs), "k1_launches": k1}
+    log(f"  ok 4m {key} live: {len(frames)} frames to turn {last}, each "
+        f"popcount the CSV's or the ash's, the last the oracle's board; "
+        f"{len(pairs)} polled pairs exact; "
+        f"{json.dumps(LIVE_RESULTS[key])} ({card.smi})")
+
+
+def glider_tile(t: int) -> np.ndarray:
+    """The GLIDER_TILE² torus holding one glider, at turn t (the glider
+    repeats every 4 * GLIDER_TILE turns there), stepped with numpy."""
+    tile = np.zeros((GLIDER_TILE, GLIDER_TILE), np.uint8)
+    tile[1, 2] = tile[2, 3] = tile[3, 1] = tile[3, 2] = tile[3, 3] = 1
+    for _ in range(t % (4 * GLIDER_TILE)):
+        n = sum(np.roll(np.roll(tile, dy, 0), dx, 1)
+                for dy in (-1, 0, 1) for dx in (-1, 0, 1)) - tile
+        tile = ((n == 3) | ((tile == 1) & (n == 2))).astype(np.uint8)
+    return tile
+
+
+def live_gliders(torch, dev, card: Card) -> None:
+    """4m: a LIVE_BIG² glider lattice, unbounded, its events drained by
+    `sdl.loop.start` into the window loop.start opens itself: the
+    downsampled view's size, and at every TurnComplete(t) the view of the
+    lattice at t, rebuilt from the tile's oracle. The board never
+    settles, so the frames carry diffs; the window's 'q' ends the run,
+    which launched K2."""
+    import gol_tpu_torch
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.distributor import live_view_shape
+    from gol_tpu_torch.engine import Engine
+    from gol_tpu_torch.io.pgm import write_pgm
+    from gol_tpu_torch.ops import cuda_stencil as cs
+    from gol_tpu_torch.sdl import loop
+    from gol_tpu_torch.sdl.window import Window
+
+    size, reps = LIVE_BIG, LIVE_BIG // GLIDER_TILE
+    rows, cols = live_view_shape(size, size)
+    f = size // rows
+    frames, flips, quit_sent = [], [0], []
+
+    def want(t: int) -> np.ndarray:
+        tile = glider_tile(t)
+        view = tile.reshape(GLIDER_TILE // f, f, GLIDER_TILE // f,
+                            f).max(axis=(1, 3))
+        return np.tile(view, (reps, reps)) != 0
+
+    class CheckedWindow(Window):
+        def flip_pixel(self, x: int, y: int) -> None:
+            flips[0] += 1
+            super().flip_pixel(x, y)
+
+        def render_frame(self, status: str = "") -> None:
+            t = int(status.split()[-1])
+            frames.append((t, flips[0], self._pixels.shape))
+            flips[0] = 0
+            if not np.array_equal(self._pixels, want(t)):
+                raise AssertionError(f"4m glider frame at turn {t} != the "
+                                     "lattice's view")
+            super().render_frame(status)
+
+        def poll_event(self):
+            drawn = sum(1 for _, n, _ in frames[1:] if n)
+            if not quit_sent and (drawn >= LIVE_GLIDER_FRAMES
+                                  or time.monotonic() > deadline):
+                quit_sent.append(time.monotonic())
+                return "q"
+            return None
+
+    p = Params(image_width=size, image_height=size, turns=10**12)
+    board = np.tile(glider_tile(0), (reps, reps)) * np.uint8(255)
+    k2_before = cs.tiled_sweep.launches
+    opened = loop.Window
+    loop.Window = CheckedWindow
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            seed_dir = os.path.join(tmp, "images")
+            write_pgm(os.path.join(seed_dir, f"{size}x{size}.pgm"), board)
+            events_q, keys = queue.Queue(), queue.Queue()
+            t0 = time.monotonic()
+            deadline = t0 + LIVE_DEADLINE_S
+            t = gol_tpu_torch.run(p, events_q, keys, engine=Engine(),
+                                  images_dir=seed_dir, out_dir=tmp,
+                                  live_view=True)
+            loop.start(p, events_q, keys)
+            seconds = time.monotonic() - t0
+            t.join(60)
+    finally:
+        loop.Window = opened
+    k2 = cs.tiled_sweep.launches - k2_before
+    if t.is_alive() or t.exception is not None:
+        raise AssertionError(f"4m glider run: alive {t.is_alive()}, "
+                             f"{t.exception!r}")
+    drawn = [n for _, n, _ in frames[1:] if n]
+    if (len(drawn) < LIVE_GLIDER_FRAMES or k2 <= 0
+            or any(shape != (rows, cols) for _, _, shape in frames)):
+        raise AssertionError(f"4m glider run: {len(frames)} frames, "
+                             f"{len(drawn)} with diffs, K2 launched {k2}, "
+                             f"window {frames[0][2] if frames else None}")
+    LIVE_RESULTS["gliders"] = {
+        "board": size, "tile": GLIDER_TILE, "view": [rows, cols],
+        "factor": f, "frames": len(frames), "frames_with_diffs": len(drawn),
+        "cells_flipped_per_frame_median": statistics.median(drawn),
+        "last_turn": frames[-1][0], "seconds": seconds,
+        "k2_launches": k2}
+    log(f"  ok 4m {size}² glider lattice live through loop.start: every "
+        f"frame the lattice's {rows}x{cols} view at its turn; "
+        f"{json.dumps(LIVE_RESULTS['gliders'])} ({card.smi})")
+
+
+def live_5120(torch, dev, card: Card) -> None:
+    """4m: a 5120² live run of 1000 turns, paused at its start so frames
+    arrive: every frame get_view's downsampled shape within
+    GOL_LIVE_MAX_CELLS (no get_world), the first against the plain
+    board's view, and the final PGM equal to the plain version."""
+    import gol_tpu_torch
+    from gol_tpu_torch import Params, events as ev
+    from gol_tpu_torch.distributor import LIVE_MAX_CELLS_DEFAULT
+    from gol_tpu_torch.engine import Engine
+    from gol_tpu_torch.io.pgm import read_pgm, write_pgm
+    from gol_tpu_torch.ops import bitpack, cuda_stencil as cs
+
+    size, cap = LIVE_BIG, LIVE_MAX_CELLS_DEFAULT
+    board = seeded_board(size, size)
+    eng = Engine()
+    views, worlds = [], [0]
+    get_view = eng.get_view
+
+    def spy_view(max_cells):
+        out = get_view(max_cells)
+        views.append((out[0].shape, out[1], tuple(out[2]), out[0].copy()))
+        return out
+
+    def spy_world():
+        worlds[0] += 1
+        raise AssertionError(f"4m {size}² live view asked for the world")
+
+    eng.get_view, eng.get_world = spy_view, spy_world
+    events_q, keys = queue.Queue(), queue.Queue()
+    keys.put("p")  # the engine parks at its first chunk boundary
+    k2_before = cs.tiled_sweep.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        seed_dir = os.path.join(tmp, "images")
+        write_pgm(os.path.join(seed_dir, f"{size}x{size}.pgm"), board)
+        out = os.path.join(tmp, "out")
+        t = gol_tpu_torch.run(
+            Params(image_width=size, image_height=size,
+                   turns=LIVE_BIG_TURNS), events_q, keys, engine=eng,
+            images_dir=seed_dir, out_dir=out, live_view=True)
+        deadline = time.monotonic() + 60
+        while len(views) < 3 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        keys.put("p")
+        t.join(120)
+        if t.is_alive():
+            raise AssertionError(f"4m {size}² live run did not end")
+        if t.exception is not None:
+            raise t.exception
+        got = read_pgm(os.path.join(
+            out, f"{size}x{size}x{LIVE_BIG_TURNS}.pgm"))
+    k2 = cs.tiled_sweep.launches - k2_before
+    evs = ev.drain(events_q)
+    if worlds[0] or not views or k2 <= 0:
+        raise AssertionError(f"4m {size}²: {len(views)} views, "
+                             f"{worlds[0]} world reads, {k2} K2 launches")
+    for shape, turn, (fy, fx), _ in views:
+        if (fy != fx or fy <= 1 or shape != (-(-size // fy),) * 2
+                or shape[0] * shape[1] > cap):
+            raise AssertionError(f"4m {size}² frame {shape} at factor "
+                                 f"{(fy, fx)}")
+    shape, turn, (f, _), first = views[0]
+    words = bitpack.words_from_numpy(bitpack.pack_np(board), dev)
+    at = bitpack.packed_run_turns(words, turn) if turn else words
+    if not np.array_equal(first, host_view(bitpack.words_to_numpy(at), f)):
+        raise AssertionError(f"4m {size}² first frame (turn {turn}) != the "
+                             "plain board's view")
+    turns = [e.completed_turns for e in evs
+             if isinstance(e, ev.TurnComplete)]
+    flipped = [c for e in evs if isinstance(e, ev.CellsFlipped)
+               for c in e.cells]
+    if not turns or any(not (0 <= x < shape[1] and 0 <= y < shape[0])
+                        for x, y in flipped):
+        raise AssertionError(f"4m {size}²: {len(turns)} frames, cells "
+                             "outside the view")
+    plain = bitpack.packed_run_turns(words, LIVE_BIG_TURNS)
+    want = bitpack.unpack_np(bitpack.words_to_numpy(plain)) * 255
+    if not np.array_equal(got, want):
+        raise AssertionError(f"4m {size}² live: board != plain version")
+    LIVE_RESULTS["big"] = {"views": len(views), "frames": len(turns),
+                            "view_shape": list(shape), "factor": f,
+                            "paused_at": turn, "k2_launches": k2}
+    log(f"  ok 4m {size}² x {LIVE_BIG_TURNS} live: "
+        f"{json.dumps(LIVE_RESULTS['big'])}, every frame view-sized "
+        f"(<= {cap} cells), no world read, the first equal to the plain "
+        "board's view, the final board the plain version's")
+
+
+def halfblocks(card: Card) -> None:
+    """4m: `native.render_halfblocks` of a 512² frame against the numpy
+    glyph mapping the window falls back to, with host ms of each."""
+    from gol_tpu_torch import native
+    from gol_tpu_torch.io.pgm import read_pgm
+    from gol_tpu_torch.sdl.window import halfblocks_np
+
+    frame = read_pgm(os.path.join(REPO, "check", "images",
+                                  "512x512x100.pgm"))
+    ms = {}
+    for name, fn in (("native", native.render_halfblocks),
+                     ("numpy", halfblocks_np)):
+        t0 = time.perf_counter()
+        text = fn(frame)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        ms[f"{name}_text"] = text
+    if ms.pop("native_text") != ms.pop("numpy_text"):
+        raise AssertionError("4m render_halfblocks != the numpy glyphs")
+    LIVE_RESULTS["halfblocks_ms"] = ms
+    log(f"  ok 4m render_halfblocks 512²: equal to the numpy glyphs; host "
+        f"ms {json.dumps({k: round(v, 3) for k, v in ms.items()})} "
+        f"({card.smi})")
+
+
+def phase_live_view(torch, dev) -> None:
+    """4m: the native host layer; the live view at 512² (by default and
+    with short chunks), of a 5120² glider lattice and of a bounded 5120²
+    run; the half-block renderer. Each live run checks its own launches:
+    the phase's gate alone would pass on any of them."""
+    card = Card(torch)
+    log("phase 4m: the live view and the native host layer")
+    os.environ["GOL_HEADLESS"] = "1"  # the windows draw no SDL here
+    t0 = time.monotonic()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            native_codec(torch, card, tmp)
+        live_512(torch, dev, card)
+        live_512(torch, dev, card, chunk_target=LIVE_SHORT_TARGET)
+        live_gliders(torch, dev, card)
+        live_5120(torch, dev, card)
+        halfblocks(card)
+    finally:
+        os.environ.pop("GOL_HEADLESS", None)
+    log(f"  4m took {time.monotonic() - t0:.1f} s")
+
+
+def log_live_summary(card: Card) -> None:
+    log(f"4m live view and native host layer on {card.smi}:")
+    LIVE_RESULTS["512_turns_per_s_phase5_engine_rate"] = BCAST_RESULTS.get(
+        "phase5_turns_per_s", {}).get(512)
+    for key, row in LIVE_RESULTS.items():
+        log(f"  4m {key}: " + json.dumps(row))
+
+
 def main_path_launches(cs) -> dict:
     """Launches per kernel on the main path; the two-plane kernels per
     family, as `name/family`, and K9 per route, as `name/route`."""
@@ -6035,11 +6592,22 @@ def main() -> int:
     log(f"phase 1: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{card.sms} SMs, max SM clock {card.max_sm_mhz:.0f} MHz, "
         f"{cs.cuda_probe()}")
-    log("phase 2: building the kernels with nvcc")
+    log("phase 2: building the kernels with nvcc, the host layer with g++")
+    from gol_tpu_torch import native
+
+    t_host = time.monotonic()
+    host = threading.Thread(target=native.lib)  # beside nvcc
+    host.start()
     _build.library()
     rec = _build.build_record()
     log(f"  built {rec['path']} in {rec['seconds']:.1f} s"
         f"{' (cached)' if rec['cached'] else ''}")
+    host.join()
+    if native.lib() is None:
+        raise AssertionError("the native host layer did not build (the "
+                             "native.build_failed line says why)")
+    log(f"  built {native.library_path()} with g++ "
+        f"({time.monotonic() - t_host:.1f} s, beside nvcc)")
     for line in rec["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
@@ -6102,7 +6670,11 @@ def main() -> int:
             # windows' K1/K2 windows, and K8 a shard.
             (phase_fleet_mesh, ("fleet_run_turns/resident",
                                 "resident_run_turns", "tiled_sweep",
-                                "window_occupancy"), False)):
+                                "window_occupancy"), False),
+            # 4m's live runs: K1 at 512², K2 at 5120² (each run also
+            # checks its own launches).
+            (phase_live_view, ("resident_run_turns", "tiled_sweep"),
+             False)):
         t_phase = time.monotonic()
         cs.reset_launch_counts()
         MEMBER_LAUNCHES.clear()
@@ -6170,6 +6742,7 @@ def main() -> int:
     log_federation_summary()
     log_mesh_summary(card)
     log_fleet_mesh_summary(card)
+    log_live_summary(card)
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

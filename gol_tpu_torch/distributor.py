@@ -51,6 +51,7 @@ from gol_tpu_torch.engine import (
     EngineBusy,
     EngineKilled,
     resolve_device,
+    view_factor,
 )
 from gol_tpu_torch.io.pgm import input_path, output_path, read_pgm, write_pgm
 from gol_tpu_torch.models.generations import GenerationsRule, gray_levels
@@ -74,6 +75,17 @@ LIVE_MAX_CELLS_DEFAULT = 1 << 21
 # controller emits EngineLost, polls ping until the engine answers, then
 # resumes from the engine's authoritative (world, turn), or resubmits its
 # own last-known board when the engine came back empty.
+def live_view_shape(width: int, height: int) -> tuple:
+    """(rows, columns) of the frames the live feed sends for a board:
+    the board's own within GOL_LIVE_MAX_CELLS (or when it is 0), else
+    `Engine.get_view`'s downsampled view."""
+    cap = env_int(LIVE_MAX_CELLS_ENV, LIVE_MAX_CELLS_DEFAULT, minimum=0)
+    if cap <= 0 or width * height <= cap:
+        return height, width
+    f = view_factor(height, width, cap)
+    return -(-height // f), -(-width // f)
+
+
 RECONNECT_ENV = "GOL_RECONNECT"
 RECONNECT_DEFAULT = 10.0
 
@@ -360,10 +372,19 @@ def distributor(
 
     # -- live view feed: CellsFlipped diffs + TurnComplete ----------------
     # (`Local/gol/event.go:92-110`): every 0.1 s, the cells that changed
-    # since the last frame seen, then the frame's turn.
+    # since the last frame seen, then the frame's turn. A poll waits for
+    # the chunk that made its board, the newest issued, so on a card
+    # frames come about once per chunks-in-flight x chunk wall.
     def live_loop() -> None:
         prev, prev_turn = None, -1
         cap = env_int(LIVE_MAX_CELLS_ENV, LIVE_MAX_CELLS_DEFAULT, minimum=0)
+        if 0 < cap < width * height:
+            import warnings
+
+            warnings.warn(
+                f"live view: board {width}x{height} exceeds "
+                f"GOL_LIVE_MAX_CELLS={cap}; streaming a downsampled view "
+                f"(O(viewport) bytes/frame, coordinates in view space)")
         while not done.wait(0.1):
             try:
                 world, turn, _ = engine.get_view(cap)

@@ -1,7 +1,10 @@
 """PGM (P5) board I/O, byte-compatible with `gol_tpu/io/pgm.py`.
 
-The numpy codec only (the JAX package's optional native C++ codec is not
-ported). Contracts preserved:
+Reads of {0, 255} boards go through the native C++ codec (`native.py`)
+when it is built, else through numpy; both accept the same files.
+`read_pgm.served` counts which codec served each read. Writes are numpy
+alone: the fsync dominates them, and the native write was no faster on
+an H100 host (PERF.md). Contracts preserved:
 
 * input path  `images/{W}x{H}.pgm`
 * output path `out/{W}x{H}x{TURN}.pgm`
@@ -68,8 +71,30 @@ def read_pgm(path: str, levels=None) -> np.ndarray:
     """Read a P5 PGM into an (H, W) uint8 array of {0, 255}, or of the
     byte values in `levels` when given: the header is tokenized, then
     exactly W*H payload bytes are taken after the single whitespace byte
-    that ends it."""
-    allowed = _allowed(levels)
+    that ends it. The native codec holds the {0, 255} contract only, so
+    `levels` reads take the numpy path."""
+    from gol_tpu_torch import native
+
+    if levels is None:
+        try:
+            board = native.read_pgm(path)
+        except native.HeaderParseError:
+            # The native tokenizer may be stricter than the format (a 64
+            # KB header prefix): re-parse in Python, so a file is
+            # accepted alike with and without the library. Payload
+            # errors raise ValueError above and are final.
+            board = None
+        if board is not None:
+            read_pgm.served["native"] += 1
+            return board
+    read_pgm.served["numpy"] += 1
+    return _read_pgm_np(path, _allowed(levels))
+
+
+read_pgm.served = {"native": 0, "numpy": 0}
+
+
+def _read_pgm_np(path: str, allowed: tuple) -> np.ndarray:
     with open(path, "rb") as f:
         buf = f.read()
     magic, pos = _read_token(buf, 0)

@@ -1,7 +1,7 @@
-"""Headless CLI — the counterpart of `gol_tpu/main.py` without its live
-window (`--live` waits for ROADMAP A13(d)).
+"""CLI — the counterpart of `gol_tpu/main.py`.
 
     python -m gol_tpu_torch -w 512 -h 512 --turns 100 --headless
+    python -m gol_tpu_torch -w 512 -h 512 --live    # SDL or ANSI live view
     python -m gol_tpu_torch -w 64 -h 64 --turns 100 --headless --device cpu
     python -m gol_tpu_torch -w 64 -h 64 --turns 100 --headless --rule /2/3 \
         --device cpu
@@ -17,8 +17,12 @@ window (`--live` waits for ROADMAP A13(d)).
         --profile-dir prof --profile-turns 64 --run-report run.jsonl \
         --trace-spans spans.json --metrics-port 0
 
-Events print as `Completed Turns <n>  <event>`; on a terminal the keys
-s/p/q/k/c go to the run ('c' writes a manifest checkpoint).
+Events go through `sdl.loop.start`: they print as `Completed Turns <n>
+<event>`, and with `--live` (and without `--headless`) the live feed is
+drawn, at its frame size, in an SDL window when libSDL2 is present, else
+as ANSI half-blocks on a terminal (`GOL_HEADLESS=1` keeps SDL closed). On
+a terminal, and in the window, the keys s/p/q/k/c go to the run ('c'
+writes a manifest checkpoint).
 """
 
 from __future__ import annotations
@@ -27,11 +31,10 @@ import argparse
 import os
 import queue
 import sys
-import threading
 
-from gol_tpu_torch import events as ev
 from gol_tpu_torch.gol import run
 from gol_tpu_torch.params import Params
+from gol_tpu_torch.sdl.loop import start as view_start
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -45,8 +48,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("-h", "--height", type=int, default=512)
     ap.add_argument("--turns", type=int, default=10_000_000_000)
     ap.add_argument("--headless", action="store_true",
-                    help="print events instead of drawing (the port's "
-                         "only view)")
+                    help="no window / terminal rendering, events printed")
+    ap.add_argument("--live", action="store_true",
+                    help="enable the live board view (polls views)")
     ap.add_argument("--rule", metavar="RULE", default="",
                     help="life-like rulestring, e.g. 'B36/S23'; "
                          "Generations 'survival/birth/states', e.g. "
@@ -186,57 +190,6 @@ def _stage_sparse_seed(name_or_path: str):
     return _stage_tmp_pgm(board, "seed.pgm", "gol_sparse_"), rle_rule
 
 
-def _stdin_key_reader(key_presses: "queue.Queue",
-                      stop: threading.Event) -> None:
-    """Forward s/p/q/k/c keystrokes; select() lets the thread see
-    `stop`."""
-    import select
-
-    while not stop.is_set():
-        try:
-            ready, _, _ = select.select([sys.stdin], [], [], 0.2)
-        except (OSError, ValueError):
-            return
-        if not ready:
-            continue
-        ch = sys.stdin.read(1)
-        if not ch:
-            return
-        if ch in ("s", "p", "q", "k", "c"):
-            key_presses.put(ch)
-        if ch in ("q", "k"):
-            return
-
-
-def _print_events(events_q: "queue.Queue",
-                  key_presses: "queue.Queue") -> None:
-    """Print events until CLOSE, with keys read from a terminal stdin."""
-    stop = threading.Event()
-    old = None
-    if sys.stdin.isatty():
-        import termios
-        import tty
-
-        old = termios.tcgetattr(sys.stdin.fileno())
-        tty.setcbreak(sys.stdin.fileno())
-        threading.Thread(target=_stdin_key_reader,
-                         args=(key_presses, stop), daemon=True).start()
-    try:
-        while True:
-            e = events_q.get()
-            if e is ev.CLOSE:
-                return
-            text = str(e)
-            if text:
-                print(f"Completed Turns {e.completed_turns:<8}{text}")
-    finally:
-        stop.set()
-        if old is not None:
-            import termios
-
-            termios.tcsetattr(sys.stdin.fileno(), termios.TCSADRAIN, old)
-
-
 def _resume(args, rule):
     """Restore the checkpoint `args.resume` names into the engine the
     run will use; returns (rule, restored turn). A manifest's rule and
@@ -371,9 +324,12 @@ def main(argv=None) -> int:
                     "run — start the server with --rule to match")
     events_q: "queue.Queue" = queue.Queue(maxsize=10000)
     key_presses: "queue.Queue" = queue.Queue(maxsize=10)
-    t = run(p, events_q, key_presses, rule=rule, device=args.device,
-            images_dir=images_dir, sparse=args.sparse)
-    _print_events(events_q, key_presses)
+    t = run(p, events_q, key_presses, live_view=args.live, rule=rule,
+            device=args.device, images_dir=images_dir, sparse=args.sparse)
+    # A window opens for the live feed alone: without --live nothing is
+    # drawn, and a sparse run has no feed (the distributor refuses it).
+    view_start(p, events_q, key_presses,
+               headless=args.headless or args.sparse or not args.live)
     t.join(30)
     # Export whatever spans the run recorded (no-op without
     # --trace-spans / GOL_TRACE_SPANS; never raises).

@@ -337,8 +337,13 @@ def test_router_dedupe_survives_member_failover(cluster):
 
     beating[owner.address] = False
     owner.close()
-    _wait(lambda: survivor.calls["AdoptRun"] >= 1, timeout=10,
-          what="adoption on the survivor")
+    # Synchronise on the router's own record of the adoption: its
+    # "adopt" audit row, appended after the placement re-points. The
+    # stub counts AdoptRun before it replies, so its count can lead the
+    # router's state.
+    _wait(lambda: any(r["kind"] == "adopt" and r.get("run_id") == "fo1"
+                      for r in router.audit_log.tail(0, 100)),
+          timeout=10, what="the router's adopt record")
     assert survivor.calls["AdoptRun"] == 1
     assert router.registry.get(owner.address).state == "dead"
     assert obs.FED_FAILOVERS.value == f0 + 1

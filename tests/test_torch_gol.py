@@ -14,11 +14,11 @@ import torch
 import gol_tpu
 from gol_tpu import events as jev
 from gol_tpu.engine import Engine as JaxEngine
-from gol_tpu.fixtures import ash_512_alive
 
 import gol_tpu_torch
 from gol_tpu_torch import Params, events as ev
 from gol_tpu_torch.engine import Engine
+from gol_tpu_torch.fixtures import ash_512_alive
 from gol_tpu_torch.io.pgm import read_pgm
 from gol_tpu_torch.ops import bitpack
 from gol_tpu_torch.ops.reference import run_turns_np
