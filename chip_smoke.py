@@ -107,7 +107,8 @@ Phases (each raises on failure; any failure exits non-zero):
    subscriber publishes no frame and starts no hub; two subscribers at
    2^20 cells see every frame of a 100 / 1000-turn drive equal the view
    of the plain board at its turn (512²: check/'s boards at turns 0 and
-   100 and the CSV's count); the engine's turns/s with both attached;
+   100 and the CSV's count); the engine's turns/s with both attached
+   (over 1.5 s);
    and the view's device ms a publication (CUDA events around
    `get_view`), there and at 65536², where `poll_device_memory` names
    the card as nvidia-smi does and counts the 512 MiB board live; last,
@@ -157,7 +158,7 @@ Phases (each raises on failure; any failure exits non-zero):
    checkpoint and a `migrate_quiesce` readback against K2, each new
    window's first K9 launch against `fleet_run_turns_plain` with its
    counted box (`spatial_windows` in the kernels line); the R-pentomino
-   on the 2^20 torus for 65,536 turns through SparseEngine unsharded and
+   on the 2^20 torus for 16,384 turns through SparseEngine unsharded and
    over 2 and 4, every publication, the window, grows, episodes and cells
    equal; `Engine.stats()["chunk_overhead_us"]` at 512² and 5120²
    against its gauge. Each rate beside the unsharded one and the card.
@@ -184,6 +185,22 @@ Phases (each raises on failure; any failure exits non-zero):
    each live run's own K1 or K2 launches above 0; and
    `native.render_halfblocks` of a 512² frame against the numpy glyphs,
    with host ms of each codec and renderer.
+   4n. the operator tools: a CUDA engine's 512² run of 1,048,576 turns
+   (K1; a digest every 65,536 turns) and a CUDA fleet's seedless 5120²
+   run (a run-id soup; K9 route 2) to turn 131,072, checkpointed every
+   8,192 turns (each checkpoint written a digest), journaled with
+   GOL_JOURNAL and
+   replayed on the card by `gol_tpu_torch.tools.replay_audit.main` (exit
+   0, every digest checked, the replay's own K1 / K2 launches above 0,
+   its wall seconds and turns/s beside the run's); the 5120² journal
+   with its ninth digest forged and re-chained (exit 1 at that seq and
+   turn, the eighth the last good, gol_replay_divergence_total up by
+   one, the dumped board the plain path's from the eighth digest's
+   board, whose hash the journal records); the 512² journal with one
+   byte of a digest flipped (exit 2 at its seq);
+   `gol_tpu_torch.tools.ckpt_inspect` `verify` and `list` of the fleet
+   run's checkpoints (exit 0) and `diff` of the first and the last
+   counting their XOR popcount.
    Each path runs with the launch counters at 0, read just after: every
    kernel (and family) it runs must have launched, and the paths whose
    alive counts come from chunks alone (4, 4c, 4d) must have launched K3
@@ -3759,6 +3776,7 @@ BCAST_BOARD = 64
 # downsampled view of 5120²).
 SUB_BOARDS = ((512, 100), (5120, 1000))
 SUB_MAX_CELLS = 1 << 20
+SUB_RATE_S = 1.5  # the turns/s window with two subscribers attached
 PROFILE_TURNS = 64
 # Phase 4i's numbers, for the summary lines at the end.
 BCAST_RESULTS: dict = {}
@@ -4152,7 +4170,7 @@ def subscribe_engine(torch, dev, size: int, turns: int):
         res["frame_turns"] = sorted({fr[0] for fr in frames})
         for t in tracked:
             t.frames.clear()
-        rate, _, _, chunk = engine_rate(torch, world, 3.0, eng=eng)
+        rate, _, _, chunk = engine_rate(torch, world, SUB_RATE_S, eng=eng)
         res["turns_per_s_subscribed"] = rate
         res["frames_during_rate"] = [len(t.snapshot()) for t in tracked]
         # The run ended on a quit: its parked turn, published, equals a
@@ -5595,6 +5613,7 @@ FM_SPATIAL_TARGETS = (13, 21)   # exact targets: quanta of 8 and a trim
 FM_QUARANTINE_TARGET = 40
 FM_RATE_S = 1.5          # a free-running fleet's counted window
 SPARSE_SHARDS = (2, 4)
+FM_SPARSE_TURNS = 16384  # the sharded sparse runs' depth (4g runs 65,536)
 C1_BOARDS = ((512, 20000), (5120, 2000))   # (side, turns)
 FM_RESULTS: dict = {"rates": [], "windows": {}, "seen": set(),
                     "check": True}
@@ -5851,7 +5870,7 @@ def fm_spatial(torch, dev, card: Card, tmp: str) -> None:
 
 
 def fm_sparse(torch, dev, card: Card) -> None:
-    """The R-pentomino on the 2^20 torus for 65,536 turns through
+    """The R-pentomino on the 2^20 torus for 16,384 turns through
     SparseEngine unsharded and over 2 and 4 positions of cuda:0, with a
     pinned chunk ladder: every publication's (turn, count, window shape,
     origin), the margins, grows, episodes and final cells are equal, and
@@ -5884,7 +5903,7 @@ def fm_sparse(torch, dev, card: Card) -> None:
                                           turns=SPARSE_STABLE_TURN), seed)
             eng.server_distributor(
                 Params(image_width=n, image_height=n,
-                       turns=SPARSE_LONG_TURNS - SPARSE_STABLE_TURN), None,
+                       turns=FM_SPARSE_TURNS - SPARSE_STABLE_TURN), None,
                 start_turn=SPARSE_STABLE_TURN)
             secs = time.perf_counter() - t0
             torus = eng._torus
@@ -5898,7 +5917,7 @@ def fm_sparse(torch, dev, card: Card) -> None:
             del eng, torus
             late = [c for t, c, *_ in pubs if t >= SPARSE_STABLE_TURN]
             if set(late) != {SPARSE_STABLE_ALIVE} or pubs[-1][0] != \
-                    SPARSE_LONG_TURNS:
+                    FM_SPARSE_TURNS:
                 raise AssertionError(f"4l sparse over {shards}: counts "
                                      f"{sorted(set(late))} from turn "
                                      f"{SPARSE_STABLE_TURN}")
@@ -5913,13 +5932,13 @@ def fm_sparse(torch, dev, card: Card) -> None:
         if not all(same.values()) or r["devices"] != shards:
             raise AssertionError(f"4l sparse over {shards}: {same}, "
                                  f"{r['devices']} devices")
-        log(f"  ok 4l sparse 2^20 x {SPARSE_LONG_TURNS} over {shards}: "
+        log(f"  ok 4l sparse 2^20 x {FM_SPARSE_TURNS} over {shards}: "
             f"{len(r['pubs'])} publications, window {r['window']} at "
             f"{r['origin']}, {r['grows']} grows, {r['episodes']} episodes "
             f"and {len(r['cells'])} cells equal the unsharded run's")
-        fm_rate(card, f"sparse 2^20 x {SPARSE_LONG_TURNS} over {shards}",
-                SPARSE_LONG_TURNS / r["secs"],
-                SPARSE_LONG_TURNS / base["secs"], "turns_per_s",
+        fm_rate(card, f"sparse 2^20 x {FM_SPARSE_TURNS} over {shards}",
+                FM_SPARSE_TURNS / r["secs"],
+                FM_SPARSE_TURNS / base["secs"], "turns_per_s",
                 window=list(r["window"]), grows=r["grows"],
                 episodes=r["episodes"])
 
@@ -6518,6 +6537,310 @@ def log_live_summary(card: Card) -> None:
         log(f"  4m {key}: " + json.dumps(row))
 
 
+# ------------------------------ phase 4n: the operator tools on the card
+
+# (size, turns, digest cadence): about 16 digests each. The 512² journal
+# is a single-run engine's (replayed on K1); the 5120² one a fleet run's
+# (replayed on K2), whose seedless create journals a soup its run id
+# rebuilds: an engine journals a seed of more than 2^22 cells by digest
+# alone (as gol_tpu's does), which no replay can start from.
+TOOLS_ENGINE = (512, 1 << 20, 1 << 16)
+TOOLS_FLEET = (5120, 1 << 17, 1 << 13)
+TOOLS_FORGED = 9             # the digest forged: the ninth
+TOOLS_RUN_ID = "tools5120"
+TOOLS_RESULTS: dict = {}
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set environment variables for the block, then restore them."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def tool_main(tool, argv: list) -> tuple:
+    """(exit code, stdout, stderr) of a tool's `main(argv)`."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = tool.main([str(a) for a in argv])
+    return rc, out.getvalue(), err.getvalue()
+
+
+def journal_file(jdir: str) -> str:
+    """The one journal a run wrote into `jdir`."""
+    (name,) = os.listdir(jdir)
+    return os.path.join(jdir, name)
+
+
+def engine_journal(dev, tmp: str, size: int, turns: int,
+                   every: int) -> tuple:
+    """A CUDA engine's run of a seeded `size`² soup with GOL_JOURNAL (a
+    digest every `every` turns). Returns (journal path, records,
+    seconds)."""
+    from gol_tpu_torch import Params, journal
+    from gol_tpu_torch.engine import Engine
+
+    jdir = os.path.join(tmp, f"j{size}")
+    world = seeded_board(size, size + 18)
+    eng = Engine(device=dev)
+    with environ(GOL_JOURNAL=jdir, GOL_JOURNAL_DIGEST_EVERY=every):
+        t0 = time.perf_counter()
+        eng.server_distributor(Params(image_width=size, image_height=size,
+                                      turns=turns), world)
+        secs = time.perf_counter() - t0
+    eng.kill_prog()
+    journal.reset()
+    path = journal_file(jdir)
+    return path, journal.load_records(path)[0], secs
+
+
+def fleet_journal(dev, tmp: str, size: int, turns: int,
+                  every: int) -> tuple:
+    """A CUDA fleet's seedless `size`² run to `turns`, checkpointing every
+    `every` turns into tmp/ck/run-<id>/ with GOL_JOURNAL: its create
+    journals the run-id soup, and each checkpoint a digest. Returns
+    (journal path, records, seconds, seed board)."""
+    from gol_tpu_torch import journal
+    from gol_tpu_torch.fleet.engine import FleetEngine, _soup
+
+    jdir = os.path.join(tmp, f"j{size}")
+    with environ(GOL_JOURNAL=jdir, GOL_CKPT=os.path.join(tmp, "ck"),
+                 GOL_CKPT_KEEP=100):
+        eng = FleetEngine(bucket_sizes=(size,), chunk_turns=64, device=dev)
+        try:
+            t0 = time.perf_counter()
+            eng.create_run(size, size, run_id=TOOLS_RUN_ID,
+                           ckpt_every=every, target_turn=turns)
+            run = eng.resolve_run(TOOLS_RUN_ID)
+            deadline = time.monotonic() + 120.0
+            while run.stats()["turn"] < turns:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"4n: the {size}² fleet run "
+                                         f"stopped at {run.stats()}")
+                time.sleep(0.01)
+            secs = time.perf_counter() - t0
+            path = journal_file(jdir)
+            while not any(r["kind"] == "digest" and r["turn"] == turns
+                          for r in journal.load_records(path)[0]):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"4n: no digest at turn {turns}")
+                time.sleep(0.01)
+        finally:
+            eng.kill_prog()
+            journal.reset()
+    return (path, journal.load_records(path)[0], secs,
+            _soup(TOOLS_RUN_ID, size, size))
+
+
+def replay_checked(torch, dev, path: str, records: list, run_secs: float,
+                   size: int, turns: int, kernel: str) -> dict:
+    """`replay_audit.main` on the card: exit 0, every digest checked,
+    the replay's own launches of `kernel` above 0, and its wall time
+    beside the run's."""
+    from gol_tpu_torch.ops import cuda_stencil as cs
+    from gol_tpu_torch.tools import replay_audit
+
+    digests = sum(r["kind"] == "digest" for r in records)
+    before = {fn.__name__: fn.launches for fn in cs.KERNELS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, out, err = tool_main(replay_audit, [path, "--device", dev])
+    secs = time.perf_counter() - t0
+    launches = {name: fn.launches - before[name] for name, fn in
+                ((fn.__name__, fn) for fn in cs.KERNELS)
+                if fn.launches != before[name]}
+    want = (f"replay ok: {digests} digest(s) bit-identical, final turn "
+            f"{turns}")
+    if rc != 0 or want not in out:
+        raise AssertionError(f"4n replay of {size}²: exit {rc}, {out!r} "
+                             f"{err!r} (want {want!r})")
+    if launches.get(kernel, 0) <= 0:
+        raise AssertionError(f"4n replay of {size}² launched no {kernel}: "
+                             f"{launches}")
+    res = dict(size=size, turns=turns, digests=digests, run_s=run_secs,
+               run_turns_per_s=turns / run_secs, replay_s=secs,
+               replay_turns_per_s=turns / secs, replay_launches=launches)
+    log(f"  ok 4n replay {size}² x {turns}: exit 0, {digests} digests "
+        f"checked; replay {secs:.3f} s ({turns / secs:.1f} turns/s, "
+        f"launches {launches}) beside the run's {run_secs:.3f} s "
+        f"({turns / run_secs:.1f} turns/s)")
+    return res
+
+
+def rechain(path: str, records: list) -> None:
+    """Write `records` to `path` with their chain hashes recomputed."""
+    from gol_tpu_torch import journal
+
+    head = journal.GENESIS
+    with open(path, "w") as fh:
+        for r in records:
+            r["prev"] = head
+            r["hash"] = head = journal.chain_hash(r)
+            fh.write(json.dumps(r) + "\n")
+
+
+def forged_digest(torch, dev, tmp: str, path: str, records: list,
+                  world: np.ndarray) -> dict:
+    """The ninth digest forged and the file re-chained: exit 1 at its
+    seq and turn, the eighth the last good, gol_replay_divergence_total
+    up by one, and the dumped board the plain path's at that turn (from
+    the eighth digest's board, whose hash the journal records)."""
+    from gol_tpu_torch import journal
+    from gol_tpu_torch.models.lifelike import CONWAY
+    from gol_tpu_torch.obs import catalog as obs
+    from gol_tpu_torch.ops import bitpack
+    from gol_tpu_torch.parallel.halo import packed_run_turns
+    from gol_tpu_torch.tools import replay_audit
+
+    recs = [dict(r) for r in records]
+    digests = [r for r in recs if r["kind"] == "digest"]
+    if len(digests) < TOOLS_FORGED:
+        # A fleet's cadence checkpoint replaces one still unwritten.
+        raise AssertionError(f"4n: {len(digests)} digests, fewer than "
+                             f"{TOOLS_FORGED}")
+    good, forged = digests[TOOLS_FORGED - 2], digests[TOOLS_FORGED - 1]
+    if good["turn"] >= forged["turn"]:
+        raise AssertionError(f"4n: digests {TOOLS_FORGED - 1} and "
+                             f"{TOOLS_FORGED} share turn {good['turn']}")
+    forged["board_sha256"] = "00" * 32
+    fpath = os.path.join(tmp, "forged.jsonl")
+    rechain(fpath, recs)
+    dump = os.path.join(tmp, "dump")
+    before = obs.REPLAY_DIVERGENCE.value
+    rc, _, err = tool_main(replay_audit, [fpath, "--device", dev,
+                                          "--dump", dump])
+    stem = os.path.join(dump, "divergence-"
+                        f"{journal._safe_name(recs[0]['run_id'])}"
+                        f"-seq{forged['seq']}")
+    with open(stem + ".json") as fh:
+        report = json.load(fh)
+    got = (rc, report["seq"], report["turn"], report["last_good_seq"],
+           report["last_good_turn"], obs.REPLAY_DIVERGENCE.value - before)
+    want = (1, forged["seq"], forged["turn"], good["seq"], good["turn"], 1)
+    if got != want or f"DIVERGENCE at seq {forged['seq']}" not in err:
+        raise AssertionError(f"4n forged digest: {got} != {want}; {err!r}")
+    words = packed_run_turns(bitpack.pack(torch.from_numpy(world).to(dev)),
+                             good["turn"], CONWAY)
+    host = bitpack.words_to_numpy(words)
+    if journal.board_digest(host, "packed") != good["board_sha256"]:
+        raise AssertionError("4n: the eighth digest's board does not hash "
+                             "to the journal's")
+    words = plain_step(torch, words, forged["turn"] - good["turn"],
+                       "packed", CONWAY)
+    plain = bitpack.unpack(words).cpu().numpy()
+    with np.load(stem + "-replayed.npz") as z:
+        dumped, dturn = z["board"], int(z["turn"])
+    if dturn != forged["turn"] or not np.array_equal(dumped, plain):
+        raise AssertionError("4n: the dumped board != the plain path's at "
+                             f"turn {forged['turn']}")
+    log(f"  ok 4n forged digest {TOOLS_FORGED} (seq {forged['seq']}, turn "
+        f"{forged['turn']}): exit 1, last good seq {good['seq']} turn "
+        f"{good['turn']}, gol_replay_divergence_total +1, the dumped board "
+        "the plain path's")
+    return dict(seq=forged["seq"], turn=forged["turn"],
+                last_good=(good["seq"], good["turn"]))
+
+
+def flipped_byte(tmp: str, path: str, dev) -> int:
+    """One byte of a digest's hash flipped (the first from line 5 on):
+    exit 2 at its seq."""
+    from gol_tpu_torch.tools import replay_audit
+
+    with open(path) as fh:
+        lines = fh.readlines()
+    key = '"board_sha256":"'
+    line = next(n for n in range(5, len(lines)) if key in lines[n])
+    seq = json.loads(lines[line])["seq"]
+    i = lines[line].index(key) + len(key)
+    lines[line] = (lines[line][:i] + ("1" if lines[line][i] == "0" else "0")
+                   + lines[line][i + 1:])
+    fpath = os.path.join(tmp, "flipped.jsonl")
+    with open(fpath, "w") as fh:
+        fh.writelines(lines)
+    rc, _, err = tool_main(replay_audit, [fpath, "--device", dev])
+    if rc != 2 or f"chain FAILED at seq {seq}:" not in err:
+        raise AssertionError(f"4n flipped byte: exit {rc}, {err!r}")
+    log(f"  ok 4n flipped byte at seq {seq}: exit 2 at that seq")
+    return seq
+
+
+def inspected_checkpoints(root: str) -> dict:
+    """`ckpt_inspect` on the fleet run's checkpoint root: `verify` of its
+    run-<id>/ directory and `list` of the root exit 0 (the list names
+    each checkpoint), and `diff` of the first and the last counts the XOR
+    popcount of their packed words."""
+    from gol_tpu_torch.ckpt import manifest as mf
+    from gol_tpu_torch.tools import ckpt_inspect
+
+    ck = os.path.join(root, f"run-{TOOLS_RUN_ID}")
+    items = list(mf.list_checkpoints(ck))
+    rc_v, out_v, _ = tool_main(ckpt_inspect, ["verify", ck])
+    rc_l, out_l, _ = tool_main(ckpt_inspect, ["list", root])
+    listed = [line.split()[0] for line in out_l.splitlines()[1:]]
+    if (rc_v, rc_l) != (0, 0) or len(items) < 2 or \
+            f"{len(items)} ok, 0 failed" not in out_v or \
+            listed != [TOOLS_RUN_ID] * len(items):
+        raise AssertionError(f"4n ckpt_inspect: verify {rc_v} {out_v!r}, "
+                             f"list {rc_l}")
+    (_, pa, ma), (_, pb, mb) = items[0], items[-1]
+    rc_d, out_d, _ = tool_main(ckpt_inspect, ["diff", pa, pb])
+    with np.load(mf.payload_path(pa, ma)) as za, \
+            np.load(mf.payload_path(pb, mb)) as zb:
+        xor = (za["words"] ^ zb["words"]).view(np.uint8)
+    want = int(np.unpackbits(xor).sum())
+    said = (f"boards: DIFFER in {want} cell(s)" if want
+            else "boards: IDENTICAL")
+    if rc_d != (1 if want else 0) or said not in out_d:
+        raise AssertionError(f"4n ckpt_inspect diff: {rc_d} {out_d!r}, "
+                             f"XOR popcount {want}")
+    log(f"  ok 4n ckpt_inspect: verify and list of {len(items)} "
+        f"checkpoints exit 0; diff of turns {ma['turn']} and {mb['turn']} "
+        f"counts {want} cells, their XOR popcount")
+    return dict(checkpoints=len(items), diff_cells=want)
+
+
+def phase_tools(torch, dev) -> None:
+    """4n: the port's operator tools on the card: an engine's and a
+    fleet's journaled runs replayed by `replay_audit` (K1 at 512², K2 at
+    5120²), a flipped byte in the first journal, a forged digest in the
+    second, and `ckpt_inspect` on the fleet run's checkpoints."""
+    card = Card(torch)
+    log("phase 4n: the operator tools on the card")
+    dev = str(dev)
+    t0 = time.monotonic()
+    TOOLS_RESULTS["card"] = card.smi
+    with tempfile.TemporaryDirectory() as tmp:
+        path, records, secs = engine_journal(dev, tmp, *TOOLS_ENGINE)
+        engine = replay_checked(torch, dev, path, records, secs,
+                                *TOOLS_ENGINE[:2], "resident_run_turns")
+        TOOLS_RESULTS["flipped_seq"] = flipped_byte(tmp, path, dev)
+        path, records, secs, world = fleet_journal(dev, tmp, *TOOLS_FLEET)
+        fleet = replay_checked(torch, dev, path, records, secs,
+                               *TOOLS_FLEET[:2], "tiled_sweep")
+        TOOLS_RESULTS["replays"] = [engine, fleet]
+        TOOLS_RESULTS["forged"] = forged_digest(torch, dev, tmp, path,
+                                                records, world)
+        TOOLS_RESULTS["ckpt_inspect"] = inspected_checkpoints(
+            os.path.join(tmp, "ck"))
+    TOOLS_RESULTS["seconds"] = time.monotonic() - t0
+    log(f"  4n took {TOOLS_RESULTS['seconds']:.1f} s")
+
+
+def log_tools_summary(card: Card) -> None:
+    log(f"4n operator tools on {card.smi}:")
+    log("  4n: " + json.dumps(TOOLS_RESULTS, default=str))
+
+
 def main_path_launches(cs) -> dict:
     """Launches per kernel on the main path; the two-plane kernels per
     family, as `name/family`, and K9 per route, as `name/route`."""
@@ -6674,7 +6997,10 @@ def main() -> int:
             # 4m's live runs: K1 at 512², K2 at 5120² (each run also
             # checks its own launches).
             (phase_live_view, ("resident_run_turns", "tiled_sweep"),
-             False)):
+             False),
+            # 4n's journaled runs and their replays: K1 at 512², K2 at
+            # 5120² (each replay also checks its own launches).
+            (phase_tools, ("resident_run_turns", "tiled_sweep"), False)):
         t_phase = time.monotonic()
         cs.reset_launch_counts()
         MEMBER_LAUNCHES.clear()
@@ -6743,6 +7069,7 @@ def main() -> int:
     log_mesh_summary(card)
     log_fleet_mesh_summary(card)
     log_live_summary(card)
+    log_tools_summary(card)
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -162,10 +162,12 @@ CHUNK_TARGET_ENV = "GOL_CHUNK_TARGET"
 MAX_CHUNK = 1 << 21
 MAX_CHUNK_ENV = "GOL_MAX_CHUNK"
 # Chunks in flight; depth + 1 boards must fit half the device's memory
-# (or PIPELINE_BOARD_BUDGET where it reports none). GOL_PIPELINE_DEPTH=1
-# synchronises every chunk.
+# (or PIPELINE_BOARD_BUDGET where it reports none); GOL_PIPELINE_BUDGET
+# (bytes, > 0) replaces that half. GOL_PIPELINE_DEPTH=1 synchronises
+# every chunk.
 PIPELINE_DEPTH = 3
 PIPELINE_DEPTH_ENV = "GOL_PIPELINE_DEPTH"
+PIPELINE_BUDGET_ENV = "GOL_PIPELINE_BUDGET"
 PIPELINE_BOARD_BUDGET = 8 << 30
 
 # Legacy single-file autosave under GOL_CKPT, every GOL_CKPT_EVERY
@@ -680,7 +682,8 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         return out, host, tuple(events.values())
 
     def _pipeline_depth(self, cells) -> int:
-        budget = half_device_memory(PIPELINE_BOARD_BUDGET, self._device)
+        budget = (env_int(PIPELINE_BUDGET_ENV, 0, minimum=0)
+                  or half_device_memory(PIPELINE_BOARD_BUDGET, self._device))
         # The budget is per device: a sharded board's busiest device.
         nbytes = (cells.device_bytes() if isinstance(cells, ShardedBoard)
                   else cells.numel() * cells.element_size())

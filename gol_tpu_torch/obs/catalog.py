@@ -305,6 +305,13 @@ JOURNAL_DIGESTS = REGISTRY.counter(
     "GOL_JOURNAL_DIGEST_EVERY plus every checkpoint written while "
     "journaling is on) — each one is a mid-history bit-identity "
     "assertion a replay can check.")
+REPLAY_DIVERGENCE = REGISTRY.counter(
+    "gol_replay_divergence_total",
+    "Digest events at which a tools/replay_audit.py replay disagreed "
+    "with the recorded journal. Stays 0 for a healthy deterministic "
+    "engine; any increment means the recorded history and the engine "
+    "no longer agree and the auditor has bisected to the first "
+    "divergent turn.")
 
 # ---------------------------------------------------------- kernel tiers
 
