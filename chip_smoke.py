@@ -201,6 +201,24 @@ Phases (each raises on failure; any failure exits non-zero):
    `gol_tpu_torch.tools.ckpt_inspect` `verify` and `list` of the fleet
    run's checkpoints (exit 0) and `diff` of the first and the last
    counting their XOR popcount.
+   4o. the serving SLO window and the examples: the load tool's cycle
+   load (`gol_tpu_torch.tools.load_smoke.run_load`, 8 clients x 16
+   CreateRun/AttachRun/GetView/CFput/DestroyRun cycles) against the
+   port's fleet server on the card (one 64² bucket: K9 route 1), with
+   one client (16 cycles: the serial round trip), with eight, and with
+   eight beside up to 2000 Subscribe viewers parked on a watched run
+   (clamped to RLIMIT_NOFILE, held 1 s): zero errors, exactly 16 x the
+   clients samples a method, every viewer alive with bytes drained; each
+   method's client p50/p99/max ms beside the server's handler and
+   accept-wait p50/p99 (`obs.slo.rpc_snapshot` after `obs.slo.reset`);
+   then, in processes of their own started together (launches merged
+   in), `python -m gol_tpu_torch.tools.load_smoke --clients 8 --cycles
+   16` (README's command: exit 0, its summary's counts) and the four
+   `examples/torch_*.py` with their default arguments: each prints its
+   promised lines, `basic_run`'s PGM is the 64² golden at turn 100,
+   `brians_brain`'s firing count the gen8 plain path's after its turns
+   (1024², K5), `detach_resume`'s final count the numpy oracle's at its
+   final turn, and `sparse_gun`'s count a dense 2048² plain-path run's.
    Each path runs with the launch counters at 0, read just after: every
    kernel (and family) it runs must have launched, and the paths whose
    alive counts come from chunks alone (4, 4c, 4d) must have launched K3
@@ -229,7 +247,7 @@ Phases (each raises on failure; any failure exits non-zero):
    checkpoint cadence beside the rate without, on one warm engine;
    then phase 4h's measurements, the JAX bench's fleet leg
    (`bench.py:1774-1782,1843-1856`): 1, 64 and 512 free-running 512²
-   runs in one FleetEngine over 3 s each (aggregate cell updates/s, p50
+   runs in one FleetEngine over 2 s each (aggregate cell updates/s, p50
    and p99 per-run turn latency, chunk_overhead_us, K9's device ms a
    quantum under `torch.profiler`, one run's board against a K1 replay
    of its seed), a wire-driven single 512² run (one ServerDistributor a
@@ -1723,14 +1741,14 @@ def phase_checkpoint_measure(torch, dev, card: Card) -> dict:
             shutil.rmtree(ck)
         board = seeded_board(5120, 5120)
         held = Engine()
-        engine_rate(torch, board, 3.0, eng=held)  # warm: converged chunk
+        engine_rate(torch, board, 1.5, eng=held)  # warm: converged chunk
         rates = {"off": [], "on": []}
         for mode in ("off", "on", "on", "off"):
             if mode == "on":
                 os.environ.update(GOL_CKPT=os.path.join(tmp, "cadence"),
                                   GOL_CKPT_EVERY_TURNS="65536")
             try:
-                rate, _, _, chunk = engine_rate(torch, board, 3.0, eng=held)
+                rate, _, _, chunk = engine_rate(torch, board, 2.0, eng=held)
             finally:
                 os.environ.pop("GOL_CKPT", None)
                 os.environ.pop("GOL_CKPT_EVERY_TURNS", None)
@@ -2047,8 +2065,8 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
 
     engine = []
     # 65536² runs unfused, then at GOL_FUSE_K=64 on the same board.
-    for size, seconds, fuses in ((512, 3.0, (None,)), (5120, 3.0, (None,)),
-                                 (65536, 6.0, (None, 64))):
+    for size, seconds, fuses in ((512, 2.0, (None,)), (5120, 2.0, (None,)),
+                                 (65536, 4.0, (None, 64))):
         words = seeded_words(torch, size, size // 32, 3, dev)
         world = bitpack.unpack_np(bitpack.words_to_numpy(words))
         del words
@@ -2175,7 +2193,7 @@ def engine_rates_generations(torch, dev, card: Card) -> list:
         state = rng.choice(np.array([0, 1, 2], np.uint8), size=(size, size),
                            p=[0.7, 0.2, 0.1])
         world = to_pixels_gen(state, rule)
-        rate, poll_us, gap, chunk = engine_rate(torch, world, 3.0, rule)
+        rate, poll_us, gap, chunk = engine_rate(torch, world, 2.0, rule)
         engine.append(dict(size=size, rule=rule.rulestring, card=card.smi,
                            turns_per_s=rate,
                            cell_updates_per_s=rate * size * size,
@@ -2637,7 +2655,7 @@ def timing_ltl(torch, dev, card: Card) -> tuple:
         else:
             world = ((np.random.default_rng(size).random((size, size))
                       < 0.4) * 255).astype(np.uint8)
-        rate, poll_us, gap, chunk = engine_rate(torch, world, 3.0, rule)
+        rate, poll_us, gap, chunk = engine_rate(torch, world, 2.0, rule)
         engine.append(dict(size=size, rule=rule.rulestring, card=card.smi,
                            turns_per_s=rate,
                            cell_updates_per_s=rate * size * size,
@@ -3220,7 +3238,7 @@ FLEET_BOXED = (528, 64)
 # The JAX bench's fleet leg (bench.py:1774-1782): free-running 512² runs
 # in one FleetEngine, counted over a wall window.
 FLEET_RUN_COUNTS = (1, 64, 512)
-FLEET_WINDOW_S = 3.0
+FLEET_WINDOW_S = 2.0
 # Phase 4h's exact-target runs: one a class, the target not a multiple
 # of the 8-turn quantum, so the last 5 turns are the trim (K1 at 512², K2
 # at 1024² and 2048²). The default classes all step on K9 route 1; a
@@ -3932,6 +3950,14 @@ class Tracked:
                              f"{[f[0] for f in self.snapshot()][-8:]})")
 
     def close(self) -> None:
+        import socket
+
+        # A shutdown wakes the reader blocked in recv; a close from this
+        # thread alone does not, and the join would wait out its timeout.
+        try:
+            self.sub._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         self.sub.close()
         self._thread.join(timeout=10.0)
 
@@ -3942,25 +3968,31 @@ def bcast_frames_total() -> float:
     return sum(c.value for c in obs.BCAST_FRAMES.children().values())
 
 
+def viewer_budget(wanted: int) -> int:
+    """`wanted` viewers, or fewer: two fds a viewer (client and server
+    ends in one process) under the soft RLIMIT_NOFILE, raised to the
+    hard one first."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    soft = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+    return min(wanted, max(1, (soft - 256) // 2))
+
+
 def broadcast_leg(dev) -> dict:
     """The JAX bench's broadcast leg on the port: encode calls per
     published frame (exactly 1.0), the gateway's fan-out quantiles, and
     a tracked viewer's frame bit-identical to a fresh GetView at a
     pinned turn."""
-    import resource
-
     from gol_tpu_torch.client import RemoteEngine
     from gol_tpu_torch.engine import FLAG_PAUSE
     from gol_tpu_torch.fleet import FleetEngine
     from gol_tpu_torch.obs import catalog as obs
     from gol_tpu_torch.server import EngineServer
 
-    # Two fds a viewer (client and server ends): clamp to the limit.
-    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
-    if soft < hard:
-        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
-    soft = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
-    viewers = min(BCAST_VIEWERS, max(BCAST_TRACKED + 1, (soft - 256) // 2))
+    viewers = max(BCAST_TRACKED + 1, viewer_budget(BCAST_VIEWERS))
     n = BCAST_BOARD
     cells = n * n
     eng = FleetEngine(bucket_sizes=(n,), chunk_turns=2, slot_base=8,
@@ -6841,6 +6873,352 @@ def log_tools_summary(card: Card) -> None:
     log("  4n: " + json.dumps(TOOLS_RESULTS, default=str))
 
 
+# ------------------ phase 4o: the serving SLO window, and the examples
+
+# `python -m gol_tpu_torch.tools.load_smoke --clients 8 --cycles 16`, and
+# its `--viewers 2000` (README): the cycle load on the tool's own fleet
+# server (one 64² bucket, two-turn quanta, 8 slots), with and without
+# the parked audience (clamped to RLIMIT_NOFILE as in 4i).
+LOAD_CLIENTS = 8
+LOAD_CYCLES = 16
+LOAD_VIEWERS = 2000
+LOAD_HOLD_S = 1.0
+# The examples, each with its default arguments, and the lines it
+# promises (tests/test_examples.py).
+EXAMPLES = (("torch_basic_run.py", ("final",)),
+            ("torch_brians_brain.py", ("cells firing", "packed bit-plane")),
+            ("torch_detach_resume.py", ("detached at turn",
+                                        "resumed and finished")),
+            ("torch_sparse_gun.py", ("gliders in flight", "live window")))
+# A script or module run in a process of its own, which writes that
+# process's launch counts to a file when it returns.
+COUNTED_LAUNCHER = (
+    "import json, runpy, sys\n"
+    "import chip_smoke\n"
+    "from gol_tpu_torch.ops import cuda_stencil as cs\n"
+    "counts, target = sys.argv[1], sys.argv[2]\n"
+    "sys.argv = sys.argv[2:]\n"
+    "rc = 0\n"
+    "try:\n"
+    "    if target.endswith('.py'):\n"
+    "        runpy.run_path(target, run_name='__main__')\n"
+    "    else:\n"
+    "        runpy.run_module(target, run_name='__main__', alter_sys=True)\n"
+    "except SystemExit as e:\n"
+    "    rc = e.code if isinstance(e.code, int) else 1\n"
+    "with open(counts, 'w') as f:\n"
+    "    json.dump(chip_smoke.main_path_launches(cs), f)\n"
+    "sys.exit(rc)\n")
+SERVING_RESULTS: dict = {}
+
+
+def server_split(want: int, create_extra: int = 0) -> dict:
+    """The SLO window's {kind: {method: snapshot}} once every cycle method
+    holds exactly `want` samples of each kind (CreateRun `want +
+    create_extra`): the server records its handler and wait samples after
+    it replies."""
+    from gol_tpu_torch.obs import catalog as obs
+    from gol_tpu_torch.obs import slo
+    from gol_tpu_torch.tools.load_smoke import CYCLE_METHODS
+
+    goal = {(k, m): want + (create_extra if m == "CreateRun" else 0)
+            for k in obs.RPC_KINDS for m in CYCLE_METHODS}
+    deadline = time.monotonic() + 30.0
+    while True:
+        slo.flush()
+        split = slo.rpc_snapshot()
+        counts = {km: split.get(km[0], {}).get(km[1], {}).get("count", 0)
+                  for km in goal}
+        if all(counts[km] >= n for km, n in goal.items()):
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"4o: the SLO window's counts {counts}, "
+                                 f"not {goal}")
+        time.sleep(0.02)
+    if counts != goal:
+        raise AssertionError(f"4o: the SLO window's counts {counts}, not "
+                             f"{goal}")
+    return {k: {m: split[k][m] for m in CYCLE_METHODS}
+            for k in obs.RPC_KINDS}
+
+
+def load_window(dev, viewers: int, clients: int = LOAD_CLIENTS) -> dict:
+    """One SLO window: the load tool's cycle load (`clients` x
+    LOAD_CYCLES) against the port's fleet server on `dev`, after one warm
+    cycle, with `viewers` parked on a watched run; the client's exact
+    percentiles per method and the server's handler / wait estimators."""
+    from gol_tpu_torch.client import RemoteEngine
+    from gol_tpu_torch.fleet import FleetEngine
+    from gol_tpu_torch.obs import slo
+    from gol_tpu_torch.server import EngineServer
+    from gol_tpu_torch.tools import load_smoke
+
+    t0 = time.monotonic()
+    eng = FleetEngine(bucket_sizes=(64,), chunk_turns=2, slot_base=8,
+                      device=dev)
+    srv = EngineServer(port=0, host="127.0.0.1", engine=eng)
+    srv.start_background()
+    address = f"127.0.0.1:{srv.port}"
+    pool, stats, want = None, None, clients * LOAD_CYCLES
+    try:
+        slo.reset()
+        warm = load_smoke.run_load(address, clients=1, cycles=1)
+        if warm["errors"]:
+            raise AssertionError(f"4o warm cycle: {warm['errors']}")
+        if viewers:
+            ctl = RemoteEngine(address, timeout=30.0)
+            watched = ctl.create_run(64, 64)["run_id"]
+            pool, errors = load_smoke.open_viewers(
+                address, viewers=viewers, run_id=watched)
+            if errors:
+                raise AssertionError(f"4o viewers: {errors[:3]}")
+        # Every sample before the window has landed: then it opens, and
+        # holds the loaded cycles alone.
+        server_split(1, create_extra=1 if viewers else 0)
+        slo.reset()
+        res = load_smoke.run_load(address, clients=clients,
+                                  cycles=LOAD_CYCLES)
+        if viewers:
+            time.sleep(LOAD_HOLD_S)
+            stats = pool.stats()
+        split = server_split(want)
+    finally:
+        if pool is not None:
+            pool.close()
+        eng.kill_prog()
+        srv.shutdown()
+    if res["errors"]:
+        raise AssertionError(f"4o load errors: {res['errors'][:3]}")
+    table = load_smoke.summarize(res["samples"])
+    for m in load_smoke.CYCLE_METHODS:
+        if len(res["samples"].get(m, ())) != want:
+            raise AssertionError(f"4o: {m} has "
+                                 f"{len(res['samples'].get(m, ()))} "
+                                 f"samples, not {want}")
+    if viewers and (stats["alive"] != viewers or stats["closed"]
+                    or stats["bytes"] <= 0):
+        raise AssertionError(f"4o viewers after the hold: {stats}")
+    out = {"clients": clients, "viewers": viewers,
+           "load_wall_s": res["wall_s"],
+           "leg_s": round(time.monotonic() - t0, 3), "methods": {}}
+    for m, row in table.items():
+        out["methods"][m] = dict(
+            row, **{f"{k}_{q}_ms": round(split[k][m][q] * 1e3, 3)
+                    for k in ("handler", "wait") for q in ("p50", "p99")})
+    if viewers:
+        out["viewer_stats"] = stats
+    log(f"  4o load {clients} x {LOAD_CYCLES} with {viewers} viewers "
+        f"({res['wall_s']} s): "
+        + json.dumps(out["methods"], sort_keys=True)
+        + (f"; viewers {stats}" if viewers else ""))
+    return out
+
+
+def oracle_alive_at(board01: np.ndarray, turns: int) -> int:
+    """Alive cells after `turns` turns of the numpy oracle, through the
+    board's cycle once it repeats (a 64² soup settles in hundreds)."""
+    from gol_tpu_torch.ops.reference import step_np
+
+    seen: dict = {}
+    t = 0
+    while t < turns:
+        key = board01.tobytes()
+        if key in seen:
+            period = t - seen[key]
+            for _ in range((turns - t) % period):
+                board01 = step_np(board01)
+            return int(board01.sum())
+        seen[key] = t
+        board01 = step_np(board01)
+        t += 1
+    return int(board01.sum())
+
+
+# The examples' default turns (their counts' references are computed on
+# the card while the examples run).
+BRIANS_TURNS = 2000
+GUN_TURNS = 3000
+
+
+def example_references(torch, dev) -> dict:
+    """The counts the examples must print at their default arguments:
+    Brian's Brain's firing cells after BRIANS_TURNS turns of the gen8
+    plain path on the example's seed-0 1024² board, and the gun's alive
+    cells after GUN_TURNS turns of a dense 2048² plain-path run (no
+    glider of 3000 turns leaves a 2048² torus centred on the gun, so its
+    count is the 2^20 torus's)."""
+    from gol_tpu_torch.models import generations as gen
+    from gol_tpu_torch.models.lifelike import CONWAY
+    from gol_tpu_torch.models.patterns import stamp
+    from gol_tpu_torch.ops import bitpack
+
+    board = np.random.default_rng(0).integers(
+        0, 3, size=(1024, 1024)).astype(np.uint8)
+    plain = gen.run_turns(torch.from_numpy(board).to(dev), BRIANS_TURNS,
+                          gen.BRIANS_BRAIN)
+    dense = stamp(np.zeros((2048, 2048), np.uint8), "gosper-gun",
+                  at=(1024, 1024))
+    words = bitpack.packed_run_turns(
+        bitpack.words_from_numpy(bitpack.pack_np(dense), dev), GUN_TURNS,
+        CONWAY)
+    return {"firing": int((plain == 1).sum()),
+            "gun_alive": bitpack.packed_alive_count(words)}
+
+
+def check_example(name: str, out: str, out_dir: str, refs: dict) -> dict:
+    """An example's promised lines, and its board or count against an
+    independent one: the golden PGM (basic_run), `example_references`
+    (brians_brain, sparse_gun), the numpy oracle at the final turn
+    (detach_resume)."""
+    from gol_tpu_torch.io.pgm import read_pgm
+
+    for line in dict(EXAMPLES)[name]:
+        if line not in out:
+            raise AssertionError(f"4o {name}: no {line!r} in {out!r}")
+    if name == "torch_basic_run.py":
+        final = re.search(r"turn +100: final \((\d+) alive\)", out)
+        want = read_pgm(os.path.join(REPO, "check", "images",
+                                     "64x64x100.pgm"))
+        board = read_pgm(os.path.join(out_dir, "64x64x100.pgm"))
+        got = {"alive": int(final.group(1)),
+               "want": int((want == 255).sum())}
+        ok = np.array_equal(board, want) and got["alive"] == got["want"]
+    elif name == "torch_brians_brain.py":
+        turns, firing = map(int, re.search(
+            r"(\d+) turns of 1024.*?(\d+) cells firing", out).groups())
+        got = {"turns": turns, "firing": firing, "want": refs["firing"]}
+        ok = turns == BRIANS_TURNS and firing == refs["firing"]
+    elif name == "torch_detach_resume.py":
+        t1 = int(re.search(r"detached at turn (\d+)", out).group(1))
+        t2, alive = map(int, re.search(
+            r"finished at turn (\d+) \((\d+) alive\)", out).groups())
+        seed = (read_pgm(os.path.join(REPO, "images", "64x64.pgm"))
+                // 255).astype(np.uint8)
+        got = {"detached": t1, "finished": t2, "alive": alive,
+               "want": oracle_alive_at(seed, t2)}
+        ok = t1 > 0 and t2 == t1 + 1000 and alive == got["want"]
+    else:
+        turns, alive = map(int, re.search(
+            r"(\d+) turns in .*?; (\d+) alive", out).groups())
+        got = {"turns": turns, "alive": alive, "want": refs["gun_alive"]}
+        ok = turns == GUN_TURNS and alive == refs["gun_alive"]
+    if not ok:
+        raise AssertionError(f"4o {name}: {got}")
+    log(f"  ok 4o {name}: " + json.dumps(got))
+    return got
+
+
+def run_counted(tmp: str, tag: str, target: str, args: list,
+                env_extra: dict) -> tuple:
+    """Start `target` (a script path or a module) through
+    COUNTED_LAUNCHER in its own process; returns (proc, counts path,
+    out dir)."""
+    out_dir = os.path.join(tmp, tag)
+    os.makedirs(out_dir, exist_ok=True)
+    counts = os.path.join(tmp, f"{tag}.launches.json")
+    env = dict(os.environ, PYTHONPATH=REPO,
+               GOL_IMAGES=os.path.join(REPO, "images"), GOL_OUT=out_dir,
+               **env_extra)
+    for k in ("SER", "CONT", "GOL_RULE"):
+        env.pop(k, None)
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-c", COUNTED_LAUNCHER, counts, target,
+         *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=out_dir)
+    return proc, counts, out_dir
+
+
+def merge_launches(counts: str) -> dict:
+    with open(counts) as f:
+        got = json.load(f)
+    for k, v in got.items():
+        MEMBER_LAUNCHES[k] = MEMBER_LAUNCHES.get(k, 0) + v
+    return {k: v for k, v in got.items() if v}
+
+
+def phase_serving(torch, dev) -> None:
+    """4o: the serving tier's SLO window on the card: the load tool's
+    8 x 16 cycles against the port's fleet server on `dev` with no
+    audience and with up to 2000 parked viewers (client p50/p99/max per
+    method, the server's handler and accept-wait split read through
+    `obs.slo.rpc_snapshot` after `obs.slo.reset`); the tool's own entry
+    point; and each example with its default arguments,
+    its promised lines and its board or count checked. The processes'
+    launches are merged into the phase's."""
+    log("phase 4o: the serving SLO window and the examples")
+    t0 = time.monotonic()
+    SERVING_RESULTS["card"] = nvidia_smi("name,power.limit")
+    viewers = viewer_budget(LOAD_VIEWERS)
+    # One client alone first: the serial round trip, beside which the
+    # eight clients' and the audience's windows read as contention.
+    SERVING_RESULTS["windows"] = [load_window(dev, 0, clients=1),
+                                  load_window(dev, 0),
+                                  load_window(dev, viewers)]
+    with tempfile.TemporaryDirectory() as tmp:
+        started = {}
+        for name, _ in EXAMPLES:
+            started[name] = run_counted(
+                tmp, name[:-3], os.path.join(REPO, "examples", name), [],
+                {})
+        # README's command; the audience ran in the third window above.
+        started["load_smoke"] = run_counted(
+            tmp, "load_smoke", "gol_tpu_torch.tools.load_smoke",
+            ["--clients", str(LOAD_CLIENTS), "--cycles", str(LOAD_CYCLES)],
+            {})
+        t_start = time.monotonic()
+        ended: dict = {}
+
+        def wait(name, proc):
+            try:
+                out, err = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            ended[name] = (out, err, round(time.monotonic() - t_start, 1))
+
+        waiters = [threading.Thread(target=wait, args=(name, st[0]))
+                   for name, st in started.items()]
+        for w in waiters:
+            w.start()
+        refs = example_references(torch, dev)  # while they run
+        for w in waiters:
+            w.join()
+        outs = {}
+        for name, (proc, counts, out_dir) in started.items():
+            out, err, _ = ended[name]
+            if proc.returncode != 0:
+                raise AssertionError(f"4o {name} exit {proc.returncode}: "
+                                     f"{out[-2000:]} {err[-2000:]}")
+            outs[name] = (out, merge_launches(counts), out_dir)
+        SERVING_RESULTS["process_s"] = {n: e[2] for n, e in ended.items()}
+        log("  4o processes' seconds: "
+            + json.dumps(SERVING_RESULTS["process_s"]))
+        SERVING_RESULTS["examples"] = {}
+        for name, _ in EXAMPLES:
+            out, launched, out_dir = outs[name]
+            got = check_example(name, out, out_dir, refs)
+            SERVING_RESULTS["examples"][name] = dict(got, launches=launched)
+        out, launched, _ = outs["load_smoke"]
+        doc = json.loads([ln for ln in out.splitlines()
+                          if ln.startswith("{")][0])
+        want = LOAD_CLIENTS * LOAD_CYCLES
+        if doc["errors"] or any(r["count"] != want
+                                for r in doc["methods"].values()) or \
+                len(doc["methods"]) != 5:
+            raise AssertionError(f"4o load_smoke CLI: {doc}")
+        SERVING_RESULTS["cli"] = {"summary": doc, "launches": launched,
+                                  "lines": [ln for ln in out.splitlines()
+                                            if ln.startswith("load-smoke")]}
+        log(f"  ok 4o load_smoke CLI: {SERVING_RESULTS['cli']['lines']}")
+    SERVING_RESULTS["seconds"] = round(time.monotonic() - t0, 1)
+    log(f"  4o took {SERVING_RESULTS['seconds']} s")
+
+
+def log_serving_summary(card: Card) -> None:
+    log(f"4o serving SLO window and examples on {card.smi}:")
+    log("  4o: " + json.dumps(SERVING_RESULTS, default=str))
+
+
 def main_path_launches(cs) -> dict:
     """Launches per kernel on the main path; the two-plane kernels per
     family, as `name/family`, and K9 per route, as `name/route`."""
@@ -7000,7 +7378,14 @@ def main() -> int:
              False),
             # 4n's journaled runs and their replays: K1 at 512², K2 at
             # 5120² (each replay also checks its own launches).
-            (phase_tools, ("resident_run_turns", "tiled_sweep"), False)):
+            (phase_tools, ("resident_run_turns", "tiled_sweep"), False),
+            # 4o's fleet servers (K9 route 1 at 64²), and the examples'
+            # and the load tool's processes (merged in): K1 at 64², K5 on
+            # Brian's Brain 1024², K1/K2/K8 on the sparse windows.
+            (phase_serving, ("fleet_run_turns/resident",
+                             "resident_run_turns", "tiled_sweep",
+                             "tiled_sweep2p/gen3", "window_occupancy"),
+             False)):
         t_phase = time.monotonic()
         cs.reset_launch_counts()
         MEMBER_LAUNCHES.clear()
@@ -7070,6 +7455,7 @@ def main() -> int:
     log_fleet_mesh_summary(card)
     log_live_summary(card)
     log_tools_summary(card)
+    log_serving_summary(card)
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

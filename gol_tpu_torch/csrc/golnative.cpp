@@ -50,13 +50,15 @@ int read_prefix(const char* path, size_t cap, std::string* out) {
 
 // strtol with whole-token validation: "12abc" is a header error, not 12
 // (matches the Python tokenizer's int() strictness), and an out-of-range
-// token is an error rather than a silent clamp to LONG_MAX.
+// token is an error rather than a silent clamp to LONG_MAX. The end must
+// be the token's own end: a NUL byte inside the token ("2\0") would stop
+// strtol early and pass a '\0' test, accepting a header int() refuses.
 bool parse_dim(const std::string& tok, long* out) {
   if (tok.empty()) return false;
   char* end = nullptr;
   errno = 0;
   long v = std::strtol(tok.c_str(), &end, 10);
-  if (errno == ERANGE || end == nullptr || *end != '\0') return false;
+  if (errno == ERANGE || end != tok.c_str() + tok.size()) return false;
   *out = v;
   return true;
 }

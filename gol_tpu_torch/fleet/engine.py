@@ -32,11 +32,11 @@ predates the quota; fleet-created runs are the ones policed).
 The legacy drive counts only turns stepped from its current seed. In
 `gol_tpu` a quantum dispatched before `_drive` installs a seed can be
 credited after it, park the run at the new target and release the
-drive with the old stepping's board or the unstepped seed (ROADMAP C,
-"behaviours of the reference"); here the post-sync bookkeeping skips a
-handle whose seed is pending (only the loop applies seeds, at its next
-service pass, so a pending seed is the one way a reseed meets a quantum
-in flight).
+drive with the old stepping's board or the unstepped seed (a behaviour
+of the reference, not of this engine); here the post-sync bookkeeping
+skips a handle whose seed is pending (only the loop applies seeds, at
+its next service pass, so a pending seed is the one way a reseed meets a
+quantum in flight).
 
 Federation adoption and live migration are the engine halves of
 `federation/router.py` and `migrate.py`: `adopt_run` registers a dead

@@ -809,8 +809,8 @@ FED_SNAPSHOT_INGESTED = REGISTRY.counter(
     "per-member state (router side).")
 
 # Fleet rollups the registry tier re-publishes every sweep from the
-# ingested member snapshots (router side) — the sensing inputs of the
-# ROADMAP item-3 control loop.
+# ingested member snapshots (router side) — the sensing inputs of a
+# fleet autoscaler's control loop.
 FED_AGG_RUNS_RESIDENT = REGISTRY.gauge(
     "gol_fed_agg_runs_resident",
     "Fleet-wide resident-run total: exact sum of gol_runs_resident "

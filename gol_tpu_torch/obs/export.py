@@ -33,8 +33,8 @@ never fails or fattens the heartbeat past budget.
 Registry half — `FleetTelemetry`. Ingests snapshots into the bounded
 tsdb (obs/tsdb.py), computes fleet rollups at every router sweep
 (resident total, aggregate CUPS, staleness p99 across members,
-resident imbalance ratio — the exact signals ROADMAP item 3's
-autoscaler consumes), publishes them as `gol_fed_agg_*` families,
+resident imbalance ratio — the signals a fleet autoscaler would
+consume), publishes them as `gol_fed_agg_*` families,
 feeds the alert manager (obs/alerts.py), and reference-swaps a
 `"telemetry"` document for /healthz and `GetTelemetry`.
 

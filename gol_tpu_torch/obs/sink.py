@@ -7,15 +7,16 @@ the sink and the engine carries on unjournaled.
 
 `GuardedLineSink` is the append-only line writer: lazy open on first
 write, write+flush under a lock, and `dead` latched forever after the
-first OSError.
+first OSError. `guarded_export` is the one-shot variant for an exporter
+that dumps a whole artifact at close (the Chrome span trace).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import IO, Optional
+from typing import IO, Callable, Optional
 
-__all__ = ["GuardedLineSink"]
+__all__ = ["GuardedLineSink", "guarded_export"]
 
 
 class GuardedLineSink:
@@ -69,3 +70,13 @@ class GuardedLineSink:
                 pass
             self._fh = None
 
+
+def guarded_export(thunk: Callable[[], None]) -> bool:
+    """Run a one-shot export thunk (the Chrome span dump at run end);
+    True if it landed, False if it raised. Never raises: exporters run
+    on shutdown paths."""
+    try:
+        thunk()
+        return True
+    except Exception:
+        return False

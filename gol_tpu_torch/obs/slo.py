@@ -105,6 +105,10 @@ class LogBucketEstimator:
             self.count += len(idx)
             self.sum += total
 
+    def percentile(self, q: float) -> Optional[float]:
+        (out,) = self.percentiles((q,))
+        return out
+
     def percentiles(self, qs: Sequence[float]) -> Tuple[Optional[float],
                                                         ...]:
         """Quantile values for qs in [0, 1]; None while empty."""
@@ -126,6 +130,11 @@ class LogBucketEstimator:
             out.append(self.bucket_upper(hit))
         return tuple(out)
 
+    def reset(self) -> None:
+        with self._lock:
+            self._counts = [0] * self._n
+            self.count = 0
+            self.sum = 0.0
 
     def snapshot(self) -> dict:
         p50, p95, p99 = self.percentiles((0.50, 0.95, 0.99))
@@ -224,6 +233,27 @@ def flush(now: Optional[float] = None) -> None:
                     "p99_ms": round(p99 * 1e3, 3),
                     "objective_ms": objective,
                     "samples": seen})
+
+
+def reset() -> None:
+    """Drop every estimator: opens a measurement window (a load run's
+    server-side split) and isolates tests."""
+    global _last_flush
+    with _flush_lock:
+        with _rpc_lock:
+            _rpc.clear()
+            _published.clear()
+        _last_flush = 0.0
+
+
+def rpc_snapshot() -> dict:
+    """{kind: {method: estimator snapshot}} of the window since `reset`."""
+    with _rpc_lock:
+        items = list(_rpc.items())
+    out: Dict[str, dict] = {}
+    for (kind, method), est in items:
+        out.setdefault(kind, {})[method] = est.snapshot()
+    return out
 
 
 # ------------------------------------------------------- fleet health cache

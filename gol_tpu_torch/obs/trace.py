@@ -219,6 +219,12 @@ class Tracer:
         with self._lock:
             return list(self._finished)
 
+    def dropped(self) -> int:
+        """Spans refused since the last reset: the finished buffer was
+        full (`gol_trace_span_drops_total` counts them too)."""
+        with self._lock:
+            return self._dropped
+
     def reset(self) -> None:
         """Tests only: forget everything recorded so far."""
         with self._lock:
@@ -298,13 +304,45 @@ export_chrome = TRACER.export_chrome
 def export_from_env() -> Optional[str]:
     """Export to `GOL_TRACE_SPANS` if set (what `--trace-spans` sets);
     never raises — it runs on shutdown paths."""
+    from gol_tpu_torch.obs.sink import guarded_export
+
     path = os.environ.get(TRACE_SPANS_ENV, "").strip()
     if not path:
         return None
-    try:
-        return TRACER.export_chrome(path)
-    except Exception:
-        return None
+    out: List[str] = []
+    ok = guarded_export(lambda: out.append(TRACER.export_chrome(path)))
+    return out[0] if ok and out else None
+
+
+def validate_chrome(doc: dict) -> None:
+    """Raise ValueError unless `doc` is structurally a Chrome trace-event
+    document this exporter could have produced."""
+    if not isinstance(doc, dict):
+        raise ValueError(f"doc is {type(doc).__name__}, not object")
+    evs = doc.get("traceEvents")
+    if not isinstance(evs, list) or not evs:
+        raise ValueError("traceEvents missing or empty")
+    for ev in evs:
+        if not isinstance(ev, dict):
+            raise ValueError(f"event is not an object: {ev!r}")
+        ph = ev.get("ph")
+        if ph not in ("X", "B", "M"):
+            raise ValueError(f"unexpected phase {ph!r}")
+        if not isinstance(ev.get("name"), str):
+            raise ValueError(f"event without name: {ev!r}")
+        if not isinstance(ev.get("pid"), int) \
+                or not isinstance(ev.get("tid"), int):
+            raise ValueError(f"event without pid/tid: {ev!r}")
+        if ph != "M":
+            if not isinstance(ev.get("ts"), (int, float)):
+                raise ValueError(f"event without ts: {ev!r}")
+            args = ev.get("args")
+            if not isinstance(args, dict) \
+                    or not _valid_id(args.get("trace_id")) \
+                    or not _valid_id(args.get("span_id")):
+                raise ValueError(f"event without span ids: {ev!r}")
+        if ph == "X" and not isinstance(ev.get("dur"), (int, float)):
+            raise ValueError(f"X event without dur: {ev!r}")
 
 
 def hot_spans_enabled() -> bool:

@@ -2,7 +2,7 @@
 of `gol_tpu/obs/tsdb.py`.
 
 The registry tier keeps a short history of every fleet signal it
-aggregates (the sensing half of the ROADMAP item-3 control loop) —
+aggregates (the sensing half of a fleet autoscaler's control loop) —
 but a router is a long-lived control-plane process and MUST NOT grow
 without bound, so retention is rings all the way down:
 

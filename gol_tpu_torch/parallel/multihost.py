@@ -24,9 +24,11 @@ card, so processes sharing a card (or holding CPU shards) stay on gloo,
 and their CUDA halos are staged through pinned host buffers —
 explicitly, and logged once.
 
-The server's `--coordinator` joins the group; its engine still shards
-over its own process's devices (served engines spanning processes are
-ROADMAP A).
+The server's `--coordinator` joins the group, but its engine still
+shards over its own process's devices only: a served engine does not
+span processes, and `ShardedBoard.gather` raises where another process
+holds a shard. Meshes across processes serve the `parallel.halo` run
+functions called directly (`make_global_mesh`).
 """
 
 from __future__ import annotations

@@ -128,6 +128,9 @@ class EngineServer:
         # Subscribe, so servers that never see one start no threads.
         # (hub, gateway) once armed; _bcast is written last.
         self._bcast = None
+        # The accept thread `start_background` started; `shutdown` joins
+        # it (see there).
+        self._accept_thread: Optional[threading.Thread] = None
         self._bcast_lock = threading.Lock()
         # Set by a Subscribe handler after it handed its socket to the
         # gateway: _serve_conn must then not close the fd the event loop
@@ -225,6 +228,7 @@ class EngineServer:
 
     def start_background(self) -> threading.Thread:
         t = threading.Thread(target=self.serve_forever, daemon=True)
+        self._accept_thread = t
         t.start()
         return t
 
@@ -248,6 +252,14 @@ class EngineServer:
             self._sock.close()
         except OSError:
             pass
+        # The accept thread's target holds a reference to this server and
+        # its engine. Joined here, it cannot drop the last one (and free
+        # the engine's tensors inside torch) while the interpreter exits,
+        # which aborts the process: a script that starts a server in a
+        # function, shuts it down and returns.
+        t = self._accept_thread
+        if t is not None and t is not threading.current_thread():
+            t.join(5.0)
 
     # ------------------------------------------------------------------
 

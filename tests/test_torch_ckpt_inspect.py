@@ -18,11 +18,13 @@ import numpy as np
 import pytest
 
 from gol_tpu import Params as JParams
+from gol_tpu.ckpt.writer import CheckpointWriter as JCheckpointWriter
 from gol_tpu.engine import Engine as JEngine
 from gol_tpu.fleet.engine import FleetEngine as JFleetEngine
 from gol_tpu.models import parse_rule as jparse_rule
 from gol_tpu_torch import Params
 from gol_tpu_torch.ckpt import manifest as mf
+from gol_tpu_torch.ckpt.writer import CheckpointWriter
 from gol_tpu_torch.engine import Engine
 from gol_tpu_torch.fleet.engine import FleetEngine
 from gol_tpu_torch.models import parse_rule
@@ -35,6 +37,8 @@ PKGS = ("torch", "jax")
 FAMILIES = {"packed": ("B3/S23", 64, 64), "u8": ("B3/S23", 24, 40),
             "gen3": ("/2/3", 64, 64), "gen8": ("345/2/4", 32, 32)}
 ENV = ("GOL_CKPT", "GOL_CKPT_EVERY_TURNS", "GOL_CKPT_KEEP", "GOL_MAX_CHUNK")
+# The turns an engine root holds: every 32 turns of 100, then the final.
+ENGINE_TURNS = [32, 64, 96, 100]
 
 
 @contextlib.contextmanager
@@ -51,6 +55,23 @@ def _env(**values):
                 os.environ[k] = v
 
 
+@contextlib.contextmanager
+def _every_write_lands():
+    """Each package's engine waits for its periodic snapshot's write
+    before it steps on. The writer keeps only the newest unwritten
+    snapshot (`CheckpointWriter.submit` replaces a pending one), so a
+    writer thread that starts late under load would leave a run with its
+    final checkpoint alone, and no two turns of it to diff."""
+    with pytest.MonkeyPatch.context() as mp:
+        for cls in (JCheckpointWriter, CheckpointWriter):
+            def submit(self, snap, _submit=cls.submit):
+                kept = _submit(self, snap)
+                self.flush()
+                return kept
+            mp.setattr(cls, "submit", submit)
+        yield
+
+
 def _world(rule, h, w, seed):
     rng = np.random.default_rng(seed)
     r = parse_rule(rule)
@@ -65,7 +86,8 @@ def _engine_root(pkg, family, root):
     rule, h, w = FAMILIES[family]
     world = _world(rule, h, w, h * w)
     with _env(GOL_CKPT=str(root), GOL_CKPT_EVERY_TURNS="32",
-              GOL_CKPT_KEEP="100", GOL_MAX_CHUNK="16"):
+              GOL_CKPT_KEEP="100", GOL_MAX_CHUNK="16"), \
+            _every_write_lands():
         if pkg == "jax":
             JEngine(devices=jax.devices()[:1],
                     rule=jparse_rule(rule)).server_distributor(
@@ -73,6 +95,7 @@ def _engine_root(pkg, family, root):
         else:
             Engine(device="cpu", rule=parse_rule(rule)).server_distributor(
                 Params(image_width=w, image_height=h, turns=100), world)
+    assert [c[0] for c in mf.list_checkpoints(str(root))] == ENGINE_TURNS
 
 
 def _fleet_runs(pkg, root):

@@ -1,6 +1,7 @@
-"""The torch port stands alone: neither `gol_tpu_torch` nor
-`chip_smoke.py` imports jax or the JAX package, and nothing in the port
-quietly runs on the CPU when CUDA was asked for."""
+"""The torch port stands alone: neither `gol_tpu_torch`, `chip_smoke.py`
+nor the port's `examples/torch_*.py` and `tools/torch_*.py` import jax or
+the JAX package, and nothing in the port quietly runs on the CPU when
+CUDA was asked for."""
 
 import ast
 import os
@@ -18,7 +19,9 @@ FORBIDDEN = ("jax", "jaxlib", "gol_tpu")
 
 def _port_sources():
     return sorted((REPO / "gol_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "chip_smoke.py"] + sorted(
+        (REPO / "examples").glob("torch_*.py")) + sorted(
+        (REPO / "tools").glob("torch_*.py"))
 
 
 def _imported_modules(path):

@@ -652,3 +652,18 @@ def test_sigkill_restart_recovers_the_run(images_dir, out_dir, tmp_path,
     finally:
         _stop(proc1)
         _stop(proc2)
+
+
+def test_shutdown_joins_the_accept_thread():
+    """`shutdown` returns after the accept thread `start_background`
+    started has ended, so that thread never drops the last reference to
+    the server and its engine (freeing tensors inside torch) while the
+    interpreter exits: a script that served from a function and returned
+    aborted ("terminate called without an active exception") about half
+    the time before. A second shutdown is a no-op."""
+    srv = EngineServer(port=0, host="127.0.0.1", engine=Engine(device="cpu"))
+    t = srv.start_background()
+    assert t.is_alive()
+    srv.shutdown()
+    assert not t.is_alive()
+    srv.shutdown()

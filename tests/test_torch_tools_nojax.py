@@ -2,7 +2,7 @@
 `python -m gol_tpu_torch.tools.<name>` entry runs in a subprocess whose
 `jax`, `jaxlib` and `gol_tpu` imports fail (`sys.modules[name] = None`),
 and returns the exit code the JAX package's tool returns here on the
-same journal, checkpoint directory or router."""
+same journal, checkpoint directory, router or address."""
 
 import contextlib
 import io
@@ -17,9 +17,10 @@ import pytest
 
 from gol_tpu_torch import Params
 from gol_tpu_torch import journal
+from gol_tpu_torch.ckpt.writer import CheckpointWriter
 from gol_tpu_torch.engine import Engine
 from gol_tpu_torch.federation.router import FederationRouter
-from tools import ckpt_inspect, fleet_top, replay_audit
+from tools import ckpt_inspect, fleet_top, load_smoke, replay_audit
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -52,12 +53,24 @@ def artifacts(tmp_path_factory):
                       GOL_CKPT_EVERY_TURNS="32", GOL_CKPT_KEEP="100",
                       GOL_JOURNAL_DIGEST_EVERY="32", GOL_MAX_CHUNK="16")
     journal.reset()
+    mp = pytest.MonkeyPatch()
     try:
+        # Each periodic snapshot is written before the run steps on: the
+        # writer replaces a snapshot still pending, and `diff` of the
+        # oldest and the newest checkpoint needs two turns.
+        submit = CheckpointWriter.submit
+
+        def submit_and_flush(self, snap):
+            kept = submit(self, snap)
+            self.flush()
+            return kept
+        mp.setattr(CheckpointWriter, "submit", submit_and_flush)
         world = ((np.random.default_rng(9).random((64, 64)) < 0.3) * 255
                  ).astype(np.uint8)
         Engine(device="cpu").server_distributor(
             Params(image_width=64, image_height=64, turns=100), world)
     finally:
+        mp.undo()
         os.environ.clear()
         os.environ.update(saved)
         journal.reset()
@@ -131,3 +144,24 @@ def test_fleet_top_without_jax():
         assert _without_jax("gol_tpu_torch.tools.fleet_top", runs) == want
     finally:
         router.shutdown()
+
+
+def test_load_smoke_without_jax():
+    """The port's load generator on its own CPU fleet server (with and
+    without parked viewers) exits 0, and against an address where nothing
+    listens exits 1, as the JAX tool does there."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    dead = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    runs = [["--address", dead, "--clients", "1", "--cycles", "1",
+             "--timeout", "2"]]
+    want = _jax_rcs(load_smoke, runs)
+    assert want == [1]
+    got = _without_jax("gol_tpu_torch.tools.load_smoke", [
+        ["--device", "cpu", "--clients", "2", "--cycles", "2"],
+        ["--device", "cpu", "--clients", "1", "--cycles", "1",
+         "--viewers", "8", "--hold", "0.3"]] + runs)
+    assert got == [0, 0] + want
