@@ -55,6 +55,7 @@ from gol_tpu_torch.engine import (
 )
 from gol_tpu_torch.io.pgm import input_path, output_path, read_pgm, write_pgm
 from gol_tpu_torch.models.generations import GenerationsRule, gray_levels
+from gol_tpu_torch.obs import trace as obs_trace
 from gol_tpu_torch.obs.log import log as obs_log
 from gol_tpu_torch.params import Params
 from gol_tpu_torch.utils.cell import alive_cells_from_board
@@ -265,6 +266,17 @@ def distributor(
                       "disabled (use 's' snapshots instead)")
         live_view = False
     width, height = p.image_width, p.image_height
+    # The run's trace root: on this thread's context stack, so the
+    # submit below (an in-process engine.run, or a remote engine's
+    # rpc.ServerDistributor) parents under it; the helper threads, whose
+    # stacks are empty, parent their tick and keypress spans under its
+    # context.
+    run_span = obs_trace.start(
+        "controller.run",
+        attrs={"w": width, "h": height, "turns": p.turns,
+               "sparse": bool(sparse)})
+    obs_trace.TRACER.push(run_span)
+    root_ctx = run_span.context()
     done = threading.Event()
     helper_threads: list = []
     killed_by_key = threading.Event()
@@ -292,8 +304,11 @@ def distributor(
         pgm_levels = None
         if isinstance(io_rule, GenerationsRule):
             pgm_levels = tuple(gray_levels(io_rule).tolist())
-    except BaseException:
+    except BaseException as e:
         done.set()
+        obs_trace.TRACER.pop(run_span)
+        obs_trace.finish(run_span,
+                         error=e if isinstance(e, Exception) else None)
         events_q.put(ev.CLOSE)
         raise
 
@@ -304,48 +319,55 @@ def distributor(
                 key = key_presses.get(timeout=0.1)
             except queue.Empty:
                 continue
+            # One span a handled key, under the run's root; names clamp
+            # to the known keys, so they stay a bounded set.
+            kname = key if key in ("s", "p", "q", "k", "c") else "other"
             try:
-                if key == "s":
-                    if sparse:  # the live window, named by its dims
-                        world, _, turn = engine.get_window()
-                        fname = output_path(world.shape[1], world.shape[0],
-                                            turn, out_dir)
-                    else:
-                        world, turn = engine.get_world()
-                        fname = output_path(width, height, turn, out_dir)
-                    write_pgm(fname, world, levels=pgm_levels)
-                    events_q.put(ev.ImageOutputComplete(
-                        turn, os.path.basename(fname)))
-                elif key == "p":
-                    if in_recovery.is_set():
-                        continue  # see in_recovery above
-                    engine.cf_put(FLAG_PAUSE)
-                    # The flag is committed: toggle the shared state
-                    # BEFORE the (fallible) turn poll.
-                    paused = not pause_requested.is_set()
-                    if paused:
-                        pause_requested.set()
-                    else:
-                        pause_requested.clear()
-                    try:
-                        _, turn = engine.alive_count()
-                    except (ConnectionError, OSError, RuntimeError):
-                        turn = 0
-                    if paused:
-                        events_q.put(ev.StateChange(turn, ev.State.PAUSED))
-                    else:
-                        print("Continuing")
-                        events_q.put(
-                            ev.StateChange(turn, ev.State.EXECUTING))
-                elif key == "c":
-                    name, turn = engine.checkpoint_now(trigger="manual")
-                    print(f"checkpointed turn {turn} "
-                          f"({os.path.basename(name)})")
-                elif key == "q":
-                    engine.cf_put(FLAG_QUIT)
-                elif key == "k":
-                    killed_by_key.set()
-                    engine.cf_put(FLAG_KILL)
+                with obs_trace.span(f"controller.key.{kname}",
+                                    parent=root_ctx):
+                    if key == "s":
+                        if sparse:  # the live window, named by its dims
+                            world, _, turn = engine.get_window()
+                            fname = output_path(world.shape[1],
+                                                world.shape[0], turn,
+                                                out_dir)
+                        else:
+                            world, turn = engine.get_world()
+                            fname = output_path(width, height, turn, out_dir)
+                        with obs_trace.span("controller.write_pgm"):
+                            write_pgm(fname, world, levels=pgm_levels)
+                        events_q.put(ev.ImageOutputComplete(
+                            turn, os.path.basename(fname)))
+                    elif key == "p":
+                        if in_recovery.is_set():
+                            continue  # see in_recovery above
+                        engine.cf_put(FLAG_PAUSE)
+                        # The flag is committed: toggle the shared state
+                        # BEFORE the (fallible) turn poll.
+                        paused = not pause_requested.is_set()
+                        if paused:
+                            pause_requested.set()
+                        else:
+                            pause_requested.clear()
+                        try:
+                            _, turn = engine.alive_count()
+                        except (ConnectionError, OSError, RuntimeError):
+                            turn = 0
+                        if paused:
+                            events_q.put(ev.StateChange(turn, ev.State.PAUSED))
+                        else:
+                            print("Continuing")
+                            events_q.put(
+                                ev.StateChange(turn, ev.State.EXECUTING))
+                    elif key == "c":
+                        name, turn = engine.checkpoint_now(trigger="manual")
+                        print(f"checkpointed turn {turn} "
+                              f"({os.path.basename(name)})")
+                    elif key == "q":
+                        engine.cf_put(FLAG_QUIT)
+                    elif key == "k":
+                        killed_by_key.set()
+                        engine.cf_put(FLAG_KILL)
             except EngineKilled:
                 return
             except (ConnectionError, OSError):
@@ -363,7 +385,8 @@ def distributor(
     def ticker_loop() -> None:
         while not done.wait(ALIVE_POLL_SECONDS):
             try:
-                alive, turn = engine.alive_count()
+                with obs_trace.span("controller.tick", parent=root_ctx):
+                    alive, turn = engine.alive_count()
             except EngineKilled:
                 return
             except (ConnectionError, OSError, RuntimeError):
@@ -451,7 +474,8 @@ def distributor(
             turns_left = max(p.turns - start_turn, 0)
         else:
             src = input_path(width, height, images_dir)
-            world = read_pgm(src, levels=pgm_levels)
+            with obs_trace.span("controller.read_pgm"):
+                world = read_pgm(src, levels=pgm_levels)
             if world.shape != (height, width):
                 raise ValueError(
                     f"{src}: image is {world.shape[1]}x{world.shape[0]} "
@@ -616,7 +640,8 @@ def distributor(
                 count = int((final_world == 255).sum())
             events_q.put(ev.FinalTurnComplete(final_turn, alive, count))
             fname = output_path(width, height, final_turn, out_dir)
-            write_pgm(fname, final_world, levels=pgm_levels)
+            with obs_trace.span("controller.write_pgm"):
+                write_pgm(fname, final_world, levels=pgm_levels)
         if fname is not None:
             events_q.put(ev.ImageOutputComplete(
                 final_turn, os.path.basename(fname)))
@@ -628,6 +653,8 @@ def distributor(
         events_q.put(ev.StateChange(final_turn, ev.State.QUITTING))
     finally:
         done.set()
+        obs_trace.TRACER.pop(run_span)
+        obs_trace.finish(run_span)
         events_q.put(ev.CLOSE)
         for t in helper_threads:
             t.join(timeout=5.0)

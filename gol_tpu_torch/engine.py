@@ -115,6 +115,7 @@ from gol_tpu_torch.obs import halostats as obs_halostats
 from gol_tpu_torch.obs import prof as obs_prof
 from gol_tpu_torch.obs import timeline as obs_timeline
 from gol_tpu_torch.obs import trace as obs_trace
+from gol_tpu_torch.ops import _build
 from gol_tpu_torch.ops import conv as conv_ops
 from gol_tpu_torch.ops.bitpack import (
     WORD_BITS,
@@ -250,6 +251,14 @@ def _or_rows(words: torch.Tensor, f: int) -> torch.Tensor:
 # Reprs whose run functions count the chunk's result in its last
 # stepping launch (`count=`).
 COUNTED_REPRS = ("packed", "gen3")
+
+# The chunk loop's cumulative host accounting, in `stats()` order
+# (issue_s, token_wait_s, host_s, chunks), flushed with the batched
+# telemetry.
+_HOST_FAMILIES = (obs.ENGINE_ISSUE_SECONDS_TOTAL,
+                  obs.ENGINE_TOKEN_WAIT_SECONDS_TOTAL,
+                  obs.ENGINE_HOST_SECONDS_TOTAL,
+                  obs.ENGINE_COUNTED_CHUNKS_TOTAL)
 
 
 def _firing_row_counts(cells: torch.Tensor, repr_: str) -> torch.Tensor:
@@ -449,6 +458,10 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         self._chunk_target = CHUNK_TARGET_SECONDS
         self._last_chunk = 0
         self._turns_per_s = 0.0
+        # Cumulative host accounting of the chunk loop (`_run_loop`); a
+        # run's chunk_overhead_us is its share of host_s over chunks.
+        self._issue_s = self._token_wait_s = self._host_s = 0.0
+        self._counted_chunks = 0
         self._chunk_overhead_us = 0.0
         # (shape, repr, mesh shape, fuse, k) of every chunk this engine
         # has issued: the first issue of one builds and sets up its
@@ -693,6 +706,7 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
     def _run_loop(self, params: Params, cells: torch.Tensor, run,
                   start_turn: int,
                   fuse_eff: int) -> Tuple[np.ndarray, int]:
+        t_entry = time.monotonic()
         target = start_turn + params.turns
         self._max_chunk = env_int(MAX_CHUNK_ENV, MAX_CHUNK)
         # `or`: a zero target would pin the chunk at one turn.
@@ -756,14 +770,34 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         last_rate = 0.0
         last_done_turn = start_turn
         last_flush = time.monotonic()
-        # Host overhead a chunk (`chunk_overhead_us`, the JAX engine's
-        # accounting): each iteration's wall less the wait for the counted
-        # token and the excluded stalls (first issue of a shape, pause,
-        # synchronous checkpoint). On the CPU the chunk's steps run inside
-        # its issue, which therefore stands for the token wait.
-        host_overhead = 0.0
-        overhead_iters = 0
+        # Host overhead (the JAX engine's accounting), summed over the
+        # counted iterations (a capture's are not) into the engine's
+        # cumulative `stats()` counters: `host_s`, each iteration's wall
+        # less the wait for the counted token and the excluded stalls
+        # (first issue of a shape, pause, synchronous checkpoint);
+        # `token_wait_s`, that wait; `issue_s`, the issue of chunks other
+        # than a shape's first; `chunks`. On the CPU the chunk's steps run
+        # inside its issue, which therefore stands for the token wait and
+        # adds to `token_wait_s`, not `issue_s`. `chunk_overhead_us` is
+        # this run's host_s over its chunks.
         wait_accum = 0.0
+        host0, chunks0 = self._host_s, self._counted_chunks
+        flushed = [self._issue_s, self._token_wait_s, self._host_s,
+                   self._counted_chunks]
+        # Spans: `engine.setup` (entry to the first issue) and
+        # `engine.ramp` (first issue to the pop that ends the ramp)
+        # always, once a run; per-chunk spans (`engine.chunk`, `.issue`,
+        # `.wait`, `.publish`, `.advance`, `.flags`) only while the gate
+        # is open: its
+        # configured half read here, the profiler's once a chunk. They
+        # reuse the loop's stamps; an open gate adds one, the pop's end.
+        hot_env = obs_trace.hot_spans_from_env()
+        hot = False
+        first_issue = None  # (stamp, seconds) of the run's first issue
+        pop_end = advance_from = None
+        ramp_chunks = 0
+        ramp_recorded = False
+        capture_span = None
         # Halo accounting of a sharded run: (turns, wall) a popped chunk,
         # drained at the flush through the analytic traffic model. The
         # wrap-extension path is not modelled (`halo_traffic`).
@@ -794,9 +828,17 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
             if last_rate > 0:
                 obs.ENGINE_CUPS.set(last_rate * board_cells)
                 obs.ENGINE_TURNS_PER_S.set(last_rate)
-            if overhead_iters:
+            counted = (self._issue_s, self._token_wait_s, self._host_s,
+                       self._counted_chunks)
+            for family, value, done in zip(_HOST_FAMILIES, counted,
+                                           flushed):
+                if value > done:
+                    family.inc(value - done)
+            flushed[:] = counted
+            if self._counted_chunks > chunks0:
                 self._chunk_overhead_us = (
-                    host_overhead / overhead_iters * 1e6)
+                    (self._host_s - host0)
+                    / (self._counted_chunks - chunks0) * 1e6)
                 obs.ENGINE_CHUNK_OVERHEAD_US.set(self._chunk_overhead_us)
             last_flush = now
 
@@ -872,9 +914,9 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
             digest turn."""
             nonlocal chunk, last_pop, ramping, traced_chunks, pend_chunks
             nonlocal pend_turns, flag_pending, last_rate, last_done_turn
-            nonlocal last_devpoll, wait_accum
+            nonlocal last_devpoll, wait_accum, ramp_chunks, pop_end
             (done_cells, host, events, done_k, done_turn, issue_s,
-             traced) = inflight.popleft()
+             traced, done_span) = inflight.popleft()
             t_wait = time.monotonic()
             for event in events:
                 event.synchronize()
@@ -893,8 +935,11 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                                   turns=done_k)
             elif ramping or depth == 1:
                 new_chunk = self._adapt_chunk(chunk, done_k, elapsed)
-                if ramping and done_k == chunk and new_chunk == chunk:
-                    ramping = False
+                if ramping:
+                    ramp_chunks += 1
+                    if done_k == chunk and new_chunk == chunk:
+                        ramping = False
+                        _record_ramp(now, done_turn, new_chunk, True)
                 chunk = new_chunk
                 rate = done_k / elapsed if elapsed > 0 else 0.0
             else:
@@ -943,6 +988,46 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                 last_devpoll = now
             if now - last_flush >= METRICS_FLUSH_SECONDS:
                 _flush_metrics(now)
+            # The wait: the token's synchronize and the count's sum; the
+            # publish: the adapter, the state lock, the telemetry, the
+            # digest and the memory poll. The chunk's span, open since
+            # its issue, closes with them.
+            end = now
+            if hot:
+                end = pop_end = time.monotonic()
+                parent = done_span if done_span is not None else run_span
+                obs_trace.TRACER.record("engine.wait", t_wait, now, parent,
+                                        {"turn": done_turn})
+                obs_trace.TRACER.record("engine.publish", now, end, parent,
+                                        {"turn": done_turn, "chunk": chunk})
+            if done_span is not None:
+                done_span.attrs["alive"] = done_alive
+                obs_trace.finish(done_span, end=end)
+
+        def _record_ramp(end: float, done_turn: int, size: int,
+                         settled: bool) -> None:
+            """`engine.ramp`: from the first issue to the pop that ended
+            the ramp (`settled`), or to the run's end."""
+            nonlocal ramp_recorded
+            ramp_recorded = True
+            t0, first_s = first_issue
+            attrs = {"chunks": ramp_chunks, "turns": done_turn - start_turn,
+                     "chunk": size, "first_issue_s": round(first_s, 6),
+                     "settled": settled}
+            record = (_build.built_record()
+                      if self._device.type == "cuda" else None)
+            if record is not None:
+                attrs["library_cached"] = record["cached"]
+                attrs["library_build_s"] = round(record["seconds"], 6)
+            obs_trace.TRACER.record("engine.ramp", t0, end, run_span, attrs)
+
+        def _end_capture(error: Optional[BaseException] = None) -> None:
+            """Close the capture's span, then stop its profiler: the
+            trace file it writes holds the span."""
+            nonlocal capture, capture_span
+            obs_trace.finish(capture_span, error=error)
+            capture.finish(error)
+            capture = capture_span = None
 
         # The run span parents under whatever is on this thread's context
         # stack: the server's ServerDistributor handler span for remote
@@ -950,7 +1035,8 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         run_span = obs_trace.start(
             "engine.run", attrs={"w": width, "h": height,
                                  "turns": params.turns,
-                                 "start_turn": start_turn, "repr": repr_})
+                                 "start_turn": start_turn, "repr": repr_},
+            start=t_entry)
         obs_trace.TRACER.push(run_span)
         try:
             while self._turn < target and not quit_run:
@@ -959,6 +1045,7 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                 t_iter = time.monotonic()
                 wait_accum = 0.0
                 stall_excl = 0.0
+                hot = hot_env or obs_trace.profiler_running()
                 if capture is None:
                     preq = obs_prof.PROFILER.take()
                     if preq is not None:
@@ -966,8 +1053,13 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                         # alone; they run one chunk at a time.
                         while inflight:
                             _pop_oldest()
-                        capture = obs_prof.PROFILER.begin(preq)
                         capture_to = min(self._turn + preq.turns, target)
+                        capture_span = obs_trace.start(
+                            "engine.profile",
+                            attrs={"turns": capture_to - self._turn,
+                                   "source": preq.source})
+                        capture = obs_prof.PROFILER.begin(preq)
+                        hot = True
                 k_cap = target - self._turn
                 if capture is not None:
                     k_cap = min(k_cap, capture_to - self._turn)
@@ -988,28 +1080,59 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                     # or the first when it is the whole run.
                     while inflight:
                         _pop_oldest()
+                    capture_span = obs_trace.start("engine.traced_chunk",
+                                                   attrs={"k": k})
                     capture = obs_prof.Capture(trace_dir)
                     capture_to = self._turn + k
                     trace_dir = ""
+                    hot = True
                 # A captured chunk's profiler-skewed wall stays out of
                 # the overhead, as a traced chunk's in the JAX engine.
                 count_overhead = capture is None
                 t_issue = time.monotonic()
                 cells, host, events = self._chunk(run, cells, k)
-                issue_s = time.monotonic() - t_issue
+                t_issued = time.monotonic()
+                issue_s = t_issued - t_issue
                 issued = (tuple(cells.shape), repr_,
                           tuple(mesh.devices.shape), fuse_eff, k)
                 first = issued not in self._issued
                 self._issued.add(issued)
+                counted_issue = 0.0
                 if self._device.type != "cuda":
                     wait_accum += issue_s
                 elif first:
                     stall_excl += issue_s
+                else:
+                    counted_issue = issue_s
+                if first_issue is None:
+                    first_issue = (t_issue, issue_s)
+                    obs_trace.TRACER.record("engine.setup", t_entry, t_issue,
+                                            run_span)
+                chunk_span = None
+                if hot:
+                    if advance_from is not None:
+                        # The loop between the last chunk's pops and this
+                        # issue: the turn's advance, the broadcast hook,
+                        # the checkpoint, digest and flag checks, the
+                        # overhead accounting, the spans' records and
+                        # this chunk's size.
+                        obs_trace.TRACER.record(
+                            "engine.advance", advance_from, t_issue,
+                            run_span, {"turn": self._turn})
+                    attrs = {"k": k, "turn": self._turn + k}
+                    chunk_span = obs_trace.start("engine.chunk", run_span,
+                                                 attrs, t_issue)
+                    obs_trace.TRACER.record("engine.issue", t_issue, t_issued,
+                                            chunk_span, dict(attrs))
                 inflight.append((cells, host, events, k, self._turn + k,
-                                 issue_s, capture is not None))
+                                 issue_s, capture is not None, chunk_span))
+                pop_end = None
                 while len(inflight) >= (
                         1 if ramping or capture is not None else depth):
                     _pop_oldest()
+                advance_from = None
+                if hot:
+                    advance_from = t_issued if pop_end is None else pop_end
                 chunks_done += 1
                 stepped = True
                 with self._state_lock:
@@ -1019,8 +1142,7 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                 if cb is not None:
                     cb()
                 if capture is not None and self._turn >= capture_to:
-                    capture.finish()
-                    capture = None
+                    _end_capture()
                     _reset_pace(time.monotonic())
                 if (next_ckpt_turn is not None
                         and self._turn >= next_ckpt_turn):
@@ -1050,7 +1172,11 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                         or self._abort.is_set()):
                     t_flags = time.monotonic()
                     quit_run = self._handle_flags()
-                    flag_s = time.monotonic() - t_flags
+                    t_served = time.monotonic()
+                    flag_s = t_served - t_flags
+                    if hot:
+                        obs_trace.TRACER.record("engine.flags", t_flags,
+                                                t_served, run_span)
                     flag_pending += flag_s
                     obs.ENGINE_FLAG_SERVICE_SECONDS.observe(flag_s)
                     if flag_s > 0.01:
@@ -1058,21 +1184,24 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                         _reset_pace(time.monotonic())
                         stall_excl += flag_s
                 if count_overhead:
-                    host_overhead += max(
+                    self._host_s += max(
                         0.0, time.monotonic() - t_iter - wait_accum
                         - stall_excl)
-                    overhead_iters += 1
+                    self._token_wait_s += wait_accum
+                    self._issue_s += counted_issue
+                    self._counted_chunks += 1
             if ckpt_writer is not None and stepped:
                 # Every loop exit — completion, quit, kill, abort —
                 # leaves durable state at the final turn.
                 _ckpt_submit(cells, "final")
         except Exception as e:
             if capture is not None:
-                capture.finish(e)
-                capture = None
+                _end_capture(e)
             # The black box: an unhandled chunk-loop error dumps the
-            # flight ring (recent spans and events, and the chunk spans
-            # still in flight) before the error propagates.
+            # flight ring (recent spans and events, and the spans still
+            # open: the run's, a capture's, and, while the per-chunk
+            # spans are on, those of the chunks in flight) before the
+            # error propagates.
             obs_flight.crash("engine.run_loop", e, turn=self._turn)
             if ckpt_writer is not None:
                 # Emergency best-effort checkpoint: synchronous (there is
@@ -1087,12 +1216,21 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
         finally:
             # Drain, so the last publication is the final state's exact
             # pair (the turn only advances once a chunk is issued).
-            while inflight:
-                _pop_oldest()
+            try:
+                while inflight:
+                    _pop_oldest()
+            finally:
+                # A pop that raised leaves its chunks' spans open.
+                for item in inflight:
+                    if item[-1] is not None:
+                        obs_trace.finish(item[-1])
+            if first_issue is not None and not ramp_recorded:
+                # The run ended while the chunk still ramped.
+                _record_ramp(time.monotonic(), last_done_turn, chunk, False)
             if capture is not None:
                 # The run ended (quit, kill, abort) before the capture's
                 # last turn: what was stepped is in the trace.
-                capture.finish()
+                _end_capture()
             with self._state_lock:
                 final_cells, final_turn = self._cells, self._turn
                 final_repr, final_pad = self._repr, self._pad_rows
@@ -1361,8 +1499,13 @@ class Engine(SingleRunSurface, ControlFlagProtocol):
                 "packed": self._repr == "packed",
                 "chunk": self._last_chunk,
                 "turns_per_s": round(self._turns_per_s, 1),
-                # Mean host µs a chunk outside the token wait.
+                # Mean host µs a chunk outside the token wait (the last
+                # run's), and the cumulative counters it comes from.
                 "chunk_overhead_us": round(self._chunk_overhead_us, 2),
+                "issue_s": round(self._issue_s, 6),
+                "token_wait_s": round(self._token_wait_s, 6),
+                "host_s": round(self._host_s, 6),
+                "chunks": self._counted_chunks,
                 "rule": self._rule.rulestring,
                 "device": str(self._device),
                 "devices": len(self._devices),

@@ -389,6 +389,25 @@ ENGINE_CHUNK_OVERHEAD_US = REGISTRY.gauge(
     "device-result wait (dispatch, publish, metrics, flag polling, "
     "pipeline bookkeeping) over the run so far; refreshed at each "
     "metrics flush and at run end.")
+ENGINE_ISSUE_SECONDS_TOTAL = REGISTRY.counter(
+    "gol_engine_issue_seconds_total",
+    "Host seconds the chunk loop spent issuing counted chunks (every "
+    "launch, the count's copy and its event), a shape's first issue "
+    "left out; on the CPU the issue runs the steps and counts as token "
+    "wait instead.")
+ENGINE_TOKEN_WAIT_SECONDS_TOTAL = REGISTRY.counter(
+    "gol_engine_token_wait_seconds_total",
+    "Host seconds the chunk loop spent waiting for counted chunks' "
+    "tokens (the event's synchronize and the count's sum).")
+ENGINE_HOST_SECONDS_TOTAL = REGISTRY.counter(
+    "gol_engine_host_seconds_total",
+    "Host seconds of the chunk loop's counted iterations outside the "
+    "token wait and the excluded stalls; over "
+    "gol_engine_counted_chunks_total it is chunk_overhead_us.")
+ENGINE_COUNTED_CHUNKS_TOTAL = REGISTRY.counter(
+    "gol_engine_counted_chunks_total",
+    "Chunk-loop iterations counted in the host accounting (a profiler "
+    "capture's are not).")
 
 # ------------------------------------------------------------ fleet runs
 

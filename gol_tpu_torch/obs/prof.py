@@ -9,9 +9,12 @@ consumer: it drains its in-flight chunks, takes the request, and steps
 the N turns one chunk at a time inside a capture, which runs
 ``torch.profiler`` over them (CPU and, where there is one, CUDA
 activity) and writes one Chrome trace (``*.trace.json``, loadable in
-Perfetto or chrome://tracing) into the directory. The JAX package writes
-XPlane and gzipped Perfetto files instead; the state machine, the
-status document and the metric families are the same.
+Perfetto or chrome://tracing) into the directory. The trace also holds
+the program's spans (`obs/trace.py`) that overlap the capture, shifted
+onto the profiler's clock by the file's ``baseTimeNanoseconds``: the
+kernels and the chunk loop's issue, wait and publish in one file. The
+JAX package writes XPlane and gzipped Perfetto files instead; the state
+machine, the status document and the metric families are the same.
 
 Security posture matches RestoreRun: remote peers never choose the
 server's filesystem path. The capture directory is fixed by whoever
@@ -21,6 +24,7 @@ started the process; a Profile request can only pick the turn count.
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import threading
 import time
@@ -28,6 +32,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 from gol_tpu_torch.obs import catalog as _cat
+from gol_tpu_torch.obs import trace as _trace
 
 PROFILE_DIR_ENV = "GOL_PROFILE_DIR"
 PROFILE_TURNS_ENV = "GOL_PROFILE_TURNS"
@@ -62,6 +67,7 @@ class Capture:
             directory, f"gol-{os.getpid()}-{int(time.time() * 1e3)}-"
                        f"{next(_seq)}{ARTIFACT_SUFFIX}")
         self.t0 = time.time()
+        self.m0 = time.monotonic()
         os.makedirs(directory, exist_ok=True)
         activities = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
@@ -77,10 +83,35 @@ class Capture:
         caller's to report."""
         try:
             self._prof.stop()
+            m1 = time.monotonic()
             self._prof.export_chrome_trace(self.path)
+            add_spans(self.path, self.m0, m1)
         except Exception as e:  # noqa: BLE001 — reported in status
             return repr(e)
         return None
+
+
+def add_spans(path: str, lo: float, hi: float) -> None:
+    """Append to the profiler's Chrome trace at `path` the program's spans
+    that overlap the monotonic interval [lo, hi], on the trace's clock
+    (its `ts` plus `baseTimeNanoseconds` is Unix time; a span's wall
+    time is its monotonic stamp plus the tracer's epoch), with a name
+    row for each of their threads."""
+    with open(path, encoding="utf-8") as f:
+        doc = json.load(f)
+    base_ns = doc.get("baseTimeNanoseconds")
+    recs = _trace.TRACER.spans_between(lo, hi)
+    if base_ns is None or not recs:
+        return
+    events, threads = _trace.TRACER.chrome_events(recs, base_ns / 1e3)
+    doc["traceEvents"].extend(
+        [{"name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+          "args": {"name": tname}}
+         for (pid, tid), tname in sorted(threads.items())] + events)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(doc, f, default=str)
+    os.replace(tmp, path)
 
 
 class _ProfileCapture:

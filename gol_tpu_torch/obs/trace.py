@@ -21,13 +21,22 @@ of `gol_tpu/obs/trace.py`.
     `{"traceEvents": [...]}` JSON that Perfetto loads.
 
 Durations use `time.monotonic()`; a once-sampled wall-clock epoch places
-them on one timeline across processes.
+them on one timeline across processes. `Tracer.record` files a span whose
+start and end are stamps the caller already took, and `chrome_events`
+shifts spans onto another trace's clock (`obs/prof.py` writes them into a
+profiler capture's file).
+
+`hot_spans_enabled()` gates the spans whose count scales with chunks or
+dispatches: open while a span export or flight dump is configured, or
+while a `torch.profiler` runs anywhere in the process.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import random
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -41,9 +50,26 @@ TRACE_SPANS_CAP_DEFAULT = 16384
 
 _HEX = set("0123456789abcdef")
 
+# Span ids come from a generator of this process's own, seeded from
+# os.urandom at import and again in a forked child, and the pid is read
+# once likewise: a span makes no system call, which on a sandboxed host
+# costs a chunk loop more than the rest of its span.
+_RNG = random.Random()
+_PID = 0
+
+
+def _reseed() -> None:
+    global _PID
+    _RNG.seed(os.urandom(16))
+    _PID = os.getpid()
+
+
+_reseed()
+os.register_at_fork(after_in_child=_reseed)
+
 
 def _new_id() -> str:
-    return os.urandom(8).hex()
+    return f"{_RNG.getrandbits(64):016x}"
 
 
 def _valid_id(v: Any) -> bool:
@@ -59,14 +85,15 @@ class Span:
 
     def __init__(self, name: str, trace_id: str,
                  parent_id: Optional[str],
-                 attrs: Optional[Dict[str, Any]] = None) -> None:
+                 attrs: Optional[Dict[str, Any]] = None,
+                 start: Optional[float] = None) -> None:
         self.name = name
         self.trace_id = trace_id
         self.span_id = _new_id()
         self.parent_id = parent_id
-        self.start = time.monotonic()
+        self.start = time.monotonic() if start is None else start
         self.end: Optional[float] = None
-        self.pid = os.getpid()
+        self.pid = _PID
         self.tid = threading.get_ident()
         self.thread = threading.current_thread().name
         self.attrs: Dict[str, Any] = dict(attrs) if attrs else {}
@@ -150,35 +177,45 @@ class Tracer:
 
     # ---- span lifecycle -------------------------------------------------
 
-    def start(self, name: str, parent: Any = _INHERIT,
-              attrs: Optional[Dict[str, Any]] = None) -> Span:
-        """Open a span. `parent` defaults to this thread's innermost
-        open span; pass a Span, a wire `tc` dict, or None for a root."""
+    def _ids(self, parent: Any) -> tuple:
+        """(trace id, parent span id) of a span under `parent`."""
         if parent is _INHERIT:
             parent = self.current()
         if isinstance(parent, Span):
-            trace_id, parent_id = parent.trace_id, parent.span_id
-        else:
-            ctx = parse_context(parent)
-            if ctx is not None:
-                trace_id, parent_id = ctx["t"], ctx["s"]
-            else:
-                trace_id, parent_id = _new_id(), None
-        span = Span(name, trace_id, parent_id, attrs)
+            return parent.trace_id, parent.span_id
+        ctx = parse_context(parent)
+        if ctx is not None:
+            return ctx["t"], ctx["s"]
+        return _new_id(), None
+
+    def start(self, name: str, parent: Any = _INHERIT,
+              attrs: Optional[Dict[str, Any]] = None,
+              start: Optional[float] = None) -> Span:
+        """Open a span. `parent` defaults to this thread's innermost
+        open span; pass a Span, a wire `tc` dict, or None for a root.
+        `start` is a `time.monotonic()` stamp already taken (now when
+        None)."""
+        span = Span(name, *self._ids(parent), attrs, start)
         with self._lock:
             self._open[span.span_id] = span
         return span
 
     def finish(self, span: Span,
-               error: Optional[BaseException] = None) -> None:
+               error: Optional[BaseException] = None,
+               end: Optional[float] = None) -> None:
+        """Close a span at `end` (a monotonic stamp; now when None)."""
         if span.end is not None:
             return  # idempotent: recovery paths may double-finish
-        span.end = time.monotonic()
+        span.end = time.monotonic() if end is None else end
         if error is not None:
             span.attrs["error"] = f"{type(error).__name__}: {error}"
-        rec = span.to_dict()
+        self._file(span.to_dict(), span.span_id)
+
+    def _file(self, rec: dict, open_id: Optional[str] = None) -> None:
+        """Keep a finished span's dict (`open_id`: no longer open)."""
         with self._lock:
-            self._open.pop(span.span_id, None)
+            if open_id is not None:
+                self._open.pop(open_id, None)
             if len(self._finished) < self._cap:
                 self._finished.append(rec)
             else:
@@ -186,6 +223,22 @@ class Tracer:
                 obs.TRACE_SPAN_DROPS_TOTAL.inc()
         obs.TRACE_SPANS_TOTAL.inc()
         obs_flight.FLIGHT.record_span(rec)
+
+    def record(self, name: str, start: float, end: float,
+               parent: Any = _INHERIT,
+               attrs: Optional[Dict[str, Any]] = None) -> dict:
+        """File a finished span from two monotonic stamps the caller
+        already took, with no clock read and no open span of its own;
+        returns its dict (`finished_spans()`'s form)."""
+        trace_id, parent_id = self._ids(parent)
+        rec = {"name": name, "trace": trace_id, "span": _new_id(),
+               "parent": parent_id, "start": start, "end": end,
+               "pid": _PID, "tid": threading.get_ident(),
+               "thread": threading.current_thread().name}
+        if attrs:
+            rec["attrs"] = dict(attrs)
+        self._file(rec)
+        return rec
 
     class _SpanCtx:
         __slots__ = ("_tracer", "span")
@@ -235,16 +288,13 @@ class Tracer:
     def _wall_us(self, mono: float) -> float:
         return round((mono + self.epoch) * 1e6, 1)
 
-    def chrome_doc(self) -> dict:
-        """The span set as a Chrome trace-event document (Perfetto)."""
-        with self._lock:
-            finished = list(self._finished)
-            open_ = [s.to_dict() for s in self._open.values()]
-            pname = self._process_name
-            dropped = self._dropped
+    def chrome_events(self, recs: List[dict], shift_us: float = 0.0
+                      ) -> tuple:
+        """(events, {(pid, tid): thread name}) of span dicts as Chrome
+        trace events, `ts` in wall-clock µs less `shift_us`."""
         events: List[dict] = []
         threads = {}  # (pid, tid) -> thread name
-        for rec in finished + open_:
+        for rec in recs:
             threads.setdefault((rec["pid"], rec["tid"]), rec["thread"])
             args = {"trace_id": rec["trace"], "span_id": rec["span"]}
             if rec.get("parent"):
@@ -252,7 +302,7 @@ class Tracer:
             args.update(rec.get("attrs") or {})
             ev = {"name": rec["name"],
                   "cat": rec["name"].split(".", 1)[0],
-                  "ts": self._wall_us(rec["start"]),
+                  "ts": round(self._wall_us(rec["start"]) - shift_us, 1),
                   "pid": rec["pid"], "tid": rec["tid"], "args": args}
             if rec["end"] is None:
                 ev["ph"] = "B"  # still open: begin with no end
@@ -260,6 +310,25 @@ class Tracer:
                 ev["ph"] = "X"
                 ev["dur"] = round((rec["end"] - rec["start"]) * 1e6, 1)
             events.append(ev)
+        return events, threads
+
+    def spans_between(self, lo: float, hi: float) -> List[dict]:
+        """Dicts of the spans, finished or open, that overlap the
+        monotonic interval [lo, hi]."""
+        with self._lock:
+            recs = list(self._finished)
+            recs += [s.to_dict() for s in self._open.values()]
+        return [r for r in recs if r["start"] <= hi
+                and (r["end"] is None or r["end"] >= lo)]
+
+    def chrome_doc(self) -> dict:
+        """The span set as a Chrome trace-event document (Perfetto)."""
+        with self._lock:
+            finished = list(self._finished)
+            open_ = [s.to_dict() for s in self._open.values()]
+            pname = self._process_name
+            dropped = self._dropped
+        events, threads = self.chrome_events(finished + open_)
         meta: List[dict] = []
         for pid in sorted({pid for pid, _ in threads}):
             meta.append({"name": "process_name", "ph": "M", "pid": pid,
@@ -345,10 +414,30 @@ def validate_chrome(doc: dict) -> None:
             raise ValueError(f"X event without dur: {ev!r}")
 
 
-def hot_spans_enabled() -> bool:
-    """Should spans whose count scales with dispatches (a sharded run's
-    'halo.dispatch') be recorded? True when someone will consume them: a
-    span export destination (GOL_TRACE_SPANS) or a flight-recorder dump
-    path (GOL_FLIGHT) is configured — `gol_tpu`'s gate."""
+def hot_spans_from_env() -> bool:
+    """The configured half of the gate: a span export destination
+    (GOL_TRACE_SPANS) or a flight-recorder dump path (GOL_FLIGHT) is
+    set — `gol_tpu`'s gate. The engine reads it once a run."""
     return bool(os.environ.get(TRACE_SPANS_ENV, "").strip()
                 or os.environ.get(obs_flight.FLIGHT_ENV, "").strip())
+
+
+def profiler_running() -> bool:
+    """True while a `torch.profiler` runs anywhere in this process: the
+    flag is process-global, whichever thread started the profiler. One
+    attribute read (torch not yet imported: no profiler)."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return False
+    return bool(getattr(torch.autograd.profiler, "_is_profiler_enabled",
+                        False))
+
+
+def hot_spans_enabled() -> bool:
+    """Should spans whose count scales with chunks or dispatches (the
+    engine's per-chunk spans, a sharded run's 'halo.dispatch') be
+    recorded? True when someone will consume them: a span export or
+    flight dump is configured, or a profiler is tracing the process,
+    whose capture (or whoever reads the tracer) places them beside the
+    device's work."""
+    return hot_spans_from_env() or profiler_running()

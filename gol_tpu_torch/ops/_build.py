@@ -140,6 +140,14 @@ def build_record() -> dict:
     return dict(_loaded["record"])
 
 
+def built_record():
+    """`build_record()` once the library is loaded, else None: builds
+    nothing."""
+    with _lock:
+        record = _loaded.get("record")
+    return None if record is None else dict(record)
+
+
 def check(rc: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if rc != 0:

@@ -5,7 +5,9 @@ viewer does zero wire-encode and band-copy work, `chunk_overhead_us` (host
 measured, positive, under 20 ms and equal to its gauge, and a repeat run
 adds no step signature. Beyond the mirror: the port's `stats()` keys and
 `run_end` fields equal `gol_tpu`'s for the same run (the port's stats add
-`device`, which names the torch device of its single-device path).
+`device`, which names the torch device of its single-device path, and the
+cumulative host counters `issue_s`, `token_wait_s`, `host_s` and `chunks`
+that `chunk_overhead_us` comes from).
 
 Every engine assertion is a counter delta (the registry is process-wide);
 the one timing bound is the reference test's 20 ms ceiling."""
@@ -92,7 +94,8 @@ def test_stats_keys_and_run_end_fields_equal_gol_tpu(monkeypatch,
     _, jturn = _run(ref, turns=256, params=JParams)
     assert turn == jturn == 256
     stats, jstats = port.stats(), ref.stats()
-    assert set(stats) == set(jstats) | {"device"}
+    assert set(stats) == set(jstats) | {"device", "issue_s", "token_wait_s",
+                                        "host_s", "chunks"}
     assert stats["chunk_overhead_us"] > 0
     end, jend = _run_end(tmp_path / "port.jsonl"), _run_end(
         tmp_path / "ref.jsonl")

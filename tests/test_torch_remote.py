@@ -510,12 +510,24 @@ def test_slo_estimator_matches_jax():
     assert te.percentiles(qs) == je.percentiles(qs)
 
 
+# The port's families beyond `gol_tpu`'s: the chunk loop's cumulative
+# host accounting that its chunk_overhead_us gauge comes from.
+PORT_ONLY_FAMILIES = {
+    "gol_engine_issue_seconds_total", "gol_engine_token_wait_seconds_total",
+    "gol_engine_host_seconds_total", "gol_engine_counted_chunks_total"}
+
+
 def test_catalog_families_match_jax():
     from gol_tpu.obs.metrics import REGISTRY as JREG
     from gol_tpu_torch.obs.metrics import REGISTRY as TREG
 
     jfam = JREG.families()
-    for name, fam in TREG.families().items():
+    tfam = TREG.families()
+    assert set(tfam) - set(jfam) == PORT_ONLY_FAMILIES
+    for name, fam in tfam.items():
+        if name in PORT_ONLY_FAMILIES:
+            assert fam.kind == "counter" and not fam.label_names, name
+            continue
         assert name in jfam, name
         assert (fam.kind, fam.label_names) == \
             (jfam[name].kind, jfam[name].label_names), name
