@@ -12,12 +12,16 @@ Phases (each raises on failure; any failure exits non-zero):
    fails if either fails): ptxas registers and
    stack frames (every kernel's must be 0 bytes), and the stepping loop
    of each stepping kernel's SASS (K1, K2, K4, K5, K6; `cuobjdump
-   -sass`: its instructions, in all, by opcode and per word);
+   -sass`: its instructions, in all, by opcode and per word), those of K1
+   at G = 1, K4 and K9 route 1 held to `BARRIER_A_TURN_LOOPS`;
 3. every kernel against its plain PyTorch version on the card, bit-exact
    (integer boards: tolerance 0), at the main path's shapes and at odd
    ones (one-word boards, heights shorter than a tile window): K1 at
    every cluster size N = 1..16 on 512² and 64² (and at the policy's N
-   and N = min(16, h) on one-word and short boards), K2 at every tile
+   and N = min(16, h) on one-word and short boards), at N = 16 at every
+   G up to the smallest slab on 512², 256² and 500 x 512, counted and
+   not, and at G = 1 and the policy's at each timed rows a thread on
+   512², K2 at every tile
    height R on 5120² and odd boards and at the policy's R up to 65536²;
    K6 at depths 33, 48 and 64 up to 16384², and at 64 on 65536², its
    timed head row, and B3's sweep sequence; the two-plane kernels for
@@ -255,7 +259,9 @@ Phases (each raises on failure; any failure exits non-zero):
    leg's and phase 3's buckets beside its bound and its plain version;
 5. timings at 64², 128², 256², 512², 4096², 5120², 8192², 16384²,
    65536² and 131072²: each kernel's ms per launch beside its plain version's
-   and its bound (K1 at N = 1, 2, 4, 8, 16 on 512², 256² and 64², K2 at
+   and its bound (K1 at N = 1, 2, 4, 8, 16 on 512², 256² and 64², and at
+   N = 16 at G = 1, 2, 4, 8, 16 x 1, 2, 3, 5 rows a thread on 512² and
+   256², K2 at
    every R on 5120², 8192², 16384² and 65536², K4 at every N on 64² to
    512², K5 at every R on 4096² and 16384²), B3 `fused_banded_run_turns`
    at pinned depths 16, 32 and 64, and engine turns/s and the largest
@@ -372,6 +378,10 @@ class Card:
 
 # K1's rows per thread timed (and checked) beside the policy's at 512².
 RESIDENT_PER_TIMED = (1, 3, 5, 9)
+# K1's ghost rows G (turns between cluster barriers) timed at N = 16 at
+# rows per thread 1, 2, 3 and 5, on 512² and 256²; G = 1 is a cluster
+# barrier a turn, the kernel before rounds.
+RESIDENT_HALO_TIMED = (1, 2, 4, 8, 16)
 
 # Largest |kernel - plain| seen per kernel in phase 3, over the words
 # read as uint32 (0 whenever they are bit-exact).
@@ -431,6 +441,20 @@ def demangle(names: list) -> list:
 
 SASS_COUNTED = ("LOP3", "SHF", "LDS", "LD", "STS", "ST", "IADD3", "IMAD",
                 "LEA", "ISETP", "SEL", "BRA")
+# The stepping loops of the resident kernels that keep a cluster barrier
+# a turn (K1 on one CTA or at G = 1, K4, K9 route 1), as nvcc 12.9 built
+# them before K1's rounds: (instructions, LOP3, IMAD, LDS, STS). Phase 2
+# holds each build to them.
+BARRIER_A_TURN_LOOPS = {
+    "resident_kernel<Life, (bool)0, (bool)0, (bool)0>": (95, 64, 16, 6, 2),
+    "resident_kernel<Life, (bool)1, (bool)0, (bool)0>": (95, 64, 16, 6, 2),
+    "resident_kernel<Life, (bool)0, (bool)1, (bool)0>": (95, 64, 16, 6, 2),
+    "resident_kernel<Life, (bool)1, (bool)1, (bool)0>": (111, 64, 32, 6, 2),
+    "resident_kernel<Gen3, (bool)0, (bool)0, (bool)0>": (116, 76, 21, 8, 4),
+    "resident_kernel<Gen3, (bool)1, (bool)0, (bool)0>": (116, 76, 21, 8, 4),
+    "resident_kernel<Gen4, (bool)0, (bool)0, (bool)0>": (138, 91, 24, 12, 4),
+    "resident_kernel<Gen4, (bool)1, (bool)0, (bool)0>": (138, 91, 24, 12, 4),
+}
 
 
 def step_loops(lib: str) -> dict:
@@ -514,10 +538,34 @@ def phase_kernels(torch, dev) -> None:
                             bitpack.packed_run_turns(w, 50, rule),
                             "resident_run_turns")
     w = seeded_words(torch, 512, 16, 5, dev)
-    for per in RESIDENT_PER_TIMED:
-        check_equal(torch, f"K1 512x16w N=16 per={per} 100 turns",
-                    cs.resident_run_turns(w, 100, ctas=16, per=per),
-                    bitpack.packed_run_turns(w, 100), "resident_run_turns")
+    want = bitpack.packed_run_turns(w, 100)
+    for halo in (1, cs.resident_halo_rows(512, 16, 16)):
+        for per in RESIDENT_PER_TIMED:
+            check_equal(torch, f"K1 512x16w N=16 G={halo} per={per} 100 "
+                        "turns", cs.resident_run_turns(
+                            w, 100, ctas=16, per=per, halo=halo),
+                        want, "resident_run_turns")
+    # K1's rounds at N = 16: every G up to the smallest slab on 512²,
+    # 256² and an odd height (slabs of 31 and 32 rows), for one turn, one
+    # round and a turn, and 100 turns, uncounted and counted.
+    for (h, wp) in [(512, 16), (256, 8), (500, 16)]:
+        w = seeded_words(torch, h, wp, 23 * h + wp, dev)
+        wants: dict = {}
+        for g in range(1, h // 16 + 1):
+            for turns in sorted({1, g + 1, 100}):
+                if turns not in wants:
+                    wants[turns] = bitpack.packed_run_turns(w, turns)
+                what = f"K1 {h}x{wp}w N=16 G={g} {turns} turns"
+                check_equal(torch, what, cs.resident_run_turns(
+                    w, turns, ctas=16, halo=g), wants[turns],
+                    "resident_run_turns")
+                c = torch.full((1,), -1, dtype=torch.int64, device=dev)
+                got = cs.resident_run_turns(w, turns, ctas=16, halo=g,
+                                            count=c)
+                check_equal(torch, f"{what} counted", got, wants[turns],
+                            "resident_run_turns")
+                check_count(f"{what} counted", c, plain_count(torch, got),
+                            "resident_run_turns")
     for (h, wp) in [(96, 1), (33, 1), (37, 3), (16, 4)]:
         w = seeded_words(torch, h, wp, h * 7 + wp, dev)
         for n in sorted({cs.resident_cluster_ctas(h, wp), min(16, h)}):
@@ -1993,8 +2041,9 @@ def publication_gap(firsts: list) -> float:
 
 
 def log_row(name: str, r: dict) -> None:
-    geom = "".join(f" {k}={r[k]}" for k in ("ctas", "per", "rows", "fuse_k",
-                                            "radius", "tile") if k in r)
+    geom = "".join(f" {k}={r[k]}" for k in ("ctas", "per", "halo", "rows",
+                                            "fuse_k", "radius", "tile")
+                   if k in r)
     plain = ("not measured" if r["plain_ms"] is None
              else f"{r['plain_ms']:.4f} ms")
     library = (f", library {r['library_ms']:.4f} ms"
@@ -2013,27 +2062,34 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
     k1_turns = 1024
     rows = {"resident_run_turns": [], "tiled_sweep": [],
             "row_popcounts": []}
-    # K1 at every power-of-two cluster size, and at 512² (N = 16) at
-    # other rows per thread; the plain version at the policy's geometry.
+    # K1 at every power-of-two cluster size at the policy's G and rows
+    # per thread, at 512² (N = 16, G = 1) at other rows per thread, and at
+    # 512² and 256² (N = 16) at every timed G x 1, 3, 5 rows a thread;
+    # the plain version at the policy's geometry.
     for (h, wp) in [(512, 16), (256, 8), (64, 2)]:
         w = seeded_words(torch, h, wp, 1, dev)
-        policy = (cs.resident_cluster_ctas(h, wp),
-                  cs.resident_rows_per_thread(
-                      h, wp, cs.resident_cluster_ctas(h, wp)))
-        geoms = [(n, cs.resident_rows_per_thread(h, wp, n))
-                 for n in (1, 2, 4, 8, 16)]
+
+        def policy_of(n):
+            g = cs.resident_halo_rows(h, wp, n)
+            return n, cs.resident_rows_per_thread(h, wp, n, g), g
+
+        policy = policy_of(cs.resident_cluster_ctas(h, wp))
+        geoms = {policy_of(n) for n in (1, 2, 4, 8, 16)}
         if h == 512:
-            geoms += [(16, per) for per in RESIDENT_PER_TIMED]
+            geoms |= {(16, per, 1) for per in RESIDENT_PER_TIMED}
+        if h >= 256:
+            geoms |= {(16, per, g) for g in RESIDENT_HALO_TIMED
+                      for per in (1, 2, 3, 5)}
         b, by = card.bound(8 * h * wp, ops * k1_turns * h * wp)
-        for n, per in sorted(set(geoms) | {policy}):
+        for n, per, g in sorted(geoms):
             ms = time_ms(torch, lambda: cs.resident_run_turns(
-                w, k1_turns, ctas=n, per=per), 5)
+                w, k1_turns, ctas=n, per=per, halo=g), 5)
             plain = (time_ms(torch, lambda: cs.resident_run_turns_plain(
-                w, k1_turns), 1) if (n, per) == policy else None)
+                w, k1_turns), 1) if (n, per, g) == policy else None)
             rows["resident_run_turns"].append(dict(
                 shape=f"{h}x{wp * 32}", turns=k1_turns, ctas=n, per=per,
-                policy=(n, per) == policy, ms=ms, plain_ms=plain,
-                bound_ms=b, bound_by=by))
+                halo=g, policy=(n, per, g) == policy, ms=ms,
+                plain_ms=plain, bound_ms=b, bound_by=by))
     # K2 at every tile height; the plain version at the policy's.
     for (h, wp) in [(65536, 2048), (16384, 512), (8192, 256), (5120, 160)]:
         w = seeded_words(torch, h, wp, 2, dev)
@@ -7235,8 +7291,8 @@ def main_path_launches(cs) -> dict:
 # Device kernel names (as the profiler reports them, without
 # "(anonymous namespace)::") of each wrapper.
 KERNEL_SYMBOLS = (
-    ("resident_kernel<Life, true, true>", "fleet_run_turns/resident"),
-    ("resident_kernel<Life, false, true>", "fleet_run_turns/resident"),
+    ("resident_kernel<Life, true, true,", "fleet_run_turns/resident"),
+    ("resident_kernel<Life, false, true,", "fleet_run_turns/resident"),
     ("tiled_kernel<Life, 1, 128, true>", "fleet_run_turns/tiled"),
     ("tiled_kernel<Life, 1, 384, true>", "fleet_run_turns/tiled"),
     ("resident_kernel<Life,", "resident_run_turns"),
@@ -7316,8 +7372,17 @@ def main() -> int:
     log("  stack frames (bytes): " + json.dumps(frames))
     if any(frames.values()):
         raise AssertionError(f"kernels with a stack frame: {frames}")
-    for name, loop in step_loops(rec["path"]).items():
+    loops = step_loops(rec["path"])
+    for name, loop in loops.items():
         log(f"  sass stepping loop of {name}: {json.dumps(loop)}")
+    for name, want in BARRIER_A_TURN_LOOPS.items():
+        loop = loops.get(name)
+        got = loop and tuple(loop[k] for k in ("instructions", "LOP3", "IMAD",
+                                               "LDS", "STS"))
+        if got != want:
+            raise AssertionError(f"the stepping loop of {name} changed: "
+                                 f"{got} != {want}")
+    log("  ok stepping loops of K1 at G = 1, K4 and K9 route 1 unchanged")
     phase_kernels(torch, dev)
     phase_kernels_counted(torch, dev)
     phase_kernels_ltl(torch, dev)
@@ -7400,7 +7465,15 @@ def main() -> int:
                 f"{MEMBER_LAUNCHES}")
             for name, n in MEMBER_LAUNCHES.items():
                 counts[name] = counts.get(name, 0) + n
-        log(f"  {phase.__name__} launches: {counts}")
+        log(f"  {phase.__name__} launches: {counts}; K1 by G: "
+            f"{cs.resident_run_turns.by_halo}")
+        if phase is phase_main_path:
+            # 64² on one CTA at G = 1, 512² on the cluster at its G.
+            need = {1, cs.resident_halo_rows(512, 16, 16)}
+            if not need <= set(cs.resident_run_turns.by_halo):
+                raise AssertionError(f"K1 launched at G "
+                                     f"{cs.resident_run_turns.by_halo}, "
+                                     f"not at every G of {need}")
         for name in kernels:
             if counts[name] <= 0:
                 raise AssertionError(f"{phase.__name__} never launched "

@@ -148,6 +148,10 @@ static_assert(4 * 4 * (kTile2pRowChoices[0] + 2 * kTileMaxT) * kWinWords <=
 // spilled 16 bytes.
 constexpr int kResidentThreads = 1024;
 constexpr int kResident2pThreads = 512;
+// K1's rounds: at most 512 threads a CTA, so ptxas may give a thread 128
+// registers; under 1024 threads (64 registers) its stepping loop took 17
+// register moves more for two rows (112 instructions, against 95 now).
+constexpr int kRoundsThreads = 512;
 // K1, K4: the largest cluster H100 places (a non-portable size above 8).
 constexpr int kResidentMaxCtas = 16;
 constexpr int kPortableClusterCtas = 8;
@@ -437,14 +441,17 @@ inline CountBox full_box(int h, int wp) { return CountBox{0, h, 0, wp}; }
 // and turn (30 for K1, 32 or 35 for K4); one CTA would reach at most 1/132
 // of the card's rate, so the board is spread over a cluster of up to 16
 // SMs (1/8 of the card). A cluster turn has a floor of about 1 µs (the
-// split barrier and the DSMEM reads), so small boards run on one CTA.
+// split barrier and the DSMEM reads), so small boards run on one CTA, and
+// K1 on a cluster exchanges its slabs' edges once every G turns
+// (kRounds, below).
 //
 // CTA i owns rows [a_i, a_{i+1}) in two buffers (ping-pong) of ceil(h/N)
 // rows per plane; a buffer holds plane 0's slab, then plane 1's, so the
-// rows a warp walks keep K1's bank pattern. The rows above and below its
-// slab are the last row of CTA i - 1's slab and the first row of CTA
-// i + 1's (ranks modulo N: the torus), read in place, in every plane,
-// from their shared memory through DSMEM. A turn is:
+// rows a warp walks keep K1's bank pattern. Without kRounds (K4, K9,
+// one-CTA K1: G = 1), the rows above and below its slab are the last row
+// of CTA i - 1's slab and the first row of CTA i + 1's (ranks modulo N:
+// the torus), read in place, in every plane, from their shared memory
+// through DSMEM. A turn is:
 //   1. the slab's first and last rows, the only rows that read a
 //      neighbour (threads of slots 0 and 1), both planes;
 //   2. barrier.cluster.arrive (release);
@@ -464,9 +471,39 @@ inline CountBox full_box(int h, int wp) { return CountBox{0, h, 0, wp}; }
 // a turn.
 //
 // Threads: `lanes` columns x (2 + slots) slots, at most
-// F::kResidentThreads, fixed before the turn loop; a slot walks `per`
-// rows (the interior split into slots), a lane columns lane, lane +
-// lanes, ... (once when wp <= lanes).
+// F::kResidentThreads (kRoundsThreads in rounds), fixed before the turn
+// loop; a slot walks `per` rows (the interior split into slots), a lane
+// columns lane, lane + lanes, ... (once when wp <= lanes).
+//
+// K1 on a cluster (kRounds, G = `halo` > 1, at most the smallest slab):
+// a buffer holds G ghost rows, the slab, then G ghost rows, per plane, so
+// CTA i holds rows a_i - G .. a_{i+1} + G - 1 of the board. A launch runs
+// rounds of G turns (the last one turns mod G) on its own shared memory
+// alone, K2's idea on a slab: wrong values enter at the ghost rows' outer
+// edge and advance a row a turn, so turn j of a round of g turns computes
+// only the rows still exact, the slab and g - j rows each side, and the
+// slab is exact after the round. Between turns only __syncthreads. After
+// each round but the last, the exchange:
+//   1. each CTA copies its slab's first G and last G rows, every plane,
+//      into its export rows of this round's parity (two sets, after the
+//      buffers);
+//   2. barrier.cluster.arrive (release), barrier.cluster.wait (acquire);
+//   3. each CTA reads, through DSMEM, CTA i - 1's last rows into its upper
+//      ghost rows and CTA i + 1's first rows into its lower ones (the
+//      round's result buffer), then __syncthreads.
+// Why one barrier a round is safe: a CTA writes the export rows of one
+// parity again two exchanges later, after the wait of the exchange
+// between, which returns only once every thread of the cluster arrived
+// there, each after its reads of the exchange before. No CTA reads
+// another's buffers, so its own turns need no cluster barrier. Each CTA's
+// first read of another's shared memory follows the first exchange's
+// barrier (every CTA running), and a full barrier after the last round
+// keeps every CTA until the others' last reads of its export rows are
+// done; it also orders rank 0's zeroing of the count before any CTA adds
+// to it. The initial window is read from the board with rows modulo h,
+// so the first round needs no exchange. Threads: slot s walks the window
+// rows [1 + s per, 1 + (s + 1) per), clipped each turn to the rows that
+// turn computes; G + ceil(h/N) + G - 2 rows take all slots.
 //
 // The count (`alive` given): after the last turn each CTA counts the
 // live cells of the slab it writes out (plane 0, the alive plane of
@@ -482,14 +519,18 @@ inline CountBox full_box(int h, int wp) { return CountBox{0, h, 0, wp}; }
 // `slot_ctas` CTAs (a cluster each when kCluster); group g steps slot g,
 // whose words start g * h * wp words into `in` and `out`, and counts
 // into alive[g].
-template <typename F, bool kCluster, bool kBatched = false>
-__global__ void __launch_bounds__(F::kResidentThreads, 1)
+template <typename F, bool kCluster, bool kBatched = false,
+          bool kRounds = false>
+__global__ void __launch_bounds__(kRounds ? kRoundsThreads
+                                          : F::kResidentThreads, 1)
 resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                 int h, int wp, long long turns, uint32_t born,
                 uint32_t survive, int lanes, int per,
                 Count<kBatched>* __restrict__ alive, int slot_ctas,
-                CountBox box) {
+                CountBox box, int halo) {
   static_assert(!kBatched || F::kPlanes == 1, "K9 steps one plane");
+  static_assert(!kRounds || (kCluster && !kBatched),
+                "rounds exchange ghost rows within one board's cluster");
   extern __shared__ uint32_t smem[];
   const long long board = (long long)h * wp;       // words per board plane
   int ctas = gridDim.x;
@@ -504,78 +545,154 @@ resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   }
   const int a = slab_start(rank, h, ctas);
   const int len = slab_start(rank + 1, h, ctas) - a;
-  const int plane = ((h + ctas - 1) / ctas) * wp;  // words per slab plane
+  const int top = kRounds ? halo : 0;  // ghost rows above and below
+  const int plane = ((h + ctas - 1) / ctas + 2 * top) * wp;  // words
   const int buf = F::kPlanes * plane;              // words per buffer
   if (alive != nullptr && rank == 0 && threadIdx.x == 0) alive[group] = 0;
-#pragma unroll
-  for (int p = 0; p < F::kPlanes; ++p) {
-    const uint32_t* src_in = in + p * board + (long long)a * wp;
-    for (int i = threadIdx.x; i < len * wp; i += blockDim.x) {
-      smem[p * plane + i] = src_in[i];
-    }
-  }
-  const uint32_t* up = smem;
-  const uint32_t* down = smem;
-  int up_last = len - 1;  // row of `up` above the slab
-  if constexpr (kCluster) {
-    cg::cluster_group cluster = cg::this_cluster();
-    const int ru = rank == 0 ? ctas - 1 : rank - 1;
-    up = cluster.map_shared_rank(smem, ru);
-    down = cluster.map_shared_rank(smem, rank == ctas - 1 ? 0 : rank + 1);
-    up_last = slab_start(ru + 1, h, ctas) - slab_start(ru, h, ctas) - 1;
-    cluster.sync();  // every slab loaded, every CTA running
-  } else {
-    __syncthreads();
-  }
-  // This thread's rows [first, first + n) and column.
-  const int slot = threadIdx.x / lanes;
-  const int lane = threadIdx.x - slot * lanes;
-  const bool edge = slot < 2;
-  int first, n;
-  if (slot == 0) {
-    first = 0;
-    n = 1;
-  } else if (slot == 1) {
-    first = len - 1;
-    n = len >= 2 ? 1 : 0;
-  } else {
-    first = 1 + (slot - 2) * per;
-    n = max(0, min(per, len - 1 - first));
-  }
-  const int last = first + n - 1;
-  const uint32_t* above = first == 0 ? up : smem;
-  const int above_off = (first == 0 ? up_last : first - 1) * wp;
-  const uint32_t* below = last == len - 1 ? down : smem;
-  const int below_off = last == len - 1 ? 0 : (last + 1) * wp;
-  const int first_off = first * wp;
-  const int west0 = lane == 0 ? wp - 1 : lane - 1;
-  const int east0 = lane + 1 == wp ? 0 : lane + 1;
-  const RuleLeaves rule = make_leaves(born, survive);
-  auto step = [&](int src, int dst) {
-    if (n <= 0) return;
-    int col = lane, west = west0, east = east0;
-    while (true) {
-      step_rows<F>(above + src + above_off, smem + src + first_off,
-                   below + src + below_off, smem + dst + first_off, n, wp,
-                   plane, col, west, east, rule);
-      col += lanes;
-      if (col >= wp) break;
-      west = col - 1;
-      east = col + 1 == wp ? 0 : col + 1;
-    }
-  };
   int src = 0;  // word offset of the current buffer
-  for (long long k = 0; k < turns; ++k) {
-    const int dst = buf - src;
-    if (edge) step(src, dst);
-    if constexpr (kCluster) cluster_arrive();
-    if (!edge) step(src, dst);
+  if constexpr (kRounds) {
+    // The window: rows a - G .. a + len + G - 1 modulo h (G <= h / N).
+#pragma unroll
+    for (int p = 0; p < F::kPlanes; ++p) {
+      for (int i = threadIdx.x; i < (len + 2 * halo) * wp;
+           i += blockDim.x) {
+        const int r = i / wp;
+        int row = a - halo + r;
+        row = row < 0 ? row + h : (row >= h ? row - h : row);
+        smem[p * plane + i] = in[p * board + (long long)row * wp + i - r * wp];
+      }
+    }
     __syncthreads();
-    if constexpr (kCluster) cluster_wait();
-    src = dst;
+    // Export rows after the buffers: two parities of (first G, last G)
+    // slab rows of every plane, `side` words each.
+    const int ghost = halo * wp;  // words of G rows of one plane
+    const int side = F::kPlanes * ghost;
+    uint32_t* const exports = smem + 2 * buf;
+    cg::cluster_group cluster = cg::this_cluster();
+    const uint32_t* const from_up =
+        cluster.map_shared_rank(exports, rank == 0 ? ctas - 1 : rank - 1) +
+        side;
+    const uint32_t* const from_down =
+        cluster.map_shared_rank(exports, rank == ctas - 1 ? 0 : rank + 1);
+    const int slot = threadIdx.x / lanes;
+    const int lane = threadIdx.x - slot * lanes;
+    const int s0 = 1 + slot * per;  // this slot's window rows [s0, s0 + per)
+    const int west0 = lane == 0 ? wp - 1 : lane - 1;
+    const int east0 = lane + 1 == wp ? 0 : lane + 1;
+    const RuleLeaves rule = make_leaves(born, survive);
+    long long left = turns;
+    for (int parity = 0;; parity ^= 1) {
+      const int g = left < halo ? (int)left : halo;
+      for (int j = 1; j <= g; ++j) {
+        const int dst = buf - src;
+        // Exact after turn j: the slab and g - j rows on each side.
+        const int first = max(s0, halo - g + j);
+        const int n = min(s0 + per, halo + len + g - j) - first;
+        if (n > 0) {
+          int col = lane, west = west0, east = east0;
+          while (true) {
+            const uint32_t* row = smem + src + first * wp;
+            step_rows<F>(row - wp, row, row + n * wp, smem + dst + first * wp,
+                         n, wp, plane, col, west, east, rule);
+            col += lanes;
+            if (col >= wp) break;
+            west = col - 1;
+            east = col + 1 == wp ? 0 : col + 1;
+          }
+        }
+        __syncthreads();
+        src = dst;
+      }
+      left -= g;
+      if (left == 0) break;
+      uint32_t* const mine = exports + parity * 2 * side;
+      for (int i = threadIdx.x; i < side; i += blockDim.x) {
+        const int p = i / ghost, k = i - p * ghost;
+        mine[i] = smem[src + p * plane + ghost + k];
+        mine[side + i] = smem[src + p * plane + len * wp + k];
+      }
+      cluster_arrive();
+      cluster_wait();
+      const int off = parity * 2 * side;
+      for (int i = threadIdx.x; i < side; i += blockDim.x) {
+        const int p = i / ghost, k = i - p * ghost;
+        smem[src + p * plane + k] = from_up[off + i];
+        smem[src + p * plane + ghost + len * wp + k] = from_down[off + i];
+      }
+      __syncthreads();
+    }
+    cluster.sync();  // no CTA leaves while another may read its exports
+  } else {
+#pragma unroll
+    for (int p = 0; p < F::kPlanes; ++p) {
+      const uint32_t* src_in = in + p * board + (long long)a * wp;
+      for (int i = threadIdx.x; i < len * wp; i += blockDim.x) {
+        smem[p * plane + i] = src_in[i];
+      }
+    }
+    const uint32_t* up = smem;
+    const uint32_t* down = smem;
+    int up_last = len - 1;  // row of `up` above the slab
+    if constexpr (kCluster) {
+      cg::cluster_group cluster = cg::this_cluster();
+      const int ru = rank == 0 ? ctas - 1 : rank - 1;
+      up = cluster.map_shared_rank(smem, ru);
+      down = cluster.map_shared_rank(smem, rank == ctas - 1 ? 0 : rank + 1);
+      up_last = slab_start(ru + 1, h, ctas) - slab_start(ru, h, ctas) - 1;
+      cluster.sync();  // every slab loaded, every CTA running
+    } else {
+      __syncthreads();
+    }
+    // This thread's rows [first, first + n) and column.
+    const int slot = threadIdx.x / lanes;
+    const int lane = threadIdx.x - slot * lanes;
+    const bool edge = slot < 2;
+    int first, n;
+    if (slot == 0) {
+      first = 0;
+      n = 1;
+    } else if (slot == 1) {
+      first = len - 1;
+      n = len >= 2 ? 1 : 0;
+    } else {
+      first = 1 + (slot - 2) * per;
+      n = max(0, min(per, len - 1 - first));
+    }
+    const int last = first + n - 1;
+    const uint32_t* above = first == 0 ? up : smem;
+    const int above_off = (first == 0 ? up_last : first - 1) * wp;
+    const uint32_t* below = last == len - 1 ? down : smem;
+    const int below_off = last == len - 1 ? 0 : (last + 1) * wp;
+    const int first_off = first * wp;
+    const int west0 = lane == 0 ? wp - 1 : lane - 1;
+    const int east0 = lane + 1 == wp ? 0 : lane + 1;
+    const RuleLeaves rule = make_leaves(born, survive);
+    auto step = [&](int src, int dst) {
+      if (n <= 0) return;
+      int col = lane, west = west0, east = east0;
+      while (true) {
+        step_rows<F>(above + src + above_off, smem + src + first_off,
+                     below + src + below_off, smem + dst + first_off, n, wp,
+                     plane, col, west, east, rule);
+        col += lanes;
+        if (col >= wp) break;
+        west = col - 1;
+        east = col + 1 == wp ? 0 : col + 1;
+      }
+    };
+    for (long long k = 0; k < turns; ++k) {
+      const int dst = buf - src;
+      if (edge) step(src, dst);
+      if constexpr (kCluster) cluster_arrive();
+      if (!edge) step(src, dst);
+      __syncthreads();
+      if constexpr (kCluster) cluster_wait();
+      src = dst;
+    }
   }
   const bool counted = alive != nullptr;
   int* scratch = reinterpret_cast<int*>(smem + (buf - src));
+  src += top * wp;  // the result's first slab row
   if (counted) {
     if (threadIdx.x == 0) *scratch = 0;
     __syncthreads();
@@ -708,54 +825,68 @@ struct ClusterLaunch {
 };
 
 // Launches `slots` groups of `ctas` CTAs (one group when not kBatched).
-template <typename F, bool kCluster, bool kBatched = false>
+template <typename F, bool kCluster, bool kBatched = false,
+          bool kRounds = false>
 cudaError_t launch_resident(const void* in, void* out, int h, int wp,
                             long long turns, unsigned born, unsigned survive,
                             int ctas, int lanes, int threads, int per,
                             size_t smem, int device, cudaStream_t stream,
                             Count<kBatched>* alive, int slots,
-                            CountBox box) {
-  auto kernel = resident_kernel<F, kCluster, kBatched>;
+                            CountBox box, int halo = 1) {
+  auto kernel = resident_kernel<F, kCluster, kBatched, kRounds>;
   const ClusterLaunch launch(ctas, ctas * slots, threads, smem, stream);
   cudaError_t e = prepare_launch((const void*)kernel, device, smem, ctas,
                                  threads, &launch.cfg);
   if (e != cudaSuccess) return e;
   e = cudaLaunchKernelEx(&launch.cfg, kernel, (const uint32_t*)in,
                          (uint32_t*)out, h, wp, turns, (uint32_t)born,
-                         (uint32_t)survive, lanes, per, alive, ctas, box);
+                         (uint32_t)survive, lanes, per, alive, ctas, box,
+                         halo);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 // The geometry of K1, K4 and K9 route 1 for `ctas` CTAs a board or slot
-// whose thread slots walk `per` rows: the dynamic shared memory of a CTA,
-// its lanes and threads. Returns false for a geometry they do not take.
+// whose thread slots walk `per` rows, with `halo` ghost rows a side (K1's
+// rounds; 1: none, a cluster barrier a turn): the dynamic shared memory
+// of a CTA, its lanes and threads. Returns false for a geometry they do
+// not take: ghost rows need a cluster and come from the adjacent CTA
+// alone, so G is at most the smallest slab, floor(h/N).
 template <typename F>
 bool resident_geometry(int h, int wp, int ctas, int per, size_t* smem,
-                       int* lanes, int* threads) {
+                       int* lanes, int* threads, int halo = 1) {
   if (h < 1 || wp < 1 || ctas < 1 || ctas > kResidentMaxCtas || ctas > h ||
-      per < 1) {
+      per < 1 || halo < 1 || (halo > 1 && (ctas == 1 || halo > h / ctas))) {
     return false;
   }
   const int len_max = (h + ctas - 1) / ctas;
-  *smem = 2 * F::kPlanes * sizeof(uint32_t) * (size_t)len_max * wp;
-  const int inner = len_max - 2;
-  const int thread_slots = 2 + (inner > 0 ? (inner + per - 1) / per : 0);
-  constexpr int kThreads = F::kResidentThreads;
-  if (*smem > (size_t)kBlockSmemBytes || thread_slots > kThreads) {
+  int thread_slots;
+  if (halo == 1) {
+    *smem = 2 * F::kPlanes * sizeof(uint32_t) * (size_t)len_max * wp;
+    const int inner = len_max - 2;
+    thread_slots = 2 + (inner > 0 ? (inner + per - 1) / per : 0);
+  } else {
+    // Two buffers of G + ceil(h/N) + G rows and two parities of 2G
+    // export rows; the slots walk the rows a round's first turn computes.
+    *smem = F::kPlanes * sizeof(uint32_t) * (size_t)wp *
+            (2 * (len_max + 2 * halo) + 4 * halo);
+    thread_slots = (len_max + 2 * halo - 2 + per - 1) / per;
+  }
+  const int max_threads = halo > 1 ? kRoundsThreads : F::kResidentThreads;
+  if (*smem > (size_t)kBlockSmemBytes || thread_slots > max_threads) {
     return false;
   }
-  *lanes = wp < kThreads / thread_slots ? wp : kThreads / thread_slots;
+  *lanes = wp < max_threads / thread_slots ? wp : max_threads / thread_slots;
   *threads = *lanes * thread_slots;
   return true;
 }
 
 // K1 or K4 on one cluster of `ctas` CTAs (1..16, at most h), each thread
-// slot walking `per` rows of its slab's interior; with `alive` given,
-// the live cells of plane 0 of the result added into *alive, which the
-// launch zeroes. Returns cudaErrorInvalidValue for a geometry it does not
-// take and cudaErrorLaunchOutOfResources when the cluster cannot be
-// placed.
+// slot walking `per` rows of its slab's interior (of its window with
+// `halo` > 1: K1's rounds of G turns); with `alive` given, the live
+// cells of plane 0 of the result added into *alive, which the launch
+// zeroes. Returns cudaErrorInvalidValue for a geometry it does not take
+// and cudaErrorLaunchOutOfResources when the cluster cannot be placed.
 //
 // With kBatched (K9 route 1): `groups` groups of `ctas` CTAs over a
 // (groups, h, wp) batch of slots, each slot's live cells into
@@ -764,10 +895,12 @@ template <typename F, bool kBatched = false>
 int run_resident(const void* in, void* out, int h, int wp, long long turns,
                  unsigned born, unsigned survive, int ctas, int per,
                  int device, void* stream, Count<kBatched>* alive = nullptr,
-                 int groups = 1, const CountBox* box = nullptr) {
+                 int groups = 1, const CountBox* box = nullptr,
+                 int halo = 1) {
   size_t smem;
   int lanes, threads;
-  if (!resident_geometry<F>(h, wp, ctas, per, &smem, &lanes, &threads) ||
+  if (!resident_geometry<F>(h, wp, ctas, per, &smem, &lanes, &threads,
+                            halo) ||
       turns < 1 || groups < 1 || (long long)groups * ctas > 0x7FFFFFFF) {
     return cudaErrorInvalidValue;
   }
@@ -779,6 +912,14 @@ int run_resident(const void* in, void* out, int h, int wp, long long turns,
     return launch_resident<F, false, kBatched>(
         in, out, h, wp, turns, born, survive, 1, lanes, threads, per, smem,
         device, s, alive, groups, b);
+  }
+  if (halo > 1) {
+    if constexpr (std::is_same_v<F, Life> && !kBatched) {
+      return launch_resident<F, true, false, true>(
+          in, out, h, wp, turns, born, survive, ctas, lanes, threads, per,
+          smem, device, s, alive, groups, b, halo);
+    }
+    return cudaErrorInvalidValue;  // K4 and K9 keep a barrier a turn
   }
   return launch_resident<F, true, kBatched>(
       in, out, h, wp, turns, born, survive, ctas, lanes, threads, per, smem,
@@ -1705,15 +1846,18 @@ int gol_tile_geometry(int* max_t, int* words, int* rows, int cap) {
 // (`CountBox`; the whole board is 0, h, 0, wp).
 
 // K1 on one cluster of `ctas` CTAs (1..16, at most h), each thread slot
-// walking `per` rows of its slab's interior.
+// walking `per` rows of its slab's interior, or with `halo` > 1 (a
+// cluster's, at most floor(h/N)) of its window of G ghost rows a side,
+// exchanged once every G turns.
 int gol_resident_run_turns(const void* in, void* out, void* count, int h,
                            int wp, long long turns, unsigned born,
-                           unsigned survive, int ctas, int per, int device,
-                           void* stream, int r0, int r1, int c0, int c1) {
+                           unsigned survive, int ctas, int per, int halo,
+                           int device, void* stream, int r0, int r1, int c0,
+                           int c1) {
   const CountBox box{r0, r1, c0, c1};
   return run_resident<Life>(in, out, h, wp, turns, born, survive, ctas, per,
                             device, stream, (unsigned long long*)count, 1,
-                            &box);
+                            &box, halo);
 }
 
 // K2 at `rows` output rows per tile, one of kTileRowChoices.

@@ -52,7 +52,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gol_tile_geometry.restype = i
     box = [i, i, i, i]  # the counted rows and words (`CountBox`)
     lib.gol_resident_run_turns.argtypes = [vp, vp, vp, i, i, ll, u, u, i,
-                                           i, i, vp, *box]
+                                           i, i, i, vp, *box]
     lib.gol_resident_run_turns.restype = i
     lib.gol_tiled_sweep.argtypes = [vp, vp, vp, i, i, i, i, u, u, i, vp,
                                     *box]

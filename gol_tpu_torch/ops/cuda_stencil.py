@@ -11,17 +11,28 @@ K1 `resident_run_turns` replaces `pallas_packed_run_turns`
 (pallas_stencil.py:508). The TPU keeps the whole board in VMEM and runs
 K turns in one call; here one thread-block cluster of N CTAs (up to 16,
 H100's largest) keeps it in shared memory, each CTA a slab of
-floor(h/N) or ceil(h/N) rows in two buffers, and runs K turns. The rows
-above and below a slab are read from the neighbouring CTAs' shared
-memory (DSMEM), ranks modulo N, with one split cluster barrier a turn
-(`csrc/stencil.cu` says why that is safe). Bound: 30 shift/logic ops
-per word per turn (`OPS_PER_WORD_TURN`) against the 32-bit logic issue
-rate; a cluster uses at most 16 of the card's 132 SMs. It takes every
-board up to `RESIDENT_BOARD_BYTES` packed (512² is 32 KiB), Wp = 1
-(a word's west and east neighbours are itself) and heights N does not
-divide. `resident_cluster_ctas` and `resident_rows_per_thread` choose N
-and the rows each thread walks from the shape; a cluster the card
-cannot place raises (no retry at N = 1).
+floor(h/N) or ceil(h/N) rows in two buffers, and runs K turns. A
+cluster turn's barrier and DSMEM reads cost about as much as the turn's
+work, so K1 on a cluster runs in rounds: each CTA holds G ghost rows
+above and below its slab, steps its own window G turns with only block
+barriers (each turn computing the rows still exact, as K2's tiles do),
+then exchanges its slab's first and last G rows with its neighbours
+through double-buffered export rows and DSMEM, one cluster barrier a
+round (`csrc/stencil.cu` says why that is safe). A launch runs
+floor(K/G) rounds and one of K mod G. G = `halo` is at most
+`RESIDENT_MAX_HALO` and the smallest slab (a ghost row comes from the
+adjacent CTA alone), 1 on one CTA; G = 1 is the kernel with one split
+cluster barrier a turn, the rows above and below a slab read in place
+from the neighbours' shared memory, which K4 and K9 keep. Bound: 30
+shift/logic ops per word per turn (`OPS_PER_WORD_TURN`) against the
+32-bit logic issue rate; a cluster uses at most 16 of the card's 132
+SMs; the rounds' ghost rows add (G - 1) / ceil(h/N) of the useful rows.
+It takes every board up to `RESIDENT_BOARD_BYTES` packed (512² is 32
+KiB), Wp = 1 (a word's west and east neighbours are itself) and heights
+N does not divide. `resident_cluster_ctas`, `resident_halo_rows` and
+`resident_rows_per_thread` choose N, G and the rows each thread walks
+from the shape; a cluster the card cannot place raises (no retry at
+N = 1). `resident_run_turns.by_halo` counts launches by G.
 
 K2 `tiled_sweep` replaces `_banded_pass` (pallas_stencil.py:388). A
 full-width band does not fit Hopper's 227 KB of shared memory (one
@@ -87,9 +98,10 @@ for gen4 (alive = b0 & ~b1 of each of the three words a row load reads).
 Bound: the ops, at 16.7e12 ops/s, beside 16 bytes per word per sweep
 (both planes read and written) at 3.35 TB/s. Both run K1's and K2's
 CUDA templates with a two-plane family, so they share the lean loop
-(`step_rows`). K4 is K1 with two planes: one cluster of N CTAs, each a
-slab of both planes in two buffers, the neighbours' edge rows of both
-planes read through DSMEM, one split cluster barrier a turn. Its planes
+(`step_rows`). K4 is K1 at G = 1 with two planes: one cluster of N
+CTAs, each a slab of both planes in two buffers, the neighbours' edge
+rows of both planes read through DSMEM, one split cluster barrier a
+turn (K1's rounds are not extended to it yet). Its planes
 are routed to it up to `RESIDENT2P_PLANE_BYTES` = 58,112 bytes each
 (four board-sized buffers in one CTA; 512² is 32 KiB), and Wp = 1 is
 taken (the TPU's wp >= 2 gate has no counterpart). A one-CTA turn costs
@@ -232,6 +244,15 @@ RESIDENT_THREADS = 1024
 RESIDENT_CLUSTER_MIN_WORDS = 2048
 RESIDENT_MIN_THREADS = 128
 RESIDENT_MAX_PER = 9
+# K1 on a cluster exchanges its slabs' edges once every G turns (G ghost
+# rows a side, `resident_halo_rows`): at most RESIDENT_MAX_HALO and the
+# smallest slab (measured on the card, PERF.md: 16 beat 8 and 12, and 24
+# and 32 lost, at 512² and 256²). Its CTAs take at most
+# RESIDENT_ROUNDS_THREADS threads (csrc/stencil.cu checks it); its local
+# turns are no longer hidden under a barrier, so a thread walks the
+# fewest rows that give every word column a lane (2 at 512², 1 at 256²).
+RESIDENT_MAX_HALO = 16
+RESIDENT_ROUNDS_THREADS = 512
 # K8: rows a block counts (csrc/stencil.cu kOccRows; the grid's y extent
 # caps a window at 65535 of them).
 OCC_ROWS = 32
@@ -437,10 +458,14 @@ def resident_cluster_ctas(h: int, wp: int) -> int:
     return _cluster_ctas(h, wp, RESIDENT_CLUSTER_MIN_WORDS)
 
 
-def _resident_slots(h: int, ctas: int, per: int) -> int:
+def _resident_slots(h: int, ctas: int, per: int, halo: int = 1) -> int:
     """Thread slots of a K1 or K4 CTA: the slab's first and last rows,
     then its interior rows `per` to a slot (as `run_resident` in
-    csrc/stencil.cu)."""
+    csrc/stencil.cu); with `halo` G > 1 (K1's rounds) the window's rows
+    a round's first turn computes, G + ceil(h/N) + G - 2, `per` to a
+    slot."""
+    if halo > 1:
+        return -(-(-(-h // ctas) + 2 * halo - 2) // per)
     inner = -(-h // ctas) - 2
     return 2 + (-(-inner // per) if inner > 0 else 0)
 
@@ -467,23 +492,66 @@ def _rows_per_thread(h: int, wp: int, ctas: int, min_threads: int,
     return per
 
 
-def resident_rows_per_thread(h: int, wp: int, ctas: int) -> int:
-    """Interior rows each K1 thread walks (odd): the most, up to
-    `RESIDENT_MAX_PER`, that leave a CTA `RESIDENT_MIN_THREADS` threads,
-    or more where 1024 threads could not hold the slab otherwise."""
-    return _rows_per_thread(h, wp, ctas, RESIDENT_MIN_THREADS,
-                            RESIDENT_MAX_PER, RESIDENT_THREADS)
+def resident_rows_per_thread(h: int, wp: int, ctas: int,
+                             halo: int = 1) -> int:
+    """Rows each K1 thread walks: with a barrier a turn (`halo` 1) the
+    most, odd and up to `RESIDENT_MAX_PER`, that leave a CTA
+    `RESIDENT_MIN_THREADS` threads, or more where 1024 threads could not
+    hold the slab otherwise; in rounds (`halo` > 1) the fewest with which
+    `RESIDENT_ROUNDS_THREADS` threads give each word column a lane, or
+    the window's rows in one slot on a board wider than that."""
+    if halo == 1:
+        return _rows_per_thread(h, wp, ctas, RESIDENT_MIN_THREADS,
+                                RESIDENT_MAX_PER, RESIDENT_THREADS)
+    rows = _resident_slots(h, ctas, 1, halo)
+    per = 1
+    while per < rows and -(-rows // per) * wp > RESIDENT_ROUNDS_THREADS:
+        per += 1
+    return per
+
+
+def _slab_buffers_bytes(h: int, wp: int, ctas: int, halo: int = 1) -> int:
+    """A K1 CTA's two buffers of ceil(h/N) rows, or with `halo` G > 1 of
+    G + ceil(h/N) + G rows and two parities of 2G export rows
+    (csrc/stencil.cu: resident_geometry)."""
+    rows = -(-h // ctas)
+    if halo > 1:
+        rows += 4 * halo
+    return 2 * 4 * rows * wp
+
+
+def resident_halo_rows(h: int, wp: int, ctas: int) -> int:
+    """K1's ghost rows G a side, the turns between its cluster barriers:
+    1 on one CTA (no barrier to save), else the most, up to
+    `RESIDENT_MAX_HALO`, that the smallest slab (floor(h/N) rows: a ghost
+    row comes from the adjacent CTA alone) and a CTA's shared memory
+    hold."""
+    if ctas <= 1:
+        return 1
+    halo = max(1, min(RESIDENT_MAX_HALO, h // ctas))
+    while halo > 1 and _slab_buffers_bytes(h, wp, ctas, halo) > SMEM_BYTES:
+        halo -= 1
+    return halo
 
 
 def _check_resident_geometry(h: int, ctas: int, per: int | None,
                              what: str = "resident_run_turns",
-                             max_threads: int = RESIDENT_THREADS) -> None:
-    """Raise on a cluster size, or (unless None) rows per thread, that K1
-    (or K4, with its `max_threads`) does not take."""
+                             max_threads: int = RESIDENT_THREADS,
+                             halo: int = 1, wp: int = 1) -> None:
+    """Raise on a cluster size, ghost rows (K1's `halo`, with the board's
+    `wp`), or (unless None) rows per thread, that K1 (or K4, with its
+    `max_threads`) does not take."""
     if not 1 <= ctas <= min(RESIDENT_MAX_CTAS, h):
         raise ValueError(f"{what}: {ctas} CTAs not in "
                          f"1..{min(RESIDENT_MAX_CTAS, h)} for {h} rows")
-    if per is not None and (per < 1 or _resident_slots(h, ctas, per)
+    if halo != 1 and (ctas == 1 or not 1 <= halo <= h // ctas or
+                      _slab_buffers_bytes(h, wp, ctas, halo) > SMEM_BYTES):
+        raise ValueError(f"{what}: {halo} ghost rows not in 1..{h // ctas} "
+                         f"for {ctas} CTAs on {h}x{wp} words (one CTA: 1), "
+                         "or beyond a CTA's shared memory")
+    if halo > 1:
+        max_threads = RESIDENT_ROUNDS_THREADS
+    if per is not None and (per < 1 or _resident_slots(h, ctas, per, halo)
                             > max_threads):
         raise ValueError(f"{what}: {per} rows per thread needs more than "
                          f"{max_threads} threads a CTA")
@@ -495,37 +563,46 @@ def _slab_starts(h: int, ctas: int) -> list:
 
 
 def _slab_plain(words: torch.Tensor, num_turns: int, step,
-                ctas: int) -> torch.Tensor:
-    """K1's and K4's plain version on the kernel's slabs: each turn
-    `step`s every CTA's window, rows a_i - 1 .. a_{i+1} modulo h of every
-    plane, as a torus of its own (one batch) and keeps each slab."""
+                ctas: int, depth: int = 1) -> torch.Tensor:
+    """K1's and K4's plain version on the kernel's slabs: each round
+    `step`s every CTA's window, rows a_i - depth .. a_{i+1} + depth - 1
+    modulo h of every plane, as a torus of its own (one batch) for
+    `depth` turns (the last round num_turns mod depth) and keeps each
+    slab. Depth 1 is a round a turn (a cluster barrier a turn); K1's
+    rounds take its ghost rows G."""
     h = words.shape[-2]
     starts = _slab_starts(h, ctas)
     dev = words.device
-    span = -(-h // ctas) + 2
+    span = -(-h // ctas) + 2 * depth
     first = torch.tensor(starts[:-1], device=dev)
-    window = (first[:, None] - 1 + torch.arange(span, device=dev)) % h
+    window = (first[:, None] - depth + torch.arange(span, device=dev)) % h
     lengths = torch.tensor([b - a for a, b in zip(starts, starts[1:])],
                            device=dev)
     slab = torch.repeat_interleave(torch.arange(ctas, device=dev), lengths)
-    row = 1 + torch.arange(h, device=dev) - first[slab]
-    for _ in range(num_turns):
-        stepped = step(words[..., window, :])
+    row = depth + torch.arange(h, device=dev) - first[slab]
+    for turns in sweep_depths(num_turns, depth):
+        stepped = words[..., window, :]
+        for _ in range(turns):
+            stepped = step(stepped)
         words = stepped[..., slab, row, :]
     return words
 
 
 def resident_run_turns_plain(words: torch.Tensor, num_turns: int,
                              rule: LifeLikeRule = CONWAY,
-                             ctas: int | None = None) -> torch.Tensor:
-    """K1's plain version on the kernel's slabs (`_slab_plain`). N is
-    `resident_cluster_ctas`'s unless `ctas` is given."""
+                             ctas: int | None = None,
+                             halo: int | None = None) -> torch.Tensor:
+    """K1's plain version on the kernel's slabs and rounds
+    (`_slab_plain`). N is `resident_cluster_ctas`'s unless `ctas` is
+    given, G `resident_halo_rows`'s unless `halo` is."""
     h, wp = words.shape[-2:]
     if ctas is None:
         ctas = resident_cluster_ctas(h, wp)
-    _check_resident_geometry(h, ctas, None)
+    if halo is None:
+        halo = resident_halo_rows(h, wp, ctas)
+    _check_resident_geometry(h, ctas, None, halo=halo, wp=wp)
     return _slab_plain(words, num_turns,
-                       lambda w: _step_shared_sums(w, rule), ctas)
+                       lambda w: _step_shared_sums(w, rule), ctas, halo)
 
 
 def _cluster_failed(what: str, lib, rc: int, ctas: int, h: int,
@@ -539,25 +616,29 @@ def resident_run_turns(words: torch.Tensor, num_turns: int,
                        rule: LifeLikeRule = CONWAY, *,
                        ctas: int | None = None,
                        per: int | None = None,
+                       halo: int | None = None,
                        count: torch.Tensor | None = None,
                        box=None) -> torch.Tensor:
     """Advance an (H, Wp) packed board that fits `RESIDENT_BOARD_BYTES`
     `num_turns` turns in one launch of K1, on a cluster of `ctas` CTAs
-    whose threads walk `per` rows (by default the shape's policy). With
+    that exchange `halo` ghost rows once every `halo` turns and whose
+    threads walk `per` rows (by default the shape's policy). With
     `count` (one int64 on the board's device) the launch also sets it to
     the result's live cells, those of rows r0:r1 and words c0:c1 when
-    `box` = (r0, r1, c0, c1) is given."""
+    `box` = (r0, r1, c0, c1) is given. `by_halo` counts launches by G."""
     _check_count(count, words, num_turns, "resident_run_turns")
     if num_turns == 0:
         return words
     h, wp = words.shape[-2:]
     if ctas is None:
         ctas = resident_cluster_ctas(h, wp)
+    if halo is None:
+        halo = resident_halo_rows(h, wp, ctas)
     if per is None:
-        per = resident_rows_per_thread(h, wp, ctas)
-    _check_resident_geometry(h, ctas, per)
+        per = resident_rows_per_thread(h, wp, ctas, halo)
+    _check_resident_geometry(h, ctas, per, halo=halo, wp=wp)
     if words.device.type == "cpu":
-        out = resident_run_turns_plain(words, num_turns, rule, ctas)
+        out = resident_run_turns_plain(words, num_turns, rule, ctas, halo)
         _count_plain(count, out, box)
         return out
     lib, h, wp, dev, stream = _kernel_args(words, "resident_run_turns")
@@ -568,10 +649,12 @@ def resident_run_turns(words: torch.Tensor, num_turns: int,
     born, survive = _masks(rule)
     rc = lib.gol_resident_run_turns(
         words.data_ptr(), out.data_ptr(), _ptr(count), h, wp, num_turns,
-        born, survive, ctas, per, dev, stream, *_box_args(box, words))
+        born, survive, ctas, per, halo, dev, stream, *_box_args(box, words))
     if rc:
         raise _cluster_failed("resident_run_turns", lib, rc, ctas, h, wp)
     resident_run_turns.launches += 1
+    by_halo = resident_run_turns.by_halo
+    by_halo[halo] = by_halo.get(halo, 0) + 1
     return out
 
 
@@ -1304,12 +1387,6 @@ FLEET_MAX_SLOTS = 65535
 FLEET_ROUTES = ("resident", "tiled")
 
 
-def _slab_buffers_bytes(h: int, wp: int, ctas: int) -> int:
-    """A K1 CTA's two buffers of ceil(h/N) rows (csrc/stencil.cu:
-    resident_geometry)."""
-    return 2 * 4 * -(-h // ctas) * wp
-
-
 def fleet_slot_ctas(h: int, wp: int) -> int:
     """The fewest CTAs a route-1 slot takes: the smallest power of two
     (or min(16, h)) whose slabs' two buffers fit a CTA's shared memory;
@@ -1501,6 +1578,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS_2P:
         fn.by_family = dict.fromkeys(FAMILIES, 0)
     fleet_run_turns.by_route = dict.fromkeys(FLEET_ROUTES, 0)
+    resident_run_turns.by_halo = {}
 
 
 reset_launch_counts()

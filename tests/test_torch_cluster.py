@@ -6,6 +6,8 @@ package's whole-board scan and Pallas kernel (interpret mode) bit for
 bit at every cluster size and tile height. The kernels themselves run
 only on a CUDA device (`chip_smoke.py`)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -52,6 +54,16 @@ def test_geometry_policies_are_legal(shape):
     assert per >= 1 and per % 2 == 1
     assert cs._resident_slots(h, n, per) <= cs.RESIDENT_THREADS
     cs._check_resident_geometry(h, n, per)
+    # K1's rounds: G ghost rows from the adjacent CTA alone (at most the
+    # smallest slab), 1 on one CTA, and the window's slots in one CTA.
+    g = cs.resident_halo_rows(h, wp, n)
+    assert 1 <= g <= max(1, min(cs.RESIDENT_MAX_HALO, h // n))
+    assert g == 1 or n > 1
+    per = cs.resident_rows_per_thread(h, wp, n, g)
+    assert per >= 1
+    limit = cs.RESIDENT_ROUNDS_THREADS if g > 1 else cs.RESIDENT_THREADS
+    assert cs._resident_slots(h, n, per, g) <= limit
+    cs._check_resident_geometry(h, n, per, halo=g, wp=wp)
     rows = cs.tile_rows(h, wp)
     assert rows in cs.TILE_ROW_CHOICES
     assert -(-h // rows) <= 65535
@@ -59,11 +71,17 @@ def test_geometry_policies_are_legal(shape):
 
 def test_geometry_policies_at_the_main_path_shapes():
     """The picks measured best on the card (PERF.md): 512² on the largest
-    cluster at 5 rows a thread, 64² and one-word boards on one CTA at one
-    row a thread; 5120² in 128-row tiles (120 blocks, one wave), 8192²
-    and 65536² in 384-row tiles."""
+    cluster at 5 rows a thread a turn a barrier (K9's slots), in rounds
+    of 16 turns at 2 rows a thread (K1), 256² in rounds of 16 at 1 row,
+    64² and one-word boards on one CTA at one row a thread; 5120² in
+    128-row tiles (120 blocks, one wave), 8192² and 65536² in 384-row
+    tiles."""
     assert cs.resident_cluster_ctas(512, 16) == cs.RESIDENT_MAX_CTAS
     assert cs.resident_rows_per_thread(512, 16, 16) == 5
+    assert cs.resident_halo_rows(512, 16, 16) == 16
+    assert cs.resident_rows_per_thread(512, 16, 16, 16) == 2
+    assert cs.resident_halo_rows(256, 8, 16) == 16
+    assert cs.resident_rows_per_thread(256, 8, 16, 16) == 1
     for h, wp in ((64, 2), (33, 1), (96, 1)):
         assert cs.resident_cluster_ctas(h, wp) == 1
         assert cs.resident_rows_per_thread(h, wp, 1) == 1
@@ -139,3 +157,68 @@ def test_tiled_sweep_rejects_illegal_rows(rows):
     w = words(board(8, 32, seed=1))
     with pytest.raises(ValueError):
         cs.tiled_sweep(w, torch.empty_like(w), 4, rows=rows)
+
+
+# K1's rounds: G ghost rows a side, a cluster barrier every G turns.
+HALOS = (1, 2, 4, 8, 16, 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_512(turns):
+    return scan(board(512, 512, seed=512), turns)
+
+
+@pytest.mark.parametrize("halo,turns", [
+    (g, t) for g in HALOS for t in sorted({1, g - 1, g, g + 1, 6, 1000} - {0})])
+def test_slab_plain_every_halo(halo, turns):
+    """512² on 16 slabs of 32 rows at every G up to the slab: rounds of
+    G turns and a last one of turns mod G (6 turns: the pulsar's period,
+    which no power of two divides), equal to the whole-board scan."""
+    got = cs.resident_run_turns(words(board(512, 512, seed=512)), turns,
+                                ctas=16, halo=halo)
+    assert np.array_equal(tbp.words_to_numpy(got), _scan_512(turns))
+
+
+@pytest.mark.parametrize("shape,halo", [((500, 16), 8), ((500, 16), 31),
+                                        ((257, 8), 2), ((257, 8), 16)])
+@pytest.mark.parametrize("turns", (1, 6, 33, 100))
+def test_slab_plain_halo_odd_heights(shape, halo, turns):
+    """Heights 16 does not divide (slabs of 31 and 32 rows, of 16 and
+    17): G up to the smallest slab, against the scan."""
+    h, wp = shape
+    b = board(h, wp * 32, seed=h + halo)
+    got = cs.resident_run_turns(words(b), turns, ctas=16, halo=halo)
+    assert np.array_equal(tbp.words_to_numpy(got), scan(b, turns))
+
+
+@pytest.mark.parametrize("shape,ctas,cap", [
+    ((16, 4), 16, 1), ((32, 4), 16, 2), ((40, 3), 16, 2), ((9, 2), 4, 2),
+    ((64, 2), 8, 8)])
+def test_halo_policy_caps_at_the_smallest_slab(shape, ctas, cap):
+    """Slabs of 1, 2, 2-3 and 8 rows: the policy's G is floor(h/N), the
+    scan's board at 1, G + 1 and 7 turns, and one ghost row more is
+    refused."""
+    h, wp = shape
+    assert cs.resident_halo_rows(h, wp, ctas) == cap
+    b = board(h, wp * 32, seed=h * ctas)
+    w = words(b)
+    for turns in (1, cap + 1, 7):
+        got = cs.resident_run_turns(w, turns, ctas=ctas)
+        assert np.array_equal(tbp.words_to_numpy(got), scan(b, turns))
+    with pytest.raises(ValueError, match="ghost rows"):
+        cs.resident_run_turns(w, 3, ctas=ctas, halo=cap + 1)
+
+
+@pytest.mark.parametrize("shape,ctas,halo", [
+    ((64, 2), 16, 0), ((64, 2), 16, 5), ((64, 2), 1, 2), ((512, 16), 16, 33),
+    ((16, 1800), 2, 3)])
+def test_resident_rejects_illegal_halo(shape, ctas, halo):
+    """G below 1, beyond the smallest slab (4 and 32 rows here), above 1
+    on one CTA, or whose buffers and export rows outgrow a CTA's shared
+    memory (16 x 1,800 words on 2 CTAs: 2 x (8 + 12) rows of 7,200
+    bytes)."""
+    w = torch.zeros(shape, dtype=torch.int32)
+    with pytest.raises(ValueError, match="ghost rows"):
+        cs.resident_run_turns(w, 2, ctas=ctas, halo=halo)
+    with pytest.raises(ValueError, match="ghost rows"):
+        cs.resident_run_turns_plain(w, 2, ctas=ctas, halo=halo)

@@ -82,6 +82,23 @@ def test_resident_count(shape, turns):
         assert count.item() == int(tbp.row_popcounts_plain(out).sum())
 
 
+@pytest.mark.parametrize("box", (None, (5, 250, 1, 7), (0, 37, 0, 8)))
+@pytest.mark.parametrize("turns", (1, 8, 13))
+def test_resident_count_rounds(turns, box):
+    """K1's rounds at G = 8 on 256 x 8 words (16 slabs of 16 rows): one
+    round, one exactly, and one and five turns; the whole board and two
+    boxes (rows across slab edges and part of the words)."""
+    b = _board(256, 8, seed=256 + turns)
+    count = _count()
+    out = cs.resident_run_turns(tbp.words_from_numpy(tbp.pack_np(b)), turns,
+                                ctas=16, halo=8, count=count, box=box)
+    want = np.asarray(jbp.packed_run_turns(jbp.pack(b), turns))
+    r0, r1, c0, c1 = box or (0, 256, 0, 8)
+    assert np.array_equal(tbp.words_to_numpy(out), want)
+    assert count.item() == int(np.unpackbits(
+        want[r0:r1, c0:c1].view(np.uint8)).sum())
+
+
 @pytest.mark.parametrize("turns", (13, 40))
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}w")
 def test_banded_count(shape, turns):
