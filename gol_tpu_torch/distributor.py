@@ -627,9 +627,13 @@ def distributor(
         # board's ~10^9 coordinate tuples would exhaust memory).
         max_event_cells = env_int("GOL_MAX_EVENT_CELLS", 1 << 24, minimum=0)
         if sparse:
-            fname = _finish_sparse(engine, final_world, final_turn, width,
-                                   height, max_event_cells, out_dir,
-                                   events_q)
+            # Once a job: the window's second readback and unpack, the
+            # alive list, FinalTurnComplete and the PGM write.
+            with obs_trace.span("controller.sparse_finish",
+                                attrs={"turn": final_turn}):
+                fname = _finish_sparse(engine, final_world, final_turn,
+                                       width, height, max_event_cells,
+                                       out_dir, events_q)
         else:
             if final_world.size <= max_event_cells:
                 alive = tuple((c.x, c.y) for c in

@@ -25,6 +25,15 @@ Host syncs: `_margins` copies the occupancy to the host once an episode;
 wait for it. Window shapes, origins and margins follow the JAX object's
 turn for turn.
 
+Measurements: each torus counts its `macros`, `window_cell_updates` (a
+macro-step's rows x words x 32 x turns), `margin_fetches` and `grows`,
+and adds them to the `gol_sparse_*_total` families. Under a
+`chunk_span` (the sparse engine sets one a chunk while the span gate is
+open) it records a `sparse.margins` span around each occupancy copy's
+wait, a `sparse.grow` span around each grow (the old and new window) and
+a `sparse.macro` span around each macro-step's issue (k, h, wp, the
+kernel).
+
 The device is explicit: `device=None` means CUDA and raises without one;
 `device="cpu"` runs the kernels' plain versions, as the tests do.
 
@@ -45,12 +54,15 @@ do not depend on it.
 from __future__ import annotations
 
 import os
+import time
 from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gol_tpu_torch.models.lifelike import CONWAY, LifeLikeRule
+from gol_tpu_torch.obs import catalog as obs
+from gol_tpu_torch.obs import trace as obs_trace
 from gol_tpu_torch.ops.bitpack import (
     WORD_BITS,
     pack_np,
@@ -78,6 +90,10 @@ _GROW_NUM, _GROW_DEN = 3, 2   # headroom = need * 3/2 + 64
 # [_MACRO_MIN, cap].
 _MACRO_CAP = 2048
 _MACRO_MIN = 256
+
+# The kernel a macro-step's `parallel/halo.packed_run_kind` launches, as
+# its `sparse.macro` span names it.
+_KERNEL_OF_KIND = {"resident": "K1", "tiled": "K2"}
 
 
 def _ladder_floor(v: int) -> int:
@@ -278,10 +294,15 @@ class SparseTorus:
         # live box — fills it without touching the device.
         self._margins_host: Optional[Tuple[int, int, int, int]] = None
         self._margins_valid = False
-        # Occupancy copies to the host (one an episode) and window grows,
-        # for measurements.
+        # Occupancy copies to the host (one an episode), window grows,
+        # macro-steps and their window cell updates, for measurements.
         self.margin_fetches = 0
         self.grows = 0
+        self.macros = 0
+        self.window_cell_updates = 0
+        # The span this torus records its spans under, None for none
+        # (module note); the sparse engine sets it a chunk.
+        self.chunk_span = None
 
     @classmethod
     def _from_state(
@@ -353,8 +374,13 @@ class SparseTorus:
         if self._margins_valid:
             return self._margins_host
         h, wp = self._packed.shape
+        t0 = time.monotonic()
         occ = self._occupancy().cpu().numpy()
+        if self.chunk_span is not None:
+            obs_trace.TRACER.record("sparse.margins", t0, time.monotonic(),
+                                    self.chunk_span, {"turn": self.turn})
         self.margin_fetches += 1
+        obs.SPARSE_MARGIN_FETCHES_TOTAL.inc()
         live_rows = np.nonzero(occ[:h])[0]
         live_cols = np.nonzero(occ[h:])[0]
         if live_rows.size == 0:
@@ -374,6 +400,7 @@ class SparseTorus:
         every side (or the full torus if that is reached). Caller ensures
         the board is non-empty."""
         top, bottom, left, right = self._margins()
+        t0 = time.monotonic()
         h, wp = self._packed.shape
         w = wp * WORD_BITS
         live_h = h - top - bottom
@@ -408,6 +435,12 @@ class SparseTorus:
         self._packed = self._place(new)
         self._occ = None
         self.grows += 1
+        obs.SPARSE_GROWS_TOTAL.inc()
+        if self.chunk_span is not None:
+            obs_trace.TRACER.record(
+                "sparse.grow", t0, time.monotonic(), self.chunk_span,
+                {"turn": self.turn, "h": h, "w": w, "new_h": new_h,
+                 "new_w": new_w})
         # The grow only repositioned a live box whose bounds are known, so
         # the new margins are known exactly without a device fetch — this
         # is what lets a grow chain into the episode's macro-steps.
@@ -448,15 +481,30 @@ class SparseTorus:
             sharded_packed_run_turns,
         )
 
+        t0 = time.monotonic()
+        h, wp = self._packed.shape
         if self._mesh is not None:
+            kernel = "sharded"
             self._packed = sharded_packed_run_turns(
                 self._packed, k, self._mesh, self.rule)
         else:
-            step = packed_run_by_kind(packed_run_kind(self._packed.shape))
-            self._packed = step(self._packed, k, self.rule)
+            kind = packed_run_kind(self._packed.shape)
+            kernel = _KERNEL_OF_KIND[kind]
+            self._packed = packed_run_by_kind(kind)(self._packed, k,
+                                                    self.rule)
         self._occ = occupancy(self._packed)
         self._margins_valid = False
         self.turn += k
+        updates = h * wp * WORD_BITS * k
+        self.macros += 1
+        self.window_cell_updates += updates
+        obs.SPARSE_MACROS_TOTAL.inc()
+        obs.SPARSE_WINDOW_CELL_UPDATES_TOTAL.inc(updates)
+        if self.chunk_span is not None:
+            obs_trace.TRACER.record(
+                "sparse.macro", t0, time.monotonic(), self.chunk_span,
+                {"k": k, "h": h, "wp": wp, "kernel": kernel,
+                 "turn": self.turn})
 
     def run(self, turns: int, macro: Optional[int] = None) -> None:
         """Advance `turns` turns in adaptively-sized macro-steps of

@@ -409,6 +409,24 @@ ENGINE_COUNTED_CHUNKS_TOTAL = REGISTRY.counter(
     "Chunk-loop iterations counted in the host accounting (a profiler "
     "capture's are not).")
 
+# ------------------------------------------------------------ sparse torus
+
+SPARSE_WINDOW_CELL_UPDATES_TOTAL = REGISTRY.counter(
+    "gol_sparse_window_cell_updates_total",
+    "Window cell updates the sparse torus issued: each macro-step's "
+    "window rows x words x 32 x turns.")
+SPARSE_MACROS_TOTAL = REGISTRY.counter(
+    "gol_sparse_macros_total",
+    "Macro-steps the sparse torus issued (one K1 or K2 stepping call and "
+    "its K8 occupancy each).")
+SPARSE_MARGIN_FETCHES_TOTAL = REGISTRY.counter(
+    "gol_sparse_margin_fetches_total",
+    "Occupancy copies to the host the sparse torus waited for: one an "
+    "episode.")
+SPARSE_GROWS_TOTAL = REGISTRY.counter(
+    "gol_sparse_grows_total",
+    "Times the sparse torus grew its live window.")
+
 # ------------------------------------------------------------ fleet runs
 
 RUNS_RESIDENT = REGISTRY.gauge(

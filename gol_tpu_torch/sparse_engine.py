@@ -23,6 +23,16 @@ origin, turn, alive) as one coherent snapshot; inside a chunk
 `SparseTorus.run` batches macro-steps into episodes that wait for the
 device once each.
 
+Measurements: `stats()` carries the cumulative `window_cell_updates`,
+`macros`, `margin_fetches` and `grows` of every torus the engine held
+(`models/sparse.py`). While the span gate is open (`obs/trace.py`
+`hot_spans_enabled`: its configured half read once a run, the profiler's
+once a chunk) each chunk records a `sparse.chunk` span (k, turn) holding
+the torus's `sparse.margins`, `sparse.grow` and `sparse.macro` spans, a
+`sparse.count` span (the chunk's synchronising alive fetch) and a
+`sparse.publish` span; every run records `sparse.final_window`, the
+final window's readback and unpack.
+
 The device is explicit: `SparseEngine(device=None)` means CUDA and raises
 without one; `device="cpu"` runs the kernels' plain versions. `shards`
 (GOL_SPARSE_SHARDS) row-shards the window over that many of the engine's
@@ -64,6 +74,7 @@ from gol_tpu_torch.models.sparse import (
     check_sparse_mesh,
     window_words,
 )
+from gol_tpu_torch.obs import trace as obs_trace
 from gol_tpu_torch.ops.bitpack import (
     WORD_BITS,
     unpack,
@@ -76,6 +87,9 @@ from gol_tpu_torch.utils.envcfg import env_float, env_int
 SPARSE_CHUNK_MIN = 64
 SPARSE_CHUNK_MAX = 1 << 16
 SHARDS_ENV = "GOL_SPARSE_SHARDS"
+# A torus's cumulative counters, as `stats()` names them.
+TORUS_COUNTERS = ("window_cell_updates", "macros", "margin_fetches",
+                  "grows")
 
 
 class SparseEngine(SingleRunSurface, ControlFlagProtocol):
@@ -125,6 +139,8 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
         self._device = self._devices[0]
         self._state_lock = threading.Lock()
         self._torus: Optional[SparseTorus] = None
+        # The counters of the tori this engine held before `_torus`.
+        self._retired = dict.fromkeys(TORUS_COUNTERS, 0)
         self._turn = 0
         # Published-per-chunk coherent snapshot: (window words, ox, oy,
         # turn, alive). Poll paths (ticker, get_window, checkpoint) read
@@ -177,7 +193,7 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
                 if self._running:
                     raise EngineBusy("engine already running a board")
                 if torus is not None:
-                    self._torus = torus
+                    self._install_locked(torus)
                     self._turn = start_turn
                 elif self._torus is None:
                     raise RuntimeError("no sparse state to resume")
@@ -225,6 +241,7 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
         # saves, slow flag service).
         host_overhead = 0.0
         overhead_iters = 0
+        hot_env = obs_trace.hot_spans_from_env()
         try:
             while self._turn < target and not quit_run:
                 if self._killed or self._abort.is_set():
@@ -235,18 +252,35 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
                 if next_ckpt_turn is not None:
                     k = min(k, next_ckpt_turn - self._turn)
                 t0 = time.monotonic()
+                chunk_span = None
+                if hot_env or obs_trace.profiler_running():
+                    chunk_span = obs_trace.start(
+                        "sparse.chunk", attrs={"k": k, "turn": self._turn + k},
+                        start=t0)
+                self._torus.chunk_span = chunk_span
                 self._torus.run(k)
                 # One poll-free (alive, turn) pair per chunk; fetching the
                 # count also waits for the episode chain, making `elapsed`
                 # a real wall measurement for the chunk adapter.
+                t_count = time.monotonic()
                 alive = self._torus.alive_count()
-                elapsed = time.monotonic() - t0
+                t_counted = time.monotonic()
+                elapsed = t_counted - t0
                 with self._state_lock:
                     self._turn += k
                     self._last_chunk = k
                     if elapsed > 0:
                         self._turns_per_s = k / elapsed
                     self._publish_locked(alive)
+                if chunk_span is not None:
+                    attrs = {"turn": self._turn}
+                    obs_trace.TRACER.record("sparse.count", t_count,
+                                            t_counted, chunk_span, attrs)
+                    end = time.monotonic()
+                    obs_trace.TRACER.record("sparse.publish", t_counted, end,
+                                            chunk_span, dict(attrs,
+                                                             alive=alive))
+                    obs_trace.finish(chunk_span, end=end)
                 if elapsed < chunk_target and chunk * 2 <= max_chunk:
                     chunk *= 2
                 elif elapsed > chunk_target * 2 and chunk > 1:
@@ -295,7 +329,13 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
                 self._running = False
                 self._run_token = None
                 self._abort.clear()
-        return self._window_pixels(final_pub), final_turn
+        t_final = time.monotonic()
+        pixels = self._window_pixels(final_pub)
+        obs_trace.TRACER.record(
+            "sparse.final_window", t_final, time.monotonic(),
+            attrs={"turn": final_turn, "h": pixels.shape[0],
+                   "w": pixels.shape[1]})
+        return pixels, final_turn
 
     def alive_count(self) -> Tuple[int, int]:
         """(alive, turn) from the last published chunk boundary —
@@ -387,6 +427,7 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
                 "rule": self._rule.rulestring,
                 "devices": len(self._devices),
                 "device": str(self._device),
+                **self._counters_locked(),
             }
 
     # -------------------------------------------------------- checkpointing
@@ -490,7 +531,7 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
         with self._state_lock:
             if self._running:
                 raise RuntimeError("cannot restore while running")
-            self._torus = torus
+            self._install_locked(torus)
             self._turn = turn
             with self._on_device():
                 self._publish_locked()
@@ -508,6 +549,19 @@ class SparseEngine(SingleRunSurface, ControlFlagProtocol):
             raise RuntimeError("no board loaded")
         with self._on_device():
             return (window_words(pub[0]),) + pub[1:]
+
+    def _install_locked(self, torus: SparseTorus) -> None:
+        """Hold `torus`, keeping the counters of the one it replaces;
+        caller holds the lock."""
+        self._retired = self._counters_locked()
+        self._torus = torus
+
+    def _counters_locked(self) -> dict:
+        """The cumulative torus counters (`TORUS_COUNTERS`) of every
+        torus held; caller holds the lock."""
+        t = self._torus
+        return {name: self._retired[name] + (getattr(t, name) if t else 0)
+                for name in TORUS_COUNTERS}
 
     def _publish_locked(self, alive: Optional[int] = None) -> None:
         """Refresh the coherent poll snapshot; caller holds the lock."""

@@ -511,10 +511,13 @@ def test_slo_estimator_matches_jax():
 
 
 # The port's families beyond `gol_tpu`'s: the chunk loop's cumulative
-# host accounting that its chunk_overhead_us gauge comes from.
+# host accounting that its chunk_overhead_us gauge comes from, and the
+# sparse torus's macro-step, episode and grow counters.
 PORT_ONLY_FAMILIES = {
     "gol_engine_issue_seconds_total", "gol_engine_token_wait_seconds_total",
-    "gol_engine_host_seconds_total", "gol_engine_counted_chunks_total"}
+    "gol_engine_host_seconds_total", "gol_engine_counted_chunks_total",
+    "gol_sparse_window_cell_updates_total", "gol_sparse_macros_total",
+    "gol_sparse_margin_fetches_total", "gol_sparse_grows_total"}
 
 
 def test_catalog_families_match_jax():
