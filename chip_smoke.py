@@ -13,7 +13,9 @@ Phases (each raises on failure; any failure exits non-zero):
    stack frames (every kernel's must be 0 bytes), and the stepping loop
    of each stepping kernel's SASS (K1, K2, K4, K5, K6; `cuobjdump
    -sass`: its instructions, in all, by opcode and per word), those of K1
-   at G = 1, K4 and K9 route 1 held to `BARRIER_A_TURN_LOOPS`;
+   at G = 1 (both rule families), K4 and K9 route 1 held to
+   `BARRIER_A_TURN_LOOPS`, and the B3/S23 family's loops of K1, K2 and K6
+   to at most `B3S23_MAX_LOP3_PER_WORD` LOP3 a word;
 3. every kernel against its plain PyTorch version on the card, bit-exact
    (integer boards: tolerance 0), at the main path's shapes and at odd
    ones (one-word boards, heights shorter than a tile window): K1 at
@@ -23,6 +25,11 @@ Phases (each raises on failure; any failure exits non-zero):
    not, and at G = 1 and the policy's at each timed rows a thread on
    512², K2 at every tile
    height R on 5120² and odd boards and at the policy's R up to 65536²;
+   K1, K2 and K6 on both rule families (B3/S23, compiled in, and the
+   table of HighLife's and Day & Night's masks): K1 on 512² at N = 1 and
+   at N = 16 at G = 1 and the policy's G, K2 at each R on 5120² and at
+   R = 384 on a sparse-shaped 35,328 x 1,152-word window, K6 on 8192² at
+   64, each launch counted under its family (`by_rule`);
    K6 at depths 33, 48 and 64 up to 16384², and at 64 on 65536², its
    timed head row, and B3's sweep sequence; the two-plane kernels for
    both Generations families (gen3, gen4) and two rules each: K4 at every
@@ -226,7 +233,11 @@ Phases (each raises on failure; any failure exits non-zero):
    Each path runs with the launch counters at 0, read just after: every
    kernel (and family) it runs must have launched, and the paths whose
    alive counts come from chunks alone (4, 4c, 4d) must have launched K3
-   no time. The paths of 4-4c, 4f
+   no time. K1's, K2's and K6's launches by rule family (`by_rule`) sum
+   to their launches on every path, those of 4, 4c and 4g (the cells'
+   B3/S23 paths at 512², 5120² and on the sparse window) count no table
+   family, and a profiled path's trace names just the families that
+   launched. The paths of 4-4c, 4f
    and 4g run under `torch.profiler`, which sums their device time by
    kernel (each path's and in all), all but the unbounded run: it steps
    as long as the wall clock says, so its device time would rank
@@ -259,7 +270,9 @@ Phases (each raises on failure; any failure exits non-zero):
    leg's and phase 3's buckets beside its bound and its plain version;
 5. timings at 64², 128², 256², 512², 4096², 5120², 8192², 16384²,
    65536² and 131072²: each kernel's ms per launch beside its plain version's
-   and its bound (K1 at N = 1, 2, 4, 8, 16 on 512², 256² and 64², and at
+   and its bound (K1, K2 and K6 on B3/S23's family, and on the table
+   family (HighLife) at the policy's geometry and every K6 shape; K1 at
+   N = 1, 2, 4, 8, 16 on 512², 256² and 64², and at
    N = 16 at G = 1, 2, 4, 8, 16 x 1, 2, 3, 5 rows a thread on 512² and
    256², K2 at
    every R on 5120², 8192², 16384² and 65536², K4 at every N on 64² to
@@ -443,11 +456,14 @@ SASS_COUNTED = ("LOP3", "SHF", "LDS", "LD", "STS", "ST", "IADD3", "IMAD",
                 "LEA", "ISETP", "SEL", "BRA")
 # The stepping loops of the resident kernels that keep a cluster barrier
 # a turn (K1 on one CTA or at G = 1, K4, K9 route 1), as nvcc 12.9 built
-# them before K1's rounds: (instructions, LOP3, IMAD, LDS, STS). Phase 2
-# holds each build to them.
+# them before K1's rounds, and K1's B3/S23 family at G = 1 as it first
+# built it (the loop unrolled to four rows): (instructions, LOP3, IMAD,
+# LDS, STS). Phase 2 holds each build to them.
 BARRIER_A_TURN_LOOPS = {
     "resident_kernel<Life, (bool)0, (bool)0, (bool)0>": (95, 64, 16, 6, 2),
     "resident_kernel<Life, (bool)1, (bool)0, (bool)0>": (95, 64, 16, 6, 2),
+    "resident_kernel<B3S23, (bool)0, (bool)0, (bool)0>": (88, 40, 20, 12, 4),
+    "resident_kernel<B3S23, (bool)1, (bool)0, (bool)0>": (88, 40, 20, 12, 4),
     "resident_kernel<Life, (bool)0, (bool)1, (bool)0>": (95, 64, 16, 6, 2),
     "resident_kernel<Life, (bool)1, (bool)1, (bool)0>": (111, 64, 32, 6, 2),
     "resident_kernel<Gen3, (bool)0, (bool)0, (bool)0>": (116, 76, 21, 8, 4),
@@ -455,6 +471,11 @@ BARRIER_A_TURN_LOOPS = {
     "resident_kernel<Gen4, (bool)0, (bool)0, (bool)0>": (138, 91, 24, 12, 4),
     "resident_kernel<Gen4, (bool)1, (bool)0, (bool)0>": (138, 91, 24, 12, 4),
 }
+
+
+# The B3/S23 family's stepping loops (K1's three, K2's two, K6's) hold
+# at most this many LOP3 a word; the table family's take 32.
+B3S23_MAX_LOP3_PER_WORD = 14
 
 
 def step_loops(lib: str) -> dict:
@@ -619,6 +640,70 @@ def phase_kernels(torch, dev) -> None:
         check_equal(torch, f"K3 {h}x{wp}w", cs.row_popcounts(w),
                     bitpack.row_popcounts_plain(w), "row_popcounts")
     del w, got
+
+
+# The table rules phase 3 holds K1, K2 and K6 to beside B3/S23 (whose
+# family has the rule compiled in): HighLife and Day & Night; phase 5
+# times the table family on the first.
+TABLE_RULES = ("B36/S23", "B3678/S34678")
+
+
+def phase_kernels_rules(torch, dev) -> None:
+    """K1, K2 and K6 on both rule families (B3/S23's, every other rule's
+    table) against their plain versions, which take the same branch: K1
+    on 512² at N = 1 and at N = 16 at G = 1 and at the policy's G, K2 at
+    each R on 5120² and at R = 384 on a sparse-shaped 35,328 x 1,152-word
+    window, K6 on 8192² at depth 64; and each launch counted under its
+    family (`by_rule`)."""
+    from gol_tpu_torch.models.lifelike import CONWAY, LifeLikeRule
+    from gol_tpu_torch.ops import cuda_stencil as cs
+
+    log("phase 3: K1, K2 and K6 on both rule families against their plain "
+        "versions")
+    cs.reset_launch_counts()
+    rules = (CONWAY,) + tuple(LifeLikeRule(r) for r in TABLE_RULES)
+    want = {fn.__name__: dict.fromkeys(cs.RULE_FAMILIES, 0)
+            for fn in cs.KERNELS_RULE}
+    w = seeded_words(torch, 512, 16, 26, dev)
+    for rule in rules:
+        fam = cs.rule_family(rule)
+        for n, g in ((1, 1), (16, 1),
+                     (16, cs.resident_halo_rows(512, 16, 16))):
+            check_equal(torch, f"K1 {fam} {rule.rulestring} 512x16w N={n} "
+                        f"G={g} 100 turns",
+                        cs.resident_run_turns(w, 100, rule, ctas=n, halo=g),
+                        cs.resident_run_turns_plain(w, 100, rule, n, g),
+                        "resident_run_turns")
+            want["resident_run_turns"][fam] += 1
+    for h, wp, rows in ((5120, 160, cs.TILE_ROW_CHOICES),
+                        (35328, 1152, (384,))):
+        w = seeded_words(torch, h, wp, h + 26, dev)
+        out = torch.empty_like(w)
+        for rule in rules:
+            fam = cs.rule_family(rule)
+            for r in rows:
+                cs.tiled_sweep(w, out, 32, rule, rows=r)
+                check_equal(torch, f"K2 {fam} {rule.rulestring} {h}x{wp}w "
+                            f"R={r} T=32", out,
+                            cs.tiled_sweep_plain(w, 32, rule, rows=r),
+                            "tiled_sweep")
+                want["tiled_sweep"][fam] += 1
+        del w, out
+    w = seeded_words(torch, 8192, 256, 8218, dev)
+    out = torch.empty_like(w)
+    for rule in rules:
+        fam = cs.rule_family(rule)
+        cs.tiled_sweep_deep(w, out, 64, rule)
+        check_equal(torch, f"K6 {fam} {rule.rulestring} 8192x256w T=64", out,
+                    cs.tiled_sweep_deep_plain(w, 64, rule),
+                    "tiled_sweep_deep")
+        want["tiled_sweep_deep"][fam] += 1
+    del w, out
+    torch.cuda.empty_cache()
+    got = {fn.__name__: fn.by_rule for fn in cs.KERNELS_RULE}
+    if got != want:
+        raise AssertionError(f"launches by rule family {got} != {want}")
+    log(f"  ok launches by rule family: {json.dumps(got)}")
 
 
 def plain_count(torch, words) -> int:
@@ -2041,8 +2126,9 @@ def publication_gap(firsts: list) -> float:
 
 
 def log_row(name: str, r: dict) -> None:
-    geom = "".join(f" {k}={r[k]}" for k in ("ctas", "per", "halo", "rows",
-                                            "fuse_k", "radius", "tile")
+    geom = "".join(f" {k}={r[k]}" for k in ("rule", "ctas", "per", "halo",
+                                            "rows", "fuse_k", "radius",
+                                            "tile")
                    if k in r)
     plain = ("not measured" if r["plain_ms"] is None
              else f"{r['plain_ms']:.4f} ms")
@@ -2054,18 +2140,27 @@ def log_row(name: str, r: dict) -> None:
         f"({r['bound_by']})")
 
 
+def rule_ops(cs, family: str) -> int:
+    """Shift/logic ops a word and turn of a life-like family."""
+    return (cs.OPS_PER_WORD_TURN_B3S23 if family == "b3s23"
+            else cs.OPS_PER_WORD_TURN)
+
+
 def phase_timing(torch, dev, card: Card, launches: dict) -> list:
+    from gol_tpu_torch.models.lifelike import LifeLikeRule
     from gol_tpu_torch.ops import bitpack, cuda_stencil as cs
 
     log(f"phase 5: timings on {card.smi}")
-    ops = cs.OPS_PER_WORD_TURN
+    ops = cs.OPS_PER_WORD_TURN_B3S23
+    table = LifeLikeRule(TABLE_RULES[0])
     k1_turns = 1024
     rows = {"resident_run_turns": [], "tiled_sweep": [],
             "row_popcounts": []}
-    # K1 at every power-of-two cluster size at the policy's G and rows
-    # per thread, at 512² (N = 16, G = 1) at other rows per thread, and at
-    # 512² and 256² (N = 16) at every timed G x 1, 3, 5 rows a thread;
-    # the plain version at the policy's geometry.
+    # K1 (B3/S23) at every power-of-two cluster size at the policy's G
+    # and rows per thread, at 512² (N = 16, G = 1) at other rows per
+    # thread, and at 512² and 256² (N = 16) at every timed G x 1, 3, 5
+    # rows a thread; the plain version and the table family at the
+    # policy's geometry.
     for (h, wp) in [(512, 16), (256, 8), (64, 2)]:
         w = seeded_words(torch, h, wp, 1, dev)
 
@@ -2087,22 +2182,37 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
             plain = (time_ms(torch, lambda: cs.resident_run_turns_plain(
                 w, k1_turns), 1) if (n, per, g) == policy else None)
             rows["resident_run_turns"].append(dict(
-                shape=f"{h}x{wp * 32}", turns=k1_turns, ctas=n, per=per,
-                halo=g, policy=(n, per, g) == policy, ms=ms,
-                plain_ms=plain, bound_ms=b, bound_by=by))
-    # K2 at every tile height; the plain version at the policy's.
+                shape=f"{h}x{wp * 32}", turns=k1_turns, rule="b3s23",
+                ctas=n, per=per, halo=g, policy=(n, per, g) == policy,
+                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by))
+        n, per, g = policy
+        ms = time_ms(torch, lambda: cs.resident_run_turns(
+            w, k1_turns, table, ctas=n, per=per, halo=g), 5)
+        b_t, by_t = card.bound(8 * h * wp, rule_ops(cs, "table") * k1_turns
+                               * h * wp)
+        rows["resident_run_turns"].append(dict(
+            shape=f"{h}x{wp * 32}", turns=k1_turns, rule="table", ctas=n,
+            per=per, halo=g, policy=True, ms=ms, plain_ms=None,
+            bound_ms=b_t, bound_by=by_t))
+    # K2 (B3/S23) at every tile height; the plain version and the table
+    # family at the policy's.
     for (h, wp) in [(65536, 2048), (16384, 512), (8192, 256), (5120, 160)]:
         w = seeded_words(torch, h, wp, 2, dev)
         o = torch.empty_like(w)
-        b, by = card.bound(8 * h * wp, ops * 32 * h * wp)
-        for r in cs.TILE_ROW_CHOICES:
-            ms = time_ms(torch, lambda: cs.tiled_sweep(w, o, 32, rows=r), 5)
-            policy = r == cs.tile_rows(h, wp)
-            plain = (time_ms(torch, lambda: cs.tiled_sweep_plain(w, 32), 1)
-                     if policy else None)
-            rows["tiled_sweep"].append(dict(
-                shape=f"{h}x{wp * 32}", turns=32, rows=r, policy=policy,
-                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by))
+        for rule, fam in ((None, "b3s23"), (table, "table")):
+            b, by = card.bound(8 * h * wp, rule_ops(cs, fam) * 32 * h * wp)
+            for r in cs.TILE_ROW_CHOICES:
+                policy = r == cs.tile_rows(h, wp)
+                if rule is not None and not policy:
+                    continue
+                ms = time_ms(torch, lambda: cs.tiled_sweep(
+                    w, o, 32, *(rule,) if rule else (), rows=r), 5)
+                plain = (time_ms(torch, lambda: cs.tiled_sweep_plain(w, 32),
+                                 1) if policy and rule is None else None)
+                rows["tiled_sweep"].append(dict(
+                    shape=f"{h}x{wp * 32}", turns=32, rule=fam, rows=r,
+                    policy=policy, ms=ms, plain_ms=plain, bound_ms=b,
+                    bound_by=by))
         del w, o
     for (h, wp) in [(65536, 2048), (16384, 512), (5120, 160), (512, 16)]:
         w = seeded_words(torch, h, wp, 2, dev)
@@ -2166,7 +2276,8 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
     kernels = []
     for name, rs in rows.items():
         head = [r for r in rs if r["shape"] == meta[name][1]
-                and r.get("policy", True)][0]
+                and r.get("policy", True)
+                and r.get("rule", "b3s23") == "b3s23"][0]
         kernels.append(dict(
             name=name, route="cuda",
             source="gol_tpu_torch/csrc/stencil.cu",
@@ -2184,32 +2295,39 @@ def phase_timing(torch, dev, card: Card, launches: dict) -> list:
 
 
 def timing_deep(torch, dev, card: Card, k2_rows: list):
-    """K6 (one 64-turn sweep) at 8192², 65536² and 131072² (2 GiB packed),
-    K2's 32-turn sweep at 131072², and B3 `fused_banded_run_turns` over 128
-    turns at pinned depths 16, 32 and 64; each beside its bound. The
-    plain versions are timed where their windows fit the card: K6 up to
-    65536², B3 at 8192²."""
+    """K6 (one 64-turn sweep) at 8192², 65536² and 131072² (2 GiB packed)
+    and K2's 32-turn sweep at 131072², each on both rule families, and B3
+    `fused_banded_run_turns` over 128 turns at pinned depths 16, 32 and
+    64 (B3/S23); each beside its bound. The plain versions are timed
+    where their windows fit the card: K6 up to 65536², B3 at 8192²."""
+    from gol_tpu_torch.models.lifelike import LifeLikeRule
     from gol_tpu_torch.ops import cuda_stencil as cs
 
-    ops = cs.OPS_PER_WORD_TURN
+    ops = cs.OPS_PER_WORD_TURN_B3S23
+    table = LifeLikeRule(TABLE_RULES[0])
     deep, b3 = [], []
     for (h, wp) in [(8192, 256), (65536, 2048), (131072, 4096)]:
         reps = 2 if h > 65536 else 5
         w = seeded_words(torch, h, wp, 4, dev)
         o = torch.empty_like(w)
-        ms = time_ms(torch, lambda: cs.tiled_sweep_deep(w, o, 64), reps)
-        plain = (time_ms(torch, lambda: cs.tiled_sweep_deep_plain(w, 64), 1)
-                 if h <= 65536 else None)
-        b, by = card.bound(8 * h * wp, ops * 64 * h * wp)
-        deep.append(dict(shape=f"{h}x{wp * 32}", turns=64, ms=ms,
-                         plain_ms=plain, bound_ms=b, bound_by=by))
-        if h > 65536:  # K2 up to 65536² is timed with K1-K3
-            k2 = time_ms(torch, lambda: cs.tiled_sweep(w, o, 32), reps)
-            b2, by2 = card.bound(8 * h * wp, ops * 32 * h * wp)
-            k2_rows.append(dict(shape=f"{h}x{wp * 32}", turns=32,
-                                rows=cs.tile_rows(h, wp), policy=True,
-                                ms=k2, plain_ms=None, bound_ms=b2,
-                                bound_by=by2))
+        for rule, fam in ((None, "b3s23"), (table, "table")):
+            args = (rule,) if rule else ()
+            ms = time_ms(torch, lambda: cs.tiled_sweep_deep(w, o, 64, *args),
+                         reps)
+            plain = (time_ms(torch, lambda: cs.tiled_sweep_deep_plain(w, 64),
+                             1) if h <= 65536 and rule is None else None)
+            b, by = card.bound(8 * h * wp, rule_ops(cs, fam) * 64 * h * wp)
+            deep.append(dict(shape=f"{h}x{wp * 32}", turns=64, rule=fam,
+                             ms=ms, plain_ms=plain, bound_ms=b, bound_by=by))
+            if h > 65536:  # K2 up to 65536² is timed with K1-K3
+                k2 = time_ms(torch, lambda: cs.tiled_sweep(w, o, 32, *args),
+                             reps)
+                b2, by2 = card.bound(8 * h * wp,
+                                     rule_ops(cs, fam) * 32 * h * wp)
+                k2_rows.append(dict(shape=f"{h}x{wp * 32}", turns=32,
+                                    rule=fam, rows=cs.tile_rows(h, wp),
+                                    policy=True, ms=k2, plain_ms=None,
+                                    bound_ms=b2, bound_by=by2))
         del o
         for k in (16, 32, 64):
             ms = time_ms(torch, lambda: cs.fused_banded_run_turns(
@@ -2230,7 +2348,7 @@ def timing_deep(torch, dev, card: Card, k2_rows: list):
         torch.cuda.empty_cache()
     for name, rs in (("tiled_sweep_deep", deep),
                      ("fused_banded_run_turns", b3),
-                     ("tiled_sweep", k2_rows[-1:])):
+                     ("tiled_sweep", k2_rows[-2:])):
         for r in rs:
             log_row(name, r)
     return deep, b3
@@ -4341,8 +4459,9 @@ def served_profiles_and_documents(counts: dict) -> dict:
     kernels leave later `torch.profiler` sessions without device
     events). At 512² and 5120² a Profile RPC arms PROFILE_TURNS turns of
     a SUB_BOARDS drive through the client: the status reaches "ok", the
-    Chrome trace names K1 / K2, and every (alive, turn) pair Alivecount
-    reads around the capture equals `counts` (the CSV, the plain count).
+    Chrome trace names K1 / K2 in the B3/S23 family, and every (alive,
+    turn) pair Alivecount reads around the capture equals `counts` (the
+    CSV, the plain count).
     Then a subscriber, GetTelemetry, GetAudit, GetUsage and the
     gol_bcast_* families on /metrics."""
     import socket
@@ -4391,8 +4510,8 @@ def served_profiles_and_documents(counts: dict) -> dict:
                         last["artifacts"]) != 1:
                     raise AssertionError(f"Profile capture: {last}")
                 names = trace_kernels(last["artifacts"][0])
-                step = ("resident_kernel<Life," if size == 512
-                        else "tiled_kernel<Life, 1,")
+                step = ("resident_kernel<B3S23," if size == 512
+                        else "tiled_kernel<B3S23, 1,")
                 if not any(step in n for n in names):
                     raise AssertionError(f"{size}² trace names no {step}: "
                                          f"{sorted(names)[:8]}")
@@ -5308,14 +5427,16 @@ def checked_windows(torch, card: Card):
         planes = 2 if fam else 1
         bound, by = card.bound(8 * planes * h * wp, per_word * T * h * wp)
         # Timing launches are not the path's: the counters are restored.
-        saved = [(fn, fn.launches, dict(getattr(fn, "by_family", {})))
-                 for fn in cs.KERNELS]
+        saved = [(fn, fn.launches, dict(getattr(fn, "by_family", {})),
+                  dict(getattr(fn, "by_rule", {}))) for fn in cs.KERNELS]
         ms = time_ms(torch, lambda: step(repr_, window, T, rule, None,
                                          None), 5)
-        for fn, n, fams in saved:
+        for fn, n, fams, rules in saved:
             fn.launches = n
             if fams:
                 fn.by_family = fams
+            if rules:
+                fn.by_rule = rules
         MESH_RESULTS["windows"].setdefault(name, []).append({
             "shape": list(window.shape), "turns": T, "ms": ms,
             "plain_ms": time_ms(torch, lambda: window_plain(
@@ -7298,6 +7419,9 @@ KERNEL_SYMBOLS = (
     ("resident_kernel<Life,", "resident_run_turns"),
     ("tiled_kernel<Life, 1,", "tiled_sweep"),
     ("tiled_kernel<Life, 2,", "tiled_sweep_deep"),
+    ("resident_kernel<B3S23,", "resident_run_turns"),
+    ("tiled_kernel<B3S23, 1,", "tiled_sweep"),
+    ("tiled_kernel<B3S23, 2,", "tiled_sweep_deep"),
     ("row_popcounts_kernel", "row_popcounts"),
     ("resident_kernel<Gen3,", "resident_run_turns2p/gen3"),
     ("resident_kernel<Gen4,", "resident_run_turns2p/gen4"),
@@ -7328,6 +7452,58 @@ def device_ms_by_kernel(prof) -> dict:
 # The main-path phases whose alive counts come from chunks alone.
 CHUNK_COUNTED_PHASES = (phase_main_path, phase_controls, phase_fused,
                         phase_control_plane)
+# The phases that step B3/S23 alone (the cells' paths at 512², 5120² and
+# on the sparse window among them): K1, K2 and K6 launch no table family.
+B3S23_PHASES = (phase_main_path, phase_controls, phase_fused, phase_sparse)
+
+
+def rule_families_in_trace(prof) -> dict:
+    """{wrapper: the rule families its kernels ran as} for K1, K2 and K6
+    in a profile's key_averages(), by the family in each kernel's name
+    (K9's batched instantiations left out)."""
+    seen: dict = {}
+    for evt in prof.key_averages():
+        key = evt.key.replace("(anonymous namespace)::", "")
+        m = re.search(r"\b(resident|tiled)_kernel<([^>]*)>", key)
+        if not m:
+            continue
+        args = [a.strip() for a in m.group(2).split(",")]
+        kind = m.group(1)
+        batched = args[2] if kind == "resident" else args[3]
+        if args[0] not in ("Life", "B3S23") or batched in ("true", "(bool)1"):
+            continue
+        name = ("resident_run_turns" if kind == "resident" else
+                "tiled_sweep" if args[1] == "1" else "tiled_sweep_deep")
+        fam = "b3s23" if args[0] == "B3S23" else "table"
+        seen.setdefault(name, set()).add(fam)
+    return seen
+
+
+def check_rule_families(cs, phase, prof) -> dict:
+    """A phase's K1, K2 and K6 launches by rule family: each wrapper's
+    families sum to its launches, a B3/S23 phase launches no table family,
+    and a profiled phase's trace, where the profiler saw device time,
+    names the families that launched."""
+    by_rule = {fn.__name__: dict(fn.by_rule) for fn in cs.KERNELS_RULE}
+    for fn in cs.KERNELS_RULE:
+        if sum(fn.by_rule.values()) != fn.launches:
+            raise AssertionError(f"{phase.__name__}: {fn.__name__} by rule "
+                                 f"{fn.by_rule} != {fn.launches} launches")
+        if phase in B3S23_PHASES and fn.by_rule["table"]:
+            raise AssertionError(f"{phase.__name__}: {fn.__name__} launched "
+                                 f"the table family: {fn.by_rule}")
+    if prof is not None and not device_ms_by_kernel(prof):
+        log(f"  {phase.__name__}: the profiler saw no device time; the "
+            f"trace's rule families not checked")
+    elif prof is not None:
+        seen = rule_families_in_trace(prof)
+        counted = {name: {f for f, n in fams.items() if n}
+                   for name, fams in by_rule.items()}
+        counted = {name: fams for name, fams in counted.items() if fams}
+        if seen != counted:
+            raise AssertionError(f"{phase.__name__}: the trace's K1, K2 and "
+                                 f"K6 families {seen} != by_rule's {by_rule}")
+    return by_rule
 
 
 def main() -> int:
@@ -7382,8 +7558,19 @@ def main() -> int:
         if got != want:
             raise AssertionError(f"the stepping loop of {name} changed: "
                                  f"{got} != {want}")
-    log("  ok stepping loops of K1 at G = 1, K4 and K9 route 1 unchanged")
+    log("  ok stepping loops of K1 at G = 1 (both rule families), K4 and K9 "
+        "route 1 unchanged")
+    b3s23 = {name: loop["LOP3"] / (loop["STS"] + loop["ST"])
+             for name, loop in loops.items() if "B3S23" in name}
+    log("  B3/S23 stepping loops, LOP3 a word: " + json.dumps(b3s23))
+    if len(b3s23) != 6 or max(b3s23.values()) > B3S23_MAX_LOP3_PER_WORD:
+        raise AssertionError(f"the B3/S23 loops of K1, K2 and K6 want at "
+                             f"most {B3S23_MAX_LOP3_PER_WORD} LOP3 a word: "
+                             f"{b3s23}")
+    log(f"  ok B3/S23 stepping loops at most {B3S23_MAX_LOP3_PER_WORD} LOP3 "
+        "a word")
     phase_kernels(torch, dev)
+    phase_kernels_rules(torch, dev)
     phase_kernels_counted(torch, dev)
     phase_kernels_ltl(torch, dev)
     phase_kernels_occupancy(torch, dev)
@@ -7397,7 +7584,7 @@ def main() -> int:
     # CSV ticker, the fused runs, SER) must launch K3 no time: the count
     # rides each chunk's last stepping launch. 4b's `GenerationsTorus`
     # and 4e's restores count boards no chunk just stepped (K3).
-    launches, device_ms, profiled = {}, {}, {}
+    launches, device_ms, profiled, by_rule = {}, {}, {}, {}
     for phase, kernels, prof_on in (
             (phase_main_path, ("resident_run_turns", "tiled_sweep"), True),
             (phase_controls, ("resident_run_turns",), False),
@@ -7465,8 +7652,13 @@ def main() -> int:
                 f"{MEMBER_LAUNCHES}")
             for name, n in MEMBER_LAUNCHES.items():
                 counts[name] = counts.get(name, 0) + n
+        rules = check_rule_families(cs, phase, prof if prof_on else None)
         log(f"  {phase.__name__} launches: {counts}; K1 by G: "
-            f"{cs.resident_run_turns.by_halo}")
+            f"{cs.resident_run_turns.by_halo}; K1, K2, K6 by rule: {rules}")
+        for name, fams in rules.items():
+            for fam, n in fams.items():
+                total = by_rule.setdefault(name, dict.fromkeys(fams, 0))
+                total[fam] += n
         if phase is phase_main_path:
             # 64² on one CTA at G = 1, 512² on the cluster at its G.
             need = {1, cs.resident_halo_rows(512, 16, 16)}
@@ -7515,6 +7707,8 @@ def main() -> int:
                              timing_occupancy(torch, dev, card)))
     kernels += k9_records(card, launches, fleet)
     for k in kernels:
+        if k["name"] in by_rule:
+            k["by_rule"] = by_rule[k["name"]]
         k["main_path_device_ms"] = device_ms.get(
             k["name"], 0.0 if device_ms else "not measured")
         if k["name"] in MESH_RESULTS["windows"]:

@@ -4,8 +4,12 @@
 // Boards are (h, wp) arrays of 32-bit words, 32 cells per word, LSB-first
 // (column c = 32*w + j is bit j of word w of its row), on a torus. The
 // rule arrives as two 9-bit masks (bit i of `born` set: a dead cell with i
-// live neighbours is born; bit i of `survive`: a live one survives), so
-// one build serves every life-like rule.
+// live neighbours is born; bit i of `survive`: a live one survives). The
+// life-like entry points (K1, K2, K6) launch the `B3S23` family, whose
+// store has Conway's rule compiled in, when the masks are B3/S23's
+// (`is_b3s23`), and the `Life` family, whose store reads the rule from
+// leaves made of the masks, for every other rule: one build serves every
+// life-like rule, and Conway's, the coursework's, costs 12 ops a word.
 //
 // Shared arithmetic (the self-inclusive count of
 // gol_tpu/ops/pallas_stencil.py:_self_inclusive_count_bits): per row the
@@ -13,9 +17,12 @@
 // (hs0, hs1); the vertical full adder over rows r-1, r, r+1 of hs gives
 // the four bit-planes n0..n3 of n9 = live neighbours + self (0..9). The
 // rule reads n9 directly for a dead cell and n9 - 1 for a live one.
-// Per word and turn that is 11 shift/logic ops for the count and 19 for
-// the rule (a mux tree over n0..n3 whose leaves are the rule's bits), 30
-// in all — the figure `OPS_PER_WORD_TURN` in ops/cuda_stencil.py holds.
+// Per word and turn the `Life` family spends 11 shift/logic ops (a
+// 3-input logic op counts as one) on the count and 19 on the rule (a mux
+// tree over n0..n3 whose leaves are the rule's bits), 30 in all — the
+// figure `OPS_PER_WORD_TURN` in ops/cuda_stencil.py holds. `B3S23` needs
+// n0..n2 alone (10 ops; n3 is implied) and 2 for the rule, 12 in all
+// (`OPS_PER_WORD_TURN_B3S23`).
 // Each thread slides down a column of rows and keeps the hs planes of
 // the two rows above in registers, so a word costs three shared-memory
 // loads and one store per turn and plane. Every stepping kernel (K1, K2,
@@ -24,10 +31,11 @@
 // and neighbours are fixed before the turn loop, no load is guarded,
 // buffers swap as pointers (no array indexed by turn parity, so no stack
 // frame), and two rows go per iteration. The family says how a row is
-// loaded and its next words stored: `Life` (one plane) for K1, K2 and K6,
-// `Gen3` and `Gen4` (two planes) for K4 and K5.
+// loaded and its next words stored: `Life` and `B3S23` (one plane) for
+// K1, K2 and K6, `Gen3` and `Gen4` (two planes) for K4 and K5.
 //
-// Kernels and the TPU kernels they replace:
+// Kernels and the TPU kernels they replace (K1, K2 and K6 each as
+// <Life> and <B3S23>):
 //   resident_kernel<Life>    K1 <- pallas_packed_run_turns
 //                                  (pallas_stencil.py:508)
 //   tiled_kernel<Life, 1>    K2 <- _banded_pass (pallas_stencil.py:388)
@@ -169,6 +177,11 @@ struct RuleLeaves {
   uint32_t s[10];
 };
 
+// Whether the masks are B3/S23's (born on 3, survive on 2 and 3).
+constexpr bool is_b3s23(unsigned born, unsigned survive) {
+  return born == (1u << 3) && survive == ((1u << 2) | (1u << 3));
+}
+
 __device__ __forceinline__ RuleLeaves make_leaves(uint32_t born,
                                                   uint32_t survive) {
   RuleLeaves r;
@@ -233,17 +246,37 @@ __device__ __forceinline__ void count_bits(const Row& u, const Row& m,
   n3 = v1 & c2;
 }
 
+// B3/S23's next state of the 32 cells of `mid` from the self-inclusive
+// count's bits n0..n2: alive iff n9 == 3 (n0 = n1 = 1, n2 = 0) or, for a
+// live cell, n9 == 4 (n0 = n1 = 0, n2 = 1). n3 is not needed: n9 = 8 or
+// 9 has n1 = n2 = 0, which neither case allows. Two 3-input logic ops
+// where `apply_rule` takes 19 muxes.
+__device__ __forceinline__ uint32_t b3s23_next(uint32_t mid, uint32_t n0,
+                                               uint32_t n1, uint32_t n2) {
+  return ~(n0 ^ n1) & (n1 ^ n2) & (n0 | mid);
+}
+
 // ------------------------------------------------------------ families
 //
 // A family loads a row (`load`: the row's words at `line`, its plane-1
 // words `plane` words further on, its word at `col` and the neighbours at
 // `west` and `east`) and stores the middle row's next words from three
-// loaded rows (`store`). `kPlanes` is its number of planes and
+// loaded rows (`store`), with the rule as `make_rule` makes it from the
+// masks once a thread (`Rule`). `kPlanes` is its number of planes and
 // `kResidentThreads` the most threads its resident CTAs take.
+
+// The rule as leaves of the masks, for any rule of the family.
+struct TableRule {
+  using Rule = RuleLeaves;
+  __device__ static __forceinline__ Rule make_rule(uint32_t born,
+                                                   uint32_t survive) {
+    return make_leaves(born, survive);
+  }
+};
 
 // Life-like: one plane. A row is its own word and the horizontal-sum
 // planes of its three words.
-struct Life {
+struct Life : TableRule {
   static constexpr int kPlanes = 1;
   static constexpr int kResidentThreads = ::kResidentThreads;
   struct Row {
@@ -266,6 +299,24 @@ struct Life {
   }
 };
 
+// Life-like with B3/S23 compiled in: `Life`'s rows, loads and kernels
+// (wherever a kernel takes one plane it takes either), no rule leaves, and
+// a store of 2 ops for the rule where `Life`'s takes 19 (`b3s23_next`;
+// the unused n3 of `count_bits` is not computed).
+struct B3S23 : Life {
+  struct Rule {};
+  __device__ static __forceinline__ Rule make_rule(uint32_t, uint32_t) {
+    return Rule{};
+  }
+  __device__ static __forceinline__ void store(uint32_t* line, int, int col,
+                                               const Rule&, const Row& u,
+                                               const Row& m, const Row& d) {
+    uint32_t n0, n1, n2, n3;
+    count_bits(u, m, d, n0, n1, n2, n3);
+    line[col] = b3s23_next(m.p, n0, n1, n2);
+  }
+};
+
 // Generations on two planes. The count is the self-inclusive count of
 // the ALIVE cells: a row is its two own words and the horizontal-sum
 // planes of its three alive words (`Family::neighbour` and
@@ -275,7 +326,7 @@ struct Life {
 // leaves already shift), and the family's transition combines them with
 // the cell's own planes.
 template <typename Family>
-struct TwoPlanes {
+struct TwoPlanes : TableRule {
   static constexpr int kPlanes = 2;
   static constexpr int kResidentThreads = kResident2pThreads;
   struct Row {
@@ -355,7 +406,7 @@ template <typename F>
 __device__ __forceinline__ void step_rows(
     const uint32_t* above, const uint32_t* first, const uint32_t* below,
     uint32_t* dst, int n, int stride, int plane, int col, int west,
-    int east, const RuleLeaves& rule) {
+    int east, const typename F::Rule& rule) {
   using Row = typename F::Row;
   Row u = F::load(above, plane, col, west, east);
   Row m = F::load(first, plane, col, west, east);
@@ -431,19 +482,19 @@ struct CountBox {
 
 inline CountBox full_box(int h, int wp) { return CountBox{0, h, 0, wp}; }
 
-// K1 (F = Life) and K4 (F = Gen3, Gen4): the board's planes in the shared
-// memory of one cluster of N CTAs (kCluster), or of one CTA, for `turns`
-// turns.
+// K1 (F = Life, B3S23) and K4 (F = Gen3, Gen4): the board's planes in
+// the shared memory of one cluster of N CTAs (kCluster), or of one CTA,
+// for `turns` turns.
 //
 // K1 replaces pallas_packed_run_turns (pallas_stencil.py:508), K4
 // pallas_packed_run_turns3 (:274) and pallas_packed_run_turns4 (:296),
 // which keep the board in VMEM for K turns. Bound: the logic ops per word
-// and turn (30 for K1, 32 or 35 for K4); one CTA would reach at most 1/132
-// of the card's rate, so the board is spread over a cluster of up to 16
-// SMs (1/8 of the card). A cluster turn has a floor of about 1 µs (the
-// split barrier and the DSMEM reads), so small boards run on one CTA, and
-// K1 on a cluster exchanges its slabs' edges once every G turns
-// (kRounds, below).
+// and turn (K1: 30, 12 as B3S23; K4: 32 or 35); one CTA would reach at
+// most 1/132 of the card's rate, so the board is spread over a cluster of
+// up to 16 SMs (1/8 of the card). A cluster turn has a floor of about
+// 1 µs (the split barrier and the DSMEM reads), so small boards run on
+// one CTA, and K1 on a cluster exchanges its slabs' edges once every G
+// turns (kRounds, below).
 //
 // CTA i owns rows [a_i, a_{i+1}) in two buffers (ping-pong) of ceil(h/N)
 // rows per plane; a buffer holds plane 0's slab, then plane 1's, so the
@@ -579,7 +630,7 @@ resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     const int s0 = 1 + slot * per;  // this slot's window rows [s0, s0 + per)
     const int west0 = lane == 0 ? wp - 1 : lane - 1;
     const int east0 = lane + 1 == wp ? 0 : lane + 1;
-    const RuleLeaves rule = make_leaves(born, survive);
+    const typename F::Rule rule = F::make_rule(born, survive);
     long long left = turns;
     for (int parity = 0;; parity ^= 1) {
       const int g = left < halo ? (int)left : halo;
@@ -666,7 +717,7 @@ resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     const int first_off = first * wp;
     const int west0 = lane == 0 ? wp - 1 : lane - 1;
     const int east0 = lane + 1 == wp ? 0 : lane + 1;
-    const RuleLeaves rule = make_leaves(born, survive);
+    const typename F::Rule rule = F::make_rule(born, survive);
     auto step = [&](int src, int dst) {
       if (n <= 0) return;
       int col = lane, west = west0, east = east0;
@@ -914,7 +965,7 @@ int run_resident(const void* in, void* out, int h, int wp, long long turns,
         device, s, alive, groups, b);
   }
   if (halo > 1) {
-    if constexpr (std::is_same_v<F, Life> && !kBatched) {
+    if constexpr (F::kPlanes == 1 && !kBatched) {  // Life, B3S23
       return launch_resident<F, true, false, true>(
           in, out, h, wp, turns, born, survive, ctas, lanes, threads, per,
           smem, device, s, alive, groups, b, halo);
@@ -932,27 +983,27 @@ constexpr int tiled_blocks_per_sm(int planes, int halo, int rows) {
               kBlockReservedSmem) <= kSmSmemBytes ? 2 : 1;
 }
 
-// K2 (F = Life, kHalo = 1, R = kRows, one of kTileRowChoices), K6 (Life,
-// kHalo = 2, R = kDeepRows) and K5 (F = Gen3, Gen4, kHalo = 1, R one of
-// kTile2pRowChoices): one block per R x C output tile, C = 64 - 2 kHalo
-// words. The block loads a window of (R + 2t) rows x 64 words of every
-// plane around its tile, indices taken modulo the board, steps it t turns
-// and writes the exact R x C interior, window columns kHalo .. kHalo +
-// C - 1. Wrong values enter at the window's edges and advance one row and
-// one cell per turn, so each turn computes only rows [turn, R + 2t -
-// turn) and t <= 32 x kHalo cells of horizontal halo are enough. K5's
-// dying/encoding plane reads only its own cell, but its next value
-// depends on the alive count, so its wrong margin advances like the
-// alive plane's. The edge columns read their missing neighbour by
+// K2 (F = Life or B3S23, kHalo = 1, R = kRows, one of kTileRowChoices),
+// K6 (the same, kHalo = 2, R = kDeepRows) and K5 (F = Gen3, Gen4,
+// kHalo = 1, R one of kTile2pRowChoices): one block per R x C output
+// tile, C = 64 - 2 kHalo words. The block loads a window of (R + 2t)
+// rows x 64 words of every plane around its tile, indices taken modulo
+// the board, steps it t turns and writes the exact R x C interior, window
+// columns kHalo .. kHalo + C - 1. Wrong values enter at the window's
+// edges and advance one row and one cell per turn, so each turn computes
+// only rows [turn, R + 2t - turn) and t <= 32 x kHalo cells of horizontal
+// halo are enough. K5's dying/encoding plane reads only its own cell, but
+// its next value depends on the alive count, so its wrong margin advances
+// like the alive plane's. The edge columns read their missing neighbour by
 // wrapping within the window, as the plain version's windows do: their
 // cells are wrong either way. A window row holds each plane's 64 words in
 // turn, so a row's plane-1 words sit at a fixed offset from its plane-0
 // words and every address in the loop is a pointer plus a constant.
 //
-// Bound: the ops (32 x 30 per word and sweep for K2, 32 x 32 or 35 for
-// K5) against 8 (16 for K5) bytes per word read and written; the tile
-// height R sets how many blocks fill the 132 SMs and how much of each
-// window is margin ((R + t - 1) / R of the useful rows).
+// Bound: the ops (32 x 30 per word and sweep for K2, 32 x 12 as B3S23,
+// 32 x 32 or 35 for K5) against 8 (16 for K5) bytes per word read and
+// written; the tile height R sets how many blocks fill the 132 SMs and
+// how much of each window is margin ((R + t - 1) / R of the useful rows).
 //
 // The count (`alive` given: the last sweep of a chunk or a quantum):
 // each block counts the live cells of the words it writes (plane 0, the
@@ -997,7 +1048,7 @@ tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     }
   }
   __syncthreads();
-  const RuleLeaves rule = make_leaves(born, survive);
+  const typename F::Rule rule = F::make_rule(born, survive);
   const int west = (col - 1) & (kWinWords - 1);
   const int east = (col + 1) & (kWinWords - 1);
   uint32_t* src = smem;
@@ -1070,6 +1121,25 @@ cudaError_t launch_tiled(const void* in, void* out, int h, int wp, int t,
       (const uint32_t*)in, (uint32_t*)out, h, wp, t, born, survive, alive,
       box != nullptr ? *box : full_box(h, wp));
   return cudaGetLastError();
+}
+
+// K2 (F = Life, B3S23) at `rows` output rows per tile, one of
+// kTileRowChoices.
+template <typename F>
+cudaError_t launch_tiled_k2(const void* in, void* out, int h, int wp, int t,
+                            int rows, unsigned born, unsigned survive,
+                            int device, cudaStream_t stream,
+                            unsigned long long* count, const CountBox* box) {
+  switch (rows) {
+    case kTileRowChoices[0]:
+      return launch_tiled<F, 1, kTileRowChoices[0]>(
+          in, out, h, wp, t, born, survive, device, stream, count, 1, box);
+    case kTileRowChoices[1]:
+      return launch_tiled<F, 1, kTileRowChoices[1]>(
+          in, out, h, wp, t, born, survive, device, stream, count, 1, box);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // K5 at `rows` output rows per tile, one of kTile2pRowChoices.
@@ -1848,16 +1918,21 @@ int gol_tile_geometry(int* max_t, int* words, int* rows, int cap) {
 // K1 on one cluster of `ctas` CTAs (1..16, at most h), each thread slot
 // walking `per` rows of its slab's interior, or with `halo` > 1 (a
 // cluster's, at most floor(h/N)) of its window of G ghost rows a side,
-// exchanged once every G turns.
+// exchanged once every G turns. K1, K2 and K6 run the B3S23 family for
+// B3/S23's masks, the Life family for any other.
 int gol_resident_run_turns(const void* in, void* out, void* count, int h,
                            int wp, long long turns, unsigned born,
                            unsigned survive, int ctas, int per, int halo,
                            int device, void* stream, int r0, int r1, int c0,
                            int c1) {
   const CountBox box{r0, r1, c0, c1};
+  unsigned long long* c = (unsigned long long*)count;
+  if (is_b3s23(born, survive)) {
+    return run_resident<B3S23>(in, out, h, wp, turns, born, survive, ctas,
+                               per, device, stream, c, 1, &box, halo);
+  }
   return run_resident<Life>(in, out, h, wp, turns, born, survive, ctas, per,
-                            device, stream, (unsigned long long*)count, 1,
-                            &box, halo);
+                            device, stream, c, 1, &box, halo);
 }
 
 // K2 at `rows` output rows per tile, one of kTileRowChoices.
@@ -1871,16 +1946,12 @@ int gol_tiled_sweep(const void* in, void* out, void* count, int h, int wp,
   const cudaStream_t s = (cudaStream_t)stream;
   unsigned long long* c = (unsigned long long*)count;
   const CountBox box{r0, r1, c0, c1};
-  switch (rows) {
-    case kTileRowChoices[0]:
-      return launch_tiled<Life, 1, kTileRowChoices[0]>(
-          in, out, h, wp, t, born, survive, device, s, c, 1, &box);
-    case kTileRowChoices[1]:
-      return launch_tiled<Life, 1, kTileRowChoices[1]>(
-          in, out, h, wp, t, born, survive, device, s, c, 1, &box);
-    default:
-      return cudaErrorInvalidValue;
+  if (is_b3s23(born, survive)) {
+    return launch_tiled_k2<B3S23>(in, out, h, wp, t, rows, born, survive,
+                                  device, s, c, &box);
   }
+  return launch_tiled_k2<Life>(in, out, h, wp, t, rows, born, survive,
+                               device, s, c, &box);
 }
 
 int gol_deep_geometry(int* max_t, int* rows, int* words) {
@@ -1898,10 +1969,14 @@ int gol_tiled_sweep_deep(const void* in, void* out, void* count, int h,
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
   const CountBox box{r0, r1, c0, c1};
+  const cudaStream_t s = (cudaStream_t)stream;
+  unsigned long long* c = (unsigned long long*)count;
+  if (is_b3s23(born, survive)) {
+    return launch_tiled<B3S23, 2, kDeepRows>(in, out, h, wp, t, born,
+                                             survive, device, s, c, 1, &box);
+  }
   return launch_tiled<Life, 2, kDeepRows>(in, out, h, wp, t, born, survive,
-                                          device, (cudaStream_t)stream,
-                                          (unsigned long long*)count, 1,
-                                          &box);
+                                          device, s, c, 1, &box);
 }
 
 // K5's row choices (at most `cap` written to `rows`); returns how many

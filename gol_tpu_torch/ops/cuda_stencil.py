@@ -7,6 +7,18 @@ plain version, which follows the kernel's decomposition. Each counts its
 launches in a `launches` attribute. Words are the int32 carrier of
 `ops/bitpack.py`; the kernels read them as uint32.
 
+The life-like kernels K1, K2 and K6 come in two families, chosen from the
+rule's masks at each launch (`rule_family`; the C entry points test the
+same masks): B3/S23, Conway's rule and the coursework's, runs a family
+with the rule compiled in, 12 shift/logic ops a word and turn
+(`OPS_PER_WORD_TURN_B3S23`: the count's bits n0..n2 and two ops for the
+rule); every other rule runs the table family, 30 (`OPS_PER_WORD_TURN`:
+the four-bit count and a 19-mux tree over leaves of the masks). Both are
+one template and differ in the store alone, so geometry, rounds, counts
+and boxes are the same. Their plain versions take the same branch
+(`_step_b3s23`, `_step_shared_sums`), and each wrapper counts its
+launches by family in `by_rule`. K9 keeps the table family.
+
 K1 `resident_run_turns` replaces `pallas_packed_run_turns`
 (pallas_stencil.py:508). The TPU keeps the whole board in VMEM and runs
 K turns in one call; here one thread-block cluster of N CTAs (up to 16,
@@ -24,8 +36,8 @@ floor(K/G) rounds and one of K mod G. G = `halo` is at most
 adjacent CTA alone), 1 on one CTA; G = 1 is the kernel with one split
 cluster barrier a turn, the rows above and below a slab read in place
 from the neighbours' shared memory, which K4 and K9 keep. Bound: 30
-shift/logic ops per word per turn (`OPS_PER_WORD_TURN`) against the
-32-bit logic issue rate; a cluster uses at most 16 of the card's 132
+shift/logic ops per word per turn (12 for B3/S23) against the 32-bit
+logic issue rate; a cluster uses at most 16 of the card's 132
 SMs; the rounds' ghost rows add (G - 1) / ceil(h/N) of the useful rows.
 It takes every board up to `RESIDENT_BOARD_BYTES` packed (512² is 32
 KiB), Wp = 1 (a word's west and east neighbours are itself) and heights
@@ -44,7 +56,8 @@ that small boards still fill the card's 132 SMs. Each turn computes only
 the rows still exact, so the work done is (R + T - 1)(C + 2) / (R C)
 times the useful work: 1.12 at R = 384, T = 32, 1.28 at R = 128. Bound: a
 sweep reads and writes each word once (8 bytes) and spends 32 x 30 ops
-on it, so the ops, not the 3.35 TB/s of memory, bound it.
+on it (32 x 12 for B3/S23), so the ops, not the 3.35 TB/s of memory,
+bound it.
 `banded_run_turns` runs floor(K/32) sweeps at T = 32 and one at
 T = K mod 32; every depth 1..32 is legal, so the TPU's 8-aligned
 remainder and jnp-scan fallbacks have no counterpart.
@@ -264,9 +277,15 @@ TILE_WORDS = 62
 DEEP_MAX_T = 64
 DEEP_ROWS = 320
 DEEP_WORDS = 60
-# Shift/logic operations per word per turn of the kernels' network: 11
-# for the self-inclusive count, 19 for the rule (csrc/stencil.cu).
+# Shift/logic operations per word per turn of the life-like kernels'
+# network (a 3-input logic op counts as one; csrc/stencil.cu): the table
+# family's 11 for the self-inclusive count and 19 for the rule, and the
+# B3/S23 family's 10 for the count's bits n0..n2 and 2 for the rule.
 OPS_PER_WORD_TURN = 30
+OPS_PER_WORD_TURN_B3S23 = 12
+# The life-like kernels' two families (K1, K2, K6): the rule compiled in
+# for B3/S23, the rule read from a table of its masks for any other.
+RULE_FAMILIES = ("b3s23", "table")
 # K4: the planes it is routed (four board-sized planes, two planes
 # ping-pong, fit one CTA), and threads per CTA (csrc/stencil.cu checks
 # it: two planes need more registers than 1024 threads leave).
@@ -305,9 +324,42 @@ def _self_inclusive_count_bits(p: torch.Tensor, word_axis: int,
 
 def _step_shared_sums(p: torch.Tensor, rule: LifeLikeRule) -> torch.Tensor:
     """One life-like torus turn on (..., rows, words) with the shared
-    horizontal-sum network."""
+    horizontal-sum network: the table family's plain step."""
     n0, n1, n2, n3 = _self_inclusive_count_bits(p, -1, -2)
     return _rule_from_count_bits(p, n0, n1, n2, n3, rule, count_offset=1)
+
+
+def _b3s23_next(mid, n0, n1, n2):
+    """B3/S23 from the self-inclusive count's bits n0..n2, as the B3/S23
+    family's store computes it (csrc/stencil.cu `b3s23_next`): alive iff
+    n9 == 3 (n0 = n1 = 1, n2 = 0) or, for a live cell, n9 == 4 (n0 = n1
+    = 0, n2 = 1). n9 = 8 or 9 has n1 = n2 = 0, so n3 is not read."""
+    return ~(n0 ^ n1) & (n1 ^ n2) & (n0 | mid)
+
+
+def _step_b3s23(p: torch.Tensor) -> torch.Tensor:
+    """One B3/S23 torus turn on (..., rows, words): the B3/S23 family's
+    plain step."""
+    n0, n1, n2, _ = _self_inclusive_count_bits(p, -1, -2)
+    return _b3s23_next(p, n0, n1, n2)
+
+
+def rule_family(rule: LifeLikeRule) -> str:
+    """The family K1, K2 and K6 run `rule` on: "b3s23" (the rule
+    compiled in) for Conway's B3/S23, else "table". The C entry points
+    choose by their own test of the masks (`is_b3s23` in csrc/stencil.cu),
+    so `by_rule` counts this prediction, not what C launched:
+    `test_family_from_the_rule` pins the two tests together on the CPU,
+    and `chip_smoke.py` checks each profiled phase's kernel names against
+    `by_rule` on the card."""
+    return "b3s23" if rule.is_conway else "table"
+
+
+def _life_step(rule: LifeLikeRule):
+    """The plain turn of the family that `rule` runs on."""
+    if rule_family(rule) == "b3s23":
+        return _step_b3s23
+    return functools.partial(_step_shared_sums, rule=rule)
 
 
 def fits_resident(shape) -> bool:
@@ -601,8 +653,7 @@ def resident_run_turns_plain(words: torch.Tensor, num_turns: int,
     if halo is None:
         halo = resident_halo_rows(h, wp, ctas)
     _check_resident_geometry(h, ctas, None, halo=halo, wp=wp)
-    return _slab_plain(words, num_turns,
-                       lambda w: _step_shared_sums(w, rule), ctas, halo)
+    return _slab_plain(words, num_turns, _life_step(rule), ctas, halo)
 
 
 def _cluster_failed(what: str, lib, rc: int, ctas: int, h: int,
@@ -625,7 +676,8 @@ def resident_run_turns(words: torch.Tensor, num_turns: int,
     threads walk `per` rows (by default the shape's policy). With
     `count` (one int64 on the board's device) the launch also sets it to
     the result's live cells, those of rows r0:r1 and words c0:c1 when
-    `box` = (r0, r1, c0, c1) is given. `by_halo` counts launches by G."""
+    `box` = (r0, r1, c0, c1) is given. `by_halo` counts launches by G,
+    `by_rule` by family (`rule_family`)."""
     _check_count(count, words, num_turns, "resident_run_turns")
     if num_turns == 0:
         return words
@@ -653,6 +705,7 @@ def resident_run_turns(words: torch.Tensor, num_turns: int,
     if rc:
         raise _cluster_failed("resident_run_turns", lib, rc, ctas, h, wp)
     resident_run_turns.launches += 1
+    resident_run_turns.by_rule[rule_family(rule)] += 1
     by_halo = resident_run_turns.by_halo
     by_halo[halo] = by_halo.get(halo, 0) + 1
     return out
@@ -714,15 +767,14 @@ def tiled_sweep_plain(words: torch.Tensor, t: int,
     given), one halo word a side."""
     if rows is None:
         rows = tile_rows(*words.shape)
-    return _tiled_plain(words, t, lambda w: _step_shared_sums(w, rule),
-                        rows, TILE_WORDS, 1)
+    return _tiled_plain(words, t, _life_step(rule), rows, TILE_WORDS, 1)
 
 
 def tiled_sweep_deep_plain(words: torch.Tensor, t: int,
                            rule: LifeLikeRule = CONWAY) -> torch.Tensor:
     """K6's plain version: 320 x 60-word tiles, two halo words a side."""
-    return _tiled_plain(words, t, lambda w: _step_shared_sums(w, rule),
-                        DEEP_ROWS, DEEP_WORDS, 2)
+    return _tiled_plain(words, t, _life_step(rule), DEEP_ROWS, DEEP_WORDS,
+                        2)
 
 
 def _check_sweep(what: str, words_in: torch.Tensor,
@@ -775,6 +827,7 @@ def tiled_sweep(words_in: torch.Tensor, words_out: torch.Tensor, t: int,
         rows, born, survive, dev, stream, *_box_args(box, words_in)),
         "tiled_sweep")
     tiled_sweep.launches += 1
+    tiled_sweep.by_rule[rule_family(rule)] += 1
 
 
 tiled_sweep.launches = 0
@@ -799,6 +852,7 @@ def tiled_sweep_deep(words_in: torch.Tensor, words_out: torch.Tensor,
         born, survive, dev, stream, *_box_args(box, words_in)),
         "tiled_sweep_deep")
     tiled_sweep_deep.launches += 1
+    tiled_sweep_deep.by_rule[rule_family(rule)] += 1
 
 
 tiled_sweep_deep.launches = 0
@@ -1568,8 +1622,10 @@ KERNELS = (resident_run_turns, tiled_sweep, row_popcounts,
            resident_run_turns2p, tiled_sweep2p, tiled_sweep_deep,
            ltl_box_run_turns, ltl_resident_run_turns, window_occupancy,
            fleet_run_turns)
-# The two-plane kernels count launches per family as well.
+# The two-plane kernels count launches per family as well, and the
+# life-like K1, K2 and K6 per rule family.
 KERNELS_2P = (resident_run_turns2p, tiled_sweep2p)
+KERNELS_RULE = (resident_run_turns, tiled_sweep, tiled_sweep_deep)
 
 
 def reset_launch_counts() -> None:
@@ -1577,6 +1633,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in KERNELS_2P:
         fn.by_family = dict.fromkeys(FAMILIES, 0)
+    for fn in KERNELS_RULE:
+        fn.by_rule = dict.fromkeys(RULE_FAMILIES, 0)
     fleet_run_turns.by_route = dict.fromkeys(FLEET_ROUTES, 0)
     resident_run_turns.by_halo = {}
 
